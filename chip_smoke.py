@@ -8,11 +8,14 @@ Run from the root of a checkout, with no arguments:
 Phases, each of which fails the run loudly:
 
 1. Card identity (nvidia-smi name and power limit); build the native
-   host runtime and the CUDA kernels from this checkout.
+   host runtime and the CUDA kernels from this checkout; the indep
+   kernel's machine code must hold tensor-core (HMMA) instructions.
 2. Each kernel against its plain PyTorch version in float64 on the
    card, on the same float32 inputs, at small ragged shapes with NaN and
    all-zero rows: cnt exact, indep raw within INDEP_RTOL relative, EM
-   raw within EM_ATOL_CNT x cnt.
+   raw within EM_ATOL_CNT x cnt.  The indep kernel also at shapes that
+   split the sites into several chunks, the last one ragged, and every
+   indep call is run twice: the reruns must be byte-identical.
 3. The port's main path through its CLI entry point, in process, on
    seeded binary GP inputs at 1024 individuals: (a) --indep_geno
    --pairwise_del, 65,536 sites, 2 bootstrap replicates; (b) the EM,
@@ -26,9 +29,10 @@ Phases, each of which fails the run loudly:
    version's (float32), and the kernel held there against the float64
    plain version on the same inputs.
 
-The bounds (PERF.md section 2): the indep kernel sums 16-site tiles in
-float32 and the tiles in float64; the EM kernel runs each lane in
-float64 and rounds raw to float32 once, which is at most 6e-8 x cnt.
+The bounds (PERF.md section 2): the indep kernel sums 3xTF32 products
+on the tensor cores in float32 over 16-site windows and the windows in
+float64; the EM kernel runs each lane in float64 and rounds raw to
+float32 once, which is at most 6e-8 x cnt.
 The policy bounds add the float32 rounding of the input, which moves
 the EM's stopping step by one for lanes within ~1e-7 of its threshold.
 
@@ -63,6 +67,7 @@ INDEP_RTOL = 1e-6    # indep raw, relative (float32 kernel vs float64)
 EM_ATOL_CNT = 1e-6   # EM raw, absolute per valid site (|raw err| <= 1e-6 cnt)
 POLICY_INDEP_RTOL = 1e-5   # the same, against the float64 values themselves
 POLICY_EM_ATOL_CNT = 1e-4
+CHUNKED_SHAPES = ((130, 5000), (256, 3001))  # (N, S): indep split over sites
 SCORE9 = np.array([[0.0, 0.5, 1.0], [0.5, 0.0, 0.5], [1.0, 0.5, 0.0]]).reshape(-1)
 
 
@@ -109,32 +114,73 @@ def check_kernel(kind, torch, raw_k, cnt_k, raw_p, cnt_p, rtol=None, atol_cnt=No
     return rel, per_cnt
 
 
+def small_case(rng, torch, S: int, N: int):
+    """Seeded float32 probabilities on the card with missing, all-zero
+    and NaN rows, and the same values in float64."""
+    P = rand_probs(rng, S, N, missing=0.1)
+    P[rng.random((S, N)) < 0.01] = 0.0          # all-zero rows
+    P[rng.integers(S, size=2), rng.integers(N, size=2)] = np.nan
+    P32 = torch.from_numpy(P).to(torch.device(DEVICE)).float()
+    return P32, P32.double()  # the kernels' inputs, exactly
+
+
+def same_bytes(torch, a, b) -> bool:
+    """torch.equal on the bit patterns, so that NaN equals itself."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_indep_rerun(torch, indep, P32, pairwise_del, w, first) -> None:
+    """A second call gives the same bytes: the sums' order is fixed."""
+    again = indep.indep_raw_cnt(P32, SCORE9, pairwise_del, w)
+    if not all(same_bytes(torch, a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"indep: rerun differs at {tuple(P32.shape)}")
+
+
 def phase_small_shapes(torch, indep, em) -> None:
     rng = np.random.default_rng(SEED)
     dev = torch.device(DEVICE)
     n = 0
     worst = {"indep": 0.0, "em": 0.0}
+
+    def weights(S, weighted):
+        return (torch.from_numpy(rng.integers(0, 4, S).astype(np.float64)).to(dev)
+                if weighted else None)
+
     for N in (11, 130, 300):
         for S in (53, 777):
-            P = rand_probs(rng, S, N, missing=0.1)
-            P[rng.random((S, N)) < 0.01] = 0.0          # all-zero rows
-            P[rng.integers(S, size=2), rng.integers(N, size=2)] = np.nan
-            P32 = torch.from_numpy(P).to(dev).float()
-            P64 = P32.double()  # the kernels' inputs, exactly
+            P32, P64 = small_case(rng, torch, S, N)
             for pairwise_del in (False, True):
                 for weighted in (False, True):
-                    w = (torch.from_numpy(rng.integers(0, 4, S).astype(np.float64)).to(dev)
-                         if weighted else None)
+                    w = weights(S, weighted)
                     for kind, fn, ref in (("indep", indep.indep_raw_cnt, indep.indep_raw_cnt_ref),
                                           ("em", em.em_raw_cnt, em.em_raw_cnt_ref)):
                         k = fn(P32, SCORE9, pairwise_del, w)
                         p = ref(P64, SCORE9, pairwise_del, w)
                         rel, per_cnt = check_kernel(kind, torch, *k, *p)
                         worst[kind] = max(worst[kind], rel if kind == "indep" else per_cnt)
+                        if kind == "indep":
+                            check_indep_rerun(torch, indep, P32, pairwise_del, w, k)
                         n += 1
             torch.cuda.synchronize()
+    # the indep kernel's split over sites: several chunks, the last ragged
+    for N, S in CHUNKED_SHAPES:
+        chunks, chunk_sites = indep.split_plan(N, S)
+        if chunks < 2 or S % chunk_sites == 0:
+            raise AssertionError(f"({N}, {S}) gives {chunks} chunks of {chunk_sites}")
+        P32, P64 = small_case(rng, torch, S, N)
+        for pairwise_del in (False, True):
+            for weighted in (False, True):
+                w = weights(S, weighted)
+                k = indep.indep_raw_cnt(P32, SCORE9, pairwise_del, w)
+                rel, _ = check_kernel("indep", torch, *k,
+                                      *indep.indep_raw_cnt_ref(P64, SCORE9, pairwise_del, w))
+                worst["indep"] = max(worst["indep"], rel)
+                check_indep_rerun(torch, indep, P32, pairwise_del, w, k)
+                n += 1
+        torch.cuda.synchronize()
     log(f"phase 2: {n} kernel-vs-plain cases held (cnt exact, indep raw "
-        f"<= {INDEP_RTOL:g} rel, EM raw <= {EM_ATOL_CNT:g} x cnt); largest "
+        f"<= {INDEP_RTOL:g} rel and reruns byte-identical, EM raw <= {EM_ATOL_CNT:g} "
+        f"x cnt; indep also at {CHUNKED_SHAPES} (N, S), several site chunks); largest "
         f"indep rel err {worst['indep']:.3e}, EM |raw err|/cnt {worst['em']:.3e}")
 
 
@@ -228,6 +274,22 @@ def time_cuda(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def hmma_count(nvcc: str, path: str, kernel: str) -> int:
+    """HMMA (tensor-core) instructions in the machine code of the kernels
+    of the library at path whose name holds `kernel`, by the cuobjdump
+    of the toolkit whose nvcc built it."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and "HMMA" in line:
+            count += 1
+    return count
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -287,6 +349,10 @@ def main() -> int:
         for line in fh:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("  ptxas: " + line.strip())
+    hmma = hmma_count(_build._nvcc(), _build.library_path(), "indep_mma_kernel")
+    if hmma == 0:
+        raise AssertionError("the indep kernel's machine code holds no HMMA instruction")
+    log(f"phase 1: indep kernel SASS: {hmma} HMMA instructions over its instantiations")
 
     # Phase 2: kernel against plain at small ragged shapes.
     phase_small_shapes(torch, indep, em)

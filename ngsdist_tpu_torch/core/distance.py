@@ -25,7 +25,7 @@ from ngsdist_tpu.core import bootstrap as bt
 from ngsdist_tpu.core import models
 
 from ..ops.em import em_raw_cnt
-from ..ops.indep import indep_raw_cnt
+from ..ops.indep import indep_raw_cnt, scratch_shape
 
 
 def default_dtype(device: torch.device) -> torch.dtype:
@@ -46,13 +46,17 @@ def to_device(P_host: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(P_host, dtype=np_dtype)).to(device)
 
 
-def check_fits(S: int, N: int, device: torch.device) -> None:
-    """Raise when the resident tensor and the kernels' outputs do not fit
-    the card's free memory (long genomes would need streaming)."""
+def check_fits(S: int, N: int, device: torch.device, indep: bool) -> None:
+    """Raise when the resident tensor, the kernels' outputs and (indep)
+    the kernel's chunk partials do not fit the card's free memory (long
+    genomes would need streaming)."""
     if device.type != "cuda":
         return
     itemsize = torch.finfo(default_dtype(device)).bits // 8
     need = (S * N * 3 + 4 * N * N + S) * itemsize
+    shape = scratch_shape(N, S) if indep else None
+    if shape is not None:
+        need += 8 * int(np.prod(shape))
     free, _ = torch.cuda.mem_get_info(device)
     if need > free:
         raise NgsDistError(
@@ -149,7 +153,7 @@ def iter_replicates(
     I, J = _pair_indices(N)
     It = torch.from_numpy(I).long().to(device)
     Jt = torch.from_numpy(J).long().to(device)
-    check_fits(S, N, device)
+    check_fits(S, N, device, pars.indep_geno)
     P = to_device(P_host, device)
 
     def full_stats(Psub, site_weights=None):

@@ -1,8 +1,9 @@
-// Independent-genotypes sufficient statistics on Hopper.
+// Independent-genotypes sufficient statistics on Hopper tensor cores.
 //
-// Replaces: ngsdist_tpu/ops/pallas_indep.py, the Pallas kernels
-// _resident_kernel and _super_kernel (entry indep_raw_cnt_pallas).  One
-// kernel covers both: their split exists only for the TPU's VMEM.
+// Replaces: ngsdist_tpu/ops/pallas_indep.py, the Pallas kernels behind
+// _indep_pallas_resident (pallas_call at :358) and _indep_pallas_super
+// (pallas_call at :463), entry indep_raw_cnt_pallas.  One kernel covers
+// both: their split exists only for the TPU's VMEM.
 //
 // Computes, for the upper triangle of the [N, N] output (diagonal
 // included):
@@ -11,19 +12,42 @@
 //   Y_g      = sum_h score[g,h] * P_h * v   j side, score folded
 //   raw[a,b] = sum_{s,g} Qi_g[s,a] * Y_g[s,b]
 //   cnt[a,b] = sum_s (v*w)[s,a] * v[s,b]
-// Masks multiply (NaN * 0 stays NaN, as in the Pallas fold).
+// Masks multiply (NaN * 0 stays NaN, as in the Pallas fold), so a NaN row
+// poisons exactly the pairs it touches.  The strict lower triangle is
+// left as the caller allocated it (zero).
 //
-// What bounds it on the card: the FP32 FMA rate and shared-memory reads.
-// Each (pair, site) costs 4 FMAs; P is re-read once per output tile that
-// covers a column block, which the 50 MB L2 mostly absorbs.
-// Design: one block per upper-triangular 64x64 output tile (no lower
-// tile is launched); 256 threads, each owning a 4x4 register micro-tile.
-// Site tiles of 16 are staged into shared memory, where the masks, the
-// weights and the score fold are formed once per tile and reused by the
-// whole block.  Each site tile's partial sums are added into float64
-// registers, so 65k-site sums keep float32 rounding per tile only.  No
-// atomics and no split over sites: the reduction order is fixed and
-// reruns are byte-identical.  Tensor cores (wgmma, 3xTF32) are later work.
+// Design, for the H100:
+// - Tensor cores through mma.sync m16n8k8 TF32, the reduction dimension
+//   k = (genotype, site) as the Pallas kernel stacks it.  raw is 3xTF32:
+//   each float32 operand x splits into hi = rna_tf32(x) and lo =
+//   rna_tf32(x - hi); hi*hi goes to one float32 accumulator, hi*lo +
+//   lo*hi to another (the TPU kernel's bf16x3 carried to TF32).  Both are
+//   added into float64 registers after every window of kWindow = 16
+//   sites (48 products; PERF.md section 2 derives the bound).  cnt has a
+//   {0,1} j side: one exact TF32 pass unweighted, the i side split when
+//   weighted, float32 over the whole chunk (integer sums below 2^24 are
+//   exact; ops/indep.py caps the chunk so).
+// - A fixed-order split over sites against wave quantisation (136 upper
+//   64x64 tiles at N = 1024 on 132 SMs): the grid is (upper tiles) x
+//   (site chunks), the chunk count a function of (N, S) alone
+//   (ops/indep.py split_plan).  Each block writes float64 partials to
+//   scratch and a second kernel sums the chunks in index order: no
+//   atomics, reruns are byte-identical.
+// - 4 warps of 32x32 outputs per block, 240 registers: two blocks per SM.
+//   Each step stages 8 sites of both sides' P rows with coalesced 16-byte
+//   cp.async (every 32-byte sector read once) into a 4-stage ring, three
+//   steps ahead.  Step t+1 is folded (validity mask, missing test,
+//   weight, score fold) into double-buffered operand tiles while step t
+//   runs on the tensor cores, in one basic block; one barrier per step.
+//   Ragged edges (N not a multiple of 64, a chunk's last step) are zero
+//   filled by the copy; all-zero rows are inert.
+// - Operand rows are padded 64 -> 72 floats: fragment loads are free of
+//   bank conflicts.
+// What bounds it: the MMA phase.  At 1024 x 65,536 the 3.6e8 mma.sync
+// take 2.3 ms at this card's measured mma.sync TF32 peak (320 TFLOP/s);
+// the fold, split and flush alone take 2.8 ms and overlap little with
+// them (PERF.md).  wgmma with producer warps, TMA and a persistent grid
+// are the next step (ROADMAP Queue 2b).
 
 #include <stdint.h>
 #include <string.h>
@@ -32,133 +56,411 @@
 
 namespace {
 
-constexpr int kTile = 64;     // output tile edge
-constexpr int kSites = 16;    // sites staged per step
-constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kSub = 16;      // thread grid edge
+constexpr int kTile = 64;               // output tile edge
+constexpr int kTileElems = kTile * kTile;
+constexpr int kSites = 8;               // sites per pipeline step
+constexpr int kWindow = 16;             // sites per float32 raw window
+constexpr int kK = 3 * kSites;          // raw reduction depth per step
+constexpr int kWarp = 32;               // warp tile edge: 2 x 4 m16n8 tiles
+constexpr int kWarpsN = kTile / kWarp;  // 2 x 2 warps
+constexpr int kThreads = 32 * kWarpsN * kWarpsN;
+constexpr int kStages = 4;              // cp.async ring depth
+constexpr int kLd = kTile + 8;          // padded operand row (floats)
 
-__global__ void __launch_bounds__(kThreads)
-indep_kernel(const float* __restrict__ P, const float* __restrict__ w,
-             float* __restrict__ raw, float* __restrict__ cnt,
-             long long S, int N, ngsd::Score9 sc, int pairwise_del) {
-  __shared__ float A[3][kSites][kTile];  // i side: P_g * v * w
-  __shared__ float B[3][kSites][kTile];  // j side: score-folded P * v
-  __shared__ float VA[kSites][kTile];    // i side: v * w
-  __shared__ float VB[kSites][kTile];    // j side: v
+static_assert(kWindow % kSites == 0, "a window is whole steps");
+static_assert(kThreads == kSites * kTile / 4, "one fold group per thread and side");
 
-  int ti, tj;
-  ngsd::upper_tile(blockIdx.x, &ti, &tj);
-  const int i0 = ti * kTile, j0 = tj * kTile;
-  const int tx = threadIdx.x % kSub, ty = threadIdx.x / kSub;
+// Operand rows are padded so that the fragment loads of a warp hit 32
+// distinct banks.  86,016 bytes: two blocks fit on an SM.
+struct Smem {
+  float slab_i[kStages][kSites][kTile * 3];  // raw P rows, i side
+  float slab_j[kStages][kSites][kTile * 3];  // raw P rows, j side
+  float a[2][kK][kLd];       // i side: P_g * v * w, k = g * kSites + site
+  float b[2][kK][kLd];       // j side: score-folded P * v
+  float va[2][kSites][kLd];  // i side: v * w
+  float vb[2][kSites][kLd];  // j side: v
+};
 
-  double acc_raw[4][4], acc_cnt[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_raw[r][c] = acc_cnt[r][c] = 0.0;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
 
-  for (long long s0 = 0; s0 < S; s0 += kSites) {
-    for (int e = threadIdx.x; e < kSites * kTile; e += kThreads) {
-      const int sl = e / kTile, col = e % kTile;
-      const long long s = s0 + sl;
-      const bool site_ok = s < S;
-      const float ws = site_ok ? (w ? w[s] : 1.0f) : 0.0f;
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool full) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// x rounded to TF32, to nearest with ties away from zero (the rounding
+// of cvt.rna.tf32.f32): add half of the 13 dropped mantissa bits to the
+// magnitude, then clear them.  Two integer instructions where cvt.rna
+// takes four; exact for finite values and infinities.  A NaN with a full
+// mantissa would wrap to -0, so the fold stores only kNaN, which stays
+// NaN (and its lo half becomes -0, which the NaN hi half dominates).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+constexpr uint32_t kNaN = 0x7FC00000u;  // the canonical quiet NaN
+
+__device__ __forceinline__ float canonical_nan(float x) {
+  return x != x ? __uint_as_float(kNaN) : x;
+}
+
+// x = hi + lo + O(2^-22 |x|), both halves exact TF32 values.
+__device__ __forceinline__ void split_tf32(float x, uint32_t* hi, uint32_t* lo) {
+  *hi = tf32_rna(x);
+  *lo = tf32_rna(x - __uint_as_float(*hi));
+}
+
+// d += a * b on a 16x8x8 TF32 tile, float32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Fold one group (one site's triples of 4 consecutive individuals of one
+// side, 48 bytes of the staged rows) into the operand rows of its site: the
+// validity mask, the missing test, the weight (i side) or the score fold
+// (j side).  Masks multiply, so a NaN row stays NaN.
+// ops_row: the group's site row of genotype plane 0; planes are `plane`
+// floats apart.
+template <bool kSideI, bool kPairwiseDel>
+__device__ __forceinline__ void fold_group(const float* slab, float* ops_row, int plane,
+                                           float* msk_row, int col, float ws,
+                                           const ngsd::Score9& sc) {
+  const float4* q = reinterpret_cast<const float4*>(slab);
+  const float4 x0 = q[0], x1 = q[1], x2 = q[2];
+  const float p[4][3] = {{x0.x, x0.y, x0.z}, {x0.w, x1.x, x1.y},
+                         {x1.z, x1.w, x2.x}, {x2.y, x2.z, x2.w}};
+  float o[3][4], m[4];
 #pragma unroll
-      for (int side = 0; side < 2; ++side) {
-        const int ind = (side == 0 ? i0 : j0) + col;
-        float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f;  // padding: all-zero, inert
-        if (site_ok && ind < N) {
-          const float* q = P + (s * N + ind) * 3;
-          p0 = q[0];
-          p1 = q[1];
-          p2 = q[2];
-        }
-        float v = (p0 + p1 + p2) > 0.0f ? 1.0f : 0.0f;
-        if (pairwise_del) v = v * ngsd::nonmissing(p0, p1, p2);
-        if (side == 0) {
-          const float vi = v * ws;
-          A[0][sl][col] = p0 * vi;
-          A[1][sl][col] = p1 * vi;
-          A[2][sl][col] = p2 * vi;
-          VA[sl][col] = vi;
-        } else {
-          const float q0 = p0 * v, q1 = p1 * v, q2 = p2 * v;
+  for (int c = 0; c < 4; ++c) {
+    float v = (p[c][0] + p[c][1] + p[c][2]) > 0.0f ? 1.0f : 0.0f;
+    if (kPairwiseDel) v = v * ngsd::nonmissing(p[c][0], p[c][1], p[c][2]);
+    if (kSideI) {
+      const float vi = v * ws;
 #pragma unroll
-          for (int g = 0; g < 3; ++g)
-            B[g][sl][col] =
-                sc.v[3 * g + 0] * q0 + sc.v[3 * g + 1] * q1 + sc.v[3 * g + 2] * q2;
-          VB[sl][col] = v;
-        }
-      }
+      for (int g = 0; g < 3; ++g) o[g][c] = p[c][g] * vi;
+      m[c] = vi;
+    } else {
+      const float q0 = p[c][0] * v, q1 = p[c][1] * v, q2 = p[c][2] * v;
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        o[g][c] = sc.v[3 * g + 0] * q0 + sc.v[3 * g + 1] * q1 + sc.v[3 * g + 2] * q2;
+      m[c] = v;
     }
-    __syncthreads();
-
-    float pr[4][4], pc[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) pr[r][c] = pc[r][c] = 0.0f;
-#pragma unroll 4
-    for (int sl = 0; sl < kSites; ++sl) {
-#pragma unroll
-      for (int g = 0; g < 3; ++g) {
-        float a[4], b[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[r] = A[g][sl][ty + kSub * r];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) b[c] = B[g][sl][tx + kSub * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) pr[r][c] += a[r] * b[c];
-      }
-      float va[4], vb[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) va[r] = VA[sl][ty + kSub * r];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) vb[c] = VB[sl][tx + kSub * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) pc[r][c] += va[r] * vb[c];
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        acc_raw[r][c] += (double)pr[r][c];
-        acc_cnt[r][c] += (double)pc[r][c];
-      }
-    __syncthreads();
   }
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+    *reinterpret_cast<float4*>(ops_row + g * plane + col) =
+        make_float4(canonical_nan(o[g][0]), canonical_nan(o[g][1]), canonical_nan(o[g][2]),
+                    canonical_nan(o[g][3]));
+  *reinterpret_cast<float4*>(msk_row + col) = make_float4(m[0], m[1], m[2], m[3]);
+}
 
+// kPairwiseDel is a template parameter so that the fold has no branch:
+// it shares one basic block with the MMAs it is interleaved with.
+template <bool kWeighted, bool kVec16, bool kPairwiseDel>
+__global__ void __launch_bounds__(kThreads)
+indep_mma_kernel(const float* __restrict__ P, const float* __restrict__ w,
+                 float* __restrict__ raw, float* __restrict__ cnt, double* __restrict__ part,
+                 long long S, int N, long long chunk_sites, ngsd::Score9 sc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+
+  const long long tile = blockIdx.x, tiles = gridDim.x;
+  const int chunk = blockIdx.y;
+  int ti, tj;
+  ngsd::upper_tile(tile, &ti, &tj);
+  const int i0 = ti * kTile, j0 = tj * kTile;
+  const long long c0 = (long long)chunk * chunk_sites;
+  const long long c_end = c0 + chunk_sites < S ? c0 + chunk_sites : S;
+  const long long steps = c_end > c0 ? (c_end - c0 + kSites - 1) / kSites : 0;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int m0 = (warp / kWarpsN) * kWarp, n0 = (warp % kWarpsN) * kWarp;
+  // this thread's fold group, the same on both sides: site sl, columns c4..c4+3
+  const int sl = tid / (kTile / 4), c4 = 4 * (tid % (kTile / 4));
+
+  // A step's copies: each side's 8 rows of 64 triples, cut into
+  // contiguous 16-byte (4-byte unless kVec16) chunks that consecutive
+  // threads take in turn, so every 32-byte sector is read once.  Copies
+  // past the chunk end or past N are zero filled, so steps past the last
+  // are staged and folded like any other, without a branch.
+  auto stage_copy = [&](int stage, long long s0) {
+    constexpr int kC = kVec16 ? 4 : 1, kRow = 3 * kTile / kC;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+    for (int side = 0; side < 2; ++side) {
+      const int col0 = side == 0 ? i0 : j0;
+      const int valid = 3 * (N - col0);  // floats of a row inside N
+      float(*slab)[kTile * 3] = side == 0 ? sm.slab_i[stage] : sm.slab_j[stage];
+      auto chunk = [&](int r) {
+        const int q = tid + r * kThreads, row = q / kRow, f = kC * (q % kRow);
+        const long long s = s0 + row;
+        const bool ok = s < c_end && f < valid;
+        const float* src = ok ? P + (s * N + col0) * 3 + f : P;
+        if (kVec16)
+          cp_async16(&slab[row][f], src, ok);
+        else
+          cp_async4(&slab[row][f], src, ok);
+      };
+      if constexpr (kVec16) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int a = i0 + ty + kSub * r, b = j0 + tx + kSub * c;
-      if (a < N && b < N && a <= b) {
-        raw[(long long)a * N + b] = (float)acc_raw[r][c];
-        cnt[(long long)a * N + b] = (float)acc_cnt[r][c];
+        for (int r = 0; r < kSites * kRow / kThreads; ++r) chunk(r);
+      } else {  // 12 narrow copies: a loop keeps their addresses out of registers
+#pragma unroll 1
+        for (int r = 0; r < kSites * kRow / kThreads; ++r) chunk(r);
       }
     }
+  };
+  auto fold_i = [&](int stage, int buf, long long s0) {
+    const long long s = s0 + sl;
+    const float ws = (kWeighted && s < c_end) ? __ldg(w + s) : 1.0f;
+    fold_group<true, kPairwiseDel>(&sm.slab_i[stage][sl][3 * c4], &sm.a[buf][sl][0],
+                                   kSites * kLd, &sm.va[buf][sl][0], c4, ws, sc);
+  };
+  auto fold_j = [&](int stage, int buf) {
+    fold_group<false, kPairwiseDel>(&sm.slab_j[stage][sl][3 * c4], &sm.b[buf][sl][0],
+                                    kSites * kLd, &sm.vb[buf][sl][0], c4, 1.0f, sc);
+  };
+
+  // Per thread: 2 x 4 m16n8 tiles of raw (hi*hi, and hi*lo + lo*hi, in
+  // float32 over one window, then float64) and of cnt (float32 over the
+  // chunk: integer sums below 2^24 are exact).
+  float hh[2][4][4], corr[2][4][4], cn[2][4][4];
+  double r64[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        hh[i][j][r] = corr[i][j][r] = cn[i][j][r] = 0.0f;
+        r64[i][j][r] = 0.0;
+      }
+
+  // raw, genotype plane gk of operand buffer buf: 3xTF32, one k-step of 8
+  auto mma_raw = [&](int buf, int gk) {
+    const int k0 = gk * kSites;
+    uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int m = m0 + 16 * mi + g;
+      split_tf32(sm.a[buf][k0 + t4][m], &ah[mi][0], &al[mi][0]);
+      split_tf32(sm.a[buf][k0 + t4][m + 8], &ah[mi][1], &al[mi][1]);
+      split_tf32(sm.a[buf][k0 + t4 + 4][m], &ah[mi][2], &al[mi][2]);
+      split_tf32(sm.a[buf][k0 + t4 + 4][m + 8], &ah[mi][3], &al[mi][3]);
+    }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int n = n0 + 8 * ni + g;
+      split_tf32(sm.b[buf][k0 + t4][n], &bh[ni][0], &bl[ni][0]);
+      split_tf32(sm.b[buf][k0 + t4 + 4][n], &bh[ni][1], &bl[ni][1]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_tf32(hh[mi][ni], ah[mi], bh[ni]);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_tf32(corr[mi][ni], ah[mi], bl[ni]);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_tf32(corr[mi][ni], al[mi], bh[ni]);
+  };
+  // cnt: the j side is {0,1} and exact; the i side splits when weighted
+  auto mma_cnt = [&](int buf) {
+    uint32_t ah[2][4], al[2][4], b[4][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int m = m0 + 16 * mi + g;
+      const float x[4] = {sm.va[buf][t4][m], sm.va[buf][t4][m + 8], sm.va[buf][t4 + 4][m],
+                          sm.va[buf][t4 + 4][m + 8]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (kWeighted)
+          split_tf32(x[e], &ah[mi][e], &al[mi][e]);
+        else
+          ah[mi][e] = __float_as_uint(x[e]);
+      }
+    }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int n = n0 + 8 * ni + g;
+      b[ni][0] = __float_as_uint(sm.vb[buf][t4][n]);
+      b[ni][1] = __float_as_uint(sm.vb[buf][t4 + 4][n]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        mma_tf32(cn[mi][ni], ah[mi], b[ni]);
+        if (kWeighted) mma_tf32(cn[mi][ni], al[mi], b[ni]);
+      }
+  };
+
+  // Pipeline: step t's copies are issued three steps ahead and waited for
+  // before the barrier that precedes their fold; step t+1 is folded while
+  // step t runs on the tensor cores (one basic block, so the scheduler
+  // interleaves the fold's ALU work with the MMAs); one barrier per step.
+  stage_copy(0, c0);
+  cp_async_commit();
+  stage_copy(1, c0 + kSites);
+  cp_async_commit();
+  stage_copy(2, c0 + 2 * kSites);
+  cp_async_commit();
+  cp_async_wait<1>();  // steps 0 and 1 landed
+  __syncthreads();
+  fold_i(0, 0, c0);
+  fold_j(0, 0);
+  __syncthreads();
+  for (long long t = 0; t < steps; ++t) {
+    const int buf = (int)(t & 1), nxt = buf ^ 1, stage1 = (int)((t + 1) % kStages);
+    const long long s1 = c0 + (t + 1) * kSites;
+    stage_copy((int)((t + 3) % kStages), c0 + (t + 3) * kSites);
+    cp_async_commit();
+    mma_raw(buf, 0);
+    fold_i(stage1, nxt, s1);
+    mma_raw(buf, 1);
+    fold_j(stage1, nxt);
+    mma_raw(buf, 2);
+    mma_cnt(buf);
+    // at a window's end, add its float32 raw sums into float64
+    if ((t + 1) % (kWindow / kSites) == 0 || t + 1 == steps) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            r64[i][j][r] += (double)(hh[i][j][r] + corr[i][j][r]);
+            hh[i][j][r] = corr[i][j][r] = 0.0f;
+          }
+    }
+    cp_async_wait<1>();  // step t+2 landed
+    __syncthreads();     // ... for every thread; operands of step t+1 complete
+  }
+  cp_async_wait<0>();
+
+  // epilogue: C fragment rows lane/4 (+8), columns 2 * (lane%4) (+1)
+  const bool direct = gridDim.y == 1;  // one chunk: no scratch, no reduce
+  double* part_raw = direct ? nullptr : part + ((long long)chunk * tiles + tile) * kTileElems;
+  double* part_cnt = direct ? nullptr : part_raw + (long long)gridDim.y * tiles * kTileElems;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = m0 + 16 * mi + g + 8 * (r / 2), col = n0 + 8 * ni + 2 * t4 + r % 2;
+        if (direct) {
+          const int a = i0 + row, b = j0 + col;
+          if (a < N && b < N && a <= b) {
+            raw[(long long)a * N + b] = (float)r64[mi][ni][r];
+            cnt[(long long)a * N + b] = cn[mi][ni][r];
+          }
+        } else {
+          part_raw[row * kTile + col] = r64[mi][ni][r];
+          part_cnt[row * kTile + col] = (double)cn[mi][ni][r];
+        }
+      }
+}
+
+// raw, cnt = sum over chunks 0, 1, ... in that order of the partials.
+__global__ void __launch_bounds__(256)
+indep_reduce_kernel(const double* __restrict__ part, float* __restrict__ raw,
+                    float* __restrict__ cnt, int N, int chunks) {
+  const long long tile = blockIdx.x, tiles = gridDim.x;
+  int ti, tj;
+  ngsd::upper_tile(tile, &ti, &tj);
+  const double* pr = part + tile * kTileElems;
+  const double* pc = pr + (long long)chunks * tiles * kTileElems;
+  for (int e = threadIdx.x; e < kTileElems; e += blockDim.x) {
+    const int a = ti * kTile + e / kTile, b = tj * kTile + e % kTile;
+    if (a >= N || b >= N || a > b) continue;
+    double r = 0.0, c = 0.0;
+    for (int k = 0; k < chunks; ++k) {
+      r += pr[(long long)k * tiles * kTileElems + e];
+      c += pc[(long long)k * tiles * kTileElems + e];
+    }
+    raw[(long long)a * N + b] = (float)r;
+    cnt[(long long)a * N + b] = (float)c;
+  }
+}
+
+template <bool kWeighted, bool kVec16, bool kPairwiseDel>
+cudaError_t launch(const float* P, const float* w, float* raw, float* cnt, double* part,
+                   long long S, int N, long long tiles, int chunks, long long chunk_sites,
+                   const ngsd::Score9& sc, cudaStream_t stream) {
+  auto kernel = indep_mma_kernel<kWeighted, kVec16, kPairwiseDel>;
+  const int bytes = (int)sizeof(Smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((unsigned)tiles, (unsigned)chunks), kThreads, bytes, stream>>>(
+      P, w, raw, cnt, part, S, N, chunk_sites, sc);
+  return cudaGetLastError();
+}
+
+template <bool kWeighted, bool kVec16>
+cudaError_t launch(const float* P, const float* w, float* raw, float* cnt, double* part,
+                   long long S, int N, long long tiles, int chunks, long long chunk_sites,
+                   const ngsd::Score9& sc, int pairwise_del, cudaStream_t stream) {
+  return pairwise_del ? launch<kWeighted, kVec16, true>(P, w, raw, cnt, part, S, N, tiles,
+                                                        chunks, chunk_sites, sc, stream)
+                      : launch<kWeighted, kVec16, false>(P, w, raw, cnt, part, S, N, tiles,
+                                                         chunks, chunk_sites, sc, stream);
 }
 
 }  // namespace
 
-// P [S, N, 3] float32, w [S] float32 or null; raw, cnt [N, N] float32,
-// written on the upper triangle with the diagonal.  Returns the CUDA
-// error of the launch (0 on success).
-extern "C" int ngsd_indep_raw_cnt_f32(const float* P, const float* w,
-                                      float* raw, float* cnt, long long S,
-                                      int N, const float* score9,
+extern "C" int ngsd_indep_raw_cnt_f32(const float* P, const float* w, float* raw, float* cnt,
+                                      double* scratch, long long S, int N, int chunks,
+                                      long long chunk_sites, const float* score9,
                                       int pairwise_del, void* stream) {
+  if (N < 1 || S < 0 || chunks < 1 || chunk_sites < kWindow || chunk_sites % kWindow != 0 ||
+      (long long)chunks * chunk_sites < S || (chunks > 1 && scratch == nullptr) ||
+      chunks > 65535)
+    return (int)cudaErrorInvalidValue;
   ngsd::Score9 sc;
   memcpy(sc.v, score9, sizeof(sc.v));
   const long long nt = (N + kTile - 1) / kTile;
-  const long long blocks = nt * (nt + 1) / 2;
-  indep_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      P, w, raw, cnt, S, N, sc, pairwise_del);
+  const long long tiles = nt * (nt + 1) / 2;
+  const bool vec16 = N % 4 == 0 && reinterpret_cast<uintptr_t>(P) % 16 == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if (w != nullptr)
+    err = vec16 ? launch<true, true>(P, w, raw, cnt, scratch, S, N, tiles, chunks, chunk_sites,
+                                     sc, pairwise_del, st)
+                : launch<true, false>(P, w, raw, cnt, scratch, S, N, tiles, chunks,
+                                      chunk_sites, sc, pairwise_del, st);
+  else
+    err = vec16 ? launch<false, true>(P, w, raw, cnt, scratch, S, N, tiles, chunks,
+                                      chunk_sites, sc, pairwise_del, st)
+                : launch<false, false>(P, w, raw, cnt, scratch, S, N, tiles, chunks,
+                                       chunk_sites, sc, pairwise_del, st);
+  if (err != cudaSuccess || chunks == 1) return (int)err;
+  indep_reduce_kernel<<<(unsigned)tiles, 256, 0, st>>>(scratch, raw, cnt, N, chunks);
   return (int)cudaGetLastError();
 }
 

@@ -82,8 +82,8 @@ def _build(path: str) -> None:
 
 def _configure(lib: ctypes.CDLL) -> None:
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.ngsd_indep_raw_cnt_f32.argtypes = [vp, vp, vp, vp, i64, i32, vp,
-                                           i32, vp]
+    lib.ngsd_indep_raw_cnt_f32.argtypes = [vp, vp, vp, vp, vp, i64, i32,
+                                           i32, i64, vp, i32, vp]
     lib.ngsd_indep_raw_cnt_f32.restype = i32
     lib.ngsd_em_raw_cnt_f32.argtypes = [vp, vp, vp, vp, i64, i32, vp,
                                         ctypes.c_double, i32, vp]

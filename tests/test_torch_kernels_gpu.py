@@ -55,3 +55,81 @@ def test_kernel_rejects_float64(cuda, kind):
     P = torch.zeros((4, 3, 3), dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError, match="float32"):
         KERNELS[kind][0](P, SCORE9, False)
+
+
+def _case(cuda, S, N, seed=4):
+    rng = np.random.default_rng(seed)
+    P = chip_smoke.rand_probs(rng, S, N, missing=0.1)
+    P[rng.random((S, N)) < 0.01] = 0.0
+    P[rng.integers(S), rng.integers(N)] = np.nan
+    w = torch.from_numpy(rng.integers(0, 4, S).astype(np.float64)).to(cuda)
+    return torch.from_numpy(P).to(cuda).float(), w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,S", chip_smoke.CHUNKED_SHAPES)
+@pytest.mark.parametrize("pairwise_del", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_indep_several_chunks_ragged(cuda, N, S, pairwise_del, weighted):
+    """Shapes whose sites split into several chunks, the last one ragged:
+    cnt exact, raw within chip_smoke.INDEP_RTOL, reruns byte-identical."""
+    chunks, chunk_sites = indep.split_plan(N, S)
+    assert chunks > 1 and S % chunk_sites != 0
+    P32, w = _case(cuda, S, N)
+    w = w if weighted else None
+    got = indep.indep_raw_cnt(P32, SCORE9, pairwise_del, w)
+    chip_smoke.check_kernel("indep", torch, *got,
+                            *indep.indep_raw_cnt_ref(P32.double(), SCORE9, pairwise_del, w))
+    chip_smoke.check_indep_rerun(torch, indep, P32, pairwise_del, w, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+def test_indep_reruns_byte_identical(cuda, weighted):
+    """Ten calls at a multi-chunk shape give the same bytes: the order of
+    every sum is fixed by the shape."""
+    P32, w = _case(cuda, 3001, 256)
+    w = w if weighted else None
+    first = indep.indep_raw_cnt(P32, SCORE9, True, w)
+    for _ in range(9):
+        again = indep.indep_raw_cnt(P32, SCORE9, True, w)
+        assert all(chip_smoke.same_bytes(torch, a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+def test_indep_cnt_exact(cuda, weighted):
+    """cnt equals the float64 plain version exactly on the upper
+    triangle (integer weights), unweighted and weighted."""
+    P32, w = _case(cuda, 2500, 130)
+    w = w if weighted else None
+    _, cnt = indep.indep_raw_cnt(P32, SCORE9, True, w)
+    _, want = indep.indep_raw_cnt_ref(P32.double(), SCORE9, True, w)
+    iu = torch.triu_indices(130, 130, device=cuda)
+    assert torch.equal(cnt[iu[0], iu[1]].double(), want[iu[0], iu[1]])
+    assert not bool(torch.tril(cnt, -1).any())
+
+
+@pytest.mark.gpu
+def test_indep_unaligned_rows(cuda):
+    """A tensor whose data does not start on 16 bytes takes the kernel's
+    4-byte copies and gives the same bytes as an aligned copy of it."""
+    P32, w = _case(cuda, 1500, 128)
+    flat = torch.empty(P32.numel() + 1, dtype=torch.float32, device=cuda)
+    shifted = flat[1:].view(P32.shape)
+    shifted.copy_(P32)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    for a, b in zip(indep.indep_raw_cnt(P32, SCORE9, True, w),
+                    indep.indep_raw_cnt(shifted, SCORE9, True, w)):
+        assert chip_smoke.same_bytes(torch, a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(KERNELS))
+def test_kernel_rejects_bad_layout(cuda, kind):
+    """A CUDA tensor the kernel does not take raises; nothing falls back."""
+    P = torch.zeros((4, 5, 3), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        KERNELS[kind][0](P.transpose(0, 1), SCORE9, False)
+    with pytest.raises(ValueError, match="shape"):
+        KERNELS[kind][0](P[..., :2], SCORE9, False)

@@ -180,3 +180,40 @@ def test_port_cli_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     md5 = hashlib.md5(open(out, "rb").read()).hexdigest()
     assert md5 == MANIFEST["GL_pdel"]["md5"]
+
+
+@pytest.mark.parametrize("pairwise_del", [False, True], ids=["nopdel", "pdel"])
+@pytest.mark.parametrize("reps", [0, 3], ids=["resident", "weighted_boot"])
+def test_em_zero_site_nan_parity(tmp_path, pairwise_del, reps):
+    """An empty text line parses to a (0,0,0) site.  Without pairwise
+    deletion the reference's EM gets a NaN loglik there and poisons every
+    pair at that site (ngsDist.cpp:348-349): the whole matrix.  The
+    port's EM path (resident, and the weighted-recompute bootstrap) must
+    give the NaN pattern and values of the JAX package's exact oracle,
+    as tests/test_jax_engine.py::test_em_zero_site_nan_parity pins for
+    the JAX engine."""
+    import gzip
+
+    from ngsdist_tpu import runner as jax_runner
+    from ngsdist_tpu.config import Params
+    from ngsdist_tpu_torch import runner
+
+    rng = np.random.default_rng(9)
+    S, N = 60, 5
+    gp = rng.dirichlet(np.ones(3), size=(S, N))
+    path = str(tmp_path / "z.geno.gz")
+    with gzip.open(path, "wt") as fh:
+        for s in range(S):
+            fh.write("" if s == 17 else "\t".join(f"{x:.8f}" for x in gp[s].reshape(-1)))
+            fh.write("\n")
+    base = dict(in_geno=path, in_probs=True, n_ind=N, n_sites=S, seed=7, verbose=0,
+                pairwise_del=pairwise_del, n_boot_rep=reps, boot_block_size=10)
+    want = jax_runner.run(Params(out=str(tmp_path / "a.dist"), **base), engine="exact")
+    got = runner.run(Params(out=str(tmp_path / "b.dist"), **base), torch.device("cpu"))
+    assert len(got) == len(want) == 1 + reps
+    for mw, mg in zip(want, got):
+        np.testing.assert_array_equal(np.isnan(mg), np.isnan(mw))
+        ok = ~np.isnan(mw)
+        np.testing.assert_allclose(mg[ok], mw[ok], rtol=0, atol=1e-10)
+    if not pairwise_del:
+        assert np.isnan(want[0][~np.eye(N, dtype=bool)]).all()
