@@ -15,16 +15,24 @@ Phases, each of which fails the run loudly:
    all-zero rows: cnt exact, indep raw within INDEP_RTOL relative, EM
    raw within EM_ATOL_CNT x cnt.  The indep kernel also at shapes that
    split the sites into several chunks, the last one ragged, and every
-   indep call is run twice: the reruns must be byte-identical.
+   indep call is run twice: the reruns must be byte-identical.  The
+   block modes of the partial-sum bootstrap likewise (per-block C exact,
+   B within the same bounds), at ragged block sizes and, indep, a block
+   longer than 2^16 sites.
 3. The port's main path through its CLI entry point, in process, on
-   seeded binary GP inputs at 1024 individuals: (a) --indep_geno
-   --pairwise_del, 65,536 sites, 2 bootstrap replicates; (b) the EM,
-   16,384 sites.  Each kernel's launch count must rise; the output must
-   hold 1 + n_boot_rep finite symmetric matrices whose 64-individual
-   sub-matrix agrees with the float64 plain version, run on the
-   generated array itself: within the phase-2 bounds on the float32
-   values the card was given, and within the float32 policy's bounds
-   (POLICY_*) on the float64 values that were written.
+   seeded binary GP inputs at 1024 individuals (RUNS): (a) --indep_geno
+   --pairwise_del, 65,536 sites, 2 bootstrap replicates of 256-site
+   blocks (the weighted-recompute route); (b) the EM, 16,384 sites;
+   (c) the EM with 8 replicates of 256-site blocks and (d) (a)'s flags
+   with 4 replicates of 1024-site blocks (both the partial-sum route).
+   Every launch count is set to 0 before each run and must then equal
+   the run's LAUNCHES entry; the output must hold 1 + n_boot_rep finite
+   symmetric matrices whose 64-individual sub-matrices agree with the
+   float64 plain version (replicates: the plain weighted recompute), run
+   on the generated array itself: within the phase-2 bounds on the
+   float32 values the card was given, and within the float32 policy's
+   bounds (POLICY_*) on the float64 values that were written.  The
+   full-data matrices of (c) and (d) equal those of (b) and (a).
 4. Each kernel's time at the main path's shapes beside its plain
    version's (float32), and the kernel held there against the float64
    plain version on the same inputs.
@@ -68,6 +76,36 @@ EM_ATOL_CNT = 1e-6   # EM raw, absolute per valid site (|raw err| <= 1e-6 cnt)
 POLICY_INDEP_RTOL = 1e-5   # the same, against the float64 values themselves
 POLICY_EM_ATOL_CNT = 1e-4
 CHUNKED_SHAPES = ((130, 5000), (256, 3001))  # (N, S): indep split over sites
+BLOCK_N = 130                    # block modes at small shapes: individuals,
+BLOCK_SIZES = (1, 5, 37, 256)    # sites per bootstrap block,
+BLOCK_SITES = 777                # and sites before truncation to whole blocks
+LONG_BLOCK = (1 << 16) + 37      # indep block mode: a block past 2^16 sites
+# Main-path runs (c) EM and (d) indep --pairwise_del on the partial-sum
+# bootstrap route: replicates and block sizes.
+EM_BOOT_REPS, EM_BOOT_BLOCK = 8, 256
+INDEP_BOOT_REPS, INDEP_BOOT_BLOCK = 4, 1024
+# The main path's CLI runs: (kind, sites, replicates, block size,
+# --pairwise_del).  By the JAX engine's rule (float32 partials of
+# n_blocks x N^2, twice under --pairwise_del, within 1 GiB) (a) takes
+# the weighted-recompute route (256 blocks, 2 GiB), (c) and (d) the
+# partial-sum route (64 blocks, 256 and 512 MiB).
+RUNS = {
+    "a": ("indep", INDEP_SITES, BOOT_REPS, BOOT_BLOCK, True),
+    "b": ("em", EM_SITES, 0, 1, False),
+    "c": ("em", EM_SITES, EM_BOOT_REPS, EM_BOOT_BLOCK, False),
+    "d": ("indep", INDEP_SITES, INDEP_BOOT_REPS, INDEP_BOOT_BLOCK, True),
+}
+# The kernels, by the name of their wrapper: (module, launch counter).
+KERNELS = {"indep_raw_cnt": ("indep", "LAUNCHES"),
+           "indep_block_partials": ("indep", "BLOCK_LAUNCHES"),
+           "em_raw_cnt": ("em", "LAUNCHES"),
+           "em_block_partials": ("em", "BLOCK_LAUNCHES")}
+# The launches each run must make: the weighted route one per matrix,
+# the partial-sum route the full-data call and one block-mode call.
+LAUNCHES = {"a": {"indep_raw_cnt": 1 + BOOT_REPS},
+            "b": {"em_raw_cnt": 1},
+            "c": {"em_raw_cnt": 1, "em_block_partials": 1},
+            "d": {"indep_raw_cnt": 1, "indep_block_partials": 1}}
 SCORE9 = np.array([[0.0, 0.5, 1.0], [0.5, 0.0, 0.5], [1.0, 0.5, 0.0]]).reshape(-1)
 
 
@@ -84,34 +122,56 @@ def rand_probs(rng, S: int, N: int, missing: float = 0.05) -> np.ndarray:
 
 
 def check_kernel(kind, torch, raw_k, cnt_k, raw_p, cnt_p, rtol=None, atol_cnt=None):
-    """Hold a kernel's (raw, cnt) against the plain version's on the
-    kernel's valid triangle: cnt exact, the NaN pattern equal, indep raw
-    within rtol relative, EM raw within atol_cnt x cnt.  Returns the
-    largest relative raw error and the largest |raw error| / cnt."""
-    rtol = INDEP_RTOL if rtol is None else rtol
-    atol_cnt = EM_ATOL_CNT if atol_cnt is None else atol_cnt
+    """Hold a kernel's (raw, cnt) [N, N] against the plain version's on
+    the kernel's valid triangle (check_values)."""
     N = raw_k.shape[0]
     iu = torch.triu_indices(N, N, offset=0 if kind == "indep" else 1,
                             device=raw_k.device)
-    rk, ck = raw_k[iu[0], iu[1]].double(), cnt_k[iu[0], iu[1]].double()
-    rp, cp = raw_p[iu[0], iu[1]].double(), cnt_p[iu[0], iu[1]].double()
-    if not torch.equal(ck, cp):
-        raise AssertionError(f"{kind}: cnt differs from the plain version "
-                             f"(max {(ck - cp).abs().max().item()})")
-    nan_k, nan_p = torch.isnan(rk), torch.isnan(rp)
-    if not torch.equal(nan_k, nan_p):
+    rk, ck, rp, cp = (m[iu[0], iu[1]] for m in (raw_k, cnt_k, raw_p, cnt_p))
+    return check_values(kind, torch, rk, ck, rp, cp, rtol, atol_cnt)
+
+
+def check_values(kind, torch, raw_k, cnt_k, raw_p, cnt_p, rtol=None, atol_cnt=None):
+    """Hold a kernel's raw and cnt values (the block modes: B and C, C
+    None where a mode returns none) against the plain version's: cnt
+    exact, the NaN pattern equal, indep raw within rtol relative, EM raw
+    within atol_cnt x cnt.  Returns the largest relative raw error and
+    the largest |raw error| / cnt (0 without cnt)."""
+    rtol = INDEP_RTOL if rtol is None else rtol
+    atol_cnt = EM_ATOL_CNT if atol_cnt is None else atol_cnt
+    rk, rp = raw_k.double().reshape(-1), raw_p.double().reshape(-1)
+    if (cnt_k is None) != (cnt_p is None):
+        raise AssertionError(f"{kind}: cnt returned by one version only")
+    cp = None
+    if cnt_p is not None:
+        ck, cp = cnt_k.double().reshape(-1), cnt_p.double().reshape(-1)
+        if not torch.equal(ck, cp):
+            raise AssertionError(f"{kind}: cnt differs from the plain version "
+                                 f"(max {(ck - cp).abs().max().item()})")
+    nan_p = torch.isnan(rp)
+    if not torch.equal(torch.isnan(rk), nan_p):
         raise AssertionError(f"{kind}: NaN pattern differs from the plain version")
     fin = ~nan_p
-    err, rp, cp = (rk - rp).abs()[fin], rp[fin], cp[fin]
+    err, rp = (rk - rp).abs()[fin], rp[fin]
+    cp = None if cp is None else cp[fin]
     bound = rtol * rp.abs() if kind == "indep" else atol_cnt * cp
     if not bool((err <= bound).all()):
         worst = (err - bound).argmax()
         raise AssertionError(f"{kind}: raw error {err[worst].item()} above "
                              f"bound {bound[worst].item()}")
-    nz, pos = rp != 0, cp > 0
+    nz = rp != 0
     rel = float((err[nz] / rp[nz].abs()).max().item()) if bool(nz.any()) else 0.0
-    per_cnt = float((err[pos] / cp[pos]).max().item()) if bool(pos.any()) else 0.0
+    per_cnt = 0.0
+    if cp is not None and bool((cp > 0).any()):
+        per_cnt = float((err[cp > 0] / cp[cp > 0]).max().item())
     return rel, per_cnt
+
+
+def block_pairs(torch, B, C):
+    """[n_blocks, N, N] partials (the indep plain version) -> the pair
+    layout [n_blocks, n_pairs] of the block modes' wrappers."""
+    I, J = torch.triu_indices(B.shape[-1], B.shape[-1], offset=1, device=B.device)
+    return B[:, I, J], None if C is None else C[:, I, J]
 
 
 def small_case(rng, torch, S: int, N: int):
@@ -182,6 +242,49 @@ def phase_small_shapes(torch, indep, em) -> None:
         f"<= {INDEP_RTOL:g} rel and reruns byte-identical, EM raw <= {EM_ATOL_CNT:g} "
         f"x cnt; indep also at {CHUNKED_SHAPES} (N, S), several site chunks); largest "
         f"indep rel err {worst['indep']:.3e}, EM |raw err|/cnt {worst['em']:.3e}")
+    phase_small_blocks(torch, indep, em, rng)
+
+
+def block_case(torch, indep, em, kind, P32, pairwise_del, n_blocks, block_size):
+    """One block-mode call against its float64 plain version on the same
+    inputs (indep: and a rerun, byte-identical).  Returns check_values'
+    errors."""
+    if kind == "indep":
+        k = indep.indep_block_partials(P32, SCORE9, pairwise_del, n_blocks, block_size)
+        p = block_pairs(torch, *indep.indep_block_partials_ref(P32.double(), SCORE9, pairwise_del,
+                                                        n_blocks, block_size))
+        again = indep.indep_block_partials(P32, SCORE9, pairwise_del, n_blocks, block_size)
+        if not all(a is b or same_bytes(torch, a, b) for a, b in zip(k, again)):
+            raise AssertionError(f"indep blocks: rerun differs at {n_blocks} x {block_size}")
+    else:
+        k = em.em_block_partials(P32, SCORE9, pairwise_del, n_blocks, block_size)
+        p = em.em_block_partials_ref(P32.double(), SCORE9, pairwise_del, n_blocks, block_size)
+    return check_values(kind, torch, *k, *p)
+
+
+def phase_small_blocks(torch, indep, em, rng) -> None:
+    """The block modes of the partial-sum bootstrap against their plain
+    versions: ragged block sizes at N = BLOCK_N, NaN and zero rows, and
+    an indep block longer than 2^16 sites (its counts must stay exact)."""
+    n, worst = 0, {"indep": 0.0, "em": 0.0}
+    for block_size in BLOCK_SIZES:
+        n_blocks = BLOCK_SITES // block_size
+        P32, _ = small_case(rng, torch, n_blocks * block_size, BLOCK_N)
+        for pairwise_del in (False, True):
+            for kind in ("indep", "em"):
+                rel, per_cnt = block_case(torch, indep, em, kind, P32, pairwise_del,
+                                          n_blocks, block_size)
+                worst[kind] = max(worst[kind], rel if kind == "indep" else per_cnt)
+                n += 1
+        torch.cuda.synchronize()
+    P32, _ = small_case(rng, torch, 2 * LONG_BLOCK, BLOCK_N)
+    rel, _ = block_case(torch, indep, em, "indep", P32, True, 2, LONG_BLOCK)
+    worst["indep"] = max(worst["indep"], rel)
+    torch.cuda.synchronize()
+    log(f"phase 2: {n + 1} block-mode cases held (block sizes {BLOCK_SIZES} and "
+        f"{LONG_BLOCK}, N = {BLOCK_N}; C exact, indep B <= {INDEP_RTOL:g} rel and reruns "
+        f"byte-identical, EM B <= {EM_ATOL_CNT:g} x C); largest indep rel err "
+        f"{worst['indep']:.3e}, EM |B err|/C {worst['em']:.3e}")
 
 
 def read_phylip(path: str):
@@ -232,31 +335,35 @@ def check_submatrix(mat, raw_p, denom, idx, kind, rtol, atol_cnt) -> float:
     return float(err.max())
 
 
-def check_submatrices(torch, indep, em, distance, mats_a, mats_b, P_sub, idx):
-    """The 64-individual sub-matrices of the CLI outputs against the plain
-    version in float64 over the generated array's columns idx: once on
-    the float32 values the card was given (the kernels' bounds), once on
-    the float64 values themselves (the float32 policy's bounds).
-    Returns the largest |d error| of each run and comparison."""
+def check_submatrices(torch, indep, em, distance, mats, P_sub, idx):
+    """The 64-individual sub-matrices of every matrix of every run's CLI
+    output (mats: run -> matrices) against the plain version in float64
+    over the generated array's columns idx, a replicate against the plain
+    weighted recompute with its per-site multiplicities: once on the
+    float32 values the card was given (the kernels' bounds), once on the
+    float64 values themselves (the float32 policy's bounds).  Returns the
+    largest |d error| of each run and comparison."""
     dev = torch.device(DEVICE)
-    n_trunc, maps = distance.bootstrap_site_maps(SEED, BOOT_REPS, INDEP_SITES, BOOT_BLOCK)
-    w = torch.from_numpy(distance.replicate_weights(maps[0], n_trunc)).to(dev)
     errs = {}
     for inputs, rtol, atol_cnt in (("float32", INDEP_RTOL, EM_ATOL_CNT),
                                    ("float64", POLICY_INDEP_RTOL, POLICY_EM_ATOL_CNT)):
         sub = torch.from_numpy(P_sub).to(dev)
         if inputs == "float32":
             sub = sub.float().double()
-        e = []
-        raw, cnt = indep.indep_raw_cnt_ref(sub, SCORE9, True)
-        e.append(check_submatrix(mats_a[0], raw, cnt, idx, "indep", rtol, atol_cnt))
-        raw, cnt = indep.indep_raw_cnt_ref(sub[:n_trunc], SCORE9, True, w)
-        e.append(check_submatrix(mats_a[1], raw, cnt, idx, "indep", rtol, atol_cnt))
-        errs[f"indep/{inputs}"] = max(e)
-        raw, _ = em.em_raw_cnt_ref(sub[:EM_SITES].contiguous(), SCORE9, False)
-        # without --pairwise_del the denominator is the site count
-        errs[f"em/{inputs}"] = check_submatrix(mats_b[0], raw, float(EM_SITES), idx,
-                                               "em", rtol, atol_cnt)
+        for run, (kind, sites, reps, block, pairwise_del) in RUNS.items():
+            plain = indep.indep_raw_cnt_ref if kind == "indep" else em.em_raw_cnt_ref
+            n_trunc, maps = distance.bootstrap_site_maps(SEED, reps, sites, block)
+            e = []
+            for r, mat in enumerate(mats[run]):
+                S, w = sites, None
+                if r > 0:
+                    S = n_trunc
+                    w = torch.from_numpy(distance.replicate_weights(maps[r - 1], S)).to(dev)
+                raw, cnt = plain(sub[:S].contiguous(), SCORE9, pairwise_del, w)
+                # without --pairwise_del the denominator is the site count
+                denom = cnt if pairwise_del else float(S)
+                e.append(check_submatrix(mat, raw, denom, idx, kind, rtol, atol_cnt))
+            errs[f"{run}/{inputs}"] = max(e)
         del sub
     return errs
 
@@ -296,30 +403,65 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def main_path_args(geno_a, geno_b, out_a, out_b):
-    """The CLI arguments of runs (a) indep and (b) EM."""
-    args_a = ["--geno", geno_a, "--probs", "--indep_geno", "--pairwise_del",
-              "--n_ind", str(N_IND), "--n_sites", str(INDEP_SITES),
-              "--n_boot_rep", str(BOOT_REPS), "--boot_block_size", str(BOOT_BLOCK),
-              "--seed", str(SEED), "--out", out_a, "--verbose", "1"]
-    args_b = ["--geno", geno_b, "--probs", "--n_ind", str(N_IND),
-              "--n_sites", str(EM_SITES), "--seed", str(SEED), "--out", out_b,
-              "--verbose", "1"]
-    return args_a, args_b
+def run_args(run: str, geno: str, out: str):
+    """The CLI arguments of main-path run `run` (RUNS)."""
+    kind, sites, reps, block, pairwise_del = RUNS[run]
+    args = ["--geno", geno, "--probs", "--n_ind", str(N_IND), "--n_sites", str(sites),
+            "--seed", str(SEED), "--out", out, "--verbose", "1"]
+    if kind == "indep":
+        args.append("--indep_geno")
+    if pairwise_del:
+        args.append("--pairwise_del")
+    if reps:
+        args += ["--n_boot_rep", str(reps), "--boot_block_size", str(block)]
+    return args
 
 
 def write_inputs(work: str):
-    """Seeded binary GP files for runs (a) and (b), written as raw
-    little-endian float64 [S, N, 3]; returns (P, geno_a, geno_b) with P
-    the generated array, normalised per triple as the binary reader
-    does."""
+    """Seeded binary GP files, written as raw little-endian float64
+    [S, N, 3]: the first S sites of one generated array for each S that
+    a run reads.  Returns (P, {S: path}) with P the generated array,
+    normalised per triple as the binary reader does."""
     rng = np.random.default_rng(SEED)
     P = rand_probs(rng, INDEP_SITES, N_IND)
-    geno_a, geno_b = os.path.join(work, "a.bin"), os.path.join(work, "b.bin")
-    P.astype("<f8").tofile(geno_a)
-    P[:EM_SITES].astype("<f8").tofile(geno_b)
+    genos = {}
+    for S in sorted({sites for _, sites, *_ in RUNS.values()}):
+        genos[S] = os.path.join(work, f"p{S}.bin")
+        P[:S].astype("<f8").tofile(genos[S])
     P /= P.sum(-1, keepdims=True)
-    return P, geno_a, geno_b
+    return P, genos
+
+
+def launch_counts(mods):
+    """Each kernel's launch count, by the name of its wrapper."""
+    return {name: getattr(mods[mod], counter) for name, (mod, counter) in KERNELS.items()}
+
+
+def drive_main_path(torch, cli, mods, genos):
+    """The runs of RUNS through the CLI entry point, each with every
+    launch count set to 0 just before it and read just after, held to
+    LAUNCHES.  Returns (output path, launch counts) per run."""
+    outs, launches = {}, {}
+    for run, (kind, sites, reps, block, _) in RUNS.items():
+        outs[run] = os.path.join(WORK, f"{run}.dist")
+        args = run_args(run, genos[sites], outs[run]) + ["--platform", DEVICE, "--throughput"]
+        for mod, counter in KERNELS.values():
+            setattr(mods[mod], counter, 0)
+        t0 = time.perf_counter()
+        rc = cli.main(args)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        launches[run] = launch_counts(mods)
+        if rc != 0:
+            raise AssertionError(f"run ({run}): exit code {rc}")
+        want = {name: LAUNCHES[run].get(name, 0) for name in KERNELS}
+        if launches[run] != want:
+            raise AssertionError(f"run ({run}): launches {launches[run]}, expected {want}")
+        boot = f" + {reps} replicates of {block}-site blocks" if reps else ""
+        log(f"phase 3: ({run}) {kind} {N_IND} x {sites}{boot} in {t:.2f} s (host clock, "
+            f"CLI call incl. read and write); launches "
+            + ", ".join(f"{k} {v}" for k, v in launches[run].items() if v))
+    return outs, launches
 
 
 def main() -> int:
@@ -358,46 +500,40 @@ def main() -> int:
     phase_small_shapes(torch, indep, em)
 
     # Phase 3: the main path, through the CLI entry point.
+    mods = {"indep": indep, "em": em}
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     try:
-        P, geno_a, geno_b = write_inputs(WORK)
-        out_a, out_b = os.path.join(WORK, "a.dist"), os.path.join(WORK, "b.dist")
-        args_a, args_b = main_path_args(geno_a, geno_b, out_a, out_b)
-
-        indep.LAUNCHES = 0
-        em.LAUNCHES = 0
-        t0 = time.perf_counter()
-        rc_a = cli.main(args_a + ["--platform", DEVICE, "--throughput"])
-        t_a = time.perf_counter() - t0
-        launches_a = (indep.LAUNCHES, em.LAUNCHES)
-        t0 = time.perf_counter()
-        rc_b = cli.main(args_b + ["--platform", DEVICE, "--throughput"])
-        t_b = time.perf_counter() - t0
-        launches = {"indep": indep.LAUNCHES, "em": em.LAUNCHES}
-        if rc_a != 0 or rc_b != 0:
-            raise AssertionError(f"main path exit codes {rc_a}, {rc_b}")
-        if launches_a != (1 + BOOT_REPS, 0) or launches["em"] != 1:
-            raise AssertionError(f"kernel launch counts {launches_a} after (a), "
-                                 f"{launches} after (b)")
-        log(f"phase 3: (a) indep {N_IND} x {INDEP_SITES} + {BOOT_REPS} replicates "
-            f"in {t_a:.2f} s, (b) EM {N_IND} x {EM_SITES} in {t_b:.2f} s "
-            f"(host clock, CLI call incl. read and write); launches {launches}")
-
-        mats_a = check_output(out_a, 1 + BOOT_REPS)
-        mats_b = check_output(out_b, 1)
+        P, genos = write_inputs(WORK)
+        outs, launches = drive_main_path(torch, cli, mods, genos)
+        mats = {run: check_output(outs[run], 1 + RUNS[run][2]) for run in RUNS}
+        # the same full-data kernel call on the same input, whatever route
+        # the replicates take
+        for run, same in (("c", "b"), ("d", "a")):
+            if not np.array_equal(mats[run][0], mats[same][0]):
+                raise AssertionError(f"the full-data matrix of ({run}) differs from ({same})'s")
         idx = np.sort(np.random.default_rng(SEED + 1).choice(N_IND, 64, replace=False))
-        errs = check_submatrices(torch, indep, em, distance, mats_a, mats_b,
+        errs = check_submatrices(torch, indep, em, distance, mats,
                                  np.ascontiguousarray(P[:, idx]), idx)
-        log(f"phase 3: outputs hold {1 + BOOT_REPS} + 1 finite symmetric matrices; "
-            "64-individual sub-matrices agree with float64 plain, max |d err| "
+        del mats
+        log(f"phase 3: outputs hold 1 + n_boot_rep finite symmetric matrices "
+            f"({', '.join(f'{run} {1 + RUNS[run][2]}' for run in RUNS)}); the full-data "
+            "matrices of (c), (d) equal those of (b), (a); 64-individual sub-matrices "
+            "agree with float64 plain (replicates: the weighted recompute), max |d err| "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    # Phase 4: timings at the main path's shapes; the kernel held against
+    # Phase 4: timings at the main path's shapes; each kernel held against
     # the plain version there.
     kernels = []
+    launched = {name: sum(counts[name] for counts in launches.values()) for name in KERNELS}
+
+    def report(name, source, replaces, err, err_of, ms_k, ms_p):
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launched[name],
+                        "max_abs_err": err, "err_of": err_of, "ms": ms_k, "plain_ms": ms_p})
+
     dev = torch.device(DEVICE)
     P32 = distance.to_device(P, dev)
     del P
@@ -409,11 +545,22 @@ def main() -> int:
     log(f"phase 4: indep {N_IND} x {INDEP_SITES} pairwise_del: kernel {ms_k:.3f} ms, "
         f"plain float32 {ms_p:.3f} ms; vs float64 plain: max rel raw err {rel:.3e}, "
         f"max |raw/cnt err| {err:.3e} [{card}]")
-    kernels.append({"name": "indep_raw_cnt", "route": "cuda",
-                    "source": "ngsdist_tpu_torch/csrc/indep.cu",
-                    "replaces": "ngsdist_tpu/ops/pallas_indep.py:358",
-                    "launches": launches["indep"], "max_abs_err": err,
-                    "err_of": "raw/cnt", "ms": ms_k, "plain_ms": ms_p})
+    report("indep_raw_cnt", "ngsdist_tpu_torch/csrc/indep.cu",
+           "ngsdist_tpu/ops/pallas_indep.py:358", err, "raw/cnt", ms_k, ms_p)
+
+    # the block mode at run (d)'s shape, pairs gathered from the tiles
+    nb, bs = INDEP_SITES // INDEP_BOOT_BLOCK, INDEP_BOOT_BLOCK
+    ms_k = time_cuda(torch, lambda: indep.indep_block_partials(P32, SCORE9, True, nb, bs), 5)
+    ms_p = time_cuda(torch, lambda: block_pairs(
+        torch, *indep.indep_block_partials_ref(P32, SCORE9, True, nb, bs)), 3)
+    rel, err = block_case(torch, indep, em, "indep", P32, True, nb, bs)
+    torch.cuda.empty_cache()
+    log(f"phase 4: indep block partials {N_IND} x {INDEP_SITES}, {nb} blocks of {bs}, "
+        f"pairwise_del: kernel {ms_k:.3f} ms, plain float32 {ms_p:.3f} ms; vs float64 "
+        f"plain: max rel B err {rel:.3e}, max |B err|/C {err:.3e}, rerun byte-identical "
+        f"[{card}]")
+    report("indep_block_partials", "ngsdist_tpu_torch/csrc/indep.cu",
+           "ngsdist_tpu/core/distance.py:365", err, "B/C", ms_k, ms_p)
 
     P32 = P32[:EM_SITES].contiguous()
     torch.cuda.empty_cache()
@@ -429,11 +576,24 @@ def main() -> int:
     log(f"phase 4: em {N_IND} x {EM_SITES}: kernel {ms_k:.3f} ms, plain float32 "
         f"{ms_p:.3f} ms (one run); vs float64 plain: max |raw/cnt err| {err:.3e} "
         f"(check took {time.perf_counter() - t0:.1f} s) [{card}]")
-    kernels.append({"name": "em_raw_cnt", "route": "cuda",
-                    "source": "ngsdist_tpu_torch/csrc/em.cu",
-                    "replaces": "ngsdist_tpu/ops/pallas_em.py:326",
-                    "launches": launches["em"], "max_abs_err": err,
-                    "err_of": "raw/cnt", "ms": ms_k, "plain_ms": ms_p})
+    report("em_raw_cnt", "ngsdist_tpu_torch/csrc/em.cu",
+           "ngsdist_tpu/ops/pallas_em.py:326", err, "raw/cnt", ms_k, ms_p)
+
+    # the block mode at run (c)'s shape
+    nb, bs = EM_SITES // EM_BOOT_BLOCK, EM_BOOT_BLOCK
+    ms_k = time_cuda(torch, lambda: em.em_block_partials(P32, SCORE9, False, nb, bs), 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    em.em_block_partials_ref(P32, SCORE9, False, nb, bs)
+    torch.cuda.synchronize()
+    ms_p = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    _, err = block_case(torch, indep, em, "em", P32, False, nb, bs)
+    log(f"phase 4: em block partials {N_IND} x {EM_SITES}, {nb} blocks of {bs}: kernel "
+        f"{ms_k:.3f} ms, plain float32 {ms_p:.3f} ms (one run); vs float64 plain: max "
+        f"|B err|/C {err:.3e} (check took {time.perf_counter() - t0:.1f} s) [{card}]")
+    report("em_block_partials", "ngsdist_tpu_torch/csrc/em.cu",
+           "ngsdist_tpu/core/distance.py:418", err, "B/C", ms_k, ms_p)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,17 @@
 """Single-device distance engine (PyTorch).
 
 Port of the resident single-device path of ngsdist_tpu/core/distance.py:
-the probability tensor [S, N, 3] is moved to the device once, and every
-replicate is one call of the independent-genotypes kernel
+the probability tensor [S, N, 3] is moved to the device once, and the
+full-data matrix is one call of the independent-genotypes kernel
 (ops/indep.py) or the pairwise-EM kernel (ops/em.py), chosen by
-`pars.indep_geno`.  Bootstrap replicates reuse the resident tensor:
-each one passes its per-site multiplicities as the kernels' site
-weights (the reference's site aliasing, ngsDist.cpp:416-437, with no
-data movement).
+`pars.indep_geno`.  Bootstrap replicates take one of the JAX engine's
+two routes over the resident tensor, by its rule (`use_partials`):
+
+- partial sums: one block-mode kernel call gives every bootstrap
+  block's sums, and replicate r is M[r] @ B, M the block multiplicities
+  of the reference's taus stream (ngsDist.cpp:416-437);
+- weighted recompute: one kernel call per replicate, its per-site
+  multiplicities passed as the kernel's site weights.
 
 Dtype policy: float64 on the CPU, float32 on CUDA.  On the CPU the
 kernels' plain versions run; on CUDA the hand-written kernels do.
@@ -24,8 +28,15 @@ from ngsdist_tpu.config import NgsDistError, Params
 from ngsdist_tpu.core import bootstrap as bt
 from ngsdist_tpu.core import models
 
-from ..ops.em import em_raw_cnt
-from ..ops.indep import indep_raw_cnt, scratch_shape
+from ..ops.em import em_block_partials, em_raw_cnt
+from ..ops.indep import (block_partials_shape, indep_block_partials,
+                         indep_raw_cnt, scratch_shape)
+
+# The partial-sum route is taken when the block partials, reckoned in the
+# device's dtype, fit here: the value of
+# ngsdist_tpu.core.distance.PARTIALS_BUDGET_BYTES, so that both engines
+# take the same route at the same shape.
+PARTIALS_BUDGET_BYTES = 1 << 30
 
 
 def default_dtype(device: torch.device) -> torch.dtype:
@@ -46,12 +57,13 @@ def to_device(P_host: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(P_host, dtype=np_dtype)).to(device)
 
 
-def check_fits(S: int, N: int, device: torch.device, indep: bool) -> None:
+def check_fits(S: int, N: int, device: torch.device, indep: bool):
     """Raise when the resident tensor, the kernels' outputs and (indep)
     the kernel's chunk partials do not fit the card's free memory (long
-    genomes would need streaming)."""
+    genomes would need streaming); else return the bytes left free
+    beside them (None on the CPU)."""
     if device.type != "cuda":
-        return
+        return None
     itemsize = torch.finfo(default_dtype(device)).bits // 8
     need = (S * N * 3 + 4 * N * N + S) * itemsize
     shape = scratch_shape(N, S) if indep else None
@@ -65,6 +77,26 @@ def check_fits(S: int, N: int, device: torch.device, indep: bool) -> None:
             f"{need} bytes but the card has {free} free; streaming long "
             "genomes is not yet ported to ngsdist_tpu_torch",
         )
+    return free - need
+
+
+def use_partials(n_blocks: int, N: int, pairwise_del: bool,
+                 device: torch.device) -> bool:
+    """The JAX engine's rule for the partial-sum bootstrap route
+    (ngsdist_tpu/core/distance.py:851-852), in the device's dtype."""
+    itemsize = torch.finfo(default_dtype(device)).bits // 8
+    partial_bytes = n_blocks * N * N * itemsize * (2 if pairwise_del else 1)
+    return partial_bytes <= PARTIALS_BUDGET_BYTES
+
+
+def partials_bytes(n_blocks: int, N: int, indep: bool, pairwise_del: bool) -> int:
+    """Device bytes of the block partials, float64: B and C per pair and,
+    indep, the kernel's tiles they are gathered from.  On a card they
+    can reach about twice what use_partials reckons."""
+    per_block = N * (N - 1) // 2 * (2 if pairwise_del or not indep else 1)
+    if indep:
+        per_block += int(np.prod(block_partials_shape(N, 1)))
+    return 8 * n_blocks * per_block
 
 
 def bootstrap_site_maps(seed: int, n_boot_rep: int, n_sites: int,
@@ -153,7 +185,11 @@ def iter_replicates(
     I, J = _pair_indices(N)
     It = torch.from_numpy(I).long().to(device)
     Jt = torch.from_numpy(J).long().to(device)
-    check_fits(S, N, device, pars.indep_geno)
+    n_blocks = n_trunc // pars.boot_block_size
+    left = check_fits(S, N, device, pars.indep_geno)
+    partials = use_partials(n_blocks, N, pars.pairwise_del, device) and (
+        left is None
+        or partials_bytes(n_blocks, N, pars.indep_geno, pars.pairwise_del) <= left)
     P = to_device(P_host, device)
 
     def full_stats(Psub, site_weights=None):
@@ -184,7 +220,16 @@ def iter_replicates(
         yield _finalize(raw_m, denom, pars, on_stats)
 
     reps = [r for r in range(pars.n_boot_rep) if r + 1 >= start_rep]
+    if not reps:
+        return
     Ptrunc = P[:n_trunc]
+
+    if partials:
+        for raw_v, cnt_v in _resum_blocks(pars, Ptrunc, score, n_blocks, reps, It, Jt):
+            raw_m, cnt_m = to_matrix(raw_v, cnt_v)
+            denom = cnt_m if pars.pairwise_del else float(n_trunc)
+            yield _finalize(raw_m, denom, pars, on_stats)
+        return
 
     def dispatch(r):
         w = replicate_weights(maps[r], n_trunc)
@@ -192,7 +237,7 @@ def iter_replicates(
 
     # Launch replicate r+1 before fetching replicate r, so the device
     # computes the next replicate while the host corrects and writes.
-    pending = dispatch(reps[0]) if reps else None
+    pending = dispatch(reps[0])
     for k in range(len(reps)):
         raw_v, cnt_v = pending
         if k + 1 < len(reps):
@@ -200,3 +245,37 @@ def iter_replicates(
         raw_m, cnt_m = to_matrix(raw_v, cnt_v)
         denom = cnt_m if pars.pairwise_del else float(n_trunc)
         yield _finalize(raw_m, denom, pars, on_stats)
+
+
+def _resum_blocks(pars: Params, Ptrunc: torch.Tensor, score: torch.Tensor,
+                  n_blocks: int, reps: List[int], It, Jt):
+    """The partial-sum route (ngsdist_tpu/core/distance.py:856-890): one
+    block-mode kernel call, then for each replicate r in reps its
+    (raw, cnt or None) pair vectors M[r] @ B and M[r] @ C in float64,
+    M[r] the multiplicity of each block in replicate r."""
+    bs = pars.boot_block_size
+    if pars.indep_geno:
+        B, C = indep_block_partials(Ptrunc, score, pars.pairwise_del, n_blocks, bs)
+    else:
+        B, C = em_block_partials(Ptrunc, score.reshape(-1), pars.pairwise_del,
+                                 n_blocks, bs)
+        C = C if pars.pairwise_del else None  # the denominator is n_trunc
+    table = bt.block_index_table(pars.seed, pars.n_boot_rep, n_blocks)
+    M = torch.from_numpy(bt.block_multiplicity(table, n_blocks)).to(B.device)
+    # A NaN partial makes the pair NaN whatever its block's multiplicity,
+    # as in the JAX product (a BLAS may skip zero multipliers).
+    nan_pairs = torch.isnan(B).any(0)
+    nan = torch.tensor(float("nan"), dtype=B.dtype, device=B.device)
+    zB = None
+    if not (pars.indep_geno or pars.pairwise_del or pars.in_bin):
+        # The EM's zero-row poison (_em_zero_rows), per block: a
+        # replicate is poisoned where it samples a block in which either
+        # member of the pair has an all-zero row.  The partials stay
+        # clean, so an unsampled block cannot poison.
+        N = Ptrunc.shape[1]
+        zB = (Ptrunc == 0).all(-1).reshape(n_blocks, bs, N).any(1).double()
+    for r in reps:
+        raw_v = torch.where(nan_pairs, nan, M[r] @ B)
+        if zB is not None:
+            raw_v = _em_poison_pairs(raw_v, ((M[r] > 0).double() @ zB) > 0, It, Jt)
+        yield raw_v, None if C is None else M[r] @ C

@@ -34,6 +34,14 @@
 // own convergence, which drops the TPU kernel's 7-step chunks and
 // whole-slab while loop with identical k* semantics.  Sums are kept in
 // float64 registers and written once, strict upper triangle only.
+//
+// Block mode (ngsd_em_block_partials_f32), for the partial-sum bootstrap:
+// replaces the want_blocks output of ngsdist_tpu/core/distance.py _em_scan
+// (:418, a lax.scan there).  Unweighted; each lane writes its float64
+// sums B[b, p] = sum_{s in b} contrib * m and C[b, p] = sum_{s in b} m for
+// every bootstrap block b of block_size sites, and resets them, when its
+// site loop crosses the block's end.  Blocks need not align with the
+// 32-site staging step.  p is the pair's index in triu row-major order.
 // Sharing each individual's power sequence across the lanes of a tile,
 // and a float32 loop with a float64 re-check near the threshold, are
 // later work.
@@ -50,10 +58,14 @@ constexpr int kSites = 32;    // sites staged per step
 constexpr int kThreads = kTile * kTile;
 constexpr int kSteps = 49;    // EM_MAX_ITER - 1 ratio tests
 
+// kBlocks: block mode; B, C [S / block_size, N (N - 1) / 2] float64 take
+// the place of raw and cnt.
+template <bool kBlocks>
 __global__ void __launch_bounds__(kThreads)
 em_kernel(const float* __restrict__ P, const float* __restrict__ w,
-          float* __restrict__ raw, float* __restrict__ cnt, long long S,
-          int N, ngsd::Score9 sc, double hi, int pairwise_del) {
+          float* __restrict__ raw, float* __restrict__ cnt, double* __restrict__ B,
+          double* __restrict__ C, long long S, int N, long long block_size,
+          ngsd::Score9 sc, double hi, int pairwise_del) {
   __shared__ double Pn[2][kSites][kTile][3];  // p / max, per side
   __shared__ float Live[2][kSites][kTile];    // 1 unless the row is all zero
   __shared__ float Val[2][kSites][kTile];     // not missing (pairwise deletion)
@@ -65,8 +77,16 @@ em_kernel(const float* __restrict__ P, const float* __restrict__ w,
   const int li = threadIdx.x / kTile, lj = threadIdx.x % kTile;
   const int a = i0 + li, b = j0 + lj;
   const bool lane = a < b && b < N;  // strict upper triangle
+  const long long n_pairs = (long long)N * (N - 1) / 2;
+  const long long p = (long long)a * (2 * N - a - 1) / 2 + (b - a - 1);
 
   double acc_raw = 0.0, acc_cnt = 0.0;
+  long long blk = 0, blk_end = block_size;  // block mode: the current block
+  auto flush_block = [&]() {
+    B[blk * n_pairs + p] = acc_raw;
+    C[blk * n_pairs + p] = acc_cnt;
+    acc_raw = acc_cnt = 0.0;
+  };
   for (long long s0 = 0; s0 < S; s0 += kSites) {
     for (int e = threadIdx.x; e < 2 * kSites * kTile; e += kThreads) {
       const int side = e / (kSites * kTile);
@@ -98,6 +118,13 @@ em_kernel(const float* __restrict__ P, const float* __restrict__ w,
     if (lane) {
       const int n_sl = (int)((S - s0) < kSites ? (S - s0) : kSites);
       for (int sl = 0; sl < n_sl; ++sl) {
+        if constexpr (kBlocks) {
+          if (s0 + sl == blk_end) {
+            flush_block();
+            ++blk;
+            blk_end += block_size;
+          }
+        }
         if (Live[0][sl][li] == 0.0f || Live[1][sl][lj] == 0.0f) continue;
         const double pi0 = Pn[0][sl][li][0], pi1 = Pn[0][sl][li][1],
                      pi2 = Pn[0][sl][li][2];
@@ -145,10 +172,18 @@ em_kernel(const float* __restrict__ P, const float* __restrict__ w,
     __syncthreads();
   }
 
-  if (lane) {
+  if (!lane) return;
+  if constexpr (kBlocks) {
+    flush_block();  // the last block
+  } else {
     raw[(long long)a * N + b] = (float)acc_raw;
     cnt[(long long)a * N + b] = (float)acc_cnt;
   }
+}
+
+long long upper_tiles(int N) {
+  const long long nt = (N + kTile - 1) / kTile;
+  return nt * (nt + 1) / 2;
 }
 
 }  // namespace
@@ -160,11 +195,26 @@ extern "C" int ngsd_em_raw_cnt_f32(const float* P, const float* w, float* raw,
                                    float* cnt, long long S, int N,
                                    const float* score9, double hi,
                                    int pairwise_del, void* stream) {
+  if (N < 1 || S < 0) return (int)cudaErrorInvalidValue;
   ngsd::Score9 sc;
   memcpy(sc.v, score9, sizeof(sc.v));
-  const long long nt = (N + kTile - 1) / kTile;
-  const long long blocks = nt * (nt + 1) / 2;
-  em_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      P, w, raw, cnt, S, N, sc, hi, pairwise_del);
+  em_kernel<false><<<(unsigned)upper_tiles(N), kThreads, 0, (cudaStream_t)stream>>>(
+      P, w, raw, cnt, nullptr, nullptr, S, N, 0, sc, hi, pairwise_del);
+  return (int)cudaGetLastError();
+}
+
+// Block mode: P [n_blocks * block_size, N, 3] float32; B, C [n_blocks,
+// N (N - 1) / 2] float64, every entry written.
+extern "C" int ngsd_em_block_partials_f32(const float* P, double* B, double* C, int N,
+                                          long long n_blocks, long long block_size,
+                                          const float* score9, double hi,
+                                          int pairwise_del, void* stream) {
+  if (N < 2 || n_blocks < 1 || block_size < 1 || B == nullptr || C == nullptr)
+    return (int)cudaErrorInvalidValue;
+  ngsd::Score9 sc;
+  memcpy(sc.v, score9, sizeof(sc.v));
+  em_kernel<true><<<(unsigned)upper_tiles(N), kThreads, 0, (cudaStream_t)stream>>>(
+      P, nullptr, nullptr, nullptr, B, C, n_blocks * block_size, N, block_size, sc, hi,
+      pairwise_del);
   return (int)cudaGetLastError();
 }

@@ -28,11 +28,20 @@
 //   weighted, float32 over the whole chunk (integer sums below 2^24 are
 //   exact; ops/indep.py caps the chunk so).
 // - A fixed-order split over sites against wave quantisation (136 upper
-//   64x64 tiles at N = 1024 on 132 SMs): the grid is (upper tiles) x
-//   (site chunks), the chunk count a function of (N, S) alone
-//   (ops/indep.py split_plan).  Each block writes float64 partials to
-//   scratch and a second kernel sums the chunks in index order: no
-//   atomics, reruns are byte-identical.
+//   64x64 tiles at N = 1024 on 132 SMs): one-dimensional grid of
+//   (site chunk, upper tile) pairs, the tile fastest, the chunk count a
+//   function of (N, S) alone (ops/indep.py split_plan).  Each block
+//   writes float64 partials to scratch and a second kernel sums the
+//   chunks in index order: no atomics, reruns are byte-identical.
+// - Block mode (ngsd_indep_block_partials_f32), for the partial-sum
+//   bootstrap (replaces ngsdist_tpu/core/distance.py indep_block_partials,
+//   :365, an XLA einsum there): one chunk is one bootstrap block of any
+//   length, unweighted; the chunk reduce is skipped and the float64
+//   partials are the output.  A chunk's last step, and so its last
+//   window, may be ragged (zero filled).  A chunk longer than 2^16 sites
+//   adds its float32 counts into the float64 partials every 2^16 sites,
+//   so they stay exact.  The one-dimensional grid puts no 65,535 limit
+//   on the number of blocks.
 // - 4 warps of 32x32 outputs per block, 240 registers: two blocks per SM.
 //   Each step stages 8 sites of both sides' P rows with coalesced 16-byte
 //   cp.async (every 32-byte sector read once) into a 4-stage ring, three
@@ -49,8 +58,11 @@
 // them (PERF.md).  wgmma with producer warps, TMA and a persistent grid
 // are the next step (ROADMAP Queue 2b).
 
+#include <limits.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -66,6 +78,7 @@ constexpr int kWarpsN = kTile / kWarp;  // 2 x 2 warps
 constexpr int kThreads = 32 * kWarpsN * kWarpsN;
 constexpr int kStages = 4;              // cp.async ring depth
 constexpr int kLd = kTile + 8;          // padded operand row (floats)
+constexpr long long kCntFlushSteps = (1 << 16) / kSites;  // exact float32 counts
 
 static_assert(kWindow % kSites == 0, "a window is whole steps");
 static_assert(kThreads == kSites * kTile / 4, "one fold group per thread and side");
@@ -177,20 +190,26 @@ __device__ __forceinline__ void fold_group(const float* slab, float* ops_row, in
 
 // kPairwiseDel is a template parameter so that the fold has no branch:
 // it shares one basic block with the MMAs it is interleaved with.
-template <bool kWeighted, bool kVec16, bool kPairwiseDel>
+// part: null when the sites make one chunk and raw, cnt are written
+// directly; else the float64 partials [2, chunks, tiles, kTile, kTile].
+// kBlocks: block mode (see the header), part is its output.
+template <bool kWeighted, bool kVec16, bool kPairwiseDel, bool kBlocks>
 __global__ void __launch_bounds__(kThreads)
 indep_mma_kernel(const float* __restrict__ P, const float* __restrict__ w,
                  float* __restrict__ raw, float* __restrict__ cnt, double* __restrict__ part,
-                 long long S, int N, long long chunk_sites, ngsd::Score9 sc) {
+                 long long S, int N, long long tiles, long long chunk_sites, ngsd::Score9 sc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
 
-  const long long tile = blockIdx.x, tiles = gridDim.x;
-  const int chunk = blockIdx.y;
+  const long long tile = blockIdx.x % tiles, chunk = blockIdx.x / tiles;
+  // this block's raw (plane 0) or cnt (plane 1) partial tile
+  auto part_at = [&](int plane) {
+    return part + ((plane * (long long)(gridDim.x / tiles) + chunk) * tiles + tile) * kTileElems;
+  };
   int ti, tj;
   ngsd::upper_tile(tile, &ti, &tj);
   const int i0 = ti * kTile, j0 = tj * kTile;
-  const long long c0 = (long long)chunk * chunk_sites;
+  const long long c0 = chunk * chunk_sites;
   const long long c_end = c0 + chunk_sites < S ? c0 + chunk_sites : S;
   const long long steps = c_end > c0 ? (c_end - c0 + kSites - 1) / kSites : 0;
 
@@ -319,6 +338,20 @@ indep_mma_kernel(const float* __restrict__ P, const float* __restrict__ w,
       }
   };
 
+  // Calls f(mi, ni, r, e) for this thread's accumulator entries, e the
+  // entry's offset in a kTile x kTile tile: C fragment rows lane/4 (+8),
+  // columns 2 * (lane%4) (+1).
+  auto for_each_output = [&](auto f) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          f(mi, ni, r, (m0 + 16 * mi + g + 8 * (r / 2)) * kTile + n0 + 8 * ni + 2 * t4 + r % 2);
+  };
+  bool cnt_flushed = false;  // block mode: part_cnt holds earlier counts
+
   // Pipeline: step t's copies are issued three steps ahead and waited for
   // before the barrier that precedes their fold; step t+1 is folded while
   // step t runs on the tensor cores (one basic block, so the scheduler
@@ -357,33 +390,37 @@ indep_mma_kernel(const float* __restrict__ P, const float* __restrict__ w,
             hh[i][j][r] = corr[i][j][r] = 0.0f;
           }
     }
+    if constexpr (kBlocks) {
+      // every 2^16 sites, add the float32 counts into the float64 partials
+      if ((t + 1) % kCntFlushSteps == 0) {
+        double* part_cnt = part_at(1);
+        for_each_output([&](int mi, int ni, int r, int e) {
+          part_cnt[e] = (cnt_flushed ? part_cnt[e] : 0.0) + (double)cn[mi][ni][r];
+          cn[mi][ni][r] = 0.0f;
+        });
+        cnt_flushed = true;
+      }
+    }
     cp_async_wait<1>();  // step t+2 landed
     __syncthreads();     // ... for every thread; operands of step t+1 complete
   }
   cp_async_wait<0>();
 
-  // epilogue: C fragment rows lane/4 (+8), columns 2 * (lane%4) (+1)
-  const bool direct = gridDim.y == 1;  // one chunk: no scratch, no reduce
-  double* part_raw = direct ? nullptr : part + ((long long)chunk * tiles + tile) * kTileElems;
-  double* part_cnt = direct ? nullptr : part_raw + (long long)gridDim.y * tiles * kTileElems;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = m0 + 16 * mi + g + 8 * (r / 2), col = n0 + 8 * ni + 2 * t4 + r % 2;
-        if (direct) {
-          const int a = i0 + row, b = j0 + col;
-          if (a < N && b < N && a <= b) {
-            raw[(long long)a * N + b] = (float)r64[mi][ni][r];
-            cnt[(long long)a * N + b] = cn[mi][ni][r];
-          }
-        } else {
-          part_raw[row * kTile + col] = r64[mi][ni][r];
-          part_cnt[row * kTile + col] = (double)cn[mi][ni][r];
-        }
+  const bool direct = part == nullptr;  // one chunk: no scratch, no reduce
+  double* part_raw = direct ? nullptr : part_at(0);
+  double* part_cnt = direct ? nullptr : part_at(1);
+  for_each_output([&](int mi, int ni, int r, int e) {
+    if (direct) {
+      const int a = i0 + e / kTile, b = j0 + e % kTile;
+      if (a < N && b < N && a <= b) {
+        raw[(long long)a * N + b] = (float)r64[mi][ni][r];
+        cnt[(long long)a * N + b] = cn[mi][ni][r];
       }
+    } else {
+      part_raw[e] = r64[mi][ni][r];
+      part_cnt[e] = (cnt_flushed ? part_cnt[e] : 0.0) + (double)cn[mi][ni][r];
+    }
+  });
 }
 
 // raw, cnt = sum over chunks 0, 1, ... in that order of the partials.
@@ -408,28 +445,39 @@ indep_reduce_kernel(const double* __restrict__ part, float* __restrict__ raw,
   }
 }
 
-template <bool kWeighted, bool kVec16, bool kPairwiseDel>
+template <bool kWeighted, bool kVec16, bool kPairwiseDel, bool kBlocks>
 cudaError_t launch(const float* P, const float* w, float* raw, float* cnt, double* part,
-                   long long S, int N, long long tiles, int chunks, long long chunk_sites,
+                   long long S, int N, long long tiles, long long chunks, long long chunk_sites,
                    const ngsd::Score9& sc, cudaStream_t stream) {
-  auto kernel = indep_mma_kernel<kWeighted, kVec16, kPairwiseDel>;
+  auto kernel = indep_mma_kernel<kWeighted, kVec16, kPairwiseDel, kBlocks>;
   const int bytes = (int)sizeof(Smem);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((unsigned)tiles, (unsigned)chunks), kThreads, bytes, stream>>>(
-      P, w, raw, cnt, part, S, N, chunk_sites, sc);
+  kernel<<<(unsigned)(tiles * chunks), kThreads, bytes, stream>>>(P, w, raw, cnt, part, S, N,
+                                                                   tiles, chunk_sites, sc);
   return cudaGetLastError();
 }
 
-template <bool kWeighted, bool kVec16>
+template <bool kWeighted, bool kBlocks>
 cudaError_t launch(const float* P, const float* w, float* raw, float* cnt, double* part,
-                   long long S, int N, long long tiles, int chunks, long long chunk_sites,
+                   long long S, int N, long long tiles, long long chunks, long long chunk_sites,
                    const ngsd::Score9& sc, int pairwise_del, cudaStream_t stream) {
-  return pairwise_del ? launch<kWeighted, kVec16, true>(P, w, raw, cnt, part, S, N, tiles,
-                                                        chunks, chunk_sites, sc, stream)
-                      : launch<kWeighted, kVec16, false>(P, w, raw, cnt, part, S, N, tiles,
-                                                         chunks, chunk_sites, sc, stream);
+  // 16-byte copies when every row starts on 16 bytes
+  const bool vec16 = N % 4 == 0 && reinterpret_cast<uintptr_t>(P) % 16 == 0;
+  auto go = [&](auto vec, auto pdel) {
+    return launch<kWeighted, decltype(vec)::value, decltype(pdel)::value, kBlocks>(
+        P, w, raw, cnt, part, S, N, tiles, chunks, chunk_sites, sc, stream);
+  };
+  using T = std::true_type;
+  using F = std::false_type;
+  if (vec16) return pairwise_del ? go(T{}, T{}) : go(T{}, F{});
+  return pairwise_del ? go(F{}, T{}) : go(F{}, F{});
+}
+
+long long upper_tiles(int N) {
+  const long long nt = (N + kTile - 1) / kTile;
+  return nt * (nt + 1) / 2;
 }
 
 }  // namespace
@@ -438,30 +486,42 @@ extern "C" int ngsd_indep_raw_cnt_f32(const float* P, const float* w, float* raw
                                       double* scratch, long long S, int N, int chunks,
                                       long long chunk_sites, const float* score9,
                                       int pairwise_del, void* stream) {
+  const long long tiles = N < 1 ? 0 : upper_tiles(N);
   if (N < 1 || S < 0 || chunks < 1 || chunk_sites < kWindow || chunk_sites % kWindow != 0 ||
-      (long long)chunks * chunk_sites < S || (chunks > 1 && scratch == nullptr) ||
-      chunks > 65535)
+      chunk_sites > (1 << 16) || (long long)chunks * chunk_sites < S ||
+      (chunks > 1) != (scratch != nullptr) || tiles * chunks > INT_MAX)
     return (int)cudaErrorInvalidValue;
   ngsd::Score9 sc;
   memcpy(sc.v, score9, sizeof(sc.v));
-  const long long nt = (N + kTile - 1) / kTile;
-  const long long tiles = nt * (nt + 1) / 2;
-  const bool vec16 = N % 4 == 0 && reinterpret_cast<uintptr_t>(P) % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (w != nullptr)
-    err = vec16 ? launch<true, true>(P, w, raw, cnt, scratch, S, N, tiles, chunks, chunk_sites,
-                                     sc, pairwise_del, st)
-                : launch<true, false>(P, w, raw, cnt, scratch, S, N, tiles, chunks,
-                                      chunk_sites, sc, pairwise_del, st);
-  else
-    err = vec16 ? launch<false, true>(P, w, raw, cnt, scratch, S, N, tiles, chunks,
-                                      chunk_sites, sc, pairwise_del, st)
-                : launch<false, false>(P, w, raw, cnt, scratch, S, N, tiles, chunks,
-                                       chunk_sites, sc, pairwise_del, st);
+  const cudaError_t err =
+      w != nullptr
+          ? launch<true, false>(P, w, raw, cnt, scratch, S, N, tiles, chunks, chunk_sites, sc,
+                                pairwise_del, st)
+          : launch<false, false>(P, w, raw, cnt, scratch, S, N, tiles, chunks, chunk_sites, sc,
+                                 pairwise_del, st);
   if (err != cudaSuccess || chunks == 1) return (int)err;
   indep_reduce_kernel<<<(unsigned)tiles, 256, 0, st>>>(scratch, raw, cnt, N, chunks);
   return (int)cudaGetLastError();
+}
+
+// Block mode: P [n_blocks * block_size, N, 3] float32; part [2, n_blocks,
+// tiles, 64, 64] float64 receives each block's unweighted raw and cnt
+// partials, every entry of every tile written (the caller reads the
+// upper triangle).
+extern "C" int ngsd_indep_block_partials_f32(const float* P, double* part, int N,
+                                             long long n_blocks, long long block_size,
+                                             const float* score9, int pairwise_del,
+                                             void* stream) {
+  const long long tiles = N < 1 ? 0 : upper_tiles(N);
+  if (N < 1 || n_blocks < 1 || block_size < 1 || part == nullptr ||
+      tiles * n_blocks > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  ngsd::Score9 sc;
+  memcpy(sc.v, score9, sizeof(sc.v));
+  return (int)launch<false, true>(P, nullptr, nullptr, nullptr, part, n_blocks * block_size, N,
+                                  tiles, n_blocks, block_size, sc, pairwise_del,
+                                  (cudaStream_t)stream);
 }
 
 extern "C" const char* ngsd_error_string(int code) {

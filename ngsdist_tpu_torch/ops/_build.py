@@ -85,9 +85,15 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.ngsd_indep_raw_cnt_f32.argtypes = [vp, vp, vp, vp, vp, i64, i32,
                                            i32, i64, vp, i32, vp]
     lib.ngsd_indep_raw_cnt_f32.restype = i32
+    lib.ngsd_indep_block_partials_f32.argtypes = [vp, vp, i32, i64, i64, vp,
+                                                  i32, vp]
+    lib.ngsd_indep_block_partials_f32.restype = i32
     lib.ngsd_em_raw_cnt_f32.argtypes = [vp, vp, vp, vp, i64, i32, vp,
                                         ctypes.c_double, i32, vp]
     lib.ngsd_em_raw_cnt_f32.restype = i32
+    lib.ngsd_em_block_partials_f32.argtypes = [vp, vp, vp, i32, i64, i64, vp,
+                                               ctypes.c_double, i32, vp]
+    lib.ngsd_em_block_partials_f32.restype = i32
     lib.ngsd_error_string.argtypes = [i32]
     lib.ngsd_error_string.restype = ctypes.c_char_p
 
@@ -122,6 +128,12 @@ def check_probs(P: torch.Tensor) -> None:
         raise ValueError(f"expected probabilities of shape [S, N, 3], got {tuple(P.shape)}")
     if not P.is_contiguous():
         raise ValueError("expected contiguous probabilities")
+
+
+def check_blocks(P: torch.Tensor, n_blocks: int, block_size: int) -> None:
+    """The sites of P are n_blocks bootstrap blocks of block_size."""
+    if block_size < 1 or n_blocks < 0 or P.shape[0] != n_blocks * block_size:
+        raise ValueError(f"{P.shape[0]} sites are not {n_blocks} blocks of {block_size}")
 
 
 def site_weights_f32(site_weights, P: torch.Tensor):

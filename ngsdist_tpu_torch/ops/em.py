@@ -16,6 +16,10 @@ Lanes with an all-zero row are dead and add nothing; under pairwise
 deletion missing genotypes mask the lane; the site weight scales both
 raw and cnt.  Both versions return [N, N] matrices whose strict upper
 triangle is valid.
+
+Block mode (`em_block_partials`, the partial-sum bootstrap) returns the
+unweighted sums per bootstrap block instead, B (raw) and C (cnt)
+[n_blocks, n_pairs] in float64, pairs a < b in triu row-major order.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ EM_TOLE = 0.001
 EM_MAX_ITER = 50
 
 LAUNCHES = 0  # kernel launches since the count was last set to 0
+BLOCK_LAUNCHES = 0  # the same, block mode
 
 
 def _lanes_per_chunk(device: torch.device) -> int:
@@ -112,6 +117,40 @@ def em_raw_cnt_ref(P: torch.Tensor, score9, pairwise_del: bool,
     return raw, cnt
 
 
+def em_block_partials_ref(P: torch.Tensor, score9, pairwise_del: bool,
+                          n_blocks: int, block_size: int):
+    """Plain version of the block mode: P [n_blocks · block_size, N, 3]
+    -> (B, C) [n_blocks, n_pairs], B[b, p] = Σ_{s∈b} contrib·m and
+    C[b, p] = Σ_{s∈b} m (the want_blocks output of
+    ngsdist_tpu.core.distance._em_scan, with dead lanes left out of C as
+    in em_raw_cnt_ref).  The sites run in chunks as in em_raw_cnt_ref;
+    each chunk's lanes are added into their blocks."""
+    _build.check_blocks(P, n_blocks, block_size)
+    S, N, _ = P.shape
+    dtype, dev = P.dtype, P.device
+    score = torch.as_tensor(score9, dtype=dtype, device=dev).reshape(3, 3)
+    hi = torch.tensor(np.exp(EM_TOLE), dtype=dtype, device=dev)
+    I, J = torch.triu_indices(N, N, offset=1, device=dev)
+    B = torch.zeros((n_blocks, I.numel()), dtype=dtype, device=dev)
+    C = torch.zeros_like(B)
+    chunk = max(1, _lanes_per_chunk(dev) // max(1, I.numel()))
+    for s0 in range(0, S, chunk):
+        contrib, m = _em_sites(P[s0:s0 + chunk], score, I, J, pairwise_del, hi)
+        blk = torch.arange(s0, s0 + m.shape[0], device=dev) // block_size
+        B.index_add_(0, blk, contrib * m)
+        C.index_add_(0, blk, m)
+    return B, C
+
+
+def em_block_partials(P: torch.Tensor, score9, pairwise_del: bool,
+                      n_blocks: int, block_size: int):
+    """(B, C) [n_blocks, n_pairs] float64: the CUDA kernel's block mode
+    for a CUDA tensor, the plain version for a CPU tensor."""
+    if P.device.type == "cpu":
+        return em_block_partials_ref(P, score9, pairwise_del, n_blocks, block_size)
+    return _em_blocks_cuda(P, score9, pairwise_del, n_blocks, block_size)
+
+
 def em_raw_cnt(P: torch.Tensor, score9, pairwise_del: bool,
                site_weights=None):
     """(raw, cnt) [N, N]: the CUDA kernel for a CUDA tensor, the plain
@@ -138,3 +177,22 @@ def _em_cuda(P, score9, pairwise_del, site_weights):
     _build.check_launch(rc, "em")
     LAUNCHES += 1
     return raw, cnt
+
+
+def _em_blocks_cuda(P, score9, pairwise_del, n_blocks, block_size):
+    global BLOCK_LAUNCHES
+    _build.check_probs(P)
+    _build.check_blocks(P, n_blocks, block_size)
+    N = P.shape[1]
+    B = torch.empty((n_blocks, N * (N - 1) // 2), dtype=torch.float64, device=P.device)
+    C = torch.empty_like(B)
+    if B.numel() > 0:
+        lib = _build.library()
+        with torch.cuda.device(P.device):
+            rc = lib.ngsd_em_block_partials_f32(
+                _build.ptr(P), _build.ptr(B), _build.ptr(C), N, n_blocks, block_size,
+                _build.score9_f32(score9), float(np.exp(EM_TOLE)), int(pairwise_del),
+                _build.stream(P.device))
+        _build.check_launch(rc, "em block partials")
+        BLOCK_LAUNCHES += 1
+    return B, C

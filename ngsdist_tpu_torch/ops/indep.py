@@ -16,6 +16,10 @@ The kernel splits the sites into chunks (`split_plan`, a function of N
 and S only), sums each chunk's upper 64x64 output tiles on the tensor
 cores and adds the chunks' float64 partials in index order, so reruns
 are byte-identical.
+
+Block mode (`indep_block_partials`, the partial-sum bootstrap) runs the
+same kernel with one chunk per bootstrap block, unweighted, and returns
+the chunks' float64 partials themselves, per block and pair.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from . import _build
 EPSILON = 1e-5  # miss_data tolerance (gen_func.hpp:16)
 
 LAUNCHES = 0  # kernel launches since the count was last set to 0
+BLOCK_LAUNCHES = 0  # the same, block mode
 
 TILE = 64               # output tile edge of csrc/indep.cu (kTile)
 STEP = 8                # sites per pipeline step (kSites)
@@ -63,6 +68,22 @@ def indep_raw_cnt_ref(P: torch.Tensor, score, pairwise_del: bool,
     return raw, cnt
 
 
+def indep_block_partials_ref(P: torch.Tensor, score, pairwise_del: bool,
+                             n_blocks: int, block_size: int):
+    """Plain version of the partial-sum bootstrap's per-block sums
+    (ngsdist_tpu.core.distance.indep_block_partials): P [n_blocks ·
+    block_size, N, 3] -> (B, C) [n_blocks, N, N], unweighted, C None
+    without pairwise deletion.  Masks multiply, as in indep_raw_cnt_ref."""
+    _build.check_blocks(P, n_blocks, block_size)
+    N = P.shape[1]
+    score = torch.as_tensor(score, dtype=P.dtype, device=P.device).reshape(3, 3)
+    v = valid_mask(P, pairwise_del).reshape(n_blocks, block_size, N)
+    Q = P.reshape(n_blocks, block_size, N, 3) * v[..., None]
+    B = torch.einsum("ksag,ksbg->kab", Q, Q @ score.T)
+    C = v.transpose(1, 2) @ v if pairwise_del else None
+    return B, C
+
+
 def indep_raw_cnt(P: torch.Tensor, score, pairwise_del: bool,
                   site_weights=None):
     """(raw, cnt) [N, N]: the CUDA kernel for a CUDA tensor, the plain
@@ -70,6 +91,19 @@ def indep_raw_cnt(P: torch.Tensor, score, pairwise_del: bool,
     if P.device.type == "cpu":
         return indep_raw_cnt_ref(P, score, pairwise_del, site_weights)
     return _indep_cuda(P, score, pairwise_del, site_weights)
+
+
+def indep_block_partials(P: torch.Tensor, score, pairwise_del: bool,
+                         n_blocks: int, block_size: int):
+    """(B, C) [n_blocks, n_pairs] float64 per-block sums for the pairs
+    a < b in triu row-major order, C None without pairwise deletion:
+    the CUDA kernel's block mode for a CUDA tensor, the plain version for
+    a CPU tensor."""
+    if P.device.type == "cpu":
+        B, C = indep_block_partials_ref(P, score, pairwise_del, n_blocks, block_size)
+        I, J = torch.triu_indices(P.shape[1], P.shape[1], offset=1)
+        return B[:, I, J], None if C is None else C[:, I, J]
+    return _indep_blocks_cuda(P, score, pairwise_del, n_blocks, block_size)
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -82,6 +116,14 @@ def upper_tiles(N: int) -> int:
     return nt * (nt + 1) // 2
 
 
+def tile_offsets(N: int, I: torch.Tensor, J: torch.Tensor) -> torch.Tensor:
+    """Offset of each pair (I[p], J[p]), I <= J, in the kernel's partials
+    laid out as [upper tile, row, column] (tile k holds the rows of tile
+    row ti and the columns of tile column tj, k = tj (tj + 1) / 2 + ti)."""
+    ti, tj = I // TILE, J // TILE
+    return ((tj * (tj + 1) // 2 + ti) * TILE + I % TILE) * TILE + J % TILE
+
+
 def split_plan(N: int, S: int):
     """(chunks, chunk_sites): the kernel's split of S sites into chunks of
     chunk_sites (a multiple of WINDOW; the last chunk is ragged, none
@@ -92,6 +134,11 @@ def split_plan(N: int, S: int):
     want = max(1, want, _ceil_div(S, MAX_CHUNK_SITES))
     chunk_sites = WINDOW * max(1, _ceil_div(_ceil_div(S, want), WINDOW))
     return max(1, _ceil_div(S, chunk_sites)), chunk_sites
+
+
+def block_partials_shape(N: int, n_blocks: int):
+    """Shape of the block mode's float64 partials (raw and cnt)."""
+    return (2, n_blocks, upper_tiles(N), TILE, TILE)
 
 
 def scratch_shape(N: int, S: int):
@@ -122,3 +169,24 @@ def _indep_cuda(P, score, pairwise_del, site_weights):
     _build.check_launch(rc, "indep")
     LAUNCHES += 1
     return raw, cnt
+
+
+def _indep_blocks_cuda(P, score, pairwise_del, n_blocks, block_size):
+    global BLOCK_LAUNCHES
+    _build.check_probs(P)
+    _build.check_blocks(P, n_blocks, block_size)
+    N = P.shape[1]
+    part = torch.empty(block_partials_shape(N, n_blocks), dtype=torch.float64,
+                       device=P.device)
+    if n_blocks > 0:
+        lib = _build.library()
+        with torch.cuda.device(P.device):
+            rc = lib.ngsd_indep_block_partials_f32(
+                _build.ptr(P), _build.ptr(part), N, n_blocks, block_size,
+                _build.score9_f32(score), int(pairwise_del), _build.stream(P.device))
+        _build.check_launch(rc, "indep block partials")
+        BLOCK_LAUNCHES += 1
+    I, J = torch.triu_indices(N, N, offset=1, device=P.device)
+    planes = 2 if pairwise_del else 1  # cnt is read under pairwise deletion only
+    out = part[:planes].reshape(planes, n_blocks, -1)[:, :, tile_offsets(N, I, J)]
+    return out[0], out[1] if pairwise_del else None

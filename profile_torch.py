@@ -5,9 +5,11 @@ Run from the root of a checkout:
 
     python3 profile_torch.py [--out FILE]
 
-Drives chip_smoke.py's two main-path runs through the port's CLI entry
-point, (a) indep --pairwise_del at 1024 x 65,536 with 2 bootstrap
-replicates and (b) the EM at 1024 x 16,384, each once to warm up and
+Drives chip_smoke.py's main-path runs (chip_smoke.RUNS) through the
+port's CLI entry point: (a) indep --pairwise_del at 1024 x 65,536 with
+2 bootstrap replicates (weighted recompute), (b) the EM at 1024 x
+16,384, (c) the EM with 8 replicates and (d) (a) with 4 replicates
+(both on the partial-sum bootstrap route), each once to warm up and
 once under cProfile and torch.profiler.  For each run it prints the
 wall time (host clock), the functions that took the most time, and the
 device's busy share: the union of the intervals in which any kernel or
@@ -102,13 +104,12 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        _, geno_a, geno_b = chip_smoke.write_inputs(work)
-        out_a, out_b = os.path.join(work, "a.dist"), os.path.join(work, "b.dist")
-        args_a, args_b = chip_smoke.main_path_args(geno_a, geno_b, out_a, out_b)
+        _, genos = chip_smoke.write_inputs(work)
         with open(opts.out, "w") as report:
             report.write(chip_smoke.card_line() + "\n")
-            for name, args in (("a_indep", args_a), ("b_em", args_b)):
-                profile_run(torch, cli, name, args + ["--platform", "cuda"], report)
+            for run, (kind, sites, *_) in chip_smoke.RUNS.items():
+                args = chip_smoke.run_args(run, genos[sites], os.path.join(work, f"{run}.dist"))
+                profile_run(torch, cli, f"{run}_{kind}", args + ["--platform", "cuda"], report)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0

@@ -138,3 +138,53 @@ def test_em_dispatch_cpu_uses_plain_version():
     assert tem.LAUNCHES == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pairwise_del", [False, True])
+@pytest.mark.parametrize("block_size", [1, 5, 16, 37])
+def test_em_block_partials_ref_matches_jax(pairwise_del, block_size):
+    """B, C [n_blocks, n_pairs] against em_suffstats(n_blocks=...)'s:
+    |ΔB| <= 1e-12·C, C exact.  All-zero rows only under pairwise
+    deletion: without it the JAX scan counts a dead lane in C and the
+    kernels do not, and neither value is used (the pair is poisoned and
+    the denominator is the site count)."""
+    rng = np.random.default_rng(200 + block_size)
+    n_blocks = 74 // block_size
+    P = _rand_probs(rng, n_blocks * block_size, 10,
+                    zero_frac=0.05 if pairwise_del else 0.0)
+    assert pairwise_del == bool((P == 0).all(-1).any())
+    score9 = default_score_matrix().reshape(-1)
+    B, C = tem.em_block_partials_ref(torch.from_numpy(P), score9, pairwise_del,
+                                     n_blocks, block_size)
+    _, _, B_j, C_j = dist.em_suffstats(jnp.asarray(P), jnp.asarray(score9), pairwise_del,
+                                       n_blocks=n_blocks, block_size=block_size)
+    B_j, C_j = np.asarray(B_j), np.asarray(C_j)
+    assert B.shape == B_j.shape == (n_blocks, 45)
+    np.testing.assert_array_equal(C.numpy(), C_j)
+    assert (np.abs(B.numpy() - B_j) <= 1e-12 * C_j).all()
+
+
+@pytest.mark.parametrize("pairwise_del", [False, True])
+def test_em_block_partials_add_up_to_raw_cnt(pairwise_del, monkeypatch):
+    """The blocks add up to the unweighted statistics over the same sites,
+    also when the plain version's site chunks cut through blocks."""
+    rng = np.random.default_rng(201)
+    P = torch.from_numpy(_rand_probs(rng, 63, 9, zero_frac=0.03))
+    P[5, 2] = float("nan")
+    score9 = default_score_matrix().reshape(-1)
+    monkeypatch.setattr(tem, "_lanes_per_chunk", lambda device: 36 * 10)
+    B, C = tem.em_block_partials(P, score9, pairwise_del, 9, 7)
+    raw, cnt = tem.em_raw_cnt_ref(P, score9, pairwise_del)
+    I, J = np.triu_indices(9, k=1)
+    np.testing.assert_allclose(B.sum(0).numpy(), raw.numpy()[I, J], rtol=1e-12, atol=0)
+    np.testing.assert_array_equal(C.sum(0).numpy(), cnt.numpy()[I, J])
+    # the NaN row poisons its pairs in its own block only
+    touched = (I == 2) | (J == 2)
+    assert np.isnan(B.numpy()[0, touched]).all()
+    assert not np.isnan(np.delete(B.numpy(), 0, axis=0)).any()
+
+
+def test_em_block_partials_reject_ragged_sites():
+    P = torch.zeros((10, 4, 3), dtype=torch.float64)
+    with pytest.raises(ValueError, match="not 2 blocks of 4"):
+        tem.em_block_partials(P, default_score_matrix().reshape(-1), False, 2, 4)

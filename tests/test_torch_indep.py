@@ -141,6 +141,98 @@ def test_library_path_keyed_by_sources():
     assert len(_build._sources()) >= 3  # indep.cu, em.cu, common.cuh
 
 
+# -- block mode: the partial-sum bootstrap's per-block sums -------------------
+
+
+def _block_probs(rng, block_size, N=70, sites=74):
+    """Probabilities of the blocks that fit in `sites`, with missing,
+    all-zero and NaN rows; (P, n_blocks)."""
+    n_blocks = sites // block_size
+    P = _rand_probs(rng, n_blocks * block_size, N)
+    P[rng.integers(len(P), size=2), rng.integers(N, size=2)] = np.nan
+    return P, n_blocks
+
+
+@pytest.mark.parametrize("pairwise_del", [False, True])
+@pytest.mark.parametrize("block_size", [1, 5, 16, 37])
+def test_indep_block_partials_ref_matches_jax(pairwise_del, block_size):
+    """B (and C) against the JAX engine's indep_block_partials, NaN and
+    all-zero rows included: B within 1e-12 relative, NaN for NaN.  C is
+    held where B is a number: on a NaN row the JAX engine counts the row
+    (missing_mask is false for NaN), the port does not, and such pairs'
+    partials are NaN either way."""
+    rng = np.random.default_rng(100 + block_size)
+    P, n_blocks = _block_probs(rng, block_size)
+    score = default_score_matrix()
+    B, C = tindep.indep_block_partials_ref(torch.from_numpy(P), score, pairwise_del,
+                                           n_blocks, block_size)
+    B_j, C_j = dist.indep_block_partials(jnp.asarray(P), jnp.asarray(score), pairwise_del,
+                                         n_blocks, block_size)
+    B_j = np.asarray(B_j)
+    assert B.shape == B_j.shape == (n_blocks, 70, 70)
+    assert np.isnan(B_j).any()
+    np.testing.assert_allclose(B.numpy(), B_j, rtol=1e-12, atol=0)
+    if pairwise_del:
+        ok = ~np.isnan(B_j)
+        np.testing.assert_array_equal(C.numpy()[ok], np.asarray(C_j)[ok])
+    else:
+        assert C is None and C_j is None
+
+
+@pytest.mark.parametrize("pairwise_del", [False, True])
+def test_indep_block_partials_add_up_to_raw_cnt(pairwise_del):
+    """The dispatcher's pair layout on the CPU: B[:, p] for the pairs
+    a < b in triu order, and the blocks add up to the unweighted
+    statistics over the same sites."""
+    rng = np.random.default_rng(101)
+    P, n_blocks = _block_probs(rng, 5, N=23, sites=80)
+    Pt = torch.from_numpy(P)
+    score = default_score_matrix()
+    B, C = tindep.indep_block_partials(Pt, score, pairwise_del, n_blocks, 5)
+    I, J = np.triu_indices(23, k=1)
+    assert B.shape == (n_blocks, len(I))
+    raw, cnt = tindep.indep_raw_cnt_ref(Pt, score, pairwise_del)
+    np.testing.assert_allclose(B.sum(0).numpy(), raw.numpy()[I, J], rtol=1e-12, atol=0)
+    if pairwise_del:
+        np.testing.assert_array_equal(C.sum(0).numpy(), cnt.numpy()[I, J])
+    else:
+        assert C is None
+
+
+def test_block_partials_reject_ragged_sites():
+    P = torch.zeros((10, 4, 3), dtype=torch.float64)
+    with pytest.raises(ValueError, match="not 3 blocks of 3"):
+        tindep.indep_block_partials(P, default_score_matrix(), False, 3, 3)
+
+
+def _upper_tile(k):
+    """csrc/common.cuh upper_tile: block index -> (ti, tj), ti <= tj."""
+    r = int((np.sqrt(8.0 * k + 1.0) - 1.0) * 0.5)
+    while r * (r + 1) // 2 > k:
+        r -= 1
+    while (r + 1) * (r + 2) // 2 <= k:
+        r += 1
+    return k - r * (r + 1) // 2, r
+
+
+@pytest.mark.parametrize("N", [1, 2, 64, 65, 130, 300])
+def test_tile_offsets_follow_the_kernels_layout(N):
+    """tile_offsets finds each pair (a, b), a <= b, where the kernel's
+    block for upper tile k (the enumeration of csrc/common.cuh) writes
+    it: row a - 64 ti, column b - 64 tj of tile k."""
+    tiles = tindep.upper_tiles(N)
+    T = tindep.TILE
+    labels = np.full((tiles, T, T), -1, dtype=np.int64)
+    for k in range(tiles):
+        ti, tj = _upper_tile(k)
+        rows = np.arange(ti * T, ti * T + T)[:, None]
+        cols = np.arange(tj * T, tj * T + T)[None, :]
+        labels[k] = rows * N + cols
+    I, J = torch.triu_indices(N, N)
+    got = labels.reshape(-1)[tindep.tile_offsets(N, I, J).numpy()]
+    np.testing.assert_array_equal(got, (I * N + J).numpy())
+
+
 # -- the CUDA kernel's arithmetic, emulated -------------------------------
 
 
@@ -169,14 +261,15 @@ def _mma(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(too_far, torch.nextafter(r, torch.zeros_like(r)), r)
 
 
-def _emulate_kernel(P32, score, pairwise_del, w, chunk_sites):
+def _emulate_kernel(P32, score, pairwise_del, w, chunk_sites, blocks=False):
     """csrc/indep.cu's sums on [S, N, 3] float32 inputs: per chunk, steps
     of STEP sites (zero filled past the chunk end); raw over k =
     (genotype, site), one k-step of 8 per genotype, hi*hi into one float32
     accumulator and hi*lo, lo*hi into another, both added (in float32)
     into float64 at the end of every WINDOW sites; cnt in float32 over the
     whole chunk, the i side split when weighted.  Chunks add in index
-    order in float64."""
+    order in float64; in block mode (blocks=True) the chunks' float64
+    partials [chunks, N, N] are returned instead."""
     S, N, _ = P32.shape
     step = tindep.STEP
     sc = torch.as_tensor(score, dtype=torch.float32).reshape(9)
@@ -184,6 +277,7 @@ def _emulate_kernel(P32, score, pairwise_del, w, chunk_sites):
     zero = torch.zeros(N, N, dtype=torch.float32)
     raw = torch.zeros(N, N, dtype=torch.float64)
     cnt = torch.zeros_like(raw)
+    parts = []
     for c0 in range(0, max(S, 1), chunk_sites):
         c_end = min(S, c0 + chunk_sites)
         r64, hh, corr, cn = torch.zeros_like(raw), zero, zero, zero
@@ -212,8 +306,12 @@ def _emulate_kernel(P32, score, pairwise_del, w, chunk_sites):
             if (s0 + step - c0) % tindep.WINDOW == 0 or s0 + step >= c_end:
                 r64 = r64 + (hh + corr).double()
                 hh, corr = zero, zero
+        parts.append((r64, cn.double()))
+    if blocks:
+        return tuple(torch.stack(planes) for planes in zip(*parts))
+    for r64, cn in parts:
         raw = raw + r64
-        cnt = cnt + cn.double()
+        cnt = cnt + cn
     return raw.float(), cnt.float()
 
 
@@ -236,6 +334,29 @@ def test_emulated_kernel_within_bounds(S, N, chunk_sites, pairwise_del, weighted
     got = _emulate_kernel(P32, score, pairwise_del, w, chunk_sites)
     want = tindep.indep_raw_cnt_ref(P32.double(), score, pairwise_del, w)
     rel, _ = chip_smoke.check_kernel("indep", torch, *got, *want)
+    assert rel <= chip_smoke.INDEP_RTOL
+
+
+@pytest.mark.parametrize("block_size", [1, 5, 37])
+@pytest.mark.parametrize("pairwise_del", [False, True])
+def test_emulated_block_mode_within_bounds(block_size, pairwise_del):
+    """Block mode: one chunk per bootstrap block of any length, so a
+    block's steps start off the 8-site grid and its last step and 16-site
+    window are ragged (zero filled).  Each block's partials against the
+    plain version's, with NaN and zero rows: C exact, B within
+    chip_smoke.INDEP_RTOL relative, the NaN pattern equal."""
+    rng = np.random.default_rng(300 + block_size)
+    P, n_blocks = _block_probs(rng, block_size, N=24)
+    P32 = torch.from_numpy(P).float()
+    score = default_score_matrix()
+    B, C = _emulate_kernel(P32, score, pairwise_del, None, block_size, blocks=True)
+    assert B.shape == (n_blocks, 24, 24)
+    B_p, C_p = tindep.indep_block_partials_ref(P32.double(), score, pairwise_del,
+                                               n_blocks, block_size)
+    I, J = torch.triu_indices(24, 24, offset=1)
+    rel, _ = chip_smoke.check_values("indep", torch, B[:, I, J],
+                                     C[:, I, J] if pairwise_del else None,
+                                     *chip_smoke.block_pairs(torch, B_p, C_p))
     assert rel <= chip_smoke.INDEP_RTOL
 
 

@@ -133,3 +133,61 @@ def test_kernel_rejects_bad_layout(cuda, kind):
         KERNELS[kind][0](P.transpose(0, 1), SCORE9, False)
     with pytest.raises(ValueError, match="shape"):
         KERNELS[kind][0](P[..., :2], SCORE9, False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(KERNELS))
+@pytest.mark.parametrize("pairwise_del", [False, True])
+@pytest.mark.parametrize("block_size", chip_smoke.BLOCK_SIZES)
+def test_block_partials_match_plain(cuda, kind, pairwise_del, block_size):
+    """The block modes against their float64 plain versions at ragged
+    block sizes with NaN and zero rows: C exact, B within the kernels'
+    bounds, indep reruns byte-identical; each call one launch."""
+    n_blocks = chip_smoke.BLOCK_SITES // block_size
+    P32, _ = chip_smoke.small_case(np.random.default_rng(block_size), torch,
+                                   n_blocks * block_size, chip_smoke.BLOCK_N)
+    before = (indep.BLOCK_LAUNCHES, em.BLOCK_LAUNCHES)
+    chip_smoke.block_case(torch, indep, em, kind, P32, pairwise_del, n_blocks, block_size)
+    torch.cuda.synchronize()
+    launched = (indep.BLOCK_LAUNCHES - before[0], em.BLOCK_LAUNCHES - before[1])
+    assert launched == ((2, 0) if kind == "indep" else (0, 1))
+
+
+@pytest.mark.gpu
+def test_indep_long_block_cnt_exact(cuda):
+    """A block longer than 2^16 sites adds its float32 counts into float64
+    within the block: C stays exact."""
+    P32, _ = chip_smoke.small_case(np.random.default_rng(5), torch,
+                                   2 * chip_smoke.LONG_BLOCK, 64)
+    chip_smoke.block_case(torch, indep, em, "indep", P32, True, 2, chip_smoke.LONG_BLOCK)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(KERNELS))
+def test_block_partials_sum_to_kernel(cuda, kind):
+    """The blocks' partials add up to the unweighted kernel's (raw, cnt)."""
+    P32, _ = _case(cuda, 740, 96)
+    I, J = torch.triu_indices(96, 96, offset=1, device=cuda)
+    if kind == "indep":
+        B, C = indep.indep_block_partials(P32, SCORE9, True, 20, 37)
+        raw, cnt = indep.indep_raw_cnt(P32, SCORE9, True)
+    else:
+        B, C = em.em_block_partials(P32, SCORE9, True, 20, 37)
+        raw, cnt = em.em_raw_cnt(P32, SCORE9, True)
+    assert torch.equal(C.sum(0), cnt[I, J].double())
+    # each within its bound of the exact sums, so within twice it of each other
+    got, want = B.sum(0), raw[I, J].double()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    bound = (2 * chip_smoke.INDEP_RTOL * want.abs() if kind == "indep"
+             else 2 * chip_smoke.EM_ATOL_CNT * C.sum(0))
+    assert bool(((got - want).abs()[ok] <= bound[ok]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(KERNELS))
+def test_block_partials_reject_bad_blocks(cuda, kind):
+    fn = indep.indep_block_partials if kind == "indep" else em.em_block_partials
+    P = torch.zeros((10, 5, 3), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="blocks"):
+        fn(P, SCORE9, False, 3, 3)

@@ -32,12 +32,16 @@ def test_port_golden_md5(name, tmp_path, monkeypatch):
     every golden config matches exactly, none needs the final-digit
     allowance of docs/PARITY.md."""
     monkeypatch.chdir(DATA_DIR)
+    calls = _spy_routes(monkeypatch)
     out = str(tmp_path / f"{name}.dist")
     args = [a.replace("{OUT}", out) for a in MANIFEST[name]["args"]]
     rc = cli.main(args + ["--platform", "cpu", "--verbose", "0"])
     assert rc == 0
     md5 = hashlib.md5(open(out, "rb").read()).hexdigest()
     assert md5 == MANIFEST[name]["md5"], f"{name}: port output differs from golden"
+    # every bootstrap golden fits the partials budget: one block-mode call
+    blocks = sum(n for k, n in calls.items() if k.endswith("_block_partials"))
+    assert blocks == ("--n_boot_rep" in args), calls
 
 
 def _read_matrices(path):
@@ -121,7 +125,100 @@ def test_port_resume_keys_on_device_and_dtype(tmp_path, monkeypatch):
             != ckpt.run_fingerprint(pars, "torch-cuda-float32"))
 
 
-def test_port_resume_appends_remaining(tmp_path, monkeypatch, capsys):
+def _spy_routes(monkeypatch):
+    """Count the calls of the engine's kernel wrappers, by name."""
+    from ngsdist_tpu_torch.core import distance as tdist
+
+    calls = {}
+    for name in ("indep_raw_cnt", "em_raw_cnt", "indep_block_partials",
+                 "em_block_partials"):
+        def spy(*a, _name=name, _fn=getattr(tdist, name), **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(tdist, name, spy)
+    return calls
+
+
+def test_partials_budget_matches_jax():
+    from ngsdist_tpu.core import distance as dist
+    from ngsdist_tpu_torch.core import distance as tdist
+
+    assert tdist.PARTIALS_BUDGET_BYTES == dist.PARTIALS_BUDGET_BYTES == 1 << 30
+
+
+def test_partials_rule_at_the_smoke_shapes():
+    """The JAX engine's rule, n_blocks·N²·itemsize·(2 under pairwise
+    deletion) <= 1 GiB, with the port's itemsize per device: chip_smoke.py
+    run (a) takes the weighted route on a card, (c) and (d) the partials
+    route; on the CPU (float64) the rule is the JAX engine's own."""
+    import chip_smoke
+    from ngsdist_tpu_torch.core import distance as tdist
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")  # no card needed
+    n = chip_smoke.N_IND
+    assert not tdist.use_partials(chip_smoke.INDEP_SITES // chip_smoke.BOOT_BLOCK, n, True, cuda)
+    assert tdist.use_partials(chip_smoke.EM_SITES // chip_smoke.EM_BOOT_BLOCK, n, False, cuda)
+    assert tdist.use_partials(chip_smoke.INDEP_SITES // chip_smoke.INDEP_BOOT_BLOCK, n, True,
+                              cuda)
+    for n_blocks, pdel in ((64, False), (64, True), (65, True), (256, True), (1, False)):
+        jax_rule = n_blocks * n * n * 8 * (2 if pdel else 1) <= (1 << 30)
+        assert tdist.use_partials(n_blocks, n, pdel, cpu) == jax_rule
+
+
+@pytest.mark.parametrize("indep", [False, True], ids=["em", "indep"])
+@pytest.mark.parametrize("pairwise_del", [False, True], ids=["nopdel", "pdel"])
+def test_port_bootstrap_routes(random_gp, tmp_path, monkeypatch, indep, pairwise_del):
+    """Where the rule allows, the bootstrap takes the partials route (one
+    block-mode call beside the full-data call); with the budget at 0 the
+    weighted route (one call per replicate).  The two routes agree within
+    1e-9, and both with the JAX engine."""
+    from ngsdist_tpu_torch.core import distance as tdist
+
+    path, S, N = random_gp
+    reps = 3
+    base = ["--geno", path, "--probs", "--n_ind", str(N), "--n_sites", str(S),
+            "--seed", "7", "--verbose", "0", "--n_boot_rep", str(reps),
+            "--boot_block_size", "50"]
+    base += ["--indep_geno"] if indep else []
+    base += ["--pairwise_del"] if pairwise_del else []
+    kind = "indep" if indep else "em"
+    out_j = str(tmp_path / "jax.dist")
+    assert jax_cli.main(base + ["--out", out_j, "--engine", "jax"]) == 0
+    mats = {}
+    for route, budget in (("partials", tdist.PARTIALS_BUDGET_BYTES), ("weighted", 0)):
+        monkeypatch.setattr(tdist, "PARTIALS_BUDGET_BYTES", budget)
+        calls = _spy_routes(monkeypatch)
+        out = str(tmp_path / f"{route}.dist")
+        assert cli.main(base + ["--out", out, "--platform", "cpu"]) == 0
+        want = ({f"{kind}_raw_cnt": 1, f"{kind}_block_partials": 1} if route == "partials"
+                else {f"{kind}_raw_cnt": 1 + reps})
+        assert calls == want, route
+        mats[route] = _read_matrices(out)
+    mj = _read_matrices(out_j)
+    assert len(mats["partials"]) == len(mats["weighted"]) == len(mj) == 1 + reps
+    for a, b, c in zip(mats["partials"], mats["weighted"], mj):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-9)
+        np.testing.assert_allclose(a, c, rtol=0, atol=1e-9)
+
+
+def test_port_bootstrap_weighted_when_partials_leave_no_room(random_gp, tmp_path,
+                                                             monkeypatch):
+    """On a card the float64 partials must also fit the memory that
+    check_fits leaves beside the resident tensor; where they do not, the
+    replicates take the weighted route."""
+    from ngsdist_tpu_torch.core import distance as tdist
+
+    path, S, N = random_gp
+    monkeypatch.setattr(tdist, "check_fits", lambda *a: 0)  # no bytes left
+    calls = _spy_routes(monkeypatch)
+    args = ["--geno", path, "--probs", "--n_ind", str(N), "--n_sites", str(S),
+            "--seed", "7", "--verbose", "0", "--n_boot_rep", "2",
+            "--boot_block_size", "50", "--out", str(tmp_path / "x.dist")]
+    assert cli.main(args + ["--platform", "cpu"]) == 0
+    assert calls == {"em_raw_cnt": 3}
+
+
+def _resume_case(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(DATA_DIR)
     case = MANIFEST["T_b5"]
     out = str(tmp_path / "x.dist")
@@ -139,9 +236,26 @@ def test_port_resume_appends_remaining(tmp_path, monkeypatch, capsys):
     pars.finalize()
     ckpt.save(out, pars, 2, engine=tdist.engine_name(torch.device("cpu")))
     capsys.readouterr()
+    calls = _spy_routes(monkeypatch)
     assert cli.main(args + ["--resume", "--verbose", "1"]) == 0
     assert "Resuming: 2 matrices already written" in capsys.readouterr().err
     assert open(out, "rb").read() == full
+    return calls
+
+
+def test_port_resume_appends_remaining(tmp_path, monkeypatch, capsys):
+    """Through the partials route: the resumed run skips the full-data
+    call and the replicates already written."""
+    calls = _resume_case(tmp_path, monkeypatch, capsys)
+    assert calls == {"indep_block_partials": 1}
+
+
+def test_port_resume_appends_remaining_weighted(tmp_path, monkeypatch, capsys):
+    from ngsdist_tpu_torch.core import distance as tdist
+
+    monkeypatch.setattr(tdist, "PARTIALS_BUDGET_BYTES", 0)
+    calls = _resume_case(tmp_path, monkeypatch, capsys)
+    assert calls == {"indep_raw_cnt": 4}  # replicates 2..5
 
 
 def test_port_never_imports_jax():
@@ -183,20 +297,27 @@ def test_port_cli_runs_without_jax(tmp_path):
 
 
 @pytest.mark.parametrize("pairwise_del", [False, True], ids=["nopdel", "pdel"])
-@pytest.mark.parametrize("reps", [0, 3], ids=["resident", "weighted_boot"])
-def test_em_zero_site_nan_parity(tmp_path, pairwise_del, reps):
+@pytest.mark.parametrize("reps,route", [(0, None), (3, "weighted"), (3, "partials")],
+                         ids=["resident", "weighted_boot", "partials_boot"])
+def test_em_zero_site_nan_parity(tmp_path, monkeypatch, pairwise_del, reps, route):
     """An empty text line parses to a (0,0,0) site.  Without pairwise
     deletion the reference's EM gets a NaN loglik there and poisons every
     pair at that site (ngsDist.cpp:348-349): the whole matrix.  The
-    port's EM path (resident, and the weighted-recompute bootstrap) must
-    give the NaN pattern and values of the JAX package's exact oracle,
-    as tests/test_jax_engine.py::test_em_zero_site_nan_parity pins for
-    the JAX engine."""
+    port's EM path (resident, and the bootstrap on either route, the
+    partials route poisoning per block) must give the NaN pattern and
+    values of the JAX package's exact oracle, as
+    tests/test_jax_engine.py::test_em_zero_site_nan_parity pins for the
+    JAX engine."""
     import gzip
 
     from ngsdist_tpu import runner as jax_runner
     from ngsdist_tpu.config import Params
     from ngsdist_tpu_torch import runner
+    from ngsdist_tpu_torch.core import distance as tdist
+
+    if route == "weighted":
+        monkeypatch.setattr(tdist, "PARTIALS_BUDGET_BYTES", 0)
+    calls = _spy_routes(monkeypatch)
 
     rng = np.random.default_rng(9)
     S, N = 60, 5
@@ -211,6 +332,7 @@ def test_em_zero_site_nan_parity(tmp_path, pairwise_del, reps):
     want = jax_runner.run(Params(out=str(tmp_path / "a.dist"), **base), engine="exact")
     got = runner.run(Params(out=str(tmp_path / "b.dist"), **base), torch.device("cpu"))
     assert len(got) == len(want) == 1 + reps
+    assert calls.get("em_block_partials", 0) == (route == "partials")
     for mw, mg in zip(want, got):
         np.testing.assert_array_equal(np.isnan(mg), np.isnan(mw))
         ok = ~np.isnan(mw)
