@@ -7,18 +7,22 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each of which fails the run loudly:
 
-1. Card identity (nvidia-smi name and power limit); build the native
-   host runtime and the CUDA kernels from this checkout; the indep
-   kernel's machine code must hold tensor-core (HMMA) instructions.
+1. Card identity (nvidia-smi name and power limit); build the port's
+   native host runtime (C, the host compiler) and the CUDA kernels from
+   this checkout; the indep kernel's machine code must hold tensor-core
+   (HMMA) instructions.
 2. Each kernel against its plain PyTorch version in float64 on the
    card, on the same float32 inputs, at small ragged shapes with NaN and
    all-zero rows: cnt exact, indep raw within INDEP_RTOL relative, EM
    raw within EM_ATOL_CNT x cnt.  The indep kernel also at shapes that
-   split the sites into several chunks, the last one ragged, and every
-   indep call is run twice: the reruns must be byte-identical.  The
-   block modes of the partial-sum bootstrap likewise (per-block C exact,
-   B within the same bounds), at ragged block sizes and, indep, a block
-   longer than 2^16 sites.
+   split the sites into several chunks, the last one ragged; the EM
+   kernel also at shapes that cross its 32-individual tile edges and its
+   2-site step (EM_EDGE_SHAPES).  Every call is run twice: the reruns
+   must be byte-identical.  The block modes of the partial-sum bootstrap
+   likewise (per-block C exact, indep B within INDEP_RTOL, EM B within
+   ops/em.py's em_table_bound(block size) x C), at ragged block sizes
+   whose ends fall inside an EM step and, indep, a block longer than
+   2^16 sites.
 3. The port's main path through its CLI entry point, in process, on
    seeded binary GP inputs at 1024 individuals (RUNS): (a) --indep_geno
    --pairwise_del, 65,536 sites, 2 bootstrap replicates of 256-site
@@ -34,13 +38,20 @@ Phases, each of which fails the run loudly:
    bounds (POLICY_*) on the float64 values that were written.  The
    full-data matrices of (c) and (d) equal those of (b) and (a).
 4. Each kernel's time at the main path's shapes beside its plain
-   version's (float32), and the kernel held there against the float64
-   plain version on the same inputs.
+   version's (float32), its bound (the least time the card could take:
+   the larger of its bytes over PEAK_BYTES and its operations, counted
+   from this run's data, over the peak rate of their type) and, indep,
+   the PyTorch calls that compute the same function; the EM times
+   beside those of the kernel before its redesign (EM_MS_BEFORE); and
+   the kernel held there against the float64 plain version on the same
+   inputs.
 
 The bounds (PERF.md section 2): the indep kernel sums 3xTF32 products
 on the tensor cores in float32 over 16-site windows and the windows in
-float64; the EM kernel runs each lane in float64 and rounds raw to
-float32 once, which is at most 6e-8 x cnt.
+float64; the EM kernel takes the float64 plain version's stopping
+steps, its powers by sequential multiplication lie within 2^-45 of the
+plain version's contribution per lane, and raw is rounded to float32
+once, which is at most 6e-8 x cnt.
 The policy bounds add the float32 rounding of the input, which moves
 the EM's stopping step by one for lanes within ~1e-7 of its threshold.
 
@@ -76,6 +87,18 @@ EM_ATOL_CNT = 1e-6   # EM raw, absolute per valid site (|raw err| <= 1e-6 cnt)
 POLICY_INDEP_RTOL = 1e-5   # the same, against the float64 values themselves
 POLICY_EM_ATOL_CNT = 1e-4
 CHUNKED_SHAPES = ((130, 5000), (256, 3001))  # (N, S): indep split over sites
+# (N, S) across the EM kernel's edges: below one 32-wide tile, exactly
+# one and two, one past, and sites off the 2-site step
+EM_EDGE_SHAPES = ((31, 7), (32, 64), (33, 101), (64, 9), (65, 130))
+# Published peaks of one H100 SXM at 700 W: device memory, TF32 on the
+# tensor cores (dense), float64 outside them (half the float32 rate of
+# 67 TFLOP/s; nothing in the EM is a matrix product).
+PEAK_BYTES = 3.35e12
+PEAK_TF32 = 495e12
+PEAK_F64 = 33.5e12
+# The EM kernel before its redesign (one float64 lane per pair and site,
+# exp/log powers), same shapes, NVIDIA H100 80GB HBM3 at 700.00 W.
+EM_MS_BEFORE = {"em_raw_cnt": 903.429, "em_block_partials": 907.152}
 BLOCK_N = 130                    # block modes at small shapes: individuals,
 BLOCK_SIZES = (1, 5, 37, 256)    # sites per bootstrap block,
 BLOCK_SITES = 777                # and sites before truncation to whole blocks
@@ -189,11 +212,11 @@ def same_bytes(torch, a, b) -> bool:
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def check_indep_rerun(torch, indep, P32, pairwise_del, w, first) -> None:
+def check_rerun(torch, fn, P32, pairwise_del, w, first) -> None:
     """A second call gives the same bytes: the sums' order is fixed."""
-    again = indep.indep_raw_cnt(P32, SCORE9, pairwise_del, w)
+    again = fn(P32, SCORE9, pairwise_del, w)
     if not all(same_bytes(torch, a, b) for a, b in zip(first, again)):
-        raise AssertionError(f"indep: rerun differs at {tuple(P32.shape)}")
+        raise AssertionError(f"{fn.__name__}: rerun differs at {tuple(P32.shape)}")
 
 
 def phase_small_shapes(torch, indep, em) -> None:
@@ -218,10 +241,22 @@ def phase_small_shapes(torch, indep, em) -> None:
                         p = ref(P64, SCORE9, pairwise_del, w)
                         rel, per_cnt = check_kernel(kind, torch, *k, *p)
                         worst[kind] = max(worst[kind], rel if kind == "indep" else per_cnt)
-                        if kind == "indep":
-                            check_indep_rerun(torch, indep, P32, pairwise_del, w, k)
+                        check_rerun(torch, fn, P32, pairwise_del, w, k)
                         n += 1
             torch.cuda.synchronize()
+    # the EM kernel's tile edges and site step
+    for N, S in EM_EDGE_SHAPES:
+        P32, P64 = small_case(rng, torch, S, N)
+        for pairwise_del in (False, True):
+            for weighted in (False, True):
+                w = weights(S, weighted)
+                k = em.em_raw_cnt(P32, SCORE9, pairwise_del, w)
+                _, per_cnt = check_kernel("em", torch, *k,
+                                          *em.em_raw_cnt_ref(P64, SCORE9, pairwise_del, w))
+                worst["em"] = max(worst["em"], per_cnt)
+                check_rerun(torch, em.em_raw_cnt, P32, pairwise_del, w, k)
+                n += 1
+        torch.cuda.synchronize()
     # the indep kernel's split over sites: several chunks, the last ragged
     for N, S in CHUNKED_SHAPES:
         chunks, chunk_sites = indep.split_plan(N, S)
@@ -235,31 +270,34 @@ def phase_small_shapes(torch, indep, em) -> None:
                 rel, _ = check_kernel("indep", torch, *k,
                                       *indep.indep_raw_cnt_ref(P64, SCORE9, pairwise_del, w))
                 worst["indep"] = max(worst["indep"], rel)
-                check_indep_rerun(torch, indep, P32, pairwise_del, w, k)
+                check_rerun(torch, indep.indep_raw_cnt, P32, pairwise_del, w, k)
                 n += 1
         torch.cuda.synchronize()
     log(f"phase 2: {n} kernel-vs-plain cases held (cnt exact, indep raw "
-        f"<= {INDEP_RTOL:g} rel and reruns byte-identical, EM raw <= {EM_ATOL_CNT:g} "
-        f"x cnt; indep also at {CHUNKED_SHAPES} (N, S), several site chunks); largest "
+        f"<= {INDEP_RTOL:g} rel, EM raw <= {EM_ATOL_CNT:g} x cnt, all reruns "
+        f"byte-identical; indep also at {CHUNKED_SHAPES} (N, S), several site chunks; "
+        f"EM also at {EM_EDGE_SHAPES}, across its tile edges and site step); largest "
         f"indep rel err {worst['indep']:.3e}, EM |raw err|/cnt {worst['em']:.3e}")
     phase_small_blocks(torch, indep, em, rng)
 
 
 def block_case(torch, indep, em, kind, P32, pairwise_del, n_blocks, block_size):
     """One block-mode call against its float64 plain version on the same
-    inputs (indep: and a rerun, byte-identical).  Returns check_values'
-    errors."""
+    inputs, and a rerun, byte-identical.  The EM's B is float64 and is
+    held to em_table_bound(block_size) x C (SCORE9's largest entry is
+    1).  Returns check_values' errors."""
     if kind == "indep":
-        k = indep.indep_block_partials(P32, SCORE9, pairwise_del, n_blocks, block_size)
+        fn, atol_cnt = indep.indep_block_partials, None
         p = block_pairs(torch, *indep.indep_block_partials_ref(P32.double(), SCORE9, pairwise_del,
                                                         n_blocks, block_size))
-        again = indep.indep_block_partials(P32, SCORE9, pairwise_del, n_blocks, block_size)
-        if not all(a is b or same_bytes(torch, a, b) for a, b in zip(k, again)):
-            raise AssertionError(f"indep blocks: rerun differs at {n_blocks} x {block_size}")
     else:
-        k = em.em_block_partials(P32, SCORE9, pairwise_del, n_blocks, block_size)
+        fn, atol_cnt = em.em_block_partials, em.em_table_bound(block_size)
         p = em.em_block_partials_ref(P32.double(), SCORE9, pairwise_del, n_blocks, block_size)
-    return check_values(kind, torch, *k, *p)
+    k = fn(P32, SCORE9, pairwise_del, n_blocks, block_size)
+    again = fn(P32, SCORE9, pairwise_del, n_blocks, block_size)
+    if not all(a is b or same_bytes(torch, a, b) for a, b in zip(k, again)):
+        raise AssertionError(f"{kind} blocks: rerun differs at {n_blocks} x {block_size}")
+    return check_values(kind, torch, *k, *p, atol_cnt=atol_cnt)
 
 
 def phase_small_blocks(torch, indep, em, rng) -> None:
@@ -282,8 +320,10 @@ def phase_small_blocks(torch, indep, em, rng) -> None:
     worst["indep"] = max(worst["indep"], rel)
     torch.cuda.synchronize()
     log(f"phase 2: {n + 1} block-mode cases held (block sizes {BLOCK_SIZES} and "
-        f"{LONG_BLOCK}, N = {BLOCK_N}; C exact, indep B <= {INDEP_RTOL:g} rel and reruns "
-        f"byte-identical, EM B <= {EM_ATOL_CNT:g} x C); largest indep rel err "
+        f"{LONG_BLOCK}, N = {BLOCK_N}; C exact, indep B <= {INDEP_RTOL:g} rel, EM B <= "
+        f"em_table_bound(block size) x C = {em.em_table_bound(min(BLOCK_SIZES)):.3e} to "
+        f"{em.em_table_bound(max(BLOCK_SIZES)):.3e} x C, reruns byte-identical); largest "
+        f"indep rel err "
         f"{worst['indep']:.3e}, EM |B err|/C {worst['em']:.3e}")
 
 
@@ -379,6 +419,56 @@ def time_cuda(torch, fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def indep_bound(S: int, N: int, out_bytes: int):
+    """(ms, "bytes" or "operations", reckoning): the least time the card
+    could take for the indep statistics of [S, N, 3] float32.  Bytes: the
+    input read once, the outputs written once.  Operations: the fold
+    (9 multiply-adds per site and individual), then per site and pair
+    a <= b three multiply-adds for raw and one for cnt, at the TF32
+    tensor-core peak (one product per term; the kernel spends three to
+    keep float32 accuracy)."""
+    nbytes = 12 * S * N + out_bytes
+    flop = 2 * (9 * S * N + 4 * S * (N * (N + 1) // 2))
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, flop / PEAK_TF32 * 1e3
+    return (max(t_b, t_o), "bytes" if t_b > t_o else "operations",
+            f"{nbytes:.4g} B at {PEAK_BYTES:.4g} B/s = {t_b:.3f} ms; {flop:.4g} flop at "
+            f"{PEAK_TF32:.4g} TF32 flop/s = {t_o:.3f} ms")
+
+
+def em_bound(work: dict, S: int, N: int, out_bytes: int):
+    """The same for the EM of [S, N, 3] float32, from what this run's
+    data needs (ops/em.py em_work), all float64 outside the tensor
+    cores: per live row the 49 steps of its table once (3 + 2 + 4
+    operations: powers, their sum, the ratio); per ratio test a multiply
+    and a compare; per live lane the 9-cell contraction (21), the sums'
+    product (5), the division and the weighted accumulation (6)."""
+    nbytes = 12 * S * N + out_bytes
+    flop = 49 * 9 * work["live_rows"] + 2 * work["tests"] + 32 * work["live_lanes"]
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, flop / PEAK_F64 * 1e3
+    return (max(t_b, t_o), "bytes" if t_b > t_o else "operations",
+            f"{nbytes:.4g} B at {PEAK_BYTES:.4g} B/s = {t_b:.3f} ms; {flop:.4g} flop at "
+            f"{PEAK_F64:.4g} float64 flop/s = {t_o:.3f} ms")
+
+
+def indep_library_call(torch, indep, P32, n_blocks: int, block_size: int):
+    """The PyTorch calls that compute the indep statistics (n_blocks > 1:
+    per block) from operands prepared outside the timing: one float32
+    einsum for raw and one (batched) product for cnt, TF32 off.  Timed
+    as a yardstick only; the port never takes this path on a card."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the yardstick is a float32 product: TF32 must be off")
+    N = P32.shape[1]
+    score = torch.as_tensor(SCORE9, dtype=P32.dtype, device=P32.device).reshape(3, 3)
+    v = indep.valid_mask(P32, True).reshape(n_blocks, block_size, N)
+    Q = P32.reshape(n_blocks, block_size, N, 3) * v[..., None]
+    Y = Q @ score.T
+    vT = v.transpose(1, 2).contiguous()
+
+    def call():
+        return torch.einsum("ksag,ksbg->kab", Q, Y), vT @ v
+    return call
 
 
 def hmma_count(nvcc: str, path: str, kernel: str) -> int:
@@ -529,10 +619,15 @@ def main() -> int:
     kernels = []
     launched = {name: sum(counts[name] for counts in launches.values()) for name in KERNELS}
 
-    def report(name, source, replaces, err, err_of, ms_k, ms_p):
+    def report(name, source, replaces, err, err_of, ms_k, ms_p, bound, ms_lib):
+        bound_ms, bound_by, reckoning = bound
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launched[name],
-                        "max_abs_err": err, "err_of": err_of, "ms": ms_k, "plain_ms": ms_p})
+                        "max_abs_err": err, "err_of": err_of, "ms": ms_k, "plain_ms": ms_p,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": ms_lib})
+        lib = "none" if ms_lib is None else f"{ms_lib:.3f} ms"
+        log(f"phase 4: {name}: bound {bound_ms:.3f} ms by {bound_by} ({reckoning}); kernel "
+            f"at {bound_ms / ms_k:.4f} of it; one-call PyTorch version: {lib}")
 
     dev = torch.device(DEVICE)
     P32 = distance.to_device(P, dev)
@@ -545,8 +640,11 @@ def main() -> int:
     log(f"phase 4: indep {N_IND} x {INDEP_SITES} pairwise_del: kernel {ms_k:.3f} ms, "
         f"plain float32 {ms_p:.3f} ms; vs float64 plain: max rel raw err {rel:.3e}, "
         f"max |raw/cnt err| {err:.3e} [{card}]")
+    ms_lib = time_cuda(torch, indep_library_call(torch, indep, P32, 1, INDEP_SITES), 3)
+    torch.cuda.empty_cache()
     report("indep_raw_cnt", "ngsdist_tpu_torch/csrc/indep.cu",
-           "ngsdist_tpu/ops/pallas_indep.py:358", err, "raw/cnt", ms_k, ms_p)
+           "ngsdist_tpu/ops/pallas_indep.py:358", err, "raw/cnt", ms_k, ms_p,
+           indep_bound(INDEP_SITES, N_IND, 2 * 4 * N_IND * N_IND), ms_lib)
 
     # the block mode at run (d)'s shape, pairs gathered from the tiles
     nb, bs = INDEP_SITES // INDEP_BOOT_BLOCK, INDEP_BOOT_BLOCK
@@ -559,8 +657,11 @@ def main() -> int:
         f"pairwise_del: kernel {ms_k:.3f} ms, plain float32 {ms_p:.3f} ms; vs float64 "
         f"plain: max rel B err {rel:.3e}, max |B err|/C {err:.3e}, rerun byte-identical "
         f"[{card}]")
+    ms_lib = time_cuda(torch, indep_library_call(torch, indep, P32, nb, bs), 3)
+    torch.cuda.empty_cache()
     report("indep_block_partials", "ngsdist_tpu_torch/csrc/indep.cu",
-           "ngsdist_tpu/core/distance.py:365", err, "B/C", ms_k, ms_p)
+           "ngsdist_tpu/core/distance.py:365", err, "B/C", ms_k, ms_p,
+           indep_bound(INDEP_SITES, N_IND, 2 * 8 * nb * (N_IND * (N_IND - 1) // 2)), ms_lib)
 
     P32 = P32[:EM_SITES].contiguous()
     torch.cuda.empty_cache()
@@ -576,8 +677,15 @@ def main() -> int:
     log(f"phase 4: em {N_IND} x {EM_SITES}: kernel {ms_k:.3f} ms, plain float32 "
         f"{ms_p:.3f} ms (one run); vs float64 plain: max |raw/cnt err| {err:.3e} "
         f"(check took {time.perf_counter() - t0:.1f} s) [{card}]")
+    t0 = time.perf_counter()
+    work = em.em_work(P32.double())
+    log(f"phase 4: em work of these inputs: {work['live_rows']} live rows, "
+        f"{work['live_lanes']} live lanes, {work['tests']} ratio tests "
+        f"({work['tests'] / max(1, work['live_lanes']):.3f} per lane; counted in "
+        f"{time.perf_counter() - t0:.1f} s)")
     report("em_raw_cnt", "ngsdist_tpu_torch/csrc/em.cu",
-           "ngsdist_tpu/ops/pallas_em.py:326", err, "raw/cnt", ms_k, ms_p)
+           "ngsdist_tpu/ops/pallas_em.py:326", err, "raw/cnt", ms_k, ms_p,
+           em_bound(work, EM_SITES, N_IND, 2 * 4 * N_IND * N_IND), None)
 
     # the block mode at run (c)'s shape
     nb, bs = EM_SITES // EM_BOOT_BLOCK, EM_BOOT_BLOCK
@@ -593,7 +701,12 @@ def main() -> int:
         f"{ms_k:.3f} ms, plain float32 {ms_p:.3f} ms (one run); vs float64 plain: max "
         f"|B err|/C {err:.3e} (check took {time.perf_counter() - t0:.1f} s) [{card}]")
     report("em_block_partials", "ngsdist_tpu_torch/csrc/em.cu",
-           "ngsdist_tpu/core/distance.py:418", err, "B/C", ms_k, ms_p)
+           "ngsdist_tpu/core/distance.py:418", err, "B/C", ms_k, ms_p,
+           em_bound(work, EM_SITES, N_IND, 2 * 8 * nb * (N_IND * (N_IND - 1) // 2)), None)
+    for name, before in EM_MS_BEFORE.items():
+        now = next(k["ms"] for k in kernels if k["name"] == name)
+        log(f"phase 4: {name}: {now:.3f} ms, before its redesign {before:.3f} ms "
+            f"({before / now:.2f}x) [{card}]")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,12 @@ package `ngsdist_tpu`, which stays the reference:
   - ops/indep.py, ops/em.py: plain PyTorch versions and the CUDA
     kernels of csrc/, built with nvcc at first use (ops/_build.py)
 
-The host layer (readers, preprocessing, bootstrap stream, writers) is
-imported from `ngsdist_tpu`, none of which needs jax.
+  - config.py, io/, core/{bootstrap,models,preprocess,exact}.py,
+    utils/: the host layer (parameters, readers, preprocessing, the
+    bootstrap stream, writers, checkpoints, signals), the port's own
+    copy of the JAX package's modules of the same names, with the
+    native C runtime of csrc/host/ built at first use (utils/native.py)
+
+The package imports torch and numpy, never jax and nothing of
+`ngsdist_tpu`.
 """

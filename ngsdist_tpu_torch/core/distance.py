@@ -24,13 +24,12 @@ from typing import Iterator, List
 import numpy as np
 import torch
 
-from ngsdist_tpu.config import NgsDistError, Params
-from ngsdist_tpu.core import bootstrap as bt
-from ngsdist_tpu.core import models
-
+from ..config import NgsDistError, Params
 from ..ops.em import em_block_partials, em_raw_cnt
 from ..ops.indep import (block_partials_shape, indep_block_partials,
                          indep_raw_cnt, scratch_shape)
+from . import bootstrap as bt
+from . import models
 
 # The partial-sum route is taken when the block partials, reckoned in the
 # device's dtype, fit here: the value of

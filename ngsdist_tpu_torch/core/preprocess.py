@@ -1,0 +1,82 @@
+"""Genotype-probability preprocessing.
+
+Mirrors the reference main()'s per-(individual, site) loop after reading
+(reference ngsDist.cpp:165-174): optional genotype calling in log
+space (call_geno, shared/gen_func.cpp:886-914), then conversion to
+normal space — everything downstream works on normal-space probabilities.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..config import NgsDistError
+from ..utils import native as _native
+
+BIGNEG = 1.0e15
+
+
+def call_geno_inplace(
+    geno_log: np.ndarray, N_thresh: float, call_thresh: float, native: bool = True
+) -> None:
+    """Hard-call / missing-threshold log-space triples in place.
+
+    First-max/first-min positions; an exactly-equal triple is missing
+    (max_pp := -1); max below N_thresh resets to uniform; max at or
+    above call_thresh one-hots (miss_mode=0 semantics).
+    """
+    if N_thresh > call_thresh:
+        raise NgsDistError(
+            "call_geno", "missing data threshold must be smaller than calling genotype threshold!"
+        )
+    if native and _native.have_native():
+        lib = _native.get_lib()
+        flat = geno_log.reshape(-1)
+        rc = lib.nd_call_geno3(
+            _native.as_double_ptr(flat), flat.size // 3, N_thresh, call_thresh
+        )
+        if rc:
+            raise NgsDistError(
+                "call_geno",
+                "missing data threshold must be smaller than calling genotype threshold!",
+            )
+        return
+
+    tri = geno_log.reshape(-1, 3)
+    max_pos = np.argmax(tri, axis=1)
+    min_pos = np.argmin(tri, axis=1)
+    rows = np.arange(tri.shape[0])
+    max_pp = np.exp(tri[rows, max_pos])
+    all_equal = tri[rows, min_pos] == tri[rows, max_pos]
+    max_pp = np.where(all_equal, -1.0, max_pp)
+
+    below_n = max_pp < N_thresh
+    tri[below_n] = np.log(1.0 / 3.0)
+    called = max_pp >= call_thresh
+    tri[called] = -BIGNEG
+    tri[rows[called], max_pos[called]] = 0.0
+
+
+def to_normal_space(geno_log: np.ndarray, native: bool = True) -> np.ndarray:
+    """exp() each entry in place (conv_space with exp, gen_func.cpp:123-130)."""
+    if native and _native.have_native():
+        lib = _native.get_lib()
+        flat = geno_log.reshape(-1)
+        lib.nd_exp_array(_native.as_double_ptr(flat), flat.size)
+        return geno_log
+    np.exp(geno_log, out=geno_log)
+    return geno_log
+
+
+def preprocess(
+    geno_log: np.ndarray,
+    call_geno: bool,
+    N_thresh: float,
+    call_thresh: float,
+    native: bool = True,
+) -> np.ndarray:
+    """call_geno (optional) then exp; returns the normal-space array
+    [n_sites, n_ind, 3] (mutates its input)."""
+    if call_geno:
+        call_geno_inplace(geno_log, N_thresh, call_thresh, native=native)
+    return to_normal_space(geno_log, native=native)

@@ -15,25 +15,70 @@
 // lanes (an all-zero row) add nothing.  NaN rows propagate: the row max
 // keeps NaN, and masks multiply.
 //
-// Precision: the probabilities arrive as float32, but each lane's EM runs
-// in float64 (p/max, the power sums, the ratio test against
-// hi = exp(0.001) in float64, and the final powers).  The stopping step
-// is a threshold decision: in float32, rounding near the threshold moves
-// k* by one step for roughly one lane in a thousand, and one such step
-// shifts a lane's contribution by up to ~1e-2.  In float64 the kernel
-// takes the decisions of the float64 plain version on the same inputs.
+// Precision: the probabilities arrive as float32, but the EM runs in
+// float64 (p/max, the power sums, the ratio test against hi = exp(0.001)
+// and the final powers).  The stopping step is a threshold decision: in
+// float32, rounding near the threshold moves k* by one step for roughly
+// one lane in a thousand, and one such step shifts a lane's contribution
+// by up to ~1e-2.  In float64 the kernel takes the decisions of the
+// float64 plain version on the same inputs: r_k is computed with that
+// version's expressions in its order, and never depended on the pair.
+// The powers x = p^{k*} come from k* - 1 sequential multiplications by p
+// (each within 2^-53 relative), where the plain version takes
+// exp(k* log p): the two differ by a few tens of ulp, which moves a
+// lane's contribution by at most 2^-45 max|score| (ops/em.py,
+// EM_TABLE_LANE_BOUND, has the reckoning).
 //
-// What bounds it on the card: the float64 instruction rate in each lane's own
-// convergence loop (about 20 operations and two divisions per step, a
-// few to 49 steps, then six exp/log per lane), with warps diverging where
-// lanes stop at different steps.  Device-memory traffic is negligible.
-// Design: one block per upper-triangular 16x16 tile of individuals,
-// one thread per pair lane.  For each tile of 32 sites the block stages
-// p/max, the live flag and the validity of its 16 + 16 individuals in
-// shared memory; each thread then runs its own k loop and stops at its
-// own convergence, which drops the TPU kernel's 7-step chunks and
-// whole-slab while loop with identical k* semantics.  Sums are kept in
-// float64 registers and written once, strict upper triangle only.
+// Design.  Everything that depends on one individual only is computed
+// once per (tile, site, individual) and shared by the tile's lanes.  One
+// block of 256 threads owns an upper-triangular 32 x 32 tile of
+// individuals; a thread owns the four pair lanes of four consecutive
+// rows i and one column j, a warp four rows and 32 different j.  Per step
+// of kSites = 2 sites:
+//   build:  128 threads (one per side, site and individual) walk
+//           k = 1..49 once and write to shared memory the ratio r_k and
+//           every third power p^{1+3c} (c = 0..16), from which a lane
+//           reaches any p^{k*}, k* <= 50, with at most two more
+//           multiplications by p, bit for bit the sequential product.
+//           Each thread's next triple is read from device memory a step
+//           ahead.
+//   search: a lane's stopping test is !(rI[k] * rJ[k] >= hi).  A thread
+//           loads rJ[k] once for its four rows (32 consecutive doubles
+//           per warp) and the four rI[k] as two 16-byte broadcasts, seven
+//           steps at a time so that the loads and the float64 multiplies
+//           of a group overlap; then x, y from the power tables, the
+//           9-cell contraction and one division.  No log, no exp, no
+//           per-individual work in the lanes.
+// The tables take 800 bytes per (site, individual): 392 for r_k, 408 for
+// the powers; 128 of them are 100 KB, so two blocks share an SM and one
+// block's build overlaps the other's search.  The i side's powers are
+// laid out [individual][c][g], so that a warp's lanes, which share i and
+// differ in c, fall on different banks; the j side's [c][g][individual],
+// so that lanes on consecutive j do.
+// A table is always built to its full depth: r_k >= 1 only up to
+// rounding and is not monotone in k, so no r_k of one individual proves
+// that every partner has stopped.
+//
+// What bounds it on the card: float64 issue (64 lanes per clock and SM)
+// and the latency of its dependent chains, not memory.  A lane-site
+// costs about two float64 instructions per search step in warp lockstep
+// (a warp runs to its slowest lane, ~26 steps where the mean lane stops
+// after 13), ~45 for powers, contraction and division, and a 1/16 share
+// of two ~850-instruction tables.  profile_em_parts.py times the kernel
+// with each part taken out (the NGSD_EM_SKIP_* switches below).  One pair
+// lane per thread (1024 threads, four sites a step, one block per SM)
+// was slower: the four rows per thread cut the shared-memory loads of the
+// search to a third, and the unrolled groups hide their latency.
+// Building the tables to depth 36 first and to 49 only where a block-wide
+// vote finds a lane still running was a few percent faster; left out for
+// its second code path.  A 32-wide tile gives 528 blocks at 1024
+// individuals, two waves of two to each of the 132 SMs; a 64-wide tile
+// would halve the tables' share but leave 136 blocks, 4 more than one
+// wave.
+//
+// Sums are kept per lane in float64 registers, in site order, and
+// written once, strict upper triangle only: no atomics, reruns
+// byte-identical.
 //
 // Block mode (ngsd_em_block_partials_f32), for the partial-sum bootstrap:
 // replaces the want_blocks output of ngsdist_tpu/core/distance.py _em_scan
@@ -41,73 +86,183 @@
 // sums B[b, p] = sum_{s in b} contrib * m and C[b, p] = sum_{s in b} m for
 // every bootstrap block b of block_size sites, and resets them, when its
 // site loop crosses the block's end.  Blocks need not align with the
-// 32-site staging step.  p is the pair's index in triu row-major order.
-// Sharing each individual's power sequence across the lanes of a tile,
-// and a float32 loop with a float64 re-check near the threshold, are
-// later work.
+// 2-site step.  p is the pair's index in triu row-major order.
+// A float32 search with a float64 re-check near the threshold is later
+// work.
 
 #include <stdint.h>
 #include <string.h>
 
 #include "common.cuh"
 
+// Timing switches of profile_em_parts.py: a part taken out gives wrong
+// results and the time of what is left.  Never set in the port's build.
+#ifndef NGSD_EM_SKIP_BUILD
+#define NGSD_EM_SKIP_BUILD 0    // tables built at the first step only
+#endif
+#ifndef NGSD_EM_SKIP_SEARCH
+#define NGSD_EM_SKIP_SEARCH 0   // every lane stops at k* = 1
+#endif
+#ifndef NGSD_EM_SKIP_CONTRACT
+#define NGSD_EM_SKIP_CONTRACT 0  // a lane adds its k* instead of its contribution
+#endif
+
 namespace {
 
-constexpr int kTile = 16;     // individuals per tile side: 256 pair lanes
-constexpr int kSites = 32;    // sites staged per step
-constexpr int kThreads = kTile * kTile;
+constexpr int kTile = 32;     // individuals per tile side: 1024 pair lanes
+constexpr int kSites = 2;     // sites per step
+constexpr int kRows = 4;      // rows of the tile (pair lanes) per thread
+constexpr int kThreads = kTile * kTile / kRows;
 constexpr int kSteps = 49;    // EM_MAX_ITER - 1 ratio tests
+constexpr int kUnroll = 7;    // ratio tests per group of the search
+constexpr int kStride = 3;    // every third power is stored,
+constexpr int kPowers = 17;   // p^(1 + 3c) for c = 0..16
+constexpr int kTableThreads = 2 * kSites * kTile;  // tables per step
+
+static_assert(kSteps == kStride * (kPowers - 1) + 1, "powers reach k* = 50");
+static_assert(kSteps % kUnroll == 0, "whole groups of ratio tests");
+static_assert(kTableThreads <= kThreads, "one thread per table");
+static_assert(kRows == 4, "the i side's ratios are read as two double2");
+
+// Shared memory, in doubles then floats.
+constexpr int kRSide = kSites * kSteps * kTile;        // r: [site][k][individual]
+constexpr int kXSide = kSites * kPowers * 3 * kTile;   // powers, per side
+constexpr int kFlags = 2 * kSites * kTile;             // live, valid: [side][site][individual]
+constexpr size_t kSmemBytes = sizeof(double) * 2 * (kRSide + kXSide) +
+                              sizeof(float) * (2 * kFlags + kSites);
+
+// The score matrix in float64, as the lanes use it.
+struct Score9d {
+  double v[9];
+};
+
+__device__ __forceinline__ int r_index(int sl, int k, int col) {
+  return (sl * kSteps + k) * kTile + col;
+}
+// Powers of the i side: [site][individual][c][g].
+__device__ __forceinline__ int xi_index(int sl, int col, int c, int g) {
+  return ((sl * kTile + col) * kPowers + c) * 3 + g;
+}
+// Powers of the j side: [site][c][g][individual].
+__device__ __forceinline__ int xj_index(int sl, int col, int c, int g) {
+  return ((sl * kPowers + c) * 3 + g) * kTile + col;
+}
+
+// One individual's tables at one site: Rb[k] = r at step k, and through
+// store(c, ...) the powers pn^(1 + 3c).  The expressions and their order
+// are the plain version's (ops/em.py _em_sites).
+template <typename Store>
+__device__ __forceinline__ void build_tables(double pn0, double pn1, double pn2,
+                                             double* Rb, Store store) {
+  // Entering step k: PW_g = pn_g^(k+1), tm = t_k, tc = t_(k+1).
+  double PW0 = pn0, PW1 = pn1, PW2 = pn2;
+  double tm = 3.0, tc = pn0 + pn1 + pn2;
+  store(0, PW0, PW1, PW2);
+  auto step = [&](int k) {
+    PW0 *= pn0; PW1 *= pn1; PW2 *= pn2;
+    const double tn = PW0 + PW1 + PW2;
+    Rb[k * kTile] = tn * tm / (tc * tc);
+    tm = tc; tc = tn;
+  };
+  for (int c = 1; c < kPowers; ++c) {
+#pragma unroll
+    for (int u = 0; u < kStride; ++u) step(kStride * (c - 1) + u);
+    store(c, PW0, PW1, PW2);  // pn^(1 + 3c)
+  }
+  step(kSteps - 1);
+}
 
 // kBlocks: block mode; B, C [S / block_size, N (N - 1) / 2] float64 take
 // the place of raw and cnt.
 template <bool kBlocks>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 em_kernel(const float* __restrict__ P, const float* __restrict__ w,
           float* __restrict__ raw, float* __restrict__ cnt, double* __restrict__ B,
           double* __restrict__ C, long long S, int N, long long block_size,
-          ngsd::Score9 sc, double hi, int pairwise_del) {
-  __shared__ double Pn[2][kSites][kTile][3];  // p / max, per side
-  __shared__ float Live[2][kSites][kTile];    // 1 unless the row is all zero
-  __shared__ float Val[2][kSites][kTile];     // not missing (pairwise deletion)
-  __shared__ float Ws[kSites];
+          Score9d sc, double hi, int pairwise_del) {
+  extern __shared__ __align__(16) double smem[];
+  double* R = smem;                 // [side] r tables
+  double* X = R + 2 * kRSide;       // [side] power tables
+  float* Live = reinterpret_cast<float*>(X + 2 * kXSide);  // 1 unless the row is all zero
+  float* Val = Live + kFlags;       // not missing (pairwise deletion)
+  float* Ws = Val + kFlags;         // [site]
 
   int ti, tj;
   ngsd::upper_tile(blockIdx.x, &ti, &tj);
   const int i0 = ti * kTile, j0 = tj * kTile;
-  const int li = threadIdx.x / kTile, lj = threadIdx.x % kTile;
-  const int a = i0 + li, b = j0 + lj;
-  const bool lane = a < b && b < N;  // strict upper triangle
+  const int li0 = kRows * (threadIdx.x / kTile), lj = threadIdx.x % kTile;
+  const int b = j0 + lj;
   const long long n_pairs = (long long)N * (N - 1) / 2;
-  const long long p = (long long)a * (2 * N - a - 1) / 2 + (b - a - 1);
+  bool lane[kRows];       // strict upper triangle
+  long long pair[kRows];  // the lane's pair index (block mode)
+  double acc_raw[kRows], acc_cnt[kRows];
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int a = i0 + li0 + q;
+    lane[q] = a < b && b < N;
+    pair[q] = (long long)a * (2 * N - a - 1) / 2 + (b - a - 1);
+    acc_raw[q] = acc_cnt[q] = 0.0;
+  }
 
-  double acc_raw = 0.0, acc_cnt = 0.0;
+  // The table threads: one table per (side, site of the step, individual).
+  const bool fills = threadIdx.x < kTableThreads;
+  const int b_side = threadIdx.x / (kSites * kTile);
+  const int b_sl = (threadIdx.x / kTile) % kSites, b_col = threadIdx.x % kTile;
+  const int b_ind = (b_side == 0 ? i0 : j0) + b_col;
+  float q0 = 0.0f, q1 = 0.0f, q2 = 0.0f;  // this step's triple; padding: a dead row
+  auto fetch = [&](long long s0) {
+    const long long s = s0 + b_sl;
+    q0 = q1 = q2 = 0.0f;
+    if (fills && s < S && b_ind < N) {
+      const float* q = P + (s * N + b_ind) * 3;
+      q0 = q[0];
+      q1 = q[1];
+      q2 = q[2];
+    }
+  };
+  fetch(0);
+
+  const double2* Ri = reinterpret_cast<const double2*>(R + li0);  // rows li0..li0+3
+  const double* Rj = R + kRSide + lj;
+  const double* Xi = X;
+  const double* Xj = X + kXSide;
+
   long long blk = 0, blk_end = block_size;  // block mode: the current block
   auto flush_block = [&]() {
-    B[blk * n_pairs + p] = acc_raw;
-    C[blk * n_pairs + p] = acc_cnt;
-    acc_raw = acc_cnt = 0.0;
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      if (!lane[q]) continue;
+      B[blk * n_pairs + pair[q]] = acc_raw[q];
+      C[blk * n_pairs + pair[q]] = acc_cnt[q];
+      acc_raw[q] = acc_cnt[q] = 0.0;
+    }
   };
   for (long long s0 = 0; s0 < S; s0 += kSites) {
-    for (int e = threadIdx.x; e < 2 * kSites * kTile; e += kThreads) {
-      const int side = e / (kSites * kTile);
-      const int sl = (e / kTile) % kSites, col = e % kTile;
-      const long long s = s0 + sl;
-      const int ind = (side == 0 ? i0 : j0) + col;
-      float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f;  // padding: a dead row
-      if (s < S && ind < N) {
-        const float* q = P + (s * N + ind) * 3;
-        p0 = q[0];
-        p1 = q[1];
-        p2 = q[2];
-      }
+    if (fills && !(NGSD_EM_SKIP_BUILD && s0 > 0)) {
+      const float p0 = q0, p1 = q1, p2 = q2;
+      fetch(s0 + kSites);  // the next step's triple, in flight during this step
       const float mx = ngsd::nan_max(ngsd::nan_max(p0, p1), p2);
       const bool dead = mx <= 0.0f;  // false for NaN
-      const double den = dead ? 1.0 : (double)mx;
-      Pn[side][sl][col][0] = (double)p0 / den;
-      Pn[side][sl][col][1] = (double)p1 / den;
-      Pn[side][sl][col][2] = (double)p2 / den;
-      Live[side][sl][col] = dead ? 0.0f : 1.0f;
-      Val[side][sl][col] = ngsd::nonmissing(p0, p1, p2);
+      const int flag = (b_side * kSites + b_sl) * kTile + b_col;
+      Live[flag] = dead ? 0.0f : 1.0f;
+      Val[flag] = ngsd::nonmissing(p0, p1, p2);
+      if (!dead) {
+        const double den = (double)mx;
+        double* Xb = X + b_side * kXSide;
+        build_tables((double)p0 / den, (double)p1 / den, (double)p2 / den,
+                     R + b_side * kRSide + r_index(b_sl, 0, b_col),
+                     [&](int c, double v0, double v1, double v2) {
+                       if (b_side == 0) {
+                         Xb[xi_index(b_sl, b_col, c, 0)] = v0;
+                         Xb[xi_index(b_sl, b_col, c, 1)] = v1;
+                         Xb[xi_index(b_sl, b_col, c, 2)] = v2;
+                       } else {
+                         Xb[xj_index(b_sl, b_col, c, 0)] = v0;
+                         Xb[xj_index(b_sl, b_col, c, 1)] = v1;
+                         Xb[xj_index(b_sl, b_col, c, 2)] = v2;
+                       }
+                     });
+      }
     }
     if (threadIdx.x < kSites) {
       const long long s = s0 + threadIdx.x;
@@ -115,75 +270,133 @@ em_kernel(const float* __restrict__ P, const float* __restrict__ w,
     }
     __syncthreads();
 
-    if (lane) {
-      const int n_sl = (int)((S - s0) < kSites ? (S - s0) : kSites);
-      for (int sl = 0; sl < n_sl; ++sl) {
-        if constexpr (kBlocks) {
-          if (s0 + sl == blk_end) {
-            flush_block();
-            ++blk;
-            blk_end += block_size;
+    // The passed ratio tests (k* - 1) of the thread's lanes at each site.
+    const int n_sl = (int)((S - s0) < kSites ? (S - s0) : kSites);
+    bool live[kSites][kRows];
+    int ksum[kSites][kRows];
+#pragma unroll
+    for (int sl = 0; sl < kSites; ++sl) {
+      const bool live_j = sl < n_sl && Live[(kSites + sl) * kTile + lj] != 0.0f;
+      bool act[kRows], any = false;
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+        live[sl][q] = lane[q] && live_j && Live[sl * kTile + li0 + q] != 0.0f;
+        act[q] = live[sl][q];
+        ksum[sl][q] = 0;
+        any = any || act[q];
+      }
+      const double2* ri = Ri + r_index(sl, 0, 0) / 2;
+      const double* rj = Rj + r_index(sl, 0, 0);
+      for (int k0 = 0; k0 < kSteps && any && !NGSD_EM_SKIP_SEARCH; k0 += kUnroll) {
+        double rjk[kUnroll];
+        double2 ra[kUnroll], rb[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          rjk[u] = rj[(k0 + u) * kTile];
+          ra[u] = ri[(k0 + u) * (kTile / 2)];
+          rb[u] = ri[(k0 + u) * (kTile / 2) + 1];
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {  // NaN fails at once
+          act[0] = act[0] && (ra[u].x * rjk[u] >= hi);
+          act[1] = act[1] && (ra[u].y * rjk[u] >= hi);
+          act[2] = act[2] && (rb[u].x * rjk[u] >= hi);
+          act[3] = act[3] && (rb[u].y * rjk[u] >= hi);
+#pragma unroll
+          for (int q = 0; q < kRows; ++q) ksum[sl][q] += act[q];
+        }
+        any = act[0] || act[1] || act[2] || act[3];
+      }
+    }
+
+#pragma unroll
+    for (int sl = 0; sl < kSites; ++sl) {
+      if (sl >= n_sl) break;
+      if constexpr (kBlocks) {
+        if (s0 + sl == blk_end) {
+          flush_block();
+          ++blk;
+          blk_end += block_size;
+        }
+      }
+      const int fj = (kSites + sl) * kTile + lj;
+      const double ws = Ws[sl];
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+        if (!live[sl][q]) continue;
+        if (NGSD_EM_SKIP_CONTRACT) {
+          acc_cnt[q] += ksum[sl][q];
+          continue;
+        }
+        const int li = li0 + q;
+        // x = pi^(k*), k* = 1 + ksum = (1 + 3c) + rem.
+        const int c = ksum[sl][q] / kStride, rem = ksum[sl][q] - kStride * c;
+        double x0 = Xi[xi_index(sl, li, c, 0)], x1 = Xi[xi_index(sl, li, c, 1)],
+               x2 = Xi[xi_index(sl, li, c, 2)];
+        double y0 = Xj[xj_index(sl, lj, c, 0)], y1 = Xj[xj_index(sl, lj, c, 1)],
+               y2 = Xj[xj_index(sl, lj, c, 2)];
+        if (rem > 0) {
+          const double pi0 = Xi[xi_index(sl, li, 0, 0)], pi1 = Xi[xi_index(sl, li, 0, 1)],
+                       pi2 = Xi[xi_index(sl, li, 0, 2)];
+          const double pj0 = Xj[xj_index(sl, lj, 0, 0)], pj1 = Xj[xj_index(sl, lj, 0, 1)],
+                       pj2 = Xj[xj_index(sl, lj, 0, 2)];
+          x0 *= pi0; x1 *= pi1; x2 *= pi2;
+          y0 *= pj0; y1 *= pj1; y2 *= pj2;
+          if (rem > 1) {
+            x0 *= pi0; x1 *= pi1; x2 *= pi2;
+            y0 *= pj0; y1 *= pj1; y2 *= pj2;
           }
         }
-        if (Live[0][sl][li] == 0.0f || Live[1][sl][lj] == 0.0f) continue;
-        const double pi0 = Pn[0][sl][li][0], pi1 = Pn[0][sl][li][1],
-                     pi2 = Pn[0][sl][li][2];
-        const double pj0 = Pn[1][sl][lj][0], pj1 = Pn[1][sl][lj][1],
-                     pj2 = Pn[1][sl][lj][2];
-        // Entering step k: PI_g = pi_g^k, tIm = t_{k-1}, tIc = t_k.
-        double PI0 = pi0, PI1 = pi1, PI2 = pi2;
-        double PJ0 = pj0, PJ1 = pj1, PJ2 = pj2;
-        double tIm = 3.0, tIc = pi0 + pi1 + pi2;
-        double tJm = 3.0, tJc = pj0 + pj1 + pj2;
-        int ksum = 0;
-        for (int k = 0; k < kSteps; ++k) {
-          PI0 *= pi0; PI1 *= pi1; PI2 *= pi2;
-          PJ0 *= pj0; PJ1 *= pj1; PJ2 *= pj2;
-          const double tIn = PI0 + PI1 + PI2;
-          const double tJn = PJ0 + PJ1 + PJ2;
-          const double rI = tIn * tIm / (tIc * tIc);
-          const double rJ = tJn * tJm / (tJc * tJc);
-          if (!(rI * rJ >= hi)) break;  // NaN stops here too
-          ++ksum;
-          tIm = tIc; tIc = tIn;
-          tJm = tJc; tJc = tJn;
-        }
-        const double kstar = 1.0 + (double)ksum;
-        // log 0 = -inf -> exp(-inf) = 0, the value such channels converge to.
-        const double x[3] = {exp(kstar * log(pi0)), exp(kstar * log(pi1)),
-                             exp(kstar * log(pi2))};
-        const double y0 = exp(kstar * log(pj0)), y1 = exp(kstar * log(pj1)),
-                     y2 = exp(kstar * log(pj2));
         double num = 0.0;
-#pragma unroll
-        for (int g = 0; g < 3; ++g)
-          num = num + x[g] * ((double)sc.v[3 * g + 0] * y0 +
-                              (double)sc.v[3 * g + 1] * y1 +
-                              (double)sc.v[3 * g + 2] * y2);
-        const double Sf = (x[0] + x[1] + x[2]) * (y0 + y1 + y2);
+        num = num + x0 * (sc.v[0] * y0 + sc.v[1] * y1 + sc.v[2] * y2);
+        num = num + x1 * (sc.v[3] * y0 + sc.v[4] * y1 + sc.v[5] * y2);
+        num = num + x2 * (sc.v[6] * y0 + sc.v[7] * y1 + sc.v[8] * y2);
+        const double Sf = (x0 + x1 + x2) * (y0 + y1 + y2);
         const double contrib = num / Sf;
         double m = 1.0;
-        if (pairwise_del) m = m * Val[0][sl][li] * Val[1][sl][lj];
-        const double ws = Ws[sl];
-        acc_raw += ws * (contrib * m);
-        acc_cnt += ws * m;
+        if (pairwise_del) m = m * Val[sl * kTile + li] * Val[fj];
+        acc_raw[q] += ws * (contrib * m);
+        acc_cnt[q] += ws * m;
       }
     }
     __syncthreads();
   }
 
-  if (!lane) return;
   if constexpr (kBlocks) {
     flush_block();  // the last block
   } else {
-    raw[(long long)a * N + b] = (float)acc_raw;
-    cnt[(long long)a * N + b] = (float)acc_cnt;
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      if (!lane[q]) continue;
+      const long long a = i0 + li0 + q;
+      raw[a * N + b] = (float)acc_raw[q];
+      cnt[a * N + b] = (float)acc_cnt[q];
+    }
   }
 }
 
 long long upper_tiles(int N) {
   const long long nt = (N + kTile - 1) / kTile;
   return nt * (nt + 1) / 2;
+}
+
+Score9d score_f64(const float* score9) {
+  Score9d sc;
+  for (int i = 0; i < 9; ++i) sc.v[i] = (double)score9[i];
+  return sc;
+}
+
+template <bool kBlocks>
+int launch(const float* P, const float* w, float* raw, float* cnt, double* B, double* C,
+           long long S, int N, long long block_size, const float* score9, double hi,
+           int pairwise_del, void* stream) {
+  // The tables need more than the 48 KB a block gets without asking.
+  cudaError_t err = cudaFuncSetAttribute(
+      em_kernel<kBlocks>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  em_kernel<kBlocks><<<(unsigned)upper_tiles(N), kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      P, w, raw, cnt, B, C, S, N, block_size, score_f64(score9), hi, pairwise_del);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -196,11 +409,8 @@ extern "C" int ngsd_em_raw_cnt_f32(const float* P, const float* w, float* raw,
                                    const float* score9, double hi,
                                    int pairwise_del, void* stream) {
   if (N < 1 || S < 0) return (int)cudaErrorInvalidValue;
-  ngsd::Score9 sc;
-  memcpy(sc.v, score9, sizeof(sc.v));
-  em_kernel<false><<<(unsigned)upper_tiles(N), kThreads, 0, (cudaStream_t)stream>>>(
-      P, w, raw, cnt, nullptr, nullptr, S, N, 0, sc, hi, pairwise_del);
-  return (int)cudaGetLastError();
+  return launch<false>(P, w, raw, cnt, nullptr, nullptr, S, N, 0, score9, hi, pairwise_del,
+                       stream);
 }
 
 // Block mode: P [n_blocks * block_size, N, 3] float32; B, C [n_blocks,
@@ -211,10 +421,6 @@ extern "C" int ngsd_em_block_partials_f32(const float* P, double* B, double* C, 
                                           int pairwise_del, void* stream) {
   if (N < 2 || n_blocks < 1 || block_size < 1 || B == nullptr || C == nullptr)
     return (int)cudaErrorInvalidValue;
-  ngsd::Score9 sc;
-  memcpy(sc.v, score9, sizeof(sc.v));
-  em_kernel<true><<<(unsigned)upper_tiles(N), kThreads, 0, (cudaStream_t)stream>>>(
-      P, nullptr, nullptr, nullptr, B, C, n_blocks * block_size, N, block_size, sc, hi,
-      pairwise_del);
-  return (int)cudaGetLastError();
+  return launch<true>(P, nullptr, nullptr, nullptr, B, C, n_blocks * block_size, N,
+                      block_size, score9, hi, pairwise_del, stream);
 }

@@ -1,0 +1,338 @@
+"""Input readers: genotype/GL/GP matrices, labels and positions.
+
+The genotype reader follows the exact format semantics of the reference
+(reference shared/read_data.cpp:13-116): three input styles
+(binary site-major doubles; gzipped TSV probabilities; gzipped TSV hard
+genotypes coded {-1,0,1,2}), single space/tab field splitting keeping
+only numeric fields, last-N-columns selection (Beagle-style leading
+columns ignored), header-line skipping, empty lines consuming a site as
+missing, per-individual log-space normalization, and a strict EOF check.
+
+The primary implementation is the native C reader (bit-exact glibc
+log/exp); `read_geno(..., native=False)` selects a pure numpy fallback
+whose results may differ from a C pipeline by 1 ulp in the last place.
+
+Data model: site-major float64 array [n_sites, n_ind, 3] — the layout
+the engine (core/distance.py) moves to the device.
+"""
+
+from __future__ import annotations
+
+import gzip
+import re
+import sys
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from ..config import N_GENO, NgsDistError
+from ..utils import native as _native
+
+BIGNEG = 1.0e15  # log-space missing sentinel (reference INF, gen_func.hpp:15)
+LINE_MAX = 500000
+
+# Numeric forms accepted by C strtod (and not Python-only forms such as
+# digit underscores): decimal/exponent, hex floats, inf/nan.
+_STRTOD_RE = re.compile(
+    r"""^[+-]?(
+        (\d+\.?\d*|\.\d+)([eE][+-]?\d+)? |
+        0[xX]([0-9a-fA-F]+\.?[0-9a-fA-F]*|\.[0-9a-fA-F]+)([pP][+-]?\d+)? |
+        [iI][nN][fF]([iI][nN][iI][tT][yY])? |
+        [nN][aA][nN]
+    )$""",
+    re.X,
+)
+
+
+def _open_text(path: str, func: str = "read_file"):
+    if path == "-":
+        return sys.stdin.buffer
+    try:
+        return (gzip.open(path, "rb") if path.endswith(".gz")
+                else open(path, "rb"))
+    except OSError as ex:
+        # open_gzfile failure (gen_func.cpp:244-246): formatted fatal
+        # error carrying errno for the CLI's perror("\t") suffix.
+        raise NgsDistError(func, "cannot open file!", err=ex.errno or 0)
+
+
+def _split_numeric(line: str) -> List[float]:
+    out = []
+    for tok in re.split(r"[ \t]", line):
+        if tok and _STRTOD_RE.match(tok):
+            out.append(float(tok))
+    return out
+
+
+def _chomp(s: str) -> str:
+    """Strip exactly one trailing newline or carriage return."""
+    if s and s[-1] in "\n\r":
+        return s[:-1]
+    return s
+
+
+def read_geno(
+    path: str,
+    in_bin: bool,
+    in_probs: bool,
+    in_logscale: bool,
+    n_ind: int,
+    n_sites: int,
+    native: bool = True,
+    site_range: Optional[Tuple[int, int]] = None,
+) -> np.ndarray:
+    """Read a genotype/GL/GP file into [n_sites, n_ind, 3] log-space,
+    per-individual normalized probabilities (always returns log scale,
+    like the reference reader).
+
+    site_range=(start, stop): read only that site interval (multi-host
+    shard reading — each host loads its own range; binary inputs seek
+    directly, text inputs stream past the skipped lines).  The strict
+    EOF check only applies to a full read.
+    """
+    if site_range is not None:
+        return _read_geno_py(
+            path, in_bin, in_probs, in_logscale, n_ind, n_sites,
+            site_range=site_range,
+        )
+    if native and path == "-":
+        # Stdin pipelines take the same threaded native parse as files
+        # (nd_read_geno gzdopen's fd 0, mirroring the reference's
+        # unified gz path, gen_func.cpp:208-223) — but only when
+        # sys.stdin IS fd 0: tests and embedders that swap sys.stdin
+        # for an in-memory stream fall back to the Python reader.
+        try:
+            native = sys.stdin.buffer.fileno() == 0 and not sys.stdin.closed
+        except (AttributeError, OSError, ValueError):
+            native = False
+    if native:
+        import ctypes
+
+        lib = _native.get_lib()
+        out = np.empty((n_sites, n_ind, N_GENO), dtype=np.float64)
+        errbuf = ctypes.create_string_buffer(256)
+        # the reference's fatal reader errors carry strerror(errno) from
+        # the perror suffix; the native reader aggregates the libm errno
+        # (ERANGE underflow from one-hot/missing triples) its parse saw
+        err = ctypes.c_int(0)
+        rc = lib.nd_read_geno(
+            path.encode(), int(in_bin), int(in_probs), int(in_logscale),
+            n_ind, n_sites, _native.as_double_ptr(out), errbuf, len(errbuf),
+            ctypes.byref(err),
+        )
+        if rc != 0:
+            raise NgsDistError("read_geno", errbuf.value.decode(),
+                               err=err.value)
+        return out
+    return _read_geno_py(path, in_bin, in_probs, in_logscale, n_ind, n_sites)
+
+
+def _postprob_py(tri: np.ndarray) -> np.ndarray:
+    """Log-normalize triples along the last axis (post_prob semantics)."""
+    m = np.max(tri, axis=-1, keepdims=True)
+    s = np.sum(np.exp(tri - m), axis=-1, keepdims=True)
+    norm = np.where(np.isneginf(m), -np.inf, np.log(s) + m)
+    return tri - norm
+
+
+def _iter_text_sites(fh, in_probs: bool, in_logscale: bool, n_ind: int,
+                     start: int, stop: int):
+    """Yield (s, row|None) for sites start..stop-1 of a text genome
+    stream: row is the [n_ind, 3] log-space normalized triple block,
+    None for an empty line (site consumed as missing).  Reference
+    control flow exactly (read_data.cpp:48-104): header skips with
+    their stderr prints, empty lines, field-count fatals, premature
+    EOF."""
+    n_geno = N_GENO if in_probs else 1
+    s = 0
+    while s < stop:
+        # gzgets(buf, BUFF_LEN) reads at most BUFF_LEN-1 chars
+        # (read_data.cpp:49): an over-long line is consumed in 499999-
+        # char chunks, each treated as its own "line" (site).
+        raw = fh.readline(LINE_MAX - 1)
+        if not raw:
+            raise NgsDistError(
+                "read_geno",
+                "GENO file at premature EOF. Check GENO file and number of sites!",
+            )
+        line = _chomp(raw.decode("utf-8", errors="replace"))
+        if line == "":
+            if s >= start:
+                yield s, None  # empty line consumes the site as missing
+            s += 1
+            continue
+        vals = _split_numeric(line)
+        n_fields = len(vals)
+        if n_fields == 0 or (s == 0 and n_fields < n_ind * n_geno):
+            print("> Header found! Skipping line...", file=sys.stderr)
+            if s != 0:
+                print(
+                    "\n=======\nWARNING: [read_geno]  header found but "
+                    "not on first line. Is this an error?\n=======\n",
+                    file=sys.stderr,
+                )
+            continue
+        if n_fields < n_ind * n_geno:
+            raise NgsDistError(
+                "read_geno", "wrong GENO file format. Less fields than expected!"
+            )
+        if s < start:  # before this host's shard: advance only
+            s += 1
+            continue
+        tail = np.asarray(vals[n_fields - n_ind * n_geno:], dtype=np.float64)
+        if in_probs:
+            row = tail.reshape(n_ind, N_GENO).copy()
+            if not in_logscale:
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    row = np.log(row)
+                row[np.isneginf(row)] = -BIGNEG
+        else:
+            g = tail.astype(np.int64)
+            if (g > 2).any():
+                raise NgsDistError(
+                    "read_geno",
+                    "wrong GENO file format. Genotypes must be coded as {-1,0,1,2} !",
+                )
+            row = np.full((n_ind, N_GENO), -BIGNEG, dtype=np.float64)
+            miss = g < 0
+            row[miss] = np.log(1.0 / N_GENO)
+            idx = np.where(~miss)[0]
+            row[idx, g[idx]] = 0.0
+        yield s, _postprob_py(row)
+        s += 1
+
+
+def _read_geno_py(
+    path: str, in_bin: bool, in_probs: bool, in_logscale: bool,
+    n_ind: int, n_sites: int,
+    site_range: Optional[Tuple[int, int]] = None,
+) -> np.ndarray:
+    n_geno = N_GENO if in_probs else 1
+    start, stop = site_range if site_range is not None else (0, n_sites)
+    geno = np.full((stop - start, n_ind, N_GENO), -BIGNEG, dtype=np.float64)
+
+    try:
+        fh = _open_text(path) if not in_bin else (
+            sys.stdin.buffer if path == "-" else
+            (gzip.open(path, "rb") if path.endswith(".gz")
+             else open(path, "rb"))
+        )
+    except (OSError, NgsDistError) as ex:
+        # read_data.cpp:24-26 formats its own message for the GENO file
+        err = getattr(ex, "err", None) or getattr(ex, "errno", 0) or 0
+        raise NgsDistError("read_geno", "cannot open GENO file!", err=err)
+    try:
+        if in_bin:
+            want = n_ind * N_GENO * 8
+            if start and fh.seekable() and not path.endswith(".gz"):
+                fh.seek(start * want)
+            elif start:
+                for _ in range(start):
+                    fh.read(want)
+            # Bulk read + vectorized normalize (a per-site Python loop
+            # is slow on large shards; whole-shard numpy ops apply the
+            # same per-element arithmetic).
+            n_rows = stop - start
+            buf = fh.read(n_rows * want)
+            short = len(buf) != n_rows * want
+            tb = N_GENO * 8  # one triple
+            rows = np.frombuffer(
+                buf[: len(buf) - len(buf) % tb], dtype=np.float64
+            ).reshape(-1, N_GENO).copy()
+            if not in_logscale:
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    rows = np.log(rows)
+                rows[np.isneginf(rows)] = -BIGNEG
+            rows = _postprob_py(rows)
+            # the reference normalizes + NaN-checks each triple as it
+            # reads, so a NaN among the completed triples outranks a
+            # later premature EOF (read_data.cpp:29-47)
+            if np.isnan(rows).any():
+                raise NgsDistError("read_geno", "NaN found! Is the file format correct?")
+            if short:
+                raise NgsDistError(
+                    "read_geno",
+                    "GENO file at premature EOF. Check GENO file and number of sites!",
+                )
+            geno[:] = rows.reshape(n_rows, n_ind, N_GENO)
+        else:
+            for s, row in _iter_text_sites(fh, in_probs, in_logscale,
+                                           n_ind, start, stop):
+                if row is not None:
+                    geno[s - start] = row
+        # Strict EOF check (read_data.cpp:106-109); applies whenever the
+        # read runs through the final site.
+        if stop == n_sites:
+            probe = fh.read(1)
+            if probe:
+                raise NgsDistError(
+                    "read_geno", "GENO file not at EOF. Check GENO file and number of sites!"
+                )
+    finally:
+        if fh is not sys.stdin.buffer:
+            fh.close()
+    return geno
+
+
+def read_file_lines(path: str, offset: int = 0) -> List[str]:
+    """Read text lines, skipping blank lines and '#' comments, then
+    dropping `offset` leading kept lines (read_file, gen_func.cpp:238-282).
+
+    Two gzgets-level reference quirks are reproduced exactly:
+    - lines are consumed in BUFF_LEN-1 = 499999-char chunks
+      (gzgets(buf, BUFF_LEN), gen_func.cpp:251) — each chunk of an
+      over-long line counts as its own line;
+    - read_file checks gzeof BEFORE processing the line it just read
+      (gen_func.cpp:253-255), so a final line with no terminating
+      newline is silently DROPPED (A/B-verified: such a labels file
+      makes the reference fail with "invalid LABELS file!")."""
+    out: List[str] = []
+    with _open_text(path) as fh:
+        while True:
+            raw = fh.readline(LINE_MAX - 1)
+            if not raw:
+                break
+            if not raw.endswith(b"\n"):
+                # mid-file chunk of an over-long line (kept, gzeof not
+                # yet set) vs final unterminated line (dropped)
+                try:
+                    at_eof = not fh.peek(1)
+                except (AttributeError, OSError):
+                    at_eof = not fh.read(1)  # non-peekable: consume probe
+                if at_eof:
+                    break
+            line = _chomp(raw.decode("utf-8", errors="replace"))
+            if line == "" or line.startswith("#"):
+                continue
+            out.append(line)
+    return out[offset:]
+
+
+def read_labels(path: str, header: bool, n_ind: int) -> List[str]:
+    """Individual labels, one per line, truncated at the first tab
+    (ngsDist.cpp:103-116)."""
+    lines = read_file_lines(path, 1 if header else 0)
+    if len(lines) != n_ind:
+        raise NgsDistError("main", "invalid LABELS file!")
+    return [ln.split("\t", 1)[0] for ln in lines]
+
+
+def default_labels(n_ind: int) -> List[str]:
+    return [f"Ind_{i}" for i in range(n_ind)]
+
+
+def read_pos(path: str, header: bool, n_sites: int) -> List[List[str]]:
+    """Position file (chr, pos[, allele1, allele2]): split every kept line
+    on single space/tab separators keeping empty fields, with a constant
+    column-count check (read_split, read_data.cpp:129-152)."""
+    lines = read_file_lines(path, 1 if header else 0)
+    rows = [re.split(r"[ \t]", ln) for ln in lines]
+    n_cols = 0
+    for r in rows:
+        if n_cols == 0:
+            n_cols = len(r)
+        if len(r) != n_cols:
+            raise NgsDistError("read_split", "invalid number of fields in file!")
+    if len(rows) != n_sites or n_cols < 2:
+        raise NgsDistError("main", "invalid POS file!")
+    return rows

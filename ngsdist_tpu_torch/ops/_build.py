@@ -3,10 +3,12 @@
 Every `.cu` file in `ngsdist_tpu_torch/csrc/` is compiled by `nvcc`
 for `sm_90a` into ONE shared library with a plain C interface, loaded
 with ctypes.  The build runs at first use, from the sources in the
-checkout, into `ngsdist_tpu_torch/_build/`; the library's name carries
-a hash of the sources and flags, so a stale library is never loaded.
-The compiler's report (registers, shared memory, spills from
-`-Xptxas -v`) is kept beside the library as `<name>.log`.
+checkout, into `ngsdist_tpu_torch/_build/` (utils/buildlib.py, which
+the native host runtime shares): the library's name carries a hash of
+the sources and flags, so a stale library is never loaded, and it is
+compiled under a temporary name and renamed into place.  The compiler's
+report (registers, shared memory, spills from `-Xptxas -v`) is kept
+beside the library as `<name>.log`.
 
 Nothing here runs at import time, and there is no fallback: a missing
 `nvcc`, a failed build or a failed launch raises.
@@ -16,17 +18,14 @@ from __future__ import annotations
 
 import ctypes
 import glob
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC_DIR = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
+from ..utils import buildlib
+from ..utils.buildlib import BUILD_DIR, CSRC_DIR  # noqa: F401  (callers read them here)
 
 # No --use_fast_math: exp and log feed the EM's convergence test.  nvcc
 # contracts a*b+c into FMA by default, which the stated tolerances cover.
@@ -46,12 +45,7 @@ def _sources():
 
 def library_path() -> str:
     """Path of the library built from the current sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
-        h.update(os.path.basename(path).encode())
-        with open(path, "rb") as fh:
-            h.update(fh.read())
-    return os.path.join(BUILD_DIR, f"libngsdist_kernels_{h.hexdigest()[:16]}.so")
+    return buildlib.hashed_path("libngsdist_kernels", NVCC_FLAGS, _sources())
 
 
 def _nvcc() -> str:
@@ -67,17 +61,8 @@ def _nvcc() -> str:
 
 
 def _build(path: str) -> None:
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(path[:-3] + ".log", "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, path)
+    buildlib.compile_into(path, [_nvcc(), *NVCC_FLAGS],
+                          [s for s in _sources() if s.endswith(".cu")])
 
 
 def _configure(lib: ctypes.CDLL) -> None:

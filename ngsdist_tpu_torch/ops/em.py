@@ -20,6 +20,15 @@ triangle is valid.
 Block mode (`em_block_partials`, the partial-sum bootstrap) returns the
 unweighted sums per bootstrap block instead, B (raw) and C (cnt)
 [n_blocks, n_pairs] in float64, pairs a < b in triu row-major order.
+
+The kernel takes r_k and the powers p^k from per-individual tables that
+a tile's lanes share (csrc/em.cu): r_k by the plain version's own
+expressions, so every lane stops at the plain version's step, and
+x = p^{k*} by k* − 1 sequential multiplications where the plain version
+takes exp(k*·ln p).  `em_raw_cnt_tables` / `em_block_partials_tables`
+are that arithmetic in plain PyTorch (the tests hold them against the
+plain versions on the CPU), and EM_TABLE_LANE_BOUND / `em_table_bound`
+say how far the two may differ.
 """
 
 from __future__ import annotations
@@ -33,6 +42,27 @@ from .indep import valid_mask
 EM_TOLE = 0.001
 EM_MAX_ITER = 50
 
+# How far a lane's contribution c = Σ score[g,h]·x_g·y_h / (Σx·Σy) by the
+# power tables may lie from the plain version's, in units of max|score|,
+# u = 2^-53.  c is an average of the scores with weights x_g/Σx · y_h/Σy,
+# so relative errors of at most ε in every x_g and every y_h move it by
+# at most 4ε·max|score|.  Tables: p^{k*} takes k* − 1 ≤ 49 multiplications,
+# each within u, so ε = 49u and the share is 196u.  Plain version: ln and
+# exp within 1 ulp (2u) each and the product k*·ln p within u give
+# x_g·(k*|ln p_g| + 2)·2u absolute, at most (0.37 + 2·x_g)·2u since
+# a·e^-a ≤ 0.37, against Σx ≥ 1: under 8u a side, 32u with the factor 2 of
+# an average's weights.  The contraction and the division add under 14u
+# in either version.  196 + 32 + 28 = 256.
+EM_TABLE_LANE_BOUND = 256 * 2.0 ** -53   # 2^-45 ≈ 2.84e-14
+
+
+def em_table_bound(n_sites: int) -> float:
+    """Bound on |B_tables − B_plain| / (C · max|score|) for a float64 sum
+    over n_sites sites: the lanes' bound and both versions' summation
+    rounding (n_sites·u each, all terms within max|score|)."""
+    return EM_TABLE_LANE_BOUND + 2 * n_sites * 2.0 ** -53
+
+
 LAUNCHES = 0  # kernel launches since the count was last set to 0
 BLOCK_LAUNCHES = 0  # the same, block mode
 
@@ -43,8 +73,9 @@ def _lanes_per_chunk(device: torch.device) -> int:
 
 
 def _em_sites(Pc, score, I, J, pairwise_del, hi):
-    """Converged EM contributions and masks for every (site, pair) lane
-    of one site chunk: Pc [sc, N, 3] -> (contrib, m) [sc, n_pairs]."""
+    """Converged EM contributions, masks and passed ratio tests (k* − 1)
+    for every (site, pair) lane of one site chunk: Pc [sc, N, 3] ->
+    (contrib, m, ksum) [sc, n_pairs]."""
     dtype = Pc.dtype
     mx = Pc.amax(-1)                                   # NaN-propagating
     dead = mx <= 0.0
@@ -87,14 +118,57 @@ def _em_sites(Pc, score, I, J, pairwise_del, hi):
     if pairwise_del:
         v = valid_mask(Pc, True)
         m = m * v[:, I] * v[:, J]
-    return contrib, m
+    return contrib, m, ksum
 
 
-def em_raw_cnt_ref(P: torch.Tensor, score9, pairwise_del: bool,
-                   site_weights=None):
-    """Plain PyTorch version: P [S, N, 3] -> (raw, cnt) [N, N], strict
-    upper triangle valid.  Vectorised over (site, pair) lanes in site
-    chunks; converged lanes leave the iteration."""
+def _em_sites_tables(Pc, score, I, J, pairwise_del, hi):
+    """_em_sites in the kernel's arithmetic: per-individual tables of r_k
+    and of p^k by sequential multiplication, the lanes looking both up."""
+    dtype = Pc.dtype
+    mx = Pc.amax(-1)                                   # NaN-propagating
+    dead = mx <= 0.0
+    p = Pc / torch.where(dead, torch.ones_like(mx), mx)[..., None]
+    lane_dead = dead[:, I] | dead[:, J]
+
+    powers, ratios = [p], []                           # p^(k+1), r at step k
+    t_prev = torch.full_like(mx, 3.0)
+    t_cur = p[..., 0] + p[..., 1] + p[..., 2]
+    for _ in range(EM_MAX_ITER - 1):
+        pk = powers[-1] * p
+        t_next = pk[..., 0] + pk[..., 1] + pk[..., 2]
+        ratios.append(t_next * t_prev / (t_cur * t_cur))
+        powers.append(pk)
+        t_prev, t_cur = t_cur, t_next
+    powers = torch.stack(powers)                       # [50, sc, N, 3]
+
+    ksum = torch.zeros(lane_dead.shape, dtype=torch.long, device=Pc.device)
+    ls, lp = torch.nonzero(~lane_dead, as_tuple=True)
+    Ia, Ja = I[lp], J[lp]
+    for r in ratios:
+        if ls.numel() == 0:
+            break
+        keep = (r[ls, Ia] * r[ls, Ja]) >= hi           # NaN stops
+        ls, lp, Ia, Ja = ls[keep], lp[keep], Ia[keep], Ja[keep]
+        ksum[ls, lp] += 1
+
+    sites = torch.arange(Pc.shape[0], device=Pc.device)[:, None]
+    x = powers[ksum, sites, I[None, :]]                # p^(k*), [sc, n_pairs, 3]
+    y = powers[ksum, sites, J[None, :]]
+    num = torch.zeros(lane_dead.shape, dtype=dtype, device=Pc.device)
+    for g in range(3):
+        z = score[g, 0] * y[..., 0] + score[g, 1] * y[..., 1] + score[g, 2] * y[..., 2]
+        num = num + x[..., g] * z
+    Sf = (x[..., 0] + x[..., 1] + x[..., 2]) * (y[..., 0] + y[..., 1] + y[..., 2])
+    contrib = torch.where(lane_dead, torch.zeros_like(num), num / Sf)
+
+    m = (~lane_dead).to(dtype)
+    if pairwise_del:
+        v = valid_mask(Pc, True)
+        m = m * v[:, I] * v[:, J]
+    return contrib, m, ksum
+
+
+def _raw_cnt(sites_fn, P, score9, pairwise_del, site_weights):
     S, N, _ = P.shape
     dtype, dev = P.dtype, P.device
     score = torch.as_tensor(score9, dtype=dtype, device=dev).reshape(3, 3)
@@ -106,7 +180,7 @@ def em_raw_cnt_ref(P: torch.Tensor, score9, pairwise_del: bool,
     cnt_v = torch.zeros_like(raw_v)
     chunk = max(1, _lanes_per_chunk(dev) // max(1, I.numel()))
     for s0 in range(0, S, chunk):
-        contrib, m = _em_sites(P[s0:s0 + chunk], score, I, J, pairwise_del, hi)
+        contrib, m, _ = sites_fn(P[s0:s0 + chunk], score, I, J, pairwise_del, hi)
         wc = w[s0:s0 + chunk, None]
         raw_v += (wc * (contrib * m)).sum(0)
         cnt_v += (wc * m).sum(0)
@@ -117,14 +191,7 @@ def em_raw_cnt_ref(P: torch.Tensor, score9, pairwise_del: bool,
     return raw, cnt
 
 
-def em_block_partials_ref(P: torch.Tensor, score9, pairwise_del: bool,
-                          n_blocks: int, block_size: int):
-    """Plain version of the block mode: P [n_blocks · block_size, N, 3]
-    -> (B, C) [n_blocks, n_pairs], B[b, p] = Σ_{s∈b} contrib·m and
-    C[b, p] = Σ_{s∈b} m (the want_blocks output of
-    ngsdist_tpu.core.distance._em_scan, with dead lanes left out of C as
-    in em_raw_cnt_ref).  The sites run in chunks as in em_raw_cnt_ref;
-    each chunk's lanes are added into their blocks."""
+def _block_partials(sites_fn, P, score9, pairwise_del, n_blocks, block_size):
     _build.check_blocks(P, n_blocks, block_size)
     S, N, _ = P.shape
     dtype, dev = P.dtype, P.device
@@ -135,11 +202,60 @@ def em_block_partials_ref(P: torch.Tensor, score9, pairwise_del: bool,
     C = torch.zeros_like(B)
     chunk = max(1, _lanes_per_chunk(dev) // max(1, I.numel()))
     for s0 in range(0, S, chunk):
-        contrib, m = _em_sites(P[s0:s0 + chunk], score, I, J, pairwise_del, hi)
+        contrib, m, _ = sites_fn(P[s0:s0 + chunk], score, I, J, pairwise_del, hi)
         blk = torch.arange(s0, s0 + m.shape[0], device=dev) // block_size
         B.index_add_(0, blk, contrib * m)
         C.index_add_(0, blk, m)
     return B, C
+
+
+def em_raw_cnt_ref(P: torch.Tensor, score9, pairwise_del: bool,
+                   site_weights=None):
+    """Plain PyTorch version: P [S, N, 3] -> (raw, cnt) [N, N], strict
+    upper triangle valid.  Vectorised over (site, pair) lanes in site
+    chunks; converged lanes leave the iteration."""
+    return _raw_cnt(_em_sites, P, score9, pairwise_del, site_weights)
+
+
+def em_block_partials_ref(P: torch.Tensor, score9, pairwise_del: bool,
+                          n_blocks: int, block_size: int):
+    """Plain version of the block mode: P [n_blocks · block_size, N, 3]
+    -> (B, C) [n_blocks, n_pairs], B[b, p] = Σ_{s∈b} contrib·m and
+    C[b, p] = Σ_{s∈b} m (the want_blocks output of
+    ngsdist_tpu.core.distance._em_scan, with dead lanes left out of C as
+    in em_raw_cnt_ref).  The sites run in chunks as in em_raw_cnt_ref;
+    each chunk's lanes are added into their blocks."""
+    return _block_partials(_em_sites, P, score9, pairwise_del, n_blocks, block_size)
+
+
+def em_raw_cnt_tables(P: torch.Tensor, score9, pairwise_del: bool,
+                      site_weights=None):
+    """em_raw_cnt_ref in the kernel's arithmetic (_em_sites_tables)."""
+    return _raw_cnt(_em_sites_tables, P, score9, pairwise_del, site_weights)
+
+
+def em_block_partials_tables(P: torch.Tensor, score9, pairwise_del: bool,
+                             n_blocks: int, block_size: int):
+    """em_block_partials_ref in the kernel's arithmetic."""
+    return _block_partials(_em_sites_tables, P, score9, pairwise_del, n_blocks,
+                           block_size)
+
+
+def em_work(P: torch.Tensor) -> dict:
+    """What the EM of P [S, N, 3] needs, counted from the data: live
+    (site, individual) rows, live (site, pair) lanes and the ratio tests
+    those lanes make until they stop."""
+    work = {"live_rows": int((~(P.amax(-1) <= 0.0)).sum()), "live_lanes": 0, "tests": 0}
+
+    def count(*args):
+        contrib, m, ksum = _em_sites_tables(*args)
+        live = m > 0                       # no pairwise deletion: m is the live flag
+        work["live_lanes"] += int(live.sum())
+        work["tests"] += int((ksum[live] + 1).clamp(max=EM_MAX_ITER - 1).sum())
+        return contrib, m, ksum
+
+    _raw_cnt(count, P, np.zeros(9), False, None)
+    return work
 
 
 def em_block_partials(P: torch.Tensor, score9, pairwise_del: bool,

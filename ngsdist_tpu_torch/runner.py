@@ -4,7 +4,8 @@ preprocess -> distances -> output.
 Port of ngsdist_tpu/runner.py for one device with a resident tensor,
 running the port's engine (core/distance.py) on `device`.  The host
 layer (readers, preprocessing, bootstrap maps, writers, checkpoints,
-signals) is the JAX package's own, imported unchanged.
+signals) is the port's own copy of the JAX package's, module by module
+under the same names.
 """
 
 from __future__ import annotations
@@ -15,20 +16,78 @@ from typing import List, Optional, TextIO
 import numpy as np
 import torch
 
-from ngsdist_tpu.config import NgsDistError, Params
-from ngsdist_tpu.core import exact as exact_engine
-from ngsdist_tpu.core import models
-from ngsdist_tpu.io import readers, writers
-from ngsdist_tpu.runner import _log, load_inputs, make_pair_report
-from ngsdist_tpu.utils import native
-
+from .config import NgsDistError, Params
 from .core import distance
+from .core import exact as exact_engine
+from .core import models
+from .core.preprocess import preprocess
+from .io import readers, writers
+from .utils import checkpoint as ckpt
+from .utils import native, signals
+from .utils.profiling import Throughput
 
 
 def host_runtime():
     """The native host runtime (readers, exp, phylip writer), built with
-    make at first use; returns the loaded library."""
+    the host C compiler at first use; returns the loaded library."""
     return native.get_lib()
+
+
+def _log(pars: Params, level: int, msg: str) -> None:
+    if pars.verbose >= level:
+        print(msg, file=sys.stderr)
+
+
+def load_inputs(pars: Params):
+    """Read labels, positions and the genotype tensor; returns
+    (labels, pos_rows, P_normal [n_sites, n_ind, 3])."""
+    if pars.in_labels:
+        _log(pars, 1, "==> Reading labels")
+        labels = readers.read_labels(pars.in_labels, pars.in_labels_header, pars.n_ind)
+    else:
+        labels = readers.default_labels(pars.n_ind)
+    if pars.verbose >= 4:
+        for lbl in labels:
+            print(lbl, file=sys.stderr)
+
+    pos_rows = None
+    if pars.in_pos:
+        _log(pars, 1, "==> Reading positions file")
+        pos_rows = readers.read_pos(pars.in_pos, pars.in_pos_header, pars.n_sites)
+        if pars.verbose >= 4:
+            for row in pos_rows:
+                print("\t".join((row + ["", "", "", ""])[:4]), file=sys.stderr)
+
+    _log(pars, 1, "==> Reading genotype data")
+    geno_log = readers.read_geno(
+        pars.in_geno, pars.in_bin, pars.in_probs, pars.in_logscale,
+        pars.n_ind, pars.n_sites,
+    )
+    P = preprocess(geno_log, pars.call_geno, pars.N_thresh, pars.call_thresh)
+    return labels, pos_rows, P
+
+
+def make_pair_report(pars: Params, labels):
+    """verbose>=3 per-pair stats line (ngsDist.cpp:366-367): raw distance
+    sum, valid-site count and their ratio, before model correction."""
+    if pars.verbose < 3:
+        return None
+
+    def on_stats(raw, denom):
+        d = np.asarray(denom)
+        for i1 in range(pars.n_ind):
+            for i2 in range(i1 + 1, pars.n_ind):
+                cnt = d[i1, i2] if d.ndim == 2 else float(denom)
+                avg = raw[i1, i2] / cnt if cnt else float("nan")
+                print(
+                    f"\tDistance of {raw[i1, i2]:f} from {int(cnt)} valid sites "
+                    f"({avg:f}) between {labels[i1]} (ind {i1}) and "
+                    f"{labels[i2]} (ind {i2})!",
+                    file=sys.stderr,
+                )
+
+    return on_stats
+
 
 
 def iter_replicates(pars: Params, P: np.ndarray, device: torch.device,
@@ -84,10 +143,6 @@ def run(pars: Params, device: torch.device, out_fh: Optional[TextIO] = None, res
     """Full pipeline; writes matrices to pars.out (or out_fh) and returns
     them.  resume: continue an interrupted run from its .ckpt.json
     sidecar.  report_throughput: print pair-site updates/s to stderr."""
-    from ngsdist_tpu.utils import checkpoint as ckpt
-    from ngsdist_tpu.utils import signals
-    from ngsdist_tpu.utils.profiling import Throughput
-
     pars.validate()
     if pars.evol_model >= 3:
         raise NgsDistError(
@@ -102,7 +157,7 @@ def run(pars: Params, device: torch.device, out_fh: Optional[TextIO] = None, res
         for msg in pars.messages:
             print(msg, file=sys.stderr)
 
-    labels, _, P = load_inputs(pars, fused=False, coded=False)
+    labels, _, P = load_inputs(pars)
     ckpt_engine = distance.engine_name(device)
 
     n_done = 0

@@ -1,0 +1,96 @@
+"""Checkpoint / resume of the replicate stream.
+
+The reference is one-shot: its only durability is that each replicate's
+matrix is appended to the output file as it completes
+(reference ngsDist.cpp:282-287).  For long bootstrap runs this
+module adds real resume: a sidecar state file records the run
+fingerprint and how many matrices are already durable in the output, so
+a restarted run re-opens the output in append mode and continues with
+the next replicate.  Replicate results are deterministic given the seed
+(the bootstrap index table is a pure function of seed/reps/blocks), so
+resuming mid-stream reproduces exactly the matrices an uninterrupted
+run would have written.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+from dataclasses import asdict
+from typing import Optional
+
+from ..config import Params
+
+_FIELDS = [
+    "in_geno", "in_bin", "in_probs", "in_logscale", "n_ind", "n_sites",
+    "tot_sites", "call_geno", "N_thresh", "call_thresh", "pairwise_del",
+    "avg_nuc_dist", "evol_model", "indep_geno", "n_boot_rep",
+    "boot_block_size", "seed",
+]
+
+
+def _numeric_env(engine: Optional[str]) -> Optional[list]:
+    """The numeric environment a matrix was computed under: the engine
+    name the caller passes (core/distance.py engine_name: device type
+    and dtype).
+
+    Bytes in the output depend on it — CUDA float32 and CPU float64
+    differ in precision and reduction order — so a resume must refuse to
+    append matrices from a different environment to the same file."""
+    return None if engine is None else [engine]
+
+
+def run_fingerprint(pars: Params, engine: Optional[str] = None) -> str:
+    """Hash of every parameter that affects the output stream, plus the
+    input file's size and mtime — resuming after the genotype file
+    changed must not silently append matrices computed from different
+    data to the old output.  engine: the engine name of the run; folds
+    the numeric environment into the hash."""
+    d = asdict(pars)
+    fields = {k: d[k] for k in _FIELDS}
+    fields["_numeric_env"] = _numeric_env(engine)
+    try:
+        st = os.stat(pars.in_geno)
+        fields["_geno_stat"] = [st.st_size, st.st_mtime_ns]
+    except (OSError, TypeError):  # stdin ("-") or vanished file
+        fields["_geno_stat"] = None
+    payload = json.dumps(fields, sort_keys=True)
+    return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+
+def state_path(out: str) -> str:
+    return out + ".ckpt.json"
+
+
+def save(out: str, pars: Params, n_done: int,
+         engine: Optional[str] = None) -> None:
+    tmp = state_path(out) + ".tmp"
+    with open(tmp, "w") as fh:
+        json.dump({"fingerprint": run_fingerprint(pars, engine),
+                   "n_done": n_done}, fh)
+    os.replace(tmp, state_path(out))
+
+
+def load(out: str, pars: Params, engine: Optional[str] = None) -> Optional[int]:
+    """Number of matrices already written by a matching interrupted run,
+    or None when there is nothing (or something incompatible) to resume."""
+    path = state_path(out)
+    if not os.path.exists(path) or not os.path.exists(out):
+        return None
+    try:
+        with open(path) as fh:
+            st = json.load(fh)
+    except (OSError, ValueError):
+        return None
+    if st.get("fingerprint") != run_fingerprint(pars, engine):
+        return None
+    n_done = int(st.get("n_done", 0))
+    return n_done if 0 < n_done <= pars.n_boot_rep + 1 else None
+
+
+def clear(out: str) -> None:
+    try:
+        os.remove(state_path(out))
+    except OSError:
+        pass

@@ -188,3 +188,143 @@ def test_em_block_partials_reject_ragged_sites():
     P = torch.zeros((10, 4, 3), dtype=torch.float64)
     with pytest.raises(ValueError, match="not 2 blocks of 4"):
         tem.em_block_partials(P, default_score_matrix().reshape(-1), False, 2, 4)
+
+
+# The kernel's arithmetic (per-individual tables of r_k and of sequential
+# powers, csrc/em.cu) in plain PyTorch, against the plain versions.
+# Shapes cross the kernel's 32-individual tiles and its 2-site step.
+_TABLE_SHAPES = [(7, 5), (31, 9), (33, 13), (65, 6)]  # (N, S)
+
+
+def _table_case(seed, S, N):
+    rng = np.random.default_rng(seed)
+    P = _rand_probs(rng, S, N, zero_frac=0.04)
+    P[rng.integers(S), rng.integers(N)] = np.nan
+    P[rng.integers(S), rng.integers(N)] = [1.0, 1.0 - 1e-9, 0.0]  # a slow lane
+    return rng, torch.from_numpy(P)
+
+
+def _k_star_by_hand(P, a, b):
+    """k* of one lane by the definition, in Python floats."""
+    hi = float(np.exp(tem.EM_TOLE))
+    rows = []
+    for row in (P[a], P[b]):
+        p = [float(v) / float(max(row)) for v in row]
+        t = [3.0] + [sum(v ** 1 for v in p)]
+        pk = list(p)
+        for _ in range(tem.EM_MAX_ITER - 1):
+            pk = [x * y for x, y in zip(pk, p)]
+            t.append(pk[0] + pk[1] + pk[2])
+        rows.append([t[k + 1] * t[k - 1] / (t[k] * t[k]) for k in range(1, tem.EM_MAX_ITER)])
+    for k, (ri, rj) in enumerate(zip(*rows), start=1):
+        if not ri * rj >= hi:
+            return k
+    return tem.EM_MAX_ITER
+
+
+@pytest.mark.parametrize("N,S", _TABLE_SHAPES)
+@pytest.mark.parametrize("pairwise_del", [False, True])
+def test_em_tables_lanes_match_plain(N, S, pairwise_del):
+    """Lane by lane: the same stopping step, the same mask, and a
+    contribution within EM_TABLE_LANE_BOUND x max|score|."""
+    _, P = _table_case(300 + N, S, N)
+    score = torch.from_numpy(default_score_matrix())
+    hi = torch.tensor(np.exp(tem.EM_TOLE), dtype=torch.float64)
+    I, J = torch.triu_indices(N, N, offset=1)
+    c_p, m_p, k_p = tem._em_sites(P, score, I, J, pairwise_del, hi)
+    c_t, m_t, k_t = tem._em_sites_tables(P, score, I, J, pairwise_del, hi)
+    assert torch.equal(k_t, k_p.long())
+    assert int(k_t.max()) > 20 and int(k_t.min()) == 0
+    assert torch.equal(m_t, m_p)
+    assert torch.equal(torch.isnan(c_t), torch.isnan(c_p))
+    ok = ~torch.isnan(c_p)
+    err = (c_t - c_p).abs()[ok]
+    assert float(err.max()) <= tem.EM_TABLE_LANE_BOUND * float(score.abs().max())
+    # a few lanes by the definition itself
+    live = torch.nonzero(m_p[0] > 0).reshape(-1)[:5]
+    for lane in live.tolist():
+        a, b = int(I[lane]), int(J[lane])
+        if not (torch.isnan(P[0, a]).any() or torch.isnan(P[0, b]).any()):
+            assert int(k_t[0, lane]) + 1 == _k_star_by_hand(P[0].numpy(), a, b)
+
+
+@pytest.mark.parametrize("N,S", _TABLE_SHAPES)
+@pytest.mark.parametrize("pairwise_del", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_em_tables_raw_cnt_match_plain(N, S, pairwise_del, weighted):
+    rng, P = _table_case(400 + N, S, N)
+    score9 = default_score_matrix().reshape(-1)
+    w = rng.integers(0, 4, size=S).astype(np.float64) if weighted else None
+    raw_p, cnt_p = tem.em_raw_cnt_ref(P, score9, pairwise_del, w)
+    raw_t, cnt_t = tem.em_raw_cnt_tables(P, score9, pairwise_del, w)
+    assert torch.equal(cnt_t, cnt_p)
+    assert torch.equal(torch.isnan(raw_t), torch.isnan(raw_p))
+    ok = ~torch.isnan(raw_p)
+    bound = tem.em_table_bound(S) * np.abs(score9).max() * cnt_p
+    assert bool(((raw_t - raw_p).abs()[ok] <= bound[ok]).all())
+
+
+@pytest.mark.parametrize("N", [7, 33])
+@pytest.mark.parametrize("pairwise_del", [False, True])
+@pytest.mark.parametrize("block_size", [1, 3, 5, 6])
+def test_em_tables_block_partials_match_plain(N, pairwise_del, block_size):
+    """Block ends inside and on the kernel's 2-site steps: C exact, B
+    within em_table_bound(block_size) x C x max|score|."""
+    n_blocks = 26 // block_size
+    _, P = _table_case(500 + N, n_blocks * block_size, N)
+    score9 = default_score_matrix().reshape(-1)
+    B_p, C_p = tem.em_block_partials_ref(P, score9, pairwise_del, n_blocks, block_size)
+    B_t, C_t = tem.em_block_partials_tables(P, score9, pairwise_del, n_blocks, block_size)
+    assert B_t.shape == (n_blocks, N * (N - 1) // 2)
+    assert torch.equal(C_t, C_p)
+    assert torch.equal(torch.isnan(B_t), torch.isnan(B_p))
+    ok = ~torch.isnan(B_p)
+    bound = tem.em_table_bound(block_size) * np.abs(score9).max() * C_p
+    assert bool(((B_t - B_p).abs()[ok] <= bound[ok]).all())
+
+
+@pytest.mark.parametrize("pairwise_del", [False, True])
+@pytest.mark.parametrize("weights", [None, "int"])
+def test_em_tables_match_jax(pairwise_del, weights):
+    """The kernel's arithmetic against the JAX package: the Pallas kernel
+    in interpret mode (rtol = atol = 1e-9, the tolerance the plain
+    version is held to) and, zero rows aside, the batched EM engine."""
+    rng = np.random.default_rng(21)
+    S, N = 37, 10
+    P = _rand_probs(rng, S, N)
+    score9 = default_score_matrix().reshape(-1)
+    w = None if weights is None else rng.integers(0, 3, size=S).astype(np.float64)
+    iu = np.triu_indices(N, k=1)
+    raw, cnt = tem.em_raw_cnt_tables(torch.from_numpy(P), score9, pairwise_del, w)
+    raw, cnt = raw.numpy()[iu], cnt.numpy()[iu]
+    raw_p, cnt_p = em_raw_cnt_pallas(
+        jnp.asarray(P), score9, pairwise_del, site_weights=w,
+        block=8, site_tile=8, interpret=True)
+    np.testing.assert_allclose(raw, np.asarray(raw_p)[iu], rtol=1e-9, atol=1e-9)
+    np.testing.assert_array_equal(cnt, np.asarray(cnt_p)[iu])
+    raw_e, cnt_e, _, _ = dist.em_suffstats(
+        jnp.asarray(P), jnp.asarray(score9), pairwise_del, site_weights=w)
+    np.testing.assert_allclose(raw, np.asarray(raw_e), rtol=1e-9, atol=1e-9)
+    np.testing.assert_array_equal(cnt, np.asarray(cnt_e))
+
+
+def test_em_table_bound_reckoning():
+    """The lanes' bound is 2^-45; a sum over n sites adds 2 n u."""
+    assert tem.EM_TABLE_LANE_BOUND == 2.0 ** -45
+    assert tem.em_table_bound(256) == 2.0 ** -45 + 512 * 2.0 ** -53
+    assert tem.em_table_bound(256) < 1e-13
+
+
+def test_em_work_counts_lanes_and_tests():
+    rng = np.random.default_rng(22)
+    S, N = 9, 6
+    P = _rand_probs(rng, S, N, zero_frac=0.1)
+    work = tem.em_work(torch.from_numpy(P))
+    dead = (P == 0).all(-1)
+    assert work["live_rows"] == int((~dead).sum())
+    I, J = np.triu_indices(N, k=1)
+    live = ~(dead[:, I] | dead[:, J])
+    assert work["live_lanes"] == int(live.sum())
+    tests = sum(min(_k_star_by_hand(P[s], a, b), tem.EM_MAX_ITER - 1)
+                for s in range(S) for a, b, ok in zip(I, J, live[s]) if ok)
+    assert work["tests"] == tests

@@ -80,7 +80,7 @@ def test_indep_several_chunks_ragged(cuda, N, S, pairwise_del, weighted):
     got = indep.indep_raw_cnt(P32, SCORE9, pairwise_del, w)
     chip_smoke.check_kernel("indep", torch, *got,
                             *indep.indep_raw_cnt_ref(P32.double(), SCORE9, pairwise_del, w))
-    chip_smoke.check_indep_rerun(torch, indep, P32, pairwise_del, w, got)
+    chip_smoke.check_rerun(torch, indep.indep_raw_cnt, P32, pairwise_del, w, got)
 
 
 @pytest.mark.gpu
@@ -108,6 +108,50 @@ def test_indep_cnt_exact(cuda, weighted):
     iu = torch.triu_indices(130, 130, device=cuda)
     assert torch.equal(cnt[iu[0], iu[1]].double(), want[iu[0], iu[1]])
     assert not bool(torch.tril(cnt, -1).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,S", chip_smoke.EM_EDGE_SHAPES)
+@pytest.mark.parametrize("pairwise_del", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_em_tile_edges(cuda, N, S, pairwise_del, weighted):
+    """Shapes across the EM kernel's 32-individual tiles and 2-site step:
+    cnt exact, raw within chip_smoke.EM_ATOL_CNT x cnt, reruns
+    byte-identical."""
+    P32, w = _case(cuda, S, N)
+    w = w if weighted else None
+    got = em.em_raw_cnt(P32, SCORE9, pairwise_del, w)
+    chip_smoke.check_kernel("em", torch, *got,
+                            *em.em_raw_cnt_ref(P32.double(), SCORE9, pairwise_del, w))
+    chip_smoke.check_rerun(torch, em.em_raw_cnt, P32, pairwise_del, w, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [31, 65])
+@pytest.mark.parametrize("block_size", [1, 3, 5, 6])
+def test_em_block_ends_inside_steps(cuda, N, block_size):
+    """Block ends off the 2-site step, tiles ragged: C exact, B within
+    em_table_bound(block_size) x C of the plain version and far inside
+    it of the plain emulation of the kernel's arithmetic."""
+    n_blocks = 50 // block_size
+    P32, _ = _case(cuda, n_blocks * block_size, N)
+    chip_smoke.block_case(torch, indep, em, "em", P32, True, n_blocks, block_size)
+    B, C = em.em_block_partials(P32, SCORE9, True, n_blocks, block_size)
+    Bt, Ct = em.em_block_partials_tables(P32.double(), SCORE9, True, n_blocks, block_size)
+    assert torch.equal(C, Ct)
+    ok = ~torch.isnan(Bt)
+    assert torch.equal(torch.isnan(B), ~ok)
+    # the same powers and stopping steps; the contraction may fuse a*b+c
+    assert bool(((B - Bt).abs()[ok] <= 32 * 2.0 ** -53 * (1 + block_size) * C[ok]).all())
+
+
+@pytest.mark.gpu
+def test_em_reruns_byte_identical(cuda):
+    """Ten calls give the same bytes: each lane sums in site order."""
+    P32, w = _case(cuda, 301, 97)
+    first = em.em_raw_cnt(P32, SCORE9, True, w)
+    for _ in range(9):
+        chip_smoke.check_rerun(torch, em.em_raw_cnt, P32, True, w, first)
 
 
 @pytest.mark.gpu
@@ -142,7 +186,7 @@ def test_kernel_rejects_bad_layout(cuda, kind):
 def test_block_partials_match_plain(cuda, kind, pairwise_del, block_size):
     """The block modes against their float64 plain versions at ragged
     block sizes with NaN and zero rows: C exact, B within the kernels'
-    bounds, indep reruns byte-identical; each call one launch."""
+    bounds, reruns byte-identical; each call one launch."""
     n_blocks = chip_smoke.BLOCK_SITES // block_size
     P32, _ = chip_smoke.small_case(np.random.default_rng(block_size), torch,
                                    n_blocks * block_size, chip_smoke.BLOCK_N)
@@ -150,7 +194,7 @@ def test_block_partials_match_plain(cuda, kind, pairwise_del, block_size):
     chip_smoke.block_case(torch, indep, em, kind, P32, pairwise_del, n_blocks, block_size)
     torch.cuda.synchronize()
     launched = (indep.BLOCK_LAUNCHES - before[0], em.BLOCK_LAUNCHES - before[1])
-    assert launched == ((2, 0) if kind == "indep" else (0, 1))
+    assert launched == ((2, 0) if kind == "indep" else (0, 2))
 
 
 @pytest.mark.gpu

@@ -280,7 +280,7 @@ def test_port_never_imports_jax():
 
 
 def test_port_cli_runs_without_jax(tmp_path):
-    """The whole CPU path, imported host layer included, runs in a
+    """The whole CPU path, the port's own host layer included, runs in a
     process where jax cannot be imported."""
     out = str(tmp_path / "x.dist")
     args = [a.replace("{OUT}", out) for a in MANIFEST["GL_pdel"]["args"]]
