@@ -28,15 +28,31 @@ Phases, each of which fails the run loudly:
    --pairwise_del, 65,536 sites, 2 bootstrap replicates of 256-site
    blocks (the weighted-recompute route); (b) the EM, 16,384 sites;
    (c) the EM with 8 replicates of 256-site blocks and (d) (a)'s flags
-   with 4 replicates of 1024-site blocks (both the partial-sum route).
+   with 4 replicates of 1024-site blocks (both the partial-sum route),
+   all four resident, read by the fused reader and uploaded from pinned
+   slabs on a copy stream; and the long-genome path (STREAMED): (e)
+   (a)'s flags on (a)'s array written four times (262,144 sites, 6.4 GB
+   on disk; 131,072 where the disk is short), streamed in chunks under
+   a forced NGSDIST_DEVICE_BUDGET, each chunk read from disk by the
+   fused reader for the full data and again for each replicate; (f) the
+   EM on (b)'s array written four times (65,536 sites), streamed from
+   the staged read (NGSDIST_FUSED_READ=0).
    Every launch count is set to 0 before each run and must then equal
-   the run's LAUNCHES entry; the output must hold 1 + n_boot_rep finite
-   symmetric matrices whose 64-individual sub-matrices agree with the
-   float64 plain version (replicates: the plain weighted recompute), run
-   on the generated array itself: within the phase-2 bounds on the
-   float32 values the card was given, and within the float32 policy's
-   bounds (POLICY_*) on the float64 values that were written.  The
-   full-data matrices of (c) and (d) equal those of (b) and (a).
+   the run's expected launches (LAUNCHES; streamed: one per chunk and
+   matrix); the output must hold 1 + n_boot_rep finite symmetric
+   matrices whose 64-individual sub-matrices agree with the float64
+   plain version (replicates: the plain weighted recompute), run on the
+   generated array itself: within the phase-2 bounds on the float32
+   values the card was given (fused read: p0 and p1 rounded, p2 = 1 -
+   p0 - p1 in float32; staged read: all three rounded), and within the
+   float32 policy's bounds (POLICY_*) on the float64 values that were
+   written.  The full-data matrices of (c) and (d) equal those of (b)
+   and (a).  (e) and (f) also: the source the engine was given (a
+   fused-read handle, never the float64 tensor, for (a)-(e)), the peak
+   of the device memory under the forced budget, and every matrix
+   within twice the kernel's bound of the same input run resident.
+   Each run logs its wall time and its read, upload and kernel seconds
+   with the share of the upload that ran under a kernel or a read.
 4. Each kernel's time at the main path's shapes beside its plain
    version's (float32), its bound (the least time the card could take:
    the larger of its bytes over PEAK_BYTES and its operations, counted
@@ -44,7 +60,9 @@ Phases, each of which fails the run loudly:
    the PyTorch calls that compute the same function; the EM times
    beside those of the kernel before its redesign (EM_MS_BEFORE); and
    the kernel held there against the float64 plain version on the same
-   inputs.
+   inputs.  Both full modes also at 2048 individuals (WIDE_N; seeded on
+   the card), held against the float64 plain version on a 64-individual
+   sub-matrix.
 
 The bounds (PERF.md section 2): the indep kernel sums 3xTF32 products
 on the tensor cores in float32 over 16-site windows and the windows in
@@ -64,6 +82,7 @@ without a CUDA device or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -129,6 +148,15 @@ LAUNCHES = {"a": {"indep_raw_cnt": 1 + BOOT_REPS},
             "b": {"em_raw_cnt": 1},
             "c": {"em_raw_cnt": 1, "em_block_partials": 1},
             "d": {"indep_raw_cnt": 1, "indep_block_partials": 1}}
+# The long-genome runs: run -> (the run whose array is written REPEAT
+# times, chunks the forced budget must give at least, fused read).  A
+# streamed run launches its kernel once per chunk and matrix.
+REPEAT = 4
+STREAMED = {"e": ("a", 8, True), "f": ("b", 4, False)}
+RUNS["e"] = ("indep", REPEAT * INDEP_SITES, BOOT_REPS, BOOT_BLOCK, True)
+RUNS["f"] = ("em", REPEAT * EM_SITES, 0, 1, False)
+SHORT_DISK_BYTES = 16 << 30  # free disk below which (e) is cut to half its sites
+WIDE_N = 2048                # phase 4: both full modes also at this width
 SCORE9 = np.array([[0.0, 0.5, 1.0], [0.5, 0.0, 0.5], [1.0, 0.5, 0.0]]).reshape(-1)
 
 
@@ -375,24 +403,45 @@ def check_submatrix(mat, raw_p, denom, idx, kind, rtol, atol_cnt) -> float:
     return float(err.max())
 
 
+def run_array(run: str, P_sub: np.ndarray, sites: int) -> np.ndarray:
+    """The float64 values run `run` was given, for the columns of P_sub
+    (the generated array's): its first `sites` sites, a streamed run's
+    base array written over and over."""
+    if run not in STREAMED:
+        return P_sub[:sites]
+    base = P_sub[:RUNS[STREAMED[run][0]][1]]
+    return np.tile(base, (sites // len(base), 1, 1))
+
+
+def card_values(sub64, fused: bool):
+    """The float32 values the card holds for float64 values sub64, in
+    float64: all three components rounded (the staged read's cast), or
+    p0 and p1 rounded and p2 = 1 - p0 - p1 in float32 (the fused read's
+    two components, expanded on the card)."""
+    s32 = sub64.float()
+    if fused:
+        s32[..., 2] = (1.0 - s32[..., 0]) - s32[..., 1]
+    return s32.double()
+
+
 def check_submatrices(torch, indep, em, distance, mats, P_sub, idx):
     """The 64-individual sub-matrices of every matrix of every run's CLI
     output (mats: run -> matrices) against the plain version in float64
     over the generated array's columns idx, a replicate against the plain
     weighted recompute with its per-site multiplicities: once on the
-    float32 values the card was given (the kernels' bounds), once on the
-    float64 values themselves (the float32 policy's bounds).  Returns the
-    largest |d error| of each run and comparison."""
+    float32 values the card was given (card_values; the kernels' bounds),
+    once on the float64 values themselves (the float32 policy's bounds).
+    Returns the largest |d error| of each run and comparison."""
     dev = torch.device(DEVICE)
     errs = {}
-    for inputs, rtol, atol_cnt in (("float32", INDEP_RTOL, EM_ATOL_CNT),
-                                   ("float64", POLICY_INDEP_RTOL, POLICY_EM_ATOL_CNT)):
-        sub = torch.from_numpy(P_sub).to(dev)
-        if inputs == "float32":
-            sub = sub.float().double()
-        for run, (kind, sites, reps, block, pairwise_del) in RUNS.items():
-            plain = indep.indep_raw_cnt_ref if kind == "indep" else em.em_raw_cnt_ref
-            n_trunc, maps = distance.bootstrap_site_maps(SEED, reps, sites, block)
+    for run, (kind, sites, reps, block, pairwise_del) in RUNS.items():
+        plain = indep.indep_raw_cnt_ref if kind == "indep" else em.em_raw_cnt_ref
+        n_trunc, maps = distance.bootstrap_site_maps(SEED, reps, sites, block)
+        sub64 = torch.from_numpy(run_array(run, P_sub, sites)).to(dev)
+        fused = STREAMED[run][2] if run in STREAMED else True
+        for inputs, rtol, atol_cnt in (("float32", INDEP_RTOL, EM_ATOL_CNT),
+                                       ("float64", POLICY_INDEP_RTOL, POLICY_EM_ATOL_CNT)):
+            sub = card_values(sub64, fused) if inputs == "float32" else sub64
             e = []
             for r, mat in enumerate(mats[run]):
                 S, w = sites, None
@@ -404,8 +453,29 @@ def check_submatrices(torch, indep, em, distance, mats, P_sub, idx):
                 denom = cnt if pairwise_del else float(S)
                 e.append(check_submatrix(mat, raw, denom, idx, kind, rtol, atol_cnt))
             errs[f"{run}/{inputs}"] = max(e)
-        del sub
+        del sub, sub64
     return errs
+
+
+def check_same_as_resident(run: str, streamed, resident) -> float:
+    """Every matrix of a streamed run against the same input run
+    resident: each lies within the kernel's bound of the exact sums
+    (indep: INDEP_RTOL relative on raw/cnt; EM: EM_ATOL_CNT on it), so
+    the two within twice it, scaled by |dT/dd| = 1/(1 - raw/cnt) of
+    model 1, plus the %.10f print rounding of both."""
+    kind = RUNS[run][0]
+    worst = 0.0
+    for a, b in zip(streamed, resident):
+        ratio = 1.0 - np.exp(-b)
+        tol = 2 * (INDEP_RTOL * np.abs(ratio) if kind == "indep" else EM_ATOL_CNT)
+        bound = tol / (1.0 - ratio) + 2e-10
+        err = np.abs(a - b)
+        if not (err <= bound).all():
+            k = np.unravel_index(int(np.argmax(err - bound)), err.shape)
+            raise AssertionError(f"({run}): streamed {a[k]} vs resident {b[k]} "
+                                 f"(bound {bound[k]})")
+        worst = max(worst, float(err.max()))
+    return worst
 
 
 def time_cuda(torch, fn, reps: int) -> float:
@@ -471,6 +541,67 @@ def indep_library_call(torch, indep, P32, n_blocks: int, block_size: int):
     return call
 
 
+def wide_probs(torch, S: int, N: int):
+    """Seeded float32 probabilities [S, N, 3] made on the card: Dirichlet
+    (1,1,1) triples with 5% missing (uniform) rows, as rand_probs makes."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    P = torch.empty((S, N, 3), dtype=torch.float32, device=DEVICE).exponential_(generator=gen)
+    P /= P.sum(-1, keepdim=True)
+    P[torch.rand((S, N), generator=gen, device=DEVICE) < 0.05] = 1.0 / 3.0
+    return P
+
+
+def phase_wide(torch, indep, em, card, report) -> None:
+    """Both full modes at WIDE_N individuals (the JAX package's panel
+    kernel, pallas_indep.py:463, took over above 1024; here the same
+    kernels run): times, bounds, and the kernel held against the float64
+    plain version on a 64-individual sub-matrix of the same inputs."""
+    idx = torch.from_numpy(np.sort(np.random.default_rng(SEED + 2).choice(
+        WIDE_N, 64, replace=False))).to(DEVICE)
+
+    def sub(m):
+        return m[idx][:, idx]
+
+    P32 = wide_probs(torch, INDEP_SITES, WIDE_N)
+    ms_k = time_cuda(torch, lambda: indep.indep_raw_cnt(P32, SCORE9, True), 5)
+    ms_p = time_cuda(torch, lambda: indep.indep_raw_cnt_ref(P32, SCORE9, True), 3)
+    torch.cuda.empty_cache()
+    raw, cnt = indep.indep_raw_cnt(P32, SCORE9, True)
+    rel, err = check_kernel("indep", torch, sub(raw), sub(cnt), *indep.indep_raw_cnt_ref(
+        P32[:, idx].double(), SCORE9, True))
+    ms_lib = time_cuda(torch, indep_library_call(torch, indep, P32, 1, INDEP_SITES), 3)
+    torch.cuda.empty_cache()
+    log(f"phase 4: indep {WIDE_N} x {INDEP_SITES} pairwise_del: kernel {ms_k:.3f} ms, plain "
+        f"float32 {ms_p:.3f} ms; 64-individual sub-matrix vs float64 plain: max rel raw err "
+        f"{rel:.3e}, max |raw/cnt err| {err:.3e} [{card}]")
+    report(f"indep_raw_cnt_n{WIDE_N}", "ngsdist_tpu_torch/csrc/indep.cu",
+           "ngsdist_tpu/ops/pallas_indep.py:463", err, "raw/cnt", ms_k, ms_p,
+           indep_bound(INDEP_SITES, WIDE_N, 2 * 4 * WIDE_N * WIDE_N), ms_lib,
+           wrapper="indep_raw_cnt")
+
+    P32 = P32[:EM_SITES].contiguous()
+    torch.cuda.empty_cache()
+    ms_k = time_cuda(torch, lambda: em.em_raw_cnt(P32, SCORE9, False), 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    em.em_raw_cnt_ref(P32, SCORE9, False)
+    torch.cuda.synchronize()
+    ms_p = (time.perf_counter() - t0) * 1e3
+    raw, cnt = em.em_raw_cnt(P32, SCORE9, False)
+    _, err = check_kernel("em", torch, sub(raw), sub(cnt), *em.em_raw_cnt_ref(
+        P32[:, idx].double(), SCORE9, False))
+    t0 = time.perf_counter()
+    work = em.em_work(P32.double())
+    log(f"phase 4: em {WIDE_N} x {EM_SITES}: kernel {ms_k:.3f} ms, plain float32 {ms_p:.3f} ms "
+        f"(one run); 64-individual sub-matrix vs float64 plain: max |raw/cnt err| {err:.3e}; "
+        f"work {work['live_rows']} live rows, {work['live_lanes']} live lanes, "
+        f"{work['tests']} ratio tests (counted in {time.perf_counter() - t0:.1f} s) [{card}]")
+    report(f"em_raw_cnt_n{WIDE_N}", "ngsdist_tpu_torch/csrc/em.cu",
+           "ngsdist_tpu/ops/pallas_em.py:326", err, "raw/cnt", ms_k, ms_p,
+           em_bound(work, EM_SITES, WIDE_N, 2 * 4 * WIDE_N * WIDE_N), None,
+           wrapper="em_raw_cnt")
+
+
 def hmma_count(nvcc: str, path: str, kernel: str) -> int:
     """HMMA (tensor-core) instructions in the machine code of the kernels
     of the library at path whose name holds `kernel`, by the cuobjdump
@@ -510,14 +641,26 @@ def run_args(run: str, geno: str, out: str):
 def write_inputs(work: str):
     """Seeded binary GP files, written as raw little-endian float64
     [S, N, 3]: the first S sites of one generated array for each S that
-    a run reads.  Returns (P, {S: path}) with P the generated array,
-    normalised per triple as the binary reader does."""
+    a resident run reads, and for a streamed run the array of its base
+    run written as often as its sites ask.  Returns (P, {run: path})
+    with P the generated array, normalised per triple as the binary
+    reader does."""
     rng = np.random.default_rng(SEED)
     P = rand_probs(rng, INDEP_SITES, N_IND)
-    genos = {}
-    for S in sorted({sites for _, sites, *_ in RUNS.values()}):
-        genos[S] = os.path.join(work, f"p{S}.bin")
-        P[:S].astype("<f8").tofile(genos[S])
+    genos, by_sites = {}, {}
+    for run, (_, sites, *_) in RUNS.items():
+        if run in STREAMED:
+            base = RUNS[STREAMED[run][0]][1]
+            genos[run] = os.path.join(work, f"p{base}x{sites // base}.bin")
+            blob = P[:base].astype("<f8")
+            with open(genos[run], "wb") as fh:
+                for _ in range(sites // base):
+                    blob.tofile(fh)
+            continue
+        if sites not in by_sites:
+            by_sites[sites] = os.path.join(work, f"p{sites}.bin")
+            P[:sites].astype("<f8").tofile(by_sites[sites])
+        genos[run] = by_sites[sites]
     P /= P.sum(-1, keepdims=True)
     return P, genos
 
@@ -527,31 +670,129 @@ def launch_counts(mods):
     return {name: getattr(mods[mod], counter) for name, (mod, counter) in KERNELS.items()}
 
 
-def drive_main_path(torch, cli, mods, genos):
+def forced_budget(run: str) -> int:
+    """The NGSDIST_DEVICE_BUDGET of streamed run `run`: a third of it is
+    the tensor's budget, three quarters of that a float32 chunk's, and
+    the chunks are as many as STREAMED asks for at least."""
+    sites = RUNS[run][1]
+    return 3 * 4 * (sites // STREAMED[run][1]) * N_IND * 12 // 3
+
+
+@contextlib.contextmanager
+def environment(env: dict):
+    """Set (None: unset) environment variables for a with-block."""
+    saved = {k: os.environ.get(k) for k in env}
+    try:
+        for k, v in env.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def cli_run(torch, cli, mods, ngsd, run: str, geno: str, out: str, budget, fused: bool):
+    """One call of the CLI entry point with the launch counts set to 0
+    just before and read just after, under the given NGSDIST_DEVICE_BUDGET
+    (None: unset) and read route.  Returns what the run showed: launches,
+    wall seconds, the stage times' summary, the peak of the device memory
+    and the type of the source the engine was handed."""
+    runner, profiling = ngsd["runner"], ngsd["profiling"]
+    env = {"NGSDIST_DEVICE_BUDGET": None if budget is None else str(budget),
+           "NGSDIST_FUSED_READ": "auto" if fused else "0"}
+    seen = {}
+    load_inputs = runner.load_inputs
+
+    def spy(pars, fused=False):
+        got = load_inputs(pars, fused=fused)
+        seen["source"] = type(got[2]).__name__
+        return got
+
+    runner.load_inputs = spy
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    profiling.ACTIVE = profiling.StageTimes(torch.device(DEVICE))
+    for mod, counter in KERNELS.values():
+        setattr(mods[mod], counter, 0)
+    try:
+        with environment(env):
+            t0 = time.perf_counter()
+            rc = cli.main(run_args(run, geno, out) + ["--platform", DEVICE, "--throughput"])
+            torch.cuda.synchronize()
+            seen["wall"] = time.perf_counter() - t0
+        seen["launches"] = launch_counts(mods)
+        seen["times"] = profiling.ACTIVE.summary()
+        seen["peak"] = torch.cuda.max_memory_allocated()
+    finally:
+        profiling.ACTIVE = None
+        runner.load_inputs = load_inputs
+    if rc != 0:
+        raise AssertionError(f"run ({run}): exit code {rc}")
+    return seen
+
+
+def log_run(run: str, what: str, seen) -> None:
+    kind, sites, reps, block, _ = RUNS[run]
+    boot = f" + {reps} replicates of {block}-site blocks" if reps else ""
+    t = seen["times"]
+    hidden = "none" if t["upload_hidden"] is None else f"{t['upload_hidden']:.3f}"
+    log(f"phase 3: ({run}) {what}{kind} {N_IND} x {sites}{boot} in {seen['wall']:.2f} s "
+        f"(host clock, CLI call incl. read and write): read {t['read_s']:.3f} s, upload "
+        f"{t['upload_s']:.3f} s, kernels {t['kernel_s']:.3f} s, share of the upload under a "
+        f"kernel or a read {hidden}; source {seen['source']}, peak device memory "
+        f"{seen['peak']} B; launches "
+        + ", ".join(f"{k} {v}" for k, v in seen["launches"].items() if v))
+
+
+def drive_main_path(torch, cli, mods, ngsd, genos):
     """The runs of RUNS through the CLI entry point, each with every
     launch count set to 0 just before it and read just after, held to
-    LAUNCHES.  Returns (output path, launch counts) per run."""
-    outs, launches = {}, {}
+    its expected launches; (a)-(e) must hand the engine a fused-read
+    handle.  A streamed run is held under its forced budget and run once
+    more resident, for the comparison.  Returns (output path, launch
+    counts) per run and the resident outputs of the streamed runs."""
+    distance = ngsd["distance"]
+    dev = torch.device(DEVICE)
+    outs, launches, resident = {}, {}, {}
     for run, (kind, sites, reps, block, _) in RUNS.items():
         outs[run] = os.path.join(WORK, f"{run}.dist")
-        args = run_args(run, genos[sites], outs[run]) + ["--platform", DEVICE, "--throughput"]
-        for mod, counter in KERNELS.values():
-            setattr(mods[mod], counter, 0)
-        t0 = time.perf_counter()
-        rc = cli.main(args)
-        torch.cuda.synchronize()
-        t = time.perf_counter() - t0
-        launches[run] = launch_counts(mods)
-        if rc != 0:
-            raise AssertionError(f"run ({run}): exit code {rc}")
-        want = {name: LAUNCHES[run].get(name, 0) for name in KERNELS}
+        want = {name: LAUNCHES.get(run, {}).get(name, 0) for name in KERNELS}
+        budget, fused = None, True
+        if run in STREAMED:
+            _, min_chunks, fused = STREAMED[run]
+            budget = forced_budget(run)
+            with environment({"NGSDIST_DEVICE_BUDGET": str(budget)}):
+                chunked, chunk = distance.stream_plan(sites, N_IND, dev, None)
+            chunks = -(-sites // chunk)
+            if not chunked or chunks < min_chunks:
+                raise AssertionError(f"run ({run}): the budget {budget} gives {chunks} chunks")
+            n_trunc = sites - sites % block
+            want[f"{kind}_raw_cnt"] = chunks + reps * -(-n_trunc // chunk)
+        seen = cli_run(torch, cli, mods, ngsd, run, genos[run], outs[run], budget, fused)
+        launches[run] = seen["launches"]
+        what = ""
+        if run in STREAMED:
+            what = f"streamed in {chunks} chunks of {chunk} sites under a budget of {budget} B, "
+            if seen["peak"] >= budget:
+                raise AssertionError(f"run ({run}): peak device memory {seen['peak']} B is "
+                                     f"not under the budget {budget} B")
+        log_run(run, what, seen)
         if launches[run] != want:
             raise AssertionError(f"run ({run}): launches {launches[run]}, expected {want}")
-        boot = f" + {reps} replicates of {block}-site blocks" if reps else ""
-        log(f"phase 3: ({run}) {kind} {N_IND} x {sites}{boot} in {t:.2f} s (host clock, "
-            f"CLI call incl. read and write); launches "
-            + ", ".join(f"{k} {v}" for k, v in launches[run].items() if v))
-    return outs, launches
+        if seen["source"] != ("PackedBinInput" if fused else "ndarray"):
+            raise AssertionError(f"run ({run}): the engine was handed a {seen['source']}")
+        if run in STREAMED:
+            resident[run] = os.path.join(WORK, f"{run}_resident.dist")
+            seen = cli_run(torch, cli, mods, ngsd, run, genos[run], resident[run], None, fused)
+            log_run(run, "the same resident, for the comparison: ", seen)
+            if seen["launches"][f"{kind}_raw_cnt"] != 1 + reps:
+                raise AssertionError(f"run ({run}) resident: launches {seen['launches']}")
+    return outs, launches, resident
 
 
 def main() -> int:
@@ -564,6 +805,7 @@ def main() -> int:
     from ngsdist_tpu_torch import cli, runner
     from ngsdist_tpu_torch.core import distance
     from ngsdist_tpu_torch.ops import _build, em, indep
+    from ngsdist_tpu_torch.utils import profiling
 
     # Phase 1: identity and builds.
     card = card_line()
@@ -591,17 +833,28 @@ def main() -> int:
 
     # Phase 3: the main path, through the CLI entry point.
     mods = {"indep": indep, "em": em}
+    ngsd = {"runner": runner, "distance": distance, "profiling": profiling}
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     try:
+        free_disk = shutil.disk_usage(WORK).free
+        if free_disk < SHORT_DISK_BYTES:
+            kind, sites, *rest = RUNS["e"]
+            RUNS["e"] = (kind, sites // 2, *rest)
+            log(f"phase 3: {free_disk} B of disk free: run (e) cut to {sites // 2} sites")
+        t0 = time.perf_counter()
         P, genos = write_inputs(WORK)
-        outs, launches = drive_main_path(torch, cli, mods, genos)
+        log(f"phase 3: inputs written in {time.perf_counter() - t0:.2f} s "
+            f"({sum(os.path.getsize(g) for g in set(genos.values()))} B)")
+        outs, launches, resident = drive_main_path(torch, cli, mods, ngsd, genos)
         mats = {run: check_output(outs[run], 1 + RUNS[run][2]) for run in RUNS}
+        same = {run: check_same_as_resident(
+            run, mats[run], check_output(resident[run], 1 + RUNS[run][2])) for run in STREAMED}
         # the same full-data kernel call on the same input, whatever route
         # the replicates take
-        for run, same in (("c", "b"), ("d", "a")):
-            if not np.array_equal(mats[run][0], mats[same][0]):
-                raise AssertionError(f"the full-data matrix of ({run}) differs from ({same})'s")
+        for run, other in (("c", "b"), ("d", "a")):
+            if not np.array_equal(mats[run][0], mats[other][0]):
+                raise AssertionError(f"the full-data matrix of ({run}) differs from ({other})'s")
         idx = np.sort(np.random.default_rng(SEED + 1).choice(N_IND, 64, replace=False))
         errs = check_submatrices(torch, indep, em, distance, mats,
                                  np.ascontiguousarray(P[:, idx]), idx)
@@ -610,7 +863,9 @@ def main() -> int:
             f"({', '.join(f'{run} {1 + RUNS[run][2]}' for run in RUNS)}); the full-data "
             "matrices of (c), (d) equal those of (b), (a); 64-individual sub-matrices "
             "agree with float64 plain (replicates: the weighted recompute), max |d err| "
-            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + "; streamed against resident, max |d difference| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in same.items()))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -619,10 +874,10 @@ def main() -> int:
     kernels = []
     launched = {name: sum(counts[name] for counts in launches.values()) for name in KERNELS}
 
-    def report(name, source, replaces, err, err_of, ms_k, ms_p, bound, ms_lib):
+    def report(name, source, replaces, err, err_of, ms_k, ms_p, bound, ms_lib, wrapper=None):
         bound_ms, bound_by, reckoning = bound
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launched[name],
+                        "replaces": replaces, "launches": launched[wrapper or name],
                         "max_abs_err": err, "err_of": err_of, "ms": ms_k, "plain_ms": ms_p,
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": ms_lib})
         lib = "none" if ms_lib is None else f"{ms_lib:.3f} ms"
@@ -630,7 +885,7 @@ def main() -> int:
             f"at {bound_ms / ms_k:.4f} of it; one-call PyTorch version: {lib}")
 
     dev = torch.device(DEVICE)
-    P32 = distance.to_device(P, dev)
+    P32 = distance.put_probs(P, dev)
     del P
     ms_k = time_cuda(torch, lambda: indep.indep_raw_cnt(P32, SCORE9, True), 5)
     ms_p = time_cuda(torch, lambda: indep.indep_raw_cnt_ref(P32, SCORE9, True), 3)
@@ -707,6 +962,10 @@ def main() -> int:
         now = next(k["ms"] for k in kernels if k["name"] == name)
         log(f"phase 4: {name}: {now:.3f} ms, before its redesign {before:.3f} ms "
             f"({before / now:.2f}x) [{card}]")
+
+    del P32
+    torch.cuda.empty_cache()
+    phase_wide(torch, indep, em, card, report)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 """Single-device distance engine (PyTorch).
 
-Port of the resident single-device path of ngsdist_tpu/core/distance.py:
-the probability tensor [S, N, 3] is moved to the device once, and the
-full-data matrix is one call of the independent-genotypes kernel
-(ops/indep.py) or the pairwise-EM kernel (ops/em.py), chosen by
-`pars.indep_geno`.  Bootstrap replicates take one of the JAX engine's
-two routes over the resident tensor, by its rule (`use_partials`):
+Port of the single-device path of ngsdist_tpu/core/distance.py.  When
+the probability tensor [S, N, 3] fits the device budget it is moved to
+the device once (resident), and the full-data matrix is one call of the
+independent-genotypes kernel (ops/indep.py) or the pairwise-EM kernel
+(ops/em.py), chosen by `pars.indep_geno`.  Bootstrap replicates then
+take one of the JAX engine's two routes over the resident tensor, by
+its rule (`use_partials`):
 
 - partial sums: one block-mode kernel call gives every bootstrap
   block's sums, and replicate r is M[r] @ B, M the block multiplicities
@@ -13,13 +14,26 @@ two routes over the resident tensor, by its rule (`use_partials`):
 - weighted recompute: one kernel call per replicate, its per-site
   multiplicities passed as the kernel's site weights.
 
+A longer genome streams (`stream_plan`): site chunks go through the
+same kernels one after another, their sums are added in float64 in
+chunk order, and a replicate is the weighted recompute chunk by chunk.
+With `round_ckpt` the sums are saved after every chunk, so a killed
+replicate resumes at its first unfinished chunk.
+
+Uploads run through `ChunkPipe`: one thread prepares the next host slab
+(a fused read of a raw binary file through a readers.PackedBinInput
+handle, or the cast of a slice of the host tensor) while, on a card,
+the last one is copied from pinned memory on a copy stream.
+
 Dtype policy: float64 on the CPU, float32 on CUDA.  On the CPU the
 kernels' plain versions run; on CUDA the hand-written kernels do.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -28,14 +42,67 @@ from ..config import NgsDistError, Params
 from ..ops.em import em_block_partials, em_raw_cnt
 from ..ops.indep import (block_partials_shape, indep_block_partials,
                          indep_raw_cnt, scratch_shape)
+from ..utils import checkpoint as ckpt
+from ..utils import profiling
 from . import bootstrap as bt
 from . import models
+from .preprocess import find_zero_rows
 
 # The partial-sum route is taken when the block partials, reckoned in the
 # device's dtype, fit here: the value of
 # ngsdist_tpu.core.distance.PARTIALS_BUDGET_BYTES, so that both engines
 # take the same route at the same shape.
 PARTIALS_BUDGET_BYTES = 1 << 30
+
+# A streamed run holds two chunks at once (the next one is uploaded while
+# the current one computes), so the planner keeps KEEP/DEN of the
+# per-chunk budget for the current chunk and leaves the rest to the
+# prefetched one.  Tests derive expected chunk sizes from these.
+PREFETCH_KEEP_NUM = 3
+PREFETCH_KEEP_DEN = 4
+
+# Streamed chunks must be small enough to PIPELINE, not merely to fit:
+# the first chunk's read has nothing to overlap with.  The planner
+# therefore aims at STREAM_MIN_CHUNKS chunks at least, none shorter than
+# STREAM_MIN_CHUNK_SITES, so that the work per chunk (launches, the
+# fetch of the sums, a round checkpoint) stays small beside the chunk;
+# the budget remains the hard upper bound.  The JAX engine's values, so
+# that one NGSDIST_DEVICE_BUDGET gives both engines the same chunk
+# edges; on an H100 they lie on the plateau of wall time against chunk
+# length (flat from 8,192 sites up at 1024 individuals, slower below:
+# PERF.md section 7).
+STREAM_MIN_CHUNKS = 16
+STREAM_MIN_CHUNK_SITES = 16384
+
+# Under the JAX engine's rule the resident tensor may take a third of
+# the budget (the other two thirds stood for that engine's layout
+# copies).  It holds wherever the budget is NGSDIST_DEVICE_BUDGET or its
+# 12 GiB default (the CPU), so that no run changes its route between
+# the two engines.
+_WORKING_SET_FACTOR = 3
+_DEFAULT_BUDGET = 12 << 30
+
+# A card planned from its free memory: a resident run holds the tensor
+# and the kernels' working set (`working_set_bytes`); a streamed run a
+# ring of two chunks and one packed staging slab (2 + 2/3 chunks), which
+# at KEEP/DEN of the per-chunk budget fills the memory when the budget
+# is half of it.  One sixteenth of the free memory stays unplanned.  A
+# chunk is held to _CUDA_MAX_CHUNK_BYTES besides: two pinned slabs of
+# two thirds of it are page-locked host memory, and no chunk above a
+# tenth of this was any faster.
+_CUDA_STREAM_FACTOR = 2
+_CUDA_RESERVE_DEN = 16
+_CUDA_MAX_CHUNK_BYTES = 1 << 30
+
+# The kernels return float32 counts on a card: exact while one call's
+# weighted count stays below 2^24 (PERF.md section 2).
+_EXACT_COUNT = (1 << 24) - 1
+
+# Resident upload of a fused-read source: bytes of the packed slabs that
+# are read, copied and expanded one after another (NGSDIST_PIPE_UPLOAD_BYTES
+# overrides).  Smaller slabs expose less of the first read, the only one
+# no copy overlaps.
+PIPE_UPLOAD_BYTES = 32 << 20
 
 
 def default_dtype(device: torch.device) -> torch.dtype:
@@ -48,35 +115,261 @@ def engine_name(device: torch.device) -> str:
     return f"torch-{device.type}-{str(default_dtype(device)).split('.')[-1]}"
 
 
-def to_device(P_host: np.ndarray, device: torch.device) -> torch.Tensor:
-    """The one conversion from the host [S, N, 3] float64 array to the
-    port's tensor, in the device's dtype (cast on the host, so only
-    float32 crosses to a card)."""
-    np_dtype = np.float64 if default_dtype(device) == torch.float64 else np.float32
-    return torch.from_numpy(np.ascontiguousarray(P_host, dtype=np_dtype)).to(device)
+def _np_dtype(dtype: torch.dtype):
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
+def expand23(P2: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[..., 2] -> [..., 3] with p2 = 1 - p0 - p1, the device half of the
+    2-component upload (ngsdist_tpu.core.distance.expand23, float32
+    lane).  A triple whose p0 is above 1.5 (the packed layout's sentinel
+    for padding and all-zero triples) expands to all zero.  Written into
+    `out` when given, with no temporary of the tensor's size."""
+    if out is None:
+        out = torch.empty(P2.shape[:-1] + (3,), dtype=P2.dtype, device=P2.device)
+    out[..., :2] = P2
+    # (1 - p0) - p1: -p0 + 1 is 1 - p0 exactly
+    out[..., 2].copy_(P2[..., 0]).neg_().add_(1.0).sub_(P2[..., 1])
+    out.masked_fill_(P2[..., 0:1] > 1.5, 0.0)
+    return out
+
+
+def _host_pack(src, lo: int, hi: int, dtype: torch.dtype,
+               out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Host half of an upload: the upload-ready slab of sites [lo, hi) in
+    the device's dtype — packed float32 [hi-lo, N, 2] from a fused-read
+    handle, else the cast of the host tensor's slice (no copy where the
+    dtype already fits) — written into `out` (pinned memory) when given.
+    No device traffic, so the ChunkPipe runs it on its reader thread."""
+    with profiling.host_span("read"):
+        if hasattr(src, "read_packed"):
+            return src.read_packed(lo, hi, out=out)
+        if out is None:
+            return np.ascontiguousarray(src[lo:hi], dtype=_np_dtype(dtype))
+        np.copyto(out, src[lo:hi], casting="same_kind")
+        return out
+
+
+def put_probs(P_slice, device: torch.device) -> torch.Tensor:
+    """Upload a host probability slab ([S, N, 3] array, or a fused-read
+    handle) in one piece, in the device's dtype (cast on the host, so
+    only float32 crosses to a card); a packed 2-component slab is
+    expanded on the device."""
+    arr = _host_pack(P_slice, 0, P_slice.shape[0], default_dtype(device))
+    t = torch.from_numpy(arr).to(device)
+    return expand23(t) if t.shape[-1] == 2 else t
+
+
+def _pipe_upload_bytes() -> int:
+    """Slab size of the resident pipelined upload; a value of
+    NGSDIST_PIPE_UPLOAD_BYTES that is no integer is ignored."""
+    try:
+        return max(1 << 20, int(os.environ["NGSDIST_PIPE_UPLOAD_BYTES"]))
+    except (KeyError, ValueError):
+        return PIPE_UPLOAD_BYTES
+
+
+class ChunkPipe:
+    """Site ranges of a source (a host [S, N, 3] array or a fused-read
+    handle), prepared on the host by one reader thread and brought to
+    the device in order (ngsdist_tpu.core.distance._pipelined_chunks).
+
+    On a card the reader fills a ring of two pinned slabs; each slab is
+    copied on a copy stream (`non_blocking`) and, packed, expanded there,
+    into `dest[lo:hi]` (a resident upload) or into a ring of two chunk
+    buffers (a stream).  A pinned slab is refilled only after the event
+    behind its copy, a chunk buffer only after the event behind the work
+    the consumer queued on it, and the consumer's stream waits for the
+    event behind each chunk's expansion.  All buffers are allocated once,
+    for ranges of at most `rows` sites.  On the CPU the same generator
+    yields the chunks in order with no stream and no ring."""
+
+    def __init__(self, src, device: torch.device, dtype: torch.dtype, rows: int,
+                 dest: Optional[torch.Tensor] = None) -> None:
+        self.src, self.device, self.dtype, self.dest = src, device, dtype, dest
+        self.packed = hasattr(src, "read_packed")
+        if self.packed and dtype != torch.float32:
+            raise ValueError("a fused-read source holds float32 slabs")
+        self.cuda = device.type == "cuda"
+        if not self.cuda:
+            return
+        N = src.shape[1]
+        self.host = [torch.empty((rows, N, 2 if self.packed else 3), dtype=dtype,
+                                 pin_memory=True) for _ in range(2)]
+        self.copied = [None, None]       # events: a pinned slab's copy is done
+        self.stream = torch.cuda.Stream(device)
+        self.stage = (torch.empty((rows, N, 2), dtype=dtype, device=device)
+                      if self.packed else None)
+        if dest is None:
+            self.ring = [torch.empty((rows, N, 3), dtype=dtype, device=device)
+                         for _ in range(2)]
+            self.consumed = [None, None]  # events: the consumer is done with a buffer
+
+    def _read(self, k: int, lo: int, hi: int) -> np.ndarray:
+        out = None
+        if self.cuda:
+            if self.copied[k % 2] is not None:
+                self.copied[k % 2].synchronize()
+            out = self.host[k % 2][:hi - lo].numpy()
+        return _host_pack(self.src, lo, hi, self.dtype, out=out)
+
+    def _send(self, k: int, lo: int, hi: int, arr: np.ndarray) -> torch.Tensor:
+        if not self.cuda:
+            with profiling.host_span("upload"):
+                t = torch.from_numpy(arr)
+                if self.dest is not None:
+                    out = self.dest[lo:hi]
+                    return expand23(t, out=out) if self.packed else out.copy_(t)
+                return expand23(t) if self.packed else t
+        slot, n = k % 2, hi - lo
+        if self.dest is not None:
+            out = self.dest[lo:hi]
+        else:
+            out = self.ring[slot][:n]
+            if self.consumed[slot] is not None:
+                self.stream.wait_event(self.consumed[slot])
+        with torch.cuda.stream(self.stream), profiling.device_span("upload", self.stream):
+            src = self.host[slot][:n]
+            if self.packed:
+                self.stage[:n].copy_(src, non_blocking=True)
+            else:
+                out.copy_(src, non_blocking=True)
+            self.copied[slot] = torch.cuda.Event()
+            self.copied[slot].record(self.stream)
+            if self.packed:
+                expand23(self.stage[:n], out=out)
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+        torch.cuda.current_stream(self.device).wait_event(ready)
+        return out
+
+    def chunks(self, ranges):
+        """Yield (chunk [hi-lo, N, 3] on the device, lo, hi) for each
+        (lo, hi) of ranges, in order.  A chunk of a stream is valid
+        until the next one is asked for."""
+        if not ranges:
+            return
+        if self.cuda:  # after whatever used this memory before
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with ThreadPoolExecutor(1) as reader:
+            fut = reader.submit(self._read, 0, *ranges[0])
+            for k, (lo, hi) in enumerate(ranges):
+                arr = fut.result()
+                # the next read goes into the other slab, whose copy was
+                # queued a chunk ago: start it before this chunk's upload
+                # is queued, so that the upload runs under it
+                if k + 1 < len(ranges):
+                    fut = reader.submit(self._read, k + 1, *ranges[k + 1])
+                Pc = self._send(k, lo, hi, arr)
+                yield Pc, lo, hi
+                if self.cuda and self.dest is None:
+                    self.consumed[k % 2] = torch.cuda.Event()
+                    self.consumed[k % 2].record(torch.cuda.current_stream(self.device))
+
+
+def upload_resident(src, device: torch.device) -> torch.Tensor:
+    """The whole source as the resident tensor.  A host tensor on the CPU
+    takes one step (no copy where the dtype fits).  On a card, and for a
+    fused-read handle, slabs of _pipe_upload_bytes() go through a
+    ChunkPipe into the tensor one after another: one pass over a handle's
+    file, no float64 host tensor, each slab's copy under the next one's
+    read (ngsdist_tpu.core.distance._upload_packed_pipelined)."""
+    packed = hasattr(src, "read_packed")
+    if device.type != "cuda" and not packed:
+        return put_probs(src, device)
+    dtype = default_dtype(device)
+    S, N = src.shape[:2]
+    slab_site_bytes = N * (2 if packed else 3) * (torch.finfo(dtype).bits // 8)
+    step = max(1, _pipe_upload_bytes() // max(1, slab_site_bytes))
+    P = torch.empty((S, N, 3), dtype=dtype, device=device)
+    pipe = ChunkPipe(src, device, dtype, max(1, min(step, S)), dest=P)
+    for _ in pipe.chunks([(lo, min(lo + step, S)) for lo in range(0, S, step)]):
+        pass
+    return P
+
+
+def working_set_bytes(rows: int, N: int, device: torch.device, indep: bool) -> int:
+    """Device bytes the engine holds beside a [rows, N, 3] tensor: the
+    kernels' [N, N] outputs and the pair vectors taken from them, the
+    float64 sums of a stream, the site weights and (indep) the kernel's
+    float64 chunk partials."""
+    itemsize = torch.finfo(default_dtype(device)).bits // 8
+    need = (4 * N * N + rows) * itemsize + 4 * 8 * (N * (N - 1) // 2)
+    shape = scratch_shape(N, rows) if indep else None
+    if shape is not None:
+        need += 8 * int(np.prod(shape))
+    return need
 
 
 def check_fits(S: int, N: int, device: torch.device, indep: bool):
-    """Raise when the resident tensor, the kernels' outputs and (indep)
-    the kernel's chunk partials do not fit the card's free memory (long
-    genomes would need streaming); else return the bytes left free
-    beside them (None on the CPU)."""
+    """The bytes of the card's free memory left beside the resident
+    tensor and its working set — negative when they do not fit and the
+    run must stream — or None on the CPU."""
     if device.type != "cuda":
         return None
     itemsize = torch.finfo(default_dtype(device)).bits // 8
-    need = (S * N * 3 + 4 * N * N + S) * itemsize
-    shape = scratch_shape(N, S) if indep else None
-    if shape is not None:
-        need += 8 * int(np.prod(shape))
     free, _ = torch.cuda.mem_get_info(device)
-    if need > free:
-        raise NgsDistError(
-            "main",
-            f"the resident [{S}, {N}, 3] tensor and its working set need "
-            f"{need} bytes but the card has {free} free; streaming long "
-            "genomes is not yet ported to ngsdist_tpu_torch",
-        )
-    return free - need
+    free -= free // _CUDA_RESERVE_DEN
+    return free - S * N * 3 * itemsize - working_set_bytes(S, N, device, indep)
+
+
+def _stream_chunk_sites(S: int, N: int, itemsize: int, budget: int,
+                        min_chunks: int = STREAM_MIN_CHUNKS,
+                        min_chunk_sites: int = STREAM_MIN_CHUNK_SITES) -> int:
+    """Site-chunk length of a streamed run (the JAX engine's rule)."""
+    cap = max(1, (budget * PREFETCH_KEEP_NUM // PREFETCH_KEEP_DEN)
+              // max(1, N * 3 * itemsize))
+    depth = -(-S // min_chunks)
+    return max(1, min(cap, max(depth, min_chunk_sites)))
+
+
+def _env_budget() -> Optional[int]:
+    """NGSDIST_DEVICE_BUDGET in bytes, the name the JAX engine reads, or
+    None when it is not set."""
+    raw = os.environ.get("NGSDIST_DEVICE_BUDGET")
+    return None if raw is None else int(raw)
+
+
+def stream_plan(S: int, N: int, device: torch.device, left: Optional[int]):
+    """(chunked, chunk sites): whether the [S, N, 3] tensor streams, and
+    in chunks of how many sites.  On the CPU, and on a card under
+    NGSDIST_DEVICE_BUDGET, by the JAX engine's rule: the tensor streams
+    when it exceeds a third of the budget (12 GiB by default).  A card
+    left to itself streams what does not fit its free memory (`left`,
+    check_fits) and sizes the chunks so that the stream's ring fits it,
+    none above _CUDA_MAX_CHUNK_BYTES."""
+    itemsize = torch.finfo(default_dtype(device)).bits // 8
+    tensor = S * N * 3 * itemsize
+    env = _env_budget()
+    if device.type != "cuda" or env is not None:
+        budget = max(1, (_DEFAULT_BUDGET if env is None else env) // _WORKING_SET_FACTOR)
+        chunked = tensor > budget
+        chunk = (_stream_chunk_sites(S, N, itemsize, budget, STREAM_MIN_CHUNKS,
+                                     STREAM_MIN_CHUNK_SITES) if chunked else S)
+        return chunked, chunk
+    if left >= 0:
+        return False, S
+    budget = min((left + tensor) // _CUDA_STREAM_FACTOR,
+                 _CUDA_MAX_CHUNK_BYTES * PREFETCH_KEEP_DEN // PREFETCH_KEEP_NUM)
+    return True, _stream_chunk_sites(S, N, itemsize, max(1, budget), STREAM_MIN_CHUNKS,
+                                     STREAM_MIN_CHUNK_SITES)
+
+
+def _exact_count_parts(n: int, weights: Optional[np.ndarray], limit: int = _EXACT_COUNT):
+    """Split n sites into consecutive (a, b) parts whose weighted count
+    (weights None: their length) stays within limit, as few as a walk
+    from the left gives."""
+    if weights is None:
+        return [(a, min(a + limit, n)) for a in range(0, n, limit)] or [(0, 0)]
+    cum = np.cumsum(weights)
+    if n == 0 or cum[-1] <= limit:
+        return [(0, n)]
+    parts, a, base = [], 0, 0.0
+    while a < n:
+        b = max(a + 1, int(np.searchsorted(cum, base + limit, side="right")))
+        parts.append((a, b))
+        a, base = b, cum[b - 1]
+    return parts
 
 
 def use_partials(n_blocks: int, N: int, pairwise_del: bool,
@@ -124,19 +417,11 @@ def _scatter_pairs(vals: np.ndarray, I: np.ndarray, J: np.ndarray, n_ind: int) -
     return out
 
 
-def _em_zero_rows(P: torch.Tensor, include=None) -> torch.Tensor:
-    """[N] bool: individuals with a DATA-BORNE all-zero triple among the
-    included sites.  Without pairwise deletion the reference runs its EM
-    on such a triple and gets NaN for every pair touching the individual;
-    the kernels exclude zero rows, so the poison is re-applied after."""
-    Z = (P == 0).all(-1)
-    if include is not None:
-        Z = Z & include[:, None]
-    return Z.any(0)
-
-
 def _em_poison_pairs(raw_v: torch.Tensor, z: torch.Tensor, I, J) -> torch.Tensor:
-    """NaN the pair entries whose either member has a zero row."""
+    """NaN the pair entries whose either member z [N] flags: without
+    pairwise deletion the reference runs its EM on an all-zero triple and
+    gets NaN for every pair touching the individual; the kernels exclude
+    zero rows, so the poison is re-applied after."""
     return torch.where(z[I] | z[J], torch.full_like(raw_v, float("nan")), raw_v)
 
 
@@ -169,15 +454,25 @@ def _finalize(raw: np.ndarray, cnt, pars: Params, on_stats=None) -> np.ndarray:
 
 def iter_replicates(
     pars: Params,
-    P_host: np.ndarray,
+    P_host,
     maps: List[np.ndarray],
     n_trunc: int,
     device: torch.device,
     on_stats=None,
     start_rep: int = 0,
+    round_ckpt: bool = False,
 ) -> Iterator[np.ndarray]:
     """Yield the full-data matrix, then one matrix per bootstrap
-    replicate, for replicates start_rep..n_boot_rep."""
+    replicate, for replicates start_rep..n_boot_rep.
+
+    P_host: the host [S, N, 3] float64 array, or a fused-read handle
+    (readers.PackedBinInput) whose float32 slabs come from disk as the
+    engine asks for them.
+
+    round_ckpt: save the accumulated sums after every chunk of a
+    streamed replicate (utils/checkpoint.save_rounds), so that an
+    interruption loses at most one chunk; the runner asks for it when
+    it owns the output file."""
     N, S = pars.n_ind, pars.n_sites
     dtype = default_dtype(device)
     score = torch.as_tensor(pars.score, dtype=dtype, device=device)
@@ -186,26 +481,84 @@ def iter_replicates(
     Jt = torch.from_numpy(J).long().to(device)
     n_blocks = n_trunc // pars.boot_block_size
     left = check_fits(S, N, device, pars.indep_geno)
-    partials = use_partials(n_blocks, N, pars.pairwise_del, device) and (
+    chunked, chunk = stream_plan(S, N, device, left)
+    partials = (not chunked) and use_partials(n_blocks, N, pars.pairwise_del, device) and (
         left is None
         or partials_bytes(n_blocks, N, pars.indep_geno, pars.pairwise_del) <= left)
-    P = to_device(P_host, device)
+    # The EM's zero-row poison needs the all-zero triples of the data.
+    # Binary inputs cannot hold one (every parsed row normalises to sum
+    # 1); for the others they are recorded here, once per run.
+    zero = None
+    if not (pars.indep_geno or pars.pairwise_del or pars.in_bin):
+        zero = find_zero_rows(P_host)
+    if chunked:
+        pipe = ChunkPipe(P_host, device, dtype, chunk)
+    else:
+        P = upload_resident(P_host, device)
 
-    def full_stats(Psub, site_weights=None):
-        """(raw, cnt or None) pair vectors [n_pairs] on the device."""
-        if pars.indep_geno:
-            raw_m, cnt_m = indep_raw_cnt(Psub, score, pars.pairwise_del,
-                                         site_weights)
-            return raw_m[It, Jt], (cnt_m[It, Jt] if pars.pairwise_del else None)
-        raw_m, cnt_m = em_raw_cnt(Psub, score.reshape(-1), pars.pairwise_del,
-                                  site_weights)
-        raw_v = raw_m[It, Jt]
-        # binary inputs cannot hold a zero row (every parsed row
-        # normalises to sum 1), so they skip the scan
-        if not (pars.pairwise_del or pars.in_bin):
-            inc = None if site_weights is None else site_weights > 0
-            raw_v = _em_poison_pairs(raw_v, _em_zero_rows(Psub, inc), It, Jt)
-        return raw_v, cnt_m[It, Jt]
+    def full_stats(Psub, weights, lo):
+        """(raw, cnt or None) pair vectors [n_pairs] on the device for
+        the sites Psub = [lo, lo + len) of the data; weights: their
+        multiplicities [len] on the host, or None."""
+        w = None if weights is None else torch.from_numpy(weights).to(device=device,
+                                                                      dtype=dtype)
+        with profiling.device_span("kernel"):
+            if pars.indep_geno:
+                raw_m, cnt_m = indep_raw_cnt(Psub, score, pars.pairwise_del, w)
+                return raw_m[It, Jt], (cnt_m[It, Jt] if pars.pairwise_del else None)
+            raw_m, cnt_m = em_raw_cnt(Psub, score.reshape(-1), pars.pairwise_del, w)
+            raw_v = raw_m[It, Jt]
+            if zero is not None:
+                z = zero.individuals(lo, lo + Psub.shape[0], weights)
+                if z.any():
+                    raw_v = _em_poison_pairs(raw_v, torch.from_numpy(z).to(device), It, Jt)
+            return raw_v, cnt_m[It, Jt]
+
+    def exact_stats(Psub, weights=None, lo=0):
+        """full_stats, in float32 over parts of the sites whose counts
+        stay exact, the parts added in float64."""
+        n = Psub.shape[0]
+        parts = [(0, n)] if dtype == torch.float64 else _exact_count_parts(n, weights)
+        if len(parts) == 1:
+            return full_stats(Psub, weights, lo)
+        raw = cnt = None
+        for a, b in parts:
+            r, c = full_stats(Psub[a:b], None if weights is None else weights[a:b], lo + a)
+            raw = r.double() if raw is None else raw + r.double()
+            if c is not None:
+                cnt = c.double() if cnt is None else cnt + c.double()
+        return raw, cnt
+
+    def stats_stream(weights=None, n_used=S, rep=0):
+        """(raw, cnt or None) of the first n_used sites.  Streamed: the
+        chunks' float64 sums in chunk order, which are exact partial sums
+        of a deterministic computation, so a replicate resumed from its
+        rounds file gives the bytes of an uninterrupted one."""
+        if not chunked:
+            return exact_stats(P if n_used == S else P[:n_used], weights)
+        acc_raw = acc_cnt = None
+        skip = 0
+        eng = engine_name(device)
+        if round_ckpt:
+            got = ckpt.load_rounds(pars.out, pars, rep, engine=eng, chunk=chunk)
+            if got is not None:
+                skip, arrs = got
+                acc_raw = torch.from_numpy(arrs["raw"]).to(device)
+                acc_cnt = torch.from_numpy(arrs["cnt"]).to(device) if "cnt" in arrs else None
+        ranges = [(lo, min(lo + chunk, n_used)) for lo in range(0, n_used, chunk)][skip:]
+        idx = skip
+        for Pc, lo, hi in pipe.chunks(ranges):
+            raw, cnt = exact_stats(Pc, None if weights is None else weights[lo:hi], lo)
+            acc_raw = raw.double() if acc_raw is None else acc_raw + raw.double()
+            if cnt is not None:
+                acc_cnt = cnt.double() if acc_cnt is None else acc_cnt + cnt.double()
+            idx += 1
+            if round_ckpt:
+                arrs = {"raw": acc_raw.cpu().numpy()}
+                if acc_cnt is not None:
+                    arrs["cnt"] = acc_cnt.cpu().numpy()
+                ckpt.save_rounds(pars.out, pars, rep, idx, arrs, engine=eng, chunk=chunk)
+        return acc_raw, acc_cnt
 
     def to_matrix(raw_v, cnt_v):
         raw_m = _scatter_pairs(raw_v.cpu().double().numpy(), I, J, N)
@@ -214,44 +567,51 @@ def iter_replicates(
         return raw_m, cnt_m
 
     if start_rep == 0:
-        raw_m, cnt_m = to_matrix(*full_stats(P))
+        raw_m, cnt_m = to_matrix(*stats_stream())
         denom = cnt_m if pars.pairwise_del else float(S)
         yield _finalize(raw_m, denom, pars, on_stats)
 
     reps = [r for r in range(pars.n_boot_rep) if r + 1 >= start_rep]
     if not reps:
         return
-    Ptrunc = P[:n_trunc]
 
     if partials:
-        for raw_v, cnt_v in _resum_blocks(pars, Ptrunc, score, n_blocks, reps, It, Jt):
+        for raw_v, cnt_v in _resum_blocks(pars, P[:n_trunc], score, n_blocks, reps, It, Jt,
+                                          zero):
             raw_m, cnt_m = to_matrix(raw_v, cnt_v)
             denom = cnt_m if pars.pairwise_del else float(n_trunc)
             yield _finalize(raw_m, denom, pars, on_stats)
         return
 
     def dispatch(r):
-        w = replicate_weights(maps[r], n_trunc)
-        return full_stats(Ptrunc, torch.from_numpy(w).to(device=device, dtype=dtype))
+        return stats_stream(replicate_weights(maps[r], n_trunc), n_trunc, r + 1)
 
-    # Launch replicate r+1 before fetching replicate r, so the device
-    # computes the next replicate while the host corrects and writes.
-    pending = dispatch(reps[0])
-    for k in range(len(reps)):
-        raw_v, cnt_v = pending
-        if k + 1 < len(reps):
-            pending = dispatch(reps[k + 1])
+    # Resident runs launch replicate r+1 before fetching replicate r, so
+    # the device computes the next replicate while the host corrects and
+    # writes.  A streamed replicate fetches as it goes, so looking ahead
+    # would only compute a whole replicate early.
+    lookahead = not chunked
+    pending = dispatch(reps[0]) if lookahead else None
+    for k, r in enumerate(reps):
+        if lookahead:
+            raw_v, cnt_v = pending
+            if k + 1 < len(reps):
+                pending = dispatch(reps[k + 1])
+        else:
+            raw_v, cnt_v = dispatch(r)
         raw_m, cnt_m = to_matrix(raw_v, cnt_v)
         denom = cnt_m if pars.pairwise_del else float(n_trunc)
         yield _finalize(raw_m, denom, pars, on_stats)
 
 
 def _resum_blocks(pars: Params, Ptrunc: torch.Tensor, score: torch.Tensor,
-                  n_blocks: int, reps: List[int], It, Jt):
+                  n_blocks: int, reps: List[int], It, Jt, zero=None):
     """The partial-sum route (ngsdist_tpu/core/distance.py:856-890): one
     block-mode kernel call, then for each replicate r in reps its
     (raw, cnt or None) pair vectors M[r] @ B and M[r] @ C in float64,
-    M[r] the multiplicity of each block in replicate r."""
+    M[r] the multiplicity of each block in replicate r.  zero: the run's
+    record of all-zero triples (preprocess.ZeroRows) where the EM must
+    poison for them, else None."""
     bs = pars.boot_block_size
     if pars.indep_geno:
         B, C = indep_block_partials(Ptrunc, score, pars.pairwise_del, n_blocks, bs)
@@ -259,6 +619,8 @@ def _resum_blocks(pars: Params, Ptrunc: torch.Tensor, score: torch.Tensor,
         B, C = em_block_partials(Ptrunc, score.reshape(-1), pars.pairwise_del,
                                  n_blocks, bs)
         C = C if pars.pairwise_del else None  # the denominator is n_trunc
+    # float64 already, from the kernels and from the CPU's float64 policy
+    B, C = B.double(), None if C is None else C.double()
     table = bt.block_index_table(pars.seed, pars.n_boot_rep, n_blocks)
     M = torch.from_numpy(bt.block_multiplicity(table, n_blocks)).to(B.device)
     # A NaN partial makes the pair NaN whatever its block's multiplicity,
@@ -266,13 +628,12 @@ def _resum_blocks(pars: Params, Ptrunc: torch.Tensor, score: torch.Tensor,
     nan_pairs = torch.isnan(B).any(0)
     nan = torch.tensor(float("nan"), dtype=B.dtype, device=B.device)
     zB = None
-    if not (pars.indep_geno or pars.pairwise_del or pars.in_bin):
-        # The EM's zero-row poison (_em_zero_rows), per block: a
-        # replicate is poisoned where it samples a block in which either
-        # member of the pair has an all-zero row.  The partials stay
-        # clean, so an unsampled block cannot poison.
-        N = Ptrunc.shape[1]
-        zB = (Ptrunc == 0).all(-1).reshape(n_blocks, bs, N).any(1).double()
+    if zero is not None:
+        # The EM's zero-row poison, per block: a replicate is poisoned
+        # where it samples a block in which either member of the pair has
+        # an all-zero row.  The partials stay clean, so an unsampled
+        # block cannot poison.
+        zB = torch.from_numpy(zero.per_block(n_blocks, bs)).to(B.device).double()
     for r in reps:
         raw_v = torch.where(nan_pairs, nan, M[r] @ B)
         if zB is not None:

@@ -80,3 +80,47 @@ def preprocess(
     if call_geno:
         call_geno_inplace(geno_log, N_thresh, call_thresh, native=native)
     return to_normal_space(geno_log, native=native)
+
+
+class ZeroRows:
+    """Where the all-zero triples of a normal-space [S, N, 3] array lie
+    (empty text lines parse to them): `sites` [n] the sites that hold
+    one, ascending, and `rows` [n, N] bool the individuals there.  The
+    EM poisons every pair of such an individual without pairwise
+    deletion (core/distance.py); the record is taken once per run so
+    that no pass of the engine scans the tensor for them."""
+
+    def __init__(self, sites: np.ndarray, rows: np.ndarray) -> None:
+        self.sites, self.rows = sites, rows
+
+    def individuals(self, lo: int, hi: int, weights=None) -> np.ndarray:
+        """[N] bool: individuals with an all-zero triple among the sites
+        [lo, hi) — with weights [hi - lo], among those of weight > 0."""
+        a, b = np.searchsorted(self.sites, (lo, hi))
+        rows = self.rows[a:b]
+        if weights is not None:
+            rows = rows[np.asarray(weights)[self.sites[a:b] - lo] > 0]
+        return rows.any(0)
+
+    def per_block(self, n_blocks: int, block_size: int) -> np.ndarray:
+        """[n_blocks, N] bool: individuals with an all-zero triple in
+        each bootstrap block of the first n_blocks · block_size sites."""
+        out = np.zeros((n_blocks, self.rows.shape[1]), dtype=bool)
+        k = np.searchsorted(self.sites, n_blocks * block_size)
+        np.logical_or.at(out, self.sites[:k] // block_size, self.rows[:k])
+        return out
+
+
+def find_zero_rows(P: np.ndarray, slab_sites: int = 4096):
+    """The ZeroRows record of P [S, N, 3], or None when no triple is all
+    zero.  One pass, in slabs of sites."""
+    sites, rows = [], []
+    for lo in range(0, P.shape[0], slab_sites):
+        zero = ~P[lo:lo + slab_sites].any(-1)   # NaN counts as nonzero
+        hit = np.flatnonzero(zero.any(1))
+        if hit.size:
+            sites.append(hit + lo)
+            rows.append(zero[hit])
+    if not sites:
+        return None
+    return ZeroRows(np.concatenate(sites), np.concatenate(rows))

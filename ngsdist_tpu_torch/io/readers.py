@@ -19,6 +19,7 @@ the engine (core/distance.py) moves to the device.
 from __future__ import annotations
 
 import gzip
+import os
 import re
 import sys
 from typing import List, Optional, Tuple
@@ -125,6 +126,115 @@ def read_geno(
                                err=err.value)
         return out
     return _read_geno_py(path, in_bin, in_probs, in_logscale, n_ind, n_sites)
+
+
+def read_geno_pack23(
+    path: str,
+    in_logscale: bool,
+    n_ind: int,
+    n_sites: int,
+    site_range: Optional[Tuple[int, int]] = None,
+    out: Optional[np.ndarray] = None,
+) -> Optional[np.ndarray]:
+    """Fused one-pass read of a RAW binary GP file: parse -> normalize
+    -> exp -> float32 2-component pack, returning the upload-ready
+    [rows, n_ind, 2] slab (p0, p1; the device restores p2 = 1 - p0 - p1,
+    core/distance.py expand23; no sentinel rows — binary triples always
+    normalize to sum 1).  The values are those of the staged
+    read_geno -> preprocess pipeline cast to float32 (same libm calls in
+    the same order, native nd_read_geno_pack23), in ONE pass over the
+    data instead of three.  Returns None when the file is not raw
+    seekable binary (gzip magic, stdin, pipe) — callers fall back to
+    the staged path.  Reference arithmetic: read_data.cpp:29-47
+    (read+normalize in one pass) + gen_func.cpp:123-130 (conv_space).
+
+    out: a C-contiguous float32 [rows, n_ind, 2] array to fill instead
+    of a new one (pinned memory, so that the native reader writes where
+    the upload starts from)."""
+    import ctypes
+
+    if path == "-" or not _native.have_native():
+        return None
+    start, stop = site_range if site_range is not None else (0, n_sites)
+    lib = _native.get_lib()
+    if out is None:
+        out = np.empty((stop - start, n_ind, 2), dtype=np.float32)
+    elif out.shape != (stop - start, n_ind, 2):
+        raise ValueError(f"out has shape {out.shape}, the range needs "
+                         f"{(stop - start, n_ind, 2)}")
+    errbuf = ctypes.create_string_buffer(256)
+    err = ctypes.c_int(0)
+    rc = lib.nd_read_geno_pack23(
+        path.encode(), int(in_logscale), n_ind, n_sites, start, stop,
+        _native.as_float_ptr(out), errbuf, len(errbuf), ctypes.byref(err),
+    )
+    if rc == 2:
+        return None
+    if rc != 0:
+        raise NgsDistError("read_geno", errbuf.value.decode(),
+                           err=err.value)
+    return out
+
+
+def is_raw_seekable_binary(path: str) -> bool:
+    """True when `path` is a regular, seekable, NON-gzip file — the
+    precondition of the fused native reader (its own sniff returns
+    None otherwise).  Checked by the fused-path gate so that a
+    gz-magic file behind a non-.gz name routes to the staged pipeline
+    instead of a mid-run fused-reader fatal; magic-based like the
+    reference's gzopen (gen_func.cpp), so a raw file that happens to
+    start with 1f 8b is treated as gzip CONSISTENTLY with it."""
+    import stat
+
+    if path == "-":
+        return False
+    try:
+        st = os.stat(path)
+        if not stat.S_ISREG(st.st_mode):
+            return False
+        with open(path, "rb") as fh:
+            magic = fh.read(2)
+    except OSError:
+        return False
+    return magic != b"\x1f\x8b"
+
+
+class PackedBinInput:
+    """Deferred fused-read handle for raw binary GP inputs on the
+    float32 engine path (runner fast path).
+
+    Instead of materializing the [S, N, 3] float64 tensor (read) and
+    then converting it twice more (exp, float32 cast) — three full
+    passes and a 3x-resident host footprint — the engine pulls
+    upload-ready packed float32 [chunk, N, 2] slabs straight from disk
+    via read_geno_pack23 and uploads each while the next chunk parses.
+
+    Consequence of deferral: reader fatals that depend on file CONTENT
+    (the NaN check) surface when the affected chunk is read — mid-run
+    for multi-chunk streams — instead of before the first compute
+    banner as in the eager reference read (read_data.cpp:29-47).  Size
+    errors still fail up-front (Params.finalize stat check).  See
+    docs/PARITY.md.
+    """
+
+    def __init__(self, pars) -> None:
+        self.path = pars.in_geno
+        self.in_logscale = bool(pars.in_logscale)
+        self.n_ind = int(pars.n_ind)
+        self.n_sites = int(pars.n_sites)
+        self.shape = (self.n_sites, self.n_ind, 3)  # logical tensor shape
+        self.bytes_per_site = self.n_ind * 8        # two float32 per triple
+
+    def read_packed(self, lo: int, hi: int,
+                    out: Optional[np.ndarray] = None) -> np.ndarray:
+        """Upload-ready float32 [hi-lo, n_ind, 2] slab for sites
+        [lo, hi), written into `out` when given."""
+        got = read_geno_pack23(self.path, self.in_logscale, self.n_ind,
+                               self.n_sites, site_range=(lo, hi), out=out)
+        if got is None:  # not raw binary after all (TOCTOU): hard error
+            raise NgsDistError("read_geno", "cannot read binary GENO file. "
+                               "Check GENO file and number of sites!")
+        return got
 
 
 def _postprob_py(tri: np.ndarray) -> np.ndarray:

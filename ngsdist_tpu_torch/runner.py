@@ -1,8 +1,9 @@
 """End-to-end orchestration for the PyTorch port: config -> read ->
 preprocess -> distances -> output.
 
-Port of ngsdist_tpu/runner.py for one device with a resident tensor,
-running the port's engine (core/distance.py) on `device`.  The host
+Port of ngsdist_tpu/runner.py for one device, running the port's engine
+(core/distance.py) on `device`: resident where the tensor fits the
+device budget, streamed in site chunks where it does not.  The host
 layer (readers, preprocessing, bootstrap maps, writers, checkpoints,
 signals) is the port's own copy of the JAX package's, module by module
 under the same names.
@@ -10,6 +11,7 @@ under the same names.
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import List, Optional, TextIO
 
@@ -23,7 +25,7 @@ from .core import models
 from .core.preprocess import preprocess
 from .io import readers, writers
 from .utils import checkpoint as ckpt
-from .utils import native, signals
+from .utils import native, profiling, signals
 from .utils.profiling import Throughput
 
 
@@ -38,9 +40,31 @@ def _log(pars: Params, level: int, msg: str) -> None:
         print(msg, file=sys.stderr)
 
 
-def load_inputs(pars: Params):
+def _fused_packed_wanted(pars: Params, device: torch.device) -> bool:
+    """True when the genotype read should be DEFERRED to the engine as a
+    fused-read handle (readers.PackedBinInput): the engine then pulls
+    upload-ready packed float32 chunks straight from disk — one native
+    pass instead of read + exp + cast over a resident float64 tensor,
+    with chunk reads overlapping the uploads.  Requires a raw seekable
+    binary file, the float32 dtype and an engine stage that never needs
+    the host tensor (no genotype calling, no per-site debug replay).
+    NGSDIST_FUSED_READ=0 forces the staged pipeline."""
+    if os.environ.get("NGSDIST_FUSED_READ", "auto") == "0":
+        return False
+    if not pars.in_bin or not readers.is_raw_seekable_binary(pars.in_geno):
+        return False  # the fused reader needs a raw regular file (magic sniff)
+    if pars.call_geno or pars.evol_model >= 3 or pars.verbose >= 8:
+        return False
+    if not native.have_native():
+        return False
+    return distance.default_dtype(device) == torch.float32
+
+
+def load_inputs(pars: Params, fused: bool = False):
     """Read labels, positions and the genotype tensor; returns
-    (labels, pos_rows, P_normal [n_sites, n_ind, 3])."""
+    (labels, pos_rows, P_normal [n_sites, n_ind, 3]).  fused=True
+    returns a readers.PackedBinInput handle instead of the tensor (the
+    engine reads fused packed chunks on demand)."""
     if pars.in_labels:
         _log(pars, 1, "==> Reading labels")
         labels = readers.read_labels(pars.in_labels, pars.in_labels_header, pars.n_ind)
@@ -59,11 +83,14 @@ def load_inputs(pars: Params):
                 print("\t".join((row + ["", "", "", ""])[:4]), file=sys.stderr)
 
     _log(pars, 1, "==> Reading genotype data")
-    geno_log = readers.read_geno(
-        pars.in_geno, pars.in_bin, pars.in_probs, pars.in_logscale,
-        pars.n_ind, pars.n_sites,
-    )
-    P = preprocess(geno_log, pars.call_geno, pars.N_thresh, pars.call_thresh)
+    if fused:
+        return labels, pos_rows, readers.PackedBinInput(pars)
+    with profiling.host_span("read"):
+        geno_log = readers.read_geno(
+            pars.in_geno, pars.in_bin, pars.in_probs, pars.in_logscale,
+            pars.n_ind, pars.n_sites,
+        )
+        P = preprocess(geno_log, pars.call_geno, pars.N_thresh, pars.call_thresh)
     return labels, pos_rows, P
 
 
@@ -90,11 +117,13 @@ def make_pair_report(pars: Params, labels):
 
 
 
-def iter_replicates(pars: Params, P: np.ndarray, device: torch.device,
-                    on_stats=None, labels=None, start_rep: int = 0):
+def iter_replicates(pars: Params, P, device: torch.device,
+                    on_stats=None, labels=None, start_rep: int = 0,
+                    round_ckpt: bool = False):
     """Yield the distance matrices for replicates start_rep..n_boot_rep,
     printing each replicate's stage banners before its matrix is pulled
-    (reference ngsDist.cpp:223-242)."""
+    (reference ngsDist.cpp:223-242).  P: the host tensor or a fused-read
+    handle; round_ckpt: see distance.iter_replicates."""
     models.check_model_supported(pars.evol_model)
 
     _log(pars, 2, "==> Setting seed for random number generator")
@@ -108,7 +137,8 @@ def iter_replicates(pars: Params, P: np.ndarray, device: torch.device,
     dump_labels = labels if labels is not None else readers.default_labels(pars.n_ind)
 
     gen = distance.iter_replicates(pars, P, maps, n_trunc, device,
-                                   on_stats=on_stats, start_rep=start_rep)
+                                   on_stats=on_stats, start_rep=start_rep,
+                                   round_ckpt=round_ckpt)
     for rep in range(start_rep, pars.n_boot_rep + 1):
         _log(pars, 1, "==> Analyzing full dataset..." if rep == 0
              else f"==> Bootstrap replicate # {rep} ...")
@@ -144,11 +174,6 @@ def run(pars: Params, device: torch.device, out_fh: Optional[TextIO] = None, res
     them.  resume: continue an interrupted run from its .ckpt.json
     sidecar.  report_throughput: print pair-site updates/s to stderr."""
     pars.validate()
-    if pars.evol_model >= 3:
-        raise NgsDistError(
-            "main", f"evolutionary model {pars.evol_model} is not yet ported "
-            "to ngsdist_tpu_torch (models 0-2 are); run ngsdist_tpu for "
-            "models 3-6")
     try:
         pars.finalize()
     finally:
@@ -156,8 +181,13 @@ def run(pars: Params, device: torch.device, out_fh: Optional[TextIO] = None, res
         # reach stderr in order, as the reference prints them as it goes
         for msg in pars.messages:
             print(msg, file=sys.stderr)
+    if pars.evol_model >= 3:
+        raise NgsDistError(
+            "main", f"evolutionary model {pars.evol_model} is not yet ported "
+            "to ngsdist_tpu_torch (models 0-2 are); run ngsdist_tpu for "
+            "models 3-6")
 
-    labels, _, P = load_inputs(pars)
+    labels, _, P = load_inputs(pars, fused=_fused_packed_wanted(pars, device))
     ckpt_engine = distance.engine_name(device)
 
     n_done = 0
@@ -197,7 +227,10 @@ def run(pars: Params, device: torch.device, out_fh: Optional[TextIO] = None, res
     try:
         for rep, m in enumerate(
             iter_replicates(pars, P, device, on_stats=on_stats, labels=labels,
-                            start_rep=n_done),
+                            start_rep=n_done,
+                            # round-level durability of the sums of
+                            # streamed long-genome replicates
+                            round_ckpt=close),
             start=n_done,
         ):
             n_used = pars.n_sites if rep == 0 else n_trunc

@@ -94,3 +94,83 @@ def clear(out: str) -> None:
         os.remove(state_path(out))
     except OSError:
         pass
+    clear_rounds(out)
+
+
+# ------------------------------------------------------------------ #
+# Intra-replicate round checkpoints (streaming long-genome runs)      #
+# ------------------------------------------------------------------ #
+#
+# When a genome streams as site chunks, a single replicate can take
+# hours; the replicate-level sidecar above would lose all of it on
+# interruption.  These helpers persist the ACCUMULATED sufficient
+# statistics after each completed chunk ("round"), so a resumed run
+# re-enters the replicate at the first unfinished round.  The statistics
+# are exact partial sums of a deterministic computation, so resumed
+# output is byte-identical to an uninterrupted run.
+
+
+def rounds_path(out: str) -> str:
+    return out + ".rounds.npz"
+
+
+_META_KEY = "__ngsdist_meta__"
+
+
+def save_rounds(out: str, pars: Params, rep: int, next_round: int,
+                arrays: dict, engine: Optional[str] = None,
+                chunk: Optional[int] = None) -> None:
+    """Crash-atomic: metadata (fingerprint/rep/next_round/chunk) travels
+    INSIDE the npz so the commit is one os.replace — a kill can only
+    leave the previous complete checkpoint or the new complete one,
+    never a meta file one round ahead of its arrays.  chunk: the sites
+    per round; on a card it follows from the free memory, which varies,
+    so it is recorded and a file of another chunk length is not
+    resumed."""
+    import numpy as np
+
+    meta = {"fingerprint": run_fingerprint(pars, engine), "rep": rep,
+            "next_round": next_round, "chunk": chunk}
+    base = rounds_path(out)
+    tmp = base + ".tmp.npz"
+    with open(tmp, "wb") as fh:
+        np.savez(fh, **arrays,
+                 **{_META_KEY: np.frombuffer(
+                     json.dumps(meta).encode(), dtype=np.uint8)})
+        fh.flush()
+        os.fsync(fh.fileno())
+    os.replace(tmp, base)
+
+
+def load_rounds(out: str, pars: Params, rep: int,
+                engine: Optional[str] = None, chunk: Optional[int] = None):
+    """(next_round, arrays) for a matching interrupted replicate, else
+    None."""
+    import numpy as np
+
+    path = rounds_path(out)
+    if not os.path.exists(path):
+        return None
+    import zipfile
+
+    try:
+        with np.load(path) as z:
+            if _META_KEY not in z.files:
+                return None  # unknown format: recompute
+            meta = json.loads(bytes(z[_META_KEY]).decode())
+            arrays = {k: z[k] for k in z.files if k != _META_KEY}
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+        # a torn partial file (kill mid-write) must read as "no
+        # checkpoint", not crash the resume
+        return None
+    if (meta.get("fingerprint") != run_fingerprint(pars, engine)
+            or meta.get("rep") != rep or meta.get("chunk") != chunk):
+        return None
+    return int(meta["next_round"]), arrays
+
+
+def clear_rounds(out: str) -> None:
+    try:
+        os.remove(rounds_path(out))
+    except OSError:
+        pass

@@ -102,8 +102,11 @@ def test_em_zero_row_poison_matches_jax(weighted):
                              None if inc is None else jnp.asarray(inc))
     want = np.asarray(dist._em_poison_pairs(jnp.asarray(vals), z_j,
                                             jnp.asarray(I), jnp.asarray(J)))
-    z_t = tdist._em_zero_rows(torch.from_numpy(P),
-                              None if inc is None else torch.from_numpy(inc))
+    # the port takes the flags from its record of the all-zero triples
+    # (one pass per run) where the JAX engine scans the tensor per call
+    z_t = torch.from_numpy(tdist.find_zero_rows(P).individuals(
+        0, S, None if not weighted else w))
+    np.testing.assert_array_equal(z_t.numpy(), np.asarray(z_j))
     got = tdist._em_poison_pairs(torch.from_numpy(vals), z_t,
                                  torch.from_numpy(I).long(),
                                  torch.from_numpy(J).long()).numpy()

@@ -223,3 +223,34 @@ def test_runtime_name_is_keyed_by_sources_and_flags():
     assert path == tnative.library_path()
     assert os.path.basename(path).startswith("libngsdist_native_") and path.endswith(".so")
     assert all(os.path.exists(s) for s in tnative.SOURCES)
+
+
+@pytest.mark.parametrize("zeros", [(), ((17, 2),), ((0, 0), (17, 2), (17, 4), (59, 1))],
+                         ids=["none", "one", "several"])
+def test_zero_rows_record_matches_the_tensor_scan(zeros):
+    """preprocess.find_zero_rows / ZeroRows against the scans of the whole
+    tensor they replace (ngsdist_tpu.core.distance._em_zero_rows and the
+    per-block flags of its partial-sum route): None when no triple is all
+    zero, else the same individuals for any site range and any weights,
+    and the same flags per bootstrap block."""
+    rng = np.random.default_rng(len(zeros))
+    S, N, bs = 60, 5, 7
+    P = rng.dirichlet(np.ones(3), size=(S, N))
+    P[3, 1] = np.nan                      # NaN is not an all-zero triple
+    for s, i in zeros:
+        P[s, i] = 0.0
+    rec = tpre.find_zero_rows(P, slab_sites=16)
+    if not zeros:
+        assert rec is None
+        return
+    Z = (P == 0).all(-1)
+    assert rec.sites.tolist() == sorted({s for s, _ in zeros})
+    w = rng.integers(0, 3, S).astype(np.float64)
+    w[17] = 0.0
+    for lo, hi in ((0, S), (0, 17), (17, 18), (18, 60), (5, 5)):
+        np.testing.assert_array_equal(rec.individuals(lo, hi), Z[lo:hi].any(0))
+        np.testing.assert_array_equal(rec.individuals(lo, hi, w[lo:hi]),
+                                      (Z[lo:hi] & (w[lo:hi] > 0)[:, None]).any(0))
+    n_blocks = S // bs
+    np.testing.assert_array_equal(rec.per_block(n_blocks, bs),
+                                  Z[:n_blocks * bs].reshape(n_blocks, bs, N).any(1))

@@ -235,3 +235,54 @@ def test_block_partials_reject_bad_blocks(cuda, kind):
     P = torch.zeros((10, 5, 3), dtype=torch.float32, device=cuda)
     with pytest.raises(ValueError, match="blocks"):
         fn(P, SCORE9, False, 3, 3)
+
+
+def _cli_matrices(tmp_path, monkeypatch, tag, geno, S, N, kind, budget, fused):
+    """One CLI run on the card -> (matrices, launches of the kind's kernel)."""
+    from ngsdist_tpu_torch import cli
+
+    monkeypatch.setenv("NGSDIST_FUSED_READ", "auto" if fused else "0")
+    if budget is None:
+        monkeypatch.delenv("NGSDIST_DEVICE_BUDGET", raising=False)
+    else:
+        monkeypatch.setenv("NGSDIST_DEVICE_BUDGET", str(budget))
+    out = str(tmp_path / f"{tag}.dist")
+    args = ["--geno", geno, "--probs", "--n_ind", str(N), "--n_sites", str(S), "--seed", "7",
+            "--evol_model", "0", "--out", out, "--verbose", "0", "--platform", "cuda",
+            "--n_boot_rep", "2", "--boot_block_size", "50"]
+    args += ["--indep_geno", "--pairwise_del"] if kind == "indep" else []
+    mod = indep if kind == "indep" else em
+    before = mod.LAUNCHES
+    assert cli.main(args) == 0
+    return chip_smoke.read_phylip(out), mod.LAUNCHES - before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(KERNELS))
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "staged"])
+def test_streamed_equals_resident(cuda, tmp_path, monkeypatch, kind, fused):
+    """A run forced to stream (NGSDIST_DEVICE_BUDGET) launches the kernel
+    once per chunk and matrix and agrees with the resident run of the
+    same input and read route: each within its bound of the exact sums,
+    so within twice it of each other (model 0: the matrix is raw/cnt)."""
+    from ngsdist_tpu_torch.core import distance
+
+    S, N = 4999, 130
+    P = chip_smoke.rand_probs(np.random.default_rng(8), S, N)
+    geno = str(tmp_path / "gp.bin")
+    P.astype("<f8").tofile(geno)
+    budget = 12 * 700 * N * 12 // 3  # chunks of 700 sites: 8 for 4999, the last ragged
+    monkeypatch.setenv("NGSDIST_DEVICE_BUDGET", str(budget))
+    assert distance.stream_plan(S, N, cuda, None) == (True, 700)
+    resident, n_res = _cli_matrices(tmp_path, monkeypatch, "res", geno, S, N, kind, None, fused)
+    streamed, n_str = _cli_matrices(tmp_path, monkeypatch, "str", geno, S, N, kind, budget,
+                                    fused)
+    assert len(resident) == len(streamed) == 3
+    # resident: the partial-sum route (the full-data call; the block mode has its own count)
+    assert n_res == 1 and n_str == 8 + 2 * 8   # 4950 truncated sites are 8 chunks too
+    for a, b in zip(streamed, resident):
+        off = ~np.eye(N, dtype=bool)
+        if kind == "indep":
+            assert (np.abs(a - b)[off] <= 2 * chip_smoke.INDEP_RTOL * np.abs(b)[off] + 1e-10).all()
+        else:
+            assert (np.abs(a - b)[off] <= 2 * chip_smoke.EM_ATOL_CNT + 1e-10).all()

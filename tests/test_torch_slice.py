@@ -110,6 +110,75 @@ def test_port_cli_errors(extra, needle, tmp_path, monkeypatch, capsys):
     assert needle in capsys.readouterr().err
 
 
+def test_unported_model_is_refused_after_finalize(tmp_path, monkeypatch, capsys):
+    """Models 3-6 are refused only after Params.finalize(): its banners
+    and its fatals (here a missing input file) come first, as in the JAX
+    runner, which prints them before it looks at the model."""
+    from ngsdist_tpu import runner as jax_runner
+    from ngsdist_tpu.config import NgsDistError as JaxError
+    from ngsdist_tpu.config import Params as JaxParams
+    from ngsdist_tpu_torch import runner
+    from ngsdist_tpu_torch.config import NgsDistError, Params
+
+    monkeypatch.chdir(DATA_DIR)
+    kw = dict(in_geno="absent.bin", in_bin=True, in_probs=True, n_ind=20, n_sites=1200,
+              in_pos="pos.txt", evol_model=4, verbose=1, out=str(tmp_path / "x.dist"))
+    with pytest.raises(JaxError) as want:
+        jax_runner.run(JaxParams(**kw), engine="jax")
+    want_err = capsys.readouterr().err
+    with pytest.raises(NgsDistError) as got:
+        runner.run(Params(**kw), torch.device("cpu"))
+    got_err = capsys.readouterr().err
+    assert str(got.value) == str(want.value) and "not yet ported" not in str(got.value)
+    assert got_err == want_err
+    # with the file present the banners still come first, then the refusal
+    with pytest.raises(NgsDistError, match="not yet ported to ngsdist_tpu_torch"):
+        runner.run(Params(**{**kw, "in_geno": "gp.bin"}), torch.device("cpu"))
+    pars = Params(**{**kw, "in_geno": "gp.bin"})
+    pars.validate()
+    pars.finalize()
+    assert capsys.readouterr().err == "".join(m + "\n" for m in pars.messages)
+
+
+@pytest.mark.parametrize("reps,route", [(0, None), (3, "weighted"), (3, "partials")],
+                         ids=["resident", "weighted_boot", "partials_boot"])
+def test_no_zero_row_scan_without_zero_rows(tmp_path, monkeypatch, reps, route):
+    """A text input without an empty line: the EM run without pairwise
+    deletion records once that no triple is all zero and then neither
+    scans the tensor nor poisons, on either bootstrap route; binary
+    inputs and runs under pairwise deletion do not even take the record."""
+    import gzip
+
+    from ngsdist_tpu_torch import runner
+    from ngsdist_tpu_torch.config import Params
+    from ngsdist_tpu_torch.core import distance as tdist
+
+    if route == "weighted":
+        monkeypatch.setattr(tdist, "PARTIALS_BUDGET_BYTES", 0)
+    records, poisons = [], []
+    monkeypatch.setattr(tdist, "find_zero_rows",
+                        lambda P, _fn=tdist.find_zero_rows: records.append(_fn(P)) or records[-1])
+    monkeypatch.setattr(tdist, "_em_poison_pairs",
+                        lambda *a, _fn=tdist._em_poison_pairs: poisons.append(1) or _fn(*a))
+    assert not hasattr(tdist, "_em_zero_rows")  # the scan of the tensor is gone
+
+    rng = np.random.default_rng(9)
+    S, N = 60, 5
+    gp = rng.dirichlet(np.ones(3), size=(S, N))
+    path = str(tmp_path / "z.geno.gz")
+    with gzip.open(path, "wt") as fh:
+        for s in range(S):
+            fh.write("\t".join(f"{x:.8f}" for x in gp[s].reshape(-1)) + "\n")
+    base = dict(in_geno=path, in_probs=True, n_ind=N, n_sites=S, seed=7, verbose=0,
+                n_boot_rep=reps, boot_block_size=10)
+    got = runner.run(Params(out=str(tmp_path / "a.dist"), **base), torch.device("cpu"))
+    assert len(got) == 1 + reps and all(np.isfinite(m).all() for m in got)
+    assert records == [None] and poisons == []
+    runner.run(Params(out=str(tmp_path / "b.dist"), pairwise_del=True, **base),
+               torch.device("cpu"))
+    assert records == [None] and poisons == []
+
+
 def test_port_resume_keys_on_device_and_dtype(tmp_path, monkeypatch):
     """A checkpoint of a CPU float64 run is not resumed by a run whose
     numeric environment differs."""
