@@ -53,6 +53,20 @@ Phases, each of which fails the run loudly:
    within twice the kernel's bound of the same input run resident.
    Each run logs its wall time and its read, upload and kernel seconds
    with the share of the upload that ran under a kernel or a read.
+   Evolutionary models 3-6 (MODELS), with a POS file of seeded A/C/G/T
+   allele pairs, ~5% of them unclassifiable: (g) the EM, --evol_model 6
+   (TN93), 16,384 sites, 2 replicates of 256-site blocks; (h) indep
+   --pairwise_del, --evol_model 5 (F84), 65,536 sites, 2 replicates;
+   and (g) once more streamed in 4 chunks under a forced budget ("gs").
+   Each matrix takes three launches (one per substitution class, on the
+   class's sites only) per chunk, 9 for (g) and (h); the engine is
+   handed the staged float64 tensor.  Their 64-individual sub-matrices
+   are held against the float64 plain versions under the class weights,
+   the JAX engine's host form of the per-pair base frequencies and
+   core/submodels.py's formulas: the bound is the model evaluated with
+   every class proportion moved by its kernel's bound (all up, all
+   down: the models rise with each proportion), plus the print
+   rounding.  (g) streamed also against (g).
 4. Each kernel's time at the main path's shapes beside its plain
    version's (float32), its bound (the least time the card could take:
    the larger of its bytes over PEAK_BYTES and its operations, counted
@@ -62,7 +76,14 @@ Phases, each of which fails the run loudly:
    the kernel held there against the float64 plain version on the same
    inputs.  Both full modes also at 2048 individuals (WIDE_N; seeded on
    the card), held against the float64 plain version on a 64-individual
-   sub-matrix.
+   sub-matrix.  The class sums of models 3-6 in both forms, three
+   weighted launches on the whole tensor against three launches on each
+   class's sites only, timed at (g)'s and (h)'s shapes: the EM's bytes
+   must be equal (it adds a lane's sites in order, and a site of weight
+   0 adds 0), indep's cnt equal and its raw within twice INDEP_RTOL (its
+   float32 windows regroup); also on a small case with a NaN triple at a
+   site of weight 0, which both forms must spread to its pairs; and
+   core/distance.py pair_pi_counts at (h)'s shape.
 
 The bounds (PERF.md section 2): the indep kernel sums 3xTF32 products
 on the tensor cores in float32 over 16-site windows and the windows in
@@ -155,6 +176,18 @@ REPEAT = 4
 STREAMED = {"e": ("a", 8, True), "f": ("b", 4, False)}
 RUNS["e"] = ("indep", REPEAT * INDEP_SITES, BOOT_REPS, BOOT_BLOCK, True)
 RUNS["f"] = ("em", REPEAT * EM_SITES, 0, 1, False)
+# Evolutionary models 3-6: run -> --evol_model.  (g) the EM under TN93,
+# (h) indep --pairwise_del under F84, both with 2 replicates on the
+# weighted route (this path has no other): three launches per matrix,
+# one per substitution class.  "gs" is (g) streamed from the same file.
+MODELS = {"g": 6, "h": 5, "gs": 6}
+RUNS["g"] = ("em", EM_SITES, BOOT_REPS, BOOT_BLOCK, False)
+RUNS["h"] = ("indep", INDEP_SITES, BOOT_REPS, BOOT_BLOCK, True)
+RUNS["gs"] = RUNS["g"]
+STREAMED["gs"] = ("g", 4, False)
+LAUNCHES["g"] = {"em_raw_cnt": 3 * (1 + BOOT_REPS)}
+LAUNCHES["h"] = {"indep_raw_cnt": 3 * (1 + BOOT_REPS)}
+UNCLASSIFIABLE = 0.05    # share of POS rows whose two alleles are equal
 SHORT_DISK_BYTES = 16 << 30  # free disk below which (e) is cut to half its sites
 WIDE_N = 2048                # phase 4: both full modes also at this width
 SCORE9 = np.array([[0.0, 0.5, 1.0], [0.5, 0.0, 0.5], [1.0, 0.5, 0.0]]).reshape(-1)
@@ -413,6 +446,13 @@ def run_array(run: str, P_sub: np.ndarray, sites: int) -> np.ndarray:
     return np.tile(base, (sites // len(base), 1, 1))
 
 
+def run_fused(run: str) -> bool:
+    """Whether run `run` hands the engine a fused-read handle: every
+    resident run but those of models 3-6, which need the host tensor; a
+    streamed run as STREAMED says."""
+    return STREAMED[run][2] if run in STREAMED else run not in MODELS
+
+
 def card_values(sub64, fused: bool):
     """The float32 values the card holds for float64 values sub64, in
     float64: all three components rounded (the staged read's cast), or
@@ -435,10 +475,12 @@ def check_submatrices(torch, indep, em, distance, mats, P_sub, idx):
     dev = torch.device(DEVICE)
     errs = {}
     for run, (kind, sites, reps, block, pairwise_del) in RUNS.items():
+        if run in MODELS:
+            continue   # check_extended
         plain = indep.indep_raw_cnt_ref if kind == "indep" else em.em_raw_cnt_ref
         n_trunc, maps = distance.bootstrap_site_maps(SEED, reps, sites, block)
         sub64 = torch.from_numpy(run_array(run, P_sub, sites)).to(dev)
-        fused = STREAMED[run][2] if run in STREAMED else True
+        fused = run_fused(run)
         for inputs, rtol, atol_cnt in (("float32", INDEP_RTOL, EM_ATOL_CNT),
                                        ("float64", POLICY_INDEP_RTOL, POLICY_EM_ATOL_CNT)):
             sub = card_values(sub64, fused) if inputs == "float32" else sub64
@@ -455,6 +497,99 @@ def check_submatrices(torch, indep, em, distance, mats, P_sub, idx):
             errs[f"{run}/{inputs}"] = max(e)
         del sub, sub64
     return errs
+
+
+def plain_pair_pi(torch, sub, v_src, a1, a2, w_ok, pairwise_del):
+    """[n, n, 4] per-pair base frequencies of the individuals of sub
+    [S, n, 3] float64 in the JAX engine's host form: the expected base
+    counts bc [S, n, 4] (d2 = p1 + 2 p2 copies of allele 2, 2 - d2 of
+    allele 1, none where an allele code is invalid), summed over the
+    sites under the weights w_ok, per pair under both members' validity
+    (taken from v_src, the values the validity is decided on)."""
+    from ngsdist_tpu_torch.ops.indep import EPSILON
+
+    d2 = sub[..., 1] + 2.0 * sub[..., 2]
+    d1 = 2.0 - d2
+    ok = (a1 >= 0) & (a2 >= 0)
+    eye = torch.eye(4, dtype=torch.float64, device=sub.device)
+    A1 = eye[a1.clamp(0, 3).long()] * ok[:, None]
+    A2 = eye[a2.clamp(0, 3).long()] * ok[:, None]
+    bc = d1[:, :, None] * A1[:, None, :] + d2[:, :, None] * A2[:, None, :]
+    if pairwise_del:
+        valid = (((v_src[..., 0] - v_src[..., 1]).abs() >= EPSILON)
+                 | ((v_src[..., 1] - v_src[..., 2]).abs() >= EPSILON)).double()
+        U = torch.einsum("six,sj->ijx", bc * (valid * w_ok[:, None])[:, :, None], valid)
+        tot = U + U.transpose(0, 1)
+    else:
+        c = torch.einsum("s,six->ix", w_ok, bc)
+        tot = c[:, None, :] + c[None, :, :]
+    return (tot / tot.sum(-1, keepdim=True)).cpu().numpy()
+
+
+def check_extended(torch, indep, em, distance, submodels, mats, P_sub, idx, alleles):
+    """The 64-individual sub-matrices of the runs of MODELS against the
+    float64 plain route: the plain kernels' versions under the weights
+    w x class mask, plain_pair_pi, and submodels.apply_extended_model.
+    The bound: every class proportion raw_cl / cnt moved by its kernel's
+    bound (indep: rtol relative; EM: atol_cnt x cnt_cl / cnt), all three
+    up and all three down (each model rises with each proportion), the
+    larger change of d, times 1.01, plus the %.10f print rounding.  Once
+    on the float32 values the card holds, once on the float64 values that
+    were written (the float32 policy's bounds).  Returns the largest
+    |d error| per run and comparison, and per run the largest bound of
+    the first."""
+    dev = torch.device(DEVICE)
+    iu = np.triu_indices(len(idx), k=1)
+    errs, bounds = {}, {}
+    for run, model in MODELS.items():
+        kind, sites, reps, block, pairwise_del = RUNS[run]
+        plain = indep.indep_raw_cnt_ref if kind == "indep" else em.em_raw_cnt_ref
+        n_trunc, maps = distance.bootstrap_site_maps(SEED, reps, sites, block)
+        a1, a2 = alleles[0][:sites], alleles[1][:sites]
+        masks = submodels.classify_sites(a1, a2)
+        a1_t, a2_t = torch.from_numpy(a1).to(dev), torch.from_numpy(a2).to(dev)
+        sub64 = torch.from_numpy(run_array(run, P_sub, sites)).to(dev)
+        for inputs, rtol, atol_cnt in (("float32", INDEP_RTOL, EM_ATOL_CNT),
+                                       ("float64", POLICY_INDEP_RTOL, POLICY_EM_ATOL_CNT)):
+            sub = card_values(sub64, False) if inputs == "float32" else sub64
+            v_src = sub.float() if inputs == "float32" else sub
+            e, b = [], []
+            for r, mat in enumerate(mats[run]):
+                w = np.ones(sites)
+                if r > 0:
+                    w = np.zeros(sites)
+                    w[:n_trunc] = distance.replicate_weights(maps[r - 1], n_trunc)
+                raws, cnts = {}, {}
+                for cl in distance.CLASSES:
+                    raw, cnt = plain(sub, SCORE9, pairwise_del,
+                                     torch.from_numpy(w * masks[cl]).to(dev))
+                    raws[cl], cnts[cl] = raw.cpu().numpy()[iu], cnt.cpu().numpy()[iu]
+                cnt = (sum(cnts.values()) if pairwise_del
+                       else float(np.sum(w * masks["ok"])))
+                pi = plain_pair_pi(torch, sub, v_src, a1_t, a2_t,
+                                   torch.from_numpy(w * masks["ok"]).to(dev), pairwise_del)[iu]
+
+                def d_of(sign):
+                    moved = [raws[cl] + sign * (rtol * np.abs(raws[cl]) if kind == "indep"
+                                                else atol_cnt * cnts[cl])
+                             for cl in distance.CLASSES]
+                    return submodels.apply_extended_model(model, *moved, cnt, pi)
+
+                want, up, down = d_of(0.0), d_of(1.0), d_of(-1.0)
+                bound = 1.01 * np.maximum(np.abs(up - want), np.abs(want - down)) + 1e-10
+                err = np.abs(mat[np.ix_(idx, idx)][iu] - want)
+                if not (err <= bound).all():    # a NaN bound fails too
+                    k = int(np.argmax(np.where(np.isnan(bound), np.inf, err - bound)))
+                    raise AssertionError(f"({run}) model {model}, matrix {r}, {inputs}: "
+                                         f"output {mat[np.ix_(idx, idx)][iu][k]} vs plain "
+                                         f"{want[k]} (bound {bound[k]})")
+                e.append(float(err.max()))
+                b.append(float(bound.max()))
+            errs[f"{run}/{inputs}"] = max(e)
+            if inputs == "float32":
+                bounds[run] = max(b)
+        del sub, sub64
+    return errs, bounds
 
 
 def check_same_as_resident(run: str, streamed, resident) -> float:
@@ -602,6 +737,132 @@ def phase_wide(torch, indep, em, card, report) -> None:
            wrapper="em_raw_cnt")
 
 
+def class_launches(torch, indep, em, distance, kind, P32, pairwise_del, wm, keep, compacted):
+    """One matrix's three launches of models 3-6 as the engine makes them
+    (core/distance.py _make_exact_stats): under the class weights wm on
+    the whole tensor, or compacted, on each class's sites only (those of
+    nonzero weight and the non-finite ones of `keep`): the EM kernel is
+    handed the site list, indep the gathered sites.  Returns the three
+    (raw, cnt)."""
+    fn = em.em_raw_cnt if kind == "em" else indep.indep_raw_cnt
+    out = []
+    for cl in distance.CLASSES:
+        if not compacted:
+            out.append(fn(P32, SCORE9, pairwise_del, torch.from_numpy(wm[cl]).to(P32.device)))
+            continue
+        sel = distance.class_sites(wm[cl], keep)
+        index = torch.from_numpy(sel).to(P32.device)
+        w = torch.from_numpy(wm[cl][sel]).to(P32.device)
+        if kind == "em":
+            out.append(fn(P32, SCORE9, pairwise_del, w, site_index=index))
+        else:
+            out.append(fn(P32.index_select(0, index), SCORE9, pairwise_del, w))
+    return out
+
+
+def check_forms(torch, kind, full, compacted, where: str, want_nan: bool = False) -> float:
+    """The compacted launches against the three weighted launches: the
+    EM's bytes equal; indep's cnt equal, NaN pattern equal and raw within
+    twice INDEP_RTOL relative (both lie within INDEP_RTOL of the exact
+    sums).  Returns the largest relative difference of raw."""
+    worst = 0.0
+    for (raw_f, cnt_f), (raw_c, cnt_c) in zip(full, compacted):
+        if want_nan and not bool(torch.isnan(raw_f).any()):
+            raise AssertionError(f"{kind} {where}: the weighted form shows no NaN pair")
+        if kind == "em":
+            if not (same_bytes(torch, raw_f, raw_c) and same_bytes(torch, cnt_f, cnt_c)):
+                raise AssertionError(f"em {where}: compacted launches differ from the "
+                                     "three weighted launches")
+            continue
+        nan = torch.isnan(raw_f)
+        if not (torch.equal(cnt_f, cnt_c) and torch.equal(nan, torch.isnan(raw_c))):
+            raise AssertionError(f"indep {where}: compacted cnt or NaN pattern differs")
+        a, b = raw_f.double()[~nan], raw_c.double()[~nan]
+        if not bool(((a - b).abs() <= 2 * INDEP_RTOL * a.abs()).all()):
+            raise AssertionError(f"indep {where}: compacted raw differs by more than "
+                                 f"{2 * INDEP_RTOL:g} relative")
+        nz = a != 0
+        if bool(nz.any()):
+            worst = max(worst, float(((a - b).abs()[nz] / a.abs()[nz]).max().item()))
+    return worst
+
+
+def phase_class_sums(torch, indep, em, distance, submodels, P32, alleles, card) -> None:
+    """The class sums of models 3-6 in both forms (class_launches), held
+    against each other (check_forms) and timed: a small case with NaN
+    triples at sites of weight 0, then the EM at run (g)'s shape and
+    indep at run (h)'s, for the full data and for the run's first
+    replicate; and pair_pi_counts at (h)'s shape."""
+    dev = P32.device
+    rng = np.random.default_rng(SEED + 4)
+    S, N = 777, 130
+    a = rng.integers(0, 4, (2, S))
+    a[1, rng.random(S) < 0.1] = -1
+    masks = submodels.classify_sites(a[0].astype(np.int8), a[1].astype(np.int8))
+    w = rng.integers(0, 3, S).astype(np.float64)
+    P = rand_probs(rng, S, N, missing=0.1)
+    s0 = int(np.flatnonzero(w == 0)[5])                      # weight 0 in every class
+    s1 = int(np.flatnonzero((w > 0) & (masks["tv"] > 0))[5])  # weight 0 in ag and ct
+    P[s0, 5] = np.nan
+    P[s1, 7, 1] = np.nan
+    Ps = torch.from_numpy(P).to(dev).float()
+    keep = distance.nonfinite_sites(Ps).cpu().numpy()
+    if sorted(np.flatnonzero(keep)) != sorted((s0, s1)):
+        raise AssertionError(f"non-finite sites {np.flatnonzero(keep)}, expected {s0}, {s1}")
+    wm = {cl: w * masks[cl] for cl in distance.CLASSES}
+    n = 0
+    for kind in ("em", "indep"):
+        for pairwise_del in (False, True):
+            forms = [class_launches(torch, indep, em, distance, kind, Ps, pairwise_del, wm,
+                                    keep, c) for c in (False, True)]
+            check_forms(torch, kind, *forms, f"{N} x {S}, NaN at weight 0", want_nan=True)
+            n += 1
+    torch.cuda.synchronize()
+    log(f"phase 4: class sums, compacted against three weighted launches at {N} x {S} with "
+        f"NaN triples at sites of weight 0: {n} cases held (EM bytes equal; indep cnt equal, "
+        f"raw within {2 * INDEP_RTOL:g} relative; the NaN pairs in both forms)")
+
+    for kind, sites, pairwise_del, reps in (("em", EM_SITES, False, 2),
+                                            ("indep", INDEP_SITES, True, 5)):
+        Pk = P32[:sites]
+        masks = submodels.classify_sites(alleles[0][:sites], alleles[1][:sites])
+        keep = distance.nonfinite_sites(Pk).cpu().numpy()
+        n_trunc, maps = distance.bootstrap_site_maps(SEED, BOOT_REPS, sites, BOOT_BLOCK)
+        w_rep = np.zeros(sites)
+        w_rep[:n_trunc] = distance.replicate_weights(maps[0], n_trunc)
+        for what, w in (("full data", np.ones(sites)), ("replicate 1", w_rep)):
+            wm = {cl: w * masks[cl] for cl in distance.CLASSES}
+            used = sum(distance.class_sites(wm[cl], keep).size for cl in distance.CLASSES)
+
+            def form(compacted):
+                return class_launches(torch, indep, em, distance, kind, Pk, pairwise_del, wm,
+                                      keep, compacted)
+
+            ms_f = time_cuda(torch, lambda: form(False), reps)
+            ms_c = time_cuda(torch, lambda: form(True), reps)
+            ms_c2 = time_cuda(torch, lambda: form(True), reps)
+            ms_f2 = time_cuda(torch, lambda: form(False), reps)
+            rel = check_forms(torch, kind, form(False), form(True), f"{N_IND} x {sites}, {what}")
+            held = ("bytes equal" if kind == "em"
+                    else f"cnt equal, raw within {rel:.3e} relative")
+            log(f"phase 4: class sums, {kind} {N_IND} x {sites}"
+                f"{' pairwise_del' if pairwise_del else ''}, {what}: three weighted launches "
+                f"{ms_f:.3f} / {ms_f2:.3f} ms, compacted ({used} of {3 * sites} launched "
+                f"sites) {ms_c:.3f} / {ms_c2:.3f} ms ({ms_f / ms_c:.2f}x); {held} [{card}]")
+        torch.cuda.empty_cache()
+
+    a1_t = torch.from_numpy(alleles[0]).to(dev)
+    a2_t = torch.from_numpy(alleles[1]).to(dev)
+    masks = submodels.classify_sites(*alleles)
+    w_ok = torch.from_numpy(masks["ok"]).to(dev)
+    for pairwise_del in (True, False):
+        ms = time_cuda(torch, lambda: distance.pair_pi_counts(P32, a1_t, a2_t, w_ok,
+                                                              pairwise_del), 2)
+        log(f"phase 4: pair_pi_counts (float64 products in PyTorch, no kernel) {N_IND} x "
+            f"{INDEP_SITES}{' pairwise_del' if pairwise_del else ''}: {ms:.3f} ms [{card}]")
+    torch.cuda.empty_cache()
+
+
 def hmma_count(nvcc: str, path: str, kernel: str) -> int:
     """HMMA (tensor-core) instructions in the machine code of the kernels
     of the library at path whose name holds `kernel`, by the cuobjdump
@@ -635,7 +896,32 @@ def run_args(run: str, geno: str, out: str):
         args.append("--pairwise_del")
     if reps:
         args += ["--n_boot_rep", str(reps), "--boot_block_size", str(block)]
+    if run in MODELS:
+        args += ["--evol_model", str(MODELS[run]), "--pos", pos_path(sites)]
     return args
+
+
+def pos_path(sites: int) -> str:
+    """The POS file of the runs with this many sites (write_pos_files)."""
+    return os.path.join(WORK, f"pos{sites}.txt")
+
+
+def write_pos_files():
+    """Seeded allele codes (0..3 = A, C, G, T) for INDEP_SITES sites, two
+    different letters per site except for a share UNCLASSIFIABLE of them
+    (the same letter twice), and for every site count of MODELS a POS file
+    (chr, pos, allele1, allele2) of its first sites.  Returns (a1, a2)."""
+    rng = np.random.default_rng(SEED + 3)
+    a1 = rng.integers(0, 4, INDEP_SITES)
+    a2 = (a1 + rng.integers(1, 4, INDEP_SITES)) % 4
+    same = rng.random(INDEP_SITES) < UNCLASSIFIABLE
+    a2[same] = a1[same]
+    letters = np.array(list("ACGT"))
+    for sites in sorted({RUNS[run][1] for run in MODELS}):
+        with open(pos_path(sites), "w") as fh:
+            fh.write("".join(f"chr1\t{s + 1}\t{x}\t{y}\n" for s, (x, y) in enumerate(
+                zip(letters[a1[:sites]], letters[a2[:sites]]))))
+    return a1.astype(np.int8), a2.astype(np.int8)
 
 
 def write_inputs(work: str):
@@ -649,6 +935,9 @@ def write_inputs(work: str):
     P = rand_probs(rng, INDEP_SITES, N_IND)
     genos, by_sites = {}, {}
     for run, (_, sites, *_) in RUNS.items():
+        if run in STREAMED and sites == RUNS[STREAMED[run][0]][1]:
+            genos[run] = genos[STREAMED[run][0]]   # the base run's own file
+            continue
         if run in STREAMED:
             base = RUNS[STREAMED[run][0]][1]
             genos[run] = os.path.join(work, f"p{base}x{sites // base}.bin")
@@ -739,6 +1028,8 @@ def cli_run(torch, cli, mods, ngsd, run: str, geno: str, out: str, budget, fused
 def log_run(run: str, what: str, seen) -> None:
     kind, sites, reps, block, _ = RUNS[run]
     boot = f" + {reps} replicates of {block}-site blocks" if reps else ""
+    if run in MODELS:
+        boot += f", --evol_model {MODELS[run]}"
     t = seen["times"]
     hidden = "none" if t["upload_hidden"] is None else f"{t['upload_hidden']:.3f}"
     log(f"phase 3: ({run}) {what}{kind} {N_IND} x {sites}{boot} in {seen['wall']:.2f} s "
@@ -753,18 +1044,22 @@ def drive_main_path(torch, cli, mods, ngsd, genos):
     """The runs of RUNS through the CLI entry point, each with every
     launch count set to 0 just before it and read just after, held to
     its expected launches; (a)-(e) must hand the engine a fused-read
-    handle.  A streamed run is held under its forced budget and run once
-    more resident, for the comparison.  Returns (output path, launch
-    counts) per run and the resident outputs of the streamed runs."""
+    handle, the runs of models 3-6 the host tensor although the fused
+    read is left on.  A streamed run is held under its forced budget and
+    run once more resident, for the comparison ((g) streamed is compared
+    with (g) itself).  Returns (output path, launch counts) per run and
+    the resident outputs of the streamed runs."""
     distance = ngsd["distance"]
     dev = torch.device(DEVICE)
     outs, launches, resident = {}, {}, {}
     for run, (kind, sites, reps, block, _) in RUNS.items():
         outs[run] = os.path.join(WORK, f"{run}.dist")
         want = {name: LAUNCHES.get(run, {}).get(name, 0) for name in KERNELS}
-        budget, fused = None, True
+        budget, fused = None, run_fused(run)
+        # models 3-6 decline the fused read themselves: it stays on
+        fused_env = fused or run in MODELS
         if run in STREAMED:
-            _, min_chunks, fused = STREAMED[run]
+            base, min_chunks, _ = STREAMED[run]
             budget = forced_budget(run)
             with environment({"NGSDIST_DEVICE_BUDGET": str(budget)}):
                 chunked, chunk = distance.stream_plan(sites, N_IND, dev, None)
@@ -773,7 +1068,9 @@ def drive_main_path(torch, cli, mods, ngsd, genos):
                 raise AssertionError(f"run ({run}): the budget {budget} gives {chunks} chunks")
             n_trunc = sites - sites % block
             want[f"{kind}_raw_cnt"] = chunks + reps * -(-n_trunc // chunk)
-        seen = cli_run(torch, cli, mods, ngsd, run, genos[run], outs[run], budget, fused)
+            if run in MODELS:  # every chunk once per class and matrix
+                want[f"{kind}_raw_cnt"] = 3 * chunks * (1 + reps)
+        seen = cli_run(torch, cli, mods, ngsd, run, genos[run], outs[run], budget, fused_env)
         launches[run] = seen["launches"]
         what = ""
         if run in STREAMED:
@@ -786,7 +1083,7 @@ def drive_main_path(torch, cli, mods, ngsd, genos):
             raise AssertionError(f"run ({run}): launches {launches[run]}, expected {want}")
         if seen["source"] != ("PackedBinInput" if fused else "ndarray"):
             raise AssertionError(f"run ({run}): the engine was handed a {seen['source']}")
-        if run in STREAMED:
+        if run in STREAMED and run not in MODELS:
             resident[run] = os.path.join(WORK, f"{run}_resident.dist")
             seen = cli_run(torch, cli, mods, ngsd, run, genos[run], resident[run], None, fused)
             log_run(run, "the same resident, for the comparison: ", seen)
@@ -803,7 +1100,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from ngsdist_tpu_torch import cli, runner
-    from ngsdist_tpu_torch.core import distance
+    from ngsdist_tpu_torch.core import distance, submodels
     from ngsdist_tpu_torch.ops import _build, em, indep
     from ngsdist_tpu_torch.utils import profiling
 
@@ -844,25 +1141,43 @@ def main() -> int:
             log(f"phase 3: {free_disk} B of disk free: run (e) cut to {sites // 2} sites")
         t0 = time.perf_counter()
         P, genos = write_inputs(WORK)
+        alleles = write_pos_files()
         log(f"phase 3: inputs written in {time.perf_counter() - t0:.2f} s "
             f"({sum(os.path.getsize(g) for g in set(genos.values()))} B)")
         outs, launches, resident = drive_main_path(torch, cli, mods, ngsd, genos)
         mats = {run: check_output(outs[run], 1 + RUNS[run][2]) for run in RUNS}
         same = {run: check_same_as_resident(
-            run, mats[run], check_output(resident[run], 1 + RUNS[run][2])) for run in STREAMED}
+            run, mats[run], check_output(resident[run], 1 + RUNS[run][2]))
+            for run in STREAMED if run not in MODELS}
         # the same full-data kernel call on the same input, whatever route
         # the replicates take
         for run, other in (("c", "b"), ("d", "a")):
             if not np.array_equal(mats[run][0], mats[other][0]):
                 raise AssertionError(f"the full-data matrix of ({run}) differs from ({other})'s")
         idx = np.sort(np.random.default_rng(SEED + 1).choice(N_IND, 64, replace=False))
-        errs = check_submatrices(torch, indep, em, distance, mats,
-                                 np.ascontiguousarray(P[:, idx]), idx)
-        del mats
+        P_sub = np.ascontiguousarray(P[:, idx])
+        errs = check_submatrices(torch, indep, em, distance, mats, P_sub, idx)
+        ext_errs, ext_bounds = check_extended(torch, indep, em, distance, submodels, mats,
+                                              P_sub, idx, alleles)
+        errs.update(ext_errs)
+        # (g) streamed against (g): each within its bound of the exact
+        # sums; the sub-matrices' largest bound stands for every pair
+        for run in MODELS:
+            if run in STREAMED:
+                base = STREAMED[run][0]
+                diff = max(float(np.abs(a - b).max()) for a, b in zip(mats[run], mats[base]))
+                if not diff <= 3 * ext_bounds[base]:
+                    raise AssertionError(f"({run}): streamed differs from ({base}) by {diff}, "
+                                         f"above 3 x {ext_bounds[base]}")
+                same[run] = diff
+        del mats, P_sub
         log(f"phase 3: outputs hold 1 + n_boot_rep finite symmetric matrices "
             f"({', '.join(f'{run} {1 + RUNS[run][2]}' for run in RUNS)}); the full-data "
             "matrices of (c), (d) equal those of (b), (a); 64-individual sub-matrices "
-            "agree with float64 plain (replicates: the weighted recompute), max |d err| "
+            "agree with float64 plain (replicates: the weighted recompute; models 3-6: the "
+            "class-weighted plain sums, the host form of the base frequencies and "
+            "core/submodels.py, largest bound "
+            + ", ".join(f"{k} {v:.3e}" for k, v in ext_bounds.items()) + "), max |d err| "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
             + "; streamed against resident, max |d difference| "
             + ", ".join(f"{k} {v:.3e}" for k, v in same.items()))
@@ -917,6 +1232,9 @@ def main() -> int:
     report("indep_block_partials", "ngsdist_tpu_torch/csrc/indep.cu",
            "ngsdist_tpu/core/distance.py:365", err, "B/C", ms_k, ms_p,
            indep_bound(INDEP_SITES, N_IND, 2 * 8 * nb * (N_IND * (N_IND - 1) // 2)), ms_lib)
+
+    # models 3-6: the class sums in both forms, at (g)'s and (h)'s shapes
+    phase_class_sums(torch, indep, em, distance, submodels, P32, alleles, card)
 
     P32 = P32[:EM_SITES].contiguous()
     torch.cuda.empty_cache()

@@ -20,6 +20,12 @@ chunk order, and a replicate is the weighted recompute chunk by chunk.
 With `round_ckpt` the sums are saved after every chunk, so a killed
 replicate resumes at its first unfinished chunk.
 
+Evolutionary models 3-6 (`_iter_replicates_extended`) take the same
+sums three times per matrix, over the sites of each substitution class,
+and per-pair base frequencies (`pair_pi_counts`); core/submodels.py
+holds the distance formulas.  On a card a class's launch runs on the
+class's sites only (`class_compaction`).
+
 Uploads run through `ChunkPipe`: one thread prepares the next host slab
 (a fused read of a raw binary file through a readers.PackedBinInput
 handle, or the cast of a slice of the host tensor) while, on a card,
@@ -40,12 +46,13 @@ import torch
 
 from ..config import NgsDistError, Params
 from ..ops.em import em_block_partials, em_raw_cnt
-from ..ops.indep import (block_partials_shape, indep_block_partials,
+from ..ops.indep import (EPSILON, block_partials_shape, indep_block_partials,
                          indep_raw_cnt, scratch_shape)
 from ..utils import checkpoint as ckpt
 from ..utils import profiling
 from . import bootstrap as bt
 from . import models
+from . import submodels as sm
 from .preprocess import find_zero_rows
 
 # The partial-sum route is taken when the block partials, reckoned in the
@@ -158,6 +165,20 @@ def put_probs(P_slice, device: torch.device) -> torch.Tensor:
     arr = _host_pack(P_slice, 0, P_slice.shape[0], default_dtype(device))
     t = torch.from_numpy(arr).to(device)
     return expand23(t) if t.shape[-1] == 2 else t
+
+
+def _upload_small(arr: np.ndarray, device: torch.device,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A small host array (site weights, a site list) on the device, cast
+    on the host.  On a card it goes through pinned memory without
+    blocking: a copy from pageable memory makes the host wait for the
+    kernels queued before it, which would undo the engine's lookahead."""
+    t = torch.from_numpy(arr)
+    if dtype is not None:
+        t = t.to(dtype)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _pipe_upload_bytes() -> int:
@@ -452,6 +473,62 @@ def _finalize(raw: np.ndarray, cnt, pars: Params, on_stats=None) -> np.ndarray:
     return d
 
 
+def _make_exact_stats(pars: Params, score: torch.Tensor, It, Jt, zero):
+    """The engine's call into the kernels, for one run: returns
+    exact_stats(Psub, weights=None, lo=0, index=None) -> (raw, cnt or
+    None), pair vectors [n_pairs] on score's device.  zero: the run's
+    record of all-zero triples where the EM must poison for them, else
+    None."""
+    device, dtype = score.device, score.dtype
+    # the wrappers pass the scores to their kernels by value: from a
+    # host copy, or every launch would wait for the card to fetch them
+    score = score.cpu()
+
+    def full_stats(Psub, weights, lo, index=None):
+        """(raw, cnt or None) pair vectors [n_pairs] on the device for
+        the sites Psub = [lo, lo + len) of the data; weights: their
+        multiplicities on the host, or None.  index [n] int64 on the
+        device: run on these sites of Psub only, weights [n] theirs.  The
+        EM kernel reads the list itself; for the indep kernel, which
+        stages slabs of consecutive sites, they are gathered first."""
+        w = None if weights is None else _upload_small(weights, device, dtype)
+        with profiling.device_span("kernel"):
+            if pars.indep_geno:
+                if index is not None:
+                    Psub = Psub.index_select(0, index)
+                raw_m, cnt_m = indep_raw_cnt(Psub, score, pars.pairwise_del, w)
+                return raw_m[It, Jt], (cnt_m[It, Jt] if pars.pairwise_del else None)
+            raw_m, cnt_m = em_raw_cnt(Psub, score.reshape(-1), pars.pairwise_del, w,
+                                      site_index=index)
+            raw_v = raw_m[It, Jt]
+            if zero is not None:
+                z = zero.individuals(lo, lo + Psub.shape[0], weights)
+                if z.any():
+                    raw_v = _em_poison_pairs(raw_v, torch.from_numpy(z).to(device), It, Jt)
+            return raw_v, cnt_m[It, Jt]
+
+    def exact_stats(Psub, weights=None, lo=0, index=None):
+        """full_stats, in float32 over parts of the sites whose counts
+        stay exact, the parts added in float64."""
+        n = Psub.shape[0] if index is None else index.shape[0]
+        parts = [(0, n)] if dtype == torch.float64 else _exact_count_parts(n, weights)
+        if len(parts) == 1:
+            return full_stats(Psub, weights, lo, index)
+        raw = cnt = None
+        for a, b in parts:
+            wp = None if weights is None else weights[a:b]
+            if index is None:
+                r, c = full_stats(Psub[a:b], wp, lo + a)
+            else:
+                r, c = full_stats(Psub, wp, lo, index[a:b])
+            raw = r.double() if raw is None else raw + r.double()
+            if c is not None:
+                cnt = c.double() if cnt is None else cnt + c.double()
+        return raw, cnt
+
+    return exact_stats
+
+
 def iter_replicates(
     pars: Params,
     P_host,
@@ -461,6 +538,7 @@ def iter_replicates(
     on_stats=None,
     start_rep: int = 0,
     round_ckpt: bool = False,
+    alleles=None,
 ) -> Iterator[np.ndarray]:
     """Yield the full-data matrix, then one matrix per bootstrap
     replicate, for replicates start_rep..n_boot_rep.
@@ -472,7 +550,14 @@ def iter_replicates(
     round_ckpt: save the accumulated sums after every chunk of a
     streamed replicate (utils/checkpoint.save_rounds), so that an
     interruption loses at most one chunk; the runner asks for it when
-    it owns the output file."""
+    it owns the output file.
+
+    alleles: (a1, a2) int8 allele codes of the sites (core/submodels.py),
+    which evolutionary models 3-6 need."""
+    if pars.evol_model >= 3:
+        yield from _iter_replicates_extended(pars, P_host, maps, n_trunc, alleles, device,
+                                             on_stats, start_rep, round_ckpt)
+        return
     N, S = pars.n_ind, pars.n_sites
     dtype = default_dtype(device)
     score = torch.as_tensor(pars.score, dtype=dtype, device=device)
@@ -496,38 +581,7 @@ def iter_replicates(
     else:
         P = upload_resident(P_host, device)
 
-    def full_stats(Psub, weights, lo):
-        """(raw, cnt or None) pair vectors [n_pairs] on the device for
-        the sites Psub = [lo, lo + len) of the data; weights: their
-        multiplicities [len] on the host, or None."""
-        w = None if weights is None else torch.from_numpy(weights).to(device=device,
-                                                                      dtype=dtype)
-        with profiling.device_span("kernel"):
-            if pars.indep_geno:
-                raw_m, cnt_m = indep_raw_cnt(Psub, score, pars.pairwise_del, w)
-                return raw_m[It, Jt], (cnt_m[It, Jt] if pars.pairwise_del else None)
-            raw_m, cnt_m = em_raw_cnt(Psub, score.reshape(-1), pars.pairwise_del, w)
-            raw_v = raw_m[It, Jt]
-            if zero is not None:
-                z = zero.individuals(lo, lo + Psub.shape[0], weights)
-                if z.any():
-                    raw_v = _em_poison_pairs(raw_v, torch.from_numpy(z).to(device), It, Jt)
-            return raw_v, cnt_m[It, Jt]
-
-    def exact_stats(Psub, weights=None, lo=0):
-        """full_stats, in float32 over parts of the sites whose counts
-        stay exact, the parts added in float64."""
-        n = Psub.shape[0]
-        parts = [(0, n)] if dtype == torch.float64 else _exact_count_parts(n, weights)
-        if len(parts) == 1:
-            return full_stats(Psub, weights, lo)
-        raw = cnt = None
-        for a, b in parts:
-            r, c = full_stats(Psub[a:b], None if weights is None else weights[a:b], lo + a)
-            raw = r.double() if raw is None else raw + r.double()
-            if c is not None:
-                cnt = c.double() if cnt is None else cnt + c.double()
-        return raw, cnt
+    exact_stats = _make_exact_stats(pars, score, It, Jt, zero)
 
     def stats_stream(weights=None, n_used=S, rep=0):
         """(raw, cnt or None) of the first n_used sites.  Streamed: the
@@ -639,3 +693,337 @@ def _resum_blocks(pars: Params, Ptrunc: torch.Tensor, score: torch.Tensor,
         if zB is not None:
             raw_v = _em_poison_pairs(raw_v, ((M[r] > 0).double() @ zB) > 0, It, Jt)
         yield raw_v, None if C is None else M[r] @ C
+
+
+# ------------------------------------------------------------------ #
+# Evolutionary models 3-6 (K80, F81, F84, TN93)                       #
+# ------------------------------------------------------------------ #
+
+CLASSES = ("ag", "ct", "tv")  # substitution classes of a site (core/submodels.py)
+
+# pair_pi_counts walks the sites in slabs whose [sites, N] float64 planes
+# (dosages, validity, one base's expected counts: about seven at a time)
+# take this many bytes each; in a streamed run 1/32 of a chunk's bytes,
+# so that they stay a fifth of a chunk under a small budget.
+PI_PLANE_BYTES = 64 << 20
+
+# Resident runs of models 3-6 queue replicate r+1 before replicate r is
+# corrected and written; profile_torch.py --lookahead times both.
+EXTENDED_LOOKAHEAD = True
+
+
+class _Fetch:
+    """Device tensors on their way to the host.  On a card each is copied
+    into pinned memory without blocking and an event is recorded behind
+    the copies, so `numpy()` waits for these copies only and not, as a
+    plain `.cpu()` would, for whatever was queued after them: the next
+    replicate's kernels."""
+
+    def __init__(self, tensors: dict) -> None:
+        self.event = None
+        self.host = tensors
+        if any(t.device.type == "cuda" for t in tensors.values()):
+            self.host = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         .copy_(t, non_blocking=True) for k, t in tensors.items()}
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def numpy(self) -> dict:
+        if self.event is not None:
+            self.event.synchronize()
+        return {k: t.numpy() for k, t in self.host.items()}
+
+
+def class_compaction(device: torch.device) -> bool:
+    """Whether the statistics of a substitution class run on that class's
+    sites only (a site list on the device) and not on the whole tensor with
+    the other classes' weights at 0.  A site of weight 0 adds 0 to every
+    sum, so both forms give the same sums; the EM kernel, which adds a
+    lane's sites in site order, the same bytes.  On a card only: on the
+    CPU the weighted form is the JAX engine's, and the plain versions
+    gain nothing from the other."""
+    return device.type == "cuda"
+
+
+def nonfinite_sites(P: torch.Tensor) -> torch.Tensor:
+    """[S] bool: the sites of P [S, N, 3] that hold a NaN or an infinite
+    value.  At weight 0 they still make their pairs NaN (0 x NaN), so a
+    compacted call keeps them, at weight 0."""
+    return ~torch.isfinite(P.sum((1, 2)))
+
+
+def class_sites(weights: np.ndarray, keep: np.ndarray) -> np.ndarray:
+    """The sites a compacted call runs on: those of weight other than 0
+    and those of `keep` (nonfinite_sites), in site order."""
+    return np.flatnonzero((weights != 0) | keep)
+
+
+def _nonmissing(P: torch.Tensor) -> torch.Tensor:
+    """[S, N] bool: the triple is not missing (miss_data).  On the CPU
+    the JAX engine's expression; on a card the kernels' (csrc/common.cuh
+    ngsd::nonmissing), on the float32 values they see, so that cnt and
+    the base frequencies describe the same sites.  The two differ for a
+    NaN triple only."""
+    d01 = (P[..., 0] - P[..., 1]).abs()
+    d12 = (P[..., 1] - P[..., 2]).abs()
+    if P.device.type == "cpu":
+        return ~((d01 < EPSILON) & (d12 < EPSILON))
+    return (d01 >= EPSILON) | (d12 >= EPSILON)
+
+
+def pair_pi_counts(P: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor,
+                   w_ok: torch.Tensor, pairwise_del: bool,
+                   plane_bytes: int = PI_PLANE_BYTES) -> torch.Tensor:
+    """Expected base counts behind the per-pair base frequencies of models
+    4-6 (ngsdist_tpu.parallel.mesh.pair_pi_counts), in float64 on P's
+    device.  P [S, N, 3]; a1, a2 [S] int8 allele codes; w_ok [S] float64,
+    the site weights with the unclassifiable sites at 0.
+
+    An individual carries d2 = p1 + 2 p2 expected copies of allele 2 and
+    d1 = 2 - d2 of allele 1, so site s gives individual i the count
+    bc_x = d1 [a1 = x] + d2 [a2 = x] of base x (nothing where an allele
+    code is invalid).  Without pairwise deletion the result is c [4, N],
+    c[x, i] = sum_s w_s bc_x[s, i], and a pair's counts are c[:, i] +
+    c[:, j].  With it U [4, N, N], U[x, i, j] = sum_s bc_x[s, i] v[s, i]
+    w_s v[s, j] with v the not-missing flags: four [N, S] x [S, N]
+    products; a pair's counts are U[:, i, j] + U[:, j, i].  The sites go
+    in slabs, one [sites, N] float64 plane per base at a time, never
+    [S, N, 4]."""
+    S, N, _ = P.shape
+    out = torch.zeros((4, N, N) if pairwise_del else (4, N), dtype=torch.float64,
+                      device=P.device)
+    ok = (a1 >= 0) & (a2 >= 0)
+    zero = torch.zeros((), dtype=torch.float64, device=P.device)
+    step = max(1, plane_bytes // (8 * N))
+    for lo in range(0, S, step):
+        Ps = P[lo:lo + step]
+        d2 = Ps[..., 1].double() + 2.0 * Ps[..., 2].double()
+        d1 = 2.0 - d2
+        w = w_ok[lo:lo + step]
+        if pairwise_del:
+            valid = _nonmissing(Ps).double()
+            vw = valid * w[:, None]
+        for x in range(4):
+            m1 = (ok & (a1 == x))[lo:lo + step, None]
+            m2 = (ok & (a2 == x))[lo:lo + step, None]
+            bc = torch.where(m1, d1, zero) + torch.where(m2, d2, zero)
+            if pairwise_del:
+                out[x] += (bc * vw).T @ valid
+            else:
+                out[x] += w @ bc
+    return out
+
+
+def _iter_replicates_extended(pars: Params, P_host: np.ndarray, maps: List[np.ndarray],
+                              n_trunc: int, alleles, device: torch.device, on_stats=None,
+                              start_rep: int = 0,
+                              round_ckpt: bool = False) -> Iterator[np.ndarray]:
+    """The replicate stream of evolutionary models 3-6
+    (ngsdist_tpu.core.distance._iter_replicates_extended, one device).
+
+    The expected-mismatch statistics are taken three times, over the
+    sites of each substitution class (A<->G, C<->T, transversions; sites
+    that cannot be classified belong to none), with the class masks
+    folded into the site weights.  A bootstrap replicate is the weighted
+    recompute: there is no partial-sum route here.  Models 4-6 also take
+    per-pair base frequencies from expected allele dosages
+    (pair_pi_counts, on the device).  A streamed run uploads each chunk
+    once and reduces it against all three masks and the base counts; its
+    round checkpoint holds all of those sums."""
+    if alleles is None:
+        raise ValueError("extended evolutionary models need allele codes")
+    a1, a2 = alleles
+    masks = sm.classify_sites(a1, a2)
+    need_pi = pars.evol_model >= 4
+    N, S = pars.n_ind, pars.n_sites
+    dtype = default_dtype(device)
+    itemsize = torch.finfo(dtype).bits // 8
+    score = torch.as_tensor(pars.score, dtype=dtype, device=device)
+    I, J = _pair_indices(N)
+    It = torch.from_numpy(I).long().to(device)
+    Jt = torch.from_numpy(J).long().to(device)
+    # An all-zero triple (an empty line of a text input): on this path the
+    # JAX engine does not poison its pairs as models 0-2 do.  Its EM
+    # leaves a lane whose nine weights are all zero at the uniform start
+    # (ngsdist_tpu/core/em.py em_converged_weights), so without pairwise
+    # deletion the lane adds the mean score.  The kernels leave such
+    # lanes out; zero_lane_sums adds them on the host.
+    exact_stats = _make_exact_stats(pars, score, It, Jt, None)
+    zero = None
+    if not (pars.indep_geno or pars.pairwise_del or pars.in_bin):
+        zero = find_zero_rows(P_host)
+    uniform = float(np.sum(np.asarray(pars.score, np.float64).reshape(-1) * (1.0 / 9.0)))
+    compact = class_compaction(device)
+    a1_t = torch.from_numpy(np.ascontiguousarray(a1, dtype=np.int8)).to(device)
+    a2_t = torch.from_numpy(np.ascontiguousarray(a2, dtype=np.int8)).to(device)
+
+    left = check_fits(S, N, device, pars.indep_geno)
+    if left is not None:
+        # beside the tensor: one class's gathered sites (all of them at
+        # most) and the base counts with their slabs' planes
+        left -= (S * N * 3 * itemsize if compact else 0) + 8 * 4 * N * N + 8 * PI_PLANE_BYTES
+    chunked, chunk = stream_plan(S, N, device, left)
+    plane_bytes = PI_PLANE_BYTES
+    if chunked:
+        plane_bytes = max(1 << 20, min(PI_PLANE_BYTES, chunk * N * 3 * itemsize // 32))
+    # keep[s]: site s holds a non-finite value and stays in every
+    # compacted call; known up to site `scanned`
+    keep = np.zeros(S, dtype=bool)
+    scanned = 0
+    if chunked:
+        pipe = ChunkPipe(P_host, device, dtype, chunk)
+    else:
+        P = upload_resident(P_host, device)
+        if compact:
+            keep = nonfinite_sites(P).cpu().numpy()
+        scanned = S
+
+    def class_stats(Pc, wm, lo, hi):
+        """{class: (raw, cnt or None)} pair vectors on the device for the
+        sites Pc = [lo, hi) of the data under the class weights wm."""
+        out = {}
+        for cl in CLASSES:
+            wc, index = wm[cl][lo:hi], None
+            if compact:
+                sel = class_sites(wc, keep[lo:hi])
+                if sel.size == 0:
+                    zeros = torch.zeros(I.size, dtype=dtype, device=device)
+                    out[cl] = (zeros, zeros if pars.pairwise_del else None)
+                    continue
+                if sel.size < hi - lo:
+                    wc, index = wc[sel], _upload_small(sel, device)
+            raw, cnt = exact_stats(Pc, np.ascontiguousarray(wc), lo, index)
+            out[cl] = (raw, cnt if pars.pairwise_del else None)
+        return out
+
+    def pi_counts(Pc, w_ok, lo, hi):
+        return pair_pi_counts(Pc, a1_t[lo:hi], a2_t[lo:hi],
+                              _upload_small(np.ascontiguousarray(w_ok[lo:hi]), device),
+                              pars.pairwise_del, plane_bytes)
+
+    def all_stats(wm, w_ok: np.ndarray, rep: int):
+        """({class: (raw, cnt or None)}, base counts or None) on the
+        device for class weights wm and classifiable-site weights w_ok;
+        streamed: float64 sums in chunk order, saved after every chunk
+        under round_ckpt."""
+        nonlocal scanned
+        if not chunked:
+            return class_stats(P, wm, 0, S), (pi_counts(P, w_ok, 0, S) if need_pi else None)
+        accs = {cl: [None, None] for cl in CLASSES}
+        acc_pi = None
+        skip = 0
+        eng = engine_name(device)
+        if round_ckpt:
+            got = ckpt.load_rounds(pars.out, pars, rep, engine=eng, chunk=chunk)
+            if got is not None:
+                skip, arrs = got
+                for cl in CLASSES:
+                    accs[cl][0] = torch.from_numpy(arrs[f"raw_{cl}"]).to(device)
+                    if f"cnt_{cl}" in arrs:
+                        accs[cl][1] = torch.from_numpy(arrs[f"cnt_{cl}"]).to(device)
+                if "pi" in arrs:
+                    acc_pi = torch.from_numpy(arrs["pi"]).to(device)
+        ranges = [(lo, min(lo + chunk, S)) for lo in range(0, S, chunk)][skip:]
+        idx = skip
+        for Pc, lo, hi in pipe.chunks(ranges):
+            if compact and hi > scanned:
+                keep[lo:hi] = nonfinite_sites(Pc).cpu().numpy()
+                scanned = hi
+            for cl, (raw, cnt) in class_stats(Pc, wm, lo, hi).items():
+                acc = accs[cl]
+                acc[0] = raw.double() if acc[0] is None else acc[0] + raw.double()
+                if cnt is not None:
+                    acc[1] = cnt.double() if acc[1] is None else acc[1] + cnt.double()
+            if need_pi:
+                c = pi_counts(Pc, w_ok, lo, hi)
+                acc_pi = c if acc_pi is None else acc_pi + c
+            idx += 1
+            if round_ckpt:
+                arrs = {}
+                for cl in CLASSES:
+                    arrs[f"raw_{cl}"] = accs[cl][0].cpu().numpy()
+                    if accs[cl][1] is not None:
+                        arrs[f"cnt_{cl}"] = accs[cl][1].cpu().numpy()
+                if acc_pi is not None:
+                    arrs["pi"] = acc_pi.cpu().numpy()
+                ckpt.save_rounds(pars.out, pars, rep, idx, arrs, engine=eng, chunk=chunk)
+        return {cl: tuple(accs[cl]) for cl in CLASSES}, acc_pi
+
+    def zero_lane_sums(wm):
+        """[3, n_pairs]: per class, the weighted number of sites at which
+        a member of the pair has an all-zero triple, times the mean
+        score; None without such triples."""
+        if zero is None:
+            return None
+        rows = zero.rows.astype(np.float64)
+        out = []
+        for cl in CLASSES:
+            wz = wm[cl][zero.sites]
+            one = wz @ rows                       # [N]: sites where i is zero
+            both = (rows * wz[:, None]).T @ rows  # [N, N]: where i and j both are
+            out.append(uniform * (one[I] + one[J] - both[I, J]))
+        return np.stack(out)
+
+    def to_matrix(fetch: _Fetch, denom_sites: float, zero_sums) -> np.ndarray:
+        """The fetched sums corrected on the host, in float64."""
+        got = fetch.numpy()
+        raws = got["raw"]
+        if zero_sums is not None:
+            raws = raws + zero_sums
+        if pars.pairwise_del:
+            true_cnt = got["cnt"][0] + got["cnt"][1] + got["cnt"][2]
+        else:
+            true_cnt = denom_sites
+        cnt = float(pars.tot_sites) if pars.tot_sites > 0 else true_cnt
+        pi = None
+        if need_pi:
+            # the pairs' counts are taken on the host: on the device they
+            # would be three [4, n_pairs] float64 temporaries
+            c = got["pi"]
+            tot = (c[:, I, J] + c[:, J, I]) if pars.pairwise_del else (c[:, I] + c[:, J])
+            tot = np.ascontiguousarray(tot.T)                      # [n_pairs, 4]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                pi = tot / np.sum(tot, axis=-1, keepdims=True)
+        if on_stats is not None:
+            on_stats(_scatter_pairs(raws[0] + raws[1] + raws[2], I, J, N),
+                     _scatter_pairs(true_cnt, I, J, N) if pars.pairwise_del else true_cnt)
+        d = _scatter_pairs(
+            sm.apply_extended_model(pars.evol_model, raws[0], raws[1], raws[2], cnt, pi),
+            I, J, N)
+        np.fill_diagonal(d, 0.0)
+        return d
+
+    def site_weights(rep: int) -> np.ndarray:
+        if rep == 0:
+            return np.ones((S,), np.float64)
+        w = np.zeros((S,), np.float64)
+        w[:n_trunc] = replicate_weights(maps[rep - 1], n_trunc)
+        return w
+
+    def dispatch(rep: int):
+        """Queue replicate rep's sums and their copies to the host."""
+        w = site_weights(rep)
+        wm = {cl: w * masks[cl] for cl in CLASSES}
+        w_ok = w * masks["ok"]
+        stats, pi_c = all_stats(wm, w_ok, rep)
+        out = {"raw": torch.stack([stats[cl][0].double() for cl in CLASSES])}
+        if pars.pairwise_del:
+            out["cnt"] = torch.stack([stats[cl][1].double() for cl in CLASSES])
+        if need_pi:
+            out["pi"] = pi_c
+        return _Fetch(out), float(np.sum(w_ok)), zero_lane_sums(wm)
+
+    reps = [r for r in range(pars.n_boot_rep + 1) if r >= start_rep]
+    # Resident runs queue replicate r+1 before replicate r is corrected and
+    # written, so the card computes under the host's work.  A streamed
+    # replicate fetches as it goes: nothing to look ahead to.
+    lookahead = EXTENDED_LOOKAHEAD and not chunked
+    pending = dispatch(reps[0]) if lookahead and reps else None
+    for k, rep in enumerate(reps):
+        if lookahead:
+            now = pending
+            if k + 1 < len(reps):
+                pending = dispatch(reps[k + 1])
+        else:
+            now = dispatch(rep)
+        yield to_matrix(*now)

@@ -80,6 +80,15 @@
 // written once, strict upper triangle only: no atomics, reruns
 // byte-identical.
 //
+// Site list (full mode): with `sites` [S] given, step s of the loop reads
+// site sites[s] of P and weight w[s], so that a caller whose weights are 0
+// on most sites (a substitution class of evolutionary models 3-6, a
+// bootstrap replicate) pays for the listed sites only.  A lane adds its
+// terms in list order, and a site left out would have added w * x = 0 to
+// both sums, so an ascending list of every site of nonzero weight gives
+// the bytes of the run over all sites.  The one exception, a site of
+// weight 0 that holds a NaN (0 * NaN), is the caller's to keep in the list.
+//
 // Block mode (ngsd_em_block_partials_f32), for the partial-sum bootstrap:
 // replaces the want_blocks output of ngsdist_tpu/core/distance.py _em_scan
 // (:418, a lax.scan there).  Unweighted; each lane writes its float64
@@ -177,9 +186,10 @@ __device__ __forceinline__ void build_tables(double pn0, double pn1, double pn2,
 template <bool kBlocks>
 __global__ void __launch_bounds__(kThreads, 2)
 em_kernel(const float* __restrict__ P, const float* __restrict__ w,
-          float* __restrict__ raw, float* __restrict__ cnt, double* __restrict__ B,
-          double* __restrict__ C, long long S, int N, long long block_size,
-          Score9d sc, double hi, int pairwise_del) {
+          const long long* __restrict__ sites, float* __restrict__ raw,
+          float* __restrict__ cnt, double* __restrict__ B, double* __restrict__ C,
+          long long S, int N, long long block_size, Score9d sc, double hi,
+          int pairwise_del) {
   extern __shared__ __align__(16) double smem[];
   double* R = smem;                 // [side] r tables
   double* X = R + 2 * kRSide;       // [side] power tables
@@ -214,7 +224,7 @@ em_kernel(const float* __restrict__ P, const float* __restrict__ w,
     const long long s = s0 + b_sl;
     q0 = q1 = q2 = 0.0f;
     if (fills && s < S && b_ind < N) {
-      const float* q = P + (s * N + b_ind) * 3;
+      const float* q = P + ((sites ? sites[s] : s) * N + b_ind) * 3;
       q0 = q[0];
       q1 = q[1];
       q2 = q[2];
@@ -387,30 +397,32 @@ Score9d score_f64(const float* score9) {
 }
 
 template <bool kBlocks>
-int launch(const float* P, const float* w, float* raw, float* cnt, double* B, double* C,
-           long long S, int N, long long block_size, const float* score9, double hi,
-           int pairwise_del, void* stream) {
+int launch(const float* P, const float* w, const long long* sites, float* raw, float* cnt,
+           double* B, double* C, long long S, int N, long long block_size,
+           const float* score9, double hi, int pairwise_del, void* stream) {
   // The tables need more than the 48 KB a block gets without asking.
   cudaError_t err = cudaFuncSetAttribute(
       em_kernel<kBlocks>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   em_kernel<kBlocks><<<(unsigned)upper_tiles(N), kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      P, w, raw, cnt, B, C, S, N, block_size, score_f64(score9), hi, pairwise_del);
+      P, w, sites, raw, cnt, B, C, S, N, block_size, score_f64(score9), hi, pairwise_del);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// P [S, N, 3] float32, w [S] float32 or null; raw, cnt [N, N] float32,
-// written on the strict upper triangle.  hi = exp(0.001) in float64, the
-// precision of the ratio test.  Returns the CUDA error of the launch.
-extern "C" int ngsd_em_raw_cnt_f32(const float* P, const float* w, float* raw,
-                                   float* cnt, long long S, int N,
+// P [., N, 3] float32; sites [S] int64, the sites of P to run on in this
+// order, or null for P's first S sites; w [S] float32 or null; raw, cnt
+// [N, N] float32, written on the strict upper triangle.  hi = exp(0.001)
+// in float64, the precision of the ratio test.  Returns the CUDA error of
+// the launch.
+extern "C" int ngsd_em_raw_cnt_f32(const float* P, const float* w, const long long* sites,
+                                   float* raw, float* cnt, long long S, int N,
                                    const float* score9, double hi,
                                    int pairwise_del, void* stream) {
   if (N < 1 || S < 0) return (int)cudaErrorInvalidValue;
-  return launch<false>(P, w, raw, cnt, nullptr, nullptr, S, N, 0, score9, hi, pairwise_del,
-                       stream);
+  return launch<false>(P, w, sites, raw, cnt, nullptr, nullptr, S, N, 0, score9, hi,
+                       pairwise_del, stream);
 }
 
 // Block mode: P [n_blocks * block_size, N, 3] float32; B, C [n_blocks,
@@ -421,6 +433,6 @@ extern "C" int ngsd_em_block_partials_f32(const float* P, double* B, double* C, 
                                           int pairwise_del, void* stream) {
   if (N < 2 || n_blocks < 1 || block_size < 1 || B == nullptr || C == nullptr)
     return (int)cudaErrorInvalidValue;
-  return launch<true>(P, nullptr, nullptr, nullptr, B, C, n_blocks * block_size, N,
+  return launch<true>(P, nullptr, nullptr, nullptr, nullptr, B, C, n_blocks * block_size, N,
                       block_size, score9, hi, pairwise_del, stream);
 }

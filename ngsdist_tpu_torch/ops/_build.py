@@ -73,7 +73,7 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.ngsd_indep_block_partials_f32.argtypes = [vp, vp, i32, i64, i64, vp,
                                                   i32, vp]
     lib.ngsd_indep_block_partials_f32.restype = i32
-    lib.ngsd_em_raw_cnt_f32.argtypes = [vp, vp, vp, vp, i64, i32, vp,
+    lib.ngsd_em_raw_cnt_f32.argtypes = [vp, vp, vp, vp, vp, i64, i32, vp,
                                         ctypes.c_double, i32, vp]
     lib.ngsd_em_raw_cnt_f32.restype = i32
     lib.ngsd_em_block_partials_f32.argtypes = [vp, vp, vp, i32, i64, i64, vp,
@@ -121,13 +121,15 @@ def check_blocks(P: torch.Tensor, n_blocks: int, block_size: int) -> None:
         raise ValueError(f"{P.shape[0]} sites are not {n_blocks} blocks of {block_size}")
 
 
-def site_weights_f32(site_weights, P: torch.Tensor):
-    """[S] float32 weights on P's device, or None."""
+def site_weights_f32(site_weights, P: torch.Tensor, n_sites=None):
+    """[n_sites] (P's sites by default) float32 weights on P's device, or
+    None."""
     if site_weights is None:
         return None
+    n = P.shape[0] if n_sites is None else n_sites
     w = torch.as_tensor(site_weights, dtype=torch.float32, device=P.device).contiguous()
-    if w.shape != (P.shape[0],):
-        raise ValueError(f"site_weights must have shape ({P.shape[0]},), got {tuple(w.shape)}")
+    if w.shape != (n,):
+        raise ValueError(f"site_weights must have shape ({n},), got {tuple(w.shape)}")
     return w
 
 

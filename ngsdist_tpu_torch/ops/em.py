@@ -15,7 +15,10 @@ when no step converges), and the lane contributes
 Lanes with an all-zero row are dead and add nothing; under pairwise
 deletion missing genotypes mask the lane; the site weight scales both
 raw and cnt.  Both versions return [N, N] matrices whose strict upper
-triangle is valid.
+triangle is valid.  With `site_index` they run on the listed sites of P
+only (the weights then belong to the list): the kernel reads the list
+itself, and since it adds a lane's sites in list order, an ascending
+list of every site of nonzero weight gives the bytes of the whole run.
 
 Block mode (`em_block_partials`, the partial-sum bootstrap) returns the
 unweighted sums per bootstrap block instead, B (raw) and C (cnt)
@@ -210,10 +213,13 @@ def _block_partials(sites_fn, P, score9, pairwise_del, n_blocks, block_size):
 
 
 def em_raw_cnt_ref(P: torch.Tensor, score9, pairwise_del: bool,
-                   site_weights=None):
+                   site_weights=None, site_index=None):
     """Plain PyTorch version: P [S, N, 3] -> (raw, cnt) [N, N], strict
     upper triangle valid.  Vectorised over (site, pair) lanes in site
-    chunks; converged lanes leave the iteration."""
+    chunks; converged lanes leave the iteration.  site_index [n] int64:
+    the sites of P to run on; the weights are then [n]."""
+    if site_index is not None:
+        P = P.index_select(0, site_index)
     return _raw_cnt(_em_sites, P, score9, pairwise_del, site_weights)
 
 
@@ -268,27 +274,33 @@ def em_block_partials(P: torch.Tensor, score9, pairwise_del: bool,
 
 
 def em_raw_cnt(P: torch.Tensor, score9, pairwise_del: bool,
-               site_weights=None):
+               site_weights=None, site_index=None):
     """(raw, cnt) [N, N]: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor."""
+    version for a CPU tensor.  site_index [n] int64 on P's device: the
+    sites of P to run on, in this order; the weights are then [n]."""
     if P.device.type == "cpu":
-        return em_raw_cnt_ref(P, score9, pairwise_del, site_weights)
-    return _em_cuda(P, score9, pairwise_del, site_weights)
+        return em_raw_cnt_ref(P, score9, pairwise_del, site_weights, site_index)
+    return _em_cuda(P, score9, pairwise_del, site_weights, site_index)
 
 
-def _em_cuda(P, score9, pairwise_del, site_weights):
+def _em_cuda(P, score9, pairwise_del, site_weights, site_index):
     global LAUNCHES
     _build.check_probs(P)
     S, N, _ = P.shape
-    w = _build.site_weights_f32(site_weights, P)
+    if site_index is not None:
+        if (site_index.device != P.device or site_index.dtype != torch.int64
+                or site_index.ndim != 1 or not site_index.is_contiguous()):
+            raise ValueError("site_index must be a contiguous int64 vector on P's device")
+        S = site_index.shape[0]
+    w = _build.site_weights_f32(site_weights, P, S)
     raw = torch.zeros((N, N), dtype=P.dtype, device=P.device)
     cnt = torch.zeros_like(raw)
     hi = float(np.exp(EM_TOLE))  # the kernel's ratio test runs in float64
     lib = _build.library()
     with torch.cuda.device(P.device):
         rc = lib.ngsd_em_raw_cnt_f32(
-            _build.ptr(P), _build.ptr(w), _build.ptr(raw), _build.ptr(cnt),
-            S, N, _build.score9_f32(score9), hi, int(pairwise_del),
+            _build.ptr(P), _build.ptr(w), _build.ptr(site_index), _build.ptr(raw),
+            _build.ptr(cnt), S, N, _build.score9_f32(score9), hi, int(pairwise_del),
             _build.stream(P.device))
     _build.check_launch(rc, "em")
     LAUNCHES += 1

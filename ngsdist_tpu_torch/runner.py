@@ -23,6 +23,7 @@ from .core import distance
 from .core import exact as exact_engine
 from .core import models
 from .core.preprocess import preprocess
+from .core.submodels import encode_alleles
 from .io import readers, writers
 from .utils import checkpoint as ckpt
 from .utils import native, profiling, signals
@@ -119,12 +120,20 @@ def make_pair_report(pars: Params, labels):
 
 def iter_replicates(pars: Params, P, device: torch.device,
                     on_stats=None, labels=None, start_rep: int = 0,
-                    round_ckpt: bool = False):
+                    round_ckpt: bool = False, alleles=None):
     """Yield the distance matrices for replicates start_rep..n_boot_rep,
     printing each replicate's stage banners before its matrix is pulled
     (reference ngsDist.cpp:223-242).  P: the host tensor or a fused-read
-    handle; round_ckpt: see distance.iter_replicates."""
-    models.check_model_supported(pars.evol_model)
+    handle; round_ckpt: see distance.iter_replicates; alleles: the
+    sites' (a1, a2) allele codes, which models 3-6 need."""
+    # The reference accepts models 3-6 and aborts inside its first pair
+    # task; this engine computes them (core/submodels.py) from the POS
+    # file's alleles.
+    if pars.evol_model < 3:
+        models.check_model_supported(pars.evol_model)
+    elif alleles is None:
+        raise NgsDistError(
+            "main", "evolutionary models need allele info in the POS file!")
 
     _log(pars, 2, "==> Setting seed for random number generator")
     n_trunc, maps = distance.bootstrap_site_maps(
@@ -138,7 +147,7 @@ def iter_replicates(pars: Params, P, device: torch.device,
 
     gen = distance.iter_replicates(pars, P, maps, n_trunc, device,
                                    on_stats=on_stats, start_rep=start_rep,
-                                   round_ckpt=round_ckpt)
+                                   round_ckpt=round_ckpt, alleles=alleles)
     for rep in range(start_rep, pars.n_boot_rep + 1):
         _log(pars, 1, "==> Analyzing full dataset..." if rep == 0
              else f"==> Bootstrap replicate # {rep} ...")
@@ -181,13 +190,11 @@ def run(pars: Params, device: torch.device, out_fh: Optional[TextIO] = None, res
         # reach stderr in order, as the reference prints them as it goes
         for msg in pars.messages:
             print(msg, file=sys.stderr)
-    if pars.evol_model >= 3:
-        raise NgsDistError(
-            "main", f"evolutionary model {pars.evol_model} is not yet ported "
-            "to ngsdist_tpu_torch (models 0-2 are); run ngsdist_tpu for "
-            "models 3-6")
 
-    labels, _, P = load_inputs(pars, fused=_fused_packed_wanted(pars, device))
+    labels, pos_rows, P = load_inputs(pars, fused=_fused_packed_wanted(pars, device))
+    alleles = None
+    if pars.evol_model >= 3 and pos_rows is not None:
+        alleles = encode_alleles(pos_rows)
     ckpt_engine = distance.engine_name(device)
 
     n_done = 0
@@ -227,7 +234,7 @@ def run(pars: Params, device: torch.device, out_fh: Optional[TextIO] = None, res
     try:
         for rep, m in enumerate(
             iter_replicates(pars, P, device, on_stats=on_stats, labels=labels,
-                            start_rep=n_done,
+                            start_rep=n_done, alleles=alleles,
                             # round-level durability of the sums of
                             # streamed long-genome replicates
                             round_ckpt=close),

@@ -43,7 +43,8 @@ def _numeric_env(engine: Optional[str]) -> Optional[list]:
 
 def run_fingerprint(pars: Params, engine: Optional[str] = None) -> str:
     """Hash of every parameter that affects the output stream, plus the
-    input file's size and mtime — resuming after the genotype file
+    input file's (for evolutionary models 3-6 also the POS file's) size
+    and mtime — resuming after the genotype file
     changed must not silently append matrices computed from different
     data to the old output.  engine: the engine name of the run; folds
     the numeric environment into the hash."""
@@ -55,6 +56,14 @@ def run_fingerprint(pars: Params, engine: Optional[str] = None) -> str:
         fields["_geno_stat"] = [st.st_size, st.st_mtime_ns]
     except (OSError, TypeError):  # stdin ("-") or vanished file
         fields["_geno_stat"] = None
+    if pars.evol_model >= 3:
+        # models 3-6 take their site classes from the POS file's alleles
+        try:
+            st = os.stat(pars.in_pos)
+            fields["_pos_stat"] = [pars.in_pos, pars.in_pos_header, st.st_size,
+                                   st.st_mtime_ns]
+        except (OSError, TypeError):
+            fields["_pos_stat"] = [pars.in_pos, pars.in_pos_header]
     payload = json.dumps(fields, sort_keys=True)
     return hashlib.sha256(payload.encode()).hexdigest()[:16]
 

@@ -77,16 +77,17 @@ def main() -> int:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name!r}:\n{log[-4000:]}")
         lib = ctypes.CDLL(path)
-        lib.ngsd_em_raw_cnt_f32.argtypes = [vp, vp, vp, vp, i64, i32, vp, ctypes.c_double,
-                                            i32, vp]
+        lib.ngsd_em_raw_cnt_f32.argtypes = [vp, vp, vp, vp, vp, i64, i32, vp,
+                                            ctypes.c_double, i32, vp]
         lib.ngsd_em_block_partials_f32.argtypes = [vp, vp, vp, i32, i64, i64, vp,
                                                    ctypes.c_double, i32, vp]
         lib.ngsd_em_raw_cnt_f32.restype = lib.ngsd_em_block_partials_f32.restype = i32
 
         def full():
             _build.check_launch(
-                lib.ngsd_em_raw_cnt_f32(_build.ptr(P32), None, _build.ptr(raw), _build.ptr(cnt),
-                                        S, N, score, hi, 0, _build.stream(dev)), f"em ({name})")
+                lib.ngsd_em_raw_cnt_f32(_build.ptr(P32), None, None, _build.ptr(raw),
+                                        _build.ptr(cnt), S, N, score, hi, 0,
+                                        _build.stream(dev)), f"em ({name})")
 
         def blocks():
             _build.check_launch(

@@ -5,7 +5,8 @@ Run from the root of a checkout:
 
     python3 profile_torch.py [--out FILE]
 
-    python3 profile_torch.py [--out FILE] [--runs abcdef] [--sweep] [--parts]
+    python3 profile_torch.py [--out FILE] [--runs a,b,gs] [--sweep] [--parts]
+                             [--lookahead] [--compaction]
 
 Drives chip_smoke.py's main-path runs (chip_smoke.RUNS) through the
 port's CLI entry point: (a) indep --pairwise_del at 1024 x 65,536 with
@@ -14,7 +15,10 @@ port's CLI entry point: (a) indep --pairwise_del at 1024 x 65,536 with
 (both on the partial-sum bootstrap route), (e) (a)'s flags at 262,144
 sites streamed from disk by the fused reader and (f) the EM at 65,536
 sites streamed from the staged read, both under chip_smoke's forced
-NGSDIST_DEVICE_BUDGET; each once to warm up and once under cProfile and
+NGSDIST_DEVICE_BUDGET, and the runs of evolutionary models 3-6: (g) the
+EM under TN93 at 16,384 sites and (h) indep --pairwise_del under F84 at
+65,536 sites, both with 2 replicates and a POS file, and (gs), (g)
+streamed in 4 chunks; each once to warm up and once under cProfile and
 torch.profiler.  For each run it prints the wall time (host clock), the
 functions that took the most time, and the device's busy share: the
 union of the intervals in which any kernel or copy ran on the card,
@@ -28,7 +32,12 @@ still fetched after every chunk), and no fetch either (the sums stay on
 the card until the matrix is due).  --parts: the pieces of an upload at
 run (a)'s shape, each alone: the fused read of the whole file, the copy
 of its packed slab from pinned memory, the expansion on the card, and
-the staged route's cast and copy.
+the staged route's cast and copy.  --lookahead: runs (g) and (h) with
+the engine's lookahead for models 3-6 (core/distance.py
+EXTENDED_LOOKAHEAD: replicate r+1 is launched before replicate r is
+fetched) on and off, in turns.  --compaction: the same two runs with
+each substitution class launched on its own sites only (the engine's
+form on a card) and as three weighted launches on the whole tensor.
 """
 
 from __future__ import annotations
@@ -150,6 +159,48 @@ def sweep(torch, cli, geno, work):
           + " / ".join(f"{x:.3f}" for x in none) + " s", flush=True)
 
 
+def in_turns(torch, cli, genos, work, what, switch):
+    """Wall time of runs (g) and (h) with switch(True) and switch(False)
+    in force, in turns (on, off, off, on)."""
+    for run in ("g", "h"):
+        args = chip_smoke.run_args(run, genos[run], os.path.join(work, f"{run}.dist")) + [
+            "--platform", "cuda", "--verbose", "0"]
+        walls = {True: [], False: []}
+        try:
+            for on in (True, False, False, True):
+                switch(on)
+                walls[on].append(timed_cli(torch, cli, args))
+        finally:
+            switch(True)
+        print(f"{what}: ({run}) on " + " / ".join(f"{x:.3f}" for x in walls[True])
+              + " s, off " + " / ".join(f"{x:.3f}" for x in walls[False]) + " s", flush=True)
+
+
+def lookahead(torch, cli, genos, work):
+    """Runs (g) and (h) with replicate r+1 launched before replicate r is
+    fetched, corrected and written, and without."""
+    from ngsdist_tpu_torch.core import distance
+
+    def switch(on):
+        distance.EXTENDED_LOOKAHEAD = on
+
+    in_turns(torch, cli, genos, work, "lookahead", switch)
+
+
+def compaction(torch, cli, genos, work):
+    """Runs (g) and (h) with each class's launch on its own sites only
+    (the engine's form on a card) and as three weighted launches on the
+    whole tensor."""
+    from ngsdist_tpu_torch.core import distance
+
+    on_a_card = distance.class_compaction
+
+    def switch(on):
+        distance.class_compaction = on_a_card if on else (lambda device: False)
+
+    in_turns(torch, cli, genos, work, "compaction", switch)
+
+
 def parts(torch, geno):
     """The pieces of run (a)'s upload, each alone (host clock around a
     synchronise; the copies and the expansion also by CUDA events)."""
@@ -222,13 +273,22 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(chip_smoke.ROOT, "profiles",
                                                   "profile_torch.txt"))
-    ap.add_argument("--runs", default="".join(chip_smoke.RUNS),
-                    help="the main-path runs to profile (default: all)")
+    ap.add_argument("--runs", default=",".join(chip_smoke.RUNS),
+                    help="the main-path runs to profile, separated by commas (default: all)")
     ap.add_argument("--sweep", action="store_true",
                     help="run (e) against the chunk length and the round checkpoint's parts")
     ap.add_argument("--parts", action="store_true",
                     help="the pieces of run (a)'s upload, each alone")
+    ap.add_argument("--lookahead", action="store_true",
+                    help="runs (g) and (h) with and without the lookahead of models 3-6")
+    ap.add_argument("--compaction", action="store_true",
+                    help="runs (g) and (h) with the class sums compacted and as three "
+                         "weighted launches")
     opts = ap.parse_args()
+    wanted = [r for r in opts.runs.split(",") if r]
+    unknown = [r for r in wanted if r not in chip_smoke.RUNS]
+    if unknown:
+        ap.error(f"unknown runs {unknown}; known: {', '.join(chip_smoke.RUNS)}")
     import torch
 
     if not torch.cuda.is_available():
@@ -243,15 +303,20 @@ def main() -> int:
     os.makedirs(work)
     try:
         _, genos = chip_smoke.write_inputs(work)
+        chip_smoke.write_pos_files()
         with open(opts.out, "w") as report:
             report.write(chip_smoke.card_line() + "\n")
             for run, (kind, *_) in chip_smoke.RUNS.items():
-                if run not in opts.runs:
+                if run not in wanted:
                     continue
                 args = chip_smoke.run_args(run, genos[run], os.path.join(work, f"{run}.dist"))
                 with chip_smoke.environment(run_env(run)):
                     profile_run(torch, cli, f"{run}_{kind}", args + ["--platform", "cuda"],
                                 report)
+        if opts.lookahead:
+            lookahead(torch, cli, genos, work)
+        if opts.compaction:
+            compaction(torch, cli, genos, work)
         if opts.parts:
             parts(torch, genos["a"])
         if opts.sweep:

@@ -15,6 +15,7 @@ from ngsdist_tpu import cli as jcli
 from ngsdist_tpu.core import bootstrap as jboot
 from ngsdist_tpu.core import models as jmodels
 from ngsdist_tpu.core import preprocess as jpre
+from ngsdist_tpu.core import submodels as jsub
 from ngsdist_tpu.io import readers as jreaders
 from ngsdist_tpu.io import writers as jwriters
 from ngsdist_tpu.utils import checkpoint as jckpt
@@ -23,6 +24,7 @@ from ngsdist_tpu_torch import cli as tcli
 from ngsdist_tpu_torch.core import bootstrap as tboot
 from ngsdist_tpu_torch.core import models as tmodels
 from ngsdist_tpu_torch.core import preprocess as tpre
+from ngsdist_tpu_torch.core import submodels as tsub
 from ngsdist_tpu_torch.io import readers as treaders
 from ngsdist_tpu_torch.io import writers as twriters
 from ngsdist_tpu_torch.utils import checkpoint as tckpt
@@ -160,6 +162,69 @@ def test_evol_models_match(model):
     d = np.random.default_rng(model).random((6, 6)) * 0.7
     assert (tmodels.apply_evol_model(d, model).tobytes()
             == jmodels.apply_evol_model(d, model).tobytes())
+
+
+def _submodel_inputs(seed, S=40, N=5):
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("ACGTacgt0123N-"))
+    rows = [["chr1", str(s + 1), *rng.choice(letters, 2)] for s in range(S)]
+    rows[3] = ["chr1", "4", " g ", "T\n"]          # stripped and upper-cased
+    P = rng.dirichlet(np.ones(3), size=(S, N))
+    return rows, P
+
+
+def test_submodels_alleles_and_counts_match():
+    """encode_alleles, classify_sites and expected_base_counts: the bytes
+    of the JAX package's module, and its error for a 3-column row."""
+    rows, P = _submodel_inputs(0)
+    ja, ta = jsub.encode_alleles(rows), tsub.encode_alleles(rows)
+    for a, b in zip(ta, ja):
+        assert a.dtype == b.dtype == np.int8 and np.array_equal(a, b)
+    assert (ta[0] >= 0).any() and (ta[0] < 0).any()
+    jm, tm = jsub.classify_sites(*ja), tsub.classify_sites(*ta)
+    assert list(tm) == list(jm) == ["ag", "ct", "tv", "ok"]
+    assert all(tm[k].tobytes() == jm[k].tobytes() for k in jm)
+    assert (tsub.expected_base_counts(P, *ta).tobytes()
+            == jsub.expected_base_counts(P, *ja).tobytes())
+    errs = []
+    for mod in (jsub, tsub):
+        with pytest.raises(Exception) as ex:
+            mod.encode_alleles(rows[:2] + [["chr1", "3", "A"]])
+        errs.append((type(ex.value).__name__, str(ex.value)))
+    assert errs[0] == errs[1] and "allele info" in errs[0][1]
+
+
+@pytest.mark.parametrize("model", [3, 4, 5, 6])
+@pytest.mark.parametrize("pi_kind", ["mixed", "equal", "two_bases", "one_base"])
+def test_submodels_formulas_match(model, pi_kind):
+    """apply_extended_model (k80, f81, f84, tn93 with their _sdiv and
+    _safe_log limits) on random class sums, on degenerate base
+    compositions and past saturation: equal bytes, NaN included."""
+    rng = np.random.default_rng(10 * model + len(pi_kind))
+    n = 50
+    cnt = rng.integers(1, 60, n).astype(np.float64)
+    raws = [rng.random(n) * cnt * f for f in (0.2, 0.2, 0.5)]
+    raws[2][:5] = cnt[:5] * 0.6            # saturated: log of a negative number
+    cnt[5] = 0.0
+    pi = {"mixed": rng.dirichlet(np.ones(4), n),
+          "equal": np.full((n, 4), 0.25),
+          "two_bases": np.tile([0.6, 0.4, 0.0, 0.0], (n, 1)),
+          "one_base": np.tile([1.0, 0.0, 0.0, 0.0], (n, 1))}[pi_kind]
+    want = jsub.apply_extended_model(model, *raws, cnt, pi if model >= 4 else None)
+    got = tsub.apply_extended_model(model, *raws, cnt, pi if model >= 4 else None)
+    assert got.tobytes() == want.tobytes()
+    assert np.isfinite(want).any()
+    if pi_kind == "mixed":
+        assert np.isnan(want).any()
+
+
+def test_submodels_invalid_model_matches():
+    errs = []
+    for mod in (jsub, tsub):
+        with pytest.raises(Exception) as ex:
+            mod.apply_extended_model(7, np.ones(2), np.ones(2), np.ones(2), 4.0, None)
+        errs.append((type(ex.value).__name__, str(ex.value)))
+    assert errs[0] == errs[1]
 
 
 @pytest.mark.parametrize("name", ["T_b5", "GL_b3B10", "BIN"])

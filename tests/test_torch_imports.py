@@ -51,7 +51,7 @@ def test_port_has_its_own_host_layer():
     for rel in ("config.py", "version.py", "utils/native.py", "utils/rng.py",
                 "utils/signals.py", "utils/checkpoint.py", "utils/profiling.py",
                 "core/bootstrap.py", "core/models.py", "core/preprocess.py",
-                "core/exact.py", "io/readers.py", "io/writers.py",
+                "core/exact.py", "core/submodels.py", "io/readers.py", "io/writers.py",
                 "csrc/host/ngsdist_native.c", "csrc/host/taus.h"):
         assert os.path.exists(os.path.join(PKG, rel)), rel
 

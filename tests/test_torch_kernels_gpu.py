@@ -155,6 +155,38 @@ def test_em_reruns_byte_identical(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("N,S", [(33, 101), (130, 777)])
+@pytest.mark.parametrize("pairwise_del", [False, True])
+def test_em_site_list_gives_the_whole_runs_bytes(cuda, N, S, pairwise_del):
+    """The EM kernel handed an ascending list of the sites of nonzero
+    weight (and of the NaN site, at weight 0): the bytes of the run over
+    all sites under the same weights, and those of the kernel on the
+    gathered sites; a list in another order runs in that order."""
+    P32, w = _case(cuda, S, N)
+    keep = ~torch.isfinite(P32.sum((1, 2)))
+    assert int(keep.sum()) == 1
+    w[keep] = 0.0
+    index = torch.nonzero((w != 0) | keep)[:, 0]
+    assert 0 < index.numel() < S
+    full = em.em_raw_cnt(P32, SCORE9, pairwise_del, w)
+    listed = em.em_raw_cnt(P32, SCORE9, pairwise_del, w[index], site_index=index)
+    gathered = em.em_raw_cnt(P32.index_select(0, index), SCORE9, pairwise_del, w[index])
+    assert bool(torch.isnan(full[0]).any())
+    for a, b, c in zip(full, listed, gathered):
+        assert chip_smoke.same_bytes(torch, a, b) and chip_smoke.same_bytes(torch, b, c)
+    chip_smoke.check_kernel("em", torch, *listed, *em.em_raw_cnt_ref(
+        P32.double(), SCORE9, pairwise_del, w[index], site_index=index))
+    back = index.flip(0)
+    again = em.em_raw_cnt(P32, SCORE9, pairwise_del, w[back], site_index=back)
+    want = em.em_raw_cnt(P32.index_select(0, back), SCORE9, pairwise_del, w[back])
+    assert all(chip_smoke.same_bytes(torch, a, b) for a, b in zip(again, want))
+    with pytest.raises(ValueError, match="site_index"):
+        em.em_raw_cnt(P32, SCORE9, pairwise_del, w[index], site_index=index.int())
+    with pytest.raises(ValueError, match="site_weights"):
+        em.em_raw_cnt(P32, SCORE9, pairwise_del, w, site_index=index)
+
+
+@pytest.mark.gpu
 def test_indep_unaligned_rows(cuda):
     """A tensor whose data does not start on 16 bytes takes the kernel's
     4-byte copies and gives the same bytes as an aligned copy of it."""

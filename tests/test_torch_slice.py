@@ -97,23 +97,31 @@ def test_port_matches_jax_engine(random_gp, tmp_path, indep, flags):
     (["--platform", "cpu", "--trace_dir", "t"], "--trace_dir is not yet supported"),
     (["--platform", "cpu", "--engine", "jax"], "unknown engine 'jax'"),
     (["--platform", "cpu", "--engine", "exact"], "python -m ngsdist_tpu)"),
-    (["--platform", "cpu", "--evol_model", "3", "--pos", "pos.txt"],
-     "not yet ported to ngsdist_tpu_torch"),
+    # models 3-6 are ported: with a POS file that holds alleles the run succeeds
+    (["--platform", "cpu", "--evol_model", "3", "--pos", "pos.txt"], None),
 ])
 def test_port_cli_errors(extra, needle, tmp_path, monkeypatch, capsys):
     if "cuda" in extra and torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     monkeypatch.chdir(DATA_DIR)
+    out = str(tmp_path / "x.dist")
     args = ["--geno", "gt.geno.gz", "--n_ind", "20", "--n_sites", "1200",
-            "--out", str(tmp_path / "x.dist"), "--verbose", "0", *extra]
+            "--out", out, "--verbose", "0", *extra]
+    if needle is None:
+        assert cli.main(args) == 0
+        assert "not yet ported" not in capsys.readouterr().err
+        (mat,) = _read_matrices(out)
+        assert mat.shape == (20, 20) and np.isfinite(mat).all() and (mat == mat.T).all()
+        return
     assert cli.main(args) == 255
     assert needle in capsys.readouterr().err
 
 
 def test_unported_model_is_refused_after_finalize(tmp_path, monkeypatch, capsys):
-    """Models 3-6 are refused only after Params.finalize(): its banners
-    and its fatals (here a missing input file) come first, as in the JAX
-    runner, which prints them before it looks at the model."""
+    """Models 3-6 are no longer refused.  Params.finalize() still comes
+    first: its banners and its fatals (here a missing input file) are
+    the JAX runner's.  With the file present the model runs, with the
+    JAX runner's banners and, within 1e-9, its matrix."""
     from ngsdist_tpu import runner as jax_runner
     from ngsdist_tpu.config import NgsDistError as JaxError
     from ngsdist_tpu.config import Params as JaxParams
@@ -122,22 +130,28 @@ def test_unported_model_is_refused_after_finalize(tmp_path, monkeypatch, capsys)
 
     monkeypatch.chdir(DATA_DIR)
     kw = dict(in_geno="absent.bin", in_bin=True, in_probs=True, n_ind=20, n_sites=1200,
-              in_pos="pos.txt", evol_model=4, verbose=1, out=str(tmp_path / "x.dist"))
+              in_pos="pos.txt", evol_model=4, verbose=1)
     with pytest.raises(JaxError) as want:
-        jax_runner.run(JaxParams(**kw), engine="jax")
+        jax_runner.run(JaxParams(out=str(tmp_path / "j.dist"), **kw), engine="jax")
     want_err = capsys.readouterr().err
     with pytest.raises(NgsDistError) as got:
-        runner.run(Params(**kw), torch.device("cpu"))
+        runner.run(Params(out=str(tmp_path / "t.dist"), **kw), torch.device("cpu"))
     got_err = capsys.readouterr().err
     assert str(got.value) == str(want.value) and "not yet ported" not in str(got.value)
     assert got_err == want_err
-    # with the file present the banners still come first, then the refusal
-    with pytest.raises(NgsDistError, match="not yet ported to ngsdist_tpu_torch"):
-        runner.run(Params(**{**kw, "in_geno": "gp.bin"}), torch.device("cpu"))
-    pars = Params(**{**kw, "in_geno": "gp.bin"})
+    # with the file present the banners still come first, then the model runs
+    kw["in_geno"] = "gp.bin"
+    want = jax_runner.run(JaxParams(out=str(tmp_path / "j.dist"), **kw), engine="jax")
+    want_err = capsys.readouterr().err
+    got = runner.run(Params(out=str(tmp_path / "t.dist"), **kw), torch.device("cpu"))
+    got_err = capsys.readouterr().err
+    assert got_err == want_err and "==> Analyzing full dataset..." in got_err
+    assert len(got) == len(want) == 1 and np.isfinite(got[0]).all()
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-9)
+    pars = Params(out=str(tmp_path / "t.dist"), **kw)
     pars.validate()
     pars.finalize()
-    assert capsys.readouterr().err == "".join(m + "\n" for m in pars.messages)
+    assert got_err.startswith("".join(m + "\n" for m in pars.messages))
 
 
 @pytest.mark.parametrize("reps,route", [(0, None), (3, "weighted"), (3, "partials")],
