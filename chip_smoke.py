@@ -22,7 +22,15 @@ Phases, each of which fails the run loudly:
    likewise (per-block C exact, indep B within INDEP_RTOL, EM B within
    ops/em.py's em_table_bound(block size) x C), at ragged block sizes
    whose ends fall inside an EM step and, indep, a block longer than
-   2^16 sites.
+   2^16 sites.  The tile lists of the mesh's pairs axis (K1p: indep's
+   64 x 64 tiles, parallel/mesh.py panel_tables; K2b: the EM's 32 x 32
+   tiles of a slice of the pair list, pair_block_tables) at TILE_SHAPES,
+   split TILE_SPLITS ways, the EM with and without a site list, with NaN
+   and all-zero rows: each launch holds its listed tiles of the full
+   launch byte for byte and zeros elsewhere, reruns byte-identical, the
+   lists cover every upper tile (indep: exactly once), and the launches
+   of the two-way split hold every tile against the plain versions'
+   tile forms within the bounds above.
 3. The port's main path through its CLI entry point, in process, on
    seeded binary GP inputs at 1024 individuals (RUNS): (a) --indep_geno
    --pairwise_del, 65,536 sites, 2 bootstrap replicates of 256-site
@@ -58,6 +66,18 @@ Phases, each of which fails the run loudly:
    (TN93), 16,384 sites, 2 replicates of 256-site blocks; (h) indep
    --pairwise_del, --evol_model 5 (F84), 65,536 sites, 2 replicates;
    and (g) once more streamed in 4 chunks under a forced budget ("gs").
+   The mesh engine (MESH_RUNS), in process through runner.run on a
+   parallel.mesh.Mesh of entries of one card, at 1024 individuals: (i)
+   (a)'s file and flags on 2 x 2 (K1p, the weighted bootstrap); (j) (c)'s
+   on 4 x 1 (the EM per shard and its block mode, M[r] @ B per shard and
+   the fixed-order sum); (k) (g)'s on 2 x 2 (K2b under class site lists,
+   the base counts per shard); (is) (i) streamed in 4 rounds a shard
+   under a forced budget; (il) (d)'s on 2 x 1 streamed, the single pass
+   of block partials resummed through _stream_block_rows.  Each held to
+   its launches (MESH_LAUNCHES, per shard and round) and every matrix to
+   twice the kernels' bound of the one-device run of the same file read
+   the same way; with two cards or more, (i) once more through the CLI
+   with --devices 2 --pairs 2 on real cards.
    Each matrix takes three launches (one per substitution class, on the
    class's sites only) per chunk, 9 for (g) and (h); the engine is
    handed the staged float64 tensor.  Their 64-individual sub-matrices
@@ -83,7 +103,11 @@ Phases, each of which fails the run loudly:
    0 adds 0), indep's cnt equal and its raw within twice INDEP_RTOL (its
    float32 windows regroup); also on a small case with a NaN triple at a
    site of weight 0, which both forms must spread to its pairs; and
-   core/distance.py pair_pi_counts at (h)'s shape.
+   core/distance.py pair_pi_counts at (h)'s shape.  One pairs-shard's
+   K1p launch at (a)'s shape and K2b launch at (b)'s, for splits of 2 and
+   4, beside the full launch, with the share of the tiles it holds and
+   the bound scaled by that share; and the fixed-order sum of (i)'s four
+   shards.
 
 The bounds (PERF.md section 2): the indep kernel sums 3xTF32 products
 on the tensor cores in float32 over 16-site windows and the windows in
@@ -158,11 +182,14 @@ RUNS = {
     "c": ("em", EM_SITES, EM_BOOT_REPS, EM_BOOT_BLOCK, False),
     "d": ("indep", INDEP_SITES, INDEP_BOOT_REPS, INDEP_BOOT_BLOCK, True),
 }
-# The kernels, by the name of their wrapper: (module, launch counter).
+# The kernels, by the name of their wrapper and mode: (module, launch
+# counter).  The "_tiles" modes are the wrappers called with a tile list.
 KERNELS = {"indep_raw_cnt": ("indep", "LAUNCHES"),
            "indep_block_partials": ("indep", "BLOCK_LAUNCHES"),
            "em_raw_cnt": ("em", "LAUNCHES"),
-           "em_block_partials": ("em", "BLOCK_LAUNCHES")}
+           "em_block_partials": ("em", "BLOCK_LAUNCHES"),
+           "indep_raw_cnt_tiles": ("indep", "TILE_LAUNCHES"),
+           "em_raw_cnt_tiles": ("em", "TILE_LAUNCHES")}
 # The launches each run must make: the weighted route one per matrix,
 # the partial-sum route the full-data call and one block-mode call.
 LAUNCHES = {"a": {"indep_raw_cnt": 1 + BOOT_REPS},
@@ -190,6 +217,15 @@ LAUNCHES["h"] = {"indep_raw_cnt": 3 * (1 + BOOT_REPS)}
 UNCLASSIFIABLE = 0.05    # share of POS rows whose two alleles are equal
 SHORT_DISK_BYTES = 16 << 30  # free disk below which (e) is cut to half its sites
 WIDE_N = 2048                # phase 4: both full modes also at this width
+# Phase 2: the tile lists of a pairs axis split 2, 3 and 4 ways, at the
+# EM's edge shapes and the indep kernel's shapes of several site chunks.
+TILE_SPLITS = (2, 3, 4)
+TILE_SHAPES = EM_EDGE_SHAPES + CHUNKED_SHAPES
+# Phase 3, the mesh engine: run -> (the one-device run whose file and
+# flags it takes, mesh entries (all on one card), pairs axis, site rounds
+# a shard is held to under a forced budget or None: resident).
+MESH_RUNS = {"i": ("a", 4, 2, None), "j": ("c", 4, 1, None), "k": ("g", 4, 2, None),
+             "is": ("a", 4, 2, 4), "il": ("d", 2, 1, 4)}
 SCORE9 = np.array([[0.0, 0.5, 1.0], [0.5, 0.0, 0.5], [1.0, 0.5, 0.0]]).reshape(-1)
 
 
@@ -386,6 +422,63 @@ def phase_small_blocks(torch, indep, em, rng) -> None:
         f"{em.em_table_bound(max(BLOCK_SIZES)):.3e} x C, reruns byte-identical); largest "
         f"indep rel err "
         f"{worst['indep']:.3e}, EM |B err|/C {worst['em']:.3e}")
+
+
+def tile_lists(pm, kind: str, N: int, p: int):
+    """The p tile lists of a pairs axis: indep's 64 x 64 tiles (K1p) or
+    the EM's 32 x 32 tiles of each slice of the pair list (K2b)."""
+    return pm.panel_tables(N, p) if kind == "indep" else pm.pair_block_tables(N, p)
+
+
+def phase_tile_lists(torch, indep, em, pm, build) -> None:
+    """Both kernels with a tile list (module docstring, phase 2): each
+    pairs-shard's launch against the listed tiles of the full launch, byte
+    for byte, and zeros elsewhere; reruns byte-identical; the lists'
+    cover; the two-way split's launches against the plain tile forms."""
+    rng = np.random.default_rng(SEED + 5)
+    dev = torch.device(DEVICE)
+    n, worst = 0, {"indep": 0.0, "em": 0.0}
+    for N, S in TILE_SHAPES:
+        P32, P64 = small_case(rng, torch, S, N)
+        w = torch.from_numpy(rng.integers(0, 4, S).astype(np.float64)).to(dev)
+        index = torch.nonzero(w != 0)[:, 0]
+        for pairwise_del in (False, True):
+            for kind, wk, extra in (("indep", w, {}), ("em", None, {}),
+                                    ("em", w[index], {"site_index": index})):
+                fn, ref = ((indep.indep_raw_cnt, indep.indep_raw_cnt_ref) if kind == "indep"
+                           else (em.em_raw_cnt, em.em_raw_cnt_ref))
+                edge, strict = (indep.TILE, False) if kind == "indep" else (em.EM_TILE, True)
+                full = fn(P32, SCORE9, pairwise_del, wk, **extra)
+                upper = torch.ones((N, N), dtype=torch.bool, device=dev).triu(int(strict))
+                for p in TILE_SPLITS:
+                    cover = torch.zeros((N, N), dtype=torch.int32, device=dev)
+                    for lst in tile_lists(pm, kind, N, p):
+                        tiles = torch.from_numpy(lst).to(dev)
+                        got = fn(P32, SCORE9, pairwise_del, wk, tiles=tiles, **extra)
+                        again = fn(P32, SCORE9, pairwise_del, wk, tiles=tiles, **extra)
+                        mask = build.tile_mask(N, lst, edge, strict).to(dev)
+                        cover += mask.int()
+                        for g, a, f in zip(got, again, full):
+                            if not (same_bytes(torch, g, a) and same_bytes(torch, g[mask], f[mask])
+                                    and not bool(g[~mask].any())):
+                                raise AssertionError(
+                                    f"{kind} tiles ({N}, {S}) p={p}: a launch is not the full "
+                                    "launch's listed tiles, or a rerun differs")
+                        if p == TILE_SPLITS[0]:
+                            plain = ref(P64, SCORE9, pairwise_del, wk, tiles=tiles, **extra)
+                            rel, per_cnt = check_kernel(kind, torch, *got, *plain)
+                            worst[kind] = max(worst[kind], rel if kind == "indep" else per_cnt)
+                        n += 1
+                    covered = cover[upper]
+                    if not bool((covered == 1 if kind == "indep" else covered >= 1).all()):
+                        raise AssertionError(f"{kind} tiles ({N}, {S}) p={p}: the lists do not "
+                                             "cover the upper tiles")
+        torch.cuda.synchronize()
+    log(f"phase 2: {n} tile-list launches held (K1p, K2b with and without a site list; "
+        f"(N, S) {TILE_SHAPES}, splits {TILE_SPLITS}): each the full launch's listed tiles "
+        f"byte for byte, zeros elsewhere, reruns byte-identical, every upper tile covered "
+        f"(indep exactly once); the {TILE_SPLITS[0]}-way launches against the plain tile "
+        f"forms: largest indep rel err {worst['indep']:.3e}, EM |raw err|/cnt {worst['em']:.3e}")
 
 
 def read_phylip(path: str):
@@ -984,12 +1077,23 @@ def environment(env: dict):
                 os.environ[k] = v
 
 
-def cli_run(torch, cli, mods, ngsd, run: str, geno: str, out: str, budget, fused: bool):
-    """One call of the CLI entry point with the launch counts set to 0
+def cli_run(torch, cli, mods, ngsd, run: str, geno: str, out: str, budget, fused: bool,
+            extra=()):
+    """One call of the CLI entry point (timed_run) with the arguments of
+    run `run` and `extra`."""
+    seen = timed_run(torch, mods, ngsd, budget, fused, lambda: cli.main(
+        run_args(run, geno, out) + ["--platform", DEVICE, "--throughput", *extra]))
+    if seen["result"] != 0:
+        raise AssertionError(f"run ({run}): exit code {seen['result']}")
+    return seen
+
+
+def timed_run(torch, mods, ngsd, budget, fused: bool, call):
+    """call() (a run of the main path) with the launch counts set to 0
     just before and read just after, under the given NGSDIST_DEVICE_BUDGET
-    (None: unset) and read route.  Returns what the run showed: launches,
-    wall seconds, the stage times' summary, the peak of the device memory
-    and the type of the source the engine was handed."""
+    (None: unset) and read route.  Returns what the run showed: call()'s
+    result, launches, wall seconds, the stage times' summary, the peak of
+    the device memory and the type of the source the engine was handed."""
     runner, profiling = ngsd["runner"], ngsd["profiling"]
     env = {"NGSDIST_DEVICE_BUDGET": None if budget is None else str(budget),
            "NGSDIST_FUSED_READ": "auto" if fused else "0"}
@@ -1011,7 +1115,7 @@ def cli_run(torch, cli, mods, ngsd, run: str, geno: str, out: str, budget, fused
     try:
         with environment(env):
             t0 = time.perf_counter()
-            rc = cli.main(run_args(run, geno, out) + ["--platform", DEVICE, "--throughput"])
+            seen["result"] = call()
             torch.cuda.synchronize()
             seen["wall"] = time.perf_counter() - t0
         seen["launches"] = launch_counts(mods)
@@ -1020,16 +1124,16 @@ def cli_run(torch, cli, mods, ngsd, run: str, geno: str, out: str, budget, fused
     finally:
         profiling.ACTIVE = None
         runner.load_inputs = load_inputs
-    if rc != 0:
-        raise AssertionError(f"run ({run}): exit code {rc}")
     return seen
 
 
-def log_run(run: str, what: str, seen) -> None:
-    kind, sites, reps, block, _ = RUNS[run]
+def log_run(run: str, what: str, seen, base=None) -> None:
+    """One run's line; base: the run whose file and flags it took."""
+    base = base or run
+    kind, sites, reps, block, _ = RUNS[base]
     boot = f" + {reps} replicates of {block}-site blocks" if reps else ""
-    if run in MODELS:
-        boot += f", --evol_model {MODELS[run]}"
+    if base in MODELS:
+        boot += f", --evol_model {MODELS[base]}"
     t = seen["times"]
     hidden = "none" if t["upload_hidden"] is None else f"{t['upload_hidden']:.3f}"
     log(f"phase 3: ({run}) {what}{kind} {N_IND} x {sites}{boot} in {seen['wall']:.2f} s "
@@ -1092,6 +1196,147 @@ def drive_main_path(torch, cli, mods, ngsd, genos):
     return outs, launches, resident
 
 
+def forced_mesh_budget(run: str, itemsize: int) -> int:
+    """The NGSDIST_DEVICE_BUDGET under which streamed mesh run `run`
+    plans rounds of a shard's sites / MESH_RUNS' rounds (SiteStream._plan,
+    the JAX rule: a third of the budget is a shard's, three quarters of
+    that a round's)."""
+    base, entries, pairs, rounds = MESH_RUNS[run]
+    chunk = RUNS[base][1] // (entries // pairs) // rounds
+    return 3 * -(-chunk * 4 // 3) * N_IND * 3 * itemsize
+
+
+def mesh_launches(run: str, stream, pm) -> dict:
+    """The launches mesh run `run` must make, by the plan of its SiteStream:
+    per (shard, round) that holds sites, and per matrix where a matrix is
+    a pass: K1p / K2b once per entry of a pairs axis (and per class for
+    models 3-6); on a 1-D mesh the full EM and its block mode once per
+    shard (the partial-sum route), or indep's block mode once per shard
+    and round (the streamed single pass)."""
+    base, entries, pairs, _ = MESH_RUNS[run]
+    kind, _, reps, _, _ = RUNS[base]
+    shards = sum(hi > lo for r in range(stream.n_rounds) for lo, hi in stream.round_ranges(r))
+    if pairs > 1:  # an empty list launches nothing
+        lists = sum(lst.size > 0 for lst in tile_lists(pm, kind, N_IND, pairs))
+        return {f"{kind}_raw_cnt_tiles": shards * lists * (1 + reps) * (3 if base in MODELS else 1)}
+    if kind == "em":
+        return {"em_raw_cnt": shards, "em_block_partials": shards}
+    return {"indep_block_partials": shards}
+
+
+def drive_mesh_runs(torch, cli, mods, ngsd, genos, mats, ext_bounds):
+    """The runs of MESH_RUNS through runner.run on meshes of entries of one
+    card (module docstring, phase 3), each with its launch counts set to 0
+    just before and held to mesh_launches after; every matrix within twice
+    the kernels' bound of the one-device run of the same file, read the
+    same way (the mesh declines the fused read, so (c) is run once more
+    staged for (j)); with two cards, (i) through the CLI on real cards.
+    Returns the launches and the largest |d difference| per run."""
+    runner, pm, pmh = ngsd["runner"], ngsd["mesh"], ngsd["multihost"]
+    dev0 = torch.device(DEVICE, 0)
+    itemsize = torch.finfo(ngsd["distance"].default_dtype(dev0)).bits // 8
+    c_staged = os.path.join(WORK, "c_staged.dist")
+    seen = cli_run(torch, cli, mods, ngsd, "c", genos["c"], c_staged, None, False)
+    log_run("c", "once more with the staged read, for (j): ", seen)
+    ref = {"a": mats["a"], "c": check_output(c_staged, 1 + RUNS["c"][2]), "d": mats["d"],
+           "g": mats["g"]}
+    launches, diffs = {}, {}
+    for run, (base, entries, pairs, rounds) in MESH_RUNS.items():
+        out = os.path.join(WORK, f"{run}.dist")
+        budget = None if rounds is None else forced_mesh_budget(run, itemsize)
+        pars, _ = cli.parse_args(run_args(base, genos[base], out))
+        mesh = pm.make_mesh([dev0] * entries, pairs=pairs)
+        with environment({"NGSDIST_DEVICE_BUDGET": None if budget is None else str(budget)}):
+            stream = pmh.SiteStream(None, pars, mesh, *pmh.SiteStream._plan(pars, mesh))
+        if rounds is not None and (stream.resident or stream.n_rounds < rounds):
+            raise AssertionError(f"run ({run}): the budget {budget} gives {stream.n_rounds} "
+                                 f"rounds of {stream.chunk} sites")
+        seen = timed_run(torch, mods, ngsd, budget, False,
+                         lambda: runner.run(pars, mesh=mesh, report_throughput=True))
+        launches[run] = seen["launches"]
+        what = (f"on a {pm.sites_size(mesh)} x {pairs} mesh of {entries} entries of {dev0}, "
+                + ("" if stream.resident else f"streamed in {stream.n_rounds} rounds of "
+                   f"{stream.chunk} sites a shard under a budget of {budget} B, "))
+        log_run(run, what, seen, base)
+        want = {name: mesh_launches(run, stream, pm).get(name, 0) for name in KERNELS}
+        if launches[run] != want:
+            raise AssertionError(f"run ({run}): launches {launches[run]}, expected {want}")
+        got = check_output(out, 1 + RUNS[base][2])
+        if base in MODELS:
+            diffs[run] = max(float(np.abs(a - b).max()) for a, b in zip(got, ref[base]))
+            if not diffs[run] <= 2 * ext_bounds[base]:
+                raise AssertionError(f"({run}): differs from ({base}) by {diffs[run]}, above "
+                                     f"2 x {ext_bounds[base]}")
+        else:
+            diffs[run] = check_same_as_resident(base, got, ref[base])
+    if torch.cuda.device_count() >= 2:
+        out = os.path.join(WORK, "i_cards.dist")
+        seen = cli_run(torch, cli, mods, ngsd, "a", genos["a"], out, None, True,
+                       extra=("--devices", "2", "--pairs", "2"))
+        launches["i_cards"] = seen["launches"]
+        log_run("i_cards", "through the CLI with --devices 2 --pairs 2 on two cards, ", seen, "a")
+        want = {name: 0 for name in KERNELS}
+        want["indep_raw_cnt_tiles"] = 2 * (1 + RUNS["a"][2])
+        if seen["launches"] != want:
+            raise AssertionError(f"run (i) on two cards: launches {seen['launches']}")
+        diffs["i_cards"] = check_same_as_resident("a", check_output(out, 1 + RUNS["a"][2]),
+                                                  ref["a"])
+    else:
+        log(f"phase 3: (i) through the CLI with --devices 2 --pairs 2 on real cards not run: "
+            f"this machine shows {torch.cuda.device_count()} CUDA device")
+    return launches, diffs
+
+
+def tile_times(torch, kmod, pm, build, kind, P32, pairwise_del, plain64, bound, report,
+               card) -> None:
+    """One pairs-shard's launch (its split's first tile list) at the main
+    path's shape for splits of 2 and 4, beside the full launch, with the
+    share of the full launch's tiles it holds and the bound scaled by that
+    share; the 2-way launch held against the float64 plain version
+    (plain64, the full one, masked to the list's tiles: the plain tile
+    form) and reported, with the plain tile form's time (float32)."""
+    N = P32.shape[1]
+    fn = kmod.indep_raw_cnt if kind == "indep" else kmod.em_raw_cnt
+    ref = kmod.indep_raw_cnt_ref if kind == "indep" else kmod.em_raw_cnt_ref
+    edge, strict = (kmod.TILE, False) if kind == "indep" else (kmod.EM_TILE, True)
+    nt = -(-N // edge)
+    reps = 5 if kind == "indep" else 3
+    ms_full = time_cuda(torch, lambda: fn(P32, SCORE9, pairwise_del), reps)
+    first = {}
+    for p in (2, 4):
+        lst = tile_lists(pm, kind, N, p)[0]
+        tiles = torch.from_numpy(lst).to(P32.device)
+        ms = time_cuda(torch, lambda: fn(P32, SCORE9, pairwise_del, tiles=tiles), reps)
+        share = lst.size / (nt * (nt + 1) // 2)
+        first[p] = (lst, tiles, ms, share)
+        log(f"phase 4: {kind} tile list, first shard of {p}: {lst.size} of {nt * (nt + 1) // 2} "
+            f"tiles (share {share:.4f}) in {ms:.3f} ms against the full launch's "
+            f"{ms_full:.3f} ms ({ms / ms_full:.4f}); bound scaled by the share "
+            f"{bound[0] * share:.3f} ms [{card}]")
+    lst, tiles, ms, share = first[2]
+    got = fn(P32, SCORE9, pairwise_del, tiles=tiles)
+    mask = build.tile_mask(N, lst, edge, strict).to(P32.device)
+    plain = [torch.where(mask, x, torch.zeros_like(x)) for x in plain64]
+    rel, err = check_kernel(kind, torch, *got, *plain)
+    if kind == "indep":
+        ms_p = time_cuda(torch, lambda: ref(P32, SCORE9, pairwise_del, tiles=tiles), 3)
+    else:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref(P32, SCORE9, pairwise_del, tiles=tiles)
+        torch.cuda.synchronize()
+        ms_p = (time.perf_counter() - t0) * 1e3
+    torch.cuda.empty_cache()
+    log(f"phase 4: {kind} tile list, first shard of 2, vs float64 plain: max rel raw err "
+        f"{rel:.3e}, max |raw/cnt err| {err:.3e}; plain tile form (float32) {ms_p:.3f} ms")
+    replaces = ("ngsdist_tpu/ops/pallas_indep.py:463" if kind == "indep"
+                else "ngsdist_tpu/ops/pallas_em.py:326")
+    report(f"{kind}_raw_cnt_tiles", f"ngsdist_tpu_torch/csrc/{kind}.cu", replaces, err,
+           "raw/cnt", ms, ms_p,
+           (bound[0] * share, bound[1], f"{share:.4f} of the full launch's bound: {bound[2]}"),
+           None)
+
+
 def main() -> int:
     import torch
 
@@ -1102,6 +1347,8 @@ def main() -> int:
     from ngsdist_tpu_torch import cli, runner
     from ngsdist_tpu_torch.core import distance, submodels
     from ngsdist_tpu_torch.ops import _build, em, indep
+    from ngsdist_tpu_torch.parallel import mesh as pm
+    from ngsdist_tpu_torch.parallel import multihost
     from ngsdist_tpu_torch.utils import profiling
 
     # Phase 1: identity and builds.
@@ -1127,10 +1374,12 @@ def main() -> int:
 
     # Phase 2: kernel against plain at small ragged shapes.
     phase_small_shapes(torch, indep, em)
+    phase_tile_lists(torch, indep, em, pm, _build)
 
     # Phase 3: the main path, through the CLI entry point.
     mods = {"indep": indep, "em": em}
-    ngsd = {"runner": runner, "distance": distance, "profiling": profiling}
+    ngsd = {"runner": runner, "distance": distance, "profiling": profiling, "mesh": pm,
+            "multihost": multihost}
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     try:
@@ -1170,6 +1419,9 @@ def main() -> int:
                     raise AssertionError(f"({run}): streamed differs from ({base}) by {diff}, "
                                          f"above 3 x {ext_bounds[base]}")
                 same[run] = diff
+        mesh_launched, mesh_diffs = drive_mesh_runs(torch, cli, mods, ngsd, genos, mats,
+                                                    ext_bounds)
+        launches.update(mesh_launched)
         del mats, P_sub
         log(f"phase 3: outputs hold 1 + n_boot_rep finite symmetric matrices "
             f"({', '.join(f'{run} {1 + RUNS[run][2]}' for run in RUNS)}); the full-data "
@@ -1180,7 +1432,9 @@ def main() -> int:
             + ", ".join(f"{k} {v:.3e}" for k, v in ext_bounds.items()) + "), max |d err| "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
             + "; streamed against resident, max |d difference| "
-            + ", ".join(f"{k} {v:.3e}" for k, v in same.items()))
+            + ", ".join(f"{k} {v:.3e}" for k, v in same.items())
+            + "; mesh runs against the one-device run of the same file, max |d difference| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in mesh_diffs.items()))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1204,8 +1458,8 @@ def main() -> int:
     del P
     ms_k = time_cuda(torch, lambda: indep.indep_raw_cnt(P32, SCORE9, True), 5)
     ms_p = time_cuda(torch, lambda: indep.indep_raw_cnt_ref(P32, SCORE9, True), 3)
-    rel, err = check_kernel("indep", torch, *indep.indep_raw_cnt(P32, SCORE9, True),
-                            *indep.indep_raw_cnt_ref(P32.double(), SCORE9, True))
+    plain64 = indep.indep_raw_cnt_ref(P32.double(), SCORE9, True)
+    rel, err = check_kernel("indep", torch, *indep.indep_raw_cnt(P32, SCORE9, True), *plain64)
     torch.cuda.empty_cache()
     log(f"phase 4: indep {N_IND} x {INDEP_SITES} pairwise_del: kernel {ms_k:.3f} ms, "
         f"plain float32 {ms_p:.3f} ms; vs float64 plain: max rel raw err {rel:.3e}, "
@@ -1215,6 +1469,20 @@ def main() -> int:
     report("indep_raw_cnt", "ngsdist_tpu_torch/csrc/indep.cu",
            "ngsdist_tpu/ops/pallas_indep.py:358", err, "raw/cnt", ms_k, ms_p,
            indep_bound(INDEP_SITES, N_IND, 2 * 4 * N_IND * N_IND), ms_lib)
+    # K1p: one pairs-shard's tile list at (a)'s shape
+    tile_times(torch, indep, pm, _build, "indep", P32, True, plain64,
+               indep_bound(INDEP_SITES, N_IND, 2 * 4 * N_IND * N_IND), report, card)
+    del plain64
+    mesh = pm.make_mesh([dev] * 4, pairs=2)
+    parts = []
+    for k in range(4):
+        with mesh.on(k):
+            parts.append((k, torch.rand(N_IND * (N_IND - 1) // 2, device=dev)))
+    ms = time_cuda(torch, lambda: pm.fixed_order_sum(mesh, parts), 20)
+    log(f"phase 4: the fixed-order sum of (i)'s four shards' float32 pair vectors "
+        f"({N_IND * (N_IND - 1) // 2} pairs) into float64 on the first device: {ms:.4f} ms "
+        f"per sum, two per matrix under --pairwise_del [{card}]")
+    del parts
 
     # the block mode at run (d)'s shape, pairs gathered from the tiles
     nb, bs = INDEP_SITES // INDEP_BOOT_BLOCK, INDEP_BOOT_BLOCK
@@ -1245,8 +1513,8 @@ def main() -> int:
     torch.cuda.synchronize()
     ms_p = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    rel, err = check_kernel("em", torch, *em.em_raw_cnt(P32, SCORE9, False),
-                            *em.em_raw_cnt_ref(P32.double(), SCORE9, False))
+    plain64 = em.em_raw_cnt_ref(P32.double(), SCORE9, False)
+    rel, err = check_kernel("em", torch, *em.em_raw_cnt(P32, SCORE9, False), *plain64)
     log(f"phase 4: em {N_IND} x {EM_SITES}: kernel {ms_k:.3f} ms, plain float32 "
         f"{ms_p:.3f} ms (one run); vs float64 plain: max |raw/cnt err| {err:.3e} "
         f"(check took {time.perf_counter() - t0:.1f} s) [{card}]")
@@ -1259,6 +1527,10 @@ def main() -> int:
     report("em_raw_cnt", "ngsdist_tpu_torch/csrc/em.cu",
            "ngsdist_tpu/ops/pallas_em.py:326", err, "raw/cnt", ms_k, ms_p,
            em_bound(work, EM_SITES, N_IND, 2 * 4 * N_IND * N_IND), None)
+    # K2b: one pairs-shard's tile list at (b)'s shape
+    tile_times(torch, em, pm, _build, "em", P32, False, plain64,
+               em_bound(work, EM_SITES, N_IND, 2 * 4 * N_IND * N_IND), report, card)
+    del plain64
 
     # the block mode at run (c)'s shape
     nb, bs = EM_SITES // EM_BOOT_BLOCK, EM_BOOT_BLOCK

@@ -14,6 +14,12 @@ the port's own copy of the JAX package's.  Port-specific options:
                         parser's `auto`, its value when the flag is
                         absent, means); the JAX package's engines run
                         under python -m ngsdist_tpu
+  --devices N|all       shard the sites over N devices (all: every
+                        visible card); on the CPU, N `cpu` shards, as the
+                        JAX package's virtual CPU mesh; asking for more
+                        cards than are visible is an error
+  --pairs K             a second mesh axis: split the pairs K ways (the
+                        device count must be a multiple of K)
 
 Usage:  python -m ngsdist_tpu_torch [options] --geno FILE --n_ind N --n_sites N --out FILE
 """
@@ -286,8 +292,7 @@ def echo_args(pars: Params) -> None:
 
 
 # JAX-package options that have no counterpart in the port yet.
-_NOT_PORTED = ("devices", "pairs", "coordinator", "num_processes",
-               "process_id", "trace_dir", "x64")
+_NOT_PORTED = ("coordinator", "num_processes", "process_id", "trace_dir", "x64")
 
 
 def _device(platform: str) -> torch.device:
@@ -303,6 +308,30 @@ def _device(platform: str) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _mesh(device: torch.device, devices, pairs_arg):
+    """The mesh of --devices N|all and --pairs K, or None for one
+    device (ngsdist_tpu/cli.py:328-335): N `cpu` entries on the CPU; on
+    the cards, the first N visible ones."""
+    pairs = _atol(pairs_arg or "1") or 1
+    if devices in (None, "", "0", "1") and pairs <= 1:
+        return None
+    from .parallel import make_mesh
+
+    if device.type == "cpu":
+        n = 1 if devices in (None, "", "all") else _atol(devices)
+        avail = [device] * n
+    else:
+        avail = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        n = len(avail) if devices in (None, "", "all") else _atol(devices)
+        if n > len(avail):
+            raise NgsDistError("main", f"--devices {n}: only {len(avail)} CUDA devices are "
+                               "visible (a mesh never runs on fewer cards than asked)")
+    try:
+        return make_mesh(avail, n_devices=n, pairs=pairs)
+    except ValueError as ex:
+        raise NgsDistError("main", str(ex))
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     pars, extras = parse_args(argv)
@@ -312,7 +341,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             if extras.get(opt) not in (None, False):
                 raise NgsDistError(
                     "main", f"--{opt} is not yet supported by "
-                    "ngsdist_tpu_torch (single device only; see ROADMAP.md)")
+                    "ngsdist_tpu_torch (one process only; see ROADMAP.md)")
         engine = extras.get("engine") or "auto"
         if engine not in ("torch", "auto"):
             raise NgsDistError(
@@ -320,6 +349,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "its torch engine only (the JAX package's engines run under "
                 "python -m ngsdist_tpu)")
         device = _device(extras.get("platform") or "cuda")
+        mesh = _mesh(device, extras.get("devices"), extras.get("pairs"))
 
         from . import runner
 
@@ -329,6 +359,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             device,
             resume=bool(extras.get("resume")),
             report_throughput=bool(extras.get("throughput")),
+            mesh=mesh,
         )
     except NgsDistError as e:
         sys.stdout.flush()

@@ -473,33 +473,35 @@ def _finalize(raw: np.ndarray, cnt, pars: Params, on_stats=None) -> np.ndarray:
     return d
 
 
-def _make_exact_stats(pars: Params, score: torch.Tensor, It, Jt, zero):
-    """The engine's call into the kernels, for one run: returns
-    exact_stats(Psub, weights=None, lo=0, index=None) -> (raw, cnt or
-    None), pair vectors [n_pairs] on score's device.  zero: the run's
-    record of all-zero triples where the EM must poison for them, else
-    None."""
-    device, dtype = score.device, score.dtype
-    # the wrappers pass the scores to their kernels by value: from a
-    # host copy, or every launch would wait for the card to fetch them
-    score = score.cpu()
+def _make_exact_stats(indep: bool, pairwise_del: bool, score, device: torch.device,
+                      It, Jt, zero, tiles=None):
+    """The engine's call into the kernels, for one run (or one mesh
+    entry): returns exact_stats(Psub, weights=None, lo=0, index=None) ->
+    (raw, cnt or None), pair vectors at (It, Jt) on the device.  score:
+    the 3 x 3 scores on the host (the wrappers pass them to their kernels
+    by value: from a device tensor every launch would wait for the card to
+    fetch them).  zero: the run's record of all-zero triples where the EM
+    must poison for them, else None.  tiles: the kernel's tile list (a
+    pairs-axis shard, parallel/mesh.py), else None."""
+    dtype = default_dtype(device)
+    score = torch.as_tensor(score, dtype=dtype).reshape(3, 3)
 
     def full_stats(Psub, weights, lo, index=None):
-        """(raw, cnt or None) pair vectors [n_pairs] on the device for
-        the sites Psub = [lo, lo + len) of the data; weights: their
-        multiplicities on the host, or None.  index [n] int64 on the
-        device: run on these sites of Psub only, weights [n] theirs.  The
-        EM kernel reads the list itself; for the indep kernel, which
-        stages slabs of consecutive sites, they are gathered first."""
+        """(raw, cnt or None) pair vectors on the device for the sites
+        Psub = [lo, lo + len) of the data; weights: their multiplicities
+        on the host, or None.  index [n] int64 on the device: run on these
+        sites of Psub only, weights [n] theirs.  The EM kernel reads the
+        list itself; for the indep kernel, which stages slabs of
+        consecutive sites, they are gathered first."""
         w = None if weights is None else _upload_small(weights, device, dtype)
         with profiling.device_span("kernel"):
-            if pars.indep_geno:
+            if indep:
                 if index is not None:
                     Psub = Psub.index_select(0, index)
-                raw_m, cnt_m = indep_raw_cnt(Psub, score, pars.pairwise_del, w)
-                return raw_m[It, Jt], (cnt_m[It, Jt] if pars.pairwise_del else None)
-            raw_m, cnt_m = em_raw_cnt(Psub, score.reshape(-1), pars.pairwise_del, w,
-                                      site_index=index)
+                raw_m, cnt_m = indep_raw_cnt(Psub, score, pairwise_del, w, tiles=tiles)
+                return raw_m[It, Jt], (cnt_m[It, Jt] if pairwise_del else None)
+            raw_m, cnt_m = em_raw_cnt(Psub, score.reshape(-1), pairwise_del, w,
+                                      site_index=index, tiles=tiles)
             raw_v = raw_m[It, Jt]
             if zero is not None:
                 z = zero.individuals(lo, lo + Psub.shape[0], weights)
@@ -539,6 +541,7 @@ def iter_replicates(
     start_rep: int = 0,
     round_ckpt: bool = False,
     alleles=None,
+    mesh=None,
 ) -> Iterator[np.ndarray]:
     """Yield the full-data matrix, then one matrix per bootstrap
     replicate, for replicates start_rep..n_boot_rep.
@@ -553,14 +556,23 @@ def iter_replicates(
     it owns the output file.
 
     alleles: (a1, a2) int8 allele codes of the sites (core/submodels.py),
-    which evolutionary models 3-6 need."""
+    which evolutionary models 3-6 need.
+
+    mesh: a parallel.mesh.Mesh (device is then its first device): the
+    sites, and along a pairs axis the pairs, are sharded over its devices
+    (_iter_replicates_sharded; models 3-6: _mesh_class_stats); P_host is
+    then the host array or a parallel.multihost.SiteStream."""
     if pars.evol_model >= 3:
         yield from _iter_replicates_extended(pars, P_host, maps, n_trunc, alleles, device,
-                                             on_stats, start_rep, round_ckpt)
+                                             on_stats, start_rep, round_ckpt, mesh)
+        return
+    if mesh is not None:
+        yield from _iter_replicates_sharded(pars, P_host, maps, n_trunc, mesh, on_stats,
+                                            start_rep, round_ckpt)
         return
     N, S = pars.n_ind, pars.n_sites
     dtype = default_dtype(device)
-    score = torch.as_tensor(pars.score, dtype=dtype, device=device)
+    score = torch.as_tensor(pars.score, dtype=dtype)
     I, J = _pair_indices(N)
     It = torch.from_numpy(I).long().to(device)
     Jt = torch.from_numpy(J).long().to(device)
@@ -581,7 +593,8 @@ def iter_replicates(
     else:
         P = upload_resident(P_host, device)
 
-    exact_stats = _make_exact_stats(pars, score, It, Jt, zero)
+    exact_stats = _make_exact_stats(pars.indep_geno, pars.pairwise_del, score, device, It, Jt,
+                                    zero)
 
     def stats_stream(weights=None, n_used=S, rep=0):
         """(raw, cnt or None) of the first n_used sites.  Streamed: the
@@ -590,29 +603,16 @@ def iter_replicates(
         rounds file gives the bytes of an uninterrupted one."""
         if not chunked:
             return exact_stats(P if n_used == S else P[:n_used], weights)
-        acc_raw = acc_cnt = None
-        skip = 0
-        eng = engine_name(device)
-        if round_ckpt:
-            got = ckpt.load_rounds(pars.out, pars, rep, engine=eng, chunk=chunk)
-            if got is not None:
-                skip, arrs = got
-                acc_raw = torch.from_numpy(arrs["raw"]).to(device)
-                acc_cnt = torch.from_numpy(arrs["cnt"]).to(device) if "cnt" in arrs else None
-        ranges = [(lo, min(lo + chunk, n_used)) for lo in range(0, n_used, chunk)][skip:]
-        idx = skip
-        for Pc, lo, hi in pipe.chunks(ranges):
+        rounds, chunk_of = _pipe_rounds(
+            pipe, [(lo, min(lo + chunk, n_used)) for lo in range(0, n_used, chunk)])
+
+        def step(r):
+            Pc, lo, hi = chunk_of(r)
             raw, cnt = exact_stats(Pc, None if weights is None else weights[lo:hi], lo)
-            acc_raw = raw.double() if acc_raw is None else acc_raw + raw.double()
-            if cnt is not None:
-                acc_cnt = cnt.double() if acc_cnt is None else acc_cnt + cnt.double()
-            idx += 1
-            if round_ckpt:
-                arrs = {"raw": acc_raw.cpu().numpy()}
-                if acc_cnt is not None:
-                    arrs["cnt"] = acc_cnt.cpu().numpy()
-                ckpt.save_rounds(pars.out, pars, rep, idx, arrs, engine=eng, chunk=chunk)
-        return acc_raw, acc_cnt
+            return {"raw": raw, "cnt": cnt}
+
+        acc = _round_sums(pars, rep, round_ckpt, device, chunk, rounds, step)
+        return acc["raw"], acc.get("cnt")
 
     def to_matrix(raw_v, cnt_v):
         raw_m = _scatter_pairs(raw_v.cpu().double().numpy(), I, J, N)
@@ -773,7 +773,7 @@ def _nonmissing(P: torch.Tensor) -> torch.Tensor:
 
 def pair_pi_counts(P: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor,
                    w_ok: torch.Tensor, pairwise_del: bool,
-                   plane_bytes: int = PI_PLANE_BYTES) -> torch.Tensor:
+                   plane_bytes: int = PI_PLANE_BYTES, rows: Optional[slice] = None) -> torch.Tensor:
     """Expected base counts behind the per-pair base frequencies of models
     4-6 (ngsdist_tpu.parallel.mesh.pair_pi_counts), in float64 on P's
     device.  P [S, N, 3]; a1, a2 [S] int8 allele codes; w_ok [S] float64,
@@ -788,9 +788,12 @@ def pair_pi_counts(P: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor,
     w_s v[s, j] with v the not-missing flags: four [N, S] x [S, N]
     products; a pair's counts are U[:, i, j] + U[:, j, i].  The sites go
     in slabs, one [sites, N] float64 plane per base at a time, never
-    [S, N, 4]."""
+    [S, N, 4].  rows (pairwise deletion): U's rows i of this slice only,
+    [4, len, N] (a pairs-axis shard of parallel/mesh.py)."""
     S, N, _ = P.shape
-    out = torch.zeros((4, N, N) if pairwise_del else (4, N), dtype=torch.float64,
+    rows = slice(0, N) if rows is None else rows
+    n_rows = len(range(N)[rows])
+    out = torch.zeros((4, n_rows, N) if pairwise_del else (4, N), dtype=torch.float64,
                       device=P.device)
     ok = (a1 >= 0) & (a2 >= 0)
     zero = torch.zeros((), dtype=torch.float64, device=P.device)
@@ -808,18 +811,18 @@ def pair_pi_counts(P: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor,
             m2 = (ok & (a2 == x))[lo:lo + step, None]
             bc = torch.where(m1, d1, zero) + torch.where(m2, d2, zero)
             if pairwise_del:
-                out[x] += (bc * vw).T @ valid
+                out[x] += (bc * vw)[:, rows].T @ valid
             else:
                 out[x] += w @ bc
     return out
 
 
-def _iter_replicates_extended(pars: Params, P_host: np.ndarray, maps: List[np.ndarray],
+def _iter_replicates_extended(pars: Params, P_host, maps: List[np.ndarray],
                               n_trunc: int, alleles, device: torch.device, on_stats=None,
-                              start_rep: int = 0,
-                              round_ckpt: bool = False) -> Iterator[np.ndarray]:
+                              start_rep: int = 0, round_ckpt: bool = False,
+                              mesh=None) -> Iterator[np.ndarray]:
     """The replicate stream of evolutionary models 3-6
-    (ngsdist_tpu.core.distance._iter_replicates_extended, one device).
+    (ngsdist_tpu.core.distance._iter_replicates_extended).
 
     The expected-mismatch statistics are taken three times, over the
     sites of each substitution class (A<->G, C<->T, transversions; sites
@@ -827,127 +830,32 @@ def _iter_replicates_extended(pars: Params, P_host: np.ndarray, maps: List[np.nd
     folded into the site weights.  A bootstrap replicate is the weighted
     recompute: there is no partial-sum route here.  Models 4-6 also take
     per-pair base frequencies from expected allele dosages
-    (pair_pi_counts, on the device).  A streamed run uploads each chunk
-    once and reduces it against all three masks and the base counts; its
-    round checkpoint holds all of those sums."""
+    (pair_pi_counts, on the device).  One device: _device_class_stats;
+    a mesh (ngsdist_tpu.core.distance._extended_mesh): _mesh_class_stats,
+    the same sums per shard."""
     if alleles is None:
         raise ValueError("extended evolutionary models need allele codes")
     a1, a2 = alleles
     masks = sm.classify_sites(a1, a2)
     need_pi = pars.evol_model >= 4
     N, S = pars.n_ind, pars.n_sites
-    dtype = default_dtype(device)
-    itemsize = torch.finfo(dtype).bits // 8
-    score = torch.as_tensor(pars.score, dtype=dtype, device=device)
     I, J = _pair_indices(N)
-    It = torch.from_numpy(I).long().to(device)
-    Jt = torch.from_numpy(J).long().to(device)
-    # An all-zero triple (an empty line of a text input): on this path the
-    # JAX engine does not poison its pairs as models 0-2 do.  Its EM
+    # An all-zero triple (an empty line of a text input): on one device
+    # the JAX engine does not poison its pairs as models 0-2 do.  Its EM
     # leaves a lane whose nine weights are all zero at the uniform start
     # (ngsdist_tpu/core/em.py em_converged_weights), so without pairwise
     # deletion the lane adds the mean score.  The kernels leave such
-    # lanes out; zero_lane_sums adds them on the host.
-    exact_stats = _make_exact_stats(pars, score, It, Jt, None)
+    # lanes out; zero_lane_sums adds them on the host.  Its mesh engine
+    # poisons them per shard (ngsdist_tpu/parallel/mesh.py:342-353), and
+    # so does _mesh_class_stats.
     zero = None
-    if not (pars.indep_geno or pars.pairwise_del or pars.in_bin):
-        zero = find_zero_rows(P_host)
-    uniform = float(np.sum(np.asarray(pars.score, np.float64).reshape(-1) * (1.0 / 9.0)))
-    compact = class_compaction(device)
-    a1_t = torch.from_numpy(np.ascontiguousarray(a1, dtype=np.int8)).to(device)
-    a2_t = torch.from_numpy(np.ascontiguousarray(a2, dtype=np.int8)).to(device)
-
-    left = check_fits(S, N, device, pars.indep_geno)
-    if left is not None:
-        # beside the tensor: one class's gathered sites (all of them at
-        # most) and the base counts with their slabs' planes
-        left -= (S * N * 3 * itemsize if compact else 0) + 8 * 4 * N * N + 8 * PI_PLANE_BYTES
-    chunked, chunk = stream_plan(S, N, device, left)
-    plane_bytes = PI_PLANE_BYTES
-    if chunked:
-        plane_bytes = max(1 << 20, min(PI_PLANE_BYTES, chunk * N * 3 * itemsize // 32))
-    # keep[s]: site s holds a non-finite value and stays in every
-    # compacted call; known up to site `scanned`
-    keep = np.zeros(S, dtype=bool)
-    scanned = 0
-    if chunked:
-        pipe = ChunkPipe(P_host, device, dtype, chunk)
+    if mesh is None:
+        all_stats, streamed = _device_class_stats(pars, P_host, a1, a2, device, round_ckpt)
+        if not (pars.indep_geno or pars.pairwise_del or pars.in_bin):
+            zero = find_zero_rows(P_host)
     else:
-        P = upload_resident(P_host, device)
-        if compact:
-            keep = nonfinite_sites(P).cpu().numpy()
-        scanned = S
-
-    def class_stats(Pc, wm, lo, hi):
-        """{class: (raw, cnt or None)} pair vectors on the device for the
-        sites Pc = [lo, hi) of the data under the class weights wm."""
-        out = {}
-        for cl in CLASSES:
-            wc, index = wm[cl][lo:hi], None
-            if compact:
-                sel = class_sites(wc, keep[lo:hi])
-                if sel.size == 0:
-                    zeros = torch.zeros(I.size, dtype=dtype, device=device)
-                    out[cl] = (zeros, zeros if pars.pairwise_del else None)
-                    continue
-                if sel.size < hi - lo:
-                    wc, index = wc[sel], _upload_small(sel, device)
-            raw, cnt = exact_stats(Pc, np.ascontiguousarray(wc), lo, index)
-            out[cl] = (raw, cnt if pars.pairwise_del else None)
-        return out
-
-    def pi_counts(Pc, w_ok, lo, hi):
-        return pair_pi_counts(Pc, a1_t[lo:hi], a2_t[lo:hi],
-                              _upload_small(np.ascontiguousarray(w_ok[lo:hi]), device),
-                              pars.pairwise_del, plane_bytes)
-
-    def all_stats(wm, w_ok: np.ndarray, rep: int):
-        """({class: (raw, cnt or None)}, base counts or None) on the
-        device for class weights wm and classifiable-site weights w_ok;
-        streamed: float64 sums in chunk order, saved after every chunk
-        under round_ckpt."""
-        nonlocal scanned
-        if not chunked:
-            return class_stats(P, wm, 0, S), (pi_counts(P, w_ok, 0, S) if need_pi else None)
-        accs = {cl: [None, None] for cl in CLASSES}
-        acc_pi = None
-        skip = 0
-        eng = engine_name(device)
-        if round_ckpt:
-            got = ckpt.load_rounds(pars.out, pars, rep, engine=eng, chunk=chunk)
-            if got is not None:
-                skip, arrs = got
-                for cl in CLASSES:
-                    accs[cl][0] = torch.from_numpy(arrs[f"raw_{cl}"]).to(device)
-                    if f"cnt_{cl}" in arrs:
-                        accs[cl][1] = torch.from_numpy(arrs[f"cnt_{cl}"]).to(device)
-                if "pi" in arrs:
-                    acc_pi = torch.from_numpy(arrs["pi"]).to(device)
-        ranges = [(lo, min(lo + chunk, S)) for lo in range(0, S, chunk)][skip:]
-        idx = skip
-        for Pc, lo, hi in pipe.chunks(ranges):
-            if compact and hi > scanned:
-                keep[lo:hi] = nonfinite_sites(Pc).cpu().numpy()
-                scanned = hi
-            for cl, (raw, cnt) in class_stats(Pc, wm, lo, hi).items():
-                acc = accs[cl]
-                acc[0] = raw.double() if acc[0] is None else acc[0] + raw.double()
-                if cnt is not None:
-                    acc[1] = cnt.double() if acc[1] is None else acc[1] + cnt.double()
-            if need_pi:
-                c = pi_counts(Pc, w_ok, lo, hi)
-                acc_pi = c if acc_pi is None else acc_pi + c
-            idx += 1
-            if round_ckpt:
-                arrs = {}
-                for cl in CLASSES:
-                    arrs[f"raw_{cl}"] = accs[cl][0].cpu().numpy()
-                    if accs[cl][1] is not None:
-                        arrs[f"cnt_{cl}"] = accs[cl][1].cpu().numpy()
-                if acc_pi is not None:
-                    arrs["pi"] = acc_pi.cpu().numpy()
-                ckpt.save_rounds(pars.out, pars, rep, idx, arrs, engine=eng, chunk=chunk)
-        return {cl: tuple(accs[cl]) for cl in CLASSES}, acc_pi
+        all_stats, streamed = _mesh_class_stats(pars, P_host, a1, a2, mesh, round_ckpt)
+    uniform = float(np.sum(np.asarray(pars.score, np.float64).reshape(-1) * (1.0 / 9.0)))
 
     def zero_lane_sums(wm):
         """[3, n_pairs]: per class, the weighted number of sites at which
@@ -1017,7 +925,7 @@ def _iter_replicates_extended(pars: Params, P_host: np.ndarray, maps: List[np.nd
     # Resident runs queue replicate r+1 before replicate r is corrected and
     # written, so the card computes under the host's work.  A streamed
     # replicate fetches as it goes: nothing to look ahead to.
-    lookahead = EXTENDED_LOOKAHEAD and not chunked
+    lookahead = EXTENDED_LOOKAHEAD and not streamed
     pending = dispatch(reps[0]) if lookahead and reps else None
     for k, rep in enumerate(reps):
         if lookahead:
@@ -1027,3 +935,381 @@ def _iter_replicates_extended(pars: Params, P_host: np.ndarray, maps: List[np.nd
         else:
             now = dispatch(rep)
         yield to_matrix(*now)
+
+
+def _round_sums(pars: Params, rep: int, round_ckpt: bool, device, layout, rounds, step):
+    """The sums of a streamed replicate: step(r) -> {name: tensor or
+    None} of round r (a chunk of one device, or a round of a mesh's
+    shards), added in float64 in round order over the rounds that
+    rounds(skip) yields; under round_ckpt the sums are saved after every
+    round and a replicate resumes at its first unfinished round (the
+    rounds file keyed by `layout`, what a round index means).  The sums
+    are exact partial sums of a deterministic computation, so a resumed
+    replicate gives the bytes of an uninterrupted one."""
+    acc, skip = {}, 0
+    eng = engine_name(device)
+    if round_ckpt:
+        got = ckpt.load_rounds(pars.out, pars, rep, engine=eng, chunk=layout)
+        if got is not None:
+            skip = got[0]
+            acc = {k: torch.from_numpy(v).to(device) for k, v in got[1].items()}
+    for r in rounds(skip):
+        for name, t in step(r).items():
+            if t is not None:
+                acc[name] = t.double() if name not in acc else acc[name] + t.double()
+        if round_ckpt:
+            ckpt.save_rounds(pars.out, pars, rep, r + 1,
+                             {k: v.cpu().numpy() for k, v in acc.items()}, engine=eng,
+                             chunk=layout)
+    return acc
+
+
+def _pipe_rounds(pipe: ChunkPipe, ranges):
+    """(rounds, chunk_of) of a ChunkPipe over site ranges, for _round_sums:
+    rounds(skip) walks the pipe over ranges[skip:] and yields each range's
+    index r; chunk_of(r) is its (chunk, lo, hi), valid until the next
+    index is asked for."""
+    held = {}
+
+    def rounds(skip):
+        for k, got in enumerate(pipe.chunks(ranges[skip:])):
+            held.clear()
+            held[skip + k] = got
+            yield skip + k
+
+    return rounds, held.__getitem__
+
+
+def _class_sums(stats, pi) -> dict:
+    """{class: (raw, cnt or None)} and base counts -> the named sums of
+    _round_sums (and of a rounds file)."""
+    out = {"pi": pi}
+    for cl, (raw, cnt) in stats.items():
+        out[f"raw_{cl}"], out[f"cnt_{cl}"] = raw, cnt
+    return out
+
+
+def _class_stats_of(acc: dict):
+    """The inverse of _class_sums."""
+    return {cl: (acc[f"raw_{cl}"], acc.get(f"cnt_{cl}")) for cl in CLASSES}, acc.get("pi")
+
+
+def _device_class_stats(pars: Params, P_host, a1, a2, device: torch.device,
+                        round_ckpt: bool):
+    """(all_stats, streamed) of models 3-6 on one device: all_stats(wm,
+    w_ok, rep) -> ({class: (raw, cnt or None)}, base counts or None) on
+    the device for class weights wm and classifiable-site weights w_ok.
+    A streamed run uploads each chunk once and reduces it against all
+    three masks and the base counts; its round checkpoint holds all of
+    those sums."""
+    N, S = pars.n_ind, pars.n_sites
+    need_pi = pars.evol_model >= 4
+    dtype = default_dtype(device)
+    itemsize = torch.finfo(dtype).bits // 8
+    I, J = _pair_indices(N)
+    It = torch.from_numpy(I).long().to(device)
+    Jt = torch.from_numpy(J).long().to(device)
+    exact_stats = _make_exact_stats(pars.indep_geno, pars.pairwise_del, pars.score, device,
+                                    It, Jt, None)
+    compact = class_compaction(device)
+    a1_t = torch.from_numpy(np.ascontiguousarray(a1, dtype=np.int8)).to(device)
+    a2_t = torch.from_numpy(np.ascontiguousarray(a2, dtype=np.int8)).to(device)
+
+    left = check_fits(S, N, device, pars.indep_geno)
+    if left is not None:
+        # beside the tensor: one class's gathered sites (all of them at
+        # most) and the base counts with their slabs' planes
+        left -= (S * N * 3 * itemsize if compact else 0) + 8 * 4 * N * N + 8 * PI_PLANE_BYTES
+    chunked, chunk = stream_plan(S, N, device, left)
+    plane_bytes = PI_PLANE_BYTES
+    if chunked:
+        plane_bytes = max(1 << 20, min(PI_PLANE_BYTES, chunk * N * 3 * itemsize // 32))
+    # keep[s]: site s holds a non-finite value and stays in every
+    # compacted call; known up to site `scanned`
+    keep = np.zeros(S, dtype=bool)
+    scanned = 0
+    if chunked:
+        pipe = ChunkPipe(P_host, device, dtype, chunk)
+    else:
+        P = upload_resident(P_host, device)
+        if compact:
+            keep = nonfinite_sites(P).cpu().numpy()
+        scanned = S
+
+    def class_stats(Pc, wm, lo, hi):
+        """{class: (raw, cnt or None)} pair vectors on the device for the
+        sites Pc = [lo, hi) of the data under the class weights wm."""
+        out = {}
+        for cl in CLASSES:
+            wc, index = wm[cl][lo:hi], None
+            if compact:
+                sel = class_sites(wc, keep[lo:hi])
+                if sel.size == 0:
+                    zeros = torch.zeros(I.size, dtype=dtype, device=device)
+                    out[cl] = (zeros, zeros if pars.pairwise_del else None)
+                    continue
+                if sel.size < hi - lo:
+                    wc, index = wc[sel], _upload_small(sel, device)
+            raw, cnt = exact_stats(Pc, np.ascontiguousarray(wc), lo, index)
+            out[cl] = (raw, cnt if pars.pairwise_del else None)
+        return out
+
+    def pi_counts(Pc, w_ok, lo, hi):
+        if not need_pi:
+            return None
+        return pair_pi_counts(Pc, a1_t[lo:hi], a2_t[lo:hi],
+                              _upload_small(np.ascontiguousarray(w_ok[lo:hi]), device),
+                              pars.pairwise_del, plane_bytes)
+
+    def all_stats(wm, w_ok: np.ndarray, rep: int):
+        if not chunked:
+            return class_stats(P, wm, 0, S), pi_counts(P, w_ok, 0, S)
+        rounds, chunk_of = _pipe_rounds(pipe, [(lo, min(lo + chunk, S))
+                                               for lo in range(0, S, chunk)])
+
+        def step(r):
+            nonlocal scanned
+            Pc, lo, hi = chunk_of(r)
+            if compact and hi > scanned:
+                keep[lo:hi] = nonfinite_sites(Pc).cpu().numpy()
+                scanned = hi
+            return _class_sums(class_stats(Pc, wm, lo, hi), pi_counts(Pc, w_ok, lo, hi))
+
+        return _class_stats_of(_round_sums(pars, rep, round_ckpt, device, chunk, rounds, step))
+
+    return all_stats, chunked
+
+
+def _mesh_class_stats(pars: Params, P_src, a1, a2, mesh, round_ckpt: bool):
+    """(all_stats, streamed) of models 3-6 over a mesh
+    (ngsdist_tpu.core.distance._extended_mesh): the class sums through
+    parallel.mesh.ShardStats, per shard on each class's sites only where
+    _device_class_stats does so (a card), and the base counts through
+    parallel.mesh.pair_pi_counts, all summed over the shards in fixed
+    order on the mesh's first device.  A SiteStream over the budget runs
+    in rounds, each round's shards uploaded once for the three classes
+    and the base counts, with round checkpoints."""
+    from ..parallel import mesh as pm
+
+    N = pars.n_ind
+    need_pi = pars.evol_model >= 4
+    stream = _as_stream(pars, P_src, mesh)
+    dev0 = mesh.first
+    compact = class_compaction(dev0)
+    zero = None
+    if not (pars.indep_geno or pars.pairwise_del or pars.in_bin):
+        zero = find_zero_rows(stream.P)
+    stats = pm.ShardStats(mesh, N, pars.score, pars.indep_geno, pars.pairwise_del, zero)
+    plane_bytes = PI_PLANE_BYTES
+    if not stream.resident:
+        itemsize = torch.finfo(default_dtype(dev0)).bits // 8
+        plane_bytes = max(1 << 20, min(PI_PLANE_BYTES, stream.chunk * N * 3 * itemsize // 32))
+
+    def over(data, wm, w_ok):
+        keep = None
+        if compact:
+            keep = [np.zeros(0, bool) if t is None else nonfinite_sites(t).cpu().numpy()
+                    for t in data.parts[::pm.pairs_size(mesh)]]
+        out = {}
+        for cl in CLASSES:
+            raw, cnt = stats(data, data.cols(wm[cl]), keep)
+            out[cl] = (raw, cnt if pars.pairwise_del else None)
+        pi = (pm.pair_pi_counts(data, a1, a2, data.cols(w_ok), mesh, pars.pairwise_del,
+                                plane_bytes) if need_pi else None)
+        return out, pi
+
+    if stream.resident:
+        data = stream.global_array()
+        return (lambda wm, w_ok, rep: over(data, wm, w_ok)), False
+
+    def all_stats(wm, w_ok, rep):
+        return _class_stats_of(_round_sums(
+            pars, rep, round_ckpt, dev0, stream.layout(),
+            lambda skip: range(skip, stream.n_rounds),
+            lambda r: _class_sums(*over(stream.round_data(r), wm, w_ok))))
+
+    return all_stats, True
+
+
+# ------------------------------------------------------------------ #
+# The mesh engine of models 0-2                                       #
+# ------------------------------------------------------------------ #
+
+
+def _stream_block_rows(n_rows: int, n_rounds: int, chunk: int, s_loc: int,
+                       n_dev: int, bs: int, n_blocks: int) -> np.ndarray:
+    """row -> TRUE global block id for pm.concat_block_rounds' layout
+    (device-major, rounds concatenated per device, per-round pad rows
+    in place); -1 marks pad rows and blocks >= n_blocks (truncation
+    tail / global padding).  Requires bs | chunk and bs | s_loc, which
+    the SiteStream planner guarantees (chunk and s_loc are block-size
+    multiples whenever bootstrap runs).  The JAX engine's function
+    (ngsdist_tpu/core/distance.py:497), copied as it is: its layout hid
+    the 5e-2 errors of round-5 trial 507."""
+    assert chunk % bs == 0 and s_loc % bs == 0, (chunk, s_loc, bs)
+    rows_per_dev = n_rows // n_dev
+    bpc = chunk // bs
+    lpb = s_loc // bs
+    out = np.full((n_rows,), -1, np.int64)
+    for d in range(n_dev):
+        for r in range(n_rounds):
+            for j in range(bpc):
+                lo = r * chunk + j * bs
+                if lo >= s_loc:
+                    continue
+                g = d * lpb + lo // bs
+                if g < n_blocks:
+                    out[d * rows_per_dev + r * bpc + j] = g
+    return out
+
+
+def _as_stream(pars: Params, P_src, mesh):
+    """The sharded engine's input as a parallel.multihost.SiteStream."""
+    from ..parallel.multihost import SiteStream
+
+    if isinstance(P_src, SiteStream):
+        return P_src
+    return SiteStream.from_array(P_src, pars, mesh)
+
+
+def _iter_replicates_sharded(pars: Params, P_src, maps: List[np.ndarray], n_trunc: int,
+                             mesh, on_stats=None, start_rep: int = 0,
+                             round_ckpt: bool = False) -> Iterator[np.ndarray]:
+    """The replicate stream of models 0-2 over a mesh
+    (ngsdist_tpu/core/distance.py _iter_replicates_sharded).
+
+    P_src: the host [S, N, 3] array or a SiteStream.  Resident (every
+    shard fits its device's budget): the full data, then the bootstrap
+    on the partial-sum route (a 1-D mesh whose partials fit the JAX
+    engine's budget: one block-mode call per shard, then M[r] @ B per
+    shard and the fixed-order sum) or the weighted recompute.  Streamed:
+    every matrix is the float64 sum of its rounds in round order, saved
+    after every round under round_ckpt; an indep bootstrap on a 1-D mesh
+    whose partials fit takes one pass of block partials over the rounds
+    instead, resummed through _stream_block_rows."""
+    from ..parallel import mesh as pm
+
+    N, S = pars.n_ind, pars.n_sites
+    dev0 = mesh.first
+    itemsize = torch.finfo(default_dtype(dev0)).bits // 8
+    I, J = _pair_indices(N)
+    n_reps = pars.n_boot_rep
+    p = pm.pairs_size(mesh)
+    stream = _as_stream(pars, P_src, mesh)
+    zero = None
+    if not (pars.indep_geno or pars.pairwise_del or pars.in_bin):
+        zero = find_zero_rows(stream.P)
+    stats = pm.ShardStats(mesh, N, pars.score, pars.indep_geno, pars.pairwise_del, zero)
+    reps = [r for r in range(n_reps) if r + 1 >= start_rep]
+
+    def matrix(raw_v, cnt_v, denom_sites, poison=None):
+        raw = raw_v.cpu().numpy()
+        if poison is not None and poison.any():
+            raw = np.where(poison[I] | poison[J], np.nan, raw)
+        raw_m = _scatter_pairs(raw, I, J, N)
+        cnt_m = None if cnt_v is None else _scatter_pairs(cnt_v.cpu().numpy(), I, J, N)
+        return _finalize(raw_m, cnt_m if pars.pairwise_del else float(denom_sites), pars,
+                         on_stats)
+
+    def weights(r):
+        w = np.zeros((S,), np.float64)
+        w[:n_trunc] = replicate_weights(maps[r], n_trunc)
+        return w
+
+    bs = pars.boot_block_size
+    if not stream.resident:
+        n_blocks_s = n_trunc // bs if n_reps else 0
+        partial_bytes_s = n_blocks_s * N * N * itemsize * (2 if pars.pairwise_del else 1)
+        if (pars.indep_geno and n_reps > 0 and p == 1
+                and 0 < partial_bytes_s <= PARTIALS_BUDGET_BYTES):
+            yield from _sharded_stream_partials(pars, stream, stats, mesh, n_trunc, start_rep,
+                                                matrix)
+            return
+        def stats_rounds(w_full, rep):
+            def step(r):
+                data = stream.round_data(r)
+                raw, cnt = stats(data, data.cols(w_full))
+                return {"raw": raw, "cnt": cnt}
+
+            acc = _round_sums(pars, rep, round_ckpt, dev0, stream.layout(),
+                              lambda skip: range(skip, stream.n_rounds), step)
+            return acc["raw"], acc.get("cnt")
+
+        if start_rep == 0:
+            yield matrix(*stats_rounds(np.ones((S,), np.float64), 0), S)
+        for r in reps:
+            yield matrix(*stats_rounds(weights(r), r + 1), n_trunc)
+        return
+
+    data = stream.global_array()
+    n_blocks = n_trunc // bs if n_reps else 0
+    cells = N * N if pars.indep_geno else (N * N - N) // 2
+    partial_bytes = n_blocks * cells * itemsize * (2 if pars.pairwise_del else 1)
+    # block partials are 1-D-mesh only: a pairs axis takes the weighted route
+    partials = n_reps > 0 and partial_bytes <= PARTIALS_BUDGET_BYTES and p == 1
+    if start_rep == 0:
+        yield matrix(*stats(data), S)
+    if not reps:
+        return
+    if not partials:
+        for r in reps:
+            yield matrix(*stats(data, data.cols(weights(r))), n_trunc)
+        return
+    table = bt.block_index_table(pars.seed, n_reps, n_blocks)
+    raw_r, cnt_r = pm.bootstrap_replicates(table, stats.blocks(data, bs), n_blocks, mesh)
+    # the EM's zero-row poison, per replicate: where it samples a block in
+    # which a member of the pair has an all-zero triple
+    zb = None if zero is None else zero.per_block(n_blocks, bs)
+    mult = bt.block_multiplicity(table, n_blocks)
+    for r in reps:
+        z = None if zb is None else zb[mult[r] > 0].any(0)
+        yield matrix(raw_r[r], None if cnt_r is None else cnt_r[r], n_trunc, z)
+
+
+def _sharded_stream_partials(pars: Params, stream, stats, mesh, n_trunc: int, start_rep: int,
+                             matrix):
+    """The streamed indep bootstrap on a 1-D mesh in one pass over the
+    rounds (ngsdist_tpu/core/distance.py:1089-1174): each round's block
+    partials per shard, joined per shard (device-major, each round's
+    padding rows in place), the true row -> block map of
+    _stream_block_rows permuting the resummation weights; the full data
+    is the sum of the real blocks plus the truncation tail, whose sites
+    lie in at most two rounds, run again under tail weights.  A kill
+    recomputes the pass (no round checkpoints on this route)."""
+    from ..parallel import mesh as pm
+
+    S, bs, n_reps = pars.n_sites, pars.boot_block_size, pars.n_boot_rep
+    n_blocks = n_trunc // bs
+    rb = stream.chunk // bs
+    B = pm.concat_block_rounds(
+        [stats.blocks(stream.round_data(r, pad=True), bs, rows=rb)
+         for r in range(stream.n_rounds)], mesh)
+    row2block = _stream_block_rows(B.n_rows, stream.n_rounds, stream.chunk, stream.s_loc,
+                                   pm.sites_size(mesh), bs, n_blocks)
+    valid = row2block >= 0
+
+    def resum(M_true):
+        """(raw, cnt or None) [R, n_pairs] for weights over the true blocks."""
+        M = np.zeros((M_true.shape[0], B.n_rows), np.float64)
+        M[:, valid] = M_true[:, row2block[valid]]
+        has_c = any(C is not None for _, _, C, _ in B.parts)
+        return pm.resum_blocks(M, B, mesh, 0), pm.resum_blocks(M, B, mesh, 1) if has_c else None
+
+    if start_rep == 0:
+        raw0, cnt0 = resum(np.ones((1, n_blocks), np.float64))
+        raw0, cnt0 = raw0[0], None if cnt0 is None else cnt0[0]
+        if S > n_trunc:
+            tail = np.zeros((S,), np.float64)
+            tail[n_trunc:] = 1.0
+            for r in sorted({(t % stream.s_loc) // stream.chunk for t in (n_trunc, S - 1)}):
+                data = stream.round_data(r)
+                raw_t, cnt_t = stats(data, data.cols(tail))
+                raw0 = raw0 + raw_t
+                if cnt0 is not None:
+                    cnt0 = cnt0 + cnt_t
+        yield matrix(raw0, cnt0, S)
+    table = bt.block_index_table(pars.seed, n_reps, n_blocks)
+    raw_r, cnt_r = resum(bt.block_multiplicity(table, n_blocks))
+    for r in range(n_reps):
+        if r + 1 >= start_rep:
+            yield matrix(raw_r[r], None if cnt_r is None else cnt_r[r], n_trunc)

@@ -89,6 +89,14 @@
 // the bytes of the run over all sites.  The one exception, a site of
 // weight 0 that holds a NaN (0 * NaN), is the caller's to keep in the list.
 //
+// Tile list (full mode; replaces the blocks= argument of em_raw_cnt_pallas,
+// pallas_em.py:349, :364-372, :390-393): with `tiles` [L] int32 given, the
+// grid has L blocks and block k owns upper tile tiles[k] in place of tile k;
+// only those tiles of raw and cnt are written.  Every lane of a tile is
+// independent of the others, so a listed tile holds the full launch's
+// bytes, with or without a site list.  A pairs-axis shard of the mesh engine
+// (parallel/mesh.py) lists the tiles that hold its slice of the pair list.
+//
 // Block mode (ngsd_em_block_partials_f32), for the partial-sum bootstrap:
 // replaces the want_blocks output of ngsdist_tpu/core/distance.py _em_scan
 // (:418, a lax.scan there).  Unweighted; each lane writes its float64
@@ -99,6 +107,7 @@
 // A float32 search with a float64 re-check near the threshold is later
 // work.
 
+#include <limits.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -186,10 +195,10 @@ __device__ __forceinline__ void build_tables(double pn0, double pn1, double pn2,
 template <bool kBlocks>
 __global__ void __launch_bounds__(kThreads, 2)
 em_kernel(const float* __restrict__ P, const float* __restrict__ w,
-          const long long* __restrict__ sites, float* __restrict__ raw,
-          float* __restrict__ cnt, double* __restrict__ B, double* __restrict__ C,
-          long long S, int N, long long block_size, Score9d sc, double hi,
-          int pairwise_del) {
+          const long long* __restrict__ sites, const int* __restrict__ tiles,
+          float* __restrict__ raw, float* __restrict__ cnt, double* __restrict__ B,
+          double* __restrict__ C, long long S, int N, long long block_size, Score9d sc,
+          double hi, int pairwise_del) {
   extern __shared__ __align__(16) double smem[];
   double* R = smem;                 // [side] r tables
   double* X = R + 2 * kRSide;       // [side] power tables
@@ -197,8 +206,11 @@ em_kernel(const float* __restrict__ P, const float* __restrict__ w,
   float* Val = Live + kFlags;       // not missing (pairwise deletion)
   float* Ws = Val + kFlags;         // [site]
 
+  const long long nt = (N + kTile - 1) / kTile;
+  const long long tile = tiles ? (long long)tiles[blockIdx.x] : (long long)blockIdx.x;
+  if (tile < 0 || tile >= nt * (nt + 1) / 2) return;  // not an upper tile: the block leaves
   int ti, tj;
-  ngsd::upper_tile(blockIdx.x, &ti, &tj);
+  ngsd::upper_tile(tile, &ti, &tj);
   const int i0 = ti * kTile, j0 = tj * kTile;
   const int li0 = kRows * (threadIdx.x / kTile), lj = threadIdx.x % kTile;
   const int b = j0 + lj;
@@ -396,33 +408,38 @@ Score9d score_f64(const float* score9) {
   return sc;
 }
 
+// grid: the length of `tiles`, or every upper tile without a list.
 template <bool kBlocks>
-int launch(const float* P, const float* w, const long long* sites, float* raw, float* cnt,
-           double* B, double* C, long long S, int N, long long block_size,
-           const float* score9, double hi, int pairwise_del, void* stream) {
+int launch(const float* P, const float* w, const long long* sites, const int* tiles,
+           long long grid, float* raw, float* cnt, double* B, double* C, long long S, int N,
+           long long block_size, const float* score9, double hi, int pairwise_del,
+           void* stream) {
   // The tables need more than the 48 KB a block gets without asking.
   cudaError_t err = cudaFuncSetAttribute(
       em_kernel<kBlocks>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  em_kernel<kBlocks><<<(unsigned)upper_tiles(N), kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      P, w, sites, raw, cnt, B, C, S, N, block_size, score_f64(score9), hi, pairwise_del);
+  em_kernel<kBlocks><<<(unsigned)grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      P, w, sites, tiles, raw, cnt, B, C, S, N, block_size, score_f64(score9), hi,
+      pairwise_del);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // P [., N, 3] float32; sites [S] int64, the sites of P to run on in this
-// order, or null for P's first S sites; w [S] float32 or null; raw, cnt
-// [N, N] float32, written on the strict upper triangle.  hi = exp(0.001)
-// in float64, the precision of the ratio test.  Returns the CUDA error of
-// the launch.
+// order, or null for P's first S sites; tiles [n_tiles] int32, the upper
+// 32 x 32 tiles to compute, or null for all of them; w [S] float32 or null;
+// raw, cnt [N, N] float32, written on the strict upper triangle of the
+// tiles run.  hi = exp(0.001) in float64, the precision of the ratio test.
+// Returns the CUDA error of the launch.
 extern "C" int ngsd_em_raw_cnt_f32(const float* P, const float* w, const long long* sites,
-                                   float* raw, float* cnt, long long S, int N,
-                                   const float* score9, double hi,
+                                   const int* tiles, long long n_tiles, float* raw, float* cnt,
+                                   long long S, int N, const float* score9, double hi,
                                    int pairwise_del, void* stream) {
-  if (N < 1 || S < 0) return (int)cudaErrorInvalidValue;
-  return launch<false>(P, w, sites, raw, cnt, nullptr, nullptr, S, N, 0, score9, hi,
-                       pairwise_del, stream);
+  const long long grid = tiles != nullptr ? n_tiles : (N < 1 ? 0 : upper_tiles(N));
+  if (N < 1 || S < 0 || grid < 1 || grid > INT_MAX) return (int)cudaErrorInvalidValue;
+  return launch<false>(P, w, sites, tiles, grid, raw, cnt, nullptr, nullptr, S, N, 0, score9,
+                       hi, pairwise_del, stream);
 }
 
 // Block mode: P [n_blocks * block_size, N, 3] float32; B, C [n_blocks,
@@ -433,6 +450,6 @@ extern "C" int ngsd_em_block_partials_f32(const float* P, double* B, double* C, 
                                           int pairwise_del, void* stream) {
   if (N < 2 || n_blocks < 1 || block_size < 1 || B == nullptr || C == nullptr)
     return (int)cudaErrorInvalidValue;
-  return launch<true>(P, nullptr, nullptr, nullptr, nullptr, B, C, n_blocks * block_size, N,
-                      block_size, score9, hi, pairwise_del, stream);
+  return launch<true>(P, nullptr, nullptr, nullptr, upper_tiles(N), nullptr, nullptr, B, C,
+                      n_blocks * block_size, N, block_size, score9, hi, pairwise_del, stream);
 }

@@ -33,6 +33,17 @@
 //   function of (N, S) alone (ops/indep.py split_plan).  Each block
 //   writes float64 partials to scratch and a second kernel sums the
 //   chunks in index order: no atomics, reruns are byte-identical.
+// - Tile list (full mode; replaces the panels= argument of
+//   _indep_pallas_super / indep_raw_cnt_pallas, pallas_indep.py:403, :502,
+//   :546-585): with `list` [L] int32 given, the grid runs over (chunk,
+//   list position) and position k stands for upper tile list[k]; only those
+//   tiles of raw and cnt are written, the rest stay as the caller allocated
+//   them.  The chunk split stays a function of (N, S), the scratch keeps
+//   its full [2, chunks, tiles, 64, 64] layout, indexed by the tile itself,
+//   and the chunk reduce walks the same list: a listed tile's sums are the
+//   full launch's, bit for bit.  A pairs-axis shard of the mesh engine
+//   (parallel/mesh.py) runs its own list; the lists of the shards partition
+//   the upper tiles, so no padding entry is needed.
 // - Block mode (ngsd_indep_block_partials_f32), for the partial-sum
 //   bootstrap (replaces ngsdist_tpu/core/distance.py indep_block_partials,
 //   :365, an XLA einsum there): one chunk is one bootstrap block of any
@@ -197,14 +208,19 @@ template <bool kWeighted, bool kVec16, bool kPairwiseDel, bool kBlocks>
 __global__ void __launch_bounds__(kThreads)
 indep_mma_kernel(const float* __restrict__ P, const float* __restrict__ w,
                  float* __restrict__ raw, float* __restrict__ cnt, double* __restrict__ part,
-                 long long S, int N, long long tiles, long long chunk_sites, ngsd::Score9 sc) {
+                 long long S, int N, long long tiles, const int* __restrict__ list,
+                 long long grid_tiles, long long chunk_sites, ngsd::Score9 sc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
 
-  const long long tile = blockIdx.x % tiles, chunk = blockIdx.x / tiles;
+  // grid_tiles: the list's length, or every upper tile without a list
+  const long long pos = blockIdx.x % grid_tiles, chunk = blockIdx.x / grid_tiles;
+  const long long tile = list ? (long long)list[pos] : pos;
+  if (tile < 0 || tile >= tiles) return;  // not an upper tile: the whole block leaves
   // this block's raw (plane 0) or cnt (plane 1) partial tile
   auto part_at = [&](int plane) {
-    return part + ((plane * (long long)(gridDim.x / tiles) + chunk) * tiles + tile) * kTileElems;
+    return part +
+           ((plane * (long long)(gridDim.x / grid_tiles) + chunk) * tiles + tile) * kTileElems;
   };
   int ti, tj;
   ngsd::upper_tile(tile, &ti, &tj);
@@ -423,11 +439,14 @@ indep_mma_kernel(const float* __restrict__ P, const float* __restrict__ w,
   });
 }
 
-// raw, cnt = sum over chunks 0, 1, ... in that order of the partials.
+// raw, cnt = sum over chunks 0, 1, ... in that order of the partials, for
+// upper tile list[blockIdx.x] (every tile without a list).
 __global__ void __launch_bounds__(256)
 indep_reduce_kernel(const double* __restrict__ part, float* __restrict__ raw,
-                    float* __restrict__ cnt, int N, int chunks) {
-  const long long tile = blockIdx.x, tiles = gridDim.x;
+                    float* __restrict__ cnt, int N, int chunks, long long tiles,
+                    const int* __restrict__ list) {
+  const long long tile = list ? (long long)list[blockIdx.x] : (long long)blockIdx.x;
+  if (tile < 0 || tile >= tiles) return;
   int ti, tj;
   ngsd::upper_tile(tile, &ti, &tj);
   const double* pr = part + tile * kTileElems;
@@ -445,29 +464,32 @@ indep_reduce_kernel(const double* __restrict__ part, float* __restrict__ raw,
   }
 }
 
+// grid_tiles: the length of `list`, or tiles without one.
 template <bool kWeighted, bool kVec16, bool kPairwiseDel, bool kBlocks>
 cudaError_t launch(const float* P, const float* w, float* raw, float* cnt, double* part,
-                   long long S, int N, long long tiles, long long chunks, long long chunk_sites,
-                   const ngsd::Score9& sc, cudaStream_t stream) {
+                   long long S, int N, long long tiles, const int* list, long long grid_tiles,
+                   long long chunks, long long chunk_sites, const ngsd::Score9& sc,
+                   cudaStream_t stream) {
   auto kernel = indep_mma_kernel<kWeighted, kVec16, kPairwiseDel, kBlocks>;
   const int bytes = (int)sizeof(Smem);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)(tiles * chunks), kThreads, bytes, stream>>>(P, w, raw, cnt, part, S, N,
-                                                                   tiles, chunk_sites, sc);
+  kernel<<<(unsigned)(grid_tiles * chunks), kThreads, bytes, stream>>>(
+      P, w, raw, cnt, part, S, N, tiles, list, grid_tiles, chunk_sites, sc);
   return cudaGetLastError();
 }
 
 template <bool kWeighted, bool kBlocks>
 cudaError_t launch(const float* P, const float* w, float* raw, float* cnt, double* part,
-                   long long S, int N, long long tiles, long long chunks, long long chunk_sites,
-                   const ngsd::Score9& sc, int pairwise_del, cudaStream_t stream) {
+                   long long S, int N, long long tiles, const int* list, long long grid_tiles,
+                   long long chunks, long long chunk_sites, const ngsd::Score9& sc,
+                   int pairwise_del, cudaStream_t stream) {
   // 16-byte copies when every row starts on 16 bytes
   const bool vec16 = N % 4 == 0 && reinterpret_cast<uintptr_t>(P) % 16 == 0;
   auto go = [&](auto vec, auto pdel) {
     return launch<kWeighted, decltype(vec)::value, decltype(pdel)::value, kBlocks>(
-        P, w, raw, cnt, part, S, N, tiles, chunks, chunk_sites, sc, stream);
+        P, w, raw, cnt, part, S, N, tiles, list, grid_tiles, chunks, chunk_sites, sc, stream);
   };
   using T = std::true_type;
   using F = std::false_type;
@@ -482,26 +504,31 @@ long long upper_tiles(int N) {
 
 }  // namespace
 
+// list [n_list] int32 upper-tile indices on the card, or null for every
+// upper tile: only the listed tiles of raw and cnt are written.
 extern "C" int ngsd_indep_raw_cnt_f32(const float* P, const float* w, float* raw, float* cnt,
-                                      double* scratch, long long S, int N, int chunks,
-                                      long long chunk_sites, const float* score9,
-                                      int pairwise_del, void* stream) {
+                                      double* scratch, const int* list, long long n_list,
+                                      long long S, int N, int chunks, long long chunk_sites,
+                                      const float* score9, int pairwise_del, void* stream) {
   const long long tiles = N < 1 ? 0 : upper_tiles(N);
+  const long long grid_tiles = list != nullptr ? n_list : tiles;
   if (N < 1 || S < 0 || chunks < 1 || chunk_sites < kWindow || chunk_sites % kWindow != 0 ||
       chunk_sites > (1 << 16) || (long long)chunks * chunk_sites < S ||
-      (chunks > 1) != (scratch != nullptr) || tiles * chunks > INT_MAX)
+      (chunks > 1) != (scratch != nullptr) || grid_tiles < 1 ||
+      grid_tiles * chunks > INT_MAX)
     return (int)cudaErrorInvalidValue;
   ngsd::Score9 sc;
   memcpy(sc.v, score9, sizeof(sc.v));
   cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t err =
       w != nullptr
-          ? launch<true, false>(P, w, raw, cnt, scratch, S, N, tiles, chunks, chunk_sites, sc,
-                                pairwise_del, st)
-          : launch<false, false>(P, w, raw, cnt, scratch, S, N, tiles, chunks, chunk_sites, sc,
-                                 pairwise_del, st);
+          ? launch<true, false>(P, w, raw, cnt, scratch, S, N, tiles, list, grid_tiles, chunks,
+                                chunk_sites, sc, pairwise_del, st)
+          : launch<false, false>(P, w, raw, cnt, scratch, S, N, tiles, list, grid_tiles, chunks,
+                                 chunk_sites, sc, pairwise_del, st);
   if (err != cudaSuccess || chunks == 1) return (int)err;
-  indep_reduce_kernel<<<(unsigned)tiles, 256, 0, st>>>(scratch, raw, cnt, N, chunks);
+  indep_reduce_kernel<<<(unsigned)grid_tiles, 256, 0, st>>>(scratch, raw, cnt, N, chunks, tiles,
+                                                            list);
   return (int)cudaGetLastError();
 }
 
@@ -520,7 +547,7 @@ extern "C" int ngsd_indep_block_partials_f32(const float* P, double* part, int N
   ngsd::Score9 sc;
   memcpy(sc.v, score9, sizeof(sc.v));
   return (int)launch<false, true>(P, nullptr, nullptr, nullptr, part, n_blocks * block_size, N,
-                                  tiles, n_blocks, block_size, sc, pairwise_del,
+                                  tiles, nullptr, tiles, n_blocks, block_size, sc, pairwise_del,
                                   (cudaStream_t)stream);
 }
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import glob
+import math
 import os
 import shutil
 import threading
@@ -67,13 +68,13 @@ def _build(path: str) -> None:
 
 def _configure(lib: ctypes.CDLL) -> None:
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.ngsd_indep_raw_cnt_f32.argtypes = [vp, vp, vp, vp, vp, i64, i32,
+    lib.ngsd_indep_raw_cnt_f32.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64, i32,
                                            i32, i64, vp, i32, vp]
     lib.ngsd_indep_raw_cnt_f32.restype = i32
     lib.ngsd_indep_block_partials_f32.argtypes = [vp, vp, i32, i64, i64, vp,
                                                   i32, vp]
     lib.ngsd_indep_block_partials_f32.restype = i32
-    lib.ngsd_em_raw_cnt_f32.argtypes = [vp, vp, vp, vp, vp, i64, i32, vp,
+    lib.ngsd_em_raw_cnt_f32.argtypes = [vp, vp, vp, vp, i64, vp, vp, i64, i32, vp,
                                         ctypes.c_double, i32, vp]
     lib.ngsd_em_raw_cnt_f32.restype = i32
     lib.ngsd_em_block_partials_f32.argtypes = [vp, vp, vp, i32, i64, i64, vp,
@@ -119,6 +120,32 @@ def check_blocks(P: torch.Tensor, n_blocks: int, block_size: int) -> None:
     """The sites of P are n_blocks bootstrap blocks of block_size."""
     if block_size < 1 or n_blocks < 0 or P.shape[0] != n_blocks * block_size:
         raise ValueError(f"{P.shape[0]} sites are not {n_blocks} blocks of {block_size}")
+
+
+def check_tiles(tiles: torch.Tensor, P: torch.Tensor) -> None:
+    """A tile list is a contiguous int32 vector on P's card."""
+    if (tiles.device != P.device or tiles.dtype != torch.int32 or tiles.ndim != 1
+            or not tiles.is_contiguous()):
+        raise ValueError("tiles must be a contiguous int32 vector on P's device")
+
+
+def upper_tile(k: int):
+    """Upper tile k -> (ti, tj), ti <= tj: k = tj (tj + 1) / 2 + ti, the
+    kernels' enumeration (csrc/common.cuh ngsd::upper_tile)."""
+    tj = (math.isqrt(8 * k + 1) - 1) // 2
+    return k - tj * (tj + 1) // 2, tj
+
+
+def tile_mask(N: int, tiles, edge: int, strict: bool) -> torch.Tensor:
+    """[N, N] bool: the entries a kernel writes for the listed upper tiles
+    of edge x edge: those of the tiles that lie on the upper triangle
+    (strict: off the diagonal)."""
+    nt = -(-N // edge)
+    hit = torch.zeros((nt, nt), dtype=torch.bool)
+    for k in torch.as_tensor(tiles).reshape(-1).tolist():
+        hit[upper_tile(int(k))] = True
+    m = hit.repeat_interleave(edge, 0).repeat_interleave(edge, 1)[:N, :N]
+    return m & torch.ones((N, N), dtype=torch.bool).triu(1 if strict else 0)
 
 
 def site_weights_f32(site_weights, P: torch.Tensor, n_sites=None):

@@ -20,6 +20,12 @@ only (the weights then belong to the list): the kernel reads the list
 itself, and since it adds a lane's sites in list order, an ascending
 list of every site of nonzero weight gives the bytes of the whole run.
 
+Tile list (`tiles=`, a pairs-axis shard of parallel/mesh.py; the
+blocks= argument of the Pallas kernel): an int32 vector of upper 32x32
+tile indices (EM_TILE; k = tj (tj + 1) / 2 + ti).  Only those tiles are
+computed and written, each with the bytes of the full launch, with or
+without a site list; an empty list launches nothing.
+
 Block mode (`em_block_partials`, the partial-sum bootstrap) returns the
 unweighted sums per bootstrap block instead, B (raw) and C (cnt)
 [n_blocks, n_pairs] in float64, pairs a < b in triu row-major order.
@@ -68,6 +74,9 @@ def em_table_bound(n_sites: int) -> float:
 
 LAUNCHES = 0  # kernel launches since the count was last set to 0
 BLOCK_LAUNCHES = 0  # the same, block mode
+TILE_LAUNCHES = 0  # the same, with a tile list
+
+EM_TILE = 32  # output tile edge of csrc/em.cu (kTile)
 
 
 def _lanes_per_chunk(device: torch.device) -> int:
@@ -213,14 +222,21 @@ def _block_partials(sites_fn, P, score9, pairwise_del, n_blocks, block_size):
 
 
 def em_raw_cnt_ref(P: torch.Tensor, score9, pairwise_del: bool,
-                   site_weights=None, site_index=None):
+                   site_weights=None, site_index=None, tiles=None):
     """Plain PyTorch version: P [S, N, 3] -> (raw, cnt) [N, N], strict
     upper triangle valid.  Vectorised over (site, pair) lanes in site
     chunks; converged lanes leave the iteration.  site_index [n] int64:
-    the sites of P to run on; the weights are then [n]."""
+    the sites of P to run on; the weights are then [n].  tiles: the full
+    result with every entry outside the listed upper tiles set to zero,
+    as the kernel leaves them."""
     if site_index is not None:
         P = P.index_select(0, site_index)
-    return _raw_cnt(_em_sites, P, score9, pairwise_del, site_weights)
+    raw, cnt = _raw_cnt(_em_sites, P, score9, pairwise_del, site_weights)
+    if tiles is not None:
+        keep = _build.tile_mask(P.shape[1], tiles, EM_TILE, strict=True).to(P.device)
+        raw = torch.where(keep, raw, torch.zeros_like(raw))
+        cnt = torch.where(keep, cnt, torch.zeros_like(cnt))
+    return raw, cnt
 
 
 def em_block_partials_ref(P: torch.Tensor, score9, pairwise_del: bool,
@@ -274,17 +290,19 @@ def em_block_partials(P: torch.Tensor, score9, pairwise_del: bool,
 
 
 def em_raw_cnt(P: torch.Tensor, score9, pairwise_del: bool,
-               site_weights=None, site_index=None):
+               site_weights=None, site_index=None, tiles=None):
     """(raw, cnt) [N, N]: the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor.  site_index [n] int64 on P's device: the
-    sites of P to run on, in this order; the weights are then [n]."""
+    sites of P to run on, in this order; the weights are then [n].
+    tiles: int32 upper-tile indices on P's device, the only tiles
+    computed (module docstring)."""
     if P.device.type == "cpu":
-        return em_raw_cnt_ref(P, score9, pairwise_del, site_weights, site_index)
-    return _em_cuda(P, score9, pairwise_del, site_weights, site_index)
+        return em_raw_cnt_ref(P, score9, pairwise_del, site_weights, site_index, tiles)
+    return _em_cuda(P, score9, pairwise_del, site_weights, site_index, tiles)
 
 
-def _em_cuda(P, score9, pairwise_del, site_weights, site_index):
-    global LAUNCHES
+def _em_cuda(P, score9, pairwise_del, site_weights, site_index, tiles):
+    global LAUNCHES, TILE_LAUNCHES
     _build.check_probs(P)
     S, N, _ = P.shape
     if site_index is not None:
@@ -295,15 +313,22 @@ def _em_cuda(P, score9, pairwise_del, site_weights, site_index):
     w = _build.site_weights_f32(site_weights, P, S)
     raw = torch.zeros((N, N), dtype=P.dtype, device=P.device)
     cnt = torch.zeros_like(raw)
+    if tiles is not None:
+        _build.check_tiles(tiles, P)
+        if tiles.numel() == 0:
+            return raw, cnt
     hi = float(np.exp(EM_TOLE))  # the kernel's ratio test runs in float64
     lib = _build.library()
     with torch.cuda.device(P.device):
         rc = lib.ngsd_em_raw_cnt_f32(
-            _build.ptr(P), _build.ptr(w), _build.ptr(site_index), _build.ptr(raw),
-            _build.ptr(cnt), S, N, _build.score9_f32(score9), hi, int(pairwise_del),
-            _build.stream(P.device))
+            _build.ptr(P), _build.ptr(w), _build.ptr(site_index), _build.ptr(tiles),
+            0 if tiles is None else tiles.numel(), _build.ptr(raw), _build.ptr(cnt), S, N,
+            _build.score9_f32(score9), hi, int(pairwise_del), _build.stream(P.device))
     _build.check_launch(rc, "em")
-    LAUNCHES += 1
+    if tiles is None:
+        LAUNCHES += 1
+    else:
+        TILE_LAUNCHES += 1
     return raw, cnt
 
 

@@ -17,6 +17,12 @@ and S only), sums each chunk's upper 64x64 output tiles on the tensor
 cores and adds the chunks' float64 partials in index order, so reruns
 are byte-identical.
 
+Tile list (`tiles=`, a pairs-axis shard of parallel/mesh.py; the
+panels= argument of the Pallas kernel): an int32 vector of upper 64x64
+tile indices (k = tj (tj + 1) / 2 + ti).  Only those tiles are computed
+and written; the rest of raw and cnt stay zero.  A listed tile holds the
+bytes of the full launch, and an empty list launches nothing.
+
 Block mode (`indep_block_partials`, the partial-sum bootstrap) runs the
 same kernel with one chunk per bootstrap block, unweighted, and returns
 the chunks' float64 partials themselves, per block and pair.
@@ -32,6 +38,7 @@ EPSILON = 1e-5  # miss_data tolerance (gen_func.hpp:16)
 
 LAUNCHES = 0  # kernel launches since the count was last set to 0
 BLOCK_LAUNCHES = 0  # the same, block mode
+TILE_LAUNCHES = 0  # the same, with a tile list
 
 TILE = 64               # output tile edge of csrc/indep.cu (kTile)
 STEP = 8                # sites per pipeline step (kSites)
@@ -52,9 +59,11 @@ def valid_mask(P: torch.Tensor, pairwise_del: bool) -> torch.Tensor:
 
 
 def indep_raw_cnt_ref(P: torch.Tensor, score, pairwise_del: bool,
-                      site_weights=None):
+                      site_weights=None, tiles=None):
     """Plain PyTorch version: P [S, N, 3] -> (raw, cnt) [N, N].  Masks
-    multiply, so NaN rows propagate into raw exactly as in the kernel."""
+    multiply, so NaN rows propagate into raw exactly as in the kernel.
+    tiles: the full result with every entry outside the listed upper
+    tiles' upper triangle set to zero, as the kernel leaves them."""
     dtype = P.dtype
     score = torch.as_tensor(score, dtype=dtype, device=P.device).reshape(3, 3)
     v = valid_mask(P, pairwise_del)
@@ -65,6 +74,10 @@ def indep_raw_cnt_ref(P: torch.Tensor, score, pairwise_del: bool,
     Y = Q @ score.T                      # Y[s,b,g] = sum_h score[g,h]·Q[s,b,h]
     raw = torch.einsum("sag,sbg->ab", Qi, Y)
     cnt = vi.T @ v
+    if tiles is not None:
+        keep = _build.tile_mask(P.shape[1], tiles, TILE, strict=False).to(P.device)
+        raw = torch.where(keep, raw, torch.zeros_like(raw))
+        cnt = torch.where(keep, cnt, torch.zeros_like(cnt))
     return raw, cnt
 
 
@@ -85,12 +98,13 @@ def indep_block_partials_ref(P: torch.Tensor, score, pairwise_del: bool,
 
 
 def indep_raw_cnt(P: torch.Tensor, score, pairwise_del: bool,
-                  site_weights=None):
+                  site_weights=None, tiles=None):
     """(raw, cnt) [N, N]: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor."""
+    version for a CPU tensor.  tiles: int32 upper-tile indices on P's
+    device, the only tiles computed (module docstring)."""
     if P.device.type == "cpu":
-        return indep_raw_cnt_ref(P, score, pairwise_del, site_weights)
-    return _indep_cuda(P, score, pairwise_del, site_weights)
+        return indep_raw_cnt_ref(P, score, pairwise_del, site_weights, tiles)
+    return _indep_cuda(P, score, pairwise_del, site_weights, tiles)
 
 
 def indep_block_partials(P: torch.Tensor, score, pairwise_del: bool,
@@ -148,13 +162,17 @@ def scratch_shape(N: int, S: int):
     return (2, chunks, upper_tiles(N), TILE, TILE) if chunks > 1 else None
 
 
-def _indep_cuda(P, score, pairwise_del, site_weights):
-    global LAUNCHES
+def _indep_cuda(P, score, pairwise_del, site_weights, tiles):
+    global LAUNCHES, TILE_LAUNCHES
     _build.check_probs(P)
     S, N, _ = P.shape
     w = _build.site_weights_f32(site_weights, P)
     raw = torch.zeros((N, N), dtype=P.dtype, device=P.device)
     cnt = torch.zeros_like(raw)
+    if tiles is not None:
+        _build.check_tiles(tiles, P)
+        if tiles.numel() == 0:
+            return raw, cnt
     chunks, chunk_sites = split_plan(N, S)
     shape = scratch_shape(N, S)
     scratch = None if shape is None else torch.empty(shape, dtype=torch.float64,
@@ -163,11 +181,14 @@ def _indep_cuda(P, score, pairwise_del, site_weights):
     with torch.cuda.device(P.device):
         rc = lib.ngsd_indep_raw_cnt_f32(
             _build.ptr(P), _build.ptr(w), _build.ptr(raw), _build.ptr(cnt),
-            _build.ptr(scratch), S, N, chunks, chunk_sites,
-            _build.score9_f32(score), int(pairwise_del),
+            _build.ptr(scratch), _build.ptr(tiles), 0 if tiles is None else tiles.numel(),
+            S, N, chunks, chunk_sites, _build.score9_f32(score), int(pairwise_del),
             _build.stream(P.device))
     _build.check_launch(rc, "indep")
-    LAUNCHES += 1
+    if tiles is None:
+        LAUNCHES += 1
+    else:
+        TILE_LAUNCHES += 1
     return raw, cnt
 
 

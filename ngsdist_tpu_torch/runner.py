@@ -1,9 +1,10 @@
 """End-to-end orchestration for the PyTorch port: config -> read ->
 preprocess -> distances -> output.
 
-Port of ngsdist_tpu/runner.py for one device, running the port's engine
-(core/distance.py) on `device`: resident where the tensor fits the
-device budget, streamed in site chunks where it does not.  The host
+Port of ngsdist_tpu/runner.py, running the port's engine
+(core/distance.py) on one device or over a mesh of them
+(parallel/mesh.py): resident where the tensor fits the device budget,
+streamed in site chunks (or rounds of shards) where it does not.  The host
 layer (readers, preprocessing, bootstrap maps, writers, checkpoints,
 signals) is the port's own copy of the JAX package's, module by module
 under the same names.
@@ -41,15 +42,18 @@ def _log(pars: Params, level: int, msg: str) -> None:
         print(msg, file=sys.stderr)
 
 
-def _fused_packed_wanted(pars: Params, device: torch.device) -> bool:
+def _fused_packed_wanted(pars: Params, device: torch.device, mesh=None) -> bool:
     """True when the genotype read should be DEFERRED to the engine as a
     fused-read handle (readers.PackedBinInput): the engine then pulls
     upload-ready packed float32 chunks straight from disk — one native
     pass instead of read + exp + cast over a resident float64 tensor,
     with chunk reads overlapping the uploads.  Requires a raw seekable
     binary file, the float32 dtype and an engine stage that never needs
-    the host tensor (no genotype calling, no per-site debug replay).
-    NGSDIST_FUSED_READ=0 forces the staged pipeline."""
+    the host tensor (no genotype calling, no per-site debug replay), and
+    one device: a mesh run shards the host tensor, as the JAX runner's
+    does.  NGSDIST_FUSED_READ=0 forces the staged pipeline."""
+    if mesh is not None:
+        return False
     if os.environ.get("NGSDIST_FUSED_READ", "auto") == "0":
         return False
     if not pars.in_bin or not readers.is_raw_seekable_binary(pars.in_geno):
@@ -120,12 +124,13 @@ def make_pair_report(pars: Params, labels):
 
 def iter_replicates(pars: Params, P, device: torch.device,
                     on_stats=None, labels=None, start_rep: int = 0,
-                    round_ckpt: bool = False, alleles=None):
+                    round_ckpt: bool = False, alleles=None, mesh=None):
     """Yield the distance matrices for replicates start_rep..n_boot_rep,
     printing each replicate's stage banners before its matrix is pulled
     (reference ngsDist.cpp:223-242).  P: the host tensor or a fused-read
     handle; round_ckpt: see distance.iter_replicates; alleles: the
-    sites' (a1, a2) allele codes, which models 3-6 need."""
+    sites' (a1, a2) allele codes, which models 3-6 need; mesh: a
+    parallel.mesh.Mesh to shard the run over (device is its first)."""
     # The reference accepts models 3-6 and aborts inside its first pair
     # task; this engine computes them (core/submodels.py) from the POS
     # file's alleles.
@@ -147,7 +152,7 @@ def iter_replicates(pars: Params, P, device: torch.device,
 
     gen = distance.iter_replicates(pars, P, maps, n_trunc, device,
                                    on_stats=on_stats, start_rep=start_rep,
-                                   round_ckpt=round_ckpt, alleles=alleles)
+                                   round_ckpt=round_ckpt, alleles=alleles, mesh=mesh)
     for rep in range(start_rep, pars.n_boot_rep + 1):
         _log(pars, 1, "==> Analyzing full dataset..." if rep == 0
              else f"==> Bootstrap replicate # {rep} ...")
@@ -177,11 +182,17 @@ def iter_replicates(pars: Params, P, device: torch.device,
             return
 
 
-def run(pars: Params, device: torch.device, out_fh: Optional[TextIO] = None, resume: bool = False,
-        report_throughput: bool = False) -> List[np.ndarray]:
+def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[TextIO] = None,
+        resume: bool = False, report_throughput: bool = False, mesh=None) -> List[np.ndarray]:
     """Full pipeline; writes matrices to pars.out (or out_fh) and returns
     them.  resume: continue an interrupted run from its .ckpt.json
-    sidecar.  report_throughput: print pair-site updates/s to stderr."""
+    sidecar.  report_throughput: print pair-site updates/s to stderr.
+    mesh: a parallel.mesh.Mesh to shard the sites (and pairs) over; the
+    run's device is then its first, and its checkpoint engine that
+    device's, so a run resumes across mesh shapes as the JAX runner's
+    does."""
+    if mesh is not None:
+        device = mesh.first
     pars.validate()
     try:
         pars.finalize()
@@ -191,7 +202,7 @@ def run(pars: Params, device: torch.device, out_fh: Optional[TextIO] = None, res
         for msg in pars.messages:
             print(msg, file=sys.stderr)
 
-    labels, pos_rows, P = load_inputs(pars, fused=_fused_packed_wanted(pars, device))
+    labels, pos_rows, P = load_inputs(pars, fused=_fused_packed_wanted(pars, device, mesh))
     alleles = None
     if pars.evol_model >= 3 and pos_rows is not None:
         alleles = encode_alleles(pos_rows)
@@ -234,7 +245,7 @@ def run(pars: Params, device: torch.device, out_fh: Optional[TextIO] = None, res
     try:
         for rep, m in enumerate(
             iter_replicates(pars, P, device, on_stats=on_stats, labels=labels,
-                            start_rep=n_done, alleles=alleles,
+                            start_rep=n_done, alleles=alleles, mesh=mesh,
                             # round-level durability of the sums of
                             # streamed long-genome replicates
                             round_ckpt=close),

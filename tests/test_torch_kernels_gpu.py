@@ -318,3 +318,181 @@ def test_streamed_equals_resident(cuda, tmp_path, monkeypatch, kind, fused):
             assert (np.abs(a - b)[off] <= 2 * chip_smoke.INDEP_RTOL * np.abs(b)[off] + 1e-10).all()
         else:
             assert (np.abs(a - b)[off] <= 2 * chip_smoke.EM_ATOL_CNT + 1e-10).all()
+
+
+# ------------------------------------------------------------------ #
+# Tile lists (K1p, K2b) and the mesh's fixed-order sum                #
+# ------------------------------------------------------------------ #
+
+
+def _tile_lists(kind, N, p):
+    from ngsdist_tpu_torch.parallel import mesh
+
+    return mesh.panel_tables(N, p) if kind == "indep" else mesh.pair_block_tables(N, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(KERNELS))
+@pytest.mark.parametrize("N,S", [(65, 130), (130, 5000), (256, 3001)])
+@pytest.mark.parametrize("pairwise_del", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_tile_lists_give_the_full_launchs_bytes(cuda, kind, N, S, pairwise_del, weighted):
+    """Each pairs-shard's launch holds, byte for byte, the listed tiles of
+    the full launch (indep: also when the sites split into chunks) and
+    zeros elsewhere; the two-way split's launches agree with the plain
+    version's tile forms; the EM also with a site list; one count per
+    launch."""
+    from ngsdist_tpu_torch.ops import _build
+
+    fn, ref = KERNELS[kind]
+    edge, strict = (indep.TILE, False) if kind == "indep" else (em.EM_TILE, True)
+    mod = indep if kind == "indep" else em
+    P32, w = _case(cuda, S, N)
+    if not weighted:
+        w = None
+    index = None
+    if kind == "em" and weighted:
+        index = torch.nonzero(w != 0)[:, 0]
+        w = w[index]
+    extra = {} if index is None else {"site_index": index}
+    full = fn(P32, SCORE9, pairwise_del, w, **extra)
+    for p in (2, 3, 4):
+        covered = torch.zeros((N, N), dtype=torch.int32, device=cuda)
+        for lst in _tile_lists(kind, N, p):
+            tiles = torch.from_numpy(lst).to(cuda)
+            before = mod.TILE_LAUNCHES
+            got = fn(P32, SCORE9, pairwise_del, w, tiles=tiles, **extra)
+            again = fn(P32, SCORE9, pairwise_del, w, tiles=tiles, **extra)
+            torch.cuda.synchronize()
+            assert mod.TILE_LAUNCHES - before == (2 if lst.size else 0)
+            mask = _build.tile_mask(N, lst, edge, strict).to(cuda)
+            covered += mask.int()
+            for g, a, f in zip(got, again, full):
+                assert chip_smoke.same_bytes(torch, g, a)
+                assert chip_smoke.same_bytes(torch, g[mask], f[mask])
+                assert (g[~mask] == 0).all()
+            if p == 2:  # the two lists hold every tile: each against its plain form
+                plain = ref(P32.double(), SCORE9, pairwise_del, w, tiles=tiles, **extra)
+                chip_smoke.check_kernel(kind, torch, *got, *plain)
+        upper = torch.ones((N, N), dtype=torch.bool, device=cuda).triu(1 if strict else 0)
+        assert bool((covered[upper] >= 1).all())
+        if kind == "indep":
+            assert bool((covered[upper] == 1).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(KERNELS))
+def test_empty_or_bad_tile_list(cuda, kind):
+    """An empty list launches nothing and gives zeros; a list that is not
+    a contiguous int32 vector on the card is refused."""
+    fn = KERNELS[kind][0]
+    mod = indep if kind == "indep" else em
+    P32, _ = _case(cuda, 64, 40)
+    before = mod.TILE_LAUNCHES
+    raw, cnt = fn(P32, SCORE9, True, tiles=torch.zeros(0, dtype=torch.int32, device=cuda))
+    assert mod.TILE_LAUNCHES == before and not raw.any() and not cnt.any()
+    with pytest.raises(ValueError, match="tiles"):
+        fn(P32, SCORE9, True, tiles=torch.zeros(1, dtype=torch.int64, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(KERNELS))
+def test_two_shards_on_two_streams_of_one_card(cuda, kind):
+    """A mesh of two entries on one card queues each shard on a stream of
+    its own; the fixed-order sum on the first device waits for both.
+    The second shard is the larger, so its kernel is still running when
+    the sum is queued.  Equal to the sum of the shards' statistics taken
+    one after another with the card synchronised between, and reruns
+    byte-identical."""
+    from ngsdist_tpu_torch.parallel import mesh as pm
+
+    rng = np.random.default_rng(8)
+    S, N = (40000, 256) if kind == "indep" else (2000, 256)
+    P = chip_smoke.rand_probs(rng, S, N)
+    mesh = pm.make_mesh([cuda, cuda])
+    ranges = [(0, S // 8), (S // 8, S)]
+    data = pm.shard_sites(P, mesh, ranges)
+    stats = pm.ShardStats(mesh, N, SCORE9, kind == "indep", True)
+    assert mesh._streams[0] is not mesh._streams[1]
+    got = [stats(data) for _ in range(3)]
+    want = None
+    for Pk in data.parts:
+        torch.cuda.synchronize()
+        one = pm.ShardStats(pm.make_mesh([cuda]), N, SCORE9, kind == "indep", True)(
+            pm.Sharded(pm.make_mesh([cuda]), [(0, Pk.shape[0])], [Pk]))
+        torch.cuda.synchronize()
+        want = one if want is None else tuple(a + b for a, b in zip(want, one))
+    for g in got:
+        assert all(torch.equal(a, b) for a, b in zip(g, want))
+
+
+@pytest.mark.gpu
+def test_mesh_run_on_one_card_matches_one_device(cuda, tmp_path, monkeypatch):
+    """runner.run over a 2 x 2 mesh of one card's entries against the
+    one-device run, which reads staged as a mesh does: within twice the
+    kernels' bound (indep, K1p) and the same launches per shard."""
+    from ngsdist_tpu_torch import runner
+    from ngsdist_tpu_torch.config import Params
+    from ngsdist_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(9)
+    S, N = 4000, 150
+    path = tmp_path / "g.bin"
+    chip_smoke.rand_probs(rng, S, N).tofile(path)
+    kw = dict(in_geno=str(path), in_bin=True, in_probs=True, n_ind=N, n_sites=S,
+              indep_geno=True, pairwise_del=True, n_boot_rep=2, boot_block_size=100,
+              seed=1, verbose=0)
+    monkeypatch.setenv("NGSDIST_FUSED_READ", "0")
+    one = runner.run(Params(out=str(tmp_path / "a.dist"), **kw), cuda)
+    before = indep.TILE_LAUNCHES
+    mats = runner.run(Params(out=str(tmp_path / "b.dist"), **kw),
+                      mesh=make_mesh([cuda] * 4, pairs=2))
+    assert indep.TILE_LAUNCHES - before == 4 * 3
+    for a, b in zip(mats, one):
+        ratio = 1.0 - np.exp(-b)
+        assert (np.abs(a - b) <= 2 * chip_smoke.INDEP_RTOL * np.abs(ratio) / (1.0 - ratio)
+                + 1e-12).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["indep", "em"])
+def test_mesh_over_several_cards(cuda, tmp_path, monkeypatch, kind):
+    """A mesh over real cards: the CLI's --devices 2 --pairs 2 and a 1-D
+    mesh over every visible card, each against the one-device run within
+    twice the kernels' bound (the shards' results are copied between
+    cards on their own streams for the fixed-order sum).  The one-device
+    run reads as a mesh does, staged: the fused read's float32 p2 moves
+    the EM's stopping step for lanes near its threshold.  Skips with
+    fewer than two cards."""
+    from ngsdist_tpu_torch import cli, runner
+    from ngsdist_tpu_torch.config import Params
+    from ngsdist_tpu_torch.parallel import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.default_rng(10)
+    S, N = 3000, 150
+    path = tmp_path / "g.bin"
+    chip_smoke.rand_probs(rng, S, N).tofile(path)
+    args = ["--geno", str(path), "--probs", "--n_ind", str(N), "--n_sites", str(S),
+            "--n_boot_rep", "2", "--boot_block_size", "100", "--seed", "1", "--verbose", "0"]
+    if kind == "indep":
+        args += ["--indep_geno", "--pairwise_del"]
+    pars, _ = cli.parse_args(args + ["--out", str(tmp_path / "one.dist")])
+    monkeypatch.setenv("NGSDIST_FUSED_READ", "0")
+    one = runner.run(pars, cuda)
+    tol = 2 * (chip_smoke.INDEP_RTOL if kind == "indep" else chip_smoke.EM_ATOL_CNT)
+
+    def close(mats):
+        assert len(mats) == len(one)
+        for a, b in zip(mats, one):
+            ratio = 1.0 - np.exp(-b)
+            bound = tol * (np.abs(ratio) if kind == "indep" else 1.0) / (1.0 - ratio)
+            assert (np.abs(a - b) <= bound + 1e-12).all()
+
+    out = str(tmp_path / "cli.dist")
+    assert cli.main(args + ["--out", out, "--devices", "2", "--pairs", "2"]) == 0
+    close(chip_smoke.read_phylip(out))
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    pars, _ = cli.parse_args(args + ["--out", str(tmp_path / "all.dist")])
+    close(runner.run(pars, mesh=make_mesh(cards)))

@@ -93,7 +93,7 @@ def test_port_matches_jax_engine(random_gp, tmp_path, indep, flags):
 
 @pytest.mark.parametrize("extra,needle", [
     (["--platform", "cuda"], "no CUDA device"),
-    (["--platform", "cpu", "--devices", "2"], "--devices is not yet supported"),
+    (["--platform", "cpu", "--coordinator", "localhost:1"], "--coordinator is not yet supported"),
     (["--platform", "cpu", "--trace_dir", "t"], "--trace_dir is not yet supported"),
     (["--platform", "cpu", "--engine", "jax"], "unknown engine 'jax'"),
     (["--platform", "cpu", "--engine", "exact"], "python -m ngsdist_tpu)"),
