@@ -1105,11 +1105,16 @@ def _mesh_class_stats(pars: Params, P_src, a1, a2, mesh, round_ckpt: bool):
         itemsize = torch.finfo(default_dtype(dev0)).bits // 8
         plane_bytes = max(1 << 20, min(PI_PLANE_BYTES, stream.chunk * N * 3 * itemsize // 32))
 
-    def over(data, wm, w_ok):
-        keep = None
-        if compact:
-            keep = [np.zeros(0, bool) if t is None else nonfinite_sites(t).cpu().numpy()
-                    for t in data.parts[::pm.pairs_size(mesh)]]
+    def keep_of(data):
+        """Compaction: per sites shard, its non-finite sites, which stay in
+        every list (the host waits for the card here, so once per upload:
+        resident once, streamed once per round)."""
+        if not compact:
+            return None
+        return [np.zeros(0, bool) if t is None else nonfinite_sites(t).cpu().numpy()
+                for t in data.parts[::pm.pairs_size(mesh)]]
+
+    def over(data, keep, wm, w_ok):
         out = {}
         for cl in CLASSES:
             raw, cnt = stats(data, data.cols(wm[cl]), keep)
@@ -1120,13 +1125,21 @@ def _mesh_class_stats(pars: Params, P_src, a1, a2, mesh, round_ckpt: bool):
 
     if stream.resident:
         data = stream.global_array()
-        return (lambda wm, w_ok, rep: over(data, wm, w_ok)), False
+        keep = keep_of(data)
+        return (lambda wm, w_ok, rep: over(data, keep, wm, w_ok)), False
+
+    keeps = {}  # round -> keep_of its data, kept across replicates
+
+    def step(r, wm, w_ok):
+        data = stream.round_data(r)
+        if r not in keeps:
+            keeps[r] = keep_of(data)
+        return _class_sums(*over(data, keeps[r], wm, w_ok))
 
     def all_stats(wm, w_ok, rep):
         return _class_stats_of(_round_sums(
             pars, rep, round_ckpt, dev0, stream.layout(),
-            lambda skip: range(skip, stream.n_rounds),
-            lambda r: _class_sums(*over(stream.round_data(r), wm, w_ok))))
+            lambda skip: range(skip, stream.n_rounds), lambda r: step(r, wm, w_ok)))
 
     return all_stats, True
 

@@ -80,12 +80,27 @@ class Mesh:
         if dev.type != "cuda":
             yield
             return
-        if self._streams is None:
-            self._streams = [torch.cuda.Stream(d) for d in self.devices]
-        s = self._streams[k]
+        s = self._stream(k)
         s.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(s):
             yield
+
+    def _stream(self, k: int):
+        if self._streams is None:
+            self._streams = [torch.cuda.Stream(d) for d in self.devices]
+        return self._streams[k]
+
+    def copy(self, j: int, t: torch.Tensor, k: int) -> torch.Tensor:
+        """Entry j's tensor t on entry k's device, for entry k to read: on
+        the CPU t itself (the entries share one memory), on a card a copy
+        on entry k's stream after the work queued on entry j's (between
+        cards the copy runs on the source's stream and waits for both)."""
+        if self.devices[k].type != "cuda":
+            return t
+        sj, sk = self._stream(j), self._stream(k)
+        sk.wait_stream(sj)
+        with torch.cuda.stream(sj), torch.cuda.stream(sk):
+            return t.to(self.devices[k], copy=True)
 
     def gather(self, k: int, t: torch.Tensor) -> torch.Tensor:
         """Entry k's tensor t on the first device, for the fixed-order
@@ -93,7 +108,7 @@ class Mesh:
         current stream) waits for the work queued on entry k's stream."""
         if t.device.type != "cuda":
             return t.to(self.first)
-        s = self._streams[k]
+        s = self._stream(k)
         if t.device == self.first:
             cur = torch.cuda.current_stream(self.first)
             cur.wait_stream(s)
@@ -170,22 +185,29 @@ class Sharded:
 
 
 def shard_sites(P_host, mesh: Mesh, ranges, rows: Optional[int] = None) -> Sharded:
-    """Upload each shard's site slice of a host [S, N, 3] array to every
-    device of its row of the grid (core/distance.py upload_resident, on
-    the entry's stream).  rows: pad each part with all-zero triples to
-    this many sites (a streamed round of fixed shape)."""
+    """Upload each shard's site slice of a host [S, N, 3] array to the
+    first device of its row of the grid (core/distance.py upload_resident,
+    on the entry's stream), and copy it from there to the row's other
+    devices, so the host reads and casts each slice once.  rows: pad each
+    part with all-zero triples to this many sites (a streamed round of
+    fixed shape)."""
     p = pairs_size(mesh)
     parts = []
     for k, dev in enumerate(mesh.devices):
-        lo, hi = ranges[k // p]
+        s, q = divmod(k, p)
+        lo, hi = ranges[s]
         part = None
-        with mesh.on(k):
-            if hi > lo:
-                part = dist.upload_resident(P_host[lo:hi], dev)
-            if rows is not None and (part is None or part.shape[0] < rows):
-                pad = torch.zeros((rows - (hi - lo), P_host.shape[1], 3),
-                                  dtype=dist.default_dtype(dev), device=dev)
-                part = pad if part is None else torch.cat([part, pad])
+        if q:
+            if parts[k - q] is not None:
+                part = mesh.copy(k - q, parts[k - q], k)
+        else:
+            with mesh.on(k):
+                if hi > lo:
+                    part = dist.upload_resident(P_host[lo:hi], dev)
+                if rows is not None and (part is None or part.shape[0] < rows):
+                    pad = torch.zeros((rows - (hi - lo), P_host.shape[1], 3),
+                                      dtype=dist.default_dtype(dev), device=dev)
+                    part = pad if part is None else torch.cat([part, pad])
         parts.append(part)
     return Sharded(mesh, ranges, parts)
 
@@ -277,29 +299,27 @@ class ShardStats:
 
     Per entry it holds the pair indices its kernel output is read at and
     its tile list (parallel/mesh.py module docstring), on its device.
-    diag: read indep's diagonal too (the [N, N] matrices of
-    sharded_suffstats).  zero: the run's record of all-zero triples
+    zero: the run's record of all-zero triples
     (preprocess.ZeroRows) where the EM poisons for them: each shard
     poisons the pairs of an individual with such a triple at one of its
     sites of weight > 0 (ngsdist_tpu/parallel/mesh.py:342-353), from the
     host record, and the NaN rides the sum."""
 
     def __init__(self, mesh: Mesh, N: int, score, indep: bool, pairwise_del: bool,
-                 zero=None, diag: bool = False) -> None:
+                 zero=None) -> None:
         self.mesh, self.N, self.indep, self.pairwise_del = mesh, N, indep, pairwise_del
         self.zero = zero
         self.score = torch.as_tensor(np.asarray(score, np.float64).reshape(3, 3))
         p = pairs_size(mesh)
         if indep:
-            iu = np.triu_indices(N, k=0 if diag else 1)
-            pairs = [(iu[0], iu[1])] * p
+            pairs = [dist._pair_indices(N)] * p
             tables = panel_tables(N, p) if p > 1 else [None]
         else:
             I, J = padded_pairs(N, p)
             per = I.size // p
             pairs = [(I[q * per:(q + 1) * per], J[q * per:(q + 1) * per]) for q in range(p)]
             tables = pair_block_tables(N, p) if p > 1 else [None]
-        self.n_pairs = int(np.triu_indices(N, k=0 if indep and diag else 1)[0].size)
+        self.n_pairs = N * (N - 1) // 2
         self.entries = []
         for k, dev in enumerate(mesh.devices):
             I_q, J_q = pairs[k % p]
@@ -329,7 +349,7 @@ class ShardStats:
         if self.zero is not None:
             z = self.zero.individuals(lo, lo + Pk.shape[0], w)
             if z.any():
-                raw = dist._em_poison_pairs(raw, torch.from_numpy(z).to(raw.device), It, Jt)
+                raw = dist._em_poison_pairs(raw, dist._upload_small(z, raw.device), It, Jt)
         return raw, cnt
 
     def __call__(self, data: Sharded, weights=None, keep=None):
@@ -459,13 +479,12 @@ def bootstrap_replicates(table: np.ndarray, B: BlockShards, n_blocks: int, mesh:
 
 def sharded_suffstats(P_host, score, mesh: Mesh, *, indep: bool, pairwise_del: bool,
                       site_weights: Optional[np.ndarray] = None,
-                      n_blocks: Optional[int] = None, block_size: int = 1,
-                      may_zero: bool = True):
+                      n_blocks: Optional[int] = None, block_size: int = 1):
     """Sufficient statistics over the mesh (ngsdist_tpu/parallel/mesh.py
     sharded_suffstats), float64 on the first device: (raw, cnt, B, C),
-    raw/cnt [N, N] symmetric (indep; cnt None without pairwise deletion)
-    or [n_pairs] (EM).  P_host: a host [S, N, 3] array or a `Sharded`
-    one.  With n_blocks the block partials of the first n_blocks ·
+    raw/cnt [n_pairs] pair vectors, triu row-major (indep: cnt None
+    without pairwise deletion; the JAX function's [N, N] at those
+    pairs).  P_host: a host [S, N, 3] array or a `Sharded` one.  With n_blocks the block partials of the first n_blocks ·
     block_size sites come back as a `BlockShards` in B (C is then None:
     they hold it), and raw, cnt are None for indep and the unpoisoned
     full-data statistics for the EM, as in the JAX function."""
@@ -477,32 +496,20 @@ def sharded_suffstats(P_host, score, mesh: Mesh, *, indep: bool, pairwise_del: b
     if not isinstance(P_host, Sharded):
         # the EM's zero-row poison, from the host array (the block pass
         # leaves it to the engine, which poisons per sampled replicate)
-        if not (indep or pairwise_del or want_blocks) and may_zero:
+        if not (indep or pairwise_del or want_blocks):
             zero = find_zero_rows(P_host)
         granule = block_size if want_blocks else 1
         data = put_probs_sharded(P_host, _plan_padding(P_host.shape[0], sites_size(mesh),
                                                        granule), mesh)
     N = next(t.shape[1] for t in data.parts if t is not None)
-    stats = ShardStats(mesh, N, score, indep, pairwise_del, zero, diag=indep)
+    stats = ShardStats(mesh, N, score, indep, pairwise_del, zero)
     B = None
     if want_blocks:
         B = stats.blocks(data, block_size)
         if indep:
             return None, None, B, None
     raw, cnt = stats(data, data.cols(site_weights))
-    if indep:
-        raw = _symmetric(raw, N)
-        cnt = None if cnt is None else _symmetric(cnt, N)
     return raw, cnt, B, None
-
-
-def _symmetric(v: torch.Tensor, N: int) -> torch.Tensor:
-    """Upper-triangle pair vector (diagonal included) -> [N, N]."""
-    I, J = torch.triu_indices(N, N, device=v.device)
-    out = torch.zeros((N, N), dtype=v.dtype, device=v.device)
-    out[I, J] = v
-    out[J, I] = v
-    return out
 
 
 # ------------------------------------------------------------------ #

@@ -113,11 +113,6 @@ class SiteStream:
     def n_rounds(self) -> int:
         return -(-self.s_loc // self.chunk)
 
-    @property
-    def round_sites(self) -> int:
-        """Sites of a round over all shards (fixed shape; tail rounds pad)."""
-        return self.chunk * self.n_dev
-
     def round_ranges(self, r: int):
         """[(lo, hi)] per shard: the data sites of round r."""
         return pm.shard_ranges(self.S, self.s_loc, self.n_dev, r * self.chunk,

@@ -177,9 +177,10 @@ def test_tile_plain_forms_sum_to_the_full_call(pairwise_del):
 @pytest.mark.parametrize("pairwise_del", [False, True], ids=["nopdel", "pdel"])
 @pytest.mark.parametrize("indep", [True, False], ids=["indep", "em"])
 def test_sharded_suffstats_matches_jax(indep, pairwise_del, weighted, shape):
-    """raw (indep [N, N], EM [n_pairs]) within 1e-9 relative, cnt exact,
-    on a sites x pairs split of 8 devices; N = 70 gives the EM three tile
-    rows and indep two, so the pairs-shards' lists differ."""
+    """raw [n_pairs] within 1e-9 relative of the JAX function's (indep:
+    its [N, N] at the pairs), cnt exact, on a sites x pairs split of 8
+    devices; N = 70 gives the EM three tile rows and indep two, so the
+    pairs-shards' lists differ."""
     n_sites_axis, p = shape
     rng = np.random.default_rng(10 + indep + 2 * pairwise_del + 4 * weighted)
     S, N = 150, 70
@@ -189,9 +190,11 @@ def test_sharded_suffstats_matches_jax(indep, pairwise_del, weighted, shape):
                                  pairwise_del=pairwise_del, site_weights=w)
     got = pm.sharded_suffstats(P, SCORE, _cpu_mesh(8, p), indep=indep,
                                pairwise_del=pairwise_del, site_weights=w)
-    _close(got[0].numpy(), want[0])
+    I, J = np.triu_indices(N, 1)
+    at = (lambda a: np.asarray(a)[I, J]) if indep else np.asarray
+    _close(got[0].numpy(), at(want[0]))
     if pairwise_del or not indep:
-        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        np.testing.assert_array_equal(got[1].numpy(), at(want[1]))
     else:
         assert got[1] is None and want[1] is None
 
@@ -344,6 +347,53 @@ def test_extended_mesh_matches_jax(tmp_path, monkeypatch, model, indep, shape):
         assert len(got) == len(want) == 3
         for g, w in zip(got, want):
             _close(g, w)
+
+
+@pytest.mark.parametrize("streamed", [False, True], ids=["resident", "streamed"])
+@pytest.mark.parametrize("model,indep", [(5, True), (6, False)])
+def test_extended_mesh_compacted_scans_once_per_upload(tmp_path, monkeypatch, model, indep,
+                                                       streamed):
+    """Models 3-6 over a 4 x 2 mesh in a card's form (class_compaction
+    patched to True): within 1e-12 of the three weighted launches per
+    shard, and each sites shard's non-finite sites are found once per
+    upload (resident once, streamed once per round), not per replicate."""
+    rng = np.random.default_rng(70 + model)
+    S, N = 120, 7
+    P = _rand_probs(rng, S, N)
+    P[40, 2, 0] = np.nan
+    a1 = rng.integers(0, 4, S).astype(np.int8)
+    a2 = ((a1 + rng.integers(0, 4, S)) % 4).astype(np.int8)
+    kw = dict(evol_model=model, indep_geno=indep, pairwise_del=model % 2 == 0,
+              n_boot_rep=2, boot_block_size=6)
+    n_trunc, maps = jboot.site_maps(3, 2, S, 6)
+    if streamed:
+        monkeypatch.setenv("NGSDIST_DEVICE_BUDGET", str(_budget(6, N)))
+    else:
+        monkeypatch.delenv("NGSDIST_DEVICE_BUDGET", raising=False)
+    mesh = _cpu_mesh(4, 2)
+
+    def run():
+        return list(tdist.iter_replicates(_pars(Params, tmp_path, S, N, **kw), P, maps,
+                                          n_trunc, CPU, alleles=(a1, a2), mesh=mesh))
+
+    plain = run()
+    monkeypatch.setattr(tdist, "class_compaction", lambda device: True)
+    scans = []
+
+    def spy(t, _fn=tdist.nonfinite_sites):
+        scans.append(t.shape[0])
+        return _fn(t)
+
+    monkeypatch.setattr(tdist, "nonfinite_sites", spy)
+    compacted = run()
+    stream = pmh.SiteStream.from_array(P, _pars(Params, tmp_path, S, N, **kw), mesh)
+    assert stream.resident != streamed
+    uploads = [hi - lo for r in range(stream.n_rounds)
+               for lo, hi in stream.round_ranges(r) if hi > lo]
+    assert scans == uploads
+    assert np.isnan(plain[0]).any()
+    for g, w in zip(compacted, plain):
+        _close(g, w, rtol=1e-12)
 
 
 @pytest.mark.parametrize("case", ["partials", "weighted", "pairs", "streamed", "extended"])
