@@ -78,6 +78,23 @@ Phases, each of which fails the run loudly:
    twice the kernels' bound of the one-device run of the same file read
    the same way; with two cards or more, (i) once more through the CLI
    with --devices 2 --pairs 2 on real cards.
+   Genomes beyond host memory (LAZY_RUNS), through the CLI under a forced
+   NGSDIST_HOST_BUDGET: (l) (a)'s file and flags read from disk in 10
+   rounds of 7,168 sites a matrix (the fused reader per round), (lt) the
+   EM on a gz beagle text of (b)'s first 4,096 sites, spilled once to a
+   cache and read from it in 3 rounds; each held to one launch per round
+   and matrix, its cache deleted after the run, and every matrix within
+   twice the kernel's bound of the same input resident.  Two processes
+   on the one card (PROC_RUNS), each the CLI with --coordinator
+   127.0.0.1:PORT --num_processes 2 --process_id 0|1 (gloo): (me) (b)'s
+   EM, (ma) (a)'s indep with its bootstrap, both resident, and (ml) (d)'s
+   flags on (a)'s file lazy and streamed in 2,048-site rounds under forced
+   NGSDIST_HOST_BUDGET and NGSDIST_DEVICE_BUDGET (the bootstrap's block
+   partials in one pass); process 0's file byte for byte the one-process
+   run on a mesh of two entries of the card under the same budgets, the
+   two processes' launches adding up to its launches, each process's
+   wall time, read and gather seconds printed; the workers are killed
+   past PROC_WALL seconds.
    Each matrix takes three launches (one per substitution class, on the
    class's sites only) per chunk, 9 for (g) and (h); the engine is
    handed the staged float64 tensor.  Their 64-individual sub-matrices
@@ -226,6 +243,20 @@ TILE_SHAPES = EM_EDGE_SHAPES + CHUNKED_SHAPES
 # a shard is held to under a forced budget or None: resident).
 MESH_RUNS = {"i": ("a", 4, 2, None), "j": ("c", 4, 1, None), "k": ("g", 4, 2, None),
              "is": ("a", 4, 2, 4), "il": ("d", 2, 1, 4)}
+# Phase 3, the disk-read rounds: run -> (the run whose flags it takes, its
+# input, NGSDIST_HOST_BUDGET, the rounds a shard must be read in).  (l)
+# reads (a)'s raw binary file in rounds (the fused reader per round);
+# (lt) a gz beagle text of the first LAZY_TEXT_SITES sites of (b)'s array
+# from its spill cache, the EM without bootstrap.
+LAZY_TEXT_SITES = 4096
+LAZY_RUNS = {"l": ("a", "bin", 256 << 20, 10), "lt": ("b", "beagle", 64 << 20, 3)}
+# Phase 3, two processes on one card (--coordinator): run -> (the run
+# whose file and flags it takes, NGSDIST_HOST_BUDGET or None, the sites of
+# a round of a shard under a forced NGSDIST_DEVICE_BUDGET or None).  (ml)
+# is config 5's path in miniature: lazy, streamed, the bootstrap's block
+# partials in one pass over the rounds.
+PROC_RUNS = {"me": ("b", None, None), "ma": ("a", None, None), "ml": ("d", 256 << 20, 2048)}
+PROC_WALL = 420   # seconds both processes may take for all of PROC_RUNS
 SCORE9 = np.array([[0.0, 0.5, 1.0], [0.5, 0.0, 0.5], [1.0, 0.5, 0.0]]).reshape(-1)
 
 
@@ -690,8 +721,9 @@ def check_same_as_resident(run: str, streamed, resident) -> float:
     resident: each lies within the kernel's bound of the exact sums
     (indep: INDEP_RTOL relative on raw/cnt; EM: EM_ATOL_CNT on it), so
     the two within twice it, scaled by |dT/dd| = 1/(1 - raw/cnt) of
-    model 1, plus the %.10f print rounding of both."""
-    kind = RUNS[run][0]
+    model 1, plus the %.10f print rounding of both.  run: a run of RUNS,
+    or of LAZY_RUNS (its base run's kind)."""
+    kind = RUNS[LAZY_RUNS[run][0] if run in LAZY_RUNS else run][0]
     worst = 0.0
     for a, b in zip(streamed, resident):
         ratio = 1.0 - np.exp(-b)
@@ -1099,13 +1131,20 @@ def timed_run(torch, mods, ngsd, budget, fused: bool, call):
            "NGSDIST_FUSED_READ": "auto" if fused else "0"}
     seen = {}
     load_inputs = runner.load_inputs
+    from_reader = ngsd["multihost"].SiteStream.from_reader.__func__
 
-    def spy(pars, fused=False):
-        got = load_inputs(pars, fused=fused)
+    def spy(pars, **kw):
+        got = load_inputs(pars, **kw)
         seen["source"] = type(got[2]).__name__
         return got
 
+    def reader_spy(cls, pars, mesh):   # a lazy run's stream
+        seen["stream"] = from_reader(cls, pars, mesh)
+        seen["source"] = type(seen["stream"].src).__name__
+        return seen["stream"]
+
     runner.load_inputs = spy
+    ngsd["multihost"].SiteStream.from_reader = classmethod(reader_spy)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1124,6 +1163,7 @@ def timed_run(torch, mods, ngsd, budget, fused: bool, call):
     finally:
         profiling.ACTIVE = None
         runner.load_inputs = load_inputs
+        ngsd["multihost"].SiteStream.from_reader = classmethod(from_reader)
     return seen
 
 
@@ -1287,6 +1327,237 @@ def drive_mesh_runs(torch, cli, mods, ngsd, genos, mats, ext_bounds):
     return launches, diffs
 
 
+def write_beagle(path: str, P: np.ndarray, sites: int) -> None:
+    """(lt)'s input: the first `sites` sites of the generated array as a
+    gz beagle text (a header line; a marker, two allele columns and
+    3 x N_IND probabilities printed %.6f a line)."""
+    import gzip
+
+    fmt = "\t".join(["%.6f"] * (3 * N_IND))
+    with gzip.open(path, "wt", compresslevel=1) as fh:
+        fh.write("marker\tallele1\tallele2\t"
+                 + "\t".join(f"Ind{i}\tInd{i}\tInd{i}" for i in range(N_IND)) + "\n")
+        for s in range(sites):
+            fh.write(f"chr1_{s + 1}\t0\t1\t" + fmt % tuple(P[s].reshape(-1)) + "\n")
+
+
+def lazy_args(run: str, geno: str, out: str):
+    """The CLI arguments of disk-read run `run` (LAZY_RUNS)."""
+    args = run_args(LAZY_RUNS[run][0], geno, out)
+    if LAZY_RUNS[run][1] == "beagle":
+        args[args.index("--n_sites") + 1] = str(LAZY_TEXT_SITES)
+    return args
+
+
+def drive_lazy_runs(torch, cli, mods, ngsd, genos, mats, P, card):
+    """The runs of LAZY_RUNS through the CLI entry point under their forced
+    NGSDIST_HOST_BUDGET (module docstring, phase 3), each with its launch
+    counts set to 0 just before and held after to one launch per round
+    and matrix: the stream must be lazy, in the rounds LAZY_RUNS says, its
+    spill cache (lt) gone after the run, and every matrix within twice the
+    kernel's bound of the same input run resident ((a) itself for (l)).
+    Returns the launches and the largest |d difference| per run."""
+    spill = os.path.join(WORK, "spill")
+    os.makedirs(spill)
+    text = os.path.join(WORK, "lt.beagle.gz")
+    t0 = time.perf_counter()
+    write_beagle(text, P, LAZY_TEXT_SITES)
+    log(f"phase 3: (lt)'s gz beagle text of {N_IND} x {LAZY_TEXT_SITES} written in "
+        f"{time.perf_counter() - t0:.2f} s ({os.path.getsize(text)} B)")
+    launches, diffs = {}, {}
+    for run, (base, style, host_budget, rounds) in LAZY_RUNS.items():
+        kind, _, reps, _, _ = RUNS[base]
+        geno = genos[base] if style == "bin" else text
+        out = os.path.join(WORK, f"{run}.dist")
+        args = lazy_args(run, geno, out) + ["--platform", DEVICE, "--throughput"]
+        with environment({"NGSDIST_HOST_BUDGET": str(host_budget), "NGSDIST_SPILL_DIR": spill}):
+            seen = timed_run(torch, mods, ngsd, None, True, lambda: cli.main(args))
+        if seen["result"] != 0:
+            raise AssertionError(f"run ({run}): exit code {seen['result']}")
+        st = seen.get("stream")
+        if st is None or not st.lazy or st.n_rounds != rounds:
+            raise AssertionError(f"run ({run}): not read from disk in {rounds} rounds "
+                                 f"({None if st is None else (st.lazy, st.n_rounds)})")
+        if os.listdir(spill):
+            raise AssertionError(f"run ({run}): spill cache left behind: {os.listdir(spill)}")
+        launches[run] = seen["launches"]
+        want = {name: 0 for name in KERNELS}
+        want[f"{kind}_raw_cnt"] = rounds * (1 + reps)
+        if launches[run] != want:
+            raise AssertionError(f"run ({run}): launches {launches[run]}, expected {want}")
+        t = seen["times"]
+        sites = LAZY_TEXT_SITES if style == "beagle" else RUNS[base][1]
+        how = ("the fused reader" if st.src.fused else
+               "its spill cache" if st.src.spill_path else "the staged reader")
+        log(f"phase 3: ({run}) {kind} {N_IND} x {sites} from a {style} file through {how}, "
+            f"lazy under NGSDIST_HOST_BUDGET={host_budget}: {1 + reps} matrices of "
+            f"{rounds} rounds of {st.chunk} sites in {seen['wall']:.2f} s (host clock, CLI call "
+            f"incl. spill and write); read {t['read_s']:.3f} s, "
+            f"{t['read_s'] / (rounds * (1 + reps)):.4f} s per round; upload "
+            f"{t['upload_s']:.3f} s, kernels {t['kernel_s']:.3f} s; launches "
+            + ", ".join(f"{k} {v}" for k, v in launches[run].items() if v) + f" [{card}]")
+        if run == "l":
+            ref = mats["a"]
+        else:
+            res = os.path.join(WORK, f"{run}_resident.dist")
+            args = lazy_args(run, text, res) + ["--platform", DEVICE]
+            seen = timed_run(torch, mods, ngsd, None, True, lambda: cli.main(args))
+            if seen["result"] != 0:
+                raise AssertionError(f"run ({run}) resident: exit code {seen['result']}")
+            launches[f"{run}_resident"] = seen["launches"]
+            log(f"phase 3: ({run}) the same read eagerly, resident, for the comparison, in "
+                f"{seen['wall']:.2f} s [{card}]")
+            ref = check_output(res, 1 + reps)
+        diffs[run] = check_same_as_resident(run, check_output(out, 1 + reps), ref)
+    return launches, diffs
+
+
+PROC_WORKER = r"""
+import json, os, sys, time
+rank, root, spec = int(sys.argv[1]), sys.argv[2], json.load(open(sys.argv[3]))
+sys.path.insert(0, root)
+import torch
+from ngsdist_tpu_torch import cli
+from ngsdist_tpu_torch.ops import em, indep
+from ngsdist_tpu_torch.utils import profiling
+
+mods = {"indep": indep, "em": em}
+dev = torch.device(spec["device"])
+sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+for run in spec["runs"]:
+    for k in ("NGSDIST_DEVICE_BUDGET", "NGSDIST_HOST_BUDGET"):
+        os.environ.pop(k, None)
+    os.environ.update(run["env"])
+    for mod, counter in spec["kernels"].values():
+        setattr(mods[mod], counter, 0)
+    sync()
+    profiling.ACTIVE = profiling.StageTimes(dev)
+    t0 = time.perf_counter()
+    rc = cli.main(run["argv"] + ["--coordinator", "127.0.0.1:%d" % run["port"],
+                                 "--num_processes", "2", "--process_id", str(rank)])
+    sync()
+    got = {"run": run["name"], "rc": rc, "wall": time.perf_counter() - t0,
+           "times": profiling.ACTIVE.summary(),
+           "launches": {name: getattr(mods[mod], counter)
+                        for name, (mod, counter) in spec["kernels"].items()}}
+    profiling.ACTIVE = None
+    print("RESULT " + json.dumps(got), flush=True)
+    if rc:
+        sys.exit(rc)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def proc_env(run: str) -> dict:
+    """The forced budgets of two-process run `run` (PROC_RUNS): the device
+    budget under which a shard's round is the given sites (a third of it a
+    shard's, three quarters of that a round's; SiteStream._plan), equal
+    for two processes of one shard and one process of two, as the host
+    budget leaves the device's the smaller."""
+    base, host, round_sites = PROC_RUNS[run]
+    env = {}
+    if host is not None:
+        env["NGSDIST_HOST_BUDGET"] = str(host)
+    if round_sites is not None:
+        env["NGSDIST_DEVICE_BUDGET"] = str(3 * -(-round_sites * 4 // 3) * N_IND * 3 * 4)
+    return env
+
+
+def drive_process_runs(torch, mods, ngsd, genos, card):
+    """The runs of PROC_RUNS in two processes on the one card (module
+    docstring, phase 3): two workers, each the CLI entry point with
+    --coordinator 127.0.0.1:PORT --num_processes 2 --process_id 0|1 for
+    every run in turn, killed past PROC_WALL seconds; then each run in one
+    process on a mesh of two entries of the card (runner.run, the bytes a
+    one-process --devices 2 run writes) under the same budgets.  Process
+    0's file must equal that run's byte for byte, and the two processes'
+    launches add up to its launches.  Returns the launches (both processes
+    together) and prints each run's wall time and its gathers."""
+    cli, runner, pm = ngsd["cli"], ngsd["runner"], ngsd["mesh"]
+    worker = os.path.join(WORK, "proc_worker.py")
+    with open(worker, "w") as fh:
+        fh.write(PROC_WORKER)
+    runs = []
+    for run, (base, _, _) in PROC_RUNS.items():
+        runs.append({"name": run, "env": proc_env(run), "port": free_port(),
+                     "argv": run_args(base, genos[base], os.path.join(WORK, f"{run}.dist"))
+                     + ["--platform", DEVICE]})
+    spec = os.path.join(WORK, "proc_spec.json")
+    with open(spec, "w") as fh:
+        json.dump({"runs": runs, "kernels": KERNELS, "device": DEVICE}, fh)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("NGSDIST_")}
+    logs = [open(os.path.join(WORK, f"proc{rank}.err"), "w") for rank in (0, 1)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, worker, str(rank), ROOT, spec], env=env,
+                              stdout=subprocess.PIPE, stderr=logs[rank], text=True)
+             for rank in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, PROC_WALL - (time.perf_counter() - t0)))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for fh in logs:
+            fh.close()
+    wall = time.perf_counter() - t0
+    if [p.returncode for p in procs] != [0, 0]:
+        tails = [open(os.path.join(WORK, f"proc{rank}.err")).read()[-3000:] for rank in (0, 1)]
+        raise AssertionError(f"two-process runs: exit codes {[p.returncode for p in procs]}; "
+                             f"stdout {outs}; stderr tails {tails}")
+    results = [{r["run"]: r for r in (json.loads(ln[7:]) for ln in out.splitlines()
+                                     if ln.startswith("RESULT "))} for out in outs]
+    log(f"phase 3: two processes ran {', '.join(PROC_RUNS)} on {DEVICE}:0 in {wall:.2f} s "
+        f"(host clock, both workers from their start to their exit) [{card}]")
+    dev0 = torch.device(DEVICE, 0)
+    launches = {}
+    for run, (base, _, round_sites) in PROC_RUNS.items():
+        kind, sites, reps, block, _ = RUNS[base]
+        mats = 1 + reps
+        got = [results[rank][run] for rank in (0, 1)]
+        both = {name: got[0]["launches"][name] + got[1]["launches"][name] for name in KERNELS}
+        launches[f"{run}_2p"] = both
+        one = os.path.join(WORK, f"{run}_1p.dist")
+        pars, _ = cli.parse_args(run_args(base, genos[base], one))
+        env = proc_env(run)
+        with environment({"NGSDIST_HOST_BUDGET": env.get("NGSDIST_HOST_BUDGET")}):
+            seen = timed_run(torch, mods, ngsd, env.get("NGSDIST_DEVICE_BUDGET"), False,
+                             lambda: runner.run(pars, mesh=pm.make_mesh([dev0] * 2)))
+        launches[f"{run}_1p"] = seen["launches"]
+        if both != seen["launches"] or not any(both.values()):
+            raise AssertionError(f"run ({run}): two processes launched {both}, one process "
+                                 f"of two entries {seen['launches']}")
+        with open(os.path.join(WORK, f"{run}.dist"), "rb") as a, open(one, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"run ({run}): process 0's file differs from the "
+                                     "one-process run's on two entries")
+        check_output(one, mats)
+        what = ("lazy and streamed under NGSDIST_HOST_BUDGET="
+                f"{env['NGSDIST_HOST_BUDGET']}, NGSDIST_DEVICE_BUDGET="
+                f"{env['NGSDIST_DEVICE_BUDGET']} (rounds of {round_sites} sites a shard), "
+                if round_sites else "resident, ")
+        boot = f" + {reps} replicates of {block}-site blocks" if reps else ""
+        log(f"phase 3: ({run}) {kind} {N_IND} x {sites}{boot} in two processes, {what}"
+            + "; ".join(f"process {rank}: {g['wall']:.2f} s (host clock, CLI call), read "
+                        f"{g['times']['read_s']:.3f} s, kernels {g['times']['kernel_s']:.3f} s, "
+                        f"{g['times']['gathers']} gathers in {g['times']['gather_s']:.4f} s = "
+                        f"{g['times']['gather_s'] / mats * 1e3:.2f} ms per matrix"
+                        for rank, g in enumerate(got))
+            + f"; one process on two entries {seen['wall']:.2f} s; process 0's file equals "
+            "it byte for byte; launches " + ", ".join(f"{k} {v}" for k, v in both.items() if v)
+            + f" [{card}]")
+    return launches
+
+
 def tile_times(torch, kmod, pm, build, kind, P32, pairwise_del, plain64, bound, report,
                card) -> None:
     """One pairs-shard's launch (its split's first tile list) at the main
@@ -1379,7 +1650,7 @@ def main() -> int:
     # Phase 3: the main path, through the CLI entry point.
     mods = {"indep": indep, "em": em}
     ngsd = {"runner": runner, "distance": distance, "profiling": profiling, "mesh": pm,
-            "multihost": multihost}
+            "multihost": multihost, "cli": cli}
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     try:
@@ -1422,6 +1693,9 @@ def main() -> int:
         mesh_launched, mesh_diffs = drive_mesh_runs(torch, cli, mods, ngsd, genos, mats,
                                                     ext_bounds)
         launches.update(mesh_launched)
+        lazy_launched, lazy_diffs = drive_lazy_runs(torch, cli, mods, ngsd, genos, mats, P, card)
+        launches.update(lazy_launched)
+        launches.update(drive_process_runs(torch, mods, ngsd, genos, card))
         del mats, P_sub
         log(f"phase 3: outputs hold 1 + n_boot_rep finite symmetric matrices "
             f"({', '.join(f'{run} {1 + RUNS[run][2]}' for run in RUNS)}); the full-data "
@@ -1434,7 +1708,9 @@ def main() -> int:
             + "; streamed against resident, max |d difference| "
             + ", ".join(f"{k} {v:.3e}" for k, v in same.items())
             + "; mesh runs against the one-device run of the same file, max |d difference| "
-            + ", ".join(f"{k} {v:.3e}" for k, v in mesh_diffs.items()))
+            + ", ".join(f"{k} {v:.3e}" for k, v in mesh_diffs.items())
+            + "; disk-read runs against the same input resident, max |d difference| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in lazy_diffs.items()))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

@@ -20,6 +20,12 @@ the port's own copy of the JAX package's.  Port-specific options:
                         cards than are visible is an error
   --pairs K             a second mesh axis: split the pairs K ways (the
                         device count must be a multiple of K)
+  --coordinator HOST:PORT --num_processes P --process_id I
+                        one of P processes of a run (gloo over TCP; process
+                        0 listens at HOST:PORT and writes the output); each
+                        drives the devices it sees (--platform), reads its
+                        own site range and writes, with the others, the
+                        bytes of one process over all their devices
 
 Usage:  python -m ngsdist_tpu_torch [options] --geno FILE --n_ind N --n_sites N --out FILE
 """
@@ -292,7 +298,10 @@ def echo_args(pars: Params) -> None:
 
 
 # JAX-package options that have no counterpart in the port yet.
-_NOT_PORTED = ("coordinator", "num_processes", "process_id", "trace_dir", "x64")
+_NOT_PORTED = ("trace_dir", "x64")
+
+# Options a multi-process run cannot honour (ngsdist_tpu/cli.py:299-313).
+_NOT_WITH_COORDINATOR = ("trace_dir", "throughput", "devices", "pairs")
 
 
 def _device(platform: str) -> torch.device:
@@ -337,11 +346,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     pars, extras = parse_args(argv)
     echo_args(pars)
     try:
+        if extras.get("coordinator"):
+            for bad in _NOT_WITH_COORDINATOR:
+                if extras.get(bad):
+                    raise NgsDistError("main", f"--{bad} is not supported with --coordinator")
         for opt in _NOT_PORTED:
             if extras.get(opt) not in (None, False):
                 raise NgsDistError(
                     "main", f"--{opt} is not yet supported by "
-                    "ngsdist_tpu_torch (one process only; see ROADMAP.md)")
+                    "ngsdist_tpu_torch (see ROADMAP.md)")
         engine = extras.get("engine") or "auto"
         if engine not in ("torch", "auto"):
             raise NgsDistError(
@@ -349,6 +362,19 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "its torch engine only (the JAX package's engines run under "
                 "python -m ngsdist_tpu)")
         device = _device(extras.get("platform") or "cuda")
+        if extras.get("coordinator"):
+            from .parallel.multihost import run_distributed
+
+            run_distributed(
+                pars, coordinator=extras["coordinator"],
+                num_processes=_atol(extras.get("num_processes") or "0") or None,
+                process_id=(_atol(extras["process_id"])
+                            if extras.get("process_id") is not None else None),
+                resume=bool(extras.get("resume")), device=device)
+            return 0
+        for opt in ("num_processes", "process_id"):
+            if extras.get(opt) is not None:
+                raise NgsDistError("main", f"--{opt} needs --coordinator")
         mesh = _mesh(device, extras.get("devices"), extras.get("pairs"))
 
         from . import runner

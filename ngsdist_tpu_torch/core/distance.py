@@ -157,6 +157,13 @@ def _host_pack(src, lo: int, hi: int, dtype: torch.dtype,
         return out
 
 
+def _slab_width(src) -> int:
+    """Components per triple of a source's host slabs: 3 for a host
+    array; for a handle with read_packed its `width`, 2 by default (the
+    packed float32 layout, p2 restored on the device by expand23)."""
+    return getattr(src, "width", 2) if hasattr(src, "read_packed") else 3
+
+
 def put_probs(P_slice, device: torch.device) -> torch.Tensor:
     """Upload a host probability slab ([S, N, 3] array, or a fused-read
     handle) in one piece, in the device's dtype (cast on the host, so
@@ -191,9 +198,11 @@ def _pipe_upload_bytes() -> int:
 
 
 class ChunkPipe:
-    """Site ranges of a source (a host [S, N, 3] array or a fused-read
-    handle), prepared on the host by one reader thread and brought to
-    the device in order (ngsdist_tpu.core.distance._pipelined_chunks).
+    """Site ranges of a source (a host [S, N, 3] array, a fused-read
+    handle, or any handle with its read protocol: `shape`, `read_packed`
+    and a slab `width`), prepared on the host by one reader thread and
+    brought to the device in order
+    (ngsdist_tpu.core.distance._pipelined_chunks).
 
     On a card the reader fills a ring of two pinned slabs; each slab is
     copied on a copy stream (`non_blocking`) and, packed, expanded there,
@@ -208,7 +217,7 @@ class ChunkPipe:
     def __init__(self, src, device: torch.device, dtype: torch.dtype, rows: int,
                  dest: Optional[torch.Tensor] = None) -> None:
         self.src, self.device, self.dtype, self.dest = src, device, dtype, dest
-        self.packed = hasattr(src, "read_packed")
+        self.packed = _slab_width(src) == 2
         if self.packed and dtype != torch.float32:
             raise ValueError("a fused-read source holds float32 slabs")
         self.cuda = device.type == "cuda"
@@ -295,12 +304,11 @@ def upload_resident(src, device: torch.device) -> torch.Tensor:
     ChunkPipe into the tensor one after another: one pass over a handle's
     file, no float64 host tensor, each slab's copy under the next one's
     read (ngsdist_tpu.core.distance._upload_packed_pipelined)."""
-    packed = hasattr(src, "read_packed")
-    if device.type != "cuda" and not packed:
+    if device.type != "cuda" and not hasattr(src, "read_packed"):
         return put_probs(src, device)
     dtype = default_dtype(device)
     S, N = src.shape[:2]
-    slab_site_bytes = N * (2 if packed else 3) * (torch.finfo(dtype).bits // 8)
+    slab_site_bytes = N * _slab_width(src) * (torch.finfo(dtype).bits // 8)
     step = max(1, _pipe_upload_bytes() // max(1, slab_site_bytes))
     P = torch.empty((S, N, 3), dtype=dtype, device=device)
     pipe = ChunkPipe(src, device, dtype, max(1, min(step, S)), dest=P)
@@ -945,11 +953,18 @@ def _round_sums(pars: Params, rep: int, round_ckpt: bool, device, layout, rounds
     round and a replicate resumes at its first unfinished round (the
     rounds file keyed by `layout`, what a round index means).  The sums
     are exact partial sums of a deterministic computation, so a resumed
-    replicate gives the bytes of an uninterrupted one."""
+    replicate gives the bytes of an uninterrupted one.  Over several
+    processes (which all hold the same sums) process 0 keeps the file:
+    it loads it and sends the round count and the float64 sums to every
+    process (ngsdist_tpu/core/distance.py:934-963), and it alone saves."""
+    from ..parallel.multihost import broadcast_object, process_index
+
     acc, skip = {}, 0
     eng = engine_name(device)
+    writer = process_index() == 0
     if round_ckpt:
-        got = ckpt.load_rounds(pars.out, pars, rep, engine=eng, chunk=layout)
+        got = ckpt.load_rounds(pars.out, pars, rep, engine=eng, chunk=layout) if writer else None
+        got = broadcast_object(got)
         if got is not None:
             skip = got[0]
             acc = {k: torch.from_numpy(v).to(device) for k, v in got[1].items()}
@@ -957,27 +972,38 @@ def _round_sums(pars: Params, rep: int, round_ckpt: bool, device, layout, rounds
         for name, t in step(r).items():
             if t is not None:
                 acc[name] = t.double() if name not in acc else acc[name] + t.double()
-        if round_ckpt:
+        if round_ckpt and writer:
             ckpt.save_rounds(pars.out, pars, rep, r + 1,
                              {k: v.cpu().numpy() for k, v in acc.items()}, engine=eng,
                              chunk=layout)
     return acc
 
 
-def _pipe_rounds(pipe: ChunkPipe, ranges):
-    """(rounds, chunk_of) of a ChunkPipe over site ranges, for _round_sums:
-    rounds(skip) walks the pipe over ranges[skip:] and yields each range's
-    index r; chunk_of(r) is its (chunk, lo, hi), valid until the next
-    index is asked for."""
+def _held_rounds(walk):
+    """(rounds, data_of) for _round_sums over walk(skip), an iterator of
+    (r, data) from round skip on: rounds(skip) yields each r; data_of(r)
+    is its data, valid until the next index is asked for."""
     held = {}
 
     def rounds(skip):
-        for k, got in enumerate(pipe.chunks(ranges[skip:])):
+        for r, data in walk(skip):
             held.clear()
-            held[skip + k] = got
-            yield skip + k
+            held[r] = data
+            yield r
 
     return rounds, held.__getitem__
+
+
+def _pipe_rounds(pipe: ChunkPipe, ranges):
+    """_held_rounds of a ChunkPipe over site ranges: data_of(r) is the
+    (chunk, lo, hi) of ranges[r]."""
+    return _held_rounds(lambda skip: enumerate(pipe.chunks(ranges[skip:]), start=skip))
+
+
+def _stream_rounds(stream):
+    """_held_rounds of a parallel.multihost.SiteStream: data_of(r) is round
+    r's pm.Sharded."""
+    return _held_rounds(lambda skip: stream.rounds(range(skip, stream.n_rounds)))
 
 
 def _class_sums(stats, pi) -> dict:
@@ -1098,7 +1124,7 @@ def _mesh_class_stats(pars: Params, P_src, a1, a2, mesh, round_ckpt: bool):
     compact = class_compaction(dev0)
     zero = None
     if not (pars.indep_geno or pars.pairwise_del or pars.in_bin):
-        zero = find_zero_rows(stream.P)
+        zero = stream.zero_rows()
     stats = pm.ShardStats(mesh, N, pars.score, pars.indep_geno, pars.pairwise_del, zero)
     plane_bytes = PI_PLANE_BYTES
     if not stream.resident:
@@ -1129,17 +1155,18 @@ def _mesh_class_stats(pars: Params, P_src, a1, a2, mesh, round_ckpt: bool):
         return (lambda wm, w_ok, rep: over(data, keep, wm, w_ok)), False
 
     keeps = {}  # round -> keep_of its data, kept across replicates
+    rounds, data_of = _stream_rounds(stream)
 
     def step(r, wm, w_ok):
-        data = stream.round_data(r)
+        data = data_of(r)
         if r not in keeps:
             keeps[r] = keep_of(data)
         return _class_sums(*over(data, keeps[r], wm, w_ok))
 
     def all_stats(wm, w_ok, rep):
         return _class_stats_of(_round_sums(
-            pars, rep, round_ckpt, dev0, stream.layout(),
-            lambda skip: range(skip, stream.n_rounds), lambda r: step(r, wm, w_ok)))
+            pars, rep, round_ckpt, dev0, stream.layout(), rounds,
+            lambda r: step(r, wm, w_ok)))
 
     return all_stats, True
 
@@ -1211,7 +1238,7 @@ def _iter_replicates_sharded(pars: Params, P_src, maps: List[np.ndarray], n_trun
     stream = _as_stream(pars, P_src, mesh)
     zero = None
     if not (pars.indep_geno or pars.pairwise_del or pars.in_bin):
-        zero = find_zero_rows(stream.P)
+        zero = stream.zero_rows()
     stats = pm.ShardStats(mesh, N, pars.score, pars.indep_geno, pars.pairwise_del, zero)
     reps = [r for r in range(n_reps) if r + 1 >= start_rep]
 
@@ -1238,14 +1265,15 @@ def _iter_replicates_sharded(pars: Params, P_src, maps: List[np.ndarray], n_trun
             yield from _sharded_stream_partials(pars, stream, stats, mesh, n_trunc, start_rep,
                                                 matrix)
             return
+        rounds, data_of = _stream_rounds(stream)
+
         def stats_rounds(w_full, rep):
             def step(r):
-                data = stream.round_data(r)
+                data = data_of(r)
                 raw, cnt = stats(data, data.cols(w_full))
                 return {"raw": raw, "cnt": cnt}
 
-            acc = _round_sums(pars, rep, round_ckpt, dev0, stream.layout(),
-                              lambda skip: range(skip, stream.n_rounds), step)
+            acc = _round_sums(pars, rep, round_ckpt, dev0, stream.layout(), rounds, step)
             return acc["raw"], acc.get("cnt")
 
         if start_rep == 0:
@@ -1271,8 +1299,13 @@ def _iter_replicates_sharded(pars: Params, P_src, maps: List[np.ndarray], n_trun
     table = bt.block_index_table(pars.seed, n_reps, n_blocks)
     raw_r, cnt_r = pm.bootstrap_replicates(table, stats.blocks(data, bs), n_blocks, mesh)
     # the EM's zero-row poison, per replicate: where it samples a block in
-    # which a member of the pair has an all-zero triple
-    zb = None if zero is None else zero.per_block(n_blocks, bs)
+    # which a member of the pair has an all-zero triple (each process
+    # records its own sites; the flags are ORed over the processes)
+    zb = None
+    if zero is not None:
+        from ..parallel.multihost import union_over_processes
+
+        zb = union_over_processes(zero.per_block(n_blocks, bs))
     mult = bt.block_multiplicity(table, n_blocks)
     for r in reps:
         z = None if zb is None else zb[mult[r] > 0].any(0)
@@ -1295,8 +1328,8 @@ def _sharded_stream_partials(pars: Params, stream, stats, mesh, n_trunc: int, st
     n_blocks = n_trunc // bs
     rb = stream.chunk // bs
     B = pm.concat_block_rounds(
-        [stats.blocks(stream.round_data(r, pad=True), bs, rows=rb)
-         for r in range(stream.n_rounds)], mesh)
+        [stats.blocks(data, bs, rows=rb) for _, data in stream.rounds(range(stream.n_rounds))],
+        mesh)
     row2block = _stream_block_rows(B.n_rows, stream.n_rounds, stream.chunk, stream.s_loc,
                                    pm.sites_size(mesh), bs, n_blocks)
     valid = row2block >= 0

@@ -88,26 +88,57 @@ class ZeroRows:
     one, ascending, and `rows` [n, N] bool the individuals there.  The
     EM poisons every pair of such an individual without pairwise
     deletion (core/distance.py); the record is taken once per run so
-    that no pass of the engine scans the tensor for them."""
+    that no pass of the engine scans the tensor for them.  A run that
+    reads its rows from disk round by round has no tensor to take it
+    from: it starts empty and `add` records each round's rows as they
+    are read, before the engine asks about them."""
 
     def __init__(self, sites: np.ndarray, rows: np.ndarray) -> None:
-        self.sites, self.rows = sites, rows
+        # one tuple, replaced whole: a reader thread may add while the
+        # engine reads
+        self._rec = (sites, rows)
+
+    @classmethod
+    def empty(cls, n_ind: int) -> "ZeroRows":
+        return cls(np.zeros(0, np.int64), np.zeros((0, n_ind), bool))
+
+    @property
+    def sites(self) -> np.ndarray:
+        return self._rec[0]
+
+    @property
+    def rows(self) -> np.ndarray:
+        return self._rec[1]
+
+    def add(self, lo: int, P: np.ndarray) -> None:
+        """Record the all-zero triples of P [n, N, 3], the sites [lo,
+        lo + n); sites recorded before are kept once."""
+        got = find_zero_rows(P)
+        if got is None:
+            return
+        sites, rows = self._rec
+        sites = np.concatenate([sites, got.sites + lo])
+        rows = np.concatenate([rows, got.rows])
+        sites, first = np.unique(sites, return_index=True)
+        self._rec = (sites, rows[first])
 
     def individuals(self, lo: int, hi: int, weights=None) -> np.ndarray:
         """[N] bool: individuals with an all-zero triple among the sites
         [lo, hi) — with weights [hi - lo], among those of weight > 0."""
-        a, b = np.searchsorted(self.sites, (lo, hi))
-        rows = self.rows[a:b]
+        sites, rows = self._rec
+        a, b = np.searchsorted(sites, (lo, hi))
+        rows = rows[a:b]
         if weights is not None:
-            rows = rows[np.asarray(weights)[self.sites[a:b] - lo] > 0]
+            rows = rows[np.asarray(weights)[sites[a:b] - lo] > 0]
         return rows.any(0)
 
     def per_block(self, n_blocks: int, block_size: int) -> np.ndarray:
         """[n_blocks, N] bool: individuals with an all-zero triple in
         each bootstrap block of the first n_blocks · block_size sites."""
-        out = np.zeros((n_blocks, self.rows.shape[1]), dtype=bool)
-        k = np.searchsorted(self.sites, n_blocks * block_size)
-        np.logical_or.at(out, self.sites[:k] // block_size, self.rows[:k])
+        sites, rows = self._rec
+        out = np.zeros((n_blocks, rows.shape[1]), dtype=bool)
+        k = np.searchsorted(sites, n_blocks * block_size)
+        np.logical_or.at(out, sites[:k] // block_size, rows[:k])
         return out
 
 

@@ -504,6 +504,16 @@ static int nd_normalize_rows(double *out, int64_t n_triples, int in_logscale,
   return nan_flag;
 }
 
+/* The binary reader's normalization (nd_normalize_rows) of n_triples
+ * triples read by other means, a site range of a binary file: each
+ * triple takes the calls of the full read, so a range holds its bits.
+ * Returns nonzero if a NaN was produced; err_out the libm errno. */
+ND_EXPORT int nd_normalize_triples(double *out, int64_t n_triples,
+                                   int in_logscale, int *err_out) {
+  *err_out = 0;
+  return nd_normalize_rows(out, n_triples, in_logscale, err_out);
+}
+
 /* err_out receives the libm errno observed while parsing (the
  * reference's error() helper ends in perror, so its fatal reader
  * messages carry strerror(errno) — ERANGE whenever an earlier triple's
@@ -942,6 +952,22 @@ ND_EXPORT int nd_read_geno(const char *path, int in_bin, int in_probs,
   return nd_read_geno_impl(path, in_bin, in_probs, in_logscale, n_ind,
                            n_sites, 0, n_sites, out, NULL, errbuf, errbuf_cap,
                            err_out);
+}
+
+/* Parse sites [site_start, site_stop) of a TEXT genome (plain, gz or
+ * stdin) into out[(site_stop - site_start)][n_ind][ND_NGENO]: the rows
+ * of the eager read, bit for bit (shared impl above), so that the ranges
+ * of several processes hold the sites of one full read.  The EOF checks
+ * apply when the range runs to n_sites. */
+ND_EXPORT int nd_read_text_range(const char *path, int in_probs,
+                                 int in_logscale, int64_t n_ind,
+                                 int64_t n_sites, int64_t site_start,
+                                 int64_t site_stop, double *out,
+                                 char *errbuf, int64_t errbuf_cap,
+                                 int *err_out) {
+  return nd_read_geno_impl(path, 0 /* text */, in_probs, in_logscale, n_ind,
+                           n_sites, site_start, site_stop, out, NULL, errbuf,
+                           errbuf_cap, err_out);
 }
 
 /* Stream-parse a TEXT genome once, writing the log-normalized rows of

@@ -89,13 +89,12 @@ def read_geno(
     site_range=(start, stop): read only that site interval (multi-host
     shard reading — each host loads its own range; binary inputs seek
     directly, text inputs stream past the skipped lines).  The strict
-    EOF check only applies to a full read.
+    EOF check only applies to a read that runs to the last site.  With
+    the native reader a range holds the bits of the full read's rows
+    (text: nd_read_text_range; binary: the bytes read here, normalized
+    by nd_normalize_triples), so that the output of a run does not
+    depend on how its sites are split between processes.
     """
-    if site_range is not None:
-        return _read_geno_py(
-            path, in_bin, in_probs, in_logscale, n_ind, n_sites,
-            site_range=site_range,
-        )
     if native and path == "-":
         # Stdin pipelines take the same threaded native parse as files
         # (nd_read_geno gzdopen's fd 0, mirroring the reference's
@@ -106,21 +105,34 @@ def read_geno(
             native = sys.stdin.buffer.fileno() == 0 and not sys.stdin.closed
         except (AttributeError, OSError, ValueError):
             native = False
+    if site_range is not None and (in_bin or not native):
+        return _read_geno_py(
+            path, in_bin, in_probs, in_logscale, n_ind, n_sites,
+            site_range=site_range, native=native,
+        )
     if native:
         import ctypes
 
         lib = _native.get_lib()
-        out = np.empty((n_sites, n_ind, N_GENO), dtype=np.float64)
+        start, stop = site_range if site_range is not None else (0, n_sites)
+        out = np.empty((stop - start, n_ind, N_GENO), dtype=np.float64)
         errbuf = ctypes.create_string_buffer(256)
         # the reference's fatal reader errors carry strerror(errno) from
         # the perror suffix; the native reader aggregates the libm errno
         # (ERANGE underflow from one-hot/missing triples) its parse saw
         err = ctypes.c_int(0)
-        rc = lib.nd_read_geno(
-            path.encode(), int(in_bin), int(in_probs), int(in_logscale),
-            n_ind, n_sites, _native.as_double_ptr(out), errbuf, len(errbuf),
-            ctypes.byref(err),
-        )
+        if site_range is None:
+            rc = lib.nd_read_geno(
+                path.encode(), int(in_bin), int(in_probs), int(in_logscale),
+                n_ind, n_sites, _native.as_double_ptr(out), errbuf, len(errbuf),
+                ctypes.byref(err),
+            )
+        else:
+            rc = lib.nd_read_text_range(
+                path.encode(), int(in_probs), int(in_logscale), n_ind, n_sites,
+                start, stop, _native.as_double_ptr(out), errbuf, len(errbuf),
+                ctypes.byref(err),
+            )
         if rc != 0:
             raise NgsDistError("read_geno", errbuf.value.decode(),
                                err=err.value)
@@ -312,11 +324,28 @@ def _iter_text_sites(fh, in_probs: bool, in_logscale: bool, n_ind: int,
         s += 1
 
 
+def _normalize_native(rows: np.ndarray, in_logscale: bool) -> np.ndarray:
+    """The native binary reader's log and per-triple normalization of
+    rows [n, 3] in place; raises on a NaN, as that reader does."""
+    import ctypes
+
+    err = ctypes.c_int(0)
+    if _native.get_lib().nd_normalize_triples(
+            _native.as_double_ptr(rows), rows.shape[0], int(in_logscale),
+            ctypes.byref(err)):
+        raise NgsDistError("read_geno", "NaN found! Is the file format correct?",
+                           err=err.value)
+    return rows
+
+
 def _read_geno_py(
     path: str, in_bin: bool, in_probs: bool, in_logscale: bool,
     n_ind: int, n_sites: int,
     site_range: Optional[Tuple[int, int]] = None,
+    native: bool = False,
 ) -> np.ndarray:
+    """The Python reader; native: binary rows are normalized by the
+    native reader's calls (_normalize_native), not numpy's."""
     n_geno = N_GENO if in_probs else 1
     start, stop = site_range if site_range is not None else (0, n_sites)
     geno = np.full((stop - start, n_ind, N_GENO), -BIGNEG, dtype=np.float64)
@@ -349,11 +378,14 @@ def _read_geno_py(
             rows = np.frombuffer(
                 buf[: len(buf) - len(buf) % tb], dtype=np.float64
             ).reshape(-1, N_GENO).copy()
-            if not in_logscale:
+            if native:
+                rows = _normalize_native(rows, in_logscale)
+            elif not in_logscale:
                 with np.errstate(divide="ignore", invalid="ignore"):
                     rows = np.log(rows)
                 rows[np.isneginf(rows)] = -BIGNEG
-            rows = _postprob_py(rows)
+            if not native:
+                rows = _postprob_py(rows)
             # the reference normalizes + NaN-checks each triple as it
             # reads, so a NaN among the completed triples outranks a
             # later premature EOF (read_data.cpp:29-47)
@@ -382,6 +414,71 @@ def _read_geno_py(
         if fh is not sys.stdin.buffer:
             fh.close()
     return geno
+
+
+def spill_text_geno(
+    path: str, in_probs: bool, in_logscale: bool, n_ind: int, n_sites: int,
+    cache_path: str, site_range: Optional[Tuple[int, int]] = None,
+    native: bool = True,
+) -> None:
+    """Stream-parse a TEXT genome (plain/gz/stdin) ONCE, writing the
+    log-normalized rows of `site_range` (default: all sites) to
+    cache_path as raw f64 [rows, n_ind, 3] — the lazy disk-round cache
+    for inputs larger than host RAM.  The cache rows are bit-identical
+    to what the eager reader would have produced (shared parse), so
+    per-round cache reads must NOT re-normalize.  The reference has no
+    counterpart: its only storage is the full in-RAM tensor
+    (read_data.cpp:21)."""
+    start, stop = site_range if site_range is not None else (0, n_sites)
+    if native:
+        import ctypes
+
+        lib = _native.get_lib()
+        errbuf = ctypes.create_string_buffer(256)
+        err = ctypes.c_int(0)
+        rc = lib.nd_spill_text_geno(
+            path.encode(), int(in_probs), int(in_logscale), n_ind, n_sites,
+            start, stop, cache_path.encode(), errbuf, len(errbuf),
+            ctypes.byref(err),
+        )
+        if rc != 0:
+            raise NgsDistError("read_geno", errbuf.value.decode(),
+                               err=err.value)
+        return
+    miss = np.full((n_ind, N_GENO), -BIGNEG, dtype=np.float64)
+    fh = _open_text(path, "read_geno")
+    try:
+        with open(cache_path, "wb") as out:
+            for _, row in _iter_text_sites(fh, in_probs, in_logscale,
+                                           n_ind, start, stop):
+                (miss if row is None else row).tofile(out)
+        # Strict EOF check parity with the eager reader
+        # (read_data.cpp:106-109); applies only to a to-the-end spill.
+        if stop == n_sites and fh.read(1):
+            raise NgsDistError(
+                "read_geno",
+                "GENO file not at EOF. Check GENO file and number of sites!",
+            )
+    finally:
+        if fh is not sys.stdin.buffer:
+            fh.close()
+
+
+def read_spill_rows(cache_path: str, n_ind: int, lo: int, hi: int,
+                    base: int = 0) -> np.ndarray:
+    """Rows [lo, hi) (absolute site indices; the cache holds sites from
+    `base`) of a spill cache written by spill_text_geno — already
+    log-normalized, NO re-normalization (renormalizing would shift the
+    values by the float residue of logsumexp(normalized) != 0 and break
+    byte parity with the eager path)."""
+    row_bytes = n_ind * N_GENO * 8
+    with open(cache_path, "rb") as fh:
+        fh.seek((lo - base) * row_bytes)
+        buf = fh.read((hi - lo) * row_bytes)
+    if len(buf) != (hi - lo) * row_bytes:
+        raise NgsDistError("read_geno", "spill cache truncated!")
+    return np.frombuffer(buf, dtype=np.float64).reshape(hi - lo, n_ind,
+                                                        N_GENO).copy()
 
 
 def read_file_lines(path: str, offset: int = 0) -> List[str]:

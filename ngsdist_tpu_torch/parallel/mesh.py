@@ -30,6 +30,15 @@ than shards needs no other form.
 Block partials (the partial-sum bootstrap) stay on their shards'
 devices (`BlockShards`); a replicate is M[r] @ B per shard in float64,
 then the fixed-order sum (`resum_blocks`).
+
+Several processes (parallel/multihost.py `bring_up`, `run_distributed`)
+each drive a mesh of their own entries, on a 1-D sites axis: the global
+axis is every process's entries in rank order, and process i holds the
+sites shards [i·n, (i+1)·n).  The fixed-order sum then gathers each
+process's shard results to every process (a gloo all-gather of host
+tensors) and adds all of them in the global order, so that P processes
+of n entries write the bytes of one process with a mesh of P·n entries,
+and every process holds the same sums.
 """
 
 from __future__ import annotations
@@ -67,7 +76,17 @@ class Mesh:
         if len({d.type for d in self.devices}) > 1:
             raise ValueError("a mesh holds devices of one type: no shard of a card's "
                              "mesh goes to the CPU")
-        self.shape = {AXIS: n // pairs, PAIRS: pairs}
+        from .multihost import process_count, process_index
+
+        self.rank, self.world = process_index(), process_count()
+        if self.world > 1 and pairs > 1:
+            raise ValueError("multi-process runs support 1-D 'sites' meshes only (a pairs "
+                             "axis would need per-host replica groups)")
+        # this process's sites shards, and the first one's place on the
+        # global axis
+        self.local_sites = n // pairs
+        self.shard0 = self.rank * self.local_sites
+        self.shape = {AXIS: self.local_sites * self.world, PAIRS: pairs}
         self.first = self.devices[0]
         self._streams = None
 
@@ -170,46 +189,48 @@ def shard_ranges(S: int, s_loc: int, n_dev: int, offset: int = 0, width: Optiona
 
 
 class Sharded:
-    """A site-sharded [S, N, 3] tensor: entry k of the mesh holds, on its
-    device, the data sites ranges[k // pairs] (None where the range is
-    empty)."""
+    """A site-sharded [S, N, 3] tensor: ranges, the data sites of every
+    sites shard of the global axis; entry k of this process's mesh holds,
+    on its device, those of its shard mesh.shard0 + k // pairs (None where
+    the range is empty).  N: the individuals (default: a part's)."""
 
-    def __init__(self, mesh: Mesh, ranges, parts) -> None:
+    def __init__(self, mesh: Mesh, ranges, parts, N: Optional[int] = None) -> None:
         self.mesh, self.ranges, self.parts = mesh, ranges, parts
+        self.N = N if N is not None else next(t.shape[1] for t in parts if t is not None)
+
+    @property
+    def local_ranges(self):
+        """The ranges of this process's sites shards."""
+        return self.ranges[self.mesh.shard0:self.mesh.shard0 + self.mesh.local_sites]
 
     def cols(self, vec: Optional[np.ndarray]):
-        """A host site vector (or [S, K] array) of the data cut into the
-        shards' slices, the form the kernels' wrappers take; None stays
-        None."""
-        return None if vec is None else [vec[lo:hi] for lo, hi in self.ranges]
+        """A host site vector (or [S, K] array) of the data cut into this
+        process's shards' slices, the form the kernels' wrappers take;
+        None stays None."""
+        return None if vec is None else [vec[lo:hi] for lo, hi in self.local_ranges]
 
 
-def shard_sites(P_host, mesh: Mesh, ranges, rows: Optional[int] = None) -> Sharded:
-    """Upload each shard's site slice of a host [S, N, 3] array to the
-    first device of its row of the grid (core/distance.py upload_resident,
-    on the entry's stream), and copy it from there to the row's other
-    devices, so the host reads and casts each slice once.  rows: pad each
-    part with all-zero triples to this many sites (a streamed round of
-    fixed shape)."""
+def shard_sites(P_host, mesh: Mesh, ranges, base: int = 0) -> Sharded:
+    """Upload each of this process's shards' site slice of a host array to
+    the first device of its row of the grid (core/distance.py
+    upload_resident, on the entry's stream), and copy it from there to the
+    row's other devices, so the host reads and casts each slice once.
+    ranges: every sites shard's data sites; P_host holds the sites from
+    `base` on."""
     p = pairs_size(mesh)
     parts = []
     for k, dev in enumerate(mesh.devices):
         s, q = divmod(k, p)
-        lo, hi = ranges[s]
+        lo, hi = ranges[mesh.shard0 + s]
         part = None
         if q:
             if parts[k - q] is not None:
                 part = mesh.copy(k - q, parts[k - q], k)
-        else:
+        elif hi > lo:
             with mesh.on(k):
-                if hi > lo:
-                    part = dist.upload_resident(P_host[lo:hi], dev)
-                if rows is not None and (part is None or part.shape[0] < rows):
-                    pad = torch.zeros((rows - (hi - lo), P_host.shape[1], 3),
-                                      dtype=dist.default_dtype(dev), device=dev)
-                    part = pad if part is None else torch.cat([part, pad])
+                part = dist.upload_resident(P_host[lo - base:hi - base], dev)
         parts.append(part)
-    return Sharded(mesh, ranges, parts)
+    return Sharded(mesh, ranges, parts, P_host.shape[1])
 
 
 def put_probs_sharded(P_host, s_pad: int, mesh: Mesh) -> Sharded:
@@ -272,9 +293,14 @@ def pair_block_tables(N: int, p: int):
 # ------------------------------------------------------------------ #
 
 
-def fixed_order_sum(mesh: Mesh, parts) -> Optional[torch.Tensor]:
+def fixed_order_sum(mesh: Mesh, parts, shape=None) -> Optional[torch.Tensor]:
     """sum of (k, tensor) parts in their order, in float64 on the first
-    device; None without parts."""
+    device; None without parts.  Over several processes every process
+    calls it, with the parts' shape (its own parts may be none), and gets
+    the sum of all processes' parts in the global order
+    (_gathered_sum)."""
+    if mesh.world > 1:
+        return _gathered_sum(mesh, parts, shape)
     acc = None
     for k, t in parts:
         t = mesh.gather(k, t).double()
@@ -282,13 +308,52 @@ def fixed_order_sum(mesh: Mesh, parts) -> Optional[torch.Tensor]:
     return acc
 
 
+def _gathered_sum(mesh: Mesh, parts, shape) -> Optional[torch.Tensor]:
+    """fixed_order_sum over processes: each part is copied, after the work
+    queued on its entry's stream, into a pinned host row (float64, as the
+    one-process sum adds them; a flag marks the rows that hold a part),
+    the rows are all-gathered over gloo, and the rows that hold a part are
+    added in the order of the global sites axis.  A float64 sum is the
+    same on the host as on a card, so the result is the one-process
+    mesh's, bit for bit."""
+    import torch.distributed as tdist
+
+    m = int(np.prod(shape))
+    n = len(mesh.devices)
+    cuda = mesh.first.type == "cuda"
+    rows = torch.zeros((n, m + 1), dtype=torch.float64, pin_memory=cuda)
+    done = []
+    for k, t in parts:
+        if t.device.type == "cuda":
+            with torch.cuda.stream(mesh._stream(k)):
+                rows[k, :m].copy_(t.reshape(-1).double(), non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record()
+                done.append(ev)
+        else:
+            rows[k, :m] = t.reshape(-1)
+        rows[k, m] = 1.0
+    for ev in done:
+        ev.synchronize()
+    with profiling.host_span("gather"):
+        got = [torch.empty_like(rows, pin_memory=False) for _ in range(mesh.world)]
+        tdist.all_gather(got, rows)
+        acc = None
+        for row in torch.cat(got):
+            if row[m] == 1.0:
+                acc = row[:m].clone() if acc is None else acc + row[:m]
+    return None if acc is None else acc.reshape(shape).to(mesh.first)
+
+
 class BlockShards:
     """Block partials kept on their shards' devices: parts [(k, B, C or
     None, row0)] with B, C [rows, n_pairs] float64, rows row0.. of the
-    global row order (the sites shards' rows one after another)."""
+    global row order (the sites shards' rows one after another); counts,
+    the rows of every sites shard of the global axis."""
 
-    def __init__(self, parts, n_rows: int) -> None:
-        self.parts, self.n_rows = parts, n_rows
+    def __init__(self, parts, counts, n_pairs: int) -> None:
+        self.parts, self.counts, self.n_pairs = parts, list(counts), n_pairs
+        self.n_rows = sum(self.counts)
 
 
 class ShardStats:
@@ -363,7 +428,7 @@ class ShardStats:
         cnts = [[] for _ in range(slices)]
         for k, Pk in enumerate(data.parts):
             s, q = divmod(k, p)
-            lo, hi = data.ranges[s]
+            lo, hi = data.local_ranges[s]
             if hi <= lo:
                 continue
             w = None if weights is None else np.ascontiguousarray(weights[s])
@@ -382,7 +447,7 @@ class ShardStats:
         per = -(-self.n_pairs // len(parts))
         out = []
         for got in parts:
-            v = fixed_order_sum(self.mesh, got)
+            v = fixed_order_sum(self.mesh, got, (per,))
             out.append(torch.zeros(per, dtype=torch.float64, device=self.mesh.first)
                        if v is None else v)
         return torch.cat(out)[:self.n_pairs] if len(out) > 1 else out[0]
@@ -397,10 +462,14 @@ class ShardStats:
             raise ValueError("block partials are 1-D-mesh only; 2-D (pairs) meshes take "
                              "the weighted-recompute bootstrap path")
         fn = indep_block_partials if self.indep else em_block_partials
-        parts, row0 = [], 0
+        counts = [rows if rows is not None else -(-(hi - lo) // block_size)
+                  for lo, hi in data.ranges]
+        row0s = np.cumsum([0] + counts)
+        parts = []
         for k, Pk in enumerate(data.parts):
-            lo, hi = data.ranges[k]
-            n = rows if rows is not None else -(-(hi - lo) // block_size)
+            s = self.mesh.shard0 + k
+            lo, hi = data.ranges[s]
+            n = counts[s]
             if n == 0:
                 continue
             with self.mesh.on(k):
@@ -417,9 +486,8 @@ class ShardStats:
                     B = torch.zeros((n, self.N * (self.N - 1) // 2), dtype=torch.float64,
                                     device=dev)
                     C = torch.zeros_like(B) if self.pairwise_del else None
-            parts.append((k, B, C, row0))
-            row0 += n
-        return BlockShards(parts, row0)
+            parts.append((k, B, C, int(row0s[s])))
+        return BlockShards(parts, counts, self.n_pairs)
 
 
 def resum_blocks(M, B: BlockShards, mesh: Mesh, which: int = 0) -> torch.Tensor:
@@ -436,7 +504,7 @@ def resum_blocks(M, B: BlockShards, mesh: Mesh, which: int = 0) -> torch.Tensor:
             r = Mk @ X
             r = torch.where(torch.isnan(X).any(0), torch.full_like(r, float("nan")), r)
         out.append((k, r))
-    return fixed_order_sum(mesh, out)
+    return fixed_order_sum(mesh, out, (M.shape[0], B.n_pairs))
 
 
 def concat_block_rounds(parts: List[BlockShards], mesh: Mesh) -> BlockShards:
@@ -454,15 +522,16 @@ def concat_block_rounds(parts: List[BlockShards], mesh: Mesh) -> BlockShards:
             got[0].append(B)
             if C is not None:
                 got[1].append(C)
-    out, row0 = [], 0
+    counts = np.sum([bs.counts for bs in parts], axis=0).tolist()
+    row0s = np.cumsum([0] + counts)
+    out = []
     for k in sorted(by_k):
         Bs, Cs = by_k[k]
         with mesh.on(k):
             B = torch.cat(Bs)
             C = torch.cat(Cs) if Cs else None
-        out.append((k, B, C, row0))
-        row0 += B.shape[0]
-    return BlockShards(out, row0)
+        out.append((k, B, C, int(row0s[mesh.shard0 + k])))
+    return BlockShards(out, counts, parts[0].n_pairs)
 
 
 def bootstrap_replicates(table: np.ndarray, B: BlockShards, n_blocks: int, mesh: Mesh):
@@ -501,8 +570,7 @@ def sharded_suffstats(P_host, score, mesh: Mesh, *, indep: bool, pairwise_del: b
         granule = block_size if want_blocks else 1
         data = put_probs_sharded(P_host, _plan_padding(P_host.shape[0], sites_size(mesh),
                                                        granule), mesh)
-    N = next(t.shape[1] for t in data.parts if t is not None)
-    stats = ShardStats(mesh, N, score, indep, pairwise_del, zero)
+    stats = ShardStats(mesh, data.N, score, indep, pairwise_del, zero)
     B = None
     if want_blocks:
         B = stats.blocks(data, block_size)
@@ -529,12 +597,12 @@ def pair_pi_counts(data: Sharded, a1: np.ndarray, a2: np.ndarray, w_ok, mesh: Me
     order and the row slices joined.  a1, a2: the data's [S] allele
     codes; w_ok: per sites shard, the classifiable sites' weights."""
     p = pairs_size(mesh)
-    N = next(t.shape[1] for t in data.parts if t is not None)
+    N = data.N
     rows = -(-N // p)
     parts = [[] for _ in range(p)]
     for k, Pk in enumerate(data.parts):
         s, q = divmod(k, p)
-        lo, hi = data.ranges[s]
+        lo, hi = data.local_ranges[s]
         if hi <= lo:
             continue
         r = slice(q * rows, min((q + 1) * rows, N))
@@ -549,7 +617,7 @@ def pair_pi_counts(data: Sharded, a1: np.ndarray, a2: np.ndarray, w_ok, mesh: Me
                 c = c[:, r]
         parts[q].append((k, c))
     shape = lambda q: ((4, min(rows, N - q * rows)) + ((N,) if pairwise_del else ()))  # noqa: E731
-    got = [fixed_order_sum(mesh, parts[q]) for q in range(p)]
+    got = [fixed_order_sum(mesh, parts[q], shape(q)) for q in range(p)]
     got = [torch.zeros(shape(q), dtype=torch.float64, device=mesh.first) if g is None else g
            for q, g in enumerate(got)]
     return torch.cat(got, dim=1)

@@ -1,35 +1,142 @@
-"""Site rounds of a mesh run, in one process.
+"""Site rounds of a mesh run, over one process or several, from host memory
+or from disk.
 
-Port of the single-process part of ngsdist_tpu/parallel/multihost.py
-`SiteStream`.  The host array stays where the reader left it; the
-planner (`_plan`, the JAX rule) decides the shard length s_loc and
-whether a shard fits its device's budget.  Resident, `global_array`
-uploads each shard once; streamed, round r uploads the sites [r·chunk,
-(r+1)·chunk) of every shard (`round_data`), so a round's statistics add
-like the resident array's and the engine sums them over the rounds.  A
-host site vector goes to the kernels cut per shard (`Sharded.cols` of
-the round's data takes the place of the JAX `round_cols`).
+Port of ngsdist_tpu/parallel/multihost.py.  `SiteStream` plans a run's
+sites over the global sites axis of a mesh (parallel/mesh.py: every
+process's entries in rank order): shards of s_loc sites, resident when a
+shard fits its device's budget, else streamed in rounds of chunk sites
+per shard, so that a round's statistics add like the resident array's
+and the engine sums them over the rounds.  A process holds the sites of
+its own shards only (`host_site_range`):
 
-Left for the multi-process port (ROADMAP M9): the lazy rounds read from
-disk (`from_reader`), the spill readers, the coded (uint8) rounds, and
-`bring_up` / `run_distributed`.
+- from host memory: the array the runner read (`from_array`), or the
+  process's own range read eagerly (`from_reader`);
+- from disk (`from_reader` over the host budget, `wants_lazy`): no host
+  array at all; each round reads its rows of every local shard from the
+  file (a seekable raw binary file) or from a spill cache written once
+  (`_build_spill`: gz, text and stdin inputs), through `DiskRows`, so
+  neither host nor device memory bounds the genome's length.
+
+Streamed rounds go through core/distance.py's ChunkPipe, one per local
+shard, whose reader thread prepares a shard's next round (a cast of the
+host array, or a read from disk) while the current one computes.
+
+Several processes: `bring_up` joins a torch.distributed gloo group, and
+`run_distributed` runs the whole pipeline on each process; the shards'
+sums meet in parallel/mesh.py's gathered fixed-order sum, and process 0
+writes the output.  Everything that decides the plan (the device budget,
+the lazy gate and the lazy chunk) is agreed across processes, so that
+they cut the same rounds and call the same collectives in the same order.
+
+Left for ROADMAP M6: the coded (uint8) rounds of hard genotypes and
+--call_geno (ngsdist_tpu/parallel/multihost.py:358-398, :609-637).
 """
 
 from __future__ import annotations
 
+import os
+import sys
+import weakref
+from typing import Optional
+
 import numpy as np
 import torch
 
-from ..config import Params
+from ..config import NgsDistError, Params
+from ..core import bootstrap as bt
 from ..core import distance as dist
+from ..core import models
+from ..core.preprocess import ZeroRows, find_zero_rows, preprocess
+from ..core.submodels import encode_alleles
+from ..io import readers, writers
+from ..utils import checkpoint as ckpt
+from ..utils import native, signals
 from . import mesh as pm
 
 
+# ------------------------------------------------------------------ #
+# Processes                                                           #
+# ------------------------------------------------------------------ #
+
+
+def bring_up(coordinator_address: Optional[str] = None,
+             num_processes: Optional[int] = None,
+             process_id: Optional[int] = None) -> bool:
+    """Join the run's process group: gloo over TCP at the coordinator's
+    HOST:PORT (process 0 listens there).  Nothing without a coordinator.
+    Returns whether it joined, so that the caller leaves the group it
+    joined."""
+    if coordinator_address is None:
+        return False
+    if num_processes is None or process_id is None:
+        raise NgsDistError("main", "--coordinator needs --num_processes and --process_id")
+    if not 0 <= process_id < num_processes:
+        raise NgsDistError("main", f"--process_id {process_id} is not in [0, "
+                           f"{num_processes})")
+    import torch.distributed as tdist
+
+    tdist.init_process_group("gloo", init_method=f"tcp://{coordinator_address}",
+                             world_size=num_processes, rank=process_id)
+    return True
+
+
+def process_index() -> int:
+    """This process's rank (0 outside a process group)."""
+    import torch.distributed as tdist
+
+    return tdist.get_rank() if tdist.is_available() and tdist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The processes of the run (1 outside a process group)."""
+    import torch.distributed as tdist
+
+    return tdist.get_world_size() if tdist.is_available() and tdist.is_initialized() else 1
+
+
+def agreed(value: int, op: str) -> int:
+    """An integer agreed across processes, their "min" or "max" (one
+    all-reduce over gloo); the value itself in one process."""
+    if process_count() == 1:
+        return int(value)
+    import torch.distributed as tdist
+
+    t = torch.tensor([int(value)], dtype=torch.int64)
+    tdist.all_reduce(t, op=tdist.ReduceOp.MIN if op == "min" else tdist.ReduceOp.MAX)
+    return int(t)
+
+
+def union_over_processes(flags: np.ndarray) -> np.ndarray:
+    """A bool array ORed across processes: each process holds the flags of
+    its own sites (one all-reduce; the EM's zero-row flags per bootstrap
+    block, where the JAX engine fetches a global array,
+    ngsdist_tpu/core/distance.py:1214)."""
+    if process_count() == 1:
+        return flags
+    import torch.distributed as tdist
+
+    t = torch.from_numpy(np.ascontiguousarray(flags, np.uint8))
+    tdist.all_reduce(t, op=tdist.ReduceOp.MAX)
+    return t.numpy().astype(bool)
+
+
+def broadcast_object(obj):
+    """Process 0's picklable value on every process (gloo).  Float64 arrays
+    arrive bit for bit."""
+    if process_count() == 1:
+        return obj
+    import torch.distributed as tdist
+
+    box = [obj]
+    tdist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def host_site_range(n_sites_pad: int, mesh) -> tuple:
-    """This process's contiguous site range: the whole padded range (one
-    process drives every device of the mesh; several processes are
-    ROADMAP M9)."""
-    return 0, n_sites_pad
+    """This process's contiguous site range: the sites shards of its own
+    entries on the global axis (all of them in one process)."""
+    s_loc = n_sites_pad // pm.sites_size(mesh)
+    return mesh.shard0 * s_loc, (mesh.shard0 + mesh.local_sites) * s_loc
 
 
 def device_budget_bytes(mesh) -> int:
@@ -39,7 +146,8 @@ def device_budget_bytes(mesh) -> int:
     A card left to itself: the smallest free memory over the mesh's
     distinct cards divided by the shards on that card, less the unplanned
     sixteenth, and half of that (the other half for the kernels' working
-    set and the next round's upload)."""
+    set and the next round's upload); over several processes the smallest
+    of theirs, so that all plan the same shards."""
     env = dist._env_budget()
     if mesh.first.type != "cuda" or env is not None:
         return max(1, (dist._DEFAULT_BUDGET if env is None else env)
@@ -49,22 +157,127 @@ def device_budget_bytes(mesh) -> int:
         free, _ = torch.cuda.mem_get_info(dev)
         free -= free // dist._CUDA_RESERVE_DEN
         per.append(free // mesh.devices.count(dev))
-    return max(1, min(per) // dist._CUDA_STREAM_FACTOR)
+    return agreed(max(1, min(per) // dist._CUDA_STREAM_FACTOR), "min")
+
+
+# ------------------------------------------------------------------ #
+# Rows from disk                                                      #
+# ------------------------------------------------------------------ #
+
+
+class DiskRows:
+    """A lazy stream's sites, read from disk as the engine asks for them,
+    with the read protocol of readers.PackedBinInput (`shape`,
+    `read_packed`, `width`), so that the engine's ChunkPipe reads a
+    shard's next round on its reader thread.  A raw binary source on a
+    card without --call_geno goes through the fused native reader
+    (readers.read_geno_pack23): packed float32 [n, N, 2] slabs (`width`
+    2; p2 = 1 - p0 - p1 is restored on the card), the values of the
+    one-device run's fused read.  Every other read is the staged one
+    (rows, preprocess, the cast to the device's dtype): [n, N, 3] slabs,
+    the values of the eager read of the same input.  The sources: the
+    input itself (seekable binary), a verbatim copy of this process's rows
+    of a gz or stdin binary input, or the text spill's normalized rows.
+    zero: the run's record of all-zero triples, filled as rows are read
+    (text spills only: no binary row is all zero)."""
+
+    def __init__(self, pars: Params, dtype: torch.dtype, stop: int,
+                 spill_path: Optional[str] = None, spill_norm: bool = False,
+                 spill_base: int = 0) -> None:
+        self.pars = pars
+        self.N, self.S = pars.n_ind, pars.n_sites
+        self.shape = (self.S, self.N, 3)
+        self.stop = stop
+        self.spill_path, self.spill_norm, self.spill_base = spill_path, spill_norm, spill_base
+        self.zero = ZeroRows.empty(self.N) if spill_norm else None
+        self.fused = (dtype == torch.float32 and not pars.call_geno and not spill_norm
+                      and native.have_native()
+                      and readers.is_raw_seekable_binary(spill_path or pars.in_geno))
+        self.width = 2 if self.fused else 3
+
+    def _binary_source(self):
+        """(path, sites in it, first site) of a binary source."""
+        if self.spill_path is None:
+            return self.pars.in_geno, self.S, 0
+        return self.spill_path, min(self.stop, self.S) - self.spill_base, self.spill_base
+
+    def _read_rows(self, lo: int, hi: int) -> np.ndarray:
+        """Log-space rows [lo, hi): from the original seekable binary,
+        the verbatim binary cache (both normalize per read), or the text
+        spill cache (already normalized: normalizing again would change
+        the bits)."""
+        p = self.pars
+        if self.spill_norm:
+            return readers.read_spill_rows(self.spill_path, self.N, lo, hi,
+                                           base=self.spill_base)
+        path, rows, base = self._binary_source()
+        return readers.read_geno(path, True, p.in_probs, p.in_logscale, self.N, rows,
+                                 site_range=(lo - base, hi - base))
+
+    def read_packed(self, lo: int, hi: int, out: Optional[np.ndarray] = None) -> np.ndarray:
+        """The upload-ready slab of sites [lo, hi), written into `out`
+        (pinned memory) when given."""
+        if self.fused:
+            path, rows, base = self._binary_source()
+            got = readers.read_geno_pack23(path, self.pars.in_logscale, self.N, rows,
+                                           site_range=(lo - base, hi - base), out=out)
+            if got is None:  # not raw binary after all (TOCTOU): hard error
+                raise NgsDistError("read_geno", "cannot read binary GENO file. Check GENO "
+                                   "file and number of sites!")
+            return got
+        p = self.pars
+        pre = preprocess(self._read_rows(lo, hi), p.call_geno, p.N_thresh, p.call_thresh)
+        if self.zero is not None:
+            self.zero.add(lo, pre)
+        if out is None:
+            return pre
+        np.copyto(out, pre, casting="same_kind")
+        return out
+
+
+# ------------------------------------------------------------------ #
+# The stream                                                          #
+# ------------------------------------------------------------------ #
 
 
 class SiteStream:
-    """A host [S, N, 3] array planned over a mesh: shards of s_loc sites
-    (the last ones short or empty past the data), resident when
-    chunk >= s_loc, else streamed in rounds of chunk sites per shard."""
+    """A run's sites planned over a mesh: shards of s_loc sites (the last
+    ones short or empty past the data), resident when chunk >= s_loc (a
+    host source only), else streamed in rounds of chunk sites per shard.
+    src: a host [n, N, 3] array of the sites from `base` on (this
+    process's own, or all of them), or a DiskRows (lazy)."""
 
-    def __init__(self, P_host, pars: Params, mesh, s_loc: int, chunk: int) -> None:
-        self.P, self.pars, self.mesh = P_host, pars, mesh
+    def __init__(self, src, pars: Params, mesh, s_loc: int, chunk: int, base: int = 0,
+                 spill_owned: Optional[str] = None) -> None:
+        self.src, self.pars, self.mesh, self.base = src, pars, mesh, base
         self.S = pars.n_sites
         self.n_dev = pm.sites_size(mesh)
         self.s_loc = s_loc
         self.s_pad = s_loc * self.n_dev
         self.chunk = int(min(chunk, s_loc))
-        self.resident = self.chunk >= self.s_loc
+        self.lazy = isinstance(src, DiskRows)
+        # a lazy stream always runs in rounds: there is no host array to
+        # upload whole
+        self.resident = not self.lazy and self.chunk >= self.s_loc
+        self.start, self.stop = host_site_range(self.s_pad, mesh)
+        self._pipes = None
+        self._spill_fin = (None if spill_owned is None else
+                           weakref.finalize(self, SiteStream._rm_spill, spill_owned))
+
+    @staticmethod
+    def _rm_spill(path: str) -> None:
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+
+    def close(self) -> None:
+        """Delete an owned spill cache (idempotent; also runs at GC)."""
+        if self._spill_fin is not None:
+            self._spill_fin()
+            self._spill_fin = None
+
+    # -------------------------- planning ----------------------------- #
 
     @staticmethod
     def _plan(pars: Params, mesh):
@@ -93,34 +306,366 @@ class SiteStream:
                                  dist.STREAM_MIN_CHUNK_SITES), pref)
         return s_loc, min(chunk, depth)
 
+    @staticmethod
+    def _host_budget_bytes() -> int:
+        """Host memory for a process's eagerly read sites.  Above it the
+        stream goes lazy: no host array, each round reads its own rows
+        from disk.  Default: half of MemAvailable (at least 1 GiB);
+        NGSDIST_HOST_BUDGET overrides (bytes)."""
+        env = os.environ.get("NGSDIST_HOST_BUDGET")
+        if env:
+            return max(1, int(env))
+        try:
+            with open("/proc/meminfo") as fh:
+                for ln in fh:
+                    if ln.startswith("MemAvailable:"):
+                        return max(1 << 30, int(ln.split()[1]) * 1024 // 2)
+        except OSError:
+            pass
+        return 1 << 62
+
+    @staticmethod
+    def seekable_binary(pars: Params) -> bool:
+        """True when rounds can read the input itself: binary, not stdin,
+        not gzip-compressed."""
+        return bool(pars.in_geno and pars.in_bin and pars.in_geno != "-"
+                    and not pars.in_geno.endswith(".gz"))
+
+    @classmethod
+    def wants_lazy(cls, pars: Params, dtype: torch.dtype, n_rows: int) -> bool:
+        """True when reading n_rows sites eagerly (the float64 read and the
+        shard in the device's dtype) would exceed the host budget: the JAX
+        estimate, so that both engines take the same route.  Every input
+        style can go lazy: seekable binary directly, the others through a
+        spill cache."""
+        itemsize = torch.finfo(dtype).bits // 8
+        need = n_rows * pars.n_ind * 3 * (itemsize + 8)
+        return need > cls._host_budget_bytes()
+
+    # -------------------------- constructors ------------------------- #
+
     @classmethod
     def from_array(cls, P_host, pars: Params, mesh) -> "SiteStream":
         """The full tensor already in host memory."""
         s_loc, chunk = cls._plan(pars, mesh)
         return cls(P_host, pars, mesh, s_loc, chunk)
 
+    @classmethod
+    def from_reader(cls, pars: Params, mesh) -> "SiteStream":
+        """Each process reads only its own site range of the genotype
+        file: eagerly into host memory, in the device's dtype, or, over
+        the host budget on any process, lazily in rounds from disk."""
+        s_loc, chunk = cls._plan(pars, mesh)
+        start, stop = host_site_range(s_loc * pm.sites_size(mesh), mesh)
+        dtype = dist.default_dtype(mesh.first)
+        N, S = pars.n_ind, pars.n_sites
+        if agreed(cls.wants_lazy(pars, dtype, stop - start), "max"):
+            # A lazy round is bounded by both budgets: the host's staging
+            # (the float64 read, the slab and the next round's, about
+            # three times a round) and the device's with its prefetch
+            # reservation (_plan's resident return skips the latter).
+            itemsize = torch.finfo(dtype).bits // 8
+            g = pars.boot_block_size if pars.n_boot_rep else 1
+            pref = g if pars.indep_geno else int(np.lcm(g, 256))
+            host_sites = (cls._host_budget_bytes() // 3) // max(
+                1, mesh.local_sites * N * 3 * itemsize)
+            dev_sites = (device_budget_bytes(mesh) * dist.PREFETCH_KEEP_NUM
+                         // dist.PREFETCH_KEEP_DEN) // max(1, N * 3 * itemsize)
+            sites = min(host_sites, dev_sites)
+            sites = (sites // pref) * pref or (sites // g) * g or g
+            chunk = agreed(min(chunk, sites), "min")
+            spill = {}
+            if not cls.seekable_binary(pars):
+                spill = cls._build_spill(pars, start, stop)
+            try:
+                src = DiskRows(pars, dtype, stop, **spill)
+                return cls(src, pars, mesh, s_loc, chunk, spill_owned=spill.get("spill_path"))
+            except BaseException:
+                if spill:
+                    cls._rm_spill(spill["spill_path"])
+                raise
+        lo, hi = min(start, S), min(stop, S)
+        if hi > lo:
+            geno_log = readers.read_geno(
+                pars.in_geno, pars.in_bin, pars.in_probs, pars.in_logscale, N, S,
+                site_range=None if (lo, hi) == (0, S) else (lo, hi))
+            pre = preprocess(geno_log, pars.call_geno, pars.N_thresh, pars.call_thresh)
+            local = dist._host_pack(pre, 0, hi - lo, dtype)
+        else:
+            local = np.zeros((0, N, 3), dist._np_dtype(dtype))
+        return cls(local, pars, mesh, s_loc, chunk, base=lo)
+
+    # ------------------------- spill cache --------------------------- #
+
+    @classmethod
+    def _build_spill(cls, pars: Params, start: int, stop: int) -> dict:
+        """One pass of a gz, text or stdin input into a disk cache of this
+        process's rows that rounds then read: text inputs parsed by the
+        native reader into normalized rows (readers.spill_text_geno), gz
+        and stdin binary inputs copied verbatim (_copy_binary), their
+        rounds normalized as they are read, as a seekable binary file's
+        are.  Location: NGSDIST_SPILL_DIR (default: the system's temporary
+        directory; point it at a large disk for long genomes)."""
+        import tempfile
+
+        base = os.environ.get("NGSDIST_SPILL_DIR") or None
+        fd, cache = tempfile.mkstemp(prefix="ngsdist_spill_", suffix=".bin", dir=base)
+        os.close(fd)
+        lo, hi = min(start, pars.n_sites), min(stop, pars.n_sites)
+        try:
+            if pars.in_bin:
+                cls._copy_binary(pars, cache, lo, hi)
+                return dict(spill_path=cache, spill_norm=False, spill_base=lo)
+            readers.spill_text_geno(pars.in_geno, pars.in_probs, pars.in_logscale,
+                                    pars.n_ind, pars.n_sites, cache, site_range=(lo, hi))
+            return dict(spill_path=cache, spill_norm=True, spill_base=lo)
+        except BaseException:
+            cls._rm_spill(cache)
+            raise
+
+    @staticmethod
+    def _copy_binary(pars: Params, cache: str, start: int, stop: int) -> None:
+        """Decompress-copy rows [start, stop) of a gz or stdin binary input
+        to `cache`: each process keeps its own rows only (the processes'
+        caches add up to one genome), reading past the rest so that the
+        reference's read-time size fatals still fire (premature EOF, not
+        at EOF; read_data.cpp:29-47, 106-109).  NaN checks come when a
+        round reads its rows, as for a seekable binary file."""
+        import gzip
+
+        want = pars.n_sites * pars.n_ind * 3 * 8
+        row = pars.n_ind * 3 * 8
+        keep_lo, keep_hi = start * row, stop * row
+        src = sys.stdin.buffer if pars.in_geno == "-" else gzip.open(pars.in_geno, "rb")
+        total = 0
+        try:
+            with open(cache, "wb") as out:
+                while True:
+                    buf = src.read(16 << 20)
+                    if not buf:
+                        break
+                    new = total + len(buf)
+                    if new > want:
+                        raise NgsDistError("read_geno", "GENO file not at EOF. Check GENO "
+                                           "file and number of sites!")
+                    a, b = max(total, keep_lo), min(new, keep_hi)
+                    if b > a:
+                        out.write(buf[a - total:b - total])
+                    total = new
+        finally:
+            if src is not sys.stdin.buffer:
+                src.close()
+        if total < want:
+            raise NgsDistError("read_geno", "GENO file at premature EOF. Check GENO file "
+                               "and number of sites!")
+
+    # --------------------------- the data ---------------------------- #
+
     def layout(self) -> list:
         """What a round index means: the rounds file of a streamed mesh
         run records it, and a run of another layout does not resume it."""
         return [self.s_loc, self.chunk, self.n_dev]
 
+    def zero_rows(self) -> ZeroRows:
+        """The record of all-zero triples (preprocess.ZeroRows) of this
+        process's sites, for the EM's poison: a host source's, taken once;
+        a lazy stream's, filled as its rounds are read."""
+        if self.lazy:
+            return self.src.zero if self.src.zero is not None else ZeroRows.empty(self.pars.n_ind)
+        got = find_zero_rows(self.src)
+        if got is None:
+            return ZeroRows.empty(self.pars.n_ind)
+        return ZeroRows(got.sites + self.base, got.rows)
+
     def global_array(self) -> pm.Sharded:
-        """Every shard on its devices."""
-        return pm.shard_sites(self.P, self.mesh, pm.shard_ranges(self.S, self.s_loc,
-                                                                 self.n_dev))
+        """Every local shard on its devices (a resident stream)."""
+        return pm.shard_sites(self.src, self.mesh,
+                              pm.shard_ranges(self.S, self.s_loc, self.n_dev), base=self.base)
 
     @property
     def n_rounds(self) -> int:
         return -(-self.s_loc // self.chunk)
 
     def round_ranges(self, r: int):
-        """[(lo, hi)] per shard: the data sites of round r."""
+        """[(lo, hi)] per sites shard of the global axis: the data sites of
+        round r."""
         return pm.shard_ranges(self.S, self.s_loc, self.n_dev, r * self.chunk,
                                min(self.chunk, self.s_loc - r * self.chunk))
 
-    def round_data(self, r: int, pad: bool = False) -> pm.Sharded:
-        """Round r's sites on every shard's devices; pad: each part filled
-        with all-zero triples to chunk sites (the fixed shape of the block
-        partials' rounds)."""
-        return pm.shard_sites(self.P, self.mesh, self.round_ranges(r),
-                              rows=self.chunk if pad else None)
+    def rounds(self, todo):
+        """Yield (r, data) for each round r of todo, in order: round r's
+        sites of every local shard on its devices (a pm.Sharded), each
+        shard's through a ChunkPipe of its own whose reader prepares the
+        shard's next round while this one computes.  A round's data is
+        valid until the next one is asked for."""
+        mesh = self.mesh
+        p = pm.pairs_size(mesh)
+        todo = list(todo)
+        if self._pipes is None:
+            dtype = dist.default_dtype(mesh.first)
+            self._pipes = [dist.ChunkPipe(self.src, mesh.devices[s * p], dtype, self.chunk)
+                           for s in range(mesh.local_sites)]
+        per_round = [self.round_ranges(r) for r in todo]
+        walks = []
+        for s, pipe in enumerate(self._pipes):
+            ranges = [rr[mesh.shard0 + s] for rr in per_round]
+            walks.append(pipe.chunks([(lo - self.base, hi - self.base)
+                                      for lo, hi in ranges if hi > lo]))
+        for r, ranges in zip(todo, per_round):
+            parts = []
+            for k in range(len(mesh.devices)):
+                s, q = divmod(k, p)
+                lo, hi = ranges[mesh.shard0 + s]
+                part = None
+                if q:
+                    if parts[k - q] is not None:
+                        part = mesh.copy(k - q, parts[k - q], k)
+                elif hi > lo:
+                    with mesh.on(k):
+                        part = next(walks[s])[0]
+                parts.append(part)
+            yield r, pm.Sharded(mesh, ranges, parts, self.pars.n_ind)
+        for s, walk in enumerate(walks):
+            with mesh.on(s * p):   # the pipe marks its last chunk consumed here
+                next(walk, None)
+
+    def round_data(self, r: int) -> pm.Sharded:
+        """Round r's sites on every local shard's devices."""
+        for _, data in self.rounds([r]):
+            pass
+        return data
+
+
+# ------------------------------------------------------------------ #
+# The multi-process pipeline                                          #
+# ------------------------------------------------------------------ #
+
+
+def _process_mesh(device: Optional[torch.device]):
+    """This process's entries: every card it sees (a card is the default;
+    without one the run stops), or one `cpu` entry; every process must
+    have as many, for one global axis of equal parts."""
+    if device is None or device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise NgsDistError("main", "no CUDA device is available to this process "
+                               "(--platform cpu runs the float64 CPU path)")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        devices = [device]
+    n = len(devices)
+    if agreed(n, "min") != agreed(n, "max"):
+        raise NgsDistError("main", "every process of a run must drive as many devices "
+                           f"(this one has {n})")
+    return pm.make_mesh(devices)
+
+
+def run_distributed(pars: Params, coordinator: Optional[str] = None,
+                    num_processes: Optional[int] = None,
+                    process_id: Optional[int] = None, resume: bool = False,
+                    device: Optional[torch.device] = None, mesh=None):
+    """The whole pipeline in each process of a run (BASELINE.json's
+    scale-out configuration; ngsdist_tpu/parallel/multihost.py:786): every
+    process reads its own site range (SiteStream.from_reader, eager or
+    lazy), the shards' sums meet in the gathered fixed-order sum, and
+    process 0 writes the phylip matrices to pars.out.  The output is that
+    of one process with a mesh of all the processes' entries, bit for
+    bit.  device: this process's device type (default: its cards); mesh:
+    its entries instead (tests repeat a `cpu` entry).  Returns the
+    matrices on process 0, [] elsewhere.
+
+    resume: process 0 reads the .ckpt.json sidecar and every process
+    skips the matrices it counts; within a streamed replicate the rounds
+    file (process 0's) is resumed the same way.  Signals are armed: a
+    stop request on any process ends every process after the matrix in
+    flight, with a resumable sidecar."""
+    joined = bring_up(coordinator, num_processes, process_id)
+    try:
+        signals.arm()
+        pars.validate()
+        is_writer = process_index() == 0
+        try:
+            pars.finalize()
+        except Exception:
+            # banners accumulated before a finalize-time fatal still print
+            if is_writer:
+                for msg in pars.messages:
+                    print(msg, file=sys.stderr)
+            raise
+        # models 3-6: every process reads the small POS file whole for the
+        # allele codes
+        alleles = None
+        if pars.evol_model >= 3:
+            if not pars.in_pos:
+                raise NgsDistError("main", "evolutionary models need allele info in the POS "
+                                   "file!")
+            alleles = encode_alleles(readers.read_pos(pars.in_pos, pars.in_pos_header,
+                                                      pars.n_sites))
+        else:
+            models.check_model_supported(pars.evol_model)
+        if is_writer:
+            for msg in pars.messages:
+                print(msg, file=sys.stderr)
+        if mesh is None:
+            mesh = _process_mesh(device)
+        # the one-process mesh run's engine name: a run resumes across
+        # shapes, as runner.run(mesh=) does
+        engine = dist.engine_name(mesh.first)
+        stream = SiteStream.from_reader(pars, mesh)
+        try:
+            return _write_matrices(pars, stream, mesh, alleles, resume, engine)
+        finally:
+            stream.close()  # delete an owned spill cache
+    finally:
+        if joined:
+            import torch.distributed as tdist
+
+            tdist.destroy_process_group()
+
+
+def _write_matrices(pars: Params, stream: SiteStream, mesh, alleles, resume: bool,
+                    engine: str):
+    """run_distributed's replicate loop: process 0 writes, flushes and
+    saves the sidecar after every matrix."""
+    is_writer = process_index() == 0
+    n_done = 0
+    if resume:
+        if is_writer:
+            n_done = ckpt.load(pars.out, pars, engine=engine) or 0
+        n_done = broadcast_object(n_done)
+        if is_writer and n_done:
+            print(f"==> Resuming: {n_done} matrices already written", file=sys.stderr)
+    n_trunc, maps = bt.site_maps(pars.seed, pars.n_boot_rep, pars.n_sites,
+                                 pars.boot_block_size)
+    labels = out_fh = None
+    if is_writer:
+        labels = (readers.read_labels(pars.in_labels, pars.in_labels_header, pars.n_ind)
+                  if pars.in_labels else readers.default_labels(pars.n_ind))
+        try:
+            out_fh = open(pars.out, "a" if n_done else "w")
+        except OSError as ex:
+            raise NgsDistError("main", "cannot open output file!", err=ex.errno or 0)
+    matrices = []
+    interrupted = False
+    try:
+        for rep, m in enumerate(dist.iter_replicates(
+                pars, stream, maps, n_trunc, mesh.first, start_rep=n_done, round_ckpt=True,
+                alleles=alleles, mesh=mesh), start=n_done):
+            if is_writer:
+                writers.write_dist_matrix(out_fh, labels, m)
+                out_fh.flush()
+                matrices.append(m)
+                ckpt.save(pars.out, pars, rep + 1, engine=engine)
+            # one decision for all: a process that stopped alone would
+            # leave the others waiting in the next collective
+            if agreed(signals.stop_requested(), "max"):
+                interrupted = True
+                if is_writer:
+                    print("==> Stop requested; output is resumable (--resume)",
+                          file=sys.stderr)
+                break
+    finally:
+        if out_fh is not None:
+            out_fh.close()
+    if is_writer and not interrupted:
+        ckpt.clear(pars.out)
+    return matrices

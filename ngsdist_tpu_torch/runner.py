@@ -65,11 +65,23 @@ def _fused_packed_wanted(pars: Params, device: torch.device, mesh=None) -> bool:
     return distance.default_dtype(device) == torch.float32
 
 
-def load_inputs(pars: Params, fused: bool = False):
+def _lazy_stream_wanted(pars: Params, device: torch.device) -> bool:
+    """True when reading the genotype tensor eagerly would exceed the host
+    budget (ngsdist_tpu/runner.py:172): the run then reads its rounds from
+    disk through a lazy SiteStream, so host memory no longer bounds the
+    genome's length.  The predicate and its byte estimate are
+    SiteStream.wants_lazy's, which from_reader takes too."""
+    from .parallel.multihost import SiteStream
+
+    return SiteStream.wants_lazy(pars, distance.default_dtype(device), pars.n_sites)
+
+
+def load_inputs(pars: Params, fused: bool = False, geno: bool = True):
     """Read labels, positions and the genotype tensor; returns
     (labels, pos_rows, P_normal [n_sites, n_ind, 3]).  fused=True
     returns a readers.PackedBinInput handle instead of the tensor (the
-    engine reads fused packed chunks on demand)."""
+    engine reads fused packed chunks on demand); geno=False reads no
+    genotypes (P is None: a lazy run reads them round by round)."""
     if pars.in_labels:
         _log(pars, 1, "==> Reading labels")
         labels = readers.read_labels(pars.in_labels, pars.in_labels_header, pars.n_ind)
@@ -88,6 +100,8 @@ def load_inputs(pars: Params, fused: bool = False):
                 print("\t".join((row + ["", "", "", ""])[:4]), file=sys.stderr)
 
     _log(pars, 1, "==> Reading genotype data")
+    if not geno:
+        return labels, pos_rows, None
     if fused:
         return labels, pos_rows, readers.PackedBinInput(pars)
     with profiling.host_span("read"):
@@ -146,8 +160,17 @@ def iter_replicates(pars: Params, P, device: torch.device,
 
     # verbose>=8 per-site firehose: replayed by the exact engine's
     # host-side replayer, as the JAX engine does; the matrices in the
-    # output still come from this engine.
-    dump_P_ind = exact_engine.to_ind_major(P) if pars.verbose >= 8 else None
+    # output still come from this engine.  A lazy run has no tensor to
+    # replay.
+    dump_P_ind = None
+    if pars.verbose >= 8:
+        if isinstance(P, np.ndarray):
+            dump_P_ind = exact_engine.to_ind_major(P)
+        else:
+            print("WARN: [main] verbose>=8 per-site dump unavailable "
+                  "on disk-streamed (lazy) runs; rerun with a larger "
+                  "NGSDIST_HOST_BUDGET or python -m ngsdist_tpu --engine exact.",
+                  file=sys.stderr)
     dump_labels = labels if labels is not None else readers.default_labels(pars.n_ind)
 
     gen = distance.iter_replicates(pars, P, maps, n_trunc, device,
@@ -190,9 +213,18 @@ def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[Te
     mesh: a parallel.mesh.Mesh to shard the sites (and pairs) over; the
     run's device is then its first, and its checkpoint engine that
     device's, so a run resumes across mesh shapes as the JAX runner's
-    does."""
+    does.  device None: the card (an NgsDistError without one; the CPU
+    only when asked for).  An input whose eager read would exceed the
+    host budget (_lazy_stream_wanted) is read from disk in rounds over
+    the mesh, or, without one, over every visible card (the CPU: one
+    `cpu` entry)."""
     if mesh is not None:
         device = mesh.first
+    elif device is None:
+        if not torch.cuda.is_available():
+            raise NgsDistError("main", "no CUDA device is available (runner.run runs on the "
+                               "card unless it is given device=torch.device('cpu'))")
+        device = torch.device("cuda", torch.cuda.current_device())
     pars.validate()
     try:
         pars.finalize()
@@ -202,7 +234,18 @@ def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[Te
         for msg in pars.messages:
             print(msg, file=sys.stderr)
 
-    labels, pos_rows, P = load_inputs(pars, fused=_fused_packed_wanted(pars, device, mesh))
+    lazy = _lazy_stream_wanted(pars, device)
+    fused = not lazy and _fused_packed_wanted(pars, device, mesh)
+    if not lazy:
+        labels, pos_rows, P = load_inputs(pars, fused=fused)
+    else:
+        labels, pos_rows, _ = load_inputs(pars, geno=False)
+        from .parallel import make_mesh
+        from .parallel.multihost import SiteStream
+
+        if mesh is None:
+            mesh = make_mesh(None if device.type == "cuda" else [device])
+        P = SiteStream.from_reader(pars, mesh)
     alleles = None
     if pars.evol_model >= 3 and pos_rows is not None:
         alleles = encode_alleles(pos_rows)
@@ -268,6 +311,8 @@ def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[Te
     finally:
         if close:
             out_fh.close()
+        if lazy:
+            P.close()  # delete an owned spill cache
     if close and not interrupted:
         ckpt.clear(pars.out)
     if report_throughput:

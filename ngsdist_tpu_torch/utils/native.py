@@ -84,6 +84,15 @@ def _configure(lib: ctypes.CDLL) -> None:
         ctypes.POINTER(ctypes.c_int),
     ]
     lib.nd_spill_text_geno.restype = ctypes.c_int
+    lib.nd_read_text_range.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _c_dp, ctypes.c_char_p,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.nd_read_text_range.restype = ctypes.c_int
+    lib.nd_normalize_triples.argtypes = [_c_dp, ctypes.c_int64, ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_int)]
+    lib.nd_normalize_triples.restype = ctypes.c_int
     lib.nd_read_geno_pack23.argtypes = [
         ctypes.c_char_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_int64, _c_fp, ctypes.c_char_p,

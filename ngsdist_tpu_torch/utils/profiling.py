@@ -70,7 +70,10 @@ class StageTimes:
     "read" (host work that prepares a slab: the staged read, the fused
     chunk read, the float32 cast), "upload" (copies to the card and the
     expansion there) and "kernel" (the statistics of a chunk or of the
-    resident tensor).  Host spans are taken on the host clock, device
+    resident tensor), and "gather" (a multi-process run's all-gather of
+    the shards' sums and their addition on the host, parallel/mesh.py;
+    it includes the wait for the slowest process).  Host spans are taken
+    on the host clock, device
     spans by CUDA events on the stream that runs them and mapped onto
     the host clock through one event recorded at creation, on an idle
     card, so that the card stamps it as the host's clock is read (on the
@@ -79,7 +82,7 @@ class StageTimes:
     def __init__(self, device) -> None:
         self.device = device
         self.cuda = device.type == "cuda"
-        self.host = {"read": [], "upload": [], "kernel": []}
+        self.host = {"read": [], "upload": [], "kernel": [], "gather": []}
         self.events = {"upload": [], "kernel": []}
         if self.cuda:
             import torch
@@ -103,14 +106,17 @@ class StageTimes:
         return {k: sorted(v) for k, v in out.items()}
 
     def summary(self) -> dict:
-        """Seconds in which a read, an upload or a kernel ran (each the
-        union of its intervals) and the share of the upload time that
-        ran while a kernel or a read did (None without uploads)."""
-        iv = {k: _merge(v) for k, v in self.intervals().items()}
+        """Seconds in which a read, an upload, a kernel or a gather ran
+        (each the union of its intervals), the number of gathers, and the
+        share of the upload time that ran while a kernel or a read did
+        (None without uploads)."""
+        raw = self.intervals()
+        iv = {k: _merge(v) for k, v in raw.items()}
         up = _length(iv["upload"])
         under = _merge(sorted(iv["kernel"] + iv["read"]))
         return {"read_s": _length(iv["read"]), "upload_s": up,
-                "kernel_s": _length(iv["kernel"]),
+                "kernel_s": _length(iv["kernel"]), "gather_s": _length(iv["gather"]),
+                "gathers": len(raw["gather"]),
                 "upload_hidden": _overlap(iv["upload"], under) / up if up > 0 else None}
 
 

@@ -496,3 +496,60 @@ def test_mesh_over_several_cards(cuda, tmp_path, monkeypatch, kind):
     cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     pars, _ = cli.parse_args(args + ["--out", str(tmp_path / "all.dist")])
     close(runner.run(pars, mesh=make_mesh(cards)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("style", ["bin", "text"])
+def test_lazy_rounds_on_a_card(cuda, tmp_path, monkeypatch, style):
+    """Lazy rounds of two shards of one card, each through a ChunkPipe of
+    its own: a raw binary file through the fused reader, whose parts hold
+    the float32 values of the staged read of their sites with p2 = 1 - p0
+    - p1 restored on the card; a gz text through its spill cache, whose
+    parts hold the staged read's values cast, all zero at an empty line.
+    The cache is gone on close."""
+    import gzip
+
+    from ngsdist_tpu_torch.config import Params
+    from ngsdist_tpu_torch.core.preprocess import preprocess
+    from ngsdist_tpu_torch.io import readers
+    from ngsdist_tpu_torch.parallel import mesh as pm
+    from ngsdist_tpu_torch.parallel import multihost as pmh
+
+    rng = np.random.default_rng(11)
+    S, N = 3000, 40
+    P = chip_smoke.rand_probs(rng, S, N)
+    if style == "bin":
+        path = str(tmp_path / "g.bin")
+        P.astype("<f8").tofile(path)
+    else:
+        path = str(tmp_path / "g.txt.gz")
+        with gzip.open(path, "wt") as fh:
+            for s in range(S):
+                fh.write("" if s == 1234 else "\t".join(f"{x:.6f}" for x in P[s].reshape(-1)))
+                fh.write("\n")
+    spill = tmp_path / "spill"
+    spill.mkdir()
+    monkeypatch.setenv("NGSDIST_HOST_BUDGET", "1000")
+    monkeypatch.setenv("NGSDIST_DEVICE_BUDGET", str(3 * 400 * N * 3 * 4))
+    monkeypatch.setenv("NGSDIST_SPILL_DIR", str(spill))
+    in_bin = style == "bin"
+    pars = Params(in_geno=path, in_bin=in_bin, in_probs=True, n_ind=N, n_sites=S)
+    st = pmh.SiteStream.from_reader(pars, pm.make_mesh([cuda, cuda]))
+    assert st.lazy and st.n_rounds >= 3 and st.src.fused == in_bin
+    full = preprocess(readers.read_geno(path, in_bin, True, False, N, S), False, 0.0, 0.0)
+    want = torch.from_numpy(full).float()
+    if in_bin:
+        want[..., 2] = (1.0 - want[..., 0]) - want[..., 1]
+    else:
+        assert not want[1234].any()
+    seen = 0
+    for _, data in st.rounds(range(st.n_rounds)):
+        for (lo, hi), part in zip(data.local_ranges, data.parts):
+            if hi <= lo:
+                assert part is None
+                continue
+            assert torch.equal(part.cpu(), want[lo:hi])
+            seen += hi - lo
+    assert seen == S
+    st.close()
+    assert list(spill.iterdir()) == []

@@ -84,13 +84,18 @@ def test_cli_mesh_streamed_matches_jax(tmp_path, monkeypatch, family):
 
 @pytest.mark.parametrize("extra,needle", [
     (["--devices", "6", "--pairs", "4"], "6 devices do not factor into pairs=4"),
-    (["--num_processes", "2"], "--num_processes is not yet supported"),
-    (["--process_id", "0"], "--process_id is not yet supported"),
+    # the multi-process flags run under --coordinator (tests/
+    # test_torch_distributed.py); alone they are refused (the case ids are
+    # those of their earlier form, when the port refused them outright)
+    pytest.param(["--num_processes", "2"], "--num_processes needs --coordinator",
+                 id="extra1---num_processes is not yet supported"),
+    pytest.param(["--process_id", "0"], "--process_id needs --coordinator",
+                 id="extra2---process_id is not yet supported"),
     (["--x64"], "--x64 is not yet supported"),
 ])
 def test_cli_mesh_errors(extra, needle, tmp_path, monkeypatch, capsys):
     """A device count that --pairs does not divide is the JAX package's
-    error; the multi-process flags stay refused."""
+    error; the multi-process flags need a coordinator."""
     monkeypatch.chdir(DATA_DIR)
     args = ["--geno", "gt.geno.gz", "--n_ind", "20", "--n_sites", "1200", "--platform", "cpu",
             "--out", str(tmp_path / "x.dist"), "--verbose", "0", *extra]
