@@ -722,8 +722,10 @@ def check_same_as_resident(run: str, streamed, resident) -> float:
     (indep: INDEP_RTOL relative on raw/cnt; EM: EM_ATOL_CNT on it), so
     the two within twice it, scaled by |dT/dd| = 1/(1 - raw/cnt) of
     model 1, plus the %.10f print rounding of both.  run: a run of RUNS,
-    or of LAZY_RUNS (its base run's kind)."""
-    kind = RUNS[LAZY_RUNS[run][0] if run in LAZY_RUNS else run][0]
+    or of LAZY_RUNS or PROC_RUNS (its base run's kind)."""
+    base = (LAZY_RUNS[run][0] if run in LAZY_RUNS else
+            PROC_RUNS[run][0] if run in PROC_RUNS else run)
+    kind = RUNS[base][0]
     worst = 0.0
     for a, b in zip(streamed, resident):
         ratio = 1.0 - np.exp(-b)
@@ -1470,7 +1472,7 @@ def proc_env(run: str) -> dict:
     return env
 
 
-def drive_process_runs(torch, mods, ngsd, genos, card):
+def drive_process_runs(torch, mods, ngsd, genos, mats, card):
     """The runs of PROC_RUNS in two processes on the one card (module
     docstring, phase 3): two workers, each the CLI entry point with
     --coordinator 127.0.0.1:PORT --num_processes 2 --process_id 0|1 for
@@ -1478,8 +1480,16 @@ def drive_process_runs(torch, mods, ngsd, genos, card):
     process on a mesh of two entries of the card (runner.run, the bytes a
     one-process --devices 2 run writes) under the same budgets.  Process
     0's file must equal that run's byte for byte, and the two processes'
-    launches add up to its launches.  Returns the launches (both processes
-    together) and prints each run's wall time and its gathers."""
+    launches add up to its launches.  Both go through the same mesh,
+    stream and gather code, so every matrix is also held to the
+    one-device run of the same file and flags, read the same way, within
+    twice the kernel's bound: (ma) to (a) and (ml) to (d) (all but (ma)
+    read fused; the indep kernel's bound holds the staged read's rounding
+    of p2, as drive_mesh_runs shows for (i)); (me), read staged, to the
+    full-data matrix of (c) run staged (drive_mesh_runs), which is (b)'s
+    read so.  Those runs are held to the plain sums.  Returns the
+    launches (both processes together) and the largest |d difference| per
+    run, and prints each run's wall time and its gathers."""
     cli, runner, pm = ngsd["cli"], ngsd["runner"], ngsd["mesh"]
     worker = os.path.join(WORK, "proc_worker.py")
     with open(worker, "w") as fh:
@@ -1519,10 +1529,12 @@ def drive_process_runs(torch, mods, ngsd, genos, card):
     log(f"phase 3: two processes ran {', '.join(PROC_RUNS)} on {DEVICE}:0 in {wall:.2f} s "
         f"(host clock, both workers from their start to their exit) [{card}]")
     dev0 = torch.device(DEVICE, 0)
-    launches = {}
+    ref = {"a": mats["a"], "d": mats["d"],
+           "b": check_output(os.path.join(WORK, "c_staged.dist"), 1 + RUNS["c"][2])[:1]}
+    launches, diffs = {}, {}
     for run, (base, _, round_sites) in PROC_RUNS.items():
         kind, sites, reps, block, _ = RUNS[base]
-        mats = 1 + reps
+        n_mats = 1 + reps
         got = [results[rank][run] for rank in (0, 1)]
         both = {name: got[0]["launches"][name] + got[1]["launches"][name] for name in KERNELS}
         launches[f"{run}_2p"] = both
@@ -1540,7 +1552,7 @@ def drive_process_runs(torch, mods, ngsd, genos, card):
             if a.read() != b.read():
                 raise AssertionError(f"run ({run}): process 0's file differs from the "
                                      "one-process run's on two entries")
-        check_output(one, mats)
+        diffs[run] = check_same_as_resident(run, check_output(one, n_mats), ref[base])
         what = ("lazy and streamed under NGSDIST_HOST_BUDGET="
                 f"{env['NGSDIST_HOST_BUDGET']}, NGSDIST_DEVICE_BUDGET="
                 f"{env['NGSDIST_DEVICE_BUDGET']} (rounds of {round_sites} sites a shard), "
@@ -1550,12 +1562,12 @@ def drive_process_runs(torch, mods, ngsd, genos, card):
             + "; ".join(f"process {rank}: {g['wall']:.2f} s (host clock, CLI call), read "
                         f"{g['times']['read_s']:.3f} s, kernels {g['times']['kernel_s']:.3f} s, "
                         f"{g['times']['gathers']} gathers in {g['times']['gather_s']:.4f} s = "
-                        f"{g['times']['gather_s'] / mats * 1e3:.2f} ms per matrix"
+                        f"{g['times']['gather_s'] / n_mats * 1e3:.2f} ms per matrix"
                         for rank, g in enumerate(got))
             + f"; one process on two entries {seen['wall']:.2f} s; process 0's file equals "
-            "it byte for byte; launches " + ", ".join(f"{k} {v}" for k, v in both.items() if v)
-            + f" [{card}]")
-    return launches
+            f"it byte for byte and lies within {diffs[run]:.3e} of ({base}); launches "
+            + ", ".join(f"{k} {v}" for k, v in both.items() if v) + f" [{card}]")
+    return launches, diffs
 
 
 def tile_times(torch, kmod, pm, build, kind, P32, pairwise_del, plain64, bound, report,
@@ -1695,7 +1707,8 @@ def main() -> int:
         launches.update(mesh_launched)
         lazy_launched, lazy_diffs = drive_lazy_runs(torch, cli, mods, ngsd, genos, mats, P, card)
         launches.update(lazy_launched)
-        launches.update(drive_process_runs(torch, mods, ngsd, genos, card))
+        proc_launched, proc_diffs = drive_process_runs(torch, mods, ngsd, genos, mats, card)
+        launches.update(proc_launched)
         del mats, P_sub
         log(f"phase 3: outputs hold 1 + n_boot_rep finite symmetric matrices "
             f"({', '.join(f'{run} {1 + RUNS[run][2]}' for run in RUNS)}); the full-data "
@@ -1710,7 +1723,9 @@ def main() -> int:
             + "; mesh runs against the one-device run of the same file, max |d difference| "
             + ", ".join(f"{k} {v:.3e}" for k, v in mesh_diffs.items())
             + "; disk-read runs against the same input resident, max |d difference| "
-            + ", ".join(f"{k} {v:.3e}" for k, v in lazy_diffs.items()))
+            + ", ".join(f"{k} {v:.3e}" for k, v in lazy_diffs.items())
+            + "; two-process runs against the one-device run of the same file, max |d "
+            "difference| " + ", ".join(f"{k} {v:.3e}" for k, v in proc_diffs.items()))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

@@ -25,7 +25,9 @@ the port's own copy of the JAX package's.  Port-specific options:
                         0 listens at HOST:PORT and writes the output); each
                         drives the devices it sees (--platform), reads its
                         own site range and writes, with the others, the
-                        bytes of one process over all their devices
+                        bytes of one process over all their devices when
+                        both cut the same rounds (the same device budget;
+                        not where the host budget cuts either's rounds)
 
 Usage:  python -m ngsdist_tpu_torch [options] --geno FILE --n_ind N --n_sites N --out FILE
 """

@@ -92,8 +92,8 @@ def read_geno(
     EOF check only applies to a read that runs to the last site.  With
     the native reader a range holds the bits of the full read's rows
     (text: nd_read_text_range; binary: the bytes read here, normalized
-    by nd_normalize_triples), so that the output of a run does not
-    depend on how its sites are split between processes.
+    by nd_normalize_triples): the values a process reads do not depend
+    on how the sites are split between processes.
     """
     if native and path == "-":
         # Stdin pipelines take the same threaded native parse as files
@@ -419,49 +419,27 @@ def _read_geno_py(
 def spill_text_geno(
     path: str, in_probs: bool, in_logscale: bool, n_ind: int, n_sites: int,
     cache_path: str, site_range: Optional[Tuple[int, int]] = None,
-    native: bool = True,
 ) -> None:
-    """Stream-parse a TEXT genome (plain/gz/stdin) ONCE, writing the
-    log-normalized rows of `site_range` (default: all sites) to
-    cache_path as raw f64 [rows, n_ind, 3] — the lazy disk-round cache
-    for inputs larger than host RAM.  The cache rows are bit-identical
-    to what the eager reader would have produced (shared parse), so
-    per-round cache reads must NOT re-normalize.  The reference has no
-    counterpart: its only storage is the full in-RAM tensor
+    """Stream-parse a TEXT genome (plain/gz/stdin) ONCE with the native
+    reader, writing the log-normalized rows of `site_range` (default: all
+    sites) to cache_path as raw f64 [rows, n_ind, 3] — the lazy disk-round
+    cache for inputs larger than host RAM.  The cache rows are
+    bit-identical to what the eager reader would have produced (shared
+    parse), so per-round cache reads must NOT re-normalize.  The reference
+    has no counterpart: its only storage is the full in-RAM tensor
     (read_data.cpp:21)."""
-    start, stop = site_range if site_range is not None else (0, n_sites)
-    if native:
-        import ctypes
+    import ctypes
 
-        lib = _native.get_lib()
-        errbuf = ctypes.create_string_buffer(256)
-        err = ctypes.c_int(0)
-        rc = lib.nd_spill_text_geno(
-            path.encode(), int(in_probs), int(in_logscale), n_ind, n_sites,
-            start, stop, cache_path.encode(), errbuf, len(errbuf),
-            ctypes.byref(err),
-        )
-        if rc != 0:
-            raise NgsDistError("read_geno", errbuf.value.decode(),
-                               err=err.value)
-        return
-    miss = np.full((n_ind, N_GENO), -BIGNEG, dtype=np.float64)
-    fh = _open_text(path, "read_geno")
-    try:
-        with open(cache_path, "wb") as out:
-            for _, row in _iter_text_sites(fh, in_probs, in_logscale,
-                                           n_ind, start, stop):
-                (miss if row is None else row).tofile(out)
-        # Strict EOF check parity with the eager reader
-        # (read_data.cpp:106-109); applies only to a to-the-end spill.
-        if stop == n_sites and fh.read(1):
-            raise NgsDistError(
-                "read_geno",
-                "GENO file not at EOF. Check GENO file and number of sites!",
-            )
-    finally:
-        if fh is not sys.stdin.buffer:
-            fh.close()
+    start, stop = site_range if site_range is not None else (0, n_sites)
+    lib = _native.get_lib()
+    errbuf = ctypes.create_string_buffer(256)
+    err = ctypes.c_int(0)
+    rc = lib.nd_spill_text_geno(
+        path.encode(), int(in_probs), int(in_logscale), n_ind, n_sites,
+        start, stop, cache_path.encode(), errbuf, len(errbuf), ctypes.byref(err),
+    )
+    if rc != 0:
+        raise NgsDistError("read_geno", errbuf.value.decode(), err=err.value)
 
 
 def read_spill_rows(cache_path: str, n_ind: int, lo: int, hi: int,

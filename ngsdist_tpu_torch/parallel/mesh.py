@@ -36,9 +36,10 @@ each drive a mesh of their own entries, on a 1-D sites axis: the global
 axis is every process's entries in rank order, and process i holds the
 sites shards [i·n, (i+1)·n).  The fixed-order sum then gathers each
 process's shard results to every process (a gloo all-gather of host
-tensors) and adds all of them in the global order, so that P processes
-of n entries write the bytes of one process with a mesh of P·n entries,
-and every process holds the same sums.
+tensors) and adds all of them in the global order, so that every process
+holds the same sums, and P processes of n entries write the bytes of one
+process with a mesh of P·n entries that cuts the same rounds
+(multihost.run_distributed says when it does).
 """
 
 from __future__ import annotations
@@ -59,6 +60,11 @@ from ..utils import profiling
 
 AXIS = "sites"
 PAIRS = "pairs"
+# Elements of the parts that one all-gather of a multi-process sum moves
+# (_gathered_sum): 64 MiB of float64 a mesh entry, so that a process's
+# host buffers stay within (1 + processes) x entries x 64 MiB however
+# large the parts grow (a bootstrap's [R, n_pairs] replicates grow with R).
+GATHER_CHUNK = 1 << 23
 
 
 class Mesh:
@@ -89,6 +95,7 @@ class Mesh:
         self.shape = {AXIS: self.local_sites * self.world, PAIRS: pairs}
         self.first = self.devices[0]
         self._streams = None
+        self._gather_bufs = None
 
     @contextlib.contextmanager
     def on(self, k: int):
@@ -135,6 +142,17 @@ class Mesh:
             return t
         with torch.cuda.stream(s):  # a copy between cards runs on the source's stream
             return t.to(self.first)
+
+    def gather_buffers(self, size: int):
+        """(send, [receive] per process): float64 host buffers of at least
+        `size` elements for _gathered_sum, kept between its calls (the
+        send buffer pinned on a card)."""
+        if self._gather_bufs is None or self._gather_bufs[0].numel() < size:
+            pin = self.first.type == "cuda"
+            self._gather_bufs = (torch.empty(size, dtype=torch.float64, pin_memory=pin),
+                                 [torch.empty(size, dtype=torch.float64)
+                                  for _ in range(self.world)])
+        return self._gather_bufs
 
 
 def _indexed(dev: torch.device) -> torch.device:
@@ -309,40 +327,54 @@ def fixed_order_sum(mesh: Mesh, parts, shape=None) -> Optional[torch.Tensor]:
 
 
 def _gathered_sum(mesh: Mesh, parts, shape) -> Optional[torch.Tensor]:
-    """fixed_order_sum over processes: each part is copied, after the work
-    queued on its entry's stream, into a pinned host row (float64, as the
-    one-process sum adds them; a flag marks the rows that hold a part),
-    the rows are all-gathered over gloo, and the rows that hold a part are
-    added in the order of the global sites axis.  A float64 sum is the
-    same on the host as on a card, so the result is the one-process
-    mesh's, bit for bit."""
+    """fixed_order_sum over processes, in slices of at most GATHER_CHUNK
+    elements of the parts (flattened): each part's slice is copied, after
+    the work queued on its entry's stream, into a row of the mesh's pinned
+    send buffer (float64, as the one-process sum adds them; a flag marks
+    the rows that hold a part), the rows are all-gathered over gloo into
+    the mesh's receive buffers, and the rows that hold a part are added in
+    the order of the global sites axis.  A float64 sum is the same on the
+    host as on a card, and the same slice by slice, so the result is the
+    one-process mesh's, bit for bit."""
     import torch.distributed as tdist
 
     m = int(np.prod(shape))
     n = len(mesh.devices)
-    cuda = mesh.first.type == "cuda"
-    rows = torch.zeros((n, m + 1), dtype=torch.float64, pin_memory=cuda)
-    done = []
-    for k, t in parts:
-        if t.device.type == "cuda":
-            with torch.cuda.stream(mesh._stream(k)):
-                rows[k, :m].copy_(t.reshape(-1).double(), non_blocking=True)
-                ev = torch.cuda.Event()
-                ev.record()
-                done.append(ev)
-        else:
-            rows[k, :m] = t.reshape(-1)
-        rows[k, m] = 1.0
-    for ev in done:
-        ev.synchronize()
-    with profiling.host_span("gather"):
-        got = [torch.empty_like(rows, pin_memory=False) for _ in range(mesh.world)]
-        tdist.all_gather(got, rows)
-        acc = None
-        for row in torch.cat(got):
-            if row[m] == 1.0:
-                acc = row[:m].clone() if acc is None else acc + row[:m]
-    return None if acc is None else acc.reshape(shape).to(mesh.first)
+    width = min(m, GATHER_CHUNK)
+    send, recv = mesh.gather_buffers(n * (width + 1))
+    flat = [(k, t.reshape(-1)) for k, t in parts]
+    out = None
+    for a in range(0, m, width):
+        c = min(width, m - a)
+        rows = send[:n * (c + 1)].view(n, c + 1)
+        rows[:, c] = 0.0
+        done = []
+        for k, t in flat:
+            if t.device.type == "cuda":
+                with torch.cuda.stream(mesh._stream(k)):
+                    rows[k, :c].copy_(t[a:a + c].double(), non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record()
+                    done.append(ev)
+            else:
+                rows[k, :c] = t[a:a + c]
+            rows[k, c] = 1.0
+        for ev in done:
+            ev.synchronize()
+        with profiling.host_span("gather"):
+            got = [buf[:n * (c + 1)].view(n, c + 1) for buf in recv]
+            tdist.all_gather(got, rows)
+            acc = None
+            for blk in got:
+                for row in blk:
+                    if row[c] == 1.0:
+                        acc = row[:c].clone() if acc is None else acc.add_(row[:c])
+        if acc is None:
+            return None
+        if out is None:
+            out = torch.empty(m, dtype=torch.float64, device=mesh.first)
+        out[a:a + c].copy_(acc)
+    return out.reshape(shape)
 
 
 class BlockShards:

@@ -360,20 +360,7 @@ class SiteStream:
         dtype = dist.default_dtype(mesh.first)
         N, S = pars.n_ind, pars.n_sites
         if agreed(cls.wants_lazy(pars, dtype, stop - start), "max"):
-            # A lazy round is bounded by both budgets: the host's staging
-            # (the float64 read, the slab and the next round's, about
-            # three times a round) and the device's with its prefetch
-            # reservation (_plan's resident return skips the latter).
-            itemsize = torch.finfo(dtype).bits // 8
-            g = pars.boot_block_size if pars.n_boot_rep else 1
-            pref = g if pars.indep_geno else int(np.lcm(g, 256))
-            host_sites = (cls._host_budget_bytes() // 3) // max(
-                1, mesh.local_sites * N * 3 * itemsize)
-            dev_sites = (device_budget_bytes(mesh) * dist.PREFETCH_KEEP_NUM
-                         // dist.PREFETCH_KEEP_DEN) // max(1, N * 3 * itemsize)
-            sites = min(host_sites, dev_sites)
-            sites = (sites // pref) * pref or (sites // g) * g or g
-            chunk = agreed(min(chunk, sites), "min")
+            chunk = cls._lazy_chunk(pars, mesh, dtype, chunk)
             spill = {}
             if not cls.seekable_binary(pars):
                 spill = cls._build_spill(pars, start, stop)
@@ -394,6 +381,30 @@ class SiteStream:
         else:
             local = np.zeros((0, N, 3), dist._np_dtype(dtype))
         return cls(local, pars, mesh, s_loc, chunk, base=lo)
+
+    @classmethod
+    def _lazy_chunk(cls, pars: Params, mesh, dtype: torch.dtype, chunk: int) -> int:
+        """The sites of a lazy round of a shard, at most `chunk` (the
+        plan's), agreed across processes (ngsdist_tpu/parallel/
+        multihost.py:428-444).  A round is bounded by both budgets: the
+        host's staging of every local shard (the float64 read, the slab
+        and the next round's, about three times a round) and the device's
+        with its prefetch reservation (_plan's resident return skips the
+        latter).  The host's share of a shard is its budget over this
+        process's shards: where it binds, a process of fewer shards reads
+        longer rounds, and the run's bytes follow its split into processes
+        (run_distributed)."""
+        itemsize = torch.finfo(dtype).bits // 8
+        N = pars.n_ind
+        g = pars.boot_block_size if pars.n_boot_rep else 1
+        pref = g if pars.indep_geno else int(np.lcm(g, 256))
+        host_sites = (cls._host_budget_bytes() // 3) // max(
+            1, mesh.local_sites * N * 3 * itemsize)
+        dev_sites = (device_budget_bytes(mesh) * dist.PREFETCH_KEEP_NUM
+                     // dist.PREFETCH_KEEP_DEN) // max(1, N * 3 * itemsize)
+        sites = min(host_sites, dev_sites)
+        sites = (sites // pref) * pref or (sites // g) * g or g
+        return agreed(min(chunk, sites), "min")
 
     # ------------------------- spill cache --------------------------- #
 
@@ -568,8 +579,14 @@ def run_distributed(pars: Params, coordinator: Optional[str] = None,
     process reads its own site range (SiteStream.from_reader, eager or
     lazy), the shards' sums meet in the gathered fixed-order sum, and
     process 0 writes the phylip matrices to pars.out.  The output is that
-    of one process with a mesh of all the processes' entries, bit for
-    bit.  device: this process's device type (default: its cards); mesh:
+    of one process with a mesh of all the processes' entries, bit for bit,
+    when both cut the same rounds: the same device budget a shard (the
+    same cards, or NGSDIST_DEVICE_BUDGET), and both reading eagerly (the
+    whole genome within the one process's host budget) or both lazily in
+    rounds that the host budget does not cut (SiteStream._lazy_chunk).
+    Otherwise the one process, whose host budget holds more shards, reads
+    lazily or in shorter rounds, and its float64 sums add in another
+    order.  device: this process's device type (default: its cards); mesh:
     its entries instead (tests repeat a `cpu` entry).  Returns the
     matrices on process 0, [] elsewhere.
 

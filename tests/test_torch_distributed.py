@@ -12,7 +12,10 @@ from the file or a spill cache in rounds), models 1 and 3-6, and the EM
 of a text input with an empty line on the partial-sum route, whose
 zero-row flags lie in process 1's sites (the case that stops the JAX
 package's multi-process run: it fetches a global array there,
-ngsdist_tpu/core/distance.py:1214).  Then the resume of a run after
+ngsdist_tpu/core/distance.py:1214); two of them with all-gathers of a
+few elements each (mesh.GATHER_CHUNK).  A lazy run whose rounds the host
+budget cuts to other lengths in two processes than in one is held to the
+one process within 1e-9 instead.  Then the resume of a run after
 a finished matrix, and after a hard exit of both processes in the middle
 of a replicate's rounds; and an error in one process, which must stop
 the other with an error too.
@@ -55,11 +58,13 @@ from ngsdist_tpu_torch.core import distance as tdist
 from ngsdist_tpu_torch.parallel import mesh as pm
 
 call = pm.ShardStats.__call__
+chunk = pm.GATHER_CHUNK
 for run in spec:
     for k in ("NGSDIST_DEVICE_BUDGET", "NGSDIST_HOST_BUDGET", "NGSDIST_SPILL_DIR"):
         os.environ.pop(k, None)
     os.environ.update(run["env"])
     tdist.PARTIALS_BUDGET_BYTES = 0 if run["weighted"] else 1 << 30
+    pm.GATHER_CHUNK = run.get("gather_chunk") or chunk
     pm.ShardStats.__call__ = call
     if run.get("crash_after"):
         # a hard exit (no cleanup, as a kill) at the given call of the
@@ -140,6 +145,12 @@ def _budget(sites):
 
 
 LAZY = {"NGSDIST_HOST_BUDGET": "1000", "NGSDIST_DEVICE_BUDGET": _budget(40)}
+# A host budget that cuts a lazy round of a process of one shard to 40
+# sites and of one process of two shards to 20 (SiteStream._lazy_chunk:
+# a third of it over the shards' N x 3 float64 rows), under a device
+# budget that cuts neither: the two runs read in rounds of other lengths.
+HOST_BOUND = {"NGSDIST_HOST_BUDGET": str(3 * 40 * N * 3 * 8),
+              "NGSDIST_DEVICE_BUDGET": _budget(1000)}
 # name -> (input, flags, environment, weighted route forced)
 CASES = {
     "em_text_partials": ("gp.txt.gz", "--probs --n_boot_rep 3 --boot_block_size 32", {}, False),
@@ -163,7 +174,16 @@ CASES = {
                        "--pairwise_del --n_boot_rep 1 --boot_block_size 32", {}, False),
     "tn93_em": ("gp.bin", "--probs --pos pos.txt --evol_model 6 --n_boot_rep 1 "
                 "--boot_block_size 32", {}, False),
+    "indep_lazy_host_bound": ("gp.bin", "--probs --indep_geno --n_boot_rep 2 "
+                              "--boot_block_size 20", HOST_BOUND, False),
 }
+# Cases whose rounds the host budget cuts to other lengths in two
+# processes than in one: held to 1e-9, not to the one process's bytes.
+PLAN_DIFFERS = ("indep_lazy_host_bound",)
+# Cases whose multi-process sums go through all-gathers of a few elements
+# each (mesh.GATHER_CHUNK), as a bootstrap's replicates of a long genome
+# do at full width: the bytes must not change.
+GATHER_CHUNKS = {"indep_partials": 5, "em_lazy_spill": 7}
 
 
 def _argv(work, name, out):
@@ -183,7 +203,8 @@ def _env(work, name):
 
 def _run(work, name, tag="", **kw):
     return dict(name=name, argv=_argv(work, name, work / f"{name}{tag}.dist"),
-                env=_env(work, name), weighted=CASES[name][3], **kw)
+                env=_env(work, name), weighted=CASES[name][3],
+                gather_chunk=GATHER_CHUNKS.get(name), **kw)
 
 
 @pytest.fixture(scope="module")
@@ -221,7 +242,21 @@ def _one_process(monkeypatch, work, name, argv, main):
     assert main(argv) == 0
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+def _close(two, other, name):
+    """Process 0's matrices against another run's: the same count and
+    NaNs, and within 1e-9."""
+    got, want = _matrices(two), _matrices(other)
+    reps = CASES[name][1].split()
+    n = 1 + (int(reps[reps.index("--n_boot_rep") + 1]) if "--n_boot_rep" in reps else 0)
+    assert len(got) == len(want) == n
+    for g, w in zip(got, want):
+        assert g.shape == (N, N)
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+        np.testing.assert_allclose(g[~np.isnan(w)], w[~np.isnan(w)], rtol=0, atol=1e-9)
+    return got
+
+
+@pytest.mark.parametrize("name", sorted(n for n in CASES if n not in PLAN_DIFFERS))
 def test_two_processes_write_the_bytes_of_one_with_two_devices(launched, tmp_path,
                                                                monkeypatch, name):
     work = launched
@@ -232,14 +267,7 @@ def test_two_processes_write_the_bytes_of_one_with_two_devices(launched, tmp_pat
     assert open(two, "rb").read() == open(one, "rb").read()
     argv = [a for a in _argv(work, name, jax) if a not in ("--platform", "cpu")]
     _one_process(monkeypatch, work, name, argv + ["--engine", "jax"], jax_cli.main)
-    got, want = _matrices(two), _matrices(jax)
-    reps = CASES[name][1].split()
-    n = 1 + (int(reps[reps.index("--n_boot_rep") + 1]) if "--n_boot_rep" in reps else 0)
-    assert len(got) == len(want) == n
-    for g, w in zip(got, want):
-        assert g.shape == (N, N)
-        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
-        np.testing.assert_allclose(g[~np.isnan(w)], w[~np.isnan(w)], rtol=0, atol=1e-9)
+    got = _close(two, jax, name)
     if name == "em_text_partials":
         # the empty line poisons the full data and the replicates that
         # draw its block, whose flags only process 1 holds
@@ -248,6 +276,34 @@ def test_two_processes_write_the_bytes_of_one_with_two_devices(launched, tmp_pat
         assert any(drawn) and not all(drawn)
     if "NGSDIST_SPILL_DIR" in _env(work, name):
         assert list((work / "spill").iterdir()) == []   # every process deleted its cache
+
+
+def test_a_host_budget_that_cuts_the_rounds_follows_the_split(launched, tmp_path,
+                                                              monkeypatch):
+    """Where the host budget cuts a lazy round, a process of one shard
+    reads rounds twice as long as one process of two shards
+    (SiteStream._lazy_chunk): the two runs add their float64 sums in
+    other orders, so process 0's file is held to the one-process run and
+    to the JAX engine within 1e-9, not to the bytes."""
+    work, name = launched, "indep_lazy_host_bound"
+    for k, v in _env(work, name).items():
+        monkeypatch.setenv(k, v)
+    pars = _pars(work, name, tmp_path / "plan.dist")
+    two_entries = pm.make_mesh([torch.device("cpu")] * 2)
+    s_loc, chunk = pmh.SiteStream._plan(pars, two_entries)
+    assert chunk == s_loc
+    dtype = tdist.default_dtype(torch.device("cpu"))
+    # one process of two shards; process 0 of two, one shard each
+    assert pmh.SiteStream._lazy_chunk(pars, two_entries, dtype, chunk) == 20
+    one_entry = pm.make_mesh([torch.device("cpu")])
+    assert pmh.SiteStream._lazy_chunk(pars, one_entry, dtype, chunk) == 40
+    one, jax = tmp_path / "one.dist", tmp_path / "jax.dist"
+    _one_process(monkeypatch, work, name, _argv(work, name, one) + ["--devices", "2"], cli.main)
+    _close(work / f"{name}.dist", one, name)
+    argv = [a for a in _argv(work, name, jax) if a not in ("--platform", "cpu")]
+    _one_process(monkeypatch, work, name, argv + ["--engine", "jax"], jax_cli.main)
+    _close(work / f"{name}.dist", jax, name)
+    assert list((work / "spill").iterdir()) == []
 
 
 def _pars(work, name, out):

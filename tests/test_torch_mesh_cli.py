@@ -85,12 +85,11 @@ def test_cli_mesh_streamed_matches_jax(tmp_path, monkeypatch, family):
 @pytest.mark.parametrize("extra,needle", [
     (["--devices", "6", "--pairs", "4"], "6 devices do not factor into pairs=4"),
     # the multi-process flags run under --coordinator (tests/
-    # test_torch_distributed.py); alone they are refused (the case ids are
-    # those of their earlier form, when the port refused them outright)
+    # test_torch_distributed.py); alone they are refused
     pytest.param(["--num_processes", "2"], "--num_processes needs --coordinator",
-                 id="extra1---num_processes is not yet supported"),
+                 id="num_processes-needs-coordinator"),
     pytest.param(["--process_id", "0"], "--process_id needs --coordinator",
-                 id="extra2---process_id is not yet supported"),
+                 id="process_id-needs-coordinator"),
     (["--x64"], "--x64 is not yet supported"),
 ])
 def test_cli_mesh_errors(extra, needle, tmp_path, monkeypatch, capsys):

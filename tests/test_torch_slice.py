@@ -93,12 +93,11 @@ def test_port_matches_jax_engine(random_gp, tmp_path, indep, flags):
 
 @pytest.mark.parametrize("extra,needle", [
     (["--platform", "cuda"], "no CUDA device"),
-    # under --coordinator the JAX CLI's refusals (the case id is that of
-    # its earlier form, when the port refused --coordinator itself;
-    # tests/test_torch_distributed.py holds the others and the run)
+    # under --coordinator the JAX CLI's refusals
+    # (tests/test_torch_distributed.py holds the others and the run)
     pytest.param(["--platform", "cpu", "--coordinator", "localhost:1", "--devices", "2"],
                  "--devices is not supported with --coordinator",
-                 id="extra1---coordinator is not yet supported"),
+                 id="coordinator-refuses-devices"),
     (["--platform", "cpu", "--trace_dir", "t"], "--trace_dir is not yet supported"),
     (["--platform", "cpu", "--engine", "jax"], "unknown engine 'jax'"),
     (["--platform", "cpu", "--engine", "exact"], "python -m ngsdist_tpu)"),
