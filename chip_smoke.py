@@ -95,6 +95,26 @@ Phases, each of which fails the run loudly:
    two processes' launches adding up to its launches, each process's
    wall time, read and gather seconds printed; the workers are killed
    past PROC_WALL seconds.
+   The code-plane lane (CODED_RUNS), each run beside its twin under
+   NGSDIST_CODED_UPLOAD=0, which must write the same bytes (the table's
+   rows are the float32 casts of the staged triples, so both compute on
+   one tensor): (cg) (a)'s file and flags with --call_geno on one device,
+   read by the fused codes reader (a readers.CodedBinInput, one byte a
+   triple); (cgs) (cg) under a forced budget of 4 chunks, the code plane
+   read whole and the bootstrap's chunks sliced from it, also within
+   twice the kernel's bound of (cg); (gt) a seeded gz hard-genotype text
+   (-1/0/1/2, ~5% missing) of 1024 x 16,384, read staged and scanned for
+   its code plane (hostmem.derive_codes, its seconds on a line of their
+   own); (cgm) (cg) on a mesh of two entries of the card, the eager code
+   plane sliced per shard; (cgl) (cgm) under a host budget below the
+   plane's 128 MiB, lazy coded rounds read from the raw file; and, in the
+   two workers, (cgp) (cgl)'s flags in two --coordinator processes,
+   process 0's file (cgl)'s bytes where both cut the same rounds, else
+   within 1e-7 on d.  Each line gives wall, read, scan, upload and kernel
+   seconds and the host bytes sent.  Then the upload lanes of (a)'s file
+   (native nd_read_geno_pack23, nd_read_geno_pack16, nd_read_geno_codes,
+   each read into pinned memory and uploaded; the uint16 lane is not
+   ported, only timed).
    Each matrix takes three launches (one per substitution class, on the
    class's sites only) per chunk, 9 for (g) and (h); the engine is
    handed the staged float64 tensor.  Their 64-individual sub-matrices
@@ -120,7 +140,9 @@ Phases, each of which fails the run loudly:
    0 adds 0), indep's cnt equal and its raw within twice INDEP_RTOL (its
    float32 windows regroup); also on a small case with a NaN triple at a
    site of weight 0, which both forms must spread to its pairs; and
-   core/distance.py pair_pi_counts at (h)'s shape.  One pairs-shard's
+   core/distance.py pair_pi_counts at (h)'s shape; core/distance.py
+   expand_codes at [65,536, 1024] uint8 -> float32 beside its bound by
+   bytes and the plain indexing it must equal.  One pairs-shard's
    K1p launch at (a)'s shape and K2b launch at (b)'s, for splits of 2 and
    4, beside the full launch, with the share of the tiles it holds and
    the bound scaled by that share; and the fixed-order sum of (i)'s four
@@ -256,7 +278,26 @@ LAZY_RUNS = {"l": ("a", "bin", 256 << 20, 10), "lt": ("b", "beagle", 64 << 20, 3
 # is config 5's path in miniature: lazy, streamed, the bootstrap's block
 # partials in one pass over the rounds.
 PROC_RUNS = {"me": ("b", None, None), "ma": ("a", None, None), "ml": ("d", 256 << 20, 2048)}
-PROC_WALL = 420   # seconds both processes may take for all of PROC_RUNS
+PROC_WALL = 480   # seconds both processes may take for all of PROC_RUNS and CODED_PROC_RUNS
+# Phase 3, the code-plane lane: run -> (the run whose file and flags it
+# takes with --call_geno, or "gt" for the hard-genotype text; mesh
+# entries of the card or None: one device; NGSDIST_HOST_BUDGET or None;
+# chunks a forced NGSDIST_DEVICE_BUDGET must give or None; what the
+# engine must be handed, coded and in the twin).  (cgl)'s host budget is
+# below the code plane's S x N x 2 bytes (128 MiB), so the mesh declines
+# the eager plane and reads coded rounds from disk.
+CODED_HOST_BUDGET = 96 << 20
+GT_SITES = EM_SITES
+CODED_RUNS = {"cg": ("a", None, None, None, ("CodedBinInput", "ndarray")),
+              "cgs": ("a", None, None, 4, ("CodedProbs", "ndarray")),
+              "gt": ("gt", None, None, None, ("CodedProbs", "ndarray")),
+              "cgm": ("a", 2, None, None, ("CodedProbs", "ndarray")),
+              "cgl": ("a", 2, CODED_HOST_BUDGET, None,
+                      ("SiteStream(DiskRows, coded)", "SiteStream(DiskRows, uncoded)"))}
+# Two --coordinator processes: run -> the in-process run whose flags and
+# host budget it takes, and against whose file process 0's is held.
+CODED_PROC_RUNS = {"cgp": "cgl"}
+CODED_PROC_ATOL = 1e-7   # on d, where the two cut other rounds
 SCORE9 = np.array([[0.0, 0.5, 1.0], [0.5, 0.0, 0.5], [1.0, 0.5, 0.0]]).reshape(-1)
 
 
@@ -722,9 +763,10 @@ def check_same_as_resident(run: str, streamed, resident) -> float:
     (indep: INDEP_RTOL relative on raw/cnt; EM: EM_ATOL_CNT on it), so
     the two within twice it, scaled by |dT/dd| = 1/(1 - raw/cnt) of
     model 1, plus the %.10f print rounding of both.  run: a run of RUNS,
-    or of LAZY_RUNS or PROC_RUNS (its base run's kind)."""
+    or of LAZY_RUNS, PROC_RUNS or CODED_RUNS (its base run's kind)."""
     base = (LAZY_RUNS[run][0] if run in LAZY_RUNS else
-            PROC_RUNS[run][0] if run in PROC_RUNS else run)
+            PROC_RUNS[run][0] if run in PROC_RUNS else
+            CODED_RUNS[run][0] if run in CODED_RUNS else run)
     kind = RUNS[base][0]
     worst = 0.0
     for a, b in zip(streamed, resident):
@@ -1127,8 +1169,10 @@ def timed_run(torch, mods, ngsd, budget, fused: bool, call):
     just before and read just after, under the given NGSDIST_DEVICE_BUDGET
     (None: unset) and read route.  Returns what the run showed: call()'s
     result, launches, wall seconds, the stage times' summary, the peak of
-    the device memory and the type of the source the engine was handed."""
-    runner, profiling = ngsd["runner"], ngsd["profiling"]
+    the device memory, the type of what load_inputs returned ("source")
+    and of what the engine was handed ("handed": a SiteStream with its
+    rows' source and lane)."""
+    runner, profiling, distance = ngsd["runner"], ngsd["profiling"], ngsd["distance"]
     env = {"NGSDIST_DEVICE_BUDGET": None if budget is None else str(budget),
            "NGSDIST_FUSED_READ": "auto" if fused else "0"}
     seen = {}
@@ -1145,7 +1189,17 @@ def timed_run(torch, mods, ngsd, budget, fused: bool, call):
         seen["source"] = type(seen["stream"].src).__name__
         return seen["stream"]
 
+    iter_replicates = distance.iter_replicates
+
+    def engine_spy(pars, P, *a, **k):
+        seen["handed"] = type(P).__name__
+        if hasattr(P, "src"):
+            seen["handed"] += (f"({type(P.src).__name__}, "
+                               f"{'coded' if P.coded else 'uncoded'})")
+        return iter_replicates(pars, P, *a, **k)
+
     runner.load_inputs = spy
+    distance.iter_replicates = engine_spy
     ngsd["multihost"].SiteStream.from_reader = classmethod(reader_spy)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1165,6 +1219,7 @@ def timed_run(torch, mods, ngsd, budget, fused: bool, call):
     finally:
         profiling.ACTIVE = None
         runner.load_inputs = load_inputs
+        distance.iter_replicates = iter_replicates
         ngsd["multihost"].SiteStream.from_reader = classmethod(from_reader)
     return seen
 
@@ -1414,6 +1469,195 @@ def drive_lazy_runs(torch, cli, mods, ngsd, genos, mats, P, card):
     return launches, diffs
 
 
+def write_genotypes(path: str, sites: int) -> None:
+    """(gt)'s input: a seeded gz hard-genotype text of `sites` lines of
+    N_IND genotypes in -1/0/1/2 (about 5% -1, missing)."""
+    import gzip
+
+    rng = np.random.default_rng(SEED + 5)
+    g = rng.integers(0, 3, size=(sites, N_IND)).astype(np.int8)
+    g[rng.random((sites, N_IND)) < 0.05] = -1
+    tokens = np.array(["-1", "0", "1", "2"])
+    with gzip.open(path, "wt", compresslevel=1) as fh:
+        for lo in range(0, sites, 1024):
+            fh.write("\n".join("\t".join(row) for row in tokens[g[lo:lo + 1024] + 1]) + "\n")
+
+
+def coded_args(run: str, geno: str, out: str):
+    """The CLI arguments of code-plane run `run` (CODED_RUNS): its base
+    run's with --call_geno, or (gt)'s: hard genotypes (no --probs), (a)'s
+    --pairwise_del and bootstrap at GT_SITES sites."""
+    base = CODED_RUNS[CODED_PROC_RUNS.get(run, run)][0]
+    if base != "gt":
+        return run_args(base, geno, out) + ["--call_geno"]
+    return ["--geno", geno, "--n_ind", str(N_IND), "--n_sites", str(GT_SITES), "--seed",
+            str(SEED), "--out", out, "--verbose", "1", "--pairwise_del", "--n_boot_rep",
+            str(BOOT_REPS), "--boot_block_size", str(BOOT_BLOCK)]
+
+
+def coded_budget(run: str) -> int:
+    """The NGSDIST_DEVICE_BUDGET under which (cgs) streams in the chunks
+    CODED_RUNS asks for (forced_budget's reckoning)."""
+    sites = RUNS[CODED_RUNS[run][0]][1]
+    return 3 * 4 * (sites // CODED_RUNS[run][3]) * N_IND * 12 // 3
+
+
+def coded_line(run: str, what: str, seen, card: str) -> str:
+    t = seen["times"]
+    return (f"({run}) {what} in {seen['wall']:.2f} s (host clock, call incl. read and write): "
+            f"read {t['read_s']:.3f} s, scan {t['scan_s']:.3f} s, upload {t['upload_s']:.3f} s, "
+            f"kernels {t['kernel_s']:.3f} s, host bytes sent {t['upload_bytes']} B; peak device "
+            f"memory {seen['peak']} B; engine handed {seen['handed']}; launches "
+            + ", ".join(f"{k} {v}" for k, v in seen["launches"].items() if v) + f" [{card}]")
+
+
+def drive_coded_runs(torch, cli, mods, ngsd, genos, card):
+    """The runs of CODED_RUNS (module docstring, phase 3), each with its
+    launch counts set to 0 just before it and read just after, and its
+    twin under NGSDIST_CODED_UPLOAD=0: what the engine is handed, the
+    launches (the twin's; one-device runs their route's count), the bytes
+    of the twin's file, and for (cgs) the peak of the device memory (the
+    twin's, and at most a chunk's uint8 stage and int32 index besides).  Returns the launches, the largest |d
+    difference| of (cgs) from (cg), and (cgl)'s file and round length."""
+    runner, pm = ngsd["runner"], ngsd["mesh"]
+    dev0 = torch.device(DEVICE, 0)
+    gt = os.path.join(WORK, "gt.geno.gz")
+    t0 = time.perf_counter()
+    write_genotypes(gt, GT_SITES)
+    log(f"phase 3: (gt)'s gz hard-genotype text of {N_IND} x {GT_SITES} written in "
+        f"{time.perf_counter() - t0:.2f} s ({os.path.getsize(gt)} B)")
+    launches, files, diffs, streams = {}, {}, {}, {}
+    for run, (base, entries, host, chunks, handed) in CODED_RUNS.items():
+        geno = gt if base == "gt" else genos[base]
+        budget = coded_budget(run) if chunks else None
+        got = {}
+        for lane, coded in (("coded", True), ("twin", False)):
+            out = os.path.join(WORK, f"{run}_{lane}.dist")
+            args = coded_args(run, geno, out)
+            env = {"NGSDIST_CODED_UPLOAD": None if coded else "0",
+                   "NGSDIST_HOST_BUDGET": None if host is None else str(host)}
+            mesh = None if entries is None else pm.make_mesh([dev0] * entries)
+
+            def call(args=args, mesh=mesh):
+                if mesh is None:
+                    return cli.main(args + ["--platform", DEVICE, "--throughput"])
+                return runner.run(cli.parse_args(args)[0], mesh=mesh, report_throughput=True)
+
+            with environment(env):
+                seen = timed_run(torch, mods, ngsd, budget, True, call)
+            if entries is None and seen["result"] != 0:
+                raise AssertionError(f"run ({run}) {lane}: exit code {seen['result']}")
+            want = handed[0 if coded else 1]
+            if seen["handed"] != want:
+                raise AssertionError(f"run ({run}) {lane}: the engine was handed "
+                                     f"{seen['handed']}, not {want}")
+            got[lane] = (seen, out)
+            launches[f"{run}_{lane}"] = seen["launches"]
+            what = ("coded" if coded else "its twin under NGSDIST_CODED_UPLOAD=0") + (
+                f", on {entries} entries of {dev0}" if entries else "") + (
+                f", NGSDIST_HOST_BUDGET={host}" if host else "") + (
+                f", streamed under NGSDIST_DEVICE_BUDGET={budget}" if budget else "")
+            log("phase 3: " + coded_line(run, what, seen, card))
+        (seen, out), (twin, twin_out) = got["coded"], got["twin"]
+        if seen["launches"] != twin["launches"] or not any(seen["launches"].values()):
+            raise AssertionError(f"run ({run}): launches {seen['launches']}, its twin "
+                                 f"{twin['launches']}")
+        reps = BOOT_REPS
+        if run == "cg" and seen["launches"]["indep_raw_cnt"] != 1 + reps:
+            raise AssertionError(f"run (cg): launches {seen['launches']}")
+        if run == "cgs":
+            dev = torch.device(DEVICE)
+            with environment({"NGSDIST_DEVICE_BUDGET": str(budget)}):
+                chunked, chunk = ngsd["distance"].stream_plan(INDEP_SITES, N_IND, dev, None)
+            n = -(-INDEP_SITES // chunk)
+            if not chunked or n < chunks or seen["launches"]["indep_raw_cnt"] != n * (1 + reps):
+                raise AssertionError(f"run (cgs): {n} chunks, launches {seen['launches']}")
+            # the lane holds its twin's device memory and, at most, a chunk's
+            # uint8 stage and the gather's int32 index (5 bytes a code)
+            if seen["peak"] > twin["peak"] + 5 * chunk * N_IND:
+                raise AssertionError(f"run (cgs): peak device memory {seen['peak']} B, its "
+                                     f"twin's {twin['peak']} B")
+        if run == "gt" and seen["launches"] != {**{k: 0 for k in KERNELS}, "indep_raw_cnt": 1,
+                                                 "indep_block_partials": 1}:
+            raise AssertionError(f"run (gt): launches {seen['launches']}")
+        if run == "cgl":
+            st = seen["stream"]
+            shards = sum(hi > lo for r in range(st.n_rounds) for lo, hi in st.round_ranges(r))
+            if not st.lazy or seen["launches"]["indep_raw_cnt"] != shards * (1 + reps):
+                raise AssertionError(f"run (cgl): lazy {st.lazy}, {st.n_rounds} rounds, "
+                                     f"launches {seen['launches']}")
+            streams[run] = st.chunk
+        with open(out, "rb") as a, open(twin_out, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"run ({run}): the coded file differs from its twin's")
+        files[run] = out
+        mats = check_output(out, 1 + reps)
+        if run == "cgs":
+            diffs[run] = check_same_as_resident("cgs", mats, check_output(files["cg"], 1 + reps))
+        if run == "gt":
+            log(f"phase 3: (gt) the staged scan for the code plane (hostmem.derive_codes): "
+                f"{seen['times']['scan_s']:.3f} s of the run's {seen['wall']:.2f} s; its twin "
+                f"without the scan {twin['wall']:.2f} s [{card}]")
+        log(f"phase 3: ({run}) the coded file equals its twin's byte for byte; bytes sent "
+            f"{seen['times']['upload_bytes']} against {twin['times']['upload_bytes']} "
+            f"({twin['times']['upload_bytes'] / max(1, seen['times']['upload_bytes']):.2f}x)"
+            + (f"; within {diffs[run]:.3e} of (cg) on d" if run in diffs else ""))
+    return launches, diffs, files["cgl"], streams["cgl"]
+
+
+def time_upload_lanes(torch, native, path: str, card: str) -> None:
+    """(a)'s raw binary file through three fused native readers into
+    pinned memory, each slab then uploaded to the card: the packed
+    float32 pairs (nd_read_geno_pack23, 8 bytes a triple), the uint16
+    fixed-point pairs of the JAX package's NGSDIST_UPLOAD16 lane
+    (nd_read_geno_pack16, 4 bytes; not ported, timed only) and the codes
+    of --call_geno (nd_read_geno_codes, 1 byte).  Read on the host clock,
+    upload by CUDA events, second of two rounds (a warm page cache); the
+    uint16 values within half a step of 1/65534 of the float32 ones, a
+    missing triple's quantised mean in place of its pair."""
+    import ctypes
+
+    lib = native.get_lib()
+    S, N = INDEP_SITES, N_IND
+    dev = torch.device(DEVICE)
+    lanes = {"pack23": ((S, N, 2), torch.float32, ctypes.c_float, lib.nd_read_geno_pack23),
+             "pack16": ((S, N, 2), torch.int16, ctypes.c_uint16, lib.nd_read_geno_pack16),
+             "codes": ((S, N), torch.uint8, ctypes.c_uint8, lib.nd_read_geno_codes)}
+    on_card = {}
+    for lane, (shape, dtype, ctype, fn) in lanes.items():
+        host = torch.empty(shape, dtype=dtype, pin_memory=True)
+        ptr = host.numpy().ctypes.data_as(ctypes.POINTER(ctype))
+        for _ in range(2):
+            errbuf, err = ctypes.create_string_buffer(256), ctypes.c_int(0)
+            extra = (ctypes.byref(ctypes.c_int(0)),) if lane == "codes" else ()
+            t0 = time.perf_counter()
+            rc = fn(path.encode(), 0, N, S, 0, S, ptr, *extra, errbuf, 256, ctypes.byref(err))
+            read_s = time.perf_counter() - t0
+            if rc:
+                raise AssertionError(f"{lane} read: rc {rc}: {errbuf.value.decode()}")
+            start, stop = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            start.record()
+            on_card[lane] = host.to(dev, non_blocking=True)
+            stop.record()
+            torch.cuda.synchronize()
+        nbytes = host.numel() * host.element_size()
+        log(f"phase 3: upload lane {lane} of (a)'s file ({N} x {S}): read into pinned memory "
+            f"{read_s:.3f} s (host clock), upload {start.elapsed_time(stop):.3f} ms, "
+            f"{nbytes} B ({nbytes / (start.elapsed_time(stop) * 1e6):.2f} GB/s) [{card}]")
+        del host
+    # the uint16 values; a missing triple is (65535, its quantised mean)
+    q = (on_card["pack16"].int() & 0xFFFF).float()
+    missing = (q[..., 0] == 65535)[..., None]
+    err = float((torch.where(missing, q[..., 1:], q) / 65534.0 - on_card["pack23"]).abs().max())
+    if not err <= 0.5 / 65534 + 1e-6:
+        raise AssertionError(f"pack16 differs from pack23 by {err}")
+    log(f"phase 3: the uint16 pairs within {err:.3e} of the float32 pairs, {int(missing.sum())} "
+        f"missing triples as (65535, mean)")
+    del on_card, q, missing
+    torch.cuda.empty_cache()
+
+
 PROC_WORKER = r"""
 import json, os, sys, time
 rank, root, spec = int(sys.argv[1]), sys.argv[2], json.load(open(sys.argv[3]))
@@ -1421,13 +1665,23 @@ sys.path.insert(0, root)
 import torch
 from ngsdist_tpu_torch import cli
 from ngsdist_tpu_torch.ops import em, indep
+from ngsdist_tpu_torch.parallel import multihost
 from ngsdist_tpu_torch.utils import profiling
 
 mods = {"indep": indep, "em": em}
 dev = torch.device(spec["device"])
 sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+from_reader = multihost.SiteStream.from_reader.__func__
+stream = {}
+
+def reader_spy(cls, pars, mesh):
+    st = from_reader(cls, pars, mesh)
+    stream.update(lazy=st.lazy, coded=st.coded, chunk=st.chunk, rounds=st.n_rounds)
+    return st
+
+multihost.SiteStream.from_reader = classmethod(reader_spy)
 for run in spec["runs"]:
-    for k in ("NGSDIST_DEVICE_BUDGET", "NGSDIST_HOST_BUDGET"):
+    for k in ("NGSDIST_DEVICE_BUDGET", "NGSDIST_HOST_BUDGET", "NGSDIST_CODED_UPLOAD"):
         os.environ.pop(k, None)
     os.environ.update(run["env"])
     for mod, counter in spec["kernels"].values():
@@ -1439,7 +1693,7 @@ for run in spec["runs"]:
                                  "--num_processes", "2", "--process_id", str(rank)])
     sync()
     got = {"run": run["name"], "rc": rc, "wall": time.perf_counter() - t0,
-           "times": profiling.ACTIVE.summary(),
+           "times": profiling.ACTIVE.summary(), "stream": dict(stream),
            "launches": {name: getattr(mods[mod], counter)
                         for name, (mod, counter) in spec["kernels"].items()}}
     profiling.ACTIVE = None
@@ -1472,7 +1726,7 @@ def proc_env(run: str) -> dict:
     return env
 
 
-def drive_process_runs(torch, mods, ngsd, genos, mats, card):
+def drive_process_runs(torch, mods, ngsd, genos, mats, card, coded_ref):
     """The runs of PROC_RUNS in two processes on the one card (module
     docstring, phase 3): two workers, each the CLI entry point with
     --coordinator 127.0.0.1:PORT --num_processes 2 --process_id 0|1 for
@@ -1489,7 +1743,9 @@ def drive_process_runs(torch, mods, ngsd, genos, mats, card):
     full-data matrix of (c) run staged (drive_mesh_runs), which is (b)'s
     read so.  Those runs are held to the plain sums.  Returns the
     launches (both processes together) and the largest |d difference| per
-    run, and prints each run's wall time and its gathers."""
+    run, and prints each run's wall time and its gathers.  The same
+    workers then run CODED_PROC_RUNS and their twins (check_coded_procs;
+    coded_ref: (cgl)'s file and round length)."""
     cli, runner, pm = ngsd["cli"], ngsd["runner"], ngsd["mesh"]
     worker = os.path.join(WORK, "proc_worker.py")
     with open(worker, "w") as fh:
@@ -1499,6 +1755,16 @@ def drive_process_runs(torch, mods, ngsd, genos, mats, card):
         runs.append({"name": run, "env": proc_env(run), "port": free_port(),
                      "argv": run_args(base, genos[base], os.path.join(WORK, f"{run}.dist"))
                      + ["--platform", DEVICE]})
+    for run, ref in CODED_PROC_RUNS.items():
+        host = CODED_RUNS[ref][2]
+        for lane in ("coded", "twin"):
+            env = {"NGSDIST_HOST_BUDGET": str(host)} if host else {}
+            if lane == "twin":
+                env["NGSDIST_CODED_UPLOAD"] = "0"
+            out = os.path.join(WORK, f"{run}_{lane}.dist")
+            runs.append({"name": f"{run}_{lane}", "env": env, "port": free_port(),
+                         "argv": coded_args(run, genos[CODED_RUNS[ref][0]], out)
+                         + ["--platform", DEVICE]})
     spec = os.path.join(WORK, "proc_spec.json")
     with open(spec, "w") as fh:
         json.dump({"runs": runs, "kernels": KERNELS, "device": DEVICE}, fh)
@@ -1567,6 +1833,66 @@ def drive_process_runs(torch, mods, ngsd, genos, mats, card):
             + f"; one process on two entries {seen['wall']:.2f} s; process 0's file equals "
             f"it byte for byte and lies within {diffs[run]:.3e} of ({base}); launches "
             + ", ".join(f"{k} {v}" for k, v in both.items() if v) + f" [{card}]")
+    coded_launched, coded_diffs = check_coded_procs(results, card, coded_ref)
+    launches.update(coded_launched)
+    diffs.update(coded_diffs)
+    return launches, diffs
+
+
+def check_coded_procs(results, card, coded_ref):
+    """The two-process runs of CODED_PROC_RUNS and their twins under
+    NGSDIST_CODED_UPLOAD=0: both processes lazy, coded (the twin not), the
+    same launches; process 0's coded file its twin's bytes, and the
+    in-process run's on two entries ((cgl), coded_ref: its file and round
+    length) where both cut rounds of one length, else within
+    CODED_PROC_ATOL on d.  Returns the launches (both processes together)
+    and the largest |d difference| from the in-process run."""
+    ref_file, ref_chunk = coded_ref
+    launches, diffs = {}, {}
+    for run, ref in CODED_PROC_RUNS.items():
+        got = {lane: [results[rank][f"{run}_{lane}"] for rank in (0, 1)]
+               for lane in ("coded", "twin")}
+        for lane, procs in got.items():
+            for rank, g in enumerate(procs):
+                st = g["stream"]
+                if not st.get("lazy") or st.get("coded") != (lane == "coded"):
+                    raise AssertionError(f"run ({run}) {lane}, process {rank}: stream {st}")
+            launches[f"{run}_{lane}_2p"] = {
+                name: procs[0]["launches"][name] + procs[1]["launches"][name] for name in KERNELS}
+            t = [g["times"] for g in procs]
+            log(f"phase 3: ({run}) {lane}: {ref}'s flags in two processes, lazy in "
+                f"{procs[0]['stream']['rounds']} rounds of {procs[0]['stream']['chunk']} sites; "
+                + "; ".join(f"process {rank}: {g['wall']:.2f} s (host clock, CLI call), read "
+                            f"{tt['read_s']:.3f} s, upload {tt['upload_s']:.3f} s, kernels "
+                            f"{tt['kernel_s']:.3f} s, host bytes sent {tt['upload_bytes']} B, "
+                            f"gathers {tt['gather_s']:.4f} s"
+                            for rank, (g, tt) in enumerate(zip(procs, t)))
+                + "; launches " + ", ".join(f"{k} {v}" for k, v in
+                                            launches[f"{run}_{lane}_2p"].items() if v)
+                + f" [{card}]")
+        if launches[f"{run}_coded_2p"] != launches[f"{run}_twin_2p"]:
+            raise AssertionError(f"run ({run}): launches {launches[f'{run}_coded_2p']}, its "
+                                 f"twin {launches[f'{run}_twin_2p']}")
+        out = os.path.join(WORK, f"{run}_coded.dist")
+        with open(out, "rb") as a, open(os.path.join(WORK, f"{run}_twin.dist"), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"run ({run}): process 0's coded file differs from its "
+                                     "twin's")
+        n_mats = 1 + RUNS[CODED_RUNS[ref][0]][2]
+        mats, ref_mats = check_output(out, n_mats), check_output(ref_file, n_mats)
+        diffs[run] = max(float(np.abs(a - b).max()) for a, b in zip(mats, ref_mats))
+        chunk = got["coded"][0]["stream"]["chunk"]
+        with open(out, "rb") as a, open(ref_file, "rb") as b:
+            same = a.read() == b.read()
+        if chunk == ref_chunk and not same:
+            raise AssertionError(f"run ({run}): rounds of {chunk} sites as ({ref})'s, but "
+                                 "other bytes")
+        if not diffs[run] <= CODED_PROC_ATOL:
+            raise AssertionError(f"run ({run}): {diffs[run]} from ({ref}) on d, above "
+                                 f"{CODED_PROC_ATOL}")
+        log(f"phase 3: ({run}) process 0's coded file equals its twin's byte for byte; "
+            f"against ({ref}) (rounds of {ref_chunk} sites a shard; here {chunk}): "
+            + ("the same bytes" if same else f"within {diffs[run]:.3e} on d"))
     return launches, diffs
 
 
@@ -1620,6 +1946,29 @@ def tile_times(torch, kmod, pm, build, kind, P32, pairwise_del, plain64, bound, 
            None)
 
 
+def time_expand_codes(torch, distance, hostmem, card) -> None:
+    """core/distance.py expand_codes (a plain PyTorch gather, the device
+    half of the code-plane lane) at (a)'s shape, uint8 [S, N] ->
+    float32 [S, N, 3] into a kept buffer, by CUDA events, beside its bound
+    by bytes (the codes read once, the triples written once) and held to
+    the plain indexing of the table by the codes."""
+    S, N = INDEP_SITES, N_IND
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    codes = torch.randint(0, 4, (S, N), generator=gen, device=dev, dtype=torch.uint8)
+    lut = torch.from_numpy(hostmem.coded_call_lut(True)).float().to(dev)
+    out = torch.empty((S, N, 3), dtype=torch.float32, device=dev)
+    ms = time_cuda(torch, lambda: distance.expand_codes(codes, lut, out=out), 5)
+    if not torch.equal(out, lut[codes.long()]):
+        raise AssertionError("expand_codes differs from the table indexed by the codes")
+    nbytes = S * N * (1 + 3 * 4)
+    log(f"phase 4: expand_codes uint8 [{S}, {N}] -> float32 [{S}, {N}, 3]: {ms:.3f} ms; bound "
+        f"{nbytes / PEAK_BYTES * 1e3:.3f} ms by bytes ({nbytes} B at {PEAK_BYTES:.3g} B/s); "
+        f"equal to the plain indexing [{card}]")
+    del codes, out
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1632,7 +1981,7 @@ def main() -> int:
     from ngsdist_tpu_torch.ops import _build, em, indep
     from ngsdist_tpu_torch.parallel import mesh as pm
     from ngsdist_tpu_torch.parallel import multihost
-    from ngsdist_tpu_torch.utils import profiling
+    from ngsdist_tpu_torch.utils import hostmem, native, profiling
 
     # Phase 1: identity and builds.
     card = card_line()
@@ -1707,7 +2056,12 @@ def main() -> int:
         launches.update(mesh_launched)
         lazy_launched, lazy_diffs = drive_lazy_runs(torch, cli, mods, ngsd, genos, mats, P, card)
         launches.update(lazy_launched)
-        proc_launched, proc_diffs = drive_process_runs(torch, mods, ngsd, genos, mats, card)
+        coded_launched, coded_diffs, cgl_file, cgl_chunk = drive_coded_runs(
+            torch, cli, mods, ngsd, genos, card)
+        launches.update(coded_launched)
+        time_upload_lanes(torch, native, genos["a"], card)
+        proc_launched, proc_diffs = drive_process_runs(torch, mods, ngsd, genos, mats, card,
+                                                       (cgl_file, cgl_chunk))
         launches.update(proc_launched)
         del mats, P_sub
         log(f"phase 3: outputs hold 1 + n_boot_rep finite symmetric matrices "
@@ -1724,8 +2078,11 @@ def main() -> int:
             + ", ".join(f"{k} {v:.3e}" for k, v in mesh_diffs.items())
             + "; disk-read runs against the same input resident, max |d difference| "
             + ", ".join(f"{k} {v:.3e}" for k, v in lazy_diffs.items())
-            + "; two-process runs against the one-device run of the same file, max |d "
-            "difference| " + ", ".join(f"{k} {v:.3e}" for k, v in proc_diffs.items()))
+            + "; coded runs equal their twins byte for byte, (cgs) against (cg) max |d "
+            "difference| " + ", ".join(f"{k} {v:.3e}" for k, v in coded_diffs.items())
+            + "; two-process runs against the one-device run of the same file ((cgp): the "
+            "in-process run on two entries), max |d difference| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in proc_diffs.items()))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1846,6 +2203,7 @@ def main() -> int:
 
     del P32
     torch.cuda.empty_cache()
+    time_expand_codes(torch, distance, hostmem, card)
     phase_wide(torch, indep, em, card, report)
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -29,7 +29,11 @@ class's sites only (`class_compaction`).
 Uploads run through `ChunkPipe`: one thread prepares the next host slab
 (a fused read of a raw binary file through a readers.PackedBinInput
 handle, or the cast of a slice of the host tensor) while, on a card,
-the last one is copied from pinned memory on a copy stream.
+the last one is copied from pinned memory on a copy stream.  A tensor of
+hard genotypes or called genotypes travels as its uint8 code plane
+(utils/hostmem.py CodedProbs, readers.CodedBinInput), one byte a triple,
+and is expanded on the device through its table (`expand_codes`) into
+the same tensor the staged upload gives.
 
 Dtype policy: float64 on the CPU, float32 on CUDA.  On the CPU the
 kernels' plain versions run; on CUDA the hand-written kernels do.
@@ -50,6 +54,7 @@ from ..ops.indep import (EPSILON, block_partials_shape, indep_block_partials,
                          indep_raw_cnt, scratch_shape)
 from ..utils import checkpoint as ckpt
 from ..utils import profiling
+from ..utils.hostmem import CodedProbs, CodedSlab
 from . import bootstrap as bt
 from . import models
 from . import submodels as sm
@@ -141,16 +146,45 @@ def expand23(P2: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tens
     return out
 
 
+def expand_codes(codes: torch.Tensor, lut: torch.Tensor,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """uint8 codes [..., N] and a [K, 3] table -> [..., N, 3]: the device
+    half of the coded upload (ngsdist_tpu.core.distance.expand_codes, an
+    XLA gather there), a gather of the table's rows by the codes (through
+    an int32 index, 4 bytes a code), written into `out` (contiguous) when
+    given.  The JAX package gathers each component as a plane of its own
+    because a TPU pads a trailing dimension of 3 to 128 lanes; a card
+    does not."""
+    idx = codes.reshape(-1).int()
+    if out is None:
+        return lut.index_select(0, idx).reshape(codes.shape + (3,))
+    torch.index_select(lut, 0, idx, out=out.view(-1, 3))
+    return out
+
+
 def _host_pack(src, lo: int, hi: int, dtype: torch.dtype,
-               out: Optional[np.ndarray] = None) -> np.ndarray:
+               out: Optional[np.ndarray] = None):
     """Host half of an upload: the upload-ready slab of sites [lo, hi) in
     the device's dtype — packed float32 [hi-lo, N, 2] from a fused-read
-    handle, else the cast of the host tensor's slice (no copy where the
-    dtype already fits) — written into `out` (pinned memory) when given.
-    No device traffic, so the ChunkPipe runs it on its reader thread."""
+    handle, a CodedSlab (uint8 [hi-lo, N] codes and the table in the
+    device's dtype) from a coded source, else the cast of the host
+    tensor's slice (no copy where the dtype already fits) — written into
+    `out` (pinned memory) when given.  No device traffic, so the
+    ChunkPipe runs it on its reader thread."""
     with profiling.host_span("read"):
+        if isinstance(src, CodedProbs):
+            codes = src.codes[lo:hi]
+            if out is None:
+                codes = np.ascontiguousarray(codes)
+            else:
+                np.copyto(out, codes)
+                codes = out
+            return CodedSlab(codes, src.lut.astype(_np_dtype(dtype)))
         if hasattr(src, "read_packed"):
-            return src.read_packed(lo, hi, out=out)
+            got = src.read_packed(lo, hi, out=out)
+            if _slab_width(src) == 1:
+                return CodedSlab(got, src.lut.astype(_np_dtype(dtype)))
+            return got
         if out is None:
             return np.ascontiguousarray(src[lo:hi], dtype=_np_dtype(dtype))
         np.copyto(out, src[lo:hi], casting="same_kind")
@@ -158,18 +192,26 @@ def _host_pack(src, lo: int, hi: int, dtype: torch.dtype,
 
 
 def _slab_width(src) -> int:
-    """Components per triple of a source's host slabs: 3 for a host
-    array; for a handle with read_packed its `width`, 2 by default (the
-    packed float32 layout, p2 restored on the device by expand23)."""
+    """Values per triple of a source's host slabs: 3 for a host array, 1
+    for a code plane (CodedProbs); for a handle with read_packed its
+    `width`, 2 by default (the packed float32 layout, p2 restored on the
+    device by expand23; 1: uint8 codes and the handle's `lut`)."""
+    if isinstance(src, CodedProbs):
+        return 1
     return getattr(src, "width", 2) if hasattr(src, "read_packed") else 3
 
 
 def put_probs(P_slice, device: torch.device) -> torch.Tensor:
-    """Upload a host probability slab ([S, N, 3] array, or a fused-read
-    handle) in one piece, in the device's dtype (cast on the host, so
-    only float32 crosses to a card); a packed 2-component slab is
-    expanded on the device."""
+    """Upload a host probability slab ([S, N, 3] array, a CodedProbs or a
+    fused-read handle) in one piece, in the device's dtype (cast on the
+    host, so only float32 crosses to a card); a packed 2-component slab
+    or a code plane is expanded on the device."""
     arr = _host_pack(P_slice, 0, P_slice.shape[0], default_dtype(device))
+    if isinstance(arr, CodedSlab):
+        profiling.count_upload(arr.codes.nbytes + arr.lut.nbytes)
+        return expand_codes(torch.from_numpy(arr.codes).to(device),
+                            torch.from_numpy(arr.lut).to(device))
+    profiling.count_upload(arr.nbytes)
     t = torch.from_numpy(arr).to(device)
     return expand23(t) if t.shape[-1] == 2 else t
 
@@ -198,44 +240,51 @@ def _pipe_upload_bytes() -> int:
 
 
 class ChunkPipe:
-    """Site ranges of a source (a host [S, N, 3] array, a fused-read
-    handle, or any handle with its read protocol: `shape`, `read_packed`
-    and a slab `width`), prepared on the host by one reader thread and
-    brought to the device in order
+    """Site ranges of a source (a host [S, N, 3] array, a CodedProbs, a
+    fused-read handle, or any handle with its read protocol: `shape`,
+    `read_packed`, a slab `width` and, coded, a `lut`), prepared on the
+    host by one reader thread and brought to the device in order
     (ngsdist_tpu.core.distance._pipelined_chunks).
 
     On a card the reader fills a ring of two pinned slabs; each slab is
-    copied on a copy stream (`non_blocking`) and, packed, expanded there,
-    into `dest[lo:hi]` (a resident upload) or into a ring of two chunk
-    buffers (a stream).  A pinned slab is refilled only after the event
-    behind its copy, a chunk buffer only after the event behind the work
-    the consumer queued on it, and the consumer's stream waits for the
-    event behind each chunk's expansion.  All buffers are allocated once,
-    for ranges of at most `rows` sites.  On the CPU the same generator
-    yields the chunks in order with no stream and no ring."""
+    copied on a copy stream (`non_blocking`) and, packed or coded,
+    expanded there, into `dest[lo:hi]` (a resident upload) or into a ring
+    of two chunk buffers (a stream).  A coded source's table goes to the
+    device once, with the pipe.  A pinned slab is refilled only after the
+    event behind its copy, a chunk buffer only after the event behind the
+    work the consumer queued on it, and the consumer's stream waits for
+    the event behind each chunk's expansion.  All buffers are allocated
+    once, for ranges of at most `rows` sites, whatever the lane: a uint8
+    slab of `rows` sites is a twelfth of a float32 one.  On the CPU the
+    same generator yields the chunks in order with no stream and no
+    ring."""
 
     def __init__(self, src, device: torch.device, dtype: torch.dtype, rows: int,
                  dest: Optional[torch.Tensor] = None) -> None:
         self.src, self.device, self.dtype, self.dest = src, device, dtype, dest
-        self.packed = _slab_width(src) == 2
+        width = _slab_width(src)
+        self.packed, self.coded = width == 2, width == 1
         if self.packed and dtype != torch.float32:
             raise ValueError("a fused-read source holds float32 slabs")
         self.cuda = device.type == "cuda"
+        if self.coded:
+            self.lut = _upload_small(np.ascontiguousarray(src.lut), device, dtype)
         if not self.cuda:
             return
         N = src.shape[1]
-        self.host = [torch.empty((rows, N, 2 if self.packed else 3), dtype=dtype,
-                                 pin_memory=True) for _ in range(2)]
+        slab, slab_dtype = (((rows, N), torch.uint8) if self.coded
+                            else ((rows, N, width), dtype))
+        self.host = [torch.empty(slab, dtype=slab_dtype, pin_memory=True) for _ in range(2)]
         self.copied = [None, None]       # events: a pinned slab's copy is done
         self.stream = torch.cuda.Stream(device)
-        self.stage = (torch.empty((rows, N, 2), dtype=dtype, device=device)
-                      if self.packed else None)
+        self.stage = (torch.empty(slab, dtype=slab_dtype, device=device)
+                      if width < 3 else None)
         if dest is None:
             self.ring = [torch.empty((rows, N, 3), dtype=dtype, device=device)
                          for _ in range(2)]
             self.consumed = [None, None]  # events: the consumer is done with a buffer
 
-    def _read(self, k: int, lo: int, hi: int) -> np.ndarray:
+    def _read(self, k: int, lo: int, hi: int):
         out = None
         if self.cuda:
             if self.copied[k % 2] is not None:
@@ -243,14 +292,23 @@ class ChunkPipe:
             out = self.host[k % 2][:hi - lo].numpy()
         return _host_pack(self.src, lo, hi, self.dtype, out=out)
 
-    def _send(self, k: int, lo: int, hi: int, arr: np.ndarray) -> torch.Tensor:
+    def _expand(self, t: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+        """A packed or coded slab on the device as its [n, N, 3] triples."""
+        if self.coded:
+            return expand_codes(t, self.lut, out=out)
+        return expand23(t, out=out)
+
+    def _send(self, k: int, lo: int, hi: int, arr) -> torch.Tensor:
         if not self.cuda:
             with profiling.host_span("upload"):
+                if self.coded:
+                    arr = arr.codes
+                profiling.count_upload(arr.nbytes)
                 t = torch.from_numpy(arr)
-                if self.dest is not None:
-                    out = self.dest[lo:hi]
-                    return expand23(t, out=out) if self.packed else out.copy_(t)
-                return expand23(t) if self.packed else t
+                out = None if self.dest is None else self.dest[lo:hi]
+                if self.packed or self.coded:
+                    return self._expand(t, out)
+                return t if out is None else out.copy_(t)
         slot, n = k % 2, hi - lo
         if self.dest is not None:
             out = self.dest[lo:hi]
@@ -260,14 +318,15 @@ class ChunkPipe:
                 self.stream.wait_event(self.consumed[slot])
         with torch.cuda.stream(self.stream), profiling.device_span("upload", self.stream):
             src = self.host[slot][:n]
-            if self.packed:
+            profiling.count_upload(src.numel() * src.element_size())
+            if self.stage is not None:
                 self.stage[:n].copy_(src, non_blocking=True)
             else:
                 out.copy_(src, non_blocking=True)
             self.copied[slot] = torch.cuda.Event()
             self.copied[slot].record(self.stream)
-            if self.packed:
-                expand23(self.stage[:n], out=out)
+            if self.stage is not None:
+                self._expand(self.stage[:n], out)
             ready = torch.cuda.Event()
             ready.record(self.stream)
         torch.cuda.current_stream(self.device).wait_event(ready)
@@ -298,17 +357,20 @@ class ChunkPipe:
 
 
 def upload_resident(src, device: torch.device) -> torch.Tensor:
-    """The whole source as the resident tensor.  A host tensor on the CPU
-    takes one step (no copy where the dtype fits).  On a card, and for a
-    fused-read handle, slabs of _pipe_upload_bytes() go through a
-    ChunkPipe into the tensor one after another: one pass over a handle's
-    file, no float64 host tensor, each slab's copy under the next one's
-    read (ngsdist_tpu.core.distance._upload_packed_pipelined)."""
+    """The whole source as the resident tensor.  A host tensor or code
+    plane on the CPU takes one step (no copy where the dtype fits).  On a
+    card, and for a fused-read handle, slabs of _pipe_upload_bytes() go
+    through a ChunkPipe into the tensor one after another: one pass over
+    a handle's file, no float64 host tensor, each slab's copy under the
+    next one's read (ngsdist_tpu.core.distance._upload_packed_pipelined).
+    A coded slab holds the sites of a host array's (its rows fill
+    _pipe_upload_bytes() of the tensor), so no lane moves a slab edge."""
     if device.type != "cuda" and not hasattr(src, "read_packed"):
         return put_probs(src, device)
     dtype = default_dtype(device)
     S, N = src.shape[:2]
-    slab_site_bytes = N * _slab_width(src) * (torch.finfo(dtype).bits // 8)
+    width = _slab_width(src)
+    slab_site_bytes = N * (3 if width == 1 else width) * (torch.finfo(dtype).bits // 8)
     step = max(1, _pipe_upload_bytes() // max(1, slab_site_bytes))
     P = torch.empty((S, N, 3), dtype=dtype, device=device)
     pipe = ChunkPipe(src, device, dtype, max(1, min(step, S)), dest=P)

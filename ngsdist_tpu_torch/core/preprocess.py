@@ -142,12 +142,20 @@ class ZeroRows:
         return out
 
 
-def find_zero_rows(P: np.ndarray, slab_sites: int = 4096):
-    """The ZeroRows record of P [S, N, 3], or None when no triple is all
-    zero.  One pass, in slabs of sites."""
+def find_zero_rows(P, slab_sites: int = 4096):
+    """The ZeroRows record of P [S, N, 3], an array or a code plane
+    (utils/hostmem.CodedProbs: the codes of its table's all-zero rows),
+    or None when no triple is all zero.  One pass, in slabs of sites."""
+    lut = getattr(P, "lut", None)
+    zero_codes = None if lut is None else np.flatnonzero(~lut.any(-1))
+    if zero_codes is not None and not zero_codes.size:
+        return None
     sites, rows = [], []
     for lo in range(0, P.shape[0], slab_sites):
-        zero = ~P[lo:lo + slab_sites].any(-1)   # NaN counts as nonzero
+        if zero_codes is None:
+            zero = ~P[lo:lo + slab_sites].any(-1)   # NaN counts as nonzero
+        else:
+            zero = np.isin(P.codes[lo:lo + slab_sites], zero_codes)
         hit = np.flatnonzero(zero.any(1))
         if hit.size:
             sites.append(hit + lo)

@@ -188,6 +188,56 @@ def read_geno_pack23(
     return out
 
 
+def read_geno_codes(
+    path: str,
+    in_logscale: bool,
+    n_ind: int,
+    n_sites: int,
+    site_range: Optional[Tuple[int, int]] = None,
+    out: Optional[np.ndarray] = None,
+) -> Optional[Tuple[np.ndarray, bool]]:
+    """Fused one-pass read of a RAW binary GP file under default-threshold
+    --call_geno: parse -> normalize -> call -> one uint8 code per (site,
+    individual), returning (codes [rows, n_ind], any_missing).  With
+    N_thresh = call_thresh = 0 every triple calls to a one-hot at its
+    log-space first argmax (codes 0-2) or, all three equal, to the
+    uniform exp(log(1/3)) (code 3), so the tensor is the code plane and
+    utils/hostmem.coded_call_lut(any_missing): the staged read ->
+    call_geno -> exp -> derive_codes chain (four passes over a float64
+    tensor of 24 bytes a triple) becomes one native pass that writes one
+    byte a triple (native nd_read_geno_codes).  Returns None when the file
+    is not raw seekable binary.  Reference arithmetic: read_data.cpp:29-47
+    and gen_func.cpp:886-914.
+
+    out: a C-contiguous uint8 [rows, n_ind] array to fill instead of a
+    new one (pinned memory)."""
+    import ctypes
+
+    if path == "-" or not _native.have_native():
+        return None
+    start, stop = site_range if site_range is not None else (0, n_sites)
+    lib = _native.get_lib()
+    if out is None:
+        out = np.empty((stop - start, n_ind), dtype=np.uint8)
+    elif out.shape != (stop - start, n_ind):
+        raise ValueError(f"out has shape {out.shape}, the range needs "
+                         f"{(stop - start, n_ind)}")
+    errbuf = ctypes.create_string_buffer(256)
+    err = ctypes.c_int(0)
+    any_missing = ctypes.c_int(0)
+    rc = lib.nd_read_geno_codes(
+        path.encode(), int(in_logscale), n_ind, n_sites, start, stop,
+        _native.as_uint8_ptr(out), ctypes.byref(any_missing), errbuf,
+        len(errbuf), ctypes.byref(err),
+    )
+    if rc == 2:
+        return None
+    if rc != 0:
+        raise NgsDistError("read_geno", errbuf.value.decode(),
+                           err=err.value)
+    return out, bool(any_missing.value)
+
+
 def is_raw_seekable_binary(path: str) -> bool:
     """True when `path` is a regular, seekable, NON-gzip file — the
     precondition of the fused native reader (its own sniff returns
@@ -247,6 +297,41 @@ class PackedBinInput:
             raise NgsDistError("read_geno", "cannot read binary GENO file. "
                                "Check GENO file and number of sites!")
         return got
+
+
+class CodedBinInput:
+    """Deferred fused-read handle for raw binary GP inputs under
+    default-threshold --call_geno (runner fast path): the engine pulls
+    uint8 [chunk, N] code planes straight from disk (read_geno_codes),
+    one byte a triple, and expands them on the device through `lut`
+    (core/distance.py expand_codes).  No tensor and no plane is ever
+    resident on the host.  The table is coded_call_lut(True) whatever the
+    data: a row no code names is never gathered, so no scan for missing
+    triples comes first.  Content errors surface when their chunk is
+    read, as for PackedBinInput."""
+
+    width = 1  # one code a triple
+
+    def __init__(self, pars) -> None:
+        from ..utils.hostmem import coded_call_lut
+
+        self.path = pars.in_geno
+        self.in_logscale = bool(pars.in_logscale)
+        self.n_ind = int(pars.n_ind)
+        self.n_sites = int(pars.n_sites)
+        self.shape = (self.n_sites, self.n_ind, 3)  # logical tensor shape
+        self.lut = coded_call_lut(True)
+
+    def read_packed(self, lo: int, hi: int,
+                    out: Optional[np.ndarray] = None) -> np.ndarray:
+        """The uint8 [hi-lo, n_ind] codes of sites [lo, hi), written into
+        `out` when given."""
+        got = read_geno_codes(self.path, self.in_logscale, self.n_ind,
+                              self.n_sites, site_range=(lo, hi), out=out)
+        if got is None:  # not raw binary after all (TOCTOU): hard error
+            raise NgsDistError("read_geno", "cannot read binary GENO file. "
+                               "Check GENO file and number of sites!")
+        return got[0]
 
 
 def _postprob_py(tri: np.ndarray) -> np.ndarray:

@@ -51,6 +51,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..config import NgsDistError
 from ..core import bootstrap as bt
 from ..core import distance as dist
 from ..core.preprocess import find_zero_rows
@@ -164,13 +165,16 @@ def _indexed(dev: torch.device) -> torch.device:
 
 
 def make_mesh(devices=None, n_devices: Optional[int] = None, pairs: int = 1) -> Mesh:
-    """Mesh over the given devices (default: every visible card, or one
-    `cpu` entry without a card), the first n_devices of them, factored
-    into a (sites, pairs) grid.  Asking for more devices than there are
-    is an error, never a smaller mesh."""
+    """Mesh over the given devices (default: every visible card; without
+    one an NgsDistError: a CPU mesh is asked for by its entries, as
+    [torch.device("cpu")]), the first n_devices of them, factored into a
+    (sites, pairs) grid.  Asking for more devices than there are is an
+    error, never a smaller mesh."""
     if devices is None:
-        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-                   if torch.cuda.is_available() else [torch.device("cpu")])
+        if not torch.cuda.is_available():
+            raise NgsDistError("main", "no CUDA device is available to this process "
+                               "(--platform cpu runs the float64 CPU path)")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devices = list(devices)
     if n_devices is not None:
         if n_devices > len(devices):
@@ -233,8 +237,10 @@ def shard_sites(P_host, mesh: Mesh, ranges, base: int = 0) -> Sharded:
     the first device of its row of the grid (core/distance.py
     upload_resident, on the entry's stream), and copy it from there to the
     row's other devices, so the host reads and casts each slice once.
-    ranges: every sites shard's data sites; P_host holds the sites from
-    `base` on."""
+    A code plane's slice (utils/hostmem.CodedProbs) stays coded: each shard
+    uploads its uint8 rows and expands them on its own device; the copies
+    along the pairs axis are of the expanded tensor.  ranges: every sites
+    shard's data sites; P_host holds the sites from `base` on."""
     p = pairs_size(mesh)
     parts = []
     for k, dev in enumerate(mesh.devices):

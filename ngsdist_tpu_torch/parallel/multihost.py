@@ -28,8 +28,14 @@ writes the output.  Everything that decides the plan (the device budget,
 the lazy gate and the lazy chunk) is agreed across processes, so that
 they cut the same rounds and call the same collectives in the same order.
 
-Left for ROADMAP M6: the coded (uint8) rounds of hard genotypes and
---call_geno (ngsdist_tpu/parallel/multihost.py:358-398, :609-637).
+Default-threshold --call_geno runs (`wants_coded_lazy`) read one uint8
+code a triple instead of the triple (ngsdist_tpu/parallel/multihost.py:
+358-398, :609-637): a raw or spilled binary source through the fused
+codes reader (readers.read_geno_codes), the text spill by classifying its
+normalized rows (`_classify_call_rows`), eagerly into a code plane or
+lazily round by round; the device expands the codes through one static
+table (`_call_lut`), so every process holds the same table without a
+broadcast, and the rounds and values are those of the staged read.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from ..core.submodels import encode_alleles
 from ..io import readers, writers
 from ..utils import checkpoint as ckpt
 from ..utils import native, signals
+from ..utils.hostmem import CodedProbs, coded_call_lut, coded_upload_enabled
 from . import mesh as pm
 
 
@@ -165,6 +172,32 @@ def device_budget_bytes(mesh) -> int:
 # ------------------------------------------------------------------ #
 
 
+def _classify_call_rows(rows: np.ndarray) -> np.ndarray:
+    """The default-threshold --call_geno codes of log-normalized rows
+    [..., 3] (ngsdist_tpu/parallel/multihost.py:50-66): one-hot at the
+    first argmax (the strict > scan of nd_call_geno3), 3 where all three
+    are equal (the uniform exp(log(1/3)) of _call_lut), 4 where the row is
+    NaN (a literal `nan` of a text input makes the whole row NaN).  Taken
+    on the stored values as they are: normalizing again could break an
+    exact tie of the argmax."""
+    am = np.argmax(rows, axis=-1).astype(np.uint8)
+    all_eq = (rows[..., 0] == rows[..., 1]) & (rows[..., 1] == rows[..., 2])
+    codes = np.where(all_eq, np.uint8(3), am)
+    nan_rows = np.isnan(rows[..., 0])
+    if nan_rows.any():
+        codes = np.where(nan_rows, np.uint8(4), codes)
+    return codes
+
+
+def _call_lut() -> np.ndarray:
+    """The static table of every coded stream read by from_reader: the
+    one-hot rows, the uniform missing triple and the NaN row of a text
+    input's literal `nan`, fixed before any data is read and the same in
+    every process (the JAX package's _call_lut_padded without its pad
+    row: the port's shards carry their data ranges and pad no rows)."""
+    return np.vstack([coded_call_lut(True), np.full((1, 3), np.nan)])
+
+
 class DiskRows:
     """A lazy stream's sites, read from disk as the engine asks for them,
     with the read protocol of readers.PackedBinInput (`shape`,
@@ -175,25 +208,31 @@ class DiskRows:
     2; p2 = 1 - p0 - p1 is restored on the card), the values of the
     one-device run's fused read.  Every other read is the staged one
     (rows, preprocess, the cast to the device's dtype): [n, N, 3] slabs,
-    the values of the eager read of the same input.  The sources: the
-    input itself (seekable binary), a verbatim copy of this process's rows
-    of a gz or stdin binary input, or the text spill's normalized rows.
-    zero: the run's record of all-zero triples, filled as rows are read
-    (text spills only: no binary row is all zero)."""
+    the values of the eager read of the same input.  Coded
+    (SiteStream.wants_coded_lazy): uint8 [n, N] codes (`width` 1) of the
+    static table `lut` (_call_lut), from the fused codes reader or the
+    text spill's classified rows, which the card expands into the staged
+    read's values.  The sources: the input itself (seekable binary), a
+    verbatim copy of this process's rows of a gz or stdin binary input,
+    or the text spill's normalized rows.  zero: the run's record of
+    all-zero triples, filled as rows are read (text spills only: no
+    binary row is all zero, and --call_geno, the coded lane, calls an
+    empty line missing)."""
 
     def __init__(self, pars: Params, dtype: torch.dtype, stop: int,
                  spill_path: Optional[str] = None, spill_norm: bool = False,
-                 spill_base: int = 0) -> None:
+                 spill_base: int = 0, coded: bool = False) -> None:
         self.pars = pars
         self.N, self.S = pars.n_ind, pars.n_sites
         self.shape = (self.S, self.N, 3)
         self.stop = stop
         self.spill_path, self.spill_norm, self.spill_base = spill_path, spill_norm, spill_base
         self.zero = ZeroRows.empty(self.N) if spill_norm else None
+        self.lut = _call_lut() if coded else None
         self.fused = (dtype == torch.float32 and not pars.call_geno and not spill_norm
                       and native.have_native()
                       and readers.is_raw_seekable_binary(spill_path or pars.in_geno))
-        self.width = 2 if self.fused else 3
+        self.width = 1 if coded else 2 if self.fused else 3
 
     def _binary_source(self):
         """(path, sites in it, first site) of a binary source."""
@@ -214,9 +253,31 @@ class DiskRows:
         return readers.read_geno(path, True, p.in_probs, p.in_logscale, self.N, rows,
                                  site_range=(lo - base, hi - base))
 
+    def _read_codes(self, lo: int, hi: int, out: Optional[np.ndarray] = None) -> np.ndarray:
+        """The codes of sites [lo, hi) (ngsdist_tpu/parallel/multihost.py:
+        609-637): one fused native pass over a binary source, or the text
+        spill's stored rows classified as nd_call_geno3 calls them, so
+        that their expansion is the staged round's preprocessed rows."""
+        if self.spill_norm:
+            codes = _classify_call_rows(readers.read_spill_rows(
+                self.spill_path, self.N, lo, hi, base=self.spill_base))
+            if out is None:
+                return codes
+            out[...] = codes
+            return out
+        path, rows, base = self._binary_source()
+        got = readers.read_geno_codes(path, self.pars.in_logscale, self.N, rows,
+                                      site_range=(lo - base, hi - base), out=out)
+        if got is None:  # not raw binary after all (TOCTOU): hard error
+            raise NgsDistError("read_geno", "cannot read binary GENO file. Check GENO "
+                               "file and number of sites!")
+        return got[0]
+
     def read_packed(self, lo: int, hi: int, out: Optional[np.ndarray] = None) -> np.ndarray:
         """The upload-ready slab of sites [lo, hi), written into `out`
         (pinned memory) when given."""
+        if self.lut is not None:
+            return self._read_codes(lo, hi, out)
         if self.fused:
             path, rows, base = self._binary_source()
             got = readers.read_geno_pack23(path, self.pars.in_logscale, self.N, rows,
@@ -244,8 +305,10 @@ class SiteStream:
     """A run's sites planned over a mesh: shards of s_loc sites (the last
     ones short or empty past the data), resident when chunk >= s_loc (a
     host source only), else streamed in rounds of chunk sites per shard.
-    src: a host [n, N, 3] array of the sites from `base` on (this
-    process's own, or all of them), or a DiskRows (lazy)."""
+    src: a host [n, N, 3] array or code plane (utils/hostmem.CodedProbs)
+    of the sites from `base` on (this process's own, or all of them), or
+    a DiskRows (lazy).  `coded`: the shards travel as uint8 codes; the
+    plan is the same in either lane."""
 
     def __init__(self, src, pars: Params, mesh, s_loc: int, chunk: int, base: int = 0,
                  spill_owned: Optional[str] = None) -> None:
@@ -256,6 +319,7 @@ class SiteStream:
         self.s_pad = s_loc * self.n_dev
         self.chunk = int(min(chunk, s_loc))
         self.lazy = isinstance(src, DiskRows)
+        self.coded = dist._slab_width(src) == 1
         # a lazy stream always runs in rounds: there is no host array to
         # upload whole
         self.resident = not self.lazy and self.chunk >= self.s_loc
@@ -332,6 +396,37 @@ class SiteStream:
                     and not pars.in_geno.endswith(".gz"))
 
     @classmethod
+    def coded_call_eligible(cls, pars: Params, dtype: torch.dtype) -> bool:
+        """The one gate of every fused-codes route (the eager plane, the
+        readers.CodedBinInput handle, the coded rounds;
+        ngsdist_tpu/parallel/multihost.py:358-377), which the runner
+        shares: default-threshold --call_geno determines each triple from
+        a code; models 0-2, no per-site debug replay, the native reader,
+        and coded uploads on for the device's dtype.
+        NGSDIST_FUSED_READ=0 forces the staged chain."""
+        if os.environ.get("NGSDIST_FUSED_READ", "auto") == "0":
+            return False
+        if not pars.call_geno or pars.N_thresh != 0.0 or pars.call_thresh != 0.0:
+            return False
+        if pars.evol_model >= 3 or pars.verbose >= 8:
+            return False
+        return coded_upload_enabled(dtype) and native.have_native()
+
+    @classmethod
+    def wants_coded_lazy(cls, pars: Params, dtype: torch.dtype) -> bool:
+        """True when from_reader reads codes (ngsdist_tpu/parallel/
+        multihost.py:379-398), eagerly or in rounds: a raw seekable binary
+        file and a binary spill through the fused codes reader, the text
+        spill by classifying its normalized rows.  A file read in place
+        must also pass the raw-magic sniff (a gz file behind a name
+        without .gz goes through read_geno's gz path)."""
+        if not cls.coded_call_eligible(pars, dtype):
+            return False
+        if cls.seekable_binary(pars):
+            return readers.is_raw_seekable_binary(pars.in_geno)
+        return True
+
+    @classmethod
     def wants_lazy(cls, pars: Params, dtype: torch.dtype, n_rows: int) -> bool:
         """True when reading n_rows sites eagerly (the float64 read and the
         shard in the device's dtype) would exceed the host budget: the JAX
@@ -346,7 +441,9 @@ class SiteStream:
 
     @classmethod
     def from_array(cls, P_host, pars: Params, mesh) -> "SiteStream":
-        """The full tensor already in host memory."""
+        """The full tensor already in host memory: an array or a code
+        plane (CodedProbs), whose shards and rounds go to the devices as
+        codes."""
         s_loc, chunk = cls._plan(pars, mesh)
         return cls(P_host, pars, mesh, s_loc, chunk)
 
@@ -354,28 +451,49 @@ class SiteStream:
     def from_reader(cls, pars: Params, mesh) -> "SiteStream":
         """Each process reads only its own site range of the genotype
         file: eagerly into host memory, in the device's dtype, or, over
-        the host budget on any process, lazily in rounds from disk."""
+        the host budget on any process, lazily in rounds from disk; under
+        wants_coded_lazy as uint8 codes either way (the plan is the
+        same).  The lane needs no agreement: both give the same values."""
         s_loc, chunk = cls._plan(pars, mesh)
         start, stop = host_site_range(s_loc * pm.sites_size(mesh), mesh)
         dtype = dist.default_dtype(mesh.first)
         N, S = pars.n_ind, pars.n_sites
+        coded = cls.wants_coded_lazy(pars, dtype)
         if agreed(cls.wants_lazy(pars, dtype, stop - start), "max"):
             chunk = cls._lazy_chunk(pars, mesh, dtype, chunk)
             spill = {}
             if not cls.seekable_binary(pars):
                 spill = cls._build_spill(pars, start, stop)
             try:
-                src = DiskRows(pars, dtype, stop, **spill)
+                src = DiskRows(pars, dtype, stop, coded=coded, **spill)
                 return cls(src, pars, mesh, s_loc, chunk, spill_owned=spill.get("spill_path"))
             except BaseException:
                 if spill:
                     cls._rm_spill(spill["spill_path"])
                 raise
         lo, hi = min(start, S), min(stop, S)
+        rng = None if (lo, hi) == (0, S) else (lo, hi)
+        if coded:
+            # the eager code plane (ngsdist_tpu/parallel/multihost.py:
+            # 458-481): one fused pass over a raw binary file, else the
+            # normalized rows read and classified
+            codes = np.zeros((0, N), np.uint8)
+            if hi > lo and cls.seekable_binary(pars):
+                got = readers.read_geno_codes(pars.in_geno, pars.in_logscale, N, S,
+                                              site_range=rng)
+                if got is None:  # not raw binary after all (TOCTOU): hard error
+                    raise NgsDistError("read_geno", "cannot read binary GENO file. Check "
+                                       "GENO file and number of sites!")
+                codes = got[0]
+            elif hi > lo:
+                codes = _classify_call_rows(readers.read_geno(
+                    pars.in_geno, pars.in_bin, pars.in_probs, pars.in_logscale, N, S,
+                    site_range=rng))
+            return cls(CodedProbs(None, codes, _call_lut()), pars, mesh, s_loc, chunk, base=lo)
         if hi > lo:
             geno_log = readers.read_geno(
                 pars.in_geno, pars.in_bin, pars.in_probs, pars.in_logscale, N, S,
-                site_range=None if (lo, hi) == (0, S) else (lo, hi))
+                site_range=rng)
             pre = preprocess(geno_log, pars.call_geno, pars.N_thresh, pars.call_thresh)
             local = dist._host_pack(pre, 0, hi - lo, dtype)
         else:

@@ -28,6 +28,7 @@ from .core.submodels import encode_alleles
 from .io import readers, writers
 from .utils import checkpoint as ckpt
 from .utils import native, profiling, signals
+from .utils.hostmem import CodedProbs, coded_call_lut, coded_upload_enabled, derive_codes
 from .utils.profiling import Throughput
 
 
@@ -65,6 +66,46 @@ def _fused_packed_wanted(pars: Params, device: torch.device, mesh=None) -> bool:
     return distance.default_dtype(device) == torch.float32
 
 
+def _fused_coded_wanted(pars: Params, device: torch.device, mesh=None):
+    """Route of the fused native codes reader (readers.read_geno_codes;
+    ngsdist_tpu/runner.py:65-118): default-threshold --call_geno calls
+    every triple of a raw binary file to a one-hot or the uniform missing
+    value, so one native pass gives its uint8 code plane, one byte a
+    triple, and the staged read -> call_geno -> exp -> derive_codes chain
+    never runs.  Returns
+
+    - "handle": reads deferred to a readers.CodedBinInput, the engine
+      pulling code chunks from disk as it uploads them; no plane is
+      resident.  One device; it also takes the place of a lazy stream at
+      any size;
+    - "eager": the code plane read whole first (a CodedProbs): a mesh,
+      whose shards slice it, when it fits the host budget; and a chunked
+      bootstrap, which then slices every replicate's chunks from memory
+      and does not read the file again;
+    - False: not this reader (the gate SiteStream.coded_call_eligible, a
+      raw seekable binary file); a mesh over the host budget then reads
+      coded rounds lazily, and a lazy run without a mesh over several
+      cards takes them on a mesh of them."""
+    from .parallel.multihost import SiteStream
+
+    if not pars.in_bin or not readers.is_raw_seekable_binary(pars.in_geno):
+        return False  # the fused reader needs a raw regular file (magic sniff)
+    if not SiteStream.coded_call_eligible(pars, distance.default_dtype(device)):
+        return False
+    S, N = pars.n_sites, pars.n_ind
+    plane_fits = S * N * 2 <= SiteStream._host_budget_bytes()  # plane and a shard's copy
+    if mesh is not None:
+        return "eager" if plane_fits else False
+    if (_lazy_stream_wanted(pars, device) and device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        return False  # a lazy run shards over every visible card
+    chunked, _ = distance.stream_plan(S, N, device,
+                                      distance.check_fits(S, N, device, pars.indep_geno))
+    if chunked and pars.n_boot_rep and plane_fits:
+        return "eager"
+    return "handle"
+
+
 def _lazy_stream_wanted(pars: Params, device: torch.device) -> bool:
     """True when reading the genotype tensor eagerly would exceed the host
     budget (ngsdist_tpu/runner.py:172): the run then reads its rounds from
@@ -76,12 +117,14 @@ def _lazy_stream_wanted(pars: Params, device: torch.device) -> bool:
     return SiteStream.wants_lazy(pars, distance.default_dtype(device), pars.n_sites)
 
 
-def load_inputs(pars: Params, fused: bool = False, geno: bool = True):
+def load_inputs(pars: Params, fused: bool = False, geno: bool = True, coded=False):
     """Read labels, positions and the genotype tensor; returns
     (labels, pos_rows, P_normal [n_sites, n_ind, 3]).  fused=True
     returns a readers.PackedBinInput handle instead of the tensor (the
-    engine reads fused packed chunks on demand); geno=False reads no
-    genotypes (P is None: a lazy run reads them round by round)."""
+    engine reads fused packed chunks on demand); coded (_fused_coded_wanted)
+    "handle" a readers.CodedBinInput, "eager" the code plane as a
+    utils/hostmem.CodedProbs; geno=False reads no genotypes (P is None: a
+    lazy run reads them round by round)."""
     if pars.in_labels:
         _log(pars, 1, "==> Reading labels")
         labels = readers.read_labels(pars.in_labels, pars.in_labels_header, pars.n_ind)
@@ -104,6 +147,17 @@ def load_inputs(pars: Params, fused: bool = False, geno: bool = True):
         return labels, pos_rows, None
     if fused:
         return labels, pos_rows, readers.PackedBinInput(pars)
+    if coded == "handle":
+        return labels, pos_rows, readers.CodedBinInput(pars)
+    if coded:
+        with profiling.host_span("read"):
+            got = readers.read_geno_codes(pars.in_geno, pars.in_logscale, pars.n_ind,
+                                          pars.n_sites)
+        if got is None:  # not raw binary after all (TOCTOU): hard error
+            raise NgsDistError("read_geno", "cannot read binary GENO file. Check GENO file "
+                               "and number of sites!")
+        codes, any_missing = got
+        return labels, pos_rows, CodedProbs(None, codes, coded_call_lut(any_missing))
     with profiling.host_span("read"):
         geno_log = readers.read_geno(
             pars.in_geno, pars.in_bin, pars.in_probs, pars.in_logscale,
@@ -234,10 +288,11 @@ def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[Te
         for msg in pars.messages:
             print(msg, file=sys.stderr)
 
-    lazy = _lazy_stream_wanted(pars, device)
-    fused = not lazy and _fused_packed_wanted(pars, device, mesh)
+    coded = _fused_coded_wanted(pars, device, mesh)
+    lazy = not coded and _lazy_stream_wanted(pars, device)
+    fused = not lazy and not coded and _fused_packed_wanted(pars, device, mesh)
     if not lazy:
-        labels, pos_rows, P = load_inputs(pars, fused=fused)
+        labels, pos_rows, P = load_inputs(pars, fused=fused, coded=coded)
     else:
         labels, pos_rows, _ = load_inputs(pars, geno=False)
         from .parallel import make_mesh
@@ -246,6 +301,17 @@ def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[Te
         if mesh is None:
             mesh = make_mesh(None if device.type == "cuda" else [device])
         P = SiteStream.from_reader(pars, mesh)
+    if (isinstance(P, np.ndarray) and pars.evol_model <= 2 and pars.verbose < 8
+            and (not pars.in_probs or pars.call_geno)
+            and coded_upload_enabled(distance.default_dtype(device))):
+        # Hard genotypes and --call_geno give one-hot and uniform triples:
+        # upload the code plane, one byte a triple, where the scan finds
+        # one (ngsdist_tpu/runner.py:415-440); it gives up at the first
+        # chunk of other triples (a thresholded call leaves soft ones)
+        with profiling.host_span("scan"):
+            got = derive_codes(P)
+        if got is not None:
+            P = CodedProbs(P, *got)
     alleles = None
     if pars.evol_model >= 3 and pos_rows is not None:
         alleles = encode_alleles(pos_rows)

@@ -68,11 +68,15 @@ ACTIVE: Optional["StageTimes"] = None
 class StageTimes:
     """Intervals, in seconds since its creation, of a run's stages:
     "read" (host work that prepares a slab: the staged read, the fused
-    chunk read, the float32 cast), "upload" (copies to the card and the
-    expansion there) and "kernel" (the statistics of a chunk or of the
-    resident tensor), and "gather" (a multi-process run's all-gather of
-    the shards' sums and their addition on the host, parallel/mesh.py;
-    it includes the wait for the slowest process).  Host spans are taken
+    chunk read, the float32 cast), "scan" (the runner's search of a
+    staged tensor for its code plane, utils/hostmem.derive_codes),
+    "upload" (copies to the card and the expansion there) and "kernel"
+    (the statistics of a chunk or of the resident tensor), and "gather"
+    (a multi-process run's all-gather of the shards' sums and their
+    addition on the host, parallel/mesh.py; it includes the wait for the
+    slowest process); and the bytes of the host slabs sent to the device
+    (`upload_bytes`: the probability tensor's lane, float32 triples,
+    packed pairs or uint8 codes).  Host spans are taken
     on the host clock, device
     spans by CUDA events on the stream that runs them and mapped onto
     the host clock through one event recorded at creation, on an idle
@@ -82,8 +86,9 @@ class StageTimes:
     def __init__(self, device) -> None:
         self.device = device
         self.cuda = device.type == "cuda"
-        self.host = {"read": [], "upload": [], "kernel": [], "gather": []}
+        self.host = {"read": [], "scan": [], "upload": [], "kernel": [], "gather": []}
         self.events = {"upload": [], "kernel": []}
+        self.upload_bytes = 0
         if self.cuda:
             import torch
 
@@ -106,15 +111,16 @@ class StageTimes:
         return {k: sorted(v) for k, v in out.items()}
 
     def summary(self) -> dict:
-        """Seconds in which a read, an upload, a kernel or a gather ran
-        (each the union of its intervals), the number of gathers, and the
-        share of the upload time that ran while a kernel or a read did
-        (None without uploads)."""
+        """Seconds in which a read, a scan, an upload, a kernel or a
+        gather ran (each the union of its intervals), the number of
+        gathers, the bytes uploaded, and the share of the upload time
+        that ran while a kernel or a read did (None without uploads)."""
         raw = self.intervals()
         iv = {k: _merge(v) for k, v in raw.items()}
         up = _length(iv["upload"])
         under = _merge(sorted(iv["kernel"] + iv["read"]))
-        return {"read_s": _length(iv["read"]), "upload_s": up,
+        return {"read_s": _length(iv["read"]), "scan_s": _length(iv["scan"]),
+                "upload_s": up, "upload_bytes": self.upload_bytes,
                 "kernel_s": _length(iv["kernel"]), "gather_s": _length(iv["gather"]),
                 "gathers": len(raw["gather"]),
                 "upload_hidden": _overlap(iv["upload"], under) / up if up > 0 else None}
@@ -146,6 +152,13 @@ def _overlap(a, b) -> float:
             total += min(e, b[k][1]) - max(s, b[k][0])
             k += 1
     return total
+
+
+def count_upload(nbytes: int) -> None:
+    """Add the bytes of a host slab sent to the device when times are
+    taken."""
+    if ACTIVE is not None:
+        ACTIVE.upload_bytes += int(nbytes)
 
 
 @contextlib.contextmanager

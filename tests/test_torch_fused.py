@@ -187,8 +187,8 @@ def _run(tmp_path, monkeypatch, path, S, N, tag, fused_env, budget, **kw):
     handles = []
     orig = runner.load_inputs
 
-    def spy(pars, fused=False):
-        got = orig(pars, fused=fused)
+    def spy(pars, **kw):
+        got = orig(pars, **kw)
         handles.append(type(got[2]).__name__)
         return got
 

@@ -50,6 +50,7 @@ def test_port_has_its_own_host_layer():
     counterpart of the same name in the port."""
     for rel in ("config.py", "version.py", "utils/native.py", "utils/rng.py",
                 "utils/signals.py", "utils/checkpoint.py", "utils/profiling.py",
+                "utils/hostmem.py",
                 "core/bootstrap.py", "core/models.py", "core/preprocess.py",
                 "core/exact.py", "core/submodels.py", "io/readers.py", "io/writers.py",
                 "csrc/host/ngsdist_native.c", "csrc/host/taus.h"):

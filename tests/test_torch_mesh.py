@@ -24,7 +24,7 @@ from ngsdist_tpu.core import bootstrap as jboot  # noqa: E402
 from ngsdist_tpu.core import distance as jdist  # noqa: E402
 from ngsdist_tpu.parallel import mesh as jpm  # noqa: E402
 from ngsdist_tpu.parallel.multihost import SiteStream as JStream  # noqa: E402
-from ngsdist_tpu_torch.config import Params  # noqa: E402
+from ngsdist_tpu_torch.config import NgsDistError, Params  # noqa: E402
 from ngsdist_tpu_torch.core import distance as tdist  # noqa: E402
 from ngsdist_tpu_torch.ops import _build  # noqa: E402
 from ngsdist_tpu_torch.ops import em as tem  # noqa: E402
@@ -85,7 +85,9 @@ def test_make_mesh_shapes_and_errors():
     assert pm.sites_size(mesh) == 4 and pm.pairs_size(mesh) == 2
     assert mesh.first == CPU and len(mesh.devices) == 8
     if not torch.cuda.is_available():
-        assert pm.make_mesh().devices == [CPU]       # no card: one cpu entry
+        # no card: an error, never a quiet CPU mesh (a CPU mesh names its entries)
+        with pytest.raises(NgsDistError, match="no CUDA device is available"):
+            pm.make_mesh()
     with pytest.raises(ValueError) as want:
         jpm.make_mesh(n_devices=6, pairs=4)
     with pytest.raises(ValueError) as got:
