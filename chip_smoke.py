@@ -31,6 +31,11 @@ Phases, each of which fails the run loudly:
    lists cover every upper tile (indep: exactly once), and the launches
    of the two-way split hold every tile against the plain versions'
    tile forms within the bounds above.
+   Phase x64-kernels: the same cases on the float64 entries (--x64; K1d,
+   K2d) with float64 inputs: cnt exact, indep raw within
+   f64_sum_bound(S, chunks) relative, EM raw within em_table_bound(S) x
+   cnt, reruns byte-identical, tile lists the full launch's tiles byte
+   for byte; only the float64 entries launch.
 3. The port's main path through its CLI entry point, in process, on
    seeded binary GP inputs at 1024 individuals (RUNS): (a) --indep_geno
    --pairwise_del, 65,536 sites, 2 bootstrap replicates of 256-site
@@ -115,6 +120,21 @@ Phases, each of which fails the run loudly:
    (native nd_read_geno_pack23, nd_read_geno_pack16, nd_read_geno_codes,
    each read into pinned memory and uploaded; the uint16 lane is not
    ported, only timed).
+   The --x64 runs (phase x64-runs): (xa), (xc), (xd), (xf), the files and
+   flags of (a), (c), (d), (f) under --x64 (the engine handed the staged
+   float64 array; (xd) on the partial-sum route exactly at its budget
+   edge; (xf) in the chunks of the JAX engine's x64 rule, under its budget
+   in device memory), (xk) and (xi), (k)'s and (i)'s meshes under --x64
+   (K2d's and K1d's tile lists), and (xme), (me) in the two workers, byte
+   for byte one process of two entries under --x64; each held to its
+   float32 twin's launches under the float64 entries' names, every
+   matrix's 64-individual sub-matrix to the float64 plain version on the
+   float64 values written within the float64 entries' bounds, its float32
+   twin's distance printed.  Phase x64-goldens: the 31 goldens of
+   tests/fixtures through cli.main with --x64 --platform cuda, each md5 the
+   manifest's or, where not, every differing printed value one final-digit
+   step from the golden's (docs/PARITY.md:68-75), the md5-equal count and
+   each stepped value printed.
    Each matrix takes three launches (one per substitution class, on the
    class's sites only) per chunk, 9 for (g) and (h); the engine is
    handed the staged float64 tensor.  Their 64-individual sub-matrices
@@ -131,9 +151,13 @@ Phases, each of which fails the run loudly:
    the PyTorch calls that compute the same function; the EM times
    beside those of the kernel before its redesign (EM_MS_BEFORE); and
    the kernel held there against the float64 plain version on the same
-   inputs.  Both full modes also at 2048 individuals (WIDE_N; seeded on
-   the card), held against the float64 plain version on a 64-individual
-   sub-matrix.  The class sums of models 3-6 in both forms, three
+   inputs; the float64 entries (K1d, K2d, their tile lists and block
+   modes) on the same values in float64, beside their bounds (K1d's
+   operations at the float64 tensor cores' peak), the float64 plain
+   version and, K1d, the float64 einsum and product.  Both full modes also
+   at 2048 individuals (WIDE_N; seeded on the card; the EM at
+   WIDE_EM_SITES), held against the float64 plain version on a
+   64-individual sub-matrix.  The class sums of models 3-6 in both forms, three
    weighted launches on the whole tensor against three launches on each
    class's sites only, timed at (g)'s and (h)'s shapes: the EM's bytes
    must be equal (it adds a lane's sites in order, and a site of weight
@@ -156,6 +180,11 @@ plain version's contribution per lane, and raw is rounded to float32
 once, which is at most 6e-8 x cnt.
 The policy bounds add the float32 rounding of the input, which moves
 the EM's stopping step by one for lanes within ~1e-7 of its threshold.
+The float64 entries: indep sums every product in float64 in another
+order than the plain version, 2 (3 S + chunks + 5) u relative
+(ops/indep.py f64_sum_bound); the EM's as the float32 entry's, raw
+written in float64.  Every kernel of the `kernels` line must have been
+launched by the main path.
 
 Prints the card line, a {"kernels": [...]} line whose "max_abs_err" is
 the largest absolute error of raw/cnt (the uncorrected distance)
@@ -167,6 +196,8 @@ without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import gc
+import hashlib
 import json
 import os
 import shutil
@@ -199,6 +230,7 @@ EM_EDGE_SHAPES = ((31, 7), (32, 64), (33, 101), (64, 9), (65, 130))
 PEAK_BYTES = 3.35e12
 PEAK_TF32 = 495e12
 PEAK_F64 = 33.5e12
+PEAK_F64_TC = 67e12   # float64 on the tensor cores (mma .f64, the --x64 indep kernel)
 # The EM kernel before its redesign (one float64 lane per pair and site,
 # exp/log powers), same shapes, NVIDIA H100 80GB HBM3 at 700.00 W.
 EM_MS_BEFORE = {"em_raw_cnt": 903.429, "em_block_partials": 907.152}
@@ -229,6 +261,11 @@ KERNELS = {"indep_raw_cnt": ("indep", "LAUNCHES"),
            "em_block_partials": ("em", "BLOCK_LAUNCHES"),
            "indep_raw_cnt_tiles": ("indep", "TILE_LAUNCHES"),
            "em_raw_cnt_tiles": ("em", "TILE_LAUNCHES")}
+# The float64 entries (--x64; K1d, K2d) under the same names with "_f64":
+# a run of the float32 path launches none of them, an --x64 run none of
+# the float32 ones.
+KERNELS.update({f"{name}_f64": (mod, f"{counter}_F64") for name, (mod, counter)
+                in list(KERNELS.items())})
 # The launches each run must make: the weighted route one per matrix,
 # the partial-sum route the full-data call and one block-mode call.
 LAUNCHES = {"a": {"indep_raw_cnt": 1 + BOOT_REPS},
@@ -255,7 +292,8 @@ LAUNCHES["g"] = {"em_raw_cnt": 3 * (1 + BOOT_REPS)}
 LAUNCHES["h"] = {"indep_raw_cnt": 3 * (1 + BOOT_REPS)}
 UNCLASSIFIABLE = 0.05    # share of POS rows whose two alleles are equal
 SHORT_DISK_BYTES = 16 << 30  # free disk below which (e) is cut to half its sites
-WIDE_N = 2048                # phase 4: both full modes also at this width
+WIDE_N = 2048                # phase 4: both full modes also at this width,
+WIDE_EM_SITES = EM_SITES // 4  # the EM at a quarter of (b)'s sites
 # Phase 2: the tile lists of a pairs axis split 2, 3 and 4 ways, at the
 # EM's edge shapes and the indep kernel's shapes of several site chunks.
 TILE_SPLITS = (2, 3, 4)
@@ -298,6 +336,19 @@ CODED_RUNS = {"cg": ("a", None, None, None, ("CodedBinInput", "ndarray")),
 # host budget it takes, and against whose file process 0's is held.
 CODED_PROC_RUNS = {"cgp": "cgl"}
 CODED_PROC_ATOL = 1e-7   # on d, where the two cut other rounds
+# --x64 on the card: run -> the run whose file and flags it takes with
+# --x64.  Each reads staged in float64 (the fused and coded lanes are the
+# float32 path's): (xa) the weighted route, (xc) the EM and (xd) indep on
+# the partial-sum route, (xd) exactly at its budget edge (64 blocks x
+# 1024^2 x 8 B x 2 = 2^30 B), (xf) streamed under (f)'s forced budget in
+# the JAX engine's x64 chunk edges; (xk) (k)'s TN93 on its 2 x 2 mesh
+# (K2d with site lists and tile lists), (xi) (i)'s indep on its 2 x 2 mesh
+# (K1d's tile lists); (xme) (me)'s EM in the two --coordinator workers,
+# against one process of two entries under --x64.
+X64_RUNS = {"xa": "a", "xc": "c", "xd": "d", "xf": "f"}
+X64_MESH_RUNS = {"xk": "k", "xi": "i"}
+X64_PROC_RUNS = {"xme": "me"}
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")  # the goldens and their inputs
 SCORE9 = np.array([[0.0, 0.5, 1.0], [0.5, 0.0, 0.5], [1.0, 0.5, 0.0]]).reshape(-1)
 
 
@@ -366,14 +417,30 @@ def block_pairs(torch, B, C):
     return B[:, I, J], None if C is None else C[:, I, J]
 
 
-def small_case(rng, torch, S: int, N: int):
-    """Seeded float32 probabilities on the card with missing, all-zero
-    and NaN rows, and the same values in float64."""
+def small_case(rng, torch, S: int, N: int, x64: bool = False):
+    """Seeded probabilities on the card with missing, all-zero and NaN
+    rows: the kernels' input (float32, or float64 under x64) and the same
+    values in float64."""
     P = rand_probs(rng, S, N, missing=0.1)
     P[rng.random((S, N)) < 0.01] = 0.0          # all-zero rows
     P[rng.integers(S, size=2), rng.integers(N, size=2)] = np.nan
-    P32 = torch.from_numpy(P).to(torch.device(DEVICE)).float()
+    P64 = torch.from_numpy(P).to(torch.device(DEVICE))
+    if x64:
+        return P64, P64
+    P32 = P64.float()
     return P32, P32.double()  # the kernels' inputs, exactly
+
+
+def kernel_tol(torch, indep, em, P, S=None):
+    """(rtol, atol_cnt) of check_values for a kernel's launch on P over S
+    of its sites: the float32 entries' INDEP_RTOL and EM_ATOL_CNT; the
+    float64 entries' bounds (PERF.md section 2): indep
+    f64_sum_bound(S, chunks) relative (every term >= 0 with SCORE9), EM
+    em_table_bound(S) x cnt (SCORE9's largest entry is 1)."""
+    if P.dtype != torch.float64:
+        return INDEP_RTOL, EM_ATOL_CNT
+    S = P.shape[0] if S is None else S
+    return indep.f64_sum_bound(S, indep.split_plan(P.shape[1], S)[0]), em.em_table_bound(S)
 
 
 def same_bytes(torch, a, b) -> bool:
@@ -388,7 +455,18 @@ def check_rerun(torch, fn, P32, pairwise_del, w, first) -> None:
         raise AssertionError(f"{fn.__name__}: rerun differs at {tuple(P32.shape)}")
 
 
-def phase_small_shapes(torch, indep, em) -> None:
+def entries(x64: bool) -> str:
+    """The entries a phase holds, and their bounds, for its log lines."""
+    if x64:
+        return ("float64 entries (K1d, K2d) on float64 inputs: cnt exact, indep raw <= "
+                "f64_sum_bound(S, chunks) rel, EM raw <= em_table_bound(S) x cnt")
+    return (f"float32 entries: cnt exact, indep raw <= {INDEP_RTOL:g} rel, EM raw <= "
+            f"{EM_ATOL_CNT:g} x cnt")
+
+
+def phase_small_shapes(torch, indep, em, x64: bool = False) -> None:
+    """Both kernels against their float64 plain versions at small ragged
+    shapes (module docstring, phase 2), in float32 or, x64, in float64."""
     rng = np.random.default_rng(SEED)
     dev = torch.device(DEVICE)
     n = 0
@@ -400,7 +478,7 @@ def phase_small_shapes(torch, indep, em) -> None:
 
     for N in (11, 130, 300):
         for S in (53, 777):
-            P32, P64 = small_case(rng, torch, S, N)
+            P32, P64 = small_case(rng, torch, S, N, x64)
             for pairwise_del in (False, True):
                 for weighted in (False, True):
                     w = weights(S, weighted)
@@ -408,20 +486,22 @@ def phase_small_shapes(torch, indep, em) -> None:
                                           ("em", em.em_raw_cnt, em.em_raw_cnt_ref)):
                         k = fn(P32, SCORE9, pairwise_del, w)
                         p = ref(P64, SCORE9, pairwise_del, w)
-                        rel, per_cnt = check_kernel(kind, torch, *k, *p)
+                        rel, per_cnt = check_kernel(kind, torch, *k, *p,
+                                                    *kernel_tol(torch, indep, em, P32))
                         worst[kind] = max(worst[kind], rel if kind == "indep" else per_cnt)
                         check_rerun(torch, fn, P32, pairwise_del, w, k)
                         n += 1
             torch.cuda.synchronize()
     # the EM kernel's tile edges and site step
     for N, S in EM_EDGE_SHAPES:
-        P32, P64 = small_case(rng, torch, S, N)
+        P32, P64 = small_case(rng, torch, S, N, x64)
         for pairwise_del in (False, True):
             for weighted in (False, True):
                 w = weights(S, weighted)
                 k = em.em_raw_cnt(P32, SCORE9, pairwise_del, w)
                 _, per_cnt = check_kernel("em", torch, *k,
-                                          *em.em_raw_cnt_ref(P64, SCORE9, pairwise_del, w))
+                                          *em.em_raw_cnt_ref(P64, SCORE9, pairwise_del, w),
+                                          *kernel_tol(torch, indep, em, P32))
                 worst["em"] = max(worst["em"], per_cnt)
                 check_rerun(torch, em.em_raw_cnt, P32, pairwise_del, w, k)
                 n += 1
@@ -431,52 +511,57 @@ def phase_small_shapes(torch, indep, em) -> None:
         chunks, chunk_sites = indep.split_plan(N, S)
         if chunks < 2 or S % chunk_sites == 0:
             raise AssertionError(f"({N}, {S}) gives {chunks} chunks of {chunk_sites}")
-        P32, P64 = small_case(rng, torch, S, N)
+        P32, P64 = small_case(rng, torch, S, N, x64)
         for pairwise_del in (False, True):
             for weighted in (False, True):
                 w = weights(S, weighted)
                 k = indep.indep_raw_cnt(P32, SCORE9, pairwise_del, w)
                 rel, _ = check_kernel("indep", torch, *k,
-                                      *indep.indep_raw_cnt_ref(P64, SCORE9, pairwise_del, w))
+                                      *indep.indep_raw_cnt_ref(P64, SCORE9, pairwise_del, w),
+                                      *kernel_tol(torch, indep, em, P32))
                 worst["indep"] = max(worst["indep"], rel)
                 check_rerun(torch, indep.indep_raw_cnt, P32, pairwise_del, w, k)
                 n += 1
         torch.cuda.synchronize()
-    log(f"phase 2: {n} kernel-vs-plain cases held (cnt exact, indep raw "
-        f"<= {INDEP_RTOL:g} rel, EM raw <= {EM_ATOL_CNT:g} x cnt, all reruns "
+    log(f"phase 2{' x64-kernels' if x64 else ''}: {n} kernel-vs-plain cases held "
+        f"({entries(x64)}, all reruns "
         f"byte-identical; indep also at {CHUNKED_SHAPES} (N, S), several site chunks; "
         f"EM also at {EM_EDGE_SHAPES}, across its tile edges and site step); largest "
         f"indep rel err {worst['indep']:.3e}, EM |raw err|/cnt {worst['em']:.3e}")
-    phase_small_blocks(torch, indep, em, rng)
+    phase_small_blocks(torch, indep, em, rng, x64)
 
 
-def block_case(torch, indep, em, kind, P32, pairwise_del, n_blocks, block_size):
-    """One block-mode call against its float64 plain version on the same
-    inputs, and a rerun, byte-identical.  The EM's B is float64 and is
-    held to em_table_bound(block_size) x C (SCORE9's largest entry is
-    1).  Returns check_values' errors."""
+def block_case(torch, indep, em, kind, P32, pairwise_del, n_blocks, block_size, plain=None):
+    """One block-mode call (float32, or float64 under --x64) against its
+    float64 plain version on the same inputs (`plain` where it has been
+    taken already), and a rerun, byte-identical.  The EM's B is float64
+    and is held to em_table_bound(block_size) x C (SCORE9's largest entry
+    is 1); indep's B to INDEP_RTOL, the float64 entry's to
+    f64_sum_bound(block_size).  Returns check_values' errors."""
+    rtol = indep.f64_sum_bound(block_size) if P32.dtype == torch.float64 else None
     if kind == "indep":
         fn, atol_cnt = indep.indep_block_partials, None
-        p = block_pairs(torch, *indep.indep_block_partials_ref(P32.double(), SCORE9, pairwise_del,
-                                                        n_blocks, block_size))
+        p = plain or block_pairs(torch, *indep.indep_block_partials_ref(
+            P32.double(), SCORE9, pairwise_del, n_blocks, block_size))
     else:
         fn, atol_cnt = em.em_block_partials, em.em_table_bound(block_size)
-        p = em.em_block_partials_ref(P32.double(), SCORE9, pairwise_del, n_blocks, block_size)
+        p = plain or em.em_block_partials_ref(P32.double(), SCORE9, pairwise_del, n_blocks,
+                                              block_size)
     k = fn(P32, SCORE9, pairwise_del, n_blocks, block_size)
     again = fn(P32, SCORE9, pairwise_del, n_blocks, block_size)
     if not all(a is b or same_bytes(torch, a, b) for a, b in zip(k, again)):
         raise AssertionError(f"{kind} blocks: rerun differs at {n_blocks} x {block_size}")
-    return check_values(kind, torch, *k, *p, atol_cnt=atol_cnt)
+    return check_values(kind, torch, *k, *p, rtol=rtol, atol_cnt=atol_cnt)
 
 
-def phase_small_blocks(torch, indep, em, rng) -> None:
+def phase_small_blocks(torch, indep, em, rng, x64: bool = False) -> None:
     """The block modes of the partial-sum bootstrap against their plain
     versions: ragged block sizes at N = BLOCK_N, NaN and zero rows, and
     an indep block longer than 2^16 sites (its counts must stay exact)."""
     n, worst = 0, {"indep": 0.0, "em": 0.0}
     for block_size in BLOCK_SIZES:
         n_blocks = BLOCK_SITES // block_size
-        P32, _ = small_case(rng, torch, n_blocks * block_size, BLOCK_N)
+        P32, _ = small_case(rng, torch, n_blocks * block_size, BLOCK_N, x64)
         for pairwise_del in (False, True):
             for kind in ("indep", "em"):
                 rel, per_cnt = block_case(torch, indep, em, kind, P32, pairwise_del,
@@ -484,12 +569,14 @@ def phase_small_blocks(torch, indep, em, rng) -> None:
                 worst[kind] = max(worst[kind], rel if kind == "indep" else per_cnt)
                 n += 1
         torch.cuda.synchronize()
-    P32, _ = small_case(rng, torch, 2 * LONG_BLOCK, BLOCK_N)
+    P32, _ = small_case(rng, torch, 2 * LONG_BLOCK, BLOCK_N, x64)
     rel, _ = block_case(torch, indep, em, "indep", P32, True, 2, LONG_BLOCK)
     worst["indep"] = max(worst["indep"], rel)
     torch.cuda.synchronize()
-    log(f"phase 2: {n + 1} block-mode cases held (block sizes {BLOCK_SIZES} and "
-        f"{LONG_BLOCK}, N = {BLOCK_N}; C exact, indep B <= {INDEP_RTOL:g} rel, EM B <= "
+    indep_b = "f64_sum_bound(block size)" if x64 else f"{INDEP_RTOL:g}"
+    log(f"phase 2{' x64-kernels' if x64 else ''}: {n + 1} block-mode cases held "
+        f"({'float64' if x64 else 'float32'} entries; block sizes {BLOCK_SIZES} and "
+        f"{LONG_BLOCK}, N = {BLOCK_N}; C exact, indep B <= {indep_b} rel, EM B <= "
         f"em_table_bound(block size) x C = {em.em_table_bound(min(BLOCK_SIZES)):.3e} to "
         f"{em.em_table_bound(max(BLOCK_SIZES)):.3e} x C, reruns byte-identical); largest "
         f"indep rel err "
@@ -502,16 +589,17 @@ def tile_lists(pm, kind: str, N: int, p: int):
     return pm.panel_tables(N, p) if kind == "indep" else pm.pair_block_tables(N, p)
 
 
-def phase_tile_lists(torch, indep, em, pm, build) -> None:
+def phase_tile_lists(torch, indep, em, pm, build, x64: bool = False) -> None:
     """Both kernels with a tile list (module docstring, phase 2): each
     pairs-shard's launch against the listed tiles of the full launch, byte
     for byte, and zeros elsewhere; reruns byte-identical; the lists'
-    cover; the two-way split's launches against the plain tile forms."""
+    cover; the two-way split's launches against the plain tile forms.  In
+    float32 or, x64, in float64."""
     rng = np.random.default_rng(SEED + 5)
     dev = torch.device(DEVICE)
     n, worst = 0, {"indep": 0.0, "em": 0.0}
     for N, S in TILE_SHAPES:
-        P32, P64 = small_case(rng, torch, S, N)
+        P32, P64 = small_case(rng, torch, S, N, x64)
         w = torch.from_numpy(rng.integers(0, 4, S).astype(np.float64)).to(dev)
         index = torch.nonzero(w != 0)[:, 0]
         for pairwise_del in (False, True):
@@ -538,7 +626,8 @@ def phase_tile_lists(torch, indep, em, pm, build) -> None:
                                     "launch's listed tiles, or a rerun differs")
                         if p == TILE_SPLITS[0]:
                             plain = ref(P64, SCORE9, pairwise_del, wk, tiles=tiles, **extra)
-                            rel, per_cnt = check_kernel(kind, torch, *got, *plain)
+                            rel, per_cnt = check_kernel(kind, torch, *got, *plain, *kernel_tol(
+                                torch, indep, em, P32, len(index) if extra else S))
                             worst[kind] = max(worst[kind], rel if kind == "indep" else per_cnt)
                         n += 1
                     covered = cover[upper]
@@ -546,7 +635,8 @@ def phase_tile_lists(torch, indep, em, pm, build) -> None:
                         raise AssertionError(f"{kind} tiles ({N}, {S}) p={p}: the lists do not "
                                              "cover the upper tiles")
         torch.cuda.synchronize()
-    log(f"phase 2: {n} tile-list launches held (K1p, K2b with and without a site list; "
+    log(f"phase 2{' x64-kernels' if x64 else ''}: {n} tile-list launches held "
+        f"({'float64' if x64 else 'float32'} entries; K1p, K2b with and without a site list; "
         f"(N, S) {TILE_SHAPES}, splits {TILE_SPLITS}): each the full launch's listed tiles "
         f"byte for byte, zeros elsewhere, reruns byte-identical, every upper tile covered "
         f"(indep exactly once); the {TILE_SPLITS[0]}-way launches against the plain tile "
@@ -691,7 +781,8 @@ def plain_pair_pi(torch, sub, v_src, a1, a2, w_ok, pairwise_del):
     return (tot / tot.sum(-1, keepdim=True)).cpu().numpy()
 
 
-def check_extended(torch, indep, em, distance, submodels, mats, P_sub, idx, alleles):
+def check_extended(torch, indep, em, distance, submodels, mats, P_sub, idx, alleles,
+                   x64_runs=None):
     """The 64-individual sub-matrices of the runs of MODELS against the
     float64 plain route: the plain kernels' versions under the weights
     w x class mask, plain_pair_pi, and submodels.apply_extended_model.
@@ -702,20 +793,29 @@ def check_extended(torch, indep, em, distance, submodels, mats, P_sub, idx, alle
     on the float32 values the card holds, once on the float64 values that
     were written (the float32 policy's bounds).  Returns the largest
     |d error| per run and comparison, and per run the largest bound of
-    the first."""
+    the first.  x64_runs (run -> the run of MODELS whose flags it took
+    under --x64): those runs instead, once, on the float64 values written
+    within the float64 entries' bounds (em_table_bound(S), indep
+    f64_sum_bound(S, chunks))."""
     dev = torch.device(DEVICE)
     iu = np.triu_indices(len(idx), k=1)
     errs, bounds = {}, {}
-    for run, model in MODELS.items():
-        kind, sites, reps, block, pairwise_del = RUNS[run]
+    inputs_of = (("float32", INDEP_RTOL, EM_ATOL_CNT),
+                 ("float64", POLICY_INDEP_RTOL, POLICY_EM_ATOL_CNT))
+    todo = ({run: run for run in MODELS} if x64_runs is None else x64_runs)
+    for run, base in todo.items():
+        model = MODELS[base]
+        kind, sites, reps, block, pairwise_del = RUNS[base]
+        if x64_runs is not None:
+            inputs_of = (("float64", indep.f64_sum_bound(sites, indep.split_plan(
+                N_IND, sites)[0]), em.em_table_bound(sites)),)
         plain = indep.indep_raw_cnt_ref if kind == "indep" else em.em_raw_cnt_ref
         n_trunc, maps = distance.bootstrap_site_maps(SEED, reps, sites, block)
         a1, a2 = alleles[0][:sites], alleles[1][:sites]
         masks = submodels.classify_sites(a1, a2)
         a1_t, a2_t = torch.from_numpy(a1).to(dev), torch.from_numpy(a2).to(dev)
-        sub64 = torch.from_numpy(run_array(run, P_sub, sites)).to(dev)
-        for inputs, rtol, atol_cnt in (("float32", INDEP_RTOL, EM_ATOL_CNT),
-                                       ("float64", POLICY_INDEP_RTOL, POLICY_EM_ATOL_CNT)):
+        sub64 = torch.from_numpy(run_array(base, P_sub, sites)).to(dev)
+        for inputs, rtol, atol_cnt in inputs_of:
             sub = card_values(sub64, False) if inputs == "float32" else sub64
             v_src = sub.float() if inputs == "float32" else sub
             e, b = [], []
@@ -795,30 +895,31 @@ def time_cuda(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def indep_bound(S: int, N: int, out_bytes: int):
+def indep_bound(S: int, N: int, out_bytes: int, f64: bool = False):
     """(ms, "bytes" or "operations", reckoning): the least time the card
-    could take for the indep statistics of [S, N, 3] float32.  Bytes: the
-    input read once, the outputs written once.  Operations: the fold
-    (9 multiply-adds per site and individual), then per site and pair
-    a <= b three multiply-adds for raw and one for cnt, at the TF32
-    tensor-core peak (one product per term; the kernel spends three to
-    keep float32 accuracy)."""
-    nbytes = 12 * S * N + out_bytes
+    could take for the indep statistics of [S, N, 3] float32 (f64:
+    float64).  Bytes: the input read once, the outputs written once.
+    Operations: the fold (9 multiply-adds per site and individual), then
+    per site and pair a <= b three multiply-adds for raw and one for cnt,
+    at the TF32 tensor-core peak (one product per term; the kernel spends
+    three to keep float32 accuracy), or the float64 one."""
+    nbytes = (24 if f64 else 12) * S * N + out_bytes
     flop = 2 * (9 * S * N + 4 * S * (N * (N + 1) // 2))
-    t_b, t_o = nbytes / PEAK_BYTES * 1e3, flop / PEAK_TF32 * 1e3
+    peak, of = (PEAK_F64_TC, "float64 tensor-core") if f64 else (PEAK_TF32, "TF32")
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, flop / peak * 1e3
     return (max(t_b, t_o), "bytes" if t_b > t_o else "operations",
             f"{nbytes:.4g} B at {PEAK_BYTES:.4g} B/s = {t_b:.3f} ms; {flop:.4g} flop at "
-            f"{PEAK_TF32:.4g} TF32 flop/s = {t_o:.3f} ms")
+            f"{peak:.4g} {of} flop/s = {t_o:.3f} ms")
 
 
-def em_bound(work: dict, S: int, N: int, out_bytes: int):
-    """The same for the EM of [S, N, 3] float32, from what this run's
-    data needs (ops/em.py em_work), all float64 outside the tensor
-    cores: per live row the 49 steps of its table once (3 + 2 + 4
+def em_bound(work: dict, S: int, N: int, out_bytes: int, f64: bool = False):
+    """The same for the EM of [S, N, 3] float32 (f64: float64), from what
+    this run's data needs (ops/em.py em_work), all float64 outside the
+    tensor cores: per live row the 49 steps of its table once (3 + 2 + 4
     operations: powers, their sum, the ratio); per ratio test a multiply
     and a compare; per live lane the 9-cell contraction (21), the sums'
     product (5), the division and the weighted accumulation (6)."""
-    nbytes = 12 * S * N + out_bytes
+    nbytes = (24 if f64 else 12) * S * N + out_bytes
     flop = 49 * 9 * work["live_rows"] + 2 * work["tests"] + 32 * work["live_lanes"]
     t_b, t_o = nbytes / PEAK_BYTES * 1e3, flop / PEAK_F64 * 1e3
     return (max(t_b, t_o), "bytes" if t_b > t_o else "operations",
@@ -883,7 +984,7 @@ def phase_wide(torch, indep, em, card, report) -> None:
            indep_bound(INDEP_SITES, WIDE_N, 2 * 4 * WIDE_N * WIDE_N), ms_lib,
            wrapper="indep_raw_cnt")
 
-    P32 = P32[:EM_SITES].contiguous()
+    P32 = P32[:WIDE_EM_SITES].contiguous()
     torch.cuda.empty_cache()
     ms_k = time_cuda(torch, lambda: em.em_raw_cnt(P32, SCORE9, False), 3)
     torch.cuda.synchronize()
@@ -896,13 +997,13 @@ def phase_wide(torch, indep, em, card, report) -> None:
         P32[:, idx].double(), SCORE9, False))
     t0 = time.perf_counter()
     work = em.em_work(P32.double())
-    log(f"phase 4: em {WIDE_N} x {EM_SITES}: kernel {ms_k:.3f} ms, plain float32 {ms_p:.3f} ms "
+    log(f"phase 4: em {WIDE_N} x {WIDE_EM_SITES}: kernel {ms_k:.3f} ms, plain float32 {ms_p:.3f} ms "
         f"(one run); 64-individual sub-matrix vs float64 plain: max |raw/cnt err| {err:.3e}; "
         f"work {work['live_rows']} live rows, {work['live_lanes']} live lanes, "
         f"{work['tests']} ratio tests (counted in {time.perf_counter() - t0:.1f} s) [{card}]")
     report(f"em_raw_cnt_n{WIDE_N}", "ngsdist_tpu_torch/csrc/em.cu",
            "ngsdist_tpu/ops/pallas_em.py:326", err, "raw/cnt", ms_k, ms_p,
-           em_bound(work, EM_SITES, WIDE_N, 2 * 4 * WIDE_N * WIDE_N), None,
+           em_bound(work, WIDE_EM_SITES, WIDE_N, 2 * 4 * WIDE_N * WIDE_N), None,
            wrapper="em_raw_cnt")
 
 
@@ -1169,7 +1270,8 @@ def timed_run(torch, mods, ngsd, budget, fused: bool, call):
     just before and read just after, under the given NGSDIST_DEVICE_BUDGET
     (None: unset) and read route.  Returns what the run showed: call()'s
     result, launches, wall seconds, the stage times' summary, the peak of
-    the device memory, the type of what load_inputs returned ("source")
+    the device memory (and the bytes held when it was reset, "base"), the
+    type of what load_inputs returned ("source")
     and of what the engine was handed ("handed": a SiteStream with its
     rows' source and lane)."""
     runner, profiling, distance = ngsd["runner"], ngsd["profiling"], ngsd["distance"]
@@ -1184,8 +1286,8 @@ def timed_run(torch, mods, ngsd, budget, fused: bool, call):
         seen["source"] = type(got[2]).__name__
         return got
 
-    def reader_spy(cls, pars, mesh):   # a lazy run's stream
-        seen["stream"] = from_reader(cls, pars, mesh)
+    def reader_spy(cls, pars, mesh, *a):   # a lazy run's stream
+        seen["stream"] = from_reader(cls, pars, mesh, *a)
         seen["source"] = type(seen["stream"].src).__name__
         return seen["stream"]
 
@@ -1201,9 +1303,11 @@ def timed_run(torch, mods, ngsd, budget, fused: bool, call):
     runner.load_inputs = spy
     distance.iter_replicates = engine_spy
     ngsd["multihost"].SiteStream.from_reader = classmethod(reader_spy)
+    gc.collect()  # an earlier run's tensors in reference cycles are not this run's
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    seen["base"] = torch.cuda.memory_allocated()
     profiling.ACTIVE = profiling.StageTimes(torch.device(DEVICE))
     for mod, counter in KERNELS.values():
         setattr(mods[mod], counter, 0)
@@ -1237,7 +1341,7 @@ def log_run(run: str, what: str, seen, base=None) -> None:
         f"(host clock, CLI call incl. read and write): read {t['read_s']:.3f} s, upload "
         f"{t['upload_s']:.3f} s, kernels {t['kernel_s']:.3f} s, share of the upload under a "
         f"kernel or a read {hidden}; source {seen['source']}, peak device memory "
-        f"{seen['peak']} B; launches "
+        f"{seen['peak']} B ({seen['base']} B held before the run); launches "
         + ", ".join(f"{k} {v}" for k, v in seen["launches"].items() if v))
 
 
@@ -1263,7 +1367,7 @@ def drive_main_path(torch, cli, mods, ngsd, genos):
             base, min_chunks, _ = STREAMED[run]
             budget = forced_budget(run)
             with environment({"NGSDIST_DEVICE_BUDGET": str(budget)}):
-                chunked, chunk = distance.stream_plan(sites, N_IND, dev, None)
+                chunked, chunk = distance.stream_plan(sites, N_IND, dev, None, False)
             chunks = -(-sites // chunk)
             if not chunked or chunks < min_chunks:
                 raise AssertionError(f"run ({run}): the budget {budget} gives {chunks} chunks")
@@ -1331,7 +1435,7 @@ def drive_mesh_runs(torch, cli, mods, ngsd, genos, mats, ext_bounds):
     Returns the launches and the largest |d difference| per run."""
     runner, pm, pmh = ngsd["runner"], ngsd["mesh"], ngsd["multihost"]
     dev0 = torch.device(DEVICE, 0)
-    itemsize = torch.finfo(ngsd["distance"].default_dtype(dev0)).bits // 8
+    itemsize = ngsd["distance"].itemsize(dev0, False)
     c_staged = os.path.join(WORK, "c_staged.dist")
     seen = cli_run(torch, cli, mods, ngsd, "c", genos["c"], c_staged, None, False)
     log_run("c", "once more with the staged read, for (j): ", seen)
@@ -1568,7 +1672,8 @@ def drive_coded_runs(torch, cli, mods, ngsd, genos, card):
         if run == "cgs":
             dev = torch.device(DEVICE)
             with environment({"NGSDIST_DEVICE_BUDGET": str(budget)}):
-                chunked, chunk = ngsd["distance"].stream_plan(INDEP_SITES, N_IND, dev, None)
+                chunked, chunk = ngsd["distance"].stream_plan(INDEP_SITES, N_IND, dev, None,
+                                                              False)
             n = -(-INDEP_SITES // chunk)
             if not chunked or n < chunks or seen["launches"]["indep_raw_cnt"] != n * (1 + reps):
                 raise AssertionError(f"run (cgs): {n} chunks, launches {seen['launches']}")
@@ -1658,6 +1763,196 @@ def time_upload_lanes(torch, native, path: str, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def x64_launches(counts: dict) -> dict:
+    """A float32 run's launches as the float64 entries' names."""
+    return {f"{name}_f64": n for name, n in counts.items()}
+
+
+def drive_x64_runs(torch, cli, mods, ngsd, genos, mats, card):
+    """The --x64 runs of X64_RUNS and X64_MESH_RUNS (module docstring,
+    phase x64-runs), each with its launch counts set to 0 just before and
+    read just after, held to its float32 twin's launches under the float64
+    entries' names: the engine handed the staged float64 array (the
+    runner declines the fused read itself; NGSDIST_FUSED_READ stays
+    auto), (xf) streamed in the chunks stream_plan gives under x64 (the
+    JAX engine's x64 edges) and under its budget in device memory.
+    Returns the launches, the output files and the largest |d| between
+    each run and its float32 twin (printed, not held)."""
+    distance, runner, pm, pmh = ngsd["distance"], ngsd["runner"], ngsd["mesh"], ngsd["multihost"]
+    dev = torch.device(DEVICE)
+    launches, outs, twin = {}, {}, {}
+    for run, base in X64_RUNS.items():
+        kind, sites, reps, block, _ = RUNS[base]
+        outs[run] = os.path.join(WORK, f"{run}.dist")
+        want = {name: 0 for name in KERNELS}
+        want.update(x64_launches(LAUNCHES.get(base, {})))
+        budget, what = None, ""
+        if base in STREAMED:
+            budget = forced_budget(base)
+            with environment({"NGSDIST_DEVICE_BUDGET": str(budget)}):
+                chunked, chunk = distance.stream_plan(sites, N_IND, dev, None, True)
+            edges = distance._stream_chunk_sites(sites, N_IND, 8, budget // 3)
+            if not chunked or chunk != edges:
+                raise AssertionError(f"run ({run}): the plan {chunked, chunk} is not the JAX "
+                                     f"x64 edges {edges}")
+            chunks = -(-sites // chunk)
+            want[f"{kind}_raw_cnt_f64"] = chunks * (1 + reps)
+            what = f"streamed in {chunks} chunks of {chunk} sites under a budget of {budget} B, "
+        seen = cli_run(torch, cli, mods, ngsd, base, genos[base], outs[run], budget, True,
+                       extra=("--x64",))
+        launches[run] = seen["launches"]
+        log_run(run, f"--x64, {what}", seen, base)
+        if launches[run] != want:
+            raise AssertionError(f"run ({run}): launches {launches[run]}, expected {want}")
+        if seen["source"] != "ndarray":
+            raise AssertionError(f"run ({run}): the engine was handed a {seen['source']}")
+        # the run's own peak: earlier runs leave cuBLAS workspaces of their
+        # streams allocated (32 MiB each)
+        if budget is not None and seen["peak"] - seen["base"] >= budget:
+            raise AssertionError(f"run ({run}): peak device memory {seen['peak']} B, "
+                                 f"{seen['base']} B of it held before the run, is not under "
+                                 f"the budget {budget} B")
+        got = check_output(outs[run], 1 + reps)
+        twin[run] = max(float(np.abs(a - b).max()) for a, b in zip(got, mats[base]))
+    dev0 = torch.device(DEVICE, 0)
+    for run, base in X64_MESH_RUNS.items():
+        one, entries, pairs, _ = MESH_RUNS[base]
+        kind, sites, reps, _, _ = RUNS[one]
+        outs[run] = os.path.join(WORK, f"{run}.dist")
+        pars, _ = cli.parse_args(run_args(one, genos[one], outs[run]))
+        mesh = pm.make_mesh([dev0] * entries, pairs=pairs)
+        stream = pmh.SiteStream(None, pars, mesh, *pmh.SiteStream._plan(pars, mesh, True),
+                                x64=True)
+        seen = timed_run(torch, mods, ngsd, None, False,
+                         lambda: runner.run(pars, mesh=mesh, report_throughput=True, x64=True))
+        launches[run] = seen["launches"]
+        log_run(run, f"--x64, on a {pm.sites_size(mesh)} x {pairs} mesh of {entries} entries "
+                f"of {dev0}, ", seen, one)
+        want = {name: 0 for name in KERNELS}
+        want.update(x64_launches(mesh_launches(base, stream, pm)))
+        if launches[run] != want:
+            raise AssertionError(f"run ({run}): launches {launches[run]}, expected {want}")
+        got = check_output(outs[run], 1 + reps)
+        ref = check_output(os.path.join(WORK, f"{base}.dist"), 1 + reps)
+        twin[run] = max(float(np.abs(a - b).max()) for a, b in zip(got, ref))
+    return launches, outs, twin
+
+
+def check_x64_outputs(torch, indep, em, distance, submodels, outs, P_sub, idx, alleles):
+    """Every matrix of every --x64 run (outs: run -> file; the run whose
+    flags it took by X64_RUNS, X64_MESH_RUNS or X64_PROC_RUNS) on the
+    64-individual sub-matrix against the float64 plain version on the
+    float64 values written, within the float64 entries' bounds (indep
+    f64_sum_bound(S, chunks) relative, EM em_table_bound(S) x cnt; models
+    3-6 through check_extended).  Returns the largest |d error| per run."""
+    dev = torch.device(DEVICE)
+    base_of = {**X64_RUNS, **{r: MESH_RUNS[b][0] for r, b in X64_MESH_RUNS.items()},
+               **{r: PROC_RUNS[b][0] for r, b in X64_PROC_RUNS.items()}}
+    errs = {}
+    for run, out in outs.items():
+        base = base_of[run]
+        kind, sites, reps, block, pairwise_del = RUNS[base]
+        mats = check_output(out, 1 + reps)
+        if base in MODELS:
+            e, _ = check_extended(torch, indep, em, distance, submodels, {run: mats}, P_sub,
+                                  idx, alleles, x64_runs={run: base})
+            errs[run] = e[f"{run}/float64"]
+            continue
+        plain = indep.indep_raw_cnt_ref if kind == "indep" else em.em_raw_cnt_ref
+        n_trunc, maps = distance.bootstrap_site_maps(SEED, reps, sites, block)
+        sub64 = torch.from_numpy(run_array(base, P_sub, sites)).to(dev)
+        e = []
+        for r, mat in enumerate(mats):
+            S, w = sites, None
+            if r > 0:
+                S = n_trunc
+                w = torch.from_numpy(distance.replicate_weights(maps[r - 1], S)).to(dev)
+            raw, cnt = plain(sub64[:S].contiguous(), SCORE9, pairwise_del, w)
+            rtol = indep.f64_sum_bound(S, indep.split_plan(N_IND, S)[0])
+            denom = cnt if pairwise_del else float(S)
+            e.append(check_submatrix(mat, raw, denom, idx, kind, rtol, em.em_table_bound(S)))
+        errs[run] = max(e)
+        del sub64
+    return errs
+
+
+def final_digit_steps(name: str, got: bytes, want: bytes):
+    """The printed values of `got` that differ from `want`'s, as (golden,
+    line, got, want), when each lies one final-digit step from the
+    golden's and nothing else differs (docs/PARITY.md:68-75); anything
+    more raises."""
+    a, b = got.decode().split("\n"), want.decode().split("\n")
+    if len(a) != len(b):
+        raise AssertionError(f"golden {name}: {len(a)} lines, the golden {len(b)}")
+    steps = []
+    for i, (la, lb) in enumerate(zip(a, b)):
+        if la == lb:
+            continue
+        ta, tb = la.split("\t"), lb.split("\t")
+        if len(ta) != len(tb) or ta[0] != tb[0]:
+            raise AssertionError(f"golden {name}, line {i + 1}: differs beyond its values")
+        for x, y in zip(ta[1:], tb[1:]):
+            if x == y:
+                continue
+            digits = len(y.split(".")[1]) if "." in y else -1
+            step = 10.0 ** -digits
+            if (digits < 1 or len(x) != len(y)
+                    or not abs(float(x) - float(y)) <= 1.0000001 * step):
+                raise AssertionError(f"golden {name}, line {i + 1}: {x} against the golden "
+                                     f"{y}, more than one final-digit step")
+            steps.append((name, i + 1, x, y))
+    return steps
+
+
+def phase_x64_goldens(torch, cli, mods, card):
+    """Phase x64-goldens: the 31 golden configurations of
+    tests/fixtures/manifest.json through the port's cli.main in process
+    with --x64 --platform cuda, in the goldens' data directory, with every
+    launch count set to 0 just before and read just after (only float64
+    entries may run).  Each output's md5 must equal the manifest's or,
+    where it does not, every differing printed value must lie one
+    final-digit step from the golden's and nothing else differ
+    (final_digit_steps).  Prints the count of md5-equal goldens and each
+    value that took the step.  Returns the launches."""
+    manifest = json.load(open(os.path.join(FIXTURES, "manifest.json")))
+    out_dir = os.path.join(WORK, "goldens")
+    os.makedirs(out_dir)
+    for mod, counter in KERNELS.values():
+        setattr(mods[mod], counter, 0)
+    equal, steps = 0, []
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    os.chdir(os.path.join(FIXTURES, "data"))
+    try:
+        for name in sorted(manifest):
+            out = os.path.join(out_dir, f"{name}.dist")
+            args = [a.replace("{OUT}", out) for a in manifest[name]["args"]]
+            if cli.main(args + ["--platform", DEVICE, "--x64", "--verbose", "0"]) != 0:
+                raise AssertionError(f"golden {name} under --x64 on {DEVICE}: exit code")
+            got = open(out, "rb").read()
+            if hashlib.md5(got).hexdigest() == manifest[name]["md5"]:
+                equal += 1
+                continue
+            steps += final_digit_steps(
+                name, got, open(os.path.join(FIXTURES, "golden", f"{name}.dist"), "rb").read())
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = launch_counts(mods)
+    if any(n for name, n in launched.items() if not name.endswith("_f64")) or not any(
+            launched.values()):
+        raise AssertionError(f"goldens under --x64: launches {launched}")
+    log(f"phase x64-goldens: {equal} of {len(manifest)} goldens md5-equal under --x64 "
+        f"--platform {DEVICE} in {wall:.2f} s (host clock, {len(manifest)} CLI calls); "
+        f"{len(steps)} printed values one final-digit step from the golden's"
+        + "".join(f"; {n} line {i}: {x} (golden {y})" for n, i, x, y in steps)
+        + "; launches " + ", ".join(f"{k} {v}" for k, v in launched.items() if v)
+        + f" [{card}]")
+    return launched
+
+
+
 PROC_WORKER = r"""
 import json, os, sys, time
 rank, root, spec = int(sys.argv[1]), sys.argv[2], json.load(open(sys.argv[3]))
@@ -1674,8 +1969,8 @@ sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 from_reader = multihost.SiteStream.from_reader.__func__
 stream = {}
 
-def reader_spy(cls, pars, mesh):
-    st = from_reader(cls, pars, mesh)
+def reader_spy(cls, pars, mesh, *a):
+    st = from_reader(cls, pars, mesh, *a)
     stream.update(lazy=st.lazy, coded=st.coded, chunk=st.chunk, rounds=st.n_rounds)
     return st
 
@@ -1741,9 +2036,11 @@ def drive_process_runs(torch, mods, ngsd, genos, mats, card, coded_ref):
     read fused; the indep kernel's bound holds the staged read's rounding
     of p2, as drive_mesh_runs shows for (i)); (me), read staged, to the
     full-data matrix of (c) run staged (drive_mesh_runs), which is (b)'s
-    read so.  Those runs are held to the plain sums.  Returns the
-    launches (both processes together) and the largest |d difference| per
-    run, and prints each run's wall time and its gathers.  The same
+    read so.  Those runs are held to the plain sums.  The workers also
+    run X64_PROC_RUNS, each process 0 file byte for byte the one process
+    of two entries under --x64.  Returns the launches (both processes
+    together), the largest |d difference| per run and the --x64 runs'
+    files, and prints each run's wall time and its gathers.  The same
     workers then run CODED_PROC_RUNS and their twins (check_coded_procs;
     coded_ref: (cgl)'s file and round length)."""
     cli, runner, pm = ngsd["cli"], ngsd["runner"], ngsd["mesh"]
@@ -1755,6 +2052,11 @@ def drive_process_runs(torch, mods, ngsd, genos, mats, card, coded_ref):
         runs.append({"name": run, "env": proc_env(run), "port": free_port(),
                      "argv": run_args(base, genos[base], os.path.join(WORK, f"{run}.dist"))
                      + ["--platform", DEVICE]})
+    for run, proc in X64_PROC_RUNS.items():
+        base = PROC_RUNS[proc][0]
+        runs.append({"name": run, "env": {}, "port": free_port(),
+                     "argv": run_args(base, genos[base], os.path.join(WORK, f"{run}.dist"))
+                     + ["--platform", DEVICE, "--x64"]})
     for run, ref in CODED_PROC_RUNS.items():
         host = CODED_RUNS[ref][2]
         for lane in ("coded", "twin"):
@@ -1833,10 +2135,45 @@ def drive_process_runs(torch, mods, ngsd, genos, mats, card, coded_ref):
             + f"; one process on two entries {seen['wall']:.2f} s; process 0's file equals "
             f"it byte for byte and lies within {diffs[run]:.3e} of ({base}); launches "
             + ", ".join(f"{k} {v}" for k, v in both.items() if v) + f" [{card}]")
+    x64_outs = {}
+    for run, proc in X64_PROC_RUNS.items():
+        base = PROC_RUNS[proc][0]
+        kind, sites, reps, block, _ = RUNS[base]
+        got = [results[rank][run] for rank in (0, 1)]
+        both = {name: got[0]["launches"][name] + got[1]["launches"][name] for name in KERNELS}
+        launches[f"{run}_2p"] = both
+        one = os.path.join(WORK, f"{run}_1p.dist")
+        pars, _ = cli.parse_args(run_args(base, genos[base], one))
+        seen = timed_run(torch, mods, ngsd, None, False,
+                         lambda: runner.run(pars, mesh=pm.make_mesh([dev0] * 2), x64=True))
+        launches[f"{run}_1p"] = seen["launches"]
+        if (both != seen["launches"] or any(n for k, n in both.items() if not k.endswith("_f64"))
+                or not any(both.values())):
+            raise AssertionError(f"run ({run}): two processes launched {both}, one process "
+                                 f"of two entries {seen['launches']}")
+        x64_outs[run] = os.path.join(WORK, f"{run}.dist")
+        with open(x64_outs[run], "rb") as a, open(one, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"run ({run}): process 0's file differs from the "
+                                     "one-process run's on two entries under --x64")
+        twin = max(float(np.abs(a - b).max()) for a, b in zip(
+            check_output(x64_outs[run], 1 + reps), check_output(os.path.join(
+                WORK, f"{proc}.dist"), 1 + reps)))
+        log(f"phase x64-runs: ({run}) {kind} {N_IND} x {sites} --x64 in two processes, "
+            "resident; "
+            + "; ".join(f"process {rank}: {g['wall']:.2f} s (host clock, CLI call), read "
+                        f"{g['times']['read_s']:.3f} s, upload {g['times']['upload_s']:.3f} s, "
+                        f"kernels {g['times']['kernel_s']:.3f} s, {g['times']['gathers']} "
+                        f"gathers in {g['times']['gather_s']:.4f} s"
+                        for rank, g in enumerate(got))
+            + f"; one process on two entries {seen['wall']:.2f} s, peak device memory "
+            f"{seen['peak']} B; process 0's file equals it byte for byte; its float32 twin "
+            f"({proc}) lies {twin:.3e} from it on d; launches "
+            + ", ".join(f"{k} {v}" for k, v in both.items() if v) + f" [{card}]")
     coded_launched, coded_diffs = check_coded_procs(results, card, coded_ref)
     launches.update(coded_launched)
     diffs.update(coded_diffs)
-    return launches, diffs
+    return launches, diffs, x64_outs
 
 
 def check_coded_procs(results, card, coded_ref):
@@ -1903,8 +2240,15 @@ def tile_times(torch, kmod, pm, build, kind, P32, pairwise_del, plain64, bound, 
     share of the full launch's tiles it holds and the bound scaled by that
     share; the 2-way launch held against the float64 plain version
     (plain64, the full one, masked to the list's tiles: the plain tile
-    form) and reported, with the plain tile form's time (float32)."""
+    form) and reported, with the plain tile form's time, in P32's dtype
+    (float32, or float64 for the --x64 entries, whose name ends in
+    "_f64" and which replace the XLA functions of the JAX package's x64
+    runs)."""
+    from ngsdist_tpu_torch.ops import em, indep
+
     N = P32.shape[1]
+    f64 = P32.dtype == torch.float64
+    dt = "float64" if f64 else "float32"
     fn = kmod.indep_raw_cnt if kind == "indep" else kmod.em_raw_cnt
     ref = kmod.indep_raw_cnt_ref if kind == "indep" else kmod.em_raw_cnt_ref
     edge, strict = (kmod.TILE, False) if kind == "indep" else (kmod.EM_TILE, True)
@@ -1918,7 +2262,8 @@ def tile_times(torch, kmod, pm, build, kind, P32, pairwise_del, plain64, bound, 
         ms = time_cuda(torch, lambda: fn(P32, SCORE9, pairwise_del, tiles=tiles), reps)
         share = lst.size / (nt * (nt + 1) // 2)
         first[p] = (lst, tiles, ms, share)
-        log(f"phase 4: {kind} tile list, first shard of {p}: {lst.size} of {nt * (nt + 1) // 2} "
+        log(f"phase 4: {kind} tile list ({dt} entry), first shard of {p}: {lst.size} of "
+            f"{nt * (nt + 1) // 2} "
             f"tiles (share {share:.4f}) in {ms:.3f} ms against the full launch's "
             f"{ms_full:.3f} ms ({ms / ms_full:.4f}); bound scaled by the share "
             f"{bound[0] * share:.3f} ms [{card}]")
@@ -1926,7 +2271,7 @@ def tile_times(torch, kmod, pm, build, kind, P32, pairwise_del, plain64, bound, 
     got = fn(P32, SCORE9, pairwise_del, tiles=tiles)
     mask = build.tile_mask(N, lst, edge, strict).to(P32.device)
     plain = [torch.where(mask, x, torch.zeros_like(x)) for x in plain64]
-    rel, err = check_kernel(kind, torch, *got, *plain)
+    rel, err = check_kernel(kind, torch, *got, *plain, *kernel_tol(torch, indep, em, P32))
     if kind == "indep":
         ms_p = time_cuda(torch, lambda: ref(P32, SCORE9, pairwise_del, tiles=tiles), 3)
     else:
@@ -1936,11 +2281,14 @@ def tile_times(torch, kmod, pm, build, kind, P32, pairwise_del, plain64, bound, 
         torch.cuda.synchronize()
         ms_p = (time.perf_counter() - t0) * 1e3
     torch.cuda.empty_cache()
-    log(f"phase 4: {kind} tile list, first shard of 2, vs float64 plain: max rel raw err "
-        f"{rel:.3e}, max |raw/cnt err| {err:.3e}; plain tile form (float32) {ms_p:.3f} ms")
-    replaces = ("ngsdist_tpu/ops/pallas_indep.py:463" if kind == "indep"
-                else "ngsdist_tpu/ops/pallas_em.py:326")
-    report(f"{kind}_raw_cnt_tiles", f"ngsdist_tpu_torch/csrc/{kind}.cu", replaces, err,
+    log(f"phase 4: {kind} tile list ({dt} entry), first shard of 2, vs float64 plain: max rel "
+        f"raw err {rel:.3e}, max |raw/cnt err| {err:.3e}; plain tile form ({dt}) {ms_p:.3f} ms")
+    replaces = {(False, "indep"): "ngsdist_tpu/ops/pallas_indep.py:463",
+                (False, "em"): "ngsdist_tpu/ops/pallas_em.py:326",
+                (True, "indep"): "ngsdist_tpu/core/distance.py:332",
+                (True, "em"): "ngsdist_tpu/core/distance.py:545"}[f64, kind]
+    report(f"{kind}_raw_cnt_tiles{'_f64' if f64 else ''}", f"ngsdist_tpu_torch/csrc/{kind}.cu",
+           replaces, err,
            "raw/cnt", ms, ms_p,
            (bound[0] * share, bound[1], f"{share:.4f} of the full launch's bound: {bound[2]}"),
            None)
@@ -2007,9 +2355,18 @@ def main() -> int:
     # Phase 2: kernel against plain at small ragged shapes.
     phase_small_shapes(torch, indep, em)
     phase_tile_lists(torch, indep, em, pm, _build)
+    # Phase x64-kernels: the float64 entries at the same shapes, and they
+    # alone launch.
+    mods = {"indep": indep, "em": em}
+    before = launch_counts(mods)
+    phase_small_shapes(torch, indep, em, x64=True)
+    phase_tile_lists(torch, indep, em, pm, _build, x64=True)
+    torch.cuda.synchronize()
+    moved = {k: n - before[k] for k, n in launch_counts(mods).items() if n != before[k]}
+    if sorted(moved) != sorted(k for k in KERNELS if k.endswith("_f64")):
+        raise AssertionError(f"phase x64-kernels: launches {moved}")
 
     # Phase 3: the main path, through the CLI entry point.
-    mods = {"indep": indep, "em": em}
     ngsd = {"runner": runner, "distance": distance, "profiling": profiling, "mesh": pm,
             "multihost": multihost, "cli": cli}
     shutil.rmtree(WORK, ignore_errors=True)
@@ -2054,15 +2411,29 @@ def main() -> int:
         mesh_launched, mesh_diffs = drive_mesh_runs(torch, cli, mods, ngsd, genos, mats,
                                                     ext_bounds)
         launches.update(mesh_launched)
+        x64_launched, x64_outs, x64_twin = drive_x64_runs(torch, cli, mods, ngsd, genos, mats,
+                                                          card)
+        launches.update(x64_launched)
         lazy_launched, lazy_diffs = drive_lazy_runs(torch, cli, mods, ngsd, genos, mats, P, card)
         launches.update(lazy_launched)
         coded_launched, coded_diffs, cgl_file, cgl_chunk = drive_coded_runs(
             torch, cli, mods, ngsd, genos, card)
         launches.update(coded_launched)
         time_upload_lanes(torch, native, genos["a"], card)
-        proc_launched, proc_diffs = drive_process_runs(torch, mods, ngsd, genos, mats, card,
-                                                       (cgl_file, cgl_chunk))
+        proc_launched, proc_diffs, proc_x64 = drive_process_runs(
+            torch, mods, ngsd, genos, mats, card, (cgl_file, cgl_chunk))
         launches.update(proc_launched)
+        x64_outs.update(proc_x64)
+        x64_errs = check_x64_outputs(torch, indep, em, distance, submodels, x64_outs, P_sub,
+                                     idx, alleles)
+        log("phase x64-runs: 64-individual sub-matrices of every matrix agree with the float64 "
+            "plain version on the float64 values written, within the float64 entries' bounds "
+            "(indep f64_sum_bound(S, chunks) rel, EM em_table_bound(S) x cnt, + the %.10f "
+            "print rounding), max |d err| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in x64_errs.items())
+            + "; the float32 twin's distance from each, max |d difference| (not held) "
+            + ", ".join(f"{k} {v:.3e}" for k, v in x64_twin.items()))
+        launches["goldens_x64"] = phase_x64_goldens(torch, cli, mods, card)
         del mats, P_sub
         log(f"phase 3: outputs hold 1 + n_boot_rep finite symmetric matrices "
             f"({', '.join(f'{run} {1 + RUNS[run][2]}' for run in RUNS)}); the full-data "
@@ -2102,7 +2473,7 @@ def main() -> int:
             f"at {bound_ms / ms_k:.4f} of it; one-call PyTorch version: {lib}")
 
     dev = torch.device(DEVICE)
-    P32 = distance.put_probs(P, dev)
+    P32 = distance.put_probs(P, dev, False)
     del P
     ms_k = time_cuda(torch, lambda: indep.indep_raw_cnt(P32, SCORE9, True), 5)
     ms_p = time_cuda(torch, lambda: indep.indep_raw_cnt_ref(P32, SCORE9, True), 3)
@@ -2120,6 +2491,27 @@ def main() -> int:
     # K1p: one pairs-shard's tile list at (a)'s shape
     tile_times(torch, indep, pm, _build, "indep", P32, True, plain64,
                indep_bound(INDEP_SITES, N_IND, 2 * 4 * N_IND * N_IND), report, card)
+    # K1d, the --x64 entry, on the same values in float64, and its tile list
+    P64 = P32.double()
+    bound64 = indep_bound(INDEP_SITES, N_IND, 2 * 8 * N_IND * N_IND, f64=True)
+    ms_k = time_cuda(torch, lambda: indep.indep_raw_cnt(P64, SCORE9, True), 5)
+    ms_p = time_cuda(torch, lambda: indep.indep_raw_cnt_ref(P64, SCORE9, True), 3)
+    got = indep.indep_raw_cnt(P64, SCORE9, True)
+    rel, err = check_kernel("indep", torch, *got, *plain64, *kernel_tol(torch, indep, em, P64))
+    if not all(same_bytes(torch, a, b) for a, b in zip(got, indep.indep_raw_cnt(
+            P64, SCORE9, True))):
+        raise AssertionError("indep float64 entry: rerun differs at the main path's shape")
+    del got
+    ms_lib = time_cuda(torch, indep_library_call(torch, indep, P64, 1, INDEP_SITES), 3)
+    torch.cuda.empty_cache()
+    log(f"phase 4: indep float64 entry {N_IND} x {INDEP_SITES} pairwise_del: kernel "
+        f"{ms_k:.3f} ms, plain float64 {ms_p:.3f} ms, one-call PyTorch version (float64 "
+        f"einsum and product) {ms_lib:.3f} ms; vs float64 plain: max rel raw err {rel:.3e} "
+        f"(bound {kernel_tol(torch, indep, em, P64)[0]:.3e}), max |raw/cnt err| {err:.3e}, "
+        f"rerun byte-identical [{card}]")
+    report("indep_raw_cnt_f64", "ngsdist_tpu_torch/csrc/indep.cu",
+           "ngsdist_tpu/core/distance.py:332", err, "raw/cnt", ms_k, ms_p, bound64, ms_lib)
+    tile_times(torch, indep, pm, _build, "indep", P64, True, plain64, bound64, report, card)
     del plain64
     mesh = pm.make_mesh([dev] * 4, pairs=2)
     parts = []
@@ -2148,6 +2540,21 @@ def main() -> int:
     report("indep_block_partials", "ngsdist_tpu_torch/csrc/indep.cu",
            "ngsdist_tpu/core/distance.py:365", err, "B/C", ms_k, ms_p,
            indep_bound(INDEP_SITES, N_IND, 2 * 8 * nb * (N_IND * (N_IND - 1) // 2)), ms_lib)
+    ms_k = time_cuda(torch, lambda: indep.indep_block_partials(P64, SCORE9, True, nb, bs), 5)
+    ms_p = time_cuda(torch, lambda: block_pairs(
+        torch, *indep.indep_block_partials_ref(P64, SCORE9, True, nb, bs)), 3)
+    rel, err = block_case(torch, indep, em, "indep", P64, True, nb, bs)
+    ms_lib = time_cuda(torch, indep_library_call(torch, indep, P64, nb, bs), 3)
+    torch.cuda.empty_cache()
+    log(f"phase 4: indep block partials, float64 entry, {N_IND} x {INDEP_SITES}, {nb} blocks "
+        f"of {bs}, pairwise_del: kernel {ms_k:.3f} ms, plain float64 {ms_p:.3f} ms; vs float64 "
+        f"plain: max rel B err {rel:.3e}, max |B err|/C {err:.3e}, rerun byte-identical "
+        f"[{card}]")
+    report("indep_block_partials_f64", "ngsdist_tpu_torch/csrc/indep.cu",
+           "ngsdist_tpu/core/distance.py:365", err, "B/C", ms_k, ms_p,
+           indep_bound(INDEP_SITES, N_IND, 2 * 8 * nb * (N_IND * (N_IND - 1) // 2), f64=True),
+           ms_lib)
+    del P64
 
     # models 3-6: the class sums in both forms, at (g)'s and (h)'s shapes
     phase_class_sums(torch, indep, em, distance, submodels, P32, alleles, card)
@@ -2160,8 +2567,12 @@ def main() -> int:
     em.em_raw_cnt_ref(P32, SCORE9, False)
     torch.cuda.synchronize()
     ms_p = (time.perf_counter() - t0) * 1e3
+    P64 = P32.double()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain64 = em.em_raw_cnt_ref(P32.double(), SCORE9, False)
+    plain64 = em.em_raw_cnt_ref(P64, SCORE9, False)
+    torch.cuda.synchronize()
+    ms_p64 = (time.perf_counter() - t0) * 1e3
     rel, err = check_kernel("em", torch, *em.em_raw_cnt(P32, SCORE9, False), *plain64)
     log(f"phase 4: em {N_IND} x {EM_SITES}: kernel {ms_k:.3f} ms, plain float32 "
         f"{ms_p:.3f} ms (one run); vs float64 plain: max |raw/cnt err| {err:.3e} "
@@ -2178,9 +2589,24 @@ def main() -> int:
     # K2b: one pairs-shard's tile list at (b)'s shape
     tile_times(torch, em, pm, _build, "em", P32, False, plain64,
                em_bound(work, EM_SITES, N_IND, 2 * 4 * N_IND * N_IND), report, card)
+    # K2d, the --x64 entry, on the same values in float64 (the same work),
+    # against the float64 plain version already taken, and its tile list
+    bound64 = em_bound(work, EM_SITES, N_IND, 2 * 8 * N_IND * N_IND, f64=True)
+    ms_k = time_cuda(torch, lambda: em.em_raw_cnt(P64, SCORE9, False), 3)
+    got = em.em_raw_cnt(P64, SCORE9, False)
+    rel, err = check_kernel("em", torch, *got, *plain64, *kernel_tol(torch, indep, em, P64))
+    check_rerun(torch, em.em_raw_cnt, P64, False, None, got)
+    del got
+    log(f"phase 4: em float64 entry {N_IND} x {EM_SITES}: kernel {ms_k:.3f} ms, plain float64 "
+        f"{ms_p64:.3f} ms (one run); vs float64 plain: max |raw/cnt err| {err:.3e} (bound "
+        f"{em.em_table_bound(EM_SITES):.3e}), rerun byte-identical [{card}]")
+    report("em_raw_cnt_f64", "ngsdist_tpu_torch/csrc/em.cu",
+           "ngsdist_tpu/core/distance.py:545", err, "raw/cnt", ms_k, ms_p64, bound64, None)
+    tile_times(torch, em, pm, _build, "em", P64, False, plain64, bound64, report, card)
     del plain64
 
-    # the block mode at run (c)'s shape
+    # the block mode at run (c)'s shape, both entries against one float64
+    # plain version
     nb, bs = EM_SITES // EM_BOOT_BLOCK, EM_BOOT_BLOCK
     ms_k = time_cuda(torch, lambda: em.em_block_partials(P32, SCORE9, False, nb, bs), 3)
     torch.cuda.synchronize()
@@ -2189,23 +2615,39 @@ def main() -> int:
     torch.cuda.synchronize()
     ms_p = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    _, err = block_case(torch, indep, em, "em", P32, False, nb, bs)
+    plain_b = em.em_block_partials_ref(P64, SCORE9, False, nb, bs)
+    torch.cuda.synchronize()
+    ms_p64 = (time.perf_counter() - t0) * 1e3
+    _, err = block_case(torch, indep, em, "em", P32, False, nb, bs, plain_b)
     log(f"phase 4: em block partials {N_IND} x {EM_SITES}, {nb} blocks of {bs}: kernel "
         f"{ms_k:.3f} ms, plain float32 {ms_p:.3f} ms (one run); vs float64 plain: max "
-        f"|B err|/C {err:.3e} (check took {time.perf_counter() - t0:.1f} s) [{card}]")
+        f"|B err|/C {err:.3e} [{card}]")
     report("em_block_partials", "ngsdist_tpu_torch/csrc/em.cu",
            "ngsdist_tpu/core/distance.py:418", err, "B/C", ms_k, ms_p,
            em_bound(work, EM_SITES, N_IND, 2 * 8 * nb * (N_IND * (N_IND - 1) // 2)), None)
+    ms_k = time_cuda(torch, lambda: em.em_block_partials(P64, SCORE9, False, nb, bs), 3)
+    _, err = block_case(torch, indep, em, "em", P64, False, nb, bs, plain_b)
+    del plain_b
+    log(f"phase 4: em block partials, float64 entry, {N_IND} x {EM_SITES}, {nb} blocks of "
+        f"{bs}: kernel {ms_k:.3f} ms, plain float64 {ms_p64:.3f} ms (one run); vs float64 "
+        f"plain: max |B err|/C {err:.3e}, rerun byte-identical [{card}]")
+    report("em_block_partials_f64", "ngsdist_tpu_torch/csrc/em.cu",
+           "ngsdist_tpu/core/distance.py:418", err, "B/C", ms_k, ms_p64,
+           em_bound(work, EM_SITES, N_IND, 2 * 8 * nb * (N_IND * (N_IND - 1) // 2), f64=True),
+           None)
     for name, before in EM_MS_BEFORE.items():
         now = next(k["ms"] for k in kernels if k["name"] == name)
         log(f"phase 4: {name}: {now:.3f} ms, before its redesign {before:.3f} ms "
             f"({before / now:.2f}x) [{card}]")
 
-    del P32
+    del P32, P64
     torch.cuda.empty_cache()
     time_expand_codes(torch, distance, hostmem, card)
     phase_wide(torch, indep, em, card, report)
 
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels the main path launched no time: {idle}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -300,7 +300,7 @@ def echo_args(pars: Params) -> None:
 
 
 # JAX-package options that have no counterpart in the port yet.
-_NOT_PORTED = ("trace_dir", "x64")
+_NOT_PORTED = ("trace_dir",)
 
 # Options a multi-process run cannot honour (ngsdist_tpu/cli.py:299-313).
 _NOT_WITH_COORDINATOR = ("trace_dir", "throughput", "devices", "pairs")
@@ -372,7 +372,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 num_processes=_atol(extras.get("num_processes") or "0") or None,
                 process_id=(_atol(extras["process_id"])
                             if extras.get("process_id") is not None else None),
-                resume=bool(extras.get("resume")), device=device)
+                resume=bool(extras.get("resume")), device=device,
+                x64=bool(extras.get("x64")))
             return 0
         for opt in ("num_processes", "process_id"):
             if extras.get(opt) is not None:
@@ -388,6 +389,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             resume=bool(extras.get("resume")),
             report_throughput=bool(extras.get("throughput")),
             mesh=mesh,
+            x64=bool(extras.get("x64")),
         )
     except NgsDistError as e:
         sys.stdout.flush()

@@ -35,8 +35,16 @@ hard genotypes or called genotypes travels as its uint8 code plane
 and is expanded on the device through its table (`expand_codes`) into
 the same tensor the staged upload gives.
 
-Dtype policy: float64 on the CPU, float32 on CUDA.  On the CPU the
-kernels' plain versions run; on CUDA the hand-written kernels do.
+Dtype policy (`default_dtype`): float64 on the CPU; on CUDA float32, or
+float64 when the run asks for it (--x64, the JAX package's md5 mode; the
+`x64` argument every entry point takes and hands down, never a switch of
+the module or the environment).  On the CPU the kernels' plain versions
+run; on CUDA the hand-written kernels do, each dtype through entries of
+its own.  Every planner reckons in the run's itemsize, and a function
+that holds the tensor takes its dtype.  Under x64 the fused pack23 read,
+the code plane and the count split (`_exact_count_parts`) are off, as
+under the JAX package's x64 rules: the tensor is read staged and
+uploaded in float64.
 """
 
 from __future__ import annotations
@@ -106,7 +114,7 @@ _CUDA_STREAM_FACTOR = 2
 _CUDA_RESERVE_DEN = 16
 _CUDA_MAX_CHUNK_BYTES = 1 << 30
 
-# The kernels return float32 counts on a card: exact while one call's
+# The float32 entries return float32 counts: exact while one call's
 # weighted count stays below 2^24 (PERF.md section 2).
 _EXACT_COUNT = (1 << 24) - 1
 
@@ -117,14 +125,23 @@ _EXACT_COUNT = (1 << 24) - 1
 PIPE_UPLOAD_BYTES = 32 << 20
 
 
-def default_dtype(device: torch.device) -> torch.dtype:
-    return torch.float64 if device.type == "cpu" else torch.float32
+def default_dtype(device: torch.device, x64: bool) -> torch.dtype:
+    """The engine's dtype on `device` for a run that asks (x64) or does
+    not ask for float64: float64 on the CPU either way (its path has
+    always been float64), on a card float32 unless x64."""
+    return torch.float64 if device.type == "cpu" or x64 else torch.float32
 
 
-def engine_name(device: torch.device) -> str:
+def itemsize(device: torch.device, x64: bool) -> int:
+    """Bytes of one value of the engine's dtype, as the planners reckon."""
+    return torch.finfo(default_dtype(device, x64)).bits // 8
+
+
+def engine_name(device: torch.device, x64: bool) -> str:
     """Numeric environment of a run, for the checkpoint fingerprint: a
-    resume must not append CUDA float32 matrices to a CPU float64 file."""
-    return f"torch-{device.type}-{str(default_dtype(device)).split('.')[-1]}"
+    resume must not append CUDA float32 matrices to a float64 file (CPU
+    or --x64), nor the other way round."""
+    return f"torch-{device.type}-{str(default_dtype(device, x64)).split('.')[-1]}"
 
 
 def _np_dtype(dtype: torch.dtype):
@@ -201,12 +218,12 @@ def _slab_width(src) -> int:
     return getattr(src, "width", 2) if hasattr(src, "read_packed") else 3
 
 
-def put_probs(P_slice, device: torch.device) -> torch.Tensor:
+def put_probs(P_slice, device: torch.device, x64: bool) -> torch.Tensor:
     """Upload a host probability slab ([S, N, 3] array, a CodedProbs or a
-    fused-read handle) in one piece, in the device's dtype (cast on the
-    host, so only float32 crosses to a card); a packed 2-component slab
-    or a code plane is expanded on the device."""
-    arr = _host_pack(P_slice, 0, P_slice.shape[0], default_dtype(device))
+    fused-read handle) in one piece, in the run's dtype (cast on the
+    host, so only the values of that dtype cross to a card); a packed
+    2-component slab or a code plane is expanded on the device."""
+    arr = _host_pack(P_slice, 0, P_slice.shape[0], default_dtype(device, x64))
     if isinstance(arr, CodedSlab):
         profiling.count_upload(arr.codes.nbytes + arr.lut.nbytes)
         return expand_codes(torch.from_numpy(arr.codes).to(device),
@@ -356,7 +373,7 @@ class ChunkPipe:
                     self.consumed[k % 2].record(torch.cuda.current_stream(self.device))
 
 
-def upload_resident(src, device: torch.device) -> torch.Tensor:
+def upload_resident(src, device: torch.device, x64: bool) -> torch.Tensor:
     """The whole source as the resident tensor.  A host tensor or code
     plane on the CPU takes one step (no copy where the dtype fits).  On a
     card, and for a fused-read handle, slabs of _pipe_upload_bytes() go
@@ -366,8 +383,8 @@ def upload_resident(src, device: torch.device) -> torch.Tensor:
     A coded slab holds the sites of a host array's (its rows fill
     _pipe_upload_bytes() of the tensor), so no lane moves a slab edge."""
     if device.type != "cuda" and not hasattr(src, "read_packed"):
-        return put_probs(src, device)
-    dtype = default_dtype(device)
+        return put_probs(src, device, x64)
+    dtype = default_dtype(device, x64)
     S, N = src.shape[:2]
     width = _slab_width(src)
     slab_site_bytes = N * (3 if width == 1 else width) * (torch.finfo(dtype).bits // 8)
@@ -379,29 +396,29 @@ def upload_resident(src, device: torch.device) -> torch.Tensor:
     return P
 
 
-def working_set_bytes(rows: int, N: int, device: torch.device, indep: bool) -> int:
+def working_set_bytes(rows: int, N: int, device: torch.device, indep: bool,
+                      x64: bool) -> int:
     """Device bytes the engine holds beside a [rows, N, 3] tensor: the
     kernels' [N, N] outputs and the pair vectors taken from them, the
     float64 sums of a stream, the site weights and (indep) the kernel's
     float64 chunk partials."""
-    itemsize = torch.finfo(default_dtype(device)).bits // 8
-    need = (4 * N * N + rows) * itemsize + 4 * 8 * (N * (N - 1) // 2)
+    need = (4 * N * N + rows) * itemsize(device, x64) + 4 * 8 * (N * (N - 1) // 2)
     shape = scratch_shape(N, rows) if indep else None
     if shape is not None:
         need += 8 * int(np.prod(shape))
     return need
 
 
-def check_fits(S: int, N: int, device: torch.device, indep: bool):
+def check_fits(S: int, N: int, device: torch.device, indep: bool, x64: bool):
     """The bytes of the card's free memory left beside the resident
     tensor and its working set — negative when they do not fit and the
     run must stream — or None on the CPU."""
     if device.type != "cuda":
         return None
-    itemsize = torch.finfo(default_dtype(device)).bits // 8
     free, _ = torch.cuda.mem_get_info(device)
     free -= free // _CUDA_RESERVE_DEN
-    return free - S * N * 3 * itemsize - working_set_bytes(S, N, device, indep)
+    return (free - S * N * 3 * itemsize(device, x64)
+            - working_set_bytes(S, N, device, indep, x64))
 
 
 def _stream_chunk_sites(S: int, N: int, itemsize: int, budget: int,
@@ -421,7 +438,7 @@ def _env_budget() -> Optional[int]:
     return None if raw is None else int(raw)
 
 
-def stream_plan(S: int, N: int, device: torch.device, left: Optional[int]):
+def stream_plan(S: int, N: int, device: torch.device, left: Optional[int], x64: bool):
     """(chunked, chunk sites): whether the [S, N, 3] tensor streams, and
     in chunks of how many sites.  On the CPU, and on a card under
     NGSDIST_DEVICE_BUDGET, by the JAX engine's rule: the tensor streams
@@ -429,20 +446,20 @@ def stream_plan(S: int, N: int, device: torch.device, left: Optional[int]):
     left to itself streams what does not fit its free memory (`left`,
     check_fits) and sizes the chunks so that the stream's ring fits it,
     none above _CUDA_MAX_CHUNK_BYTES."""
-    itemsize = torch.finfo(default_dtype(device)).bits // 8
-    tensor = S * N * 3 * itemsize
+    size = itemsize(device, x64)
+    tensor = S * N * 3 * size
     env = _env_budget()
     if device.type != "cuda" or env is not None:
         budget = max(1, (_DEFAULT_BUDGET if env is None else env) // _WORKING_SET_FACTOR)
         chunked = tensor > budget
-        chunk = (_stream_chunk_sites(S, N, itemsize, budget, STREAM_MIN_CHUNKS,
+        chunk = (_stream_chunk_sites(S, N, size, budget, STREAM_MIN_CHUNKS,
                                      STREAM_MIN_CHUNK_SITES) if chunked else S)
         return chunked, chunk
     if left >= 0:
         return False, S
     budget = min((left + tensor) // _CUDA_STREAM_FACTOR,
                  _CUDA_MAX_CHUNK_BYTES * PREFETCH_KEEP_DEN // PREFETCH_KEEP_NUM)
-    return True, _stream_chunk_sites(S, N, itemsize, max(1, budget), STREAM_MIN_CHUNKS,
+    return True, _stream_chunk_sites(S, N, size, max(1, budget), STREAM_MIN_CHUNKS,
                                      STREAM_MIN_CHUNK_SITES)
 
 
@@ -464,11 +481,10 @@ def _exact_count_parts(n: int, weights: Optional[np.ndarray], limit: int = _EXAC
 
 
 def use_partials(n_blocks: int, N: int, pairwise_del: bool,
-                 device: torch.device) -> bool:
+                 device: torch.device, x64: bool) -> bool:
     """The JAX engine's rule for the partial-sum bootstrap route
-    (ngsdist_tpu/core/distance.py:851-852), in the device's dtype."""
-    itemsize = torch.finfo(default_dtype(device)).bits // 8
-    partial_bytes = n_blocks * N * N * itemsize * (2 if pairwise_del else 1)
+    (ngsdist_tpu/core/distance.py:851-852), in the run's dtype."""
+    partial_bytes = n_blocks * N * N * itemsize(device, x64) * (2 if pairwise_del else 1)
     return partial_bytes <= PARTIALS_BUDGET_BYTES
 
 
@@ -552,9 +568,9 @@ def _make_exact_stats(indep: bool, pairwise_del: bool, score, device: torch.devi
     by value: from a device tensor every launch would wait for the card to
     fetch them).  zero: the run's record of all-zero triples where the EM
     must poison for them, else None.  tiles: the kernel's tile list (a
-    pairs-axis shard, parallel/mesh.py), else None."""
-    dtype = default_dtype(device)
-    score = torch.as_tensor(score, dtype=dtype).reshape(3, 3)
+    pairs-axis shard, parallel/mesh.py), else None.  The dtype is the
+    tensor's: the weights go up in it, and its kernels' entries run."""
+    score = torch.as_tensor(score, dtype=torch.float64).reshape(3, 3)
 
     def full_stats(Psub, weights, lo, index=None):
         """(raw, cnt or None) pair vectors on the device for the sites
@@ -563,7 +579,7 @@ def _make_exact_stats(indep: bool, pairwise_del: bool, score, device: torch.devi
         sites of Psub only, weights [n] theirs.  The EM kernel reads the
         list itself; for the indep kernel, which stages slabs of
         consecutive sites, they are gathered first."""
-        w = None if weights is None else _upload_small(weights, device, dtype)
+        w = None if weights is None else _upload_small(weights, device, Psub.dtype)
         with profiling.device_span("kernel"):
             if indep:
                 if index is not None:
@@ -581,9 +597,10 @@ def _make_exact_stats(indep: bool, pairwise_del: bool, score, device: torch.devi
 
     def exact_stats(Psub, weights=None, lo=0, index=None):
         """full_stats, in float32 over parts of the sites whose counts
-        stay exact, the parts added in float64."""
+        stay exact, the parts added in float64; float64 (the CPU, --x64)
+        in one call, whose counts are float64 throughout."""
         n = Psub.shape[0] if index is None else index.shape[0]
-        parts = [(0, n)] if dtype == torch.float64 else _exact_count_parts(n, weights)
+        parts = [(0, n)] if Psub.dtype == torch.float64 else _exact_count_parts(n, weights)
         if len(parts) == 1:
             return full_stats(Psub, weights, lo, index)
         raw = cnt = None
@@ -612,6 +629,7 @@ def iter_replicates(
     round_ckpt: bool = False,
     alleles=None,
     mesh=None,
+    x64: bool = False,
 ) -> Iterator[np.ndarray]:
     """Yield the full-data matrix, then one matrix per bootstrap
     replicate, for replicates start_rep..n_boot_rep.
@@ -631,25 +649,29 @@ def iter_replicates(
     mesh: a parallel.mesh.Mesh (device is then its first device): the
     sites, and along a pairs axis the pairs, are sharded over its devices
     (_iter_replicates_sharded; models 3-6: _mesh_class_stats); P_host is
-    then the host array or a parallel.multihost.SiteStream."""
+    then the host array or a parallel.multihost.SiteStream (built with
+    the same x64).
+
+    x64: the run computes in float64 on a card (--x64; the CPU always
+    does): the upload, every planner and the kernels' entries follow."""
     if pars.evol_model >= 3:
         yield from _iter_replicates_extended(pars, P_host, maps, n_trunc, alleles, device,
-                                             on_stats, start_rep, round_ckpt, mesh)
+                                             on_stats, start_rep, round_ckpt, mesh, x64)
         return
     if mesh is not None:
         yield from _iter_replicates_sharded(pars, P_host, maps, n_trunc, mesh, on_stats,
-                                            start_rep, round_ckpt)
+                                            start_rep, round_ckpt, x64)
         return
     N, S = pars.n_ind, pars.n_sites
-    dtype = default_dtype(device)
+    dtype = default_dtype(device, x64)
     score = torch.as_tensor(pars.score, dtype=dtype)
     I, J = _pair_indices(N)
     It = torch.from_numpy(I).long().to(device)
     Jt = torch.from_numpy(J).long().to(device)
     n_blocks = n_trunc // pars.boot_block_size
-    left = check_fits(S, N, device, pars.indep_geno)
-    chunked, chunk = stream_plan(S, N, device, left)
-    partials = (not chunked) and use_partials(n_blocks, N, pars.pairwise_del, device) and (
+    left = check_fits(S, N, device, pars.indep_geno, x64)
+    chunked, chunk = stream_plan(S, N, device, left, x64)
+    partials = (not chunked) and use_partials(n_blocks, N, pars.pairwise_del, device, x64) and (
         left is None
         or partials_bytes(n_blocks, N, pars.indep_geno, pars.pairwise_del) <= left)
     # The EM's zero-row poison needs the all-zero triples of the data.
@@ -661,7 +683,7 @@ def iter_replicates(
     if chunked:
         pipe = ChunkPipe(P_host, device, dtype, chunk)
     else:
-        P = upload_resident(P_host, device)
+        P = upload_resident(P_host, device, x64)
 
     exact_stats = _make_exact_stats(pars.indep_geno, pars.pairwise_del, score, device, It, Jt,
                                     zero)
@@ -681,7 +703,7 @@ def iter_replicates(
             raw, cnt = exact_stats(Pc, None if weights is None else weights[lo:hi], lo)
             return {"raw": raw, "cnt": cnt}
 
-        acc = _round_sums(pars, rep, round_ckpt, device, chunk, rounds, step)
+        acc = _round_sums(pars, rep, round_ckpt, device, x64, chunk, rounds, step)
         return acc["raw"], acc.get("cnt")
 
     def to_matrix(raw_v, cnt_v):
@@ -890,7 +912,7 @@ def pair_pi_counts(P: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor,
 def _iter_replicates_extended(pars: Params, P_host, maps: List[np.ndarray],
                               n_trunc: int, alleles, device: torch.device, on_stats=None,
                               start_rep: int = 0, round_ckpt: bool = False,
-                              mesh=None) -> Iterator[np.ndarray]:
+                              mesh=None, x64: bool = False) -> Iterator[np.ndarray]:
     """The replicate stream of evolutionary models 3-6
     (ngsdist_tpu.core.distance._iter_replicates_extended).
 
@@ -920,11 +942,12 @@ def _iter_replicates_extended(pars: Params, P_host, maps: List[np.ndarray],
     # so does _mesh_class_stats.
     zero = None
     if mesh is None:
-        all_stats, streamed = _device_class_stats(pars, P_host, a1, a2, device, round_ckpt)
+        all_stats, streamed = _device_class_stats(pars, P_host, a1, a2, device, round_ckpt,
+                                                  x64)
         if not (pars.indep_geno or pars.pairwise_del or pars.in_bin):
             zero = find_zero_rows(P_host)
     else:
-        all_stats, streamed = _mesh_class_stats(pars, P_host, a1, a2, mesh, round_ckpt)
+        all_stats, streamed = _mesh_class_stats(pars, P_host, a1, a2, mesh, round_ckpt, x64)
     uniform = float(np.sum(np.asarray(pars.score, np.float64).reshape(-1) * (1.0 / 9.0)))
 
     def zero_lane_sums(wm):
@@ -1007,13 +1030,15 @@ def _iter_replicates_extended(pars: Params, P_host, maps: List[np.ndarray],
         yield to_matrix(*now)
 
 
-def _round_sums(pars: Params, rep: int, round_ckpt: bool, device, layout, rounds, step):
+def _round_sums(pars: Params, rep: int, round_ckpt: bool, device, x64: bool, layout, rounds,
+                step):
     """The sums of a streamed replicate: step(r) -> {name: tensor or
     None} of round r (a chunk of one device, or a round of a mesh's
     shards), added in float64 in round order over the rounds that
     rounds(skip) yields; under round_ckpt the sums are saved after every
     round and a replicate resumes at its first unfinished round (the
-    rounds file keyed by `layout`, what a round index means).  The sums
+    rounds file keyed by `layout`, what a round index means, and by the
+    engine of device and x64).  The sums
     are exact partial sums of a deterministic computation, so a resumed
     replicate gives the bytes of an uninterrupted one.  Over several
     processes (which all hold the same sums) process 0 keeps the file:
@@ -1022,7 +1047,7 @@ def _round_sums(pars: Params, rep: int, round_ckpt: bool, device, layout, rounds
     from ..parallel.multihost import broadcast_object, process_index
 
     acc, skip = {}, 0
-    eng = engine_name(device)
+    eng = engine_name(device, x64)
     writer = process_index() == 0
     if round_ckpt:
         got = ckpt.load_rounds(pars.out, pars, rep, engine=eng, chunk=layout) if writer else None
@@ -1083,7 +1108,7 @@ def _class_stats_of(acc: dict):
 
 
 def _device_class_stats(pars: Params, P_host, a1, a2, device: torch.device,
-                        round_ckpt: bool):
+                        round_ckpt: bool, x64: bool):
     """(all_stats, streamed) of models 3-6 on one device: all_stats(wm,
     w_ok, rep) -> ({class: (raw, cnt or None)}, base counts or None) on
     the device for class weights wm and classifiable-site weights w_ok.
@@ -1092,8 +1117,8 @@ def _device_class_stats(pars: Params, P_host, a1, a2, device: torch.device,
     those sums."""
     N, S = pars.n_ind, pars.n_sites
     need_pi = pars.evol_model >= 4
-    dtype = default_dtype(device)
-    itemsize = torch.finfo(dtype).bits // 8
+    dtype = default_dtype(device, x64)
+    size = itemsize(device, x64)
     I, J = _pair_indices(N)
     It = torch.from_numpy(I).long().to(device)
     Jt = torch.from_numpy(J).long().to(device)
@@ -1103,15 +1128,15 @@ def _device_class_stats(pars: Params, P_host, a1, a2, device: torch.device,
     a1_t = torch.from_numpy(np.ascontiguousarray(a1, dtype=np.int8)).to(device)
     a2_t = torch.from_numpy(np.ascontiguousarray(a2, dtype=np.int8)).to(device)
 
-    left = check_fits(S, N, device, pars.indep_geno)
+    left = check_fits(S, N, device, pars.indep_geno, x64)
     if left is not None:
         # beside the tensor: one class's gathered sites (all of them at
         # most) and the base counts with their slabs' planes
-        left -= (S * N * 3 * itemsize if compact else 0) + 8 * 4 * N * N + 8 * PI_PLANE_BYTES
-    chunked, chunk = stream_plan(S, N, device, left)
+        left -= (S * N * 3 * size if compact else 0) + 8 * 4 * N * N + 8 * PI_PLANE_BYTES
+    chunked, chunk = stream_plan(S, N, device, left, x64)
     plane_bytes = PI_PLANE_BYTES
     if chunked:
-        plane_bytes = max(1 << 20, min(PI_PLANE_BYTES, chunk * N * 3 * itemsize // 32))
+        plane_bytes = max(1 << 20, min(PI_PLANE_BYTES, chunk * N * 3 * size // 32))
     # keep[s]: site s holds a non-finite value and stays in every
     # compacted call; known up to site `scanned`
     keep = np.zeros(S, dtype=bool)
@@ -1119,7 +1144,7 @@ def _device_class_stats(pars: Params, P_host, a1, a2, device: torch.device,
     if chunked:
         pipe = ChunkPipe(P_host, device, dtype, chunk)
     else:
-        P = upload_resident(P_host, device)
+        P = upload_resident(P_host, device, x64)
         if compact:
             keep = nonfinite_sites(P).cpu().numpy()
         scanned = S
@@ -1163,12 +1188,13 @@ def _device_class_stats(pars: Params, P_host, a1, a2, device: torch.device,
                 scanned = hi
             return _class_sums(class_stats(Pc, wm, lo, hi), pi_counts(Pc, w_ok, lo, hi))
 
-        return _class_stats_of(_round_sums(pars, rep, round_ckpt, device, chunk, rounds, step))
+        return _class_stats_of(_round_sums(pars, rep, round_ckpt, device, x64, chunk, rounds,
+                                           step))
 
     return all_stats, chunked
 
 
-def _mesh_class_stats(pars: Params, P_src, a1, a2, mesh, round_ckpt: bool):
+def _mesh_class_stats(pars: Params, P_src, a1, a2, mesh, round_ckpt: bool, x64: bool):
     """(all_stats, streamed) of models 3-6 over a mesh
     (ngsdist_tpu.core.distance._extended_mesh): the class sums through
     parallel.mesh.ShardStats, per shard on each class's sites only where
@@ -1181,7 +1207,7 @@ def _mesh_class_stats(pars: Params, P_src, a1, a2, mesh, round_ckpt: bool):
 
     N = pars.n_ind
     need_pi = pars.evol_model >= 4
-    stream = _as_stream(pars, P_src, mesh)
+    stream = _as_stream(pars, P_src, mesh, x64)
     dev0 = mesh.first
     compact = class_compaction(dev0)
     zero = None
@@ -1190,8 +1216,8 @@ def _mesh_class_stats(pars: Params, P_src, a1, a2, mesh, round_ckpt: bool):
     stats = pm.ShardStats(mesh, N, pars.score, pars.indep_geno, pars.pairwise_del, zero)
     plane_bytes = PI_PLANE_BYTES
     if not stream.resident:
-        itemsize = torch.finfo(default_dtype(dev0)).bits // 8
-        plane_bytes = max(1 << 20, min(PI_PLANE_BYTES, stream.chunk * N * 3 * itemsize // 32))
+        plane_bytes = max(1 << 20, min(PI_PLANE_BYTES,
+                                       stream.chunk * N * 3 * itemsize(dev0, x64) // 32))
 
     def keep_of(data):
         """Compaction: per sites shard, its non-finite sites, which stay in
@@ -1227,7 +1253,7 @@ def _mesh_class_stats(pars: Params, P_src, a1, a2, mesh, round_ckpt: bool):
 
     def all_stats(wm, w_ok, rep):
         return _class_stats_of(_round_sums(
-            pars, rep, round_ckpt, dev0, stream.layout(), rounds,
+            pars, rep, round_ckpt, dev0, x64, stream.layout(), rounds,
             lambda r: step(r, wm, w_ok)))
 
     return all_stats, True
@@ -1265,18 +1291,21 @@ def _stream_block_rows(n_rows: int, n_rounds: int, chunk: int, s_loc: int,
     return out
 
 
-def _as_stream(pars: Params, P_src, mesh):
-    """The sharded engine's input as a parallel.multihost.SiteStream."""
+def _as_stream(pars: Params, P_src, mesh, x64: bool):
+    """The sharded engine's input as a parallel.multihost.SiteStream of
+    the run's dtype."""
     from ..parallel.multihost import SiteStream
 
     if isinstance(P_src, SiteStream):
+        if P_src.x64 != x64:
+            raise ValueError(f"a SiteStream of x64={P_src.x64} handed to a run of x64={x64}")
         return P_src
-    return SiteStream.from_array(P_src, pars, mesh)
+    return SiteStream.from_array(P_src, pars, mesh, x64=x64)
 
 
 def _iter_replicates_sharded(pars: Params, P_src, maps: List[np.ndarray], n_trunc: int,
                              mesh, on_stats=None, start_rep: int = 0,
-                             round_ckpt: bool = False) -> Iterator[np.ndarray]:
+                             round_ckpt: bool = False, x64: bool = False) -> Iterator[np.ndarray]:
     """The replicate stream of models 0-2 over a mesh
     (ngsdist_tpu/core/distance.py _iter_replicates_sharded).
 
@@ -1293,11 +1322,11 @@ def _iter_replicates_sharded(pars: Params, P_src, maps: List[np.ndarray], n_trun
 
     N, S = pars.n_ind, pars.n_sites
     dev0 = mesh.first
-    itemsize = torch.finfo(default_dtype(dev0)).bits // 8
+    size = itemsize(dev0, x64)
     I, J = _pair_indices(N)
     n_reps = pars.n_boot_rep
     p = pm.pairs_size(mesh)
-    stream = _as_stream(pars, P_src, mesh)
+    stream = _as_stream(pars, P_src, mesh, x64)
     zero = None
     if not (pars.indep_geno or pars.pairwise_del or pars.in_bin):
         zero = stream.zero_rows()
@@ -1321,7 +1350,7 @@ def _iter_replicates_sharded(pars: Params, P_src, maps: List[np.ndarray], n_trun
     bs = pars.boot_block_size
     if not stream.resident:
         n_blocks_s = n_trunc // bs if n_reps else 0
-        partial_bytes_s = n_blocks_s * N * N * itemsize * (2 if pars.pairwise_del else 1)
+        partial_bytes_s = n_blocks_s * N * N * size * (2 if pars.pairwise_del else 1)
         if (pars.indep_geno and n_reps > 0 and p == 1
                 and 0 < partial_bytes_s <= PARTIALS_BUDGET_BYTES):
             yield from _sharded_stream_partials(pars, stream, stats, mesh, n_trunc, start_rep,
@@ -1335,7 +1364,7 @@ def _iter_replicates_sharded(pars: Params, P_src, maps: List[np.ndarray], n_trun
                 raw, cnt = stats(data, data.cols(w_full))
                 return {"raw": raw, "cnt": cnt}
 
-            acc = _round_sums(pars, rep, round_ckpt, dev0, stream.layout(), rounds, step)
+            acc = _round_sums(pars, rep, round_ckpt, dev0, x64, stream.layout(), rounds, step)
             return acc["raw"], acc.get("cnt")
 
         if start_rep == 0:
@@ -1347,7 +1376,7 @@ def _iter_replicates_sharded(pars: Params, P_src, maps: List[np.ndarray], n_trun
     data = stream.global_array()
     n_blocks = n_trunc // bs if n_reps else 0
     cells = N * N if pars.indep_geno else (N * N - N) // 2
-    partial_bytes = n_blocks * cells * itemsize * (2 if pars.pairwise_del else 1)
+    partial_bytes = n_blocks * cells * size * (2 if pars.pairwise_del else 1)
     # block partials are 1-D-mesh only: a pairs axis takes the weighted route
     partials = n_reps > 0 and partial_bytes <= PARTIALS_BUDGET_BYTES and p == 1
     if start_rep == 0:

@@ -15,9 +15,12 @@
 // lanes (an all-zero row) add nothing.  NaN rows propagate: the row max
 // keeps NaN, and masks multiply.
 //
-// Precision: the probabilities arrive as float32, but the EM runs in
-// float64 (p/max, the power sums, the ratio test against hi = exp(0.001)
-// and the final powers).  The stopping step is a threshold decision: in
+// Precision: the probabilities arrive as float32 (ngsd_em_*_f32) or
+// float64 (ngsd_em_*_f64, the --x64 runs), and the EM runs in float64
+// either way (p/max, the power sums, the ratio test against hi =
+// exp(0.001) and the final powers); the two entries are one template,
+// differing in the loads, the weights and the stored raw and cnt, which
+// the f32 entry rounds to float32 once.  The stopping step is a threshold decision: in
 // float32, rounding near the threshold moves k* by one step for roughly
 // one lane in a thousand, and one such step shifts a lane's contribution
 // by up to ~1e-2.  In float64 the kernel takes the decisions of the
@@ -106,6 +109,15 @@
 // 2-site step.  p is the pair's index in triu row-major order.
 // A float32 search with a float64 re-check near the threshold is later
 // work.
+//
+// Float64 entries (ngsd_em_raw_cnt_f64, ngsd_em_block_partials_f64; K2d)
+// for --x64, where the JAX package runs the XLA functions em_suffstats
+// and _em_scan (ngsdist_tpu/core/distance.py:545, :418) in float64: the
+// same kernel instantiated for double inputs and weights, the score taken
+// in float64, raw and cnt written in float64.  The tables, the search and
+// the stopping decisions are the float32 entry's; the lane work was
+// float64 already, so the operations bound is the same and only the
+// input's bytes double.
 
 #include <limits.h>
 #include <stdint.h>
@@ -142,17 +154,16 @@ static_assert(kSteps % kUnroll == 0, "whole groups of ratio tests");
 static_assert(kTableThreads <= kThreads, "one thread per table");
 static_assert(kRows == 4, "the i side's ratios are read as two double2");
 
-// Shared memory, in doubles then floats.
+// Shared memory, in doubles, then floats, then the weights in the input's
+// type T.
 constexpr int kRSide = kSites * kSteps * kTile;        // r: [site][k][individual]
 constexpr int kXSide = kSites * kPowers * 3 * kTile;   // powers, per side
 constexpr int kFlags = 2 * kSites * kTile;             // live, valid: [side][site][individual]
+template <typename T>
 constexpr size_t kSmemBytes = sizeof(double) * 2 * (kRSide + kXSide) +
-                              sizeof(float) * (2 * kFlags + kSites);
+                              sizeof(float) * 2 * kFlags + sizeof(T) * kSites;
 
-// The score matrix in float64, as the lanes use it.
-struct Score9d {
-  double v[9];
-};
+using ngsd::Score9d;  // the score matrix in float64, as the lanes use it
 
 __device__ __forceinline__ int r_index(int sl, int k, int col) {
   return (sl * kSteps + k) * kTile + col;
@@ -190,13 +201,14 @@ __device__ __forceinline__ void build_tables(double pn0, double pn1, double pn2,
   step(kSteps - 1);
 }
 
-// kBlocks: block mode; B, C [S / block_size, N (N - 1) / 2] float64 take
-// the place of raw and cnt.
-template <bool kBlocks>
+// T: the type of the probabilities, the weights, raw and cnt (float or
+// double).  kBlocks: block mode; B, C [S / block_size, N (N - 1) / 2]
+// float64 take the place of raw and cnt.
+template <typename T, bool kBlocks>
 __global__ void __launch_bounds__(kThreads, 2)
-em_kernel(const float* __restrict__ P, const float* __restrict__ w,
+em_kernel(const T* __restrict__ P, const T* __restrict__ w,
           const long long* __restrict__ sites, const int* __restrict__ tiles,
-          float* __restrict__ raw, float* __restrict__ cnt, double* __restrict__ B,
+          T* __restrict__ raw, T* __restrict__ cnt, double* __restrict__ B,
           double* __restrict__ C, long long S, int N, long long block_size, Score9d sc,
           double hi, int pairwise_del) {
   extern __shared__ __align__(16) double smem[];
@@ -204,7 +216,7 @@ em_kernel(const float* __restrict__ P, const float* __restrict__ w,
   double* X = R + 2 * kRSide;       // [side] power tables
   float* Live = reinterpret_cast<float*>(X + 2 * kXSide);  // 1 unless the row is all zero
   float* Val = Live + kFlags;       // not missing (pairwise deletion)
-  float* Ws = Val + kFlags;         // [site]
+  T* Ws = reinterpret_cast<T*>(Val + kFlags);  // [site]
 
   const long long nt = (N + kTile - 1) / kTile;
   const long long tile = tiles ? (long long)tiles[blockIdx.x] : (long long)blockIdx.x;
@@ -231,12 +243,12 @@ em_kernel(const float* __restrict__ P, const float* __restrict__ w,
   const int b_side = threadIdx.x / (kSites * kTile);
   const int b_sl = (threadIdx.x / kTile) % kSites, b_col = threadIdx.x % kTile;
   const int b_ind = (b_side == 0 ? i0 : j0) + b_col;
-  float q0 = 0.0f, q1 = 0.0f, q2 = 0.0f;  // this step's triple; padding: a dead row
+  T q0 = T(0), q1 = T(0), q2 = T(0);  // this step's triple; padding: a dead row
   auto fetch = [&](long long s0) {
     const long long s = s0 + b_sl;
-    q0 = q1 = q2 = 0.0f;
+    q0 = q1 = q2 = T(0);
     if (fills && s < S && b_ind < N) {
-      const float* q = P + ((sites ? sites[s] : s) * N + b_ind) * 3;
+      const T* q = P + ((sites ? sites[s] : s) * N + b_ind) * 3;
       q0 = q[0];
       q1 = q[1];
       q2 = q[2];
@@ -261,10 +273,10 @@ em_kernel(const float* __restrict__ P, const float* __restrict__ w,
   };
   for (long long s0 = 0; s0 < S; s0 += kSites) {
     if (fills && !(NGSD_EM_SKIP_BUILD && s0 > 0)) {
-      const float p0 = q0, p1 = q1, p2 = q2;
+      const T p0 = q0, p1 = q1, p2 = q2;
       fetch(s0 + kSites);  // the next step's triple, in flight during this step
-      const float mx = ngsd::nan_max(ngsd::nan_max(p0, p1), p2);
-      const bool dead = mx <= 0.0f;  // false for NaN
+      const T mx = ngsd::nan_max(ngsd::nan_max(p0, p1), p2);
+      const bool dead = mx <= T(0);  // false for NaN
       const int flag = (b_side * kSites + b_sl) * kTile + b_col;
       Live[flag] = dead ? 0.0f : 1.0f;
       Val[flag] = ngsd::nonmissing(p0, p1, p2);
@@ -288,7 +300,7 @@ em_kernel(const float* __restrict__ P, const float* __restrict__ w,
     }
     if (threadIdx.x < kSites) {
       const long long s = s0 + threadIdx.x;
-      Ws[threadIdx.x] = s < S ? (w ? w[s] : 1.0f) : 0.0f;
+      Ws[threadIdx.x] = s < S ? (w ? w[s] : T(1)) : T(0);
     }
     __syncthreads();
 
@@ -391,8 +403,8 @@ em_kernel(const float* __restrict__ P, const float* __restrict__ w,
     for (int q = 0; q < kRows; ++q) {
       if (!lane[q]) continue;
       const long long a = i0 + li0 + q;
-      raw[a * N + b] = (float)acc_raw[q];
-      cnt[a * N + b] = (float)acc_cnt[q];
+      raw[a * N + b] = (T)acc_raw[q];
+      cnt[a * N + b] = (T)acc_cnt[q];
     }
   }
 }
@@ -402,23 +414,27 @@ long long upper_tiles(int N) {
   return nt * (nt + 1) / 2;
 }
 
-Score9d score_f64(const float* score9) {
+// The score in float64: the f32 entries' float32 copy widened, the f64
+// entries' taken as it is.
+template <typename S9>
+Score9d score_f64(const S9* score9) {
   Score9d sc;
   for (int i = 0; i < 9; ++i) sc.v[i] = (double)score9[i];
   return sc;
 }
 
 // grid: the length of `tiles`, or every upper tile without a list.
-template <bool kBlocks>
-int launch(const float* P, const float* w, const long long* sites, const int* tiles,
-           long long grid, float* raw, float* cnt, double* B, double* C, long long S, int N,
-           long long block_size, const float* score9, double hi, int pairwise_del,
+template <typename T, bool kBlocks>
+int launch(const T* P, const T* w, const long long* sites, const int* tiles,
+           long long grid, T* raw, T* cnt, double* B, double* C, long long S, int N,
+           long long block_size, const T* score9, double hi, int pairwise_del,
            void* stream) {
   // The tables need more than the 48 KB a block gets without asking.
   cudaError_t err = cudaFuncSetAttribute(
-      em_kernel<kBlocks>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+      em_kernel<T, kBlocks>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemBytes<T>);
   if (err != cudaSuccess) return (int)err;
-  em_kernel<kBlocks><<<(unsigned)grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+  em_kernel<T, kBlocks><<<(unsigned)grid, kThreads, kSmemBytes<T>, (cudaStream_t)stream>>>(
       P, w, sites, tiles, raw, cnt, B, C, S, N, block_size, score_f64(score9), hi,
       pairwise_del);
   return (int)cudaGetLastError();
@@ -438,8 +454,8 @@ extern "C" int ngsd_em_raw_cnt_f32(const float* P, const float* w, const long lo
                                    int pairwise_del, void* stream) {
   const long long grid = tiles != nullptr ? n_tiles : (N < 1 ? 0 : upper_tiles(N));
   if (N < 1 || S < 0 || grid < 1 || grid > INT_MAX) return (int)cudaErrorInvalidValue;
-  return launch<false>(P, w, sites, tiles, grid, raw, cnt, nullptr, nullptr, S, N, 0, score9,
-                       hi, pairwise_del, stream);
+  return launch<float, false>(P, w, sites, tiles, grid, raw, cnt, nullptr, nullptr, S, N, 0,
+                              score9, hi, pairwise_del, stream);
 }
 
 // Block mode: P [n_blocks * block_size, N, 3] float32; B, C [n_blocks,
@@ -450,6 +466,31 @@ extern "C" int ngsd_em_block_partials_f32(const float* P, double* B, double* C, 
                                           int pairwise_del, void* stream) {
   if (N < 2 || n_blocks < 1 || block_size < 1 || B == nullptr || C == nullptr)
     return (int)cudaErrorInvalidValue;
-  return launch<true>(P, nullptr, nullptr, nullptr, upper_tiles(N), nullptr, nullptr, B, C,
-                      n_blocks * block_size, N, block_size, score9, hi, pairwise_del, stream);
+  return launch<float, true>(P, nullptr, nullptr, nullptr, upper_tiles(N), nullptr, nullptr, B,
+                             C, n_blocks * block_size, N, block_size, score9, hi, pairwise_del,
+                             stream);
+}
+
+// The float64 entries (K2d): P [., N, 3] and w [S] float64, the score
+// float64[9], raw and cnt [N, N] float64; otherwise as ngsd_em_raw_cnt_f32.
+extern "C" int ngsd_em_raw_cnt_f64(const double* P, const double* w, const long long* sites,
+                                   const int* tiles, long long n_tiles, double* raw,
+                                   double* cnt, long long S, int N, const double* score9,
+                                   double hi, int pairwise_del, void* stream) {
+  const long long grid = tiles != nullptr ? n_tiles : (N < 1 ? 0 : upper_tiles(N));
+  if (N < 1 || S < 0 || grid < 1 || grid > INT_MAX) return (int)cudaErrorInvalidValue;
+  return launch<double, false>(P, w, sites, tiles, grid, raw, cnt, nullptr, nullptr, S, N, 0,
+                               score9, hi, pairwise_del, stream);
+}
+
+// Block mode on float64 probabilities; as ngsd_em_block_partials_f32.
+extern "C" int ngsd_em_block_partials_f64(const double* P, double* B, double* C, int N,
+                                          long long n_blocks, long long block_size,
+                                          const double* score9, double hi,
+                                          int pairwise_del, void* stream) {
+  if (N < 2 || n_blocks < 1 || block_size < 1 || B == nullptr || C == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch<double, true>(P, nullptr, nullptr, nullptr, upper_tiles(N), nullptr, nullptr, B,
+                              C, n_blocks * block_size, N, block_size, score9, hi,
+                              pairwise_del, stream);
 }

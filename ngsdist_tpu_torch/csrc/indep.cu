@@ -68,6 +68,26 @@
 // the fold, split and flush alone take 2.8 ms and overlap little with
 // them (PERF.md).  wgmma with producer warps, TMA and a persistent grid
 // are the next step (ROADMAP Queue 2b).
+//
+// Float64 entries (ngsd_indep_raw_cnt_f64, ngsd_indep_block_partials_f64;
+// K1d), for --x64, where the JAX package turns Pallas off and runs the XLA
+// functions indep_suffstats and indep_block_partials
+// (ngsdist_tpu/core/distance.py:332, :365) in float64.  The same
+// statistics, weights, tile lists, block mode, split over sites
+// (split_plan) and chunk reduce, on a float64 [S, N, 3] tensor, by a
+// kernel of its own (indep_f64_kernel): the fold (mask, weight, score)
+// in float64 into double-buffered operand tiles in shared memory, then
+// mma.sync m8n8k4 with .f64 operands and float64 accumulators for raw and
+// cnt alike, so no split of the operands, no window and no count flush.
+// 128 threads own a 64 x 64 tile, 2 x 2 warps of 32 x 32; each thread
+// prefetches its next step's 4 sites into registers while the tensor
+// cores run the current one; one barrier per step.  Operand rows are
+// padded 64 -> 68 doubles: fragment loads are free of bank conflicts.
+// What bounds it: the FP64 tensor cores (67 TFLOP/s dense on an H100
+// SXM); every two m8n8k4 take one 8-byte fragment load from shared
+// memory, so shared-memory bandwidth is about as tight.  A simple first
+// kernel (PERF.md has its time beside its bound); the sums' order is
+// fixed by (N, S), so reruns are byte-identical.
 
 #include <limits.h>
 #include <stdint.h>
@@ -440,10 +460,12 @@ indep_mma_kernel(const float* __restrict__ P, const float* __restrict__ w,
 }
 
 // raw, cnt = sum over chunks 0, 1, ... in that order of the partials, for
-// upper tile list[blockIdx.x] (every tile without a list).
+// upper tile list[blockIdx.x] (every tile without a list); OutT: float
+// (the f32 entry) or double (the f64 entry).
+template <typename OutT>
 __global__ void __launch_bounds__(256)
-indep_reduce_kernel(const double* __restrict__ part, float* __restrict__ raw,
-                    float* __restrict__ cnt, int N, int chunks, long long tiles,
+indep_reduce_kernel(const double* __restrict__ part, OutT* __restrict__ raw,
+                    OutT* __restrict__ cnt, int N, int chunks, long long tiles,
                     const int* __restrict__ list) {
   const long long tile = list ? (long long)list[blockIdx.x] : (long long)blockIdx.x;
   if (tile < 0 || tile >= tiles) return;
@@ -459,9 +481,192 @@ indep_reduce_kernel(const double* __restrict__ part, float* __restrict__ raw,
       r += pr[(long long)k * tiles * kTileElems + e];
       c += pc[(long long)k * tiles * kTileElems + e];
     }
-    raw[(long long)a * N + b] = (float)r;
-    cnt[(long long)a * N + b] = (float)c;
+    raw[(long long)a * N + b] = (OutT)r;
+    cnt[(long long)a * N + b] = (OutT)c;
   }
+}
+
+// ------------------------------------------------------------------ //
+// K1d: the float64 kernel                                             //
+// ------------------------------------------------------------------ //
+
+constexpr int kDSites = 4;            // sites per step: one m8n8k4 depth per genotype
+constexpr int kDK = 3 * kDSites;      // raw reduction depth per step
+constexpr int kDThreads = 128;        // 2 x 2 warps of 32 x 32 outputs
+constexpr int kDLd = kTile + 4;       // padded operand row (doubles)
+
+static_assert(kDThreads == 2 * kTile, "one thread per side and column of a tile");
+
+// One step's operands, double-buffered: 34,816 bytes.
+struct SmemD {
+  double a[2][kDK][kDLd];       // i side: P_g * v * w, k = g * kDSites + site
+  double b[2][kDK][kDLd];       // j side: score-folded P * v
+  double va[2][kDSites][kDLd];  // i side: v * w
+  double vb[2][kDSites][kDLd];  // j side: v
+};
+
+// d += a * b on an 8x8x4 float64 tile: a the row-major A's entry (row
+// lane/4, column lane%4), b the column-major B's (row lane%4, column
+// lane/4), d the two entries (row lane/4, columns 2 (lane%4) + 0, 1).
+__device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};\n"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
+}
+
+// Launched, and its arguments read, as indep_mma_kernel; P, w, raw and cnt
+// in float64.
+template <bool kWeighted, bool kPairwiseDel>
+__global__ void __launch_bounds__(kDThreads)
+indep_f64_kernel(const double* __restrict__ P, const double* __restrict__ w,
+                 double* __restrict__ raw, double* __restrict__ cnt,
+                 double* __restrict__ part, long long S, int N, long long tiles,
+                 const int* __restrict__ list, long long grid_tiles, long long chunk_sites,
+                 ngsd::Score9d sc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SmemD& sm = *reinterpret_cast<SmemD*>(smem_raw);
+
+  const long long pos = blockIdx.x % grid_tiles, chunk = blockIdx.x / grid_tiles;
+  const long long tile = list ? (long long)list[pos] : pos;
+  if (tile < 0 || tile >= tiles) return;  // not an upper tile: the whole block leaves
+  int ti, tj;
+  ngsd::upper_tile(tile, &ti, &tj);
+  const int i0 = ti * kTile, j0 = tj * kTile;
+  const long long c0 = chunk * chunk_sites;
+  const long long c_end = c0 + chunk_sites < S ? c0 + chunk_sites : S;
+  const long long steps = c_end > c0 ? (c_end - c0 + kDSites - 1) / kDSites : 0;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int m0 = (warp / 2) * 32, n0 = (warp % 2) * 32;
+  // this thread's fold column: side (0: i, 1: j) and individual col
+  const int side = tid / kTile, col = tid % kTile;
+  const int ind = (side == 0 ? i0 : j0) + col;
+
+  // The step's triples of this thread's individual, zero past the chunk
+  // end or past N (an all-zero row is inert).
+  double q[kDSites][3];
+  auto fetch = [&](long long s0) {
+#pragma unroll
+    for (int sl = 0; sl < kDSites; ++sl) {
+      const long long s = s0 + sl;
+      q[sl][0] = q[sl][1] = q[sl][2] = 0.0;
+      if (s < c_end && ind < N) {
+        const double* p = P + (s * N + ind) * 3;
+        q[sl][0] = p[0];
+        q[sl][1] = p[1];
+        q[sl][2] = p[2];
+      }
+    }
+  };
+  // Fold the fetched triples into operand buffer buf: the validity mask,
+  // the missing test, the weight (i side) or the score (j side).  Masks
+  // multiply, so a NaN row stays NaN.
+  auto fold = [&](int buf, long long s0) {
+#pragma unroll
+    for (int sl = 0; sl < kDSites; ++sl) {
+      const double p0 = q[sl][0], p1 = q[sl][1], p2 = q[sl][2];
+      double v = (p0 + p1 + p2) > 0.0 ? 1.0 : 0.0;
+      if (kPairwiseDel) v = v * ngsd::nonmissing(p0, p1, p2);
+      if (side == 0) {
+        const long long s = s0 + sl;
+        const double vi = (kWeighted && s < c_end) ? v * w[s] : v;
+        sm.a[buf][0 * kDSites + sl][col] = p0 * vi;
+        sm.a[buf][1 * kDSites + sl][col] = p1 * vi;
+        sm.a[buf][2 * kDSites + sl][col] = p2 * vi;
+        sm.va[buf][sl][col] = vi;
+      } else {
+        const double x0 = p0 * v, x1 = p1 * v, x2 = p2 * v;
+#pragma unroll
+        for (int gg = 0; gg < 3; ++gg)
+          sm.b[buf][gg * kDSites + sl][col] =
+              sc.v[3 * gg + 0] * x0 + sc.v[3 * gg + 1] * x1 + sc.v[3 * gg + 2] * x2;
+        sm.vb[buf][sl][col] = v;
+      }
+    }
+  };
+
+  // Per thread: 4 x 4 m8n8 tiles of raw and of cnt, two entries each.
+  double acc[4][4][2], cn[4][4][2];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) acc[mi][ni][r] = cn[mi][ni][r] = 0.0;
+
+  // k-step k0 of operand rows A[k][m], B[k][n] into d
+  auto mma_step = [&](const double (*A)[kDLd], const double (*B)[kDLd], int k0,
+                      double (&d)[4][4][2]) {
+    double a[4], b[4];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) a[mi] = A[k0 + t4][m0 + 8 * mi + g];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) b[ni] = B[k0 + t4][n0 + 8 * ni + g];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_f64(d[mi][ni], a[mi], b[ni]);
+  };
+
+  // Step t: fold its triples (fetched during step t - 1) into buffer
+  // t & 1, one barrier, fetch step t + 1's, run step t on the tensor
+  // cores.  A buffer is folded again two steps later, after the barrier
+  // that every warp passes only when done with it.
+  fetch(c0);
+  for (long long t = 0; t < steps; ++t) {
+    const int buf = (int)(t & 1);
+    const long long s0 = c0 + t * kDSites;
+    fold(buf, s0);
+    __syncthreads();
+    if (t + 1 < steps) fetch(s0 + kDSites);
+#pragma unroll
+    for (int gk = 0; gk < 3; ++gk) mma_step(sm.a[buf], sm.b[buf], gk * kDSites, acc);
+    mma_step(sm.va[buf], sm.vb[buf], 0, cn);
+  }
+
+  const bool direct = part == nullptr;  // one chunk: no scratch, no reduce
+  auto part_at = [&](int plane) {
+    return part +
+           ((plane * (long long)(gridDim.x / grid_tiles) + chunk) * tiles + tile) * kTileElems;
+  };
+  double* part_raw = direct ? nullptr : part_at(0);
+  double* part_cnt = direct ? nullptr : part_at(1);
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int e = (m0 + 8 * mi + g) * kTile + n0 + 8 * ni + 2 * t4 + r;
+        if (direct) {
+          const int a = i0 + e / kTile, b = j0 + e % kTile;
+          if (a < N && b < N && a <= b) {
+            raw[(long long)a * N + b] = acc[mi][ni][r];
+            cnt[(long long)a * N + b] = cn[mi][ni][r];
+          }
+        } else {
+          part_raw[e] = acc[mi][ni][r];
+          part_cnt[e] = cn[mi][ni][r];
+        }
+      }
+}
+
+// Below the 48 KB a block gets without asking for more.
+static_assert(sizeof(SmemD) <= 48 * 1024, "static shared-memory limit");
+
+template <bool kWeighted>
+cudaError_t launch_f64(const double* P, const double* w, double* raw, double* cnt,
+                       double* part, long long S, int N, long long tiles, const int* list,
+                       long long grid_tiles, long long chunks, long long chunk_sites,
+                       const ngsd::Score9d& sc, int pairwise_del, cudaStream_t stream) {
+  auto go = [&](auto kernel) {
+    kernel<<<(unsigned)(grid_tiles * chunks), kDThreads, sizeof(SmemD), stream>>>(
+        P, w, raw, cnt, part, S, N, tiles, list, grid_tiles, chunk_sites, sc);
+    return cudaGetLastError();
+  };
+  return pairwise_del ? go(indep_f64_kernel<kWeighted, true>)
+                      : go(indep_f64_kernel<kWeighted, false>);
 }
 
 // grid_tiles: the length of `list`, or tiles without one.
@@ -527,8 +732,8 @@ extern "C" int ngsd_indep_raw_cnt_f32(const float* P, const float* w, float* raw
           : launch<false, false>(P, w, raw, cnt, scratch, S, N, tiles, list, grid_tiles, chunks,
                                  chunk_sites, sc, pairwise_del, st);
   if (err != cudaSuccess || chunks == 1) return (int)err;
-  indep_reduce_kernel<<<(unsigned)grid_tiles, 256, 0, st>>>(scratch, raw, cnt, N, chunks, tiles,
-                                                            list);
+  indep_reduce_kernel<float><<<(unsigned)grid_tiles, 256, 0, st>>>(scratch, raw, cnt, N, chunks,
+                                                                   tiles, list);
   return (int)cudaGetLastError();
 }
 
@@ -549,6 +754,53 @@ extern "C" int ngsd_indep_block_partials_f32(const float* P, double* part, int N
   return (int)launch<false, true>(P, nullptr, nullptr, nullptr, part, n_blocks * block_size, N,
                                   tiles, nullptr, tiles, n_blocks, block_size, sc, pairwise_del,
                                   (cudaStream_t)stream);
+}
+
+// The float64 entries (K1d): P [S, N, 3] and w [S] float64, the score
+// float64[9], raw and cnt [N, N] float64; otherwise as
+// ngsd_indep_raw_cnt_f32 (the same split, tile list and scratch layout).
+extern "C" int ngsd_indep_raw_cnt_f64(const double* P, const double* w, double* raw,
+                                      double* cnt, double* scratch, const int* list,
+                                      long long n_list, long long S, int N, int chunks,
+                                      long long chunk_sites, const double* score9,
+                                      int pairwise_del, void* stream) {
+  const long long tiles = N < 1 ? 0 : upper_tiles(N);
+  const long long grid_tiles = list != nullptr ? n_list : tiles;
+  if (N < 1 || S < 0 || chunks < 1 || chunk_sites < 1 || (long long)chunks * chunk_sites < S ||
+      (chunks > 1) != (scratch != nullptr) || grid_tiles < 1 ||
+      grid_tiles * chunks > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  ngsd::Score9d sc;
+  memcpy(sc.v, score9, sizeof(sc.v));
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t err =
+      w != nullptr
+          ? launch_f64<true>(P, w, raw, cnt, scratch, S, N, tiles, list, grid_tiles, chunks,
+                             chunk_sites, sc, pairwise_del, st)
+          : launch_f64<false>(P, w, raw, cnt, scratch, S, N, tiles, list, grid_tiles, chunks,
+                              chunk_sites, sc, pairwise_del, st);
+  if (err != cudaSuccess || chunks == 1) return (int)err;
+  indep_reduce_kernel<double><<<(unsigned)grid_tiles, 256, 0, st>>>(scratch, raw, cnt, N,
+                                                                    chunks, tiles, list);
+  return (int)cudaGetLastError();
+}
+
+// Block mode on float64 probabilities: part [2, n_blocks, tiles, 64, 64]
+// float64 as ngsd_indep_block_partials_f32's; the counts are float64
+// throughout, so a block of any length needs no flush.
+extern "C" int ngsd_indep_block_partials_f64(const double* P, double* part, int N,
+                                             long long n_blocks, long long block_size,
+                                             const double* score9, int pairwise_del,
+                                             void* stream) {
+  const long long tiles = N < 1 ? 0 : upper_tiles(N);
+  if (N < 1 || n_blocks < 1 || block_size < 1 || part == nullptr ||
+      tiles * n_blocks > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  ngsd::Score9d sc;
+  memcpy(sc.v, score9, sizeof(sc.v));
+  return (int)launch_f64<false>(P, nullptr, nullptr, nullptr, part, n_blocks * block_size, N,
+                                tiles, nullptr, tiles, n_blocks, block_size, sc, pairwise_del,
+                                (cudaStream_t)stream);
 }
 
 extern "C" const char* ngsd_error_string(int code) {

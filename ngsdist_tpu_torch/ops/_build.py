@@ -67,19 +67,17 @@ def _build(path: str) -> None:
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.ngsd_indep_raw_cnt_f32.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64, i32,
-                                           i32, i64, vp, i32, vp]
-    lib.ngsd_indep_raw_cnt_f32.restype = i32
-    lib.ngsd_indep_block_partials_f32.argtypes = [vp, vp, i32, i64, i64, vp,
-                                                  i32, vp]
-    lib.ngsd_indep_block_partials_f32.restype = i32
-    lib.ngsd_em_raw_cnt_f32.argtypes = [vp, vp, vp, vp, i64, vp, vp, i64, i32, vp,
-                                        ctypes.c_double, i32, vp]
-    lib.ngsd_em_raw_cnt_f32.restype = i32
-    lib.ngsd_em_block_partials_f32.argtypes = [vp, vp, vp, i32, i64, i64, vp,
-                                               ctypes.c_double, i32, vp]
-    lib.ngsd_em_block_partials_f32.restype = i32
+    vp, i64, i32, f64 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
+    # each entry in float32 and float64: the same arguments, pointers to
+    # the one type or the other
+    for t in ("f32", "f64"):
+        for name, args in (
+                ("indep_raw_cnt", [vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, i64, vp, i32, vp]),
+                ("indep_block_partials", [vp, vp, i32, i64, i64, vp, i32, vp]),
+                ("em_raw_cnt", [vp, vp, vp, vp, i64, vp, vp, i64, i32, vp, f64, i32, vp]),
+                ("em_block_partials", [vp, vp, vp, i32, i64, i64, vp, f64, i32, vp])):
+            fn = getattr(lib, f"ngsd_{name}_{t}")
+            fn.argtypes, fn.restype = args, i32
     lib.ngsd_error_string.argtypes = [i32]
     lib.ngsd_error_string.restype = ctypes.c_char_p
 
@@ -105,11 +103,12 @@ def check_launch(rc: int, what: str) -> None:
 
 
 def check_probs(P: torch.Tensor) -> None:
-    """The kernels take a contiguous float32 [S, N, 3] tensor on a card."""
+    """The kernels take a contiguous float32 or float64 [S, N, 3] tensor
+    on a card; each type has entries of its own (`entry`)."""
     if P.device.type != "cuda":
         raise ValueError(f"expected a CUDA tensor, got one on {P.device}")
-    if P.dtype != torch.float32:
-        raise ValueError(f"expected float32 probabilities, got {P.dtype}")
+    if P.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"expected float32 or float64 probabilities, got {P.dtype}")
     if P.ndim != 3 or P.shape[2] != 3 or P.shape[1] < 1:
         raise ValueError(f"expected probabilities of shape [S, N, 3], got {tuple(P.shape)}")
     if not P.is_contiguous():
@@ -148,24 +147,34 @@ def tile_mask(N: int, tiles, edge: int, strict: bool) -> torch.Tensor:
     return m & torch.ones((N, N), dtype=torch.bool).triu(1 if strict else 0)
 
 
-def site_weights_f32(site_weights, P: torch.Tensor, n_sites=None):
-    """[n_sites] (P's sites by default) float32 weights on P's device, or
-    None."""
+def entry(name: str, P: torch.Tensor):
+    """The library's entry `name` for P's dtype: ngsd_<name>_f32 for
+    float32, ngsd_<name>_f64 for float64 (check_probs has admitted no
+    other).  A float64 tensor never reaches a float32 entry."""
+    return getattr(library(), f"ngsd_{name}_{'f64' if P.dtype == torch.float64 else 'f32'}")
+
+
+def weights_of(site_weights, P: torch.Tensor, n_sites=None):
+    """[n_sites] (P's sites by default) weights in P's dtype on P's
+    device, or None.  Bootstrap multiplicities and class masks are
+    integers below 2^24, exact in either type."""
     if site_weights is None:
         return None
     n = P.shape[0] if n_sites is None else n_sites
-    w = torch.as_tensor(site_weights, dtype=torch.float32, device=P.device).contiguous()
+    w = torch.as_tensor(site_weights, dtype=P.dtype, device=P.device).contiguous()
     if w.shape != (n,):
         raise ValueError(f"site_weights must have shape ({n},), got {tuple(w.shape)}")
     return w
 
 
-def score9_f32(score) -> ctypes.Array:
-    """Host float32[9] copy of the 3x3 score matrix."""
+def score9(score, P: torch.Tensor) -> ctypes.Array:
+    """Host copy of the 3x3 score matrix in P's dtype: float32[9] for the
+    f32 entries, float64[9] for the f64 ones."""
     vals = torch.as_tensor(score, dtype=torch.float64).reshape(-1).tolist()
     if len(vals) != 9:
         raise ValueError("score must have 9 entries")
-    return (ctypes.c_float * 9)(*vals)
+    ctype = ctypes.c_double if P.dtype == torch.float64 else ctypes.c_float
+    return (ctype * 9)(*vals)
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -30,6 +30,11 @@ Block mode (`em_block_partials`, the partial-sum bootstrap) returns the
 unweighted sums per bootstrap block instead, B (raw) and C (cnt)
 [n_blocks, n_pairs] in float64, pairs a < b in triu row-major order.
 
+A float64 tensor (--x64) goes to the float64 entries (K2d, the same
+kernel instantiated for double: inputs and weights in float64, raw and
+cnt written in float64), a float32 tensor to the float32 ones; the
+tables, the search and the stopping decisions are the same.
+
 The kernel takes r_k and the powers p^k from per-individual tables that
 a tile's lanes share (csrc/em.cu): r_k by the plain version's own
 expressions, so every lane stops at the plain version's step, and
@@ -46,7 +51,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .indep import valid_mask
+from .indep import count_launch, valid_mask
 
 EM_TOLE = 0.001
 EM_MAX_ITER = 50
@@ -75,6 +80,9 @@ def em_table_bound(n_sites: int) -> float:
 LAUNCHES = 0  # kernel launches since the count was last set to 0
 BLOCK_LAUNCHES = 0  # the same, block mode
 TILE_LAUNCHES = 0  # the same, with a tile list
+LAUNCHES_F64 = 0  # the same three of the float64 entries
+BLOCK_LAUNCHES_F64 = 0
+TILE_LAUNCHES_F64 = 0
 
 EM_TILE = 32  # output tile edge of csrc/em.cu (kTile)
 
@@ -302,7 +310,6 @@ def em_raw_cnt(P: torch.Tensor, score9, pairwise_del: bool,
 
 
 def _em_cuda(P, score9, pairwise_del, site_weights, site_index, tiles):
-    global LAUNCHES, TILE_LAUNCHES
     _build.check_probs(P)
     S, N, _ = P.shape
     if site_index is not None:
@@ -310,7 +317,7 @@ def _em_cuda(P, score9, pairwise_del, site_weights, site_index, tiles):
                 or site_index.ndim != 1 or not site_index.is_contiguous()):
             raise ValueError("site_index must be a contiguous int64 vector on P's device")
         S = site_index.shape[0]
-    w = _build.site_weights_f32(site_weights, P, S)
+    w = _build.weights_of(site_weights, P, S)
     raw = torch.zeros((N, N), dtype=P.dtype, device=P.device)
     cnt = torch.zeros_like(raw)
     if tiles is not None:
@@ -318,34 +325,28 @@ def _em_cuda(P, score9, pairwise_del, site_weights, site_index, tiles):
         if tiles.numel() == 0:
             return raw, cnt
     hi = float(np.exp(EM_TOLE))  # the kernel's ratio test runs in float64
-    lib = _build.library()
+    fn = _build.entry("em_raw_cnt", P)
     with torch.cuda.device(P.device):
-        rc = lib.ngsd_em_raw_cnt_f32(
-            _build.ptr(P), _build.ptr(w), _build.ptr(site_index), _build.ptr(tiles),
-            0 if tiles is None else tiles.numel(), _build.ptr(raw), _build.ptr(cnt), S, N,
-            _build.score9_f32(score9), hi, int(pairwise_del), _build.stream(P.device))
+        rc = fn(_build.ptr(P), _build.ptr(w), _build.ptr(site_index), _build.ptr(tiles),
+                0 if tiles is None else tiles.numel(), _build.ptr(raw), _build.ptr(cnt), S, N,
+                _build.score9(score9, P), hi, int(pairwise_del), _build.stream(P.device))
     _build.check_launch(rc, "em")
-    if tiles is None:
-        LAUNCHES += 1
-    else:
-        TILE_LAUNCHES += 1
+    count_launch(globals(), P, "" if tiles is None else "TILE_")
     return raw, cnt
 
 
 def _em_blocks_cuda(P, score9, pairwise_del, n_blocks, block_size):
-    global BLOCK_LAUNCHES
     _build.check_probs(P)
     _build.check_blocks(P, n_blocks, block_size)
     N = P.shape[1]
     B = torch.empty((n_blocks, N * (N - 1) // 2), dtype=torch.float64, device=P.device)
     C = torch.empty_like(B)
     if B.numel() > 0:
-        lib = _build.library()
+        fn = _build.entry("em_block_partials", P)
         with torch.cuda.device(P.device):
-            rc = lib.ngsd_em_block_partials_f32(
-                _build.ptr(P), _build.ptr(B), _build.ptr(C), N, n_blocks, block_size,
-                _build.score9_f32(score9), float(np.exp(EM_TOLE)), int(pairwise_del),
-                _build.stream(P.device))
+            rc = fn(_build.ptr(P), _build.ptr(B), _build.ptr(C), N, n_blocks, block_size,
+                    _build.score9(score9, P), float(np.exp(EM_TOLE)), int(pairwise_del),
+                    _build.stream(P.device))
         _build.check_launch(rc, "em block partials")
-        BLOCK_LAUNCHES += 1
+        count_launch(globals(), P, "BLOCK_")
     return B, C

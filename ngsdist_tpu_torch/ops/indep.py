@@ -26,6 +26,12 @@ bytes of the full launch, and an empty list launches nothing.
 Block mode (`indep_block_partials`, the partial-sum bootstrap) runs the
 same kernel with one chunk per bootstrap block, unweighted, and returns
 the chunks' float64 partials themselves, per block and pair.
+
+A float64 tensor (--x64) goes to the float64 entries (K1d, csrc/indep.cu
+indep_f64_kernel): the same split, tile lists and block mode, every sum
+in float64 (mma.sync m8n8k4 .f64), raw and cnt returned in float64; a
+float32 tensor to the float32 ones.  `indep_raw_cnt_f64_order` is the
+float64 kernel's order of summation in plain PyTorch, for the tests.
 """
 
 from __future__ import annotations
@@ -39,9 +45,13 @@ EPSILON = 1e-5  # miss_data tolerance (gen_func.hpp:16)
 LAUNCHES = 0  # kernel launches since the count was last set to 0
 BLOCK_LAUNCHES = 0  # the same, block mode
 TILE_LAUNCHES = 0  # the same, with a tile list
+LAUNCHES_F64 = 0  # the same three of the float64 entries
+BLOCK_LAUNCHES_F64 = 0
+TILE_LAUNCHES_F64 = 0
 
 TILE = 64               # output tile edge of csrc/indep.cu (kTile)
 STEP = 8                # sites per pipeline step (kSites)
+STEP_F64 = 4            # sites per step of the float64 kernel (kDSites)
 WINDOW = 16             # sites per float32 raw window (kWindow)
 TARGET_BLOCKS = 2048    # tiles x chunks to aim for: many waves on any card
 MIN_CHUNK_SITES = 1024  # no chunk is split below this
@@ -162,11 +172,60 @@ def scratch_shape(N: int, S: int):
     return (2, chunks, upper_tiles(N), TILE, TILE) if chunks > 1 else None
 
 
+def f64_sum_bound(n_sites: int, chunks: int = 1) -> float:
+    """Bound on |raw_kernel - raw_plain| / sum|terms| of the float64
+    entries against the plain version (or any other float64 order), u =
+    2^-53.  Each version folds the score in 3 products (within 3u) and
+    adds the 3 n_sites products of a pair in some order, the float64
+    kernel in its sites' order and then its chunks' (n_sites + chunks + 2
+    additions at most); a sum of m terms lies within (m - 1) u of the
+    exact one times the sum of the terms' magnitudes.  Both versions:
+    2 (3 + 3 n_sites + chunks + 2) u.  All terms are >= 0 with a
+    nonnegative score, and the bound is then relative to raw itself."""
+    return 2 * (3 * n_sites + chunks + 5) * 2.0 ** -53
+
+
+def indep_raw_cnt_f64_order(P: torch.Tensor, score, pairwise_del: bool,
+                            site_weights=None):
+    """The float64 kernel's order of summation in plain PyTorch (float64
+    P [S, N, 3] -> (raw, cnt) [N, N], the full matrices): per chunk of
+    split_plan, per step of STEP_F64 sites, the three genotypes' products
+    (each an m8n8k4 depth of 4 sites) added one after another into the
+    running sums; the chunks then added in index order.  For the tests:
+    a plain loop over the sites."""
+    N = P.shape[1]
+    dtype = P.dtype
+    score = torch.as_tensor(score, dtype=dtype, device=P.device).reshape(3, 3)
+    v = valid_mask(P, pairwise_del)
+    vi = v if site_weights is None else v * torch.as_tensor(
+        site_weights, dtype=dtype, device=P.device)[:, None]
+    Qi = P * vi[..., None]
+    Y = (P * v[..., None]) @ score.T
+    chunks, chunk_sites = split_plan(N, P.shape[0])
+    raw = torch.zeros((N, N), dtype=dtype, device=P.device)
+    cnt = torch.zeros_like(raw)
+    for c in range(chunks):
+        r = torch.zeros_like(raw)
+        k = torch.zeros_like(raw)
+        for s0 in range(c * chunk_sites, min((c + 1) * chunk_sites, P.shape[0]), STEP_F64):
+            s1 = min(s0 + STEP_F64, (c + 1) * chunk_sites, P.shape[0])
+            for g in range(3):
+                r = r + Qi[s0:s1, :, g].T @ Y[s0:s1, :, g]
+            k = k + vi[s0:s1].T @ v[s0:s1]
+        raw, cnt = raw + r, cnt + k
+    return raw, cnt
+
+
+def count_launch(counts: dict, P: torch.Tensor, mode: str = "") -> None:
+    """Add one to the launch count, in a module's globals `counts`, of the
+    entry P's dtype took in mode "" (full), "BLOCK_" or "TILE_"."""
+    counts[f"{mode}LAUNCHES{'_F64' if P.dtype == torch.float64 else ''}"] += 1
+
+
 def _indep_cuda(P, score, pairwise_del, site_weights, tiles):
-    global LAUNCHES, TILE_LAUNCHES
     _build.check_probs(P)
     S, N, _ = P.shape
-    w = _build.site_weights_f32(site_weights, P)
+    w = _build.weights_of(site_weights, P)
     raw = torch.zeros((N, N), dtype=P.dtype, device=P.device)
     cnt = torch.zeros_like(raw)
     if tiles is not None:
@@ -177,36 +236,30 @@ def _indep_cuda(P, score, pairwise_del, site_weights, tiles):
     shape = scratch_shape(N, S)
     scratch = None if shape is None else torch.empty(shape, dtype=torch.float64,
                                                      device=P.device)
-    lib = _build.library()
+    fn = _build.entry("indep_raw_cnt", P)
     with torch.cuda.device(P.device):
-        rc = lib.ngsd_indep_raw_cnt_f32(
-            _build.ptr(P), _build.ptr(w), _build.ptr(raw), _build.ptr(cnt),
-            _build.ptr(scratch), _build.ptr(tiles), 0 if tiles is None else tiles.numel(),
-            S, N, chunks, chunk_sites, _build.score9_f32(score), int(pairwise_del),
-            _build.stream(P.device))
+        rc = fn(_build.ptr(P), _build.ptr(w), _build.ptr(raw), _build.ptr(cnt),
+                _build.ptr(scratch), _build.ptr(tiles), 0 if tiles is None else tiles.numel(),
+                S, N, chunks, chunk_sites, _build.score9(score, P), int(pairwise_del),
+                _build.stream(P.device))
     _build.check_launch(rc, "indep")
-    if tiles is None:
-        LAUNCHES += 1
-    else:
-        TILE_LAUNCHES += 1
+    count_launch(globals(), P, "" if tiles is None else "TILE_")
     return raw, cnt
 
 
 def _indep_blocks_cuda(P, score, pairwise_del, n_blocks, block_size):
-    global BLOCK_LAUNCHES
     _build.check_probs(P)
     _build.check_blocks(P, n_blocks, block_size)
     N = P.shape[1]
     part = torch.empty(block_partials_shape(N, n_blocks), dtype=torch.float64,
                        device=P.device)
     if n_blocks > 0:
-        lib = _build.library()
+        fn = _build.entry("indep_block_partials", P)
         with torch.cuda.device(P.device):
-            rc = lib.ngsd_indep_block_partials_f32(
-                _build.ptr(P), _build.ptr(part), N, n_blocks, block_size,
-                _build.score9_f32(score), int(pairwise_del), _build.stream(P.device))
+            rc = fn(_build.ptr(P), _build.ptr(part), N, n_blocks, block_size,
+                    _build.score9(score, P), int(pairwise_del), _build.stream(P.device))
         _build.check_launch(rc, "indep block partials")
-        BLOCK_LAUNCHES += 1
+        count_launch(globals(), P, "BLOCK_")
     I, J = torch.triu_indices(N, N, offset=1, device=P.device)
     planes = 2 if pairwise_del else 1  # cnt is read under pairwise deletion only
     out = part[:planes].reshape(planes, n_blocks, -1)[:, :, tile_offsets(N, I, J)]

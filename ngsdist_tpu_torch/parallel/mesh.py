@@ -232,7 +232,7 @@ class Sharded:
         return None if vec is None else [vec[lo:hi] for lo, hi in self.local_ranges]
 
 
-def shard_sites(P_host, mesh: Mesh, ranges, base: int = 0) -> Sharded:
+def shard_sites(P_host, mesh: Mesh, ranges, x64: bool, base: int = 0) -> Sharded:
     """Upload each of this process's shards' site slice of a host array to
     the first device of its row of the grid (core/distance.py
     upload_resident, on the entry's stream), and copy it from there to the
@@ -240,7 +240,8 @@ def shard_sites(P_host, mesh: Mesh, ranges, base: int = 0) -> Sharded:
     A code plane's slice (utils/hostmem.CodedProbs) stays coded: each shard
     uploads its uint8 rows and expands them on its own device; the copies
     along the pairs axis are of the expanded tensor.  ranges: every sites
-    shard's data sites; P_host holds the sites from `base` on."""
+    shard's data sites; P_host holds the sites from `base` on; x64: the
+    run's dtype choice (core/distance.py default_dtype)."""
     p = pairs_size(mesh)
     parts = []
     for k, dev in enumerate(mesh.devices):
@@ -252,15 +253,17 @@ def shard_sites(P_host, mesh: Mesh, ranges, base: int = 0) -> Sharded:
                 part = mesh.copy(k - q, parts[k - q], k)
         elif hi > lo:
             with mesh.on(k):
-                part = dist.upload_resident(P_host[lo - base:hi - base], dev)
+                part = dist.upload_resident(P_host[lo - base:hi - base], dev, x64)
         parts.append(part)
     return Sharded(mesh, ranges, parts, P_host.shape[1])
 
 
 def put_probs_sharded(P_host, s_pad: int, mesh: Mesh) -> Sharded:
-    """The whole host tensor over the mesh, s_pad / sites shards each."""
+    """The whole host tensor over the mesh, s_pad / sites shards each, in
+    the dtype of a run without --x64 (sharded_suffstats and
+    sharded_pair_pi, the JAX functions' counterparts, take no x64)."""
     n_dev = sites_size(mesh)
-    return shard_sites(P_host, mesh, shard_ranges(P_host.shape[0], s_pad // n_dev, n_dev))
+    return shard_sites(P_host, mesh, shard_ranges(P_host.shape[0], s_pad // n_dev, n_dev), False)
 
 
 # ------------------------------------------------------------------ #

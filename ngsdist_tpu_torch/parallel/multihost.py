@@ -308,11 +308,13 @@ class SiteStream:
     src: a host [n, N, 3] array or code plane (utils/hostmem.CodedProbs)
     of the sites from `base` on (this process's own, or all of them), or
     a DiskRows (lazy).  `coded`: the shards travel as uint8 codes; the
-    plan is the same in either lane."""
+    plan is the same in either lane.  `x64`: the run's dtype choice, which
+    the plan, the reads and the uploads follow."""
 
     def __init__(self, src, pars: Params, mesh, s_loc: int, chunk: int, base: int = 0,
-                 spill_owned: Optional[str] = None) -> None:
+                 spill_owned: Optional[str] = None, x64: bool = False) -> None:
         self.src, self.pars, self.mesh, self.base = src, pars, mesh, base
+        self.x64 = x64  # the run's dtype choice (core/distance.py default_dtype)
         self.S = pars.n_sites
         self.n_dev = pm.sites_size(mesh)
         self.s_loc = s_loc
@@ -344,7 +346,7 @@ class SiteStream:
     # -------------------------- planning ----------------------------- #
 
     @staticmethod
-    def _plan(pars: Params, mesh):
+    def _plan(pars: Params, mesh, x64: bool = False):
         """(s_loc, chunk): per-shard length and per-round chunk
         (ngsdist_tpu/parallel/multihost.py:256-294).  The alignment
         granule is the bootstrap block size (the partials need block-
@@ -355,8 +357,8 @@ class SiteStream:
         n_dev = pm.sites_size(mesh)
         g = pars.boot_block_size if pars.n_boot_rep else 1
         pref = int(np.lcm(g, 256)) if not pars.indep_geno else g
-        itemsize = torch.finfo(dist.default_dtype(mesh.first)).bits // 8
-        budget_sites = device_budget_bytes(mesh) // max(1, pars.n_ind * 3 * itemsize)
+        budget_sites = device_budget_bytes(mesh) // max(
+            1, pars.n_ind * 3 * dist.itemsize(mesh.first, x64))
         s_min = pm._round_up(pars.n_sites, n_dev) // n_dev
         s_loc_pref = pm._round_up(s_min, pref)
         if budget_sites >= s_loc_pref:
@@ -440,23 +442,23 @@ class SiteStream:
     # -------------------------- constructors ------------------------- #
 
     @classmethod
-    def from_array(cls, P_host, pars: Params, mesh) -> "SiteStream":
+    def from_array(cls, P_host, pars: Params, mesh, x64: bool = False) -> "SiteStream":
         """The full tensor already in host memory: an array or a code
         plane (CodedProbs), whose shards and rounds go to the devices as
         codes."""
-        s_loc, chunk = cls._plan(pars, mesh)
-        return cls(P_host, pars, mesh, s_loc, chunk)
+        s_loc, chunk = cls._plan(pars, mesh, x64)
+        return cls(P_host, pars, mesh, s_loc, chunk, x64=x64)
 
     @classmethod
-    def from_reader(cls, pars: Params, mesh) -> "SiteStream":
+    def from_reader(cls, pars: Params, mesh, x64: bool = False) -> "SiteStream":
         """Each process reads only its own site range of the genotype
         file: eagerly into host memory, in the device's dtype, or, over
         the host budget on any process, lazily in rounds from disk; under
         wants_coded_lazy as uint8 codes either way (the plan is the
         same).  The lane needs no agreement: both give the same values."""
-        s_loc, chunk = cls._plan(pars, mesh)
+        s_loc, chunk = cls._plan(pars, mesh, x64)
         start, stop = host_site_range(s_loc * pm.sites_size(mesh), mesh)
-        dtype = dist.default_dtype(mesh.first)
+        dtype = dist.default_dtype(mesh.first, x64)
         N, S = pars.n_ind, pars.n_sites
         coded = cls.wants_coded_lazy(pars, dtype)
         if agreed(cls.wants_lazy(pars, dtype, stop - start), "max"):
@@ -466,7 +468,8 @@ class SiteStream:
                 spill = cls._build_spill(pars, start, stop)
             try:
                 src = DiskRows(pars, dtype, stop, coded=coded, **spill)
-                return cls(src, pars, mesh, s_loc, chunk, spill_owned=spill.get("spill_path"))
+                return cls(src, pars, mesh, s_loc, chunk, spill_owned=spill.get("spill_path"),
+                           x64=x64)
             except BaseException:
                 if spill:
                     cls._rm_spill(spill["spill_path"])
@@ -489,7 +492,8 @@ class SiteStream:
                 codes = _classify_call_rows(readers.read_geno(
                     pars.in_geno, pars.in_bin, pars.in_probs, pars.in_logscale, N, S,
                     site_range=rng))
-            return cls(CodedProbs(None, codes, _call_lut()), pars, mesh, s_loc, chunk, base=lo)
+            return cls(CodedProbs(None, codes, _call_lut()), pars, mesh, s_loc, chunk, base=lo,
+                       x64=x64)
         if hi > lo:
             geno_log = readers.read_geno(
                 pars.in_geno, pars.in_bin, pars.in_probs, pars.in_logscale, N, S,
@@ -498,7 +502,7 @@ class SiteStream:
             local = dist._host_pack(pre, 0, hi - lo, dtype)
         else:
             local = np.zeros((0, N, 3), dist._np_dtype(dtype))
-        return cls(local, pars, mesh, s_loc, chunk, base=lo)
+        return cls(local, pars, mesh, s_loc, chunk, base=lo, x64=x64)
 
     @classmethod
     def _lazy_chunk(cls, pars: Params, mesh, dtype: torch.dtype, chunk: int) -> int:
@@ -609,7 +613,8 @@ class SiteStream:
     def global_array(self) -> pm.Sharded:
         """Every local shard on its devices (a resident stream)."""
         return pm.shard_sites(self.src, self.mesh,
-                              pm.shard_ranges(self.S, self.s_loc, self.n_dev), base=self.base)
+                              pm.shard_ranges(self.S, self.s_loc, self.n_dev), self.x64,
+                              base=self.base)
 
     @property
     def n_rounds(self) -> int:
@@ -631,7 +636,7 @@ class SiteStream:
         p = pm.pairs_size(mesh)
         todo = list(todo)
         if self._pipes is None:
-            dtype = dist.default_dtype(mesh.first)
+            dtype = dist.default_dtype(mesh.first, self.x64)
             self._pipes = [dist.ChunkPipe(self.src, mesh.devices[s * p], dtype, self.chunk)
                            for s in range(mesh.local_sites)]
         per_round = [self.round_ranges(r) for r in todo]
@@ -691,7 +696,7 @@ def _process_mesh(device: Optional[torch.device]):
 def run_distributed(pars: Params, coordinator: Optional[str] = None,
                     num_processes: Optional[int] = None,
                     process_id: Optional[int] = None, resume: bool = False,
-                    device: Optional[torch.device] = None, mesh=None):
+                    device: Optional[torch.device] = None, mesh=None, x64: bool = False):
     """The whole pipeline in each process of a run (BASELINE.json's
     scale-out configuration; ngsdist_tpu/parallel/multihost.py:786): every
     process reads its own site range (SiteStream.from_reader, eager or
@@ -705,8 +710,9 @@ def run_distributed(pars: Params, coordinator: Optional[str] = None,
     Otherwise the one process, whose host budget holds more shards, reads
     lazily or in shorter rounds, and its float64 sums add in another
     order.  device: this process's device type (default: its cards); mesh:
-    its entries instead (tests repeat a `cpu` entry).  Returns the
-    matrices on process 0, [] elsewhere.
+    its entries instead (tests repeat a `cpu` entry); x64: float64 on the
+    cards (--x64), the same in every process.  Returns the matrices on
+    process 0, [] elsewhere.
 
     resume: process 0 reads the .ckpt.json sidecar and every process
     skips the matrices it counts; within a streamed replicate the rounds
@@ -744,8 +750,10 @@ def run_distributed(pars: Params, coordinator: Optional[str] = None,
             mesh = _process_mesh(device)
         # the one-process mesh run's engine name: a run resumes across
         # shapes, as runner.run(mesh=) does
-        engine = dist.engine_name(mesh.first)
-        stream = SiteStream.from_reader(pars, mesh)
+        if agreed(int(x64), "min") != agreed(int(x64), "max"):
+            raise NgsDistError("main", "every process of a run must take the same --x64")
+        engine = dist.engine_name(mesh.first, x64)
+        stream = SiteStream.from_reader(pars, mesh, x64)
         try:
             return _write_matrices(pars, stream, mesh, alleles, resume, engine)
         finally:
@@ -784,7 +792,7 @@ def _write_matrices(pars: Params, stream: SiteStream, mesh, alleles, resume: boo
     try:
         for rep, m in enumerate(dist.iter_replicates(
                 pars, stream, maps, n_trunc, mesh.first, start_rep=n_done, round_ckpt=True,
-                alleles=alleles, mesh=mesh), start=n_done):
+                alleles=alleles, mesh=mesh, x64=stream.x64), start=n_done):
             if is_writer:
                 writers.write_dist_matrix(out_fh, labels, m)
                 out_fh.flush()

@@ -43,13 +43,15 @@ def _log(pars: Params, level: int, msg: str) -> None:
         print(msg, file=sys.stderr)
 
 
-def _fused_packed_wanted(pars: Params, device: torch.device, mesh=None) -> bool:
+def _fused_packed_wanted(pars: Params, device: torch.device, mesh=None,
+                         x64: bool = False) -> bool:
     """True when the genotype read should be DEFERRED to the engine as a
     fused-read handle (readers.PackedBinInput): the engine then pulls
     upload-ready packed float32 chunks straight from disk — one native
     pass instead of read + exp + cast over a resident float64 tensor,
     with chunk reads overlapping the uploads.  Requires a raw seekable
-    binary file, the float32 dtype and an engine stage that never needs
+    binary file, the float32 dtype (not --x64: the JAX package's
+    upload23_enabled is off under x64) and an engine stage that never needs
     the host tensor (no genotype calling, no per-site debug replay), and
     one device: a mesh run shards the host tensor, as the JAX runner's
     does.  NGSDIST_FUSED_READ=0 forces the staged pipeline."""
@@ -63,10 +65,10 @@ def _fused_packed_wanted(pars: Params, device: torch.device, mesh=None) -> bool:
         return False
     if not native.have_native():
         return False
-    return distance.default_dtype(device) == torch.float32
+    return distance.default_dtype(device, x64) == torch.float32
 
 
-def _fused_coded_wanted(pars: Params, device: torch.device, mesh=None):
+def _fused_coded_wanted(pars: Params, device: torch.device, mesh=None, x64: bool = False):
     """Route of the fused native codes reader (readers.read_geno_codes;
     ngsdist_tpu/runner.py:65-118): default-threshold --call_geno calls
     every triple of a raw binary file to a one-hot or the uniform missing
@@ -90,23 +92,24 @@ def _fused_coded_wanted(pars: Params, device: torch.device, mesh=None):
 
     if not pars.in_bin or not readers.is_raw_seekable_binary(pars.in_geno):
         return False  # the fused reader needs a raw regular file (magic sniff)
-    if not SiteStream.coded_call_eligible(pars, distance.default_dtype(device)):
+    if not SiteStream.coded_call_eligible(pars, distance.default_dtype(device, x64)):
         return False
     S, N = pars.n_sites, pars.n_ind
     plane_fits = S * N * 2 <= SiteStream._host_budget_bytes()  # plane and a shard's copy
     if mesh is not None:
         return "eager" if plane_fits else False
-    if (_lazy_stream_wanted(pars, device) and device.type == "cuda"
+    if (_lazy_stream_wanted(pars, device, x64) and device.type == "cuda"
             and torch.cuda.device_count() > 1):
         return False  # a lazy run shards over every visible card
     chunked, _ = distance.stream_plan(S, N, device,
-                                      distance.check_fits(S, N, device, pars.indep_geno))
+                                      distance.check_fits(S, N, device, pars.indep_geno, x64),
+                                      x64)
     if chunked and pars.n_boot_rep and plane_fits:
         return "eager"
     return "handle"
 
 
-def _lazy_stream_wanted(pars: Params, device: torch.device) -> bool:
+def _lazy_stream_wanted(pars: Params, device: torch.device, x64: bool = False) -> bool:
     """True when reading the genotype tensor eagerly would exceed the host
     budget (ngsdist_tpu/runner.py:172): the run then reads its rounds from
     disk through a lazy SiteStream, so host memory no longer bounds the
@@ -114,7 +117,7 @@ def _lazy_stream_wanted(pars: Params, device: torch.device) -> bool:
     SiteStream.wants_lazy's, which from_reader takes too."""
     from .parallel.multihost import SiteStream
 
-    return SiteStream.wants_lazy(pars, distance.default_dtype(device), pars.n_sites)
+    return SiteStream.wants_lazy(pars, distance.default_dtype(device, x64), pars.n_sites)
 
 
 def load_inputs(pars: Params, fused: bool = False, geno: bool = True, coded=False):
@@ -192,13 +195,14 @@ def make_pair_report(pars: Params, labels):
 
 def iter_replicates(pars: Params, P, device: torch.device,
                     on_stats=None, labels=None, start_rep: int = 0,
-                    round_ckpt: bool = False, alleles=None, mesh=None):
+                    round_ckpt: bool = False, alleles=None, mesh=None, x64: bool = False):
     """Yield the distance matrices for replicates start_rep..n_boot_rep,
     printing each replicate's stage banners before its matrix is pulled
     (reference ngsDist.cpp:223-242).  P: the host tensor or a fused-read
     handle; round_ckpt: see distance.iter_replicates; alleles: the
     sites' (a1, a2) allele codes, which models 3-6 need; mesh: a
-    parallel.mesh.Mesh to shard the run over (device is its first)."""
+    parallel.mesh.Mesh to shard the run over (device is its first); x64:
+    float64 on a card."""
     # The reference accepts models 3-6 and aborts inside its first pair
     # task; this engine computes them (core/submodels.py) from the POS
     # file's alleles.
@@ -229,7 +233,7 @@ def iter_replicates(pars: Params, P, device: torch.device,
 
     gen = distance.iter_replicates(pars, P, maps, n_trunc, device,
                                    on_stats=on_stats, start_rep=start_rep,
-                                   round_ckpt=round_ckpt, alleles=alleles, mesh=mesh)
+                                   round_ckpt=round_ckpt, alleles=alleles, mesh=mesh, x64=x64)
     for rep in range(start_rep, pars.n_boot_rep + 1):
         _log(pars, 1, "==> Analyzing full dataset..." if rep == 0
              else f"==> Bootstrap replicate # {rep} ...")
@@ -260,7 +264,8 @@ def iter_replicates(pars: Params, P, device: torch.device,
 
 
 def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[TextIO] = None,
-        resume: bool = False, report_throughput: bool = False, mesh=None) -> List[np.ndarray]:
+        resume: bool = False, report_throughput: bool = False, mesh=None,
+        x64: bool = False) -> List[np.ndarray]:
     """Full pipeline; writes matrices to pars.out (or out_fh) and returns
     them.  resume: continue an interrupted run from its .ckpt.json
     sidecar.  report_throughput: print pair-site updates/s to stderr.
@@ -271,7 +276,10 @@ def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[Te
     only when asked for).  An input whose eager read would exceed the
     host budget (_lazy_stream_wanted) is read from disk in rounds over
     the mesh, or, without one, over every visible card (the CPU: one
-    `cpu` entry)."""
+    `cpu` entry).  x64: compute in float64 on a card (--x64, the JAX
+    package's md5 mode): the staged read in float64, no fused pack23 read
+    and no code plane, the kernels' float64 entries; the CPU path is
+    float64 either way."""
     if mesh is not None:
         device = mesh.first
     elif device is None:
@@ -288,9 +296,9 @@ def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[Te
         for msg in pars.messages:
             print(msg, file=sys.stderr)
 
-    coded = _fused_coded_wanted(pars, device, mesh)
-    lazy = not coded and _lazy_stream_wanted(pars, device)
-    fused = not lazy and not coded and _fused_packed_wanted(pars, device, mesh)
+    coded = _fused_coded_wanted(pars, device, mesh, x64)
+    lazy = not coded and _lazy_stream_wanted(pars, device, x64)
+    fused = not lazy and not coded and _fused_packed_wanted(pars, device, mesh, x64)
     if not lazy:
         labels, pos_rows, P = load_inputs(pars, fused=fused, coded=coded)
     else:
@@ -300,10 +308,10 @@ def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[Te
 
         if mesh is None:
             mesh = make_mesh(None if device.type == "cuda" else [device])
-        P = SiteStream.from_reader(pars, mesh)
+        P = SiteStream.from_reader(pars, mesh, x64)
     if (isinstance(P, np.ndarray) and pars.evol_model <= 2 and pars.verbose < 8
             and (not pars.in_probs or pars.call_geno)
-            and coded_upload_enabled(distance.default_dtype(device))):
+            and coded_upload_enabled(distance.default_dtype(device, x64))):
         # Hard genotypes and --call_geno give one-hot and uniform triples:
         # upload the code plane, one byte a triple, where the scan finds
         # one (ngsdist_tpu/runner.py:415-440); it gives up at the first
@@ -315,7 +323,7 @@ def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[Te
     alleles = None
     if pars.evol_model >= 3 and pos_rows is not None:
         alleles = encode_alleles(pos_rows)
-    ckpt_engine = distance.engine_name(device)
+    ckpt_engine = distance.engine_name(device, x64)
 
     n_done = 0
     if resume and out_fh is None:
@@ -354,7 +362,7 @@ def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[Te
     try:
         for rep, m in enumerate(
             iter_replicates(pars, P, device, on_stats=on_stats, labels=labels,
-                            start_rep=n_done, alleles=alleles, mesh=mesh,
+                            start_rep=n_done, alleles=alleles, mesh=mesh, x64=x64,
                             # round-level durability of the sums of
                             # streamed long-genome replicates
                             round_ckpt=close),

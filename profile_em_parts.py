@@ -66,7 +66,7 @@ def main() -> int:
     P32 = torch.from_numpy(chip_smoke.rand_probs(
         np.random.default_rng(chip_smoke.SEED), S, N).astype(np.float32)).to(dev)
     hi = float(np.exp(em.EM_TOLE))
-    score = _build.score9_f32(chip_smoke.SCORE9)
+    score = _build.score9(chip_smoke.SCORE9, P32)
     raw, cnt = torch.zeros((N, N), device=dev), torch.zeros((N, N), device=dev)
     B = torch.empty((nb, N * (N - 1) // 2), dtype=torch.float64, device=dev)
     C = torch.empty_like(B)
@@ -77,7 +77,7 @@ def main() -> int:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name!r}:\n{log[-4000:]}")
         lib = ctypes.CDLL(path)
-        lib.ngsd_em_raw_cnt_f32.argtypes = [vp, vp, vp, vp, vp, i64, i32, vp,
+        lib.ngsd_em_raw_cnt_f32.argtypes = [vp, vp, vp, vp, i64, vp, vp, i64, i32, vp,
                                             ctypes.c_double, i32, vp]
         lib.ngsd_em_block_partials_f32.argtypes = [vp, vp, vp, i32, i64, i64, vp,
                                                    ctypes.c_double, i32, vp]
@@ -85,7 +85,7 @@ def main() -> int:
 
         def full():
             _build.check_launch(
-                lib.ngsd_em_raw_cnt_f32(_build.ptr(P32), None, None, _build.ptr(raw),
+                lib.ngsd_em_raw_cnt_f32(_build.ptr(P32), None, None, None, 0, _build.ptr(raw),
                                         _build.ptr(cnt), S, N, score, hi, 0,
                                         _build.stream(dev)), f"em ({name})")
 

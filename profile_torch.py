@@ -121,7 +121,7 @@ def sweep(torch, cli, geno, work):
                 with chip_smoke.environment({"NGSDIST_DEVICE_BUDGET": str(4 * c * n_ind * 12),
                                   "NGSDIST_FUSED_READ": None}):
                     assert distance.stream_plan(sites, n_ind, torch.device("cuda"),
-                                                None) == (True, c)
+                                                None, False) == (True, c)
                     walls[c].append(timed_cli(torch, cli, args))
     finally:
         distance.STREAM_MIN_CHUNKS, distance.STREAM_MIN_CHUNK_SITES = planner

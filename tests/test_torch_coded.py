@@ -283,7 +283,7 @@ def test_coded_pipe_yields_the_uncoded_tensors(tmp_path, mode, dtype):
             assert (glo, ghi) == (wlo, whi) and g.dtype == dtype
             assert g.numpy().tobytes() == w.numpy().tobytes()
     for src in (hostmem.CodedProbs(None, codes, lut), readers.CodedBinInput(pars)):
-        res = tdist.upload_resident(src, CPU)
+        res = tdist.upload_resident(src, CPU, False)
         np.testing.assert_array_equal(res.numpy(), staged)
 
 
@@ -387,7 +387,7 @@ def test_streamed_coded_run_is_the_resident_one(tmp_path, monkeypatch, route):
     streamed, src = _run_file(tmp_path, monkeypatch, geno, flags, "s",
                               {"NGSDIST_CODED_UPLOAD": "1", "NGSDIST_DEVICE_BUDGET": budget})
     assert src == source
-    assert tdist.stream_plan(S, N, CPU, None)[0] is False
+    assert tdist.stream_plan(S, N, CPU, None, False)[0] is False
     resident, rsrc = _run_file(tmp_path, monkeypatch, geno, flags, "r",
                                {"NGSDIST_CODED_UPLOAD": "1"})
     assert rsrc == ("CodedBinInput" if kind == "bin" else "CodedProbs")
@@ -691,8 +691,8 @@ from ngsdist_tpu_torch.parallel import multihost as pmh
 from_reader = pmh.SiteStream.from_reader.__func__
 seen = {{}}
 
-def spy(cls, pars, mesh):
-    st = from_reader(cls, pars, mesh)
+def spy(cls, pars, mesh, *a):
+    st = from_reader(cls, pars, mesh, *a)
     seen.update(coded=st.coded, lazy=st.lazy, chunk=st.chunk)
     return st
 

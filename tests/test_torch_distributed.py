@@ -292,7 +292,7 @@ def test_a_host_budget_that_cuts_the_rounds_follows_the_split(launched, tmp_path
     two_entries = pm.make_mesh([torch.device("cpu")] * 2)
     s_loc, chunk = pmh.SiteStream._plan(pars, two_entries)
     assert chunk == s_loc
-    dtype = tdist.default_dtype(torch.device("cpu"))
+    dtype = tdist.default_dtype(torch.device("cpu"), False)
     # one process of two shards; process 0 of two, one shard each
     assert pmh.SiteStream._lazy_chunk(pars, two_entries, dtype, chunk) == 20
     one_entry = pm.make_mesh([torch.device("cpu")])
@@ -320,7 +320,7 @@ def test_resume_after_a_finished_matrix(launched):
     out = work / f"{name}_resume.dist"
     lines = full.split("\n")
     out.write_text("\n".join(lines[:2 * (N + 2)]) + "\n")
-    ckpt.save(str(out), _pars(work, name, out), 2, engine=tdist.engine_name(torch.device("cpu")))
+    ckpt.save(str(out), _pars(work, name, out), 2, engine=tdist.engine_name(torch.device("cpu"), False))
     run = _run(work, name, "_resume")
     run["argv"].append("--resume")
     rcs, outs = _launch(work, [run], "resume")

@@ -150,7 +150,7 @@ def test_expand23_bit_equal_to_jax(shape):
 def f32_engine(monkeypatch):
     """Force the card's dtype policy on the CPU: the fused read is
     float32 only."""
-    monkeypatch.setattr(tdist, "default_dtype", lambda device: torch.float32)
+    monkeypatch.setattr(tdist, "default_dtype", lambda device, x64: torch.float32)
     return tdist
 
 
@@ -172,7 +172,7 @@ def test_runner_gating(tmp_path, monkeypatch):
     for change in ({"in_geno": "-"}, {"in_geno": gz}, {"in_bin": False},
                    {"call_geno": True}, {"evol_model": 4}, {"verbose": 8}):
         assert not runner._fused_packed_wanted(Params(**{**base, **change}), cuda), change
-    monkeypatch.setattr(tdist, "default_dtype", lambda device: torch.float32)
+    monkeypatch.setattr(tdist, "default_dtype", lambda device, x64: torch.float32)
     assert runner._fused_packed_wanted(Params(**base), CPU)
     monkeypatch.setenv("NGSDIST_FUSED_READ", "0")
     assert not runner._fused_packed_wanted(Params(**base), cuda)
@@ -249,7 +249,7 @@ def test_fused_chunked_equals_fused_resident(tmp_path, monkeypatch, f32_engine):
     assert reads == [(0, 600)]  # one pass, one slab at this size
     reads.clear()
     chunked, _ = _run(tmp_path, monkeypatch, path, S, N, "chk", "auto", 40000, **kw)
-    chunk = tdist.stream_plan(S, N, CPU, None)[1]
+    chunk = tdist.stream_plan(S, N, CPU, None, False)[1]
     ranges = [(lo, min(lo + chunk, S)) for lo in range(0, S, chunk)]
     assert len(ranges) > 3 and reads == ranges * 3  # full data and each replicate
     for c, r in zip(chunked, resident):
@@ -301,6 +301,6 @@ def test_upload_resident_of_a_handle(tmp_path, monkeypatch, f32_engine):
     reads = []
     orig = src.read_packed
     src.read_packed = lambda lo, hi, out=None: reads.append((lo, hi)) or orig(lo, hi, out=out)
-    P = tdist.upload_resident(src, CPU)
+    P = tdist.upload_resident(src, CPU, False)
     assert reads == [(lo, min(lo + 40, S)) for lo in range(0, S, 40)]
     assert P.dtype == torch.float32 and torch.equal(P, whole)

@@ -52,9 +52,16 @@ def test_kernel_matches_plain(cuda, kind, pairwise_del, weighted):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", sorted(KERNELS))
 def test_kernel_rejects_float64(cuda, kind):
+    """float64 is no longer refused: it goes to the float64 entry and never
+    to the float32 one; a tensor of another dtype raises."""
     P = torch.zeros((4, 3, 3), dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError, match="float32"):
-        KERNELS[kind][0](P, SCORE9, False)
+    mod = indep if kind == "indep" else em
+    before = (mod.LAUNCHES, mod.LAUNCHES_F64)
+    raw, _ = KERNELS[kind][0](P, SCORE9, False)
+    assert raw.dtype == torch.float64
+    assert (mod.LAUNCHES, mod.LAUNCHES_F64) == (before[0], before[1] + 1)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        KERNELS[kind][0](P.half(), SCORE9, False)
 
 
 def _case(cuda, S, N, seed=4):
@@ -305,7 +312,7 @@ def test_streamed_equals_resident(cuda, tmp_path, monkeypatch, kind, fused):
     P.astype("<f8").tofile(geno)
     budget = 12 * 700 * N * 12 // 3  # chunks of 700 sites: 8 for 4999, the last ragged
     monkeypatch.setenv("NGSDIST_DEVICE_BUDGET", str(budget))
-    assert distance.stream_plan(S, N, cuda, None) == (True, 700)
+    assert distance.stream_plan(S, N, cuda, None, False) == (True, 700)
     resident, n_res = _cli_matrices(tmp_path, monkeypatch, "res", geno, S, N, kind, None, fused)
     streamed, n_str = _cli_matrices(tmp_path, monkeypatch, "str", geno, S, N, kind, budget,
                                     fused)
@@ -411,7 +418,7 @@ def test_two_shards_on_two_streams_of_one_card(cuda, kind):
     P = chip_smoke.rand_probs(rng, S, N)
     mesh = pm.make_mesh([cuda, cuda])
     ranges = [(0, S // 8), (S // 8, S)]
-    data = pm.shard_sites(P, mesh, ranges)
+    data = pm.shard_sites(P, mesh, ranges, False)
     stats = pm.ShardStats(mesh, N, SCORE9, kind == "indep", True)
     assert mesh._streams[0] is not mesh._streams[1]
     got = [stats(data) for _ in range(3)]
@@ -553,3 +560,179 @@ def test_lazy_rounds_on_a_card(cuda, tmp_path, monkeypatch, style):
     assert seen == S
     st.close()
     assert list(spill.iterdir()) == []
+
+
+# ------------------------------------------------------------------ #
+# The float64 entries (--x64; K1d, K2d)                               #
+# ------------------------------------------------------------------ #
+
+
+def _case64(cuda, S, N, seed=14):
+    """_case's inputs in float64, not rounded to float32."""
+    rng = np.random.default_rng(seed)
+    P = chip_smoke.rand_probs(rng, S, N, missing=0.1)
+    P[rng.random((S, N)) < 0.01] = 0.0
+    P[rng.integers(S), rng.integers(N)] = np.nan
+    w = torch.from_numpy(rng.integers(0, 4, S).astype(np.float64)).to(cuda)
+    return torch.from_numpy(P).to(cuda), w
+
+
+def _check64(kind, got, plain, P, S=None):
+    """A float64 entry against its float64 plain version: cnt exact, raw
+    within the float64 bounds (chip_smoke.kernel_tol)."""
+    chip_smoke.check_kernel(kind, torch, *got, *plain,
+                            *chip_smoke.kernel_tol(torch, indep, em, P, S))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(KERNELS))
+@pytest.mark.parametrize("pairwise_del", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_f64_kernel_matches_plain(cuda, kind, pairwise_del, weighted):
+    """The full launch, weighted and not: within the float64 bounds of the
+    float64 plain version, rerun byte-identical, one launch of the
+    float64 entry and none of the float32 one."""
+    P, w = _case64(cuda, 777, 130)
+    w = w if weighted else None
+    fn, ref = KERNELS[kind]
+    mod = indep if kind == "indep" else em
+    before = (mod.LAUNCHES, mod.LAUNCHES_F64)
+    got = fn(P, SCORE9, pairwise_del, w)
+    torch.cuda.synchronize()
+    assert (mod.LAUNCHES, mod.LAUNCHES_F64) == (before[0], before[1] + 1)
+    assert got[0].dtype == got[1].dtype == torch.float64
+    _check64(kind, got, ref(P, SCORE9, pairwise_del, w), P)
+    chip_smoke.check_rerun(torch, fn, P, pairwise_del, w, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,S", chip_smoke.CHUNKED_SHAPES)
+@pytest.mark.parametrize("pairwise_del", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_f64_indep_several_chunks_ragged(cuda, N, S, pairwise_del, weighted):
+    P, w = _case64(cuda, S, N)
+    w = w if weighted else None
+    got = indep.indep_raw_cnt(P, SCORE9, pairwise_del, w)
+    _check64("indep", got, indep.indep_raw_cnt_ref(P, SCORE9, pairwise_del, w), P)
+    # the kernel's own order, emulated in plain PyTorch: far inside the bound
+    emu = indep.indep_raw_cnt_f64_order(P, SCORE9, pairwise_del, w)
+    _check64("indep", got, emu, P)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,S", chip_smoke.EM_EDGE_SHAPES)
+@pytest.mark.parametrize("pairwise_del", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_f64_em_tile_edges(cuda, N, S, pairwise_del, weighted):
+    """Across the EM's 32-individual tiles and 2-site step; also against
+    the plain emulation of the kernel's arithmetic (em_raw_cnt_tables),
+    which it follows to a few ulp per lane."""
+    P, w = _case64(cuda, S, N)
+    w = w if weighted else None
+    got = em.em_raw_cnt(P, SCORE9, pairwise_del, w)
+    _check64("em", got, em.em_raw_cnt_ref(P, SCORE9, pairwise_del, w), P)
+    raw_t, cnt_t = em.em_raw_cnt_tables(P, SCORE9, pairwise_del, w)
+    iu = torch.triu_indices(N, N, offset=1, device=cuda)
+    assert torch.equal(got[1][iu[0], iu[1]], cnt_t[iu[0], iu[1]])
+    a, b = got[0][iu[0], iu[1]], raw_t[iu[0], iu[1]]
+    ok = ~torch.isnan(b)
+    assert torch.equal(torch.isnan(a), ~ok)
+    assert bool(((a - b).abs()[ok] <= 32 * 2.0 ** -53 * (1 + S) * cnt_t[iu[0], iu[1]][ok]).all())
+    chip_smoke.check_rerun(torch, em.em_raw_cnt, P, pairwise_del, w, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,S", [(33, 101), (130, 777)])
+@pytest.mark.parametrize("pairwise_del", [False, True])
+def test_f64_em_site_list_gives_the_whole_runs_bytes(cuda, N, S, pairwise_del):
+    """The float64 EM with a site list: the bytes of the run over all
+    sites under the same weights and of the gathered sites."""
+    P, w = _case64(cuda, S, N)
+    keep = ~torch.isfinite(P.sum((1, 2)))
+    w[keep] = 0.0
+    index = torch.nonzero((w != 0) | keep)[:, 0]
+    full = em.em_raw_cnt(P, SCORE9, pairwise_del, w)
+    listed = em.em_raw_cnt(P, SCORE9, pairwise_del, w[index], site_index=index)
+    gathered = em.em_raw_cnt(P.index_select(0, index), SCORE9, pairwise_del, w[index])
+    for a, b, c in zip(full, listed, gathered):
+        assert chip_smoke.same_bytes(torch, a, b) and chip_smoke.same_bytes(torch, b, c)
+    _check64("em", listed, em.em_raw_cnt_ref(P, SCORE9, pairwise_del, w[index],
+                                             site_index=index), P, index.numel())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(KERNELS))
+@pytest.mark.parametrize("p", chip_smoke.TILE_SPLITS)
+def test_f64_tile_lists_hold_the_full_launchs_tiles(cuda, kind, p):
+    """Each pairs-shard's tile list: the full launch's listed tiles byte
+    for byte, zeros elsewhere, one tile launch of the float64 entry each."""
+    from ngsdist_tpu_torch.ops import _build
+    from ngsdist_tpu_torch.parallel import mesh as pm
+
+    N, S = 130, 1500
+    P, w = _case64(cuda, S, N)
+    fn = KERNELS[kind][0]
+    mod = indep if kind == "indep" else em
+    edge, strict = (indep.TILE, False) if kind == "indep" else (em.EM_TILE, True)
+    full = fn(P, SCORE9, True, w)
+    for lst in chip_smoke.tile_lists(pm, kind, N, p):
+        tiles = torch.from_numpy(lst).to(cuda)
+        before = mod.TILE_LAUNCHES_F64
+        got = fn(P, SCORE9, True, w, tiles=tiles)
+        assert mod.TILE_LAUNCHES_F64 - before == (1 if lst.size else 0)
+        mask = _build.tile_mask(N, lst, edge, strict).to(cuda)
+        for g, f in zip(got, full):
+            assert chip_smoke.same_bytes(torch, g[mask], f[mask]) and not bool(g[~mask].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(KERNELS))
+@pytest.mark.parametrize("pairwise_del", [False, True])
+@pytest.mark.parametrize("block_size", chip_smoke.BLOCK_SIZES)
+def test_f64_block_partials_match_plain(cuda, kind, pairwise_del, block_size):
+    """The float64 block modes against their float64 plain versions: C
+    exact, B within f64_sum_bound(block_size) (indep) and
+    em_table_bound(block_size) x C (EM), reruns byte-identical."""
+    n_blocks = chip_smoke.BLOCK_SITES // block_size
+    P, _ = chip_smoke.small_case(np.random.default_rng(block_size), torch,
+                                 n_blocks * block_size, chip_smoke.BLOCK_N, x64=True)
+    mod = indep if kind == "indep" else em
+    before = (mod.BLOCK_LAUNCHES, mod.BLOCK_LAUNCHES_F64)
+    chip_smoke.block_case(torch, indep, em, kind, P, pairwise_del, n_blocks, block_size)
+    torch.cuda.synchronize()
+    assert (mod.BLOCK_LAUNCHES, mod.BLOCK_LAUNCHES_F64) == (before[0], before[1] + 2)
+
+
+@pytest.mark.gpu
+def test_f64_indep_long_block_cnt_exact(cuda):
+    P, _ = chip_smoke.small_case(np.random.default_rng(6), torch,
+                                 2 * chip_smoke.LONG_BLOCK, 64, x64=True)
+    chip_smoke.block_case(torch, indep, em, "indep", P, True, 2, chip_smoke.LONG_BLOCK)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(KERNELS))
+def test_f64_cli_run_matches_its_float32_twin(cuda, tmp_path, monkeypatch, kind):
+    """The CLI under --x64 on the card launches the float64 entries only,
+    and its matrices lie within the float32 policy's bounds of the float32
+    run (the float32 one is the less exact of the two)."""
+    from ngsdist_tpu_torch import cli
+
+    rng = np.random.default_rng(15)
+    S, N = 2000, 96
+    geno = tmp_path / "p.bin"
+    chip_smoke.rand_probs(rng, S, N).astype("<f8").tofile(geno)
+    mod = indep if kind == "indep" else em
+    outs = {}
+    for x64 in (False, True):
+        out = tmp_path / f"{x64}.dist"
+        args = ["--geno", str(geno), "--probs", "--n_ind", str(N), "--n_sites", str(S),
+                "--evol_model", "0", "--out", str(out), "--verbose", "0", "--platform", "cuda"]
+        args += ["--indep_geno", "--pairwise_del"] if kind == "indep" else []
+        before = (mod.LAUNCHES, mod.LAUNCHES_F64)
+        assert cli.main(args + (["--x64"] if x64 else [])) == 0
+        assert (mod.LAUNCHES - before[0], mod.LAUNCHES_F64 - before[1]) == (
+            (0, 1) if x64 else (1, 0))
+        outs[x64] = chip_smoke.read_phylip(str(out))[0]
+    tol = (chip_smoke.POLICY_INDEP_RTOL if kind == "indep" else chip_smoke.POLICY_EM_ATOL_CNT)
+    assert np.abs(outs[True] - outs[False]).max() <= 2 * tol + 2e-10

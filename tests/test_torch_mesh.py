@@ -468,11 +468,11 @@ def test_streamed_mesh_resumes_to_identical_bytes(tmp_path, monkeypatch):
     monkeypatch.setattr(tdist, "em_raw_cnt", spy)
     with pytest.raises(KeyboardInterrupt):
         list(tdist.iter_replicates(pars, P, [], S, CPU, round_ckpt=True, mesh=mesh))
-    got = ckpt.load_rounds(pars.out, pars, 0, engine=tdist.engine_name(CPU),
+    got = ckpt.load_rounds(pars.out, pars, 0, engine=tdist.engine_name(CPU, False),
                            chunk=st.layout())
     assert got is not None and got[0] == 2
     # another site split does not resume this file
-    assert ckpt.load_rounds(pars.out, pars, 0, engine=tdist.engine_name(CPU),
+    assert ckpt.load_rounds(pars.out, pars, 0, engine=tdist.engine_name(CPU, False),
                             chunk=pmh.SiteStream.from_array(P, pars, _cpu_mesh(4)).layout()) is None
     spy.kill = False
     calls.clear()
@@ -502,7 +502,7 @@ def test_matrix_resume_across_mesh_shapes(tmp_path, monkeypatch):
     monkeypatch.setattr(signals, "stop_requested", lambda: next(stops, False))
     first = runner.run(Params(out=out, **kw), mesh=_cpu_mesh(4))
     assert len(first) == 2 and ckpt.load(out, Params(out=out, **kw),
-                                         engine=tdist.engine_name(CPU)) == 2
+                                         engine=tdist.engine_name(CPU, False)) == 2
     rest = runner.run(Params(out=out, **kw), mesh=_cpu_mesh(4, pairs=2), resume=True)
     assert len(rest) == 2
     for g, w in zip(first + rest, whole):

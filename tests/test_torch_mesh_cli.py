@@ -90,7 +90,10 @@ def test_cli_mesh_streamed_matches_jax(tmp_path, monkeypatch, family):
                  id="num_processes-needs-coordinator"),
     pytest.param(["--process_id", "0"], "--process_id needs --coordinator",
                  id="process_id-needs-coordinator"),
-    (["--x64"], "--x64 is not yet supported"),
+    # --x64 runs now; the case, under its old id, holds the refusal
+    # of --trace_dir, the one option still refused
+    pytest.param(["--trace_dir", "trace"], "--trace_dir is not yet supported",
+                 id="extra3---x64 is not yet supported"),
 ])
 def test_cli_mesh_errors(extra, needle, tmp_path, monkeypatch, capsys):
     """A device count that --pairs does not divide is the JAX package's

@@ -206,7 +206,7 @@ def test_port_resume_keys_on_device_and_dtype(tmp_path, monkeypatch):
     monkeypatch.chdir(DATA_DIR)
     pars, _ = jax_cli.parse_args(["--geno", "gt.geno.gz", "--n_ind", "20",
                                   "--n_sites", "1200", "--out", str(tmp_path / "x")])
-    cpu = tdist.engine_name(torch.device("cpu"))
+    cpu = tdist.engine_name(torch.device("cpu"), False)
     assert cpu == "torch-cpu-float64"
     assert (ckpt.run_fingerprint(pars, cpu)
             != ckpt.run_fingerprint(pars, "torch-cuda-float32"))
@@ -243,13 +243,15 @@ def test_partials_rule_at_the_smoke_shapes():
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")  # no card needed
     n = chip_smoke.N_IND
-    assert not tdist.use_partials(chip_smoke.INDEP_SITES // chip_smoke.BOOT_BLOCK, n, True, cuda)
-    assert tdist.use_partials(chip_smoke.EM_SITES // chip_smoke.EM_BOOT_BLOCK, n, False, cuda)
+    assert not tdist.use_partials(chip_smoke.INDEP_SITES // chip_smoke.BOOT_BLOCK, n, True, cuda,
+                                  False)
+    assert tdist.use_partials(chip_smoke.EM_SITES // chip_smoke.EM_BOOT_BLOCK, n, False, cuda,
+                              False)
     assert tdist.use_partials(chip_smoke.INDEP_SITES // chip_smoke.INDEP_BOOT_BLOCK, n, True,
-                              cuda)
+                              cuda, False)
     for n_blocks, pdel in ((64, False), (64, True), (65, True), (256, True), (1, False)):
         jax_rule = n_blocks * n * n * 8 * (2 if pdel else 1) <= (1 << 30)
-        assert tdist.use_partials(n_blocks, n, pdel, cpu) == jax_rule
+        assert tdist.use_partials(n_blocks, n, pdel, cpu, False) == jax_rule
 
 
 @pytest.mark.parametrize("indep", [False, True], ids=["em", "indep"])
@@ -321,7 +323,7 @@ def _resume_case(tmp_path, monkeypatch, capsys):
     open(out, "wb").write(b"\n20\n".join(blocks[:3]))
     pars, _ = jax_cli.parse_args(args)
     pars.finalize()
-    ckpt.save(out, pars, 2, engine=tdist.engine_name(torch.device("cpu")))
+    ckpt.save(out, pars, 2, engine=tdist.engine_name(torch.device("cpu"), False))
     capsys.readouterr()
     calls = _spy_routes(monkeypatch)
     assert cli.main(args + ["--resume", "--verbose", "1"]) == 0

@@ -84,7 +84,7 @@ def test_stream_plan_on_the_cpu_is_the_jax_rule(monkeypatch, budget):
         jbudget = jdist._device_budget_bytes()
         chunked = S * N * 3 * 8 > jbudget
         chunk = jdist._stream_chunk_sites(S, N, 8, jbudget) if chunked else S
-        assert tdist.stream_plan(S, N, CPU, None) == (chunked, chunk)
+        assert tdist.stream_plan(S, N, CPU, None, False) == (chunked, chunk)
 
 
 def test_stream_plan_of_a_card_left_to_itself(monkeypatch):
@@ -95,22 +95,22 @@ def test_stream_plan_of_a_card_left_to_itself(monkeypatch):
     like the CPU.  The plan reads no card, so it is held here."""
     cuda = torch.device("cuda")
     monkeypatch.delenv("NGSDIST_DEVICE_BUDGET", raising=False)
-    assert tdist.check_fits(1000, 64, CPU, True) is None
-    assert tdist.stream_plan(1000, 64, cuda, 0) == (False, 1000)
+    assert tdist.check_fits(1000, 64, CPU, True, False) is None
+    assert tdist.stream_plan(1000, 64, cuda, 0, False) == (False, 1000)
     S, N = 5_000_000, 2048
     tensor = S * N * 12                      # 122.9 GB in float32
     for free in (70 << 30, 8 << 30, 1 << 30):
-        chunked, chunk = tdist.stream_plan(S, N, cuda, free - tensor)
+        chunked, chunk = tdist.stream_plan(S, N, cuda, free - tensor, False)
         assert chunked and chunk >= 1
         assert chunk * N * 12 <= tdist._CUDA_MAX_CHUNK_BYTES
         assert (2 * 3 + 2) * chunk * N * 12 // 3 <= free
-    assert tdist.stream_plan(S, N, cuda, (70 << 30) - tensor)[1] == (1 << 30) // (N * 12)
+    assert tdist.stream_plan(S, N, cuda, (70 << 30) - tensor, False)[1] == (1 << 30) // (N * 12)
     monkeypatch.setenv("NGSDIST_DEVICE_BUDGET", str(12 << 20))
     want = jdist._stream_chunk_sites(S, N, 4, jdist._device_budget_bytes())
-    assert tdist.stream_plan(S, N, cuda, None) == (True, want)
+    assert tdist.stream_plan(S, N, cuda, None, False) == (True, want)
     # the kernels' working set: outputs, pair vectors, sums, weights, chunk partials
-    assert tdist.working_set_bytes(4096, 1024, cuda, False) < tdist.working_set_bytes(
-        4096, 1024, cuda, True)
+    assert tdist.working_set_bytes(4096, 1024, cuda, False, False) < tdist.working_set_bytes(
+        4096, 1024, cuda, True, False)
 
 
 def test_exact_count_parts():
@@ -147,7 +147,7 @@ def test_streamed_matches_jax_and_resident(tmp_path, monkeypatch, indep, pairwis
     resident = list(tdist.iter_replicates(_pars(Params, tmp_path, S, N, **kw), P, maps,
                                           n_trunc, CPU))
     monkeypatch.setenv("NGSDIST_DEVICE_BUDGET", str(_budget_for(16, N)))
-    assert tdist.stream_plan(S, N, CPU, None) == (True, 16)
+    assert tdist.stream_plan(S, N, CPU, None, False) == (True, 16)
     calls = []
     for name in ("indep_raw_cnt", "em_raw_cnt"):
         def spy(Psub, *a, _fn=getattr(tdist, name), **k):
@@ -176,7 +176,7 @@ def test_streamed_zero_row_poison_matches_jax(tmp_path, monkeypatch, reps):
     kw = dict(n_boot_rep=reps, boot_block_size=bs)
     n_trunc, maps = jboot.site_maps(3, reps, S, bs)
     monkeypatch.setenv("NGSDIST_DEVICE_BUDGET", str(_budget_for(10, N)))
-    assert tdist.stream_plan(S, N, CPU, None) == (True, 10)
+    assert tdist.stream_plan(S, N, CPU, None, False) == (True, 10)
     got = list(tdist.iter_replicates(_pars(Params, tmp_path, S, N, **kw), P, maps, n_trunc,
                                      CPU))
     want = list(jdist.iter_replicates(_pars(JParams, tmp_path, S, N, **kw), P, maps, n_trunc))
@@ -207,7 +207,7 @@ def test_round_resume_after_a_kill(tmp_path, monkeypatch):
     P = _rand_probs(rng, S, N)
     pars = _pars(Params, tmp_path, S, N, indep_geno=True, pairwise_del=True)
     monkeypatch.setenv("NGSDIST_DEVICE_BUDGET", str(_budget_for(16, N)))
-    eng = tdist.engine_name(CPU)
+    eng = tdist.engine_name(CPU, False)
 
     expected = list(tdist.iter_replicates(pars, P, [], S, CPU))
     assert not os.path.exists(ckpt.rounds_path(pars.out))  # no file unless asked
@@ -250,7 +250,7 @@ def test_round_resume_of_a_bootstrap_replicate(tmp_path, monkeypatch):
     with pytest.raises(KeyboardInterrupt):
         list(tdist.iter_replicates(pars, P, maps, n_trunc, CPU, round_ckpt=True,
                                    start_rep=1))
-    eng = tdist.engine_name(CPU)
+    eng = tdist.engine_name(CPU, False)
     assert ckpt.load_rounds(pars.out, pars, 0, engine=eng, chunk=12) is None
     got = ckpt.load_rounds(pars.out, pars, 1, engine=eng, chunk=12)
     assert got is not None and got[0] == 2 and set(got[1]) == {"raw", "cnt"}
@@ -274,14 +274,14 @@ def test_round_ckpt_ignored_on_mismatch(tmp_path, monkeypatch, what):
     monkeypatch.setenv("NGSDIST_DEVICE_BUDGET", str(_budget_for(16, N)))
     clean = list(tdist.iter_replicates(pars, P, [], S, CPU))
 
-    eng = tdist.engine_name(CPU)
+    eng = tdist.engine_name(CPU, False)
     stale = {"raw": np.full(N * (N - 1) // 2, 1e9)}
     if what == "seed":
         ckpt.save_rounds(pars.out, _pars(Params, tmp_path, S, N, indep_geno=True, seed=99),
                          0, 2, stale, engine=eng, chunk=16)
     elif what == "engine":
         ckpt.save_rounds(pars.out, pars, 0, 2, stale,
-                         engine=tdist.engine_name(torch.device("cuda")), chunk=16)
+                         engine=tdist.engine_name(torch.device("cuda"), False), chunk=16)
     elif what == "chunk":
         ckpt.save_rounds(pars.out, pars, 0, 2, stale, engine=eng, chunk=8)
     else:
@@ -296,7 +296,7 @@ def test_round_ckpt_single_file_atomic(tmp_path):
     """The rounds checkpoint commits in one os.replace (metadata inside
     the npz): a torn file reads as no checkpoint, and `clear` removes it."""
     pars = _pars(Params, tmp_path, 64, 4, indep_geno=True)
-    eng = tdist.engine_name(CPU)
+    eng = tdist.engine_name(CPU, False)
     ckpt.save_rounds(pars.out, pars, 0, 3, {"raw": np.ones(6)}, engine=eng, chunk=16)
     path = ckpt.rounds_path(pars.out)
     assert os.listdir(tmp_path) == [os.path.basename(path)]  # no second file to tear

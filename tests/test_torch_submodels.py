@@ -138,7 +138,7 @@ def test_extended_streamed_matches_jax_and_resident(tmp_path, monkeypatch, model
     resident = list(tdist.iter_replicates(_pars(Params, tmp_path, S, N, model, kind, **kw), P,
                                           maps, n_trunc, CPU, alleles=alleles))
     monkeypatch.setenv("NGSDIST_DEVICE_BUDGET", str(_budget_for(16, N)))
-    assert tdist.stream_plan(S, N, CPU, None) == (True, 16)
+    assert tdist.stream_plan(S, N, CPU, None, False) == (True, 16)
     calls = []
     name = "indep_raw_cnt" if KINDS[kind][0] else "em_raw_cnt"
 
@@ -184,7 +184,7 @@ def test_extended_round_resume_after_a_kill(tmp_path, monkeypatch, model, kind):
     with pytest.raises(KeyboardInterrupt):
         list(tdist.iter_replicates(pars, P, maps, n_trunc, CPU, alleles=alleles,
                                    round_ckpt=True, start_rep=1))
-    eng = tdist.engine_name(CPU)
+    eng = tdist.engine_name(CPU, False)
     assert ckpt.load_rounds(pars.out, pars, 0, engine=eng, chunk=12) is None
     got = ckpt.load_rounds(pars.out, pars, 1, engine=eng, chunk=12)
     keys = {f"raw_{cl}" for cl in tdist.CLASSES} | {"pi"}
