@@ -509,9 +509,14 @@ struct SmemD {
 // lane/4, column lane%4), b the column-major B's (row lane%4, column
 // lane/4), d the two entries (row lane/4, columns 2 (lane%4) + 0, 1).
 __device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
+#ifdef NGSD_INDEP_F64_SKIP_MMA
+  d[0] = __longlong_as_double(__double_as_longlong(d[0]) ^ __double_as_longlong(a) ^
+                              __double_as_longlong(b));
+#else
   asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};\n"
       : "+d"(d[0]), "+d"(d[1])
       : "d"(a), "d"(b));
+#endif
 }
 
 // Launched, and its arguments read, as indep_mma_kernel; P, w, raw and cnt
@@ -552,10 +557,16 @@ indep_f64_kernel(const double* __restrict__ P, const double* __restrict__ w,
       const long long s = s0 + sl;
       q[sl][0] = q[sl][1] = q[sl][2] = 0.0;
       if (s < c_end && ind < N) {
+#ifdef NGSD_INDEP_F64_SKIP_LOAD
+        q[sl][0] = (double)(s + ind);
+        q[sl][1] = (double)(s - ind);
+        q[sl][2] = (double)(s ^ ind);
+#else
         const double* p = P + (s * N + ind) * 3;
         q[sl][0] = p[0];
         q[sl][1] = p[1];
         q[sl][2] = p[2];
+#endif
       }
     }
   };
@@ -566,6 +577,14 @@ indep_f64_kernel(const double* __restrict__ P, const double* __restrict__ w,
 #pragma unroll
     for (int sl = 0; sl < kDSites; ++sl) {
       const double p0 = q[sl][0], p1 = q[sl][1], p2 = q[sl][2];
+#ifdef NGSD_INDEP_F64_SKIP_FOLD
+      double(*o)[kDLd] = side == 0 ? sm.a[buf] : sm.b[buf];
+      o[0 * kDSites + sl][col] = p0;
+      o[1 * kDSites + sl][col] = p1;
+      o[2 * kDSites + sl][col] = p2;
+      (side == 0 ? sm.va[buf] : sm.vb[buf])[sl][col] = p0;
+      continue;
+#endif
       double v = (p0 + p1 + p2) > 0.0 ? 1.0 : 0.0;
       if (kPairwiseDel) v = v * ngsd::nonmissing(p0, p1, p2);
       if (side == 0) {
