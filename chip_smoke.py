@@ -10,7 +10,8 @@ Phases, each of which fails the run loudly:
 1. Card identity (nvidia-smi name and power limit); build the port's
    native host runtime (C, the host compiler) and the CUDA kernels from
    this checkout; the indep kernel's machine code must hold tensor-core
-   (HMMA) instructions.
+   (HMMA) instructions, and K1d's (indep_f64_kernel) FP64 tensor-core
+   (DMMA) ones, logged by shape.
 2. Each kernel against its plain PyTorch version in float64 on the
    card, on the same float32 inputs, at small ragged shapes with NaN and
    all-zero rows: cnt exact, indep raw within INDEP_RTOL relative, EM
@@ -148,16 +149,18 @@ Phases, each of which fails the run loudly:
    version's (float32), its bound (the least time the card could take:
    the larger of its bytes over PEAK_BYTES and its operations, counted
    from this run's data, over the peak rate of their type) and, indep,
-   the PyTorch calls that compute the same function; the EM times
-   beside those of the kernel before its redesign (EM_MS_BEFORE); and
+   the PyTorch calls that compute the same function; the EM and K1d
+   times beside those of the kernels before their redesigns
+   (EM_MS_BEFORE, INDEP_F64_MS_BEFORE); and
    the kernel held there against the float64 plain version on the same
    inputs; the float64 entries (K1d, K2d, their tile lists and block
    modes) on the same values in float64, beside their bounds (K1d's
    operations at the float64 tensor cores' peak), the float64 plain
-   version and, K1d, the float64 einsum and product.  Both full modes also
-   at 2048 individuals (WIDE_N; seeded on the card; the EM at
-   WIDE_EM_SITES), held against the float64 plain version on a
-   64-individual sub-matrix.  The class sums of models 3-6 in both forms, three
+   version and, K1d, the float64 einsum and product.  Both full modes, and
+   K1d on the same values in float64, also at 2048 individuals (WIDE_N;
+   seeded on the card; the EM at WIDE_EM_SITES), held against the float64
+   plain version on a 64-individual sub-matrix (K1d within
+   f64_sum_bound, its rerun byte-identical).  The class sums of models 3-6 in both forms, three
    weighted launches on the whole tensor against three launches on each
    class's sites only, timed at (g)'s and (h)'s shapes: the EM's bytes
    must be equal (it adds a lane's sites in order, and a site of weight
@@ -200,6 +203,7 @@ import gc
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -234,6 +238,9 @@ PEAK_F64_TC = 67e12   # float64 on the tensor cores (mma .f64, the --x64 indep k
 # The EM kernel before its redesign (one float64 lane per pair and site,
 # exp/log powers), same shapes, NVIDIA H100 80GB HBM3 at 700.00 W.
 EM_MS_BEFORE = {"em_raw_cnt": 903.429, "em_block_partials": 907.152}
+# K1d, the float64 indep kernel, before its redesign for the FP64 tensor
+# cores (mma.sync m8n8k4), same shapes, NVIDIA H100 80GB HBM3 at 700.00 W.
+INDEP_F64_MS_BEFORE = {"indep_raw_cnt_f64": 14.166, "indep_block_partials_f64": 13.716}
 BLOCK_N = 130                    # block modes at small shapes: individuals,
 BLOCK_SIZES = (1, 5, 37, 256)    # sites per bootstrap block,
 BLOCK_SITES = 777                # and sites before truncation to whole blocks
@@ -984,6 +991,33 @@ def phase_wide(torch, indep, em, card, report) -> None:
            indep_bound(INDEP_SITES, WIDE_N, 2 * 4 * WIDE_N * WIDE_N), ms_lib,
            wrapper="indep_raw_cnt")
 
+    # K1d, the --x64 entry, on the same values in float64
+    P64 = P32.double()
+    del raw, cnt
+    ms_k = time_cuda(torch, lambda: indep.indep_raw_cnt(P64, SCORE9, True), 5)
+    ms_p = time_cuda(torch, lambda: indep.indep_raw_cnt_ref(P64, SCORE9, True), 3)
+    torch.cuda.empty_cache()
+    got = indep.indep_raw_cnt(P64, SCORE9, True)
+    if not all(same_bytes(torch, a, b) for a, b in zip(got, indep.indep_raw_cnt(
+            P64, SCORE9, True))):
+        raise AssertionError(f"indep float64 entry: rerun differs at {WIDE_N} individuals")
+    rtol = kernel_tol(torch, indep, em, P64)[0]
+    rel, err = check_kernel("indep", torch, sub(got[0]), sub(got[1]), *indep.indep_raw_cnt_ref(
+        P64[:, idx], SCORE9, True), rtol=rtol)
+    del got
+    ms_lib = time_cuda(torch, indep_library_call(torch, indep, P64, 1, INDEP_SITES), 3)
+    del P64
+    torch.cuda.empty_cache()
+    log(f"phase 4: indep float64 entry {WIDE_N} x {INDEP_SITES} pairwise_del: kernel "
+        f"{ms_k:.3f} ms, plain float64 {ms_p:.3f} ms, one-call PyTorch version (float64 einsum "
+        f"and product) {ms_lib:.3f} ms; 64-individual sub-matrix vs float64 plain: max rel raw "
+        f"err {rel:.3e} (bound {rtol:.3e}), max |raw/cnt err| {err:.3e}, rerun byte-identical "
+        f"[{card}]")
+    report(f"indep_raw_cnt_f64_n{WIDE_N}", "ngsdist_tpu_torch/csrc/indep.cu",
+           "ngsdist_tpu/core/distance.py:332", err, "raw/cnt", ms_k, ms_p,
+           indep_bound(INDEP_SITES, WIDE_N, 2 * 8 * WIDE_N * WIDE_N, f64=True), ms_lib,
+           wrapper="indep_raw_cnt_f64")
+
     P32 = P32[:WIDE_EM_SITES].contiguous()
     torch.cuda.empty_cache()
     ms_k = time_cuda(torch, lambda: em.em_raw_cnt(P32, SCORE9, False), 3)
@@ -1133,20 +1167,24 @@ def phase_class_sums(torch, indep, em, distance, submodels, P32, alleles, card) 
     torch.cuda.empty_cache()
 
 
-def hmma_count(nvcc: str, path: str, kernel: str) -> int:
-    """HMMA (tensor-core) instructions in the machine code of the kernels
-    of the library at path whose name holds `kernel`, by the cuobjdump
-    of the toolkit whose nvcc built it."""
+def mma_ops(nvcc: str, path: str, kernel: str, opcode: str) -> dict:
+    """{instruction: count} of the tensor-core instructions named
+    `opcode` (HMMA, DMMA), each with its shape suffix as cuobjdump prints
+    it, in the machine code of the kernels of the library at path whose
+    name holds `kernel`, by the cuobjdump of the toolkit whose nvcc built
+    it."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([tool, "--dump-sass", path], capture_output=True, text=True,
                           check=True).stdout
-    count, inside = 0, False
+    ops, inside = {}, False
     for line in sass.splitlines():
         if "Function :" in line:
             inside = kernel in line
-        elif inside and "HMMA" in line:
-            count += 1
-    return count
+        elif inside:
+            m = re.search(rf"\b({opcode}\S*)", line)
+            if m:
+                ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return ops
 
 
 def card_line() -> str:
@@ -2347,10 +2385,16 @@ def main() -> int:
         for line in fh:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("  ptxas: " + line.strip())
-    hmma = hmma_count(_build._nvcc(), _build.library_path(), "indep_mma_kernel")
+    hmma = sum(mma_ops(_build._nvcc(), _build.library_path(), "indep_mma_kernel",
+                       "HMMA").values())
     if hmma == 0:
         raise AssertionError("the indep kernel's machine code holds no HMMA instruction")
     log(f"phase 1: indep kernel SASS: {hmma} HMMA instructions over its instantiations")
+    dmma = mma_ops(_build._nvcc(), _build.library_path(), "indep_f64_kernel", "DMMA")
+    if not dmma:
+        raise AssertionError("K1d's machine code holds no DMMA instruction")
+    log(f"phase 1: K1d (indep_f64_kernel) SASS: {sum(dmma.values())} DMMA instructions over "
+        f"its instantiations, by instruction: {dmma}")
 
     # Phase 2: kernel against plain at small ragged shapes.
     phase_small_shapes(torch, indep, em)
@@ -2635,7 +2679,7 @@ def main() -> int:
            "ngsdist_tpu/core/distance.py:418", err, "B/C", ms_k, ms_p64,
            em_bound(work, EM_SITES, N_IND, 2 * 8 * nb * (N_IND * (N_IND - 1) // 2), f64=True),
            None)
-    for name, before in EM_MS_BEFORE.items():
+    for name, before in {**EM_MS_BEFORE, **INDEP_F64_MS_BEFORE}.items():
         now = next(k["ms"] for k in kernels if k["name"] == name)
         log(f"phase 4: {name}: {now:.3f} ms, before its redesign {before:.3f} ms "
             f"({before / now:.2f}x) [{card}]")

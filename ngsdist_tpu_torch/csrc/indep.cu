@@ -75,18 +75,36 @@
 // (ngsdist_tpu/core/distance.py:332, :365) in float64.  The same
 // statistics, weights, tile lists, block mode, split over sites
 // (split_plan) and chunk reduce, on a float64 [S, N, 3] tensor, by a
-// kernel of its own (indep_f64_kernel): the fold (mask, weight, score)
-// in float64 into double-buffered operand tiles in shared memory, then
-// mma.sync m8n8k4 with .f64 operands and float64 accumulators for raw and
-// cnt alike, so no split of the operands, no window and no count flush.
-// 128 threads own a 64 x 64 tile, 2 x 2 warps of 32 x 32; each thread
-// prefetches its next step's 4 sites into registers while the tensor
-// cores run the current one; one barrier per step.  Operand rows are
-// padded 64 -> 68 doubles: fragment loads are free of bank conflicts.
-// What bounds it: the FP64 tensor cores (67 TFLOP/s dense on an H100
-// SXM); every two m8n8k4 take one 8-byte fragment load from shared
-// memory, so shared-memory bandwidth is about as tight.  A simple first
-// kernel (PERF.md has its time beside its bound); the sums' order is
+// kernel of its own (indep_f64_kernel), every sum in float64, so no split
+// of the operands, no window and no count flush.  Design, for Hopper's
+// FP64 tensor cores:
+// - mma.sync m16n8k8 .f64 (sm_90): a step of 8 sites is one k8 depth per
+//   operand plane (genotypes 0, 1, 2 into raw; the masks into cnt).  On
+//   an H100 the sm_90 shapes (m16n8k4, k8, k16) run at the full 66
+//   TFLOP/s and m8n8k4, the only shape before sm_90, at half of it
+//   (profile_indep_parts.py's rate loop).
+// - 128 threads own a 64 x 64 tile, 2 x 2 warps of 32 x 32.  Both sides'
+//   raw rows (1,536 contiguous bytes a side and site) are staged by
+//   cp.async, 16 bytes a copy (8 when a row does not start on 16 bytes),
+//   two steps ahead into a ring of two stages; each thread's copies are a
+//   base pointer plus constants.
+// - The fold (validity mask, missing test, weight, score) runs once per
+//   column, side and site for the whole block, spread over all threads,
+//   into double-buffered operand planes laid out as the MMA reads them:
+//   a thread's fragment pair is one 16-byte word, swizzled so that the
+//   fragment loads and the fold's stores are free of bank conflicts.
+//   The fold of step t + 1 runs between the MMAs of step t, in one basic
+//   block; one barrier per step.
+// What bounds it: the FP64 tensor cores (4.2 ms of MMAs at 1024 x 65,536
+// at the measured rate), and beside them the fold and the shared memory.
+// The fold's float64 arithmetic does not overlap the FP64 MMAs: DFMAs
+// beside them cost more than their own time (the rate loop's overlap
+// tests), so the fold is done once per block and not once per warp, and
+// its masks take no branch.  Staged rows, folded planes and fragments
+// move about 18 KB of shared memory per site and tile.  114,816 bytes of
+// shared memory and up to 255 registers: two blocks (8 warps) an SM,
+// which the accumulators' 128 registers a thread and the ring allow; the
+// ring hides the copies' latency, not more warps.  The sums' order is
 // fixed by (N, S), so reruns are byte-identical.
 
 #include <limits.h>
@@ -490,39 +508,95 @@ indep_reduce_kernel(const double* __restrict__ part, OutT* __restrict__ raw,
 // K1d: the float64 kernel                                             //
 // ------------------------------------------------------------------ //
 
-constexpr int kDSites = 4;            // sites per step: one m8n8k4 depth per genotype
-constexpr int kDK = 3 * kDSites;      // raw reduction depth per step
-constexpr int kDThreads = 128;        // 2 x 2 warps of 32 x 32 outputs
-constexpr int kDLd = kTile + 4;       // padded operand row (doubles)
+constexpr int kDSites = 8;          // sites per step: one m16n8k8 depth per plane
+constexpr int kDStages = 2;         // cp.async ring: steps t + 1 (folded) and t + 2 (landing)
+constexpr int kDPlanes = 4;         // operand planes: genotypes 0, 1, 2 (raw) and v (cnt)
+constexpr int kDThreads = 128;      // 2 x 2 warps of 32 x 32 outputs
+constexpr int kDRow = 3 * kTile;    // doubles of one side's staged row of a site
 
-static_assert(kDThreads == 2 * kTile, "one thread per side and column of a tile");
+static_assert(kDThreads == 2 * kTile, "two fold units a thread and side");
+static_assert(kDSites == 8, "a step is one k8 depth: sites k and k + 4 are a fragment pair");
 
-// One step's operands, double-buffered: 34,816 bytes.
+// 114,816 bytes: two blocks fit on an SM (228 KB, 1 KB reserved a block).
+// The folded operands are laid out as the MMA reads them, a thread's
+// fragment pair one 16-byte word: the i side (A) as [k][row pair], the
+// pair rows m, m + 8 of one 16-row block (pair index 8 (m / 16) + m % 8);
+// the j side (B) as [k % 4][column][k / 4], the pair sites k, k + 4.
+// Both swizzle the pair index by 2 (k % 4), which sends the 8 lanes of a
+// quarter warp to 8 distinct 16-byte bank groups, for the fragment loads
+// and the fold's stores alike.
 struct SmemD {
-  double a[2][kDK][kDLd];       // i side: P_g * v * w, k = g * kDSites + site
-  double b[2][kDK][kDLd];       // j side: score-folded P * v
-  double va[2][kDSites][kDLd];  // i side: v * w
-  double vb[2][kDSites][kDLd];  // j side: v
+  double ring[kDStages][2][kDSites][kDRow];  // staged P rows [stage][side][site][3 col + g]
+  double opa[2][kDPlanes][kDSites][kTile / 2][2];  // i side [buf][plane][k][row pair ^][2]
+  double opb[2][kDPlanes][4][kTile][2];            // j side [buf][plane][k % 4][column ^][k / 4]
+  double wt[kDStages][kDSites];              // staged site weights [stage][site]
 };
 
-// d += a * b on an 8x8x4 float64 tile: a the row-major A's entry (row
-// lane/4, column lane%4), b the column-major B's (row lane%4, column
-// lane/4), d the two entries (row lane/4, columns 2 (lane%4) + 0, 1).
-__device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, bool full) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(full ? 8 : 0)
+               : "memory");
+}
+
+// d += A B on a 16x8x8 float64 tile (sm_90): A row-major with entries
+// a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B
+// column-major with b0 (t, g), b1 (t + 4, g); d (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1); g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma_f64(double (&d)[4], double2 a01, double2 a23, double2 b) {
 #ifdef NGSD_INDEP_F64_SKIP_MMA
-  d[0] = __longlong_as_double(__double_as_longlong(d[0]) ^ __double_as_longlong(a) ^
-                              __double_as_longlong(b));
+  d[0] = __longlong_as_double(__double_as_longlong(d[0]) ^ __double_as_longlong(a01.x) ^
+                              __double_as_longlong(a01.y) ^ __double_as_longlong(a23.x) ^
+                              __double_as_longlong(a23.y) ^ __double_as_longlong(b.x) ^
+                              __double_as_longlong(b.y));
 #else
-  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};\n"
-      : "+d"(d[0]), "+d"(d[1])
-      : "d"(a), "d"(b));
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a01.x), "d"(a01.y), "d"(a23.x), "d"(a23.y), "d"(b.x), "d"(b.y));
+#endif
+}
+
+// The fold of one staged triple p into its four operand values: the
+// validity v (row nonzero, and under pairwise deletion not missing) as a
+// predicate, o[g] = P_g v ws (i side, ws the site weight) or
+// sum_h score[g][h] P_h v (j side), o[3] = v ws or v.  Masks multiply, so
+// a NaN row stays NaN.
+template <bool kSideI, bool kWeighted, bool kPairwiseDel>
+__device__ __forceinline__ void fold_f64(const double* p, double ws, const ngsd::Score9d& sc,
+                                         double (&o)[4]) {
+  const double p0 = p[0], p1 = p[1], p2 = p[2];
+#ifdef NGSD_INDEP_F64_SKIP_FOLD
+  o[0] = p0;
+  o[1] = p1;
+  o[2] = p2;
+  o[3] = ws;
+#else
+  // bitwise, not short-circuit: no branch, so the folds interleave
+  bool valid = (p0 + p1 + p2) > 0.0;
+  if (kPairwiseDel)
+    valid &= (fabs(p0 - p1) >= ngsd::kEpsilonD) | (fabs(p1 - p2) >= ngsd::kEpsilonD);
+  const double v = valid ? 1.0 : 0.0;
+  if (kSideI) {
+    const double vi = kWeighted ? v * ws : v;
+    o[0] = p0 * vi;
+    o[1] = p1 * vi;
+    o[2] = p2 * vi;
+    o[3] = vi;
+  } else {
+    const double x0 = p0 * v, x1 = p1 * v, x2 = p2 * v;
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      o[g] = sc.v[3 * g + 0] * x0 + sc.v[3 * g + 1] * x1 + sc.v[3 * g + 2] * x2;
+    o[3] = v;
+  }
 #endif
 }
 
 // Launched, and its arguments read, as indep_mma_kernel; P, w, raw and cnt
-// in float64.
-template <bool kWeighted, bool kPairwiseDel>
-__global__ void __launch_bounds__(kDThreads)
+// in float64.  kVec16: every row starts on 16 bytes (N even, P aligned).
+template <bool kWeighted, bool kPairwiseDel, bool kVec16>
+__global__ void __launch_bounds__(kDThreads, 2)
 indep_f64_kernel(const double* __restrict__ P, const double* __restrict__ w,
                  double* __restrict__ raw, double* __restrict__ cnt,
                  double* __restrict__ part, long long S, int N, long long tiles,
@@ -544,105 +618,146 @@ indep_f64_kernel(const double* __restrict__ P, const double* __restrict__ w,
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
   const int m0 = (warp / 2) * 32, n0 = (warp % 2) * 32;
-  // this thread's fold column: side (0: i, 1: j) and individual col
-  const int side = tid / kTile, col = tid % kTile;
-  const int ind = (side == 0 ? i0 : j0) + col;
-
-  // The step's triples of this thread's individual, zero past the chunk
-  // end or past N (an all-zero row is inert).
-  double q[kDSites][3];
-  auto fetch = [&](long long s0) {
+  // This thread's copies: warp w stages sites 2 w and 2 w + 1 of both
+  // sides, lane l the 16-byte pieces l, l + 32, l + 64 of each row (8-byte
+  // pieces l + 32 c, c < 6, unless kVec16), so that a piece's address is
+  // the side's base pointer plus a constant.  Pieces past the chunk end or
+  // past N are zero filled (a copy of 0 bytes reads nothing), so the steps
+  // past the last are staged like any other.  Weighted: the step's 8
+  // site weights.
+  constexpr int kC = kVec16 ? 2 : 1, kPerRow = kDRow / kC / 32;
+  const double* src_side[2];
+  int valid_side[2];  // doubles of a row inside N
 #pragma unroll
-    for (int sl = 0; sl < kDSites; ++sl) {
-      const long long s = s0 + sl;
-      q[sl][0] = q[sl][1] = q[sl][2] = 0.0;
-      if (s < c_end && ind < N) {
-#ifdef NGSD_INDEP_F64_SKIP_LOAD
-        q[sl][0] = (double)(s + ind);
-        q[sl][1] = (double)(s - ind);
-        q[sl][2] = (double)(s ^ ind);
-#else
-        const double* p = P + (s * N + ind) * 3;
-        q[sl][0] = p[0];
-        q[sl][1] = p[1];
-        q[sl][2] = p[2];
-#endif
+  for (int sd = 0; sd < 2; ++sd) {
+    const int col0 = sd == 0 ? i0 : j0;
+    src_side[sd] = P + (c0 + 2 * warp) * 3 * (long long)N + 3 * col0 + kC * lane;
+    valid_side[sd] = 3 * (N - col0);
+  }
+  const long long row_stride = 3 * (long long)N;
+  auto stage_copy = [&](int stage, long long s0) {
+#ifndef NGSD_INDEP_F64_SKIP_LOAD
+#pragma unroll
+    for (int sd = 0; sd < 2; ++sd)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = 2 * warp + rr;
+        const bool live = s0 + row < c_end;
+        const double* src = src_side[sd] + ((s0 - c0) + rr) * row_stride;
+#pragma unroll
+        for (int c = 0; c < kPerRow; ++c) {
+          const int f = kC * (lane + 32 * c);
+          const bool ok = live && f < valid_side[sd];
+          if (kVec16)
+            cp_async16(&sm.ring[stage][sd][row][f], src + kC * 32 * c, ok);
+          else
+            cp_async8(&sm.ring[stage][sd][row][f], src + kC * 32 * c, ok);
+        }
       }
+    if (kWeighted && tid < kDSites) {
+      const long long s = s0 + tid;
+      cp_async8(&sm.wt[stage][tid], s < c_end ? w + s : w, s < c_end);
     }
-  };
-  // Fold the fetched triples into operand buffer buf: the validity mask,
-  // the missing test, the weight (i side) or the score (j side).  Masks
-  // multiply, so a NaN row stays NaN.
-  auto fold = [&](int buf, long long s0) {
-#pragma unroll
-    for (int sl = 0; sl < kDSites; ++sl) {
-      const double p0 = q[sl][0], p1 = q[sl][1], p2 = q[sl][2];
-#ifdef NGSD_INDEP_F64_SKIP_FOLD
-      double(*o)[kDLd] = side == 0 ? sm.a[buf] : sm.b[buf];
-      o[0 * kDSites + sl][col] = p0;
-      o[1 * kDSites + sl][col] = p1;
-      o[2 * kDSites + sl][col] = p2;
-      (side == 0 ? sm.va[buf] : sm.vb[buf])[sl][col] = p0;
-      continue;
 #endif
-      double v = (p0 + p1 + p2) > 0.0 ? 1.0 : 0.0;
-      if (kPairwiseDel) v = v * ngsd::nonmissing(p0, p1, p2);
-      if (side == 0) {
-        const long long s = s0 + sl;
-        const double vi = (kWeighted && s < c_end) ? v * w[s] : v;
-        sm.a[buf][0 * kDSites + sl][col] = p0 * vi;
-        sm.a[buf][1 * kDSites + sl][col] = p1 * vi;
-        sm.a[buf][2 * kDSites + sl][col] = p2 * vi;
-        sm.va[buf][sl][col] = vi;
-      } else {
-        const double x0 = p0 * v, x1 = p1 * v, x2 = p2 * v;
-#pragma unroll
-        for (int gg = 0; gg < 3; ++gg)
-          sm.b[buf][gg * kDSites + sl][col] =
-              sc.v[3 * gg + 0] * x0 + sc.v[3 * gg + 1] * x1 + sc.v[3 * gg + 2] * x2;
-        sm.vb[buf][sl][col] = v;
-      }
-    }
   };
 
-  // Per thread: 4 x 4 m8n8 tiles of raw and of cnt, two entries each.
-  double acc[4][4][2], cn[4][4][2];
+  // The fold of the step staged in `stage` into operand buffer buf, once
+  // for the block, each thread two units a side (u = 0, 1): on the i side
+  // the rows m, m + 8 of pair `lane` at site warp + 4 u; on the j side
+  // column tid % 64 at sites j, j + 4 for j = tid / 64 + 2 u.  One 16-byte
+  // store per unit and plane.
+  const int qa = lane, ma = 16 * (lane / 8) + lane % 8;
+  const int nb = tid % kTile, jb = tid / kTile;
+  auto fold_i = [&](int stage, int buf, int u) {
+    const int k = warp + 4 * u;
+    const double ws = kWeighted ? sm.wt[stage][k] : 1.0;
+    double o[2][kDPlanes];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+    for (int e = 0; e < 2; ++e)
+      fold_f64<true, kWeighted, kPairwiseDel>(&sm.ring[stage][0][k][3 * (ma + 8 * e)], ws, sc,
+                                              o[e]);
+#pragma unroll
+    for (int pl = 0; pl < kDPlanes; ++pl)
+      *reinterpret_cast<double2*>(&sm.opa[buf][pl][k][qa ^ (2 * (k % 4))][0]) =
+          make_double2(o[0][pl], o[1][pl]);
+  };
+  auto fold_j = [&](int stage, int buf, int u) {
+    const int j = jb + 2 * u;
+    double o[2][kDPlanes];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      fold_f64<false, kWeighted, kPairwiseDel>(&sm.ring[stage][1][j + 4 * e][3 * nb], 1.0, sc,
+                                               o[e]);
+#pragma unroll
+    for (int pl = 0; pl < kDPlanes; ++pl)
+      *reinterpret_cast<double2*>(&sm.opb[buf][pl][j][nb ^ (2 * j)][0]) =
+          make_double2(o[0][pl], o[1][pl]);
+  };
+
+  // Per thread: 2 x 4 m16n8 tiles of raw and of cnt, four entries each.
+  double acc[2][4][4], cn[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) acc[mi][ni][r] = cn[mi][ni][r] = 0.0;
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = cn[mi][ni][r] = 0.0;
 
-  // k-step k0 of operand rows A[k][m], B[k][n] into d
-  auto mma_step = [&](const double (*A)[kDLd], const double (*B)[kDLd], int k0,
-                      double (&d)[4][4][2]) {
-    double a[4], b[4];
+  // Plane pl of operand buffer buf into d: 4 + 4 128-bit fragment loads,
+  // 8 MMAs of one k8 depth.
+  auto mma_plane = [&](int buf, int pl, double (&d)[2][4][4]) {
+    double2 a[2][2], b[4];
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi) a[mi] = A[k0 + t4][m0 + 8 * mi + g];
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) b[ni] = B[k0 + t4][n0 + 8 * ni + g];
+      for (int h = 0; h < 2; ++h)
+        a[mi][h] = *reinterpret_cast<const double2*>(
+            &sm.opa[buf][pl][t4 + 4 * h][(8 * (m0 / 16 + mi) + g) ^ (2 * t4)][0]);
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
+    for (int ni = 0; ni < 4; ++ni)
+      b[ni] = *reinterpret_cast<const double2*>(
+          &sm.opb[buf][pl][t4][(n0 + 8 * ni + g) ^ (2 * t4)][0]);
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_f64(d[mi][ni], a[mi], b[ni]);
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_f64(d[mi][ni], a[mi][0], a[mi][1], b[ni]);
   };
 
-  // Step t: fold its triples (fetched during step t - 1) into buffer
-  // t & 1, one barrier, fetch step t + 1's, run step t on the tensor
-  // cores.  A buffer is folded again two steps later, after the barrier
-  // that every warp passes only when done with it.
-  fetch(c0);
-  for (long long t = 0; t < steps; ++t) {
-    const int buf = (int)(t & 1);
-    const long long s0 = c0 + t * kDSites;
-    fold(buf, s0);
-    __syncthreads();
-    if (t + 1 < steps) fetch(s0 + kDSites);
+  // Pipeline: step t's rows are copied two steps ahead into a ring of two
+  // stages; step t + 1 is folded into the other operand buffer while step
+  // t runs on the tensor cores, plane by plane in one basic block; one
+  // barrier per step.  A stage is copied into again, and a buffer folded
+  // into again, only after the barrier that every thread passes when done
+  // with it.
+  stage_copy(0, c0);
+  cp_async_commit();
+  stage_copy(1, c0 + kDSites);
+  cp_async_commit();
+  cp_async_wait<1>();  // step 0 landed
+  __syncthreads();
 #pragma unroll
-    for (int gk = 0; gk < 3; ++gk) mma_step(sm.a[buf], sm.b[buf], gk * kDSites, acc);
-    mma_step(sm.va[buf], sm.vb[buf], 0, cn);
+  for (int u = 0; u < 2; ++u) {
+    fold_i(0, 0, u);
+    fold_j(0, 0, u);
   }
+  cp_async_wait<0>();  // step 1 landed
+  __syncthreads();
+  for (long long t = 0; t < steps; ++t) {
+    const int cur = (int)(t & 1), nxt = cur ^ 1;
+    stage_copy(cur, c0 + (t + 2) * kDSites);  // step t's stage was folded a step ago
+    cp_async_commit();
+    mma_plane(cur, 0, acc);
+    fold_i(nxt, nxt, 0);
+    mma_plane(cur, 1, acc);
+    fold_i(nxt, nxt, 1);
+    mma_plane(cur, 2, acc);
+    fold_j(nxt, nxt, 0);
+    mma_plane(cur, 3, cn);
+    fold_j(nxt, nxt, 1);
+    cp_async_wait<0>();  // step t + 2 landed
+    __syncthreads();     // ... for every thread; operands of step t + 1 complete
+  }
+  cp_async_wait<0>();
 
   const bool direct = part == nullptr;  // one chunk: no scratch, no reduce
   auto part_at = [&](int plane) {
@@ -652,40 +767,54 @@ indep_f64_kernel(const double* __restrict__ P, const double* __restrict__ w,
   double* part_raw = direct ? nullptr : part_at(0);
   double* part_cnt = direct ? nullptr : part_at(1);
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int e = (m0 + 8 * mi + g) * kTile + n0 + 8 * ni + 2 * t4 + r;
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + 16 * mi + 8 * h + g, c = n0 + 8 * ni + 2 * t4;
         if (direct) {
-          const int a = i0 + e / kTile, b = j0 + e % kTile;
-          if (a < N && b < N && a <= b) {
-            raw[(long long)a * N + b] = acc[mi][ni][r];
-            cnt[(long long)a * N + b] = cn[mi][ni][r];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int a = i0 + r, b = j0 + c + q;
+            if (a < N && b < N && a <= b) {
+              raw[(long long)a * N + b] = acc[mi][ni][2 * h + q];
+              cnt[(long long)a * N + b] = cn[mi][ni][2 * h + q];
+            }
           }
         } else {
-          part_raw[e] = acc[mi][ni][r];
-          part_cnt[e] = cn[mi][ni][r];
+          *reinterpret_cast<double2*>(part_raw + r * kTile + c) =
+              make_double2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+          *reinterpret_cast<double2*>(part_cnt + r * kTile + c) =
+              make_double2(cn[mi][ni][2 * h], cn[mi][ni][2 * h + 1]);
         }
       }
 }
-
-// Below the 48 KB a block gets without asking for more.
-static_assert(sizeof(SmemD) <= 48 * 1024, "static shared-memory limit");
 
 template <bool kWeighted>
 cudaError_t launch_f64(const double* P, const double* w, double* raw, double* cnt,
                        double* part, long long S, int N, long long tiles, const int* list,
                        long long grid_tiles, long long chunks, long long chunk_sites,
                        const ngsd::Score9d& sc, int pairwise_del, cudaStream_t stream) {
+  // 16-byte copies when every row starts on 16 bytes
+  const bool vec16 = N % 2 == 0 && reinterpret_cast<uintptr_t>(P) % 16 == 0;
   auto go = [&](auto kernel) {
-    kernel<<<(unsigned)(grid_tiles * chunks), kDThreads, sizeof(SmemD), stream>>>(
+    const int bytes = (int)sizeof(SmemD);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess)  // two blocks an SM need the largest shared-memory carveout
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    kernel<<<(unsigned)(grid_tiles * chunks), kDThreads, bytes, stream>>>(
         P, w, raw, cnt, part, S, N, tiles, list, grid_tiles, chunk_sites, sc);
     return cudaGetLastError();
   };
-  return pairwise_del ? go(indep_f64_kernel<kWeighted, true>)
-                      : go(indep_f64_kernel<kWeighted, false>);
+  if (vec16)
+    return pairwise_del ? go(indep_f64_kernel<kWeighted, true, true>)
+                        : go(indep_f64_kernel<kWeighted, false, true>);
+  return pairwise_del ? go(indep_f64_kernel<kWeighted, true, false>)
+                      : go(indep_f64_kernel<kWeighted, false, false>);
 }
 
 // grid_tiles: the length of `list`, or tiles without one.

@@ -29,9 +29,17 @@ the chunks' float64 partials themselves, per block and pair.
 
 A float64 tensor (--x64) goes to the float64 entries (K1d, csrc/indep.cu
 indep_f64_kernel): the same split, tile lists and block mode, every sum
-in float64 (mma.sync m8n8k4 .f64), raw and cnt returned in float64; a
-float32 tensor to the float32 ones.  `indep_raw_cnt_f64_order` is the
-float64 kernel's order of summation in plain PyTorch, for the tests.
+in float64, raw and cnt returned in float64; a float32 tensor to the
+float32 ones.  K1d runs on Hopper's FP64 tensor cores in the sm_90 shape
+mma.sync m16n8k8 .f64 (the full FP64 tensor rate; m8n8k4, the only
+shape before sm_90, issues at half of it): a step of STEP_F64 = 8 sites
+is one k8 depth per genotype plane and one for cnt.  Raw rows are staged
+two steps ahead by cp.async; the fold runs once per block into operand
+planes in shared memory, between the previous step's MMAs.  What bounds
+it is the FP64 tensor cores and, beside them, the fold's float64
+arithmetic (which does not overlap FP64 MMAs) and shared-memory traffic
+(csrc/indep.cu, PERF.md).  `indep_raw_cnt_f64_order` is the float64
+kernel's order of summation in plain PyTorch, for the tests.
 """
 
 from __future__ import annotations
@@ -51,7 +59,7 @@ TILE_LAUNCHES_F64 = 0
 
 TILE = 64               # output tile edge of csrc/indep.cu (kTile)
 STEP = 8                # sites per pipeline step (kSites)
-STEP_F64 = 4            # sites per step of the float64 kernel (kDSites)
+STEP_F64 = 8            # sites per step (one MMA depth) of the float64 kernel (kDSites)
 WINDOW = 16             # sites per float32 raw window (kWindow)
 TARGET_BLOCKS = 2048    # tiles x chunks to aim for: many waves on any card
 MIN_CHUNK_SITES = 1024  # no chunk is split below this
@@ -181,19 +189,26 @@ def f64_sum_bound(n_sites: int, chunks: int = 1) -> float:
     additions at most); a sum of m terms lies within (m - 1) u of the
     exact one times the sum of the terms' magnitudes.  Both versions:
     2 (3 + 3 n_sites + chunks + 2) u.  All terms are >= 0 with a
-    nonnegative score, and the bound is then relative to raw itself."""
+    nonnegative score, and the bound is then relative to raw itself.
+    The kernel's m16n8k8 MMA adds 8 products into an accumulator with at
+    most one rounding a product, whatever order it takes inside the
+    instruction, so each product still costs at most one rounding and the
+    count above holds for it."""
     return 2 * (3 * n_sites + chunks + 5) * 2.0 ** -53
 
 
 def indep_raw_cnt_f64_order(P: torch.Tensor, score, pairwise_del: bool,
-                            site_weights=None):
+                            site_weights=None, block_size=None):
     """The float64 kernel's order of summation in plain PyTorch (float64
     P [S, N, 3] -> (raw, cnt) [N, N], the full matrices): per chunk of
-    split_plan, per step of STEP_F64 sites, the three genotypes' products
-    (each an m8n8k4 depth of 4 sites) added one after another into the
-    running sums; the chunks then added in index order.  For the tests:
-    a plain loop over the sites."""
-    N = P.shape[1]
+    split_plan, per step of STEP_F64 sites from the chunk's start (the
+    last one ragged), the three genotypes' products (each one m16n8k8
+    depth) added one after another into the running sums; the chunks then
+    added in index order.  block_size: the block mode's order instead,
+    each block of block_size sites a chunk of its own, and its sums
+    returned per block ([S / block_size, N, N] each).  For the tests: a
+    plain loop over the sites."""
+    S, N = P.shape[:2]
     dtype = P.dtype
     score = torch.as_tensor(score, dtype=dtype, device=P.device).reshape(3, 3)
     v = valid_mask(P, pairwise_del)
@@ -201,17 +216,27 @@ def indep_raw_cnt_f64_order(P: torch.Tensor, score, pairwise_del: bool,
         site_weights, dtype=dtype, device=P.device)[:, None]
     Qi = P * vi[..., None]
     Y = (P * v[..., None]) @ score.T
-    chunks, chunk_sites = split_plan(N, P.shape[0])
-    raw = torch.zeros((N, N), dtype=dtype, device=P.device)
-    cnt = torch.zeros_like(raw)
+    if block_size is None:
+        chunks, chunk_sites = split_plan(N, S)
+    else:
+        _build.check_blocks(P, S // block_size, block_size)
+        chunks, chunk_sites = S // block_size, block_size
+    parts = []
     for c in range(chunks):
-        r = torch.zeros_like(raw)
-        k = torch.zeros_like(raw)
-        for s0 in range(c * chunk_sites, min((c + 1) * chunk_sites, P.shape[0]), STEP_F64):
-            s1 = min(s0 + STEP_F64, (c + 1) * chunk_sites, P.shape[0])
+        r = torch.zeros((N, N), dtype=dtype, device=P.device)
+        k = torch.zeros_like(r)
+        end = min((c + 1) * chunk_sites, S)
+        for s0 in range(c * chunk_sites, end, STEP_F64):
+            s1 = min(s0 + STEP_F64, end)
             for g in range(3):
                 r = r + Qi[s0:s1, :, g].T @ Y[s0:s1, :, g]
             k = k + vi[s0:s1].T @ v[s0:s1]
+        parts.append((r, k))
+    if block_size is not None:
+        return tuple(torch.stack(x) for x in zip(*parts))
+    raw = torch.zeros((N, N), dtype=dtype, device=P.device)
+    cnt = torch.zeros_like(raw)
+    for r, k in parts:
         raw, cnt = raw + r, cnt + k
     return raw, cnt
 

@@ -22,15 +22,23 @@ timed.
 Then the rate loop: every SM runs warps of independent float64 MMAs of
 one shape (m8n8k4, m16n8k4, m16n8k8, m16n8k16), operands in registers,
 and the achieved TFLOP/s of each is printed beside the published 67.
+And whether the FP64 units' own arithmetic (the fold's DFMAs) overlaps
+the FP64 MMAs: independent DFMA chains alone, beside m16n8k4, k8 and k16
+MMAs in every warp, and in warps of their own on the same SM
+sub-partitions.
 
-Prints ptxas's lines for K1d, one line per variant and shape, and the
+Prints ptxas's lines for K1d, the instructions of the main loop of its
+instantiation that the timings run (unweighted, pairwise deletion,
+16-byte copies) by opcode, one line per variant and shape, and the
 card's name and power limit.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -49,6 +57,7 @@ VARIANTS = {
 # (name, M, N, K, D, A, B registers of float64 per thread)
 SHAPES = (("m8n8k4", 8, 8, 4, 2, 1, 1), ("m16n8k4", 16, 8, 4, 4, 2, 1),
           ("m16n8k8", 16, 8, 8, 4, 4, 2), ("m16n8k16", 16, 8, 16, 4, 8, 4))
+RATE_DFMA = 8       # with the overlap test: DFMA chains beside each accumulator
 RATE_ACC = 8        # independent accumulators a warp keeps in flight
 RATE_BLOCKS = 4     # blocks of 4 warps per SM
 RATE_ITERS = 4096
@@ -68,17 +77,32 @@ __device__ __forceinline__ void mma{i}(double* d, const double* a, const double*
   asm("mma.sync.aligned.{name}.row.col.f64.f64.f64.f64 {{{','.join(d)}}}, {{{','.join(a)}}}, "
       "{{{','.join(b)}}}, {{{','.join(d)}}};\\n" : {ops} : {ins});
 }}""")
+    # kernel n: m16n8k4 with DFMA chains beside it in every warp; n + 1: the
+    # chains alone; n + 2: half the blocks, of 8 warps, the first 4 running
+    # the m16n8k4 and the last 4 the chains (warp w runs on SM sub-partition
+    # w % 4, so each sub-partition holds warps of both); n + 3, n + 4:
+    # m16n8k8, m16n8k16 with the chains beside them in every warp
+    n = len(SHAPES)
     cases = "\n".join(f"    case {i}: rate<{i}><<<blocks, 128, 0, st>>>(out, iters, seed); break;"
-                      for i in range(len(SHAPES)))
-    calls = "\n".join(f"      if (S == {i}) mma{i}(d[j], a, b);" for i in range(len(SHAPES)))
+                      for i in (*range(n + 2), n + 3, n + 4))
+    cases += (f"\n    case {n + 2}: rate<{n + 2}><<<blocks / 2, 256, 0, st>>>(out, iters, seed);"
+              " break;")
+    calls = "\n".join(f"      if (S == {i}) mma{i}(d[j], a, b);" for i in range(n))
+    calls += f"""
+      if (S == {n} || (S == {n + 2} && mma_block)) mma1(d[j], a, b);
+      if (S == {n + 3}) mma2(d[j], a, b);
+      if (S == {n + 4}) mma3(d[j], a, b);
+      if (S == {n} || S == {n + 1} || (S == {n + 2} && !mma_block) || S > {n + 2})
+        for (int q = 0; q < {RATE_DFMA}; ++q) e[j][q] = fma(e[j][q], a[q], b[q % 4]);"""
     return f"""#include <cuda_runtime.h>
 {''.join(fns)}
 template <int S>
-__global__ void __launch_bounds__(128) rate(double* out, long long iters, double seed) {{
-  double a[8], b[4], d[{RATE_ACC}][4];
+__global__ void __launch_bounds__(256) rate(double* out, long long iters, double seed) {{
+  double a[8], b[4], d[{RATE_ACC}][4], e[{RATE_ACC}][{RATE_DFMA}] = {{}};
   for (int i = 0; i < 8; ++i) a[i] = seed * (threadIdx.x + i);
   for (int i = 0; i < 4; ++i) b[i] = seed * (blockIdx.x + i);
   for (int j = 0; j < {RATE_ACC}; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.0;
+  const bool mma_block = threadIdx.x < 128;
   for (long long it = 0; it < iters; ++it) {{
 #pragma unroll
     for (int j = 0; j < {RATE_ACC}; ++j) {{
@@ -86,7 +110,10 @@ __global__ void __launch_bounds__(128) rate(double* out, long long iters, double
     }}
   }}
   double s = 0.0;
-  for (int j = 0; j < {RATE_ACC}; ++j) s += d[j][0] + d[j][1] + d[j][2] + d[j][3];
+  for (int j = 0; j < {RATE_ACC}; ++j) {{
+    s += d[j][0] + d[j][1] + d[j][2] + d[j][3];
+    for (int q = 0; q < {RATE_DFMA}; ++q) s += e[j][q];
+  }}
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }}
 
@@ -112,6 +139,28 @@ def ptxas_lines(log: str, kernel: str):
         elif inside and ("registers" in line or "spill" in line):
             out.append(line.strip())
     return out
+
+
+def loop_opcodes(nvcc: str, lib: str, kernels) -> collections.Counter:
+    """Opcodes (without their suffixes) of the longest loop, the span
+    from a backward branch's target to the branch, in the machine code of
+    the kernel whose mangled name holds one of `kernels`."""
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "--dump-sass",
+                           lib], capture_output=True, text=True, check=True).stdout
+    ins, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            if ins:
+                break
+            inside = any(k in line for k in kernels)
+        elif inside:
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s*(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)([^;]*)", line)
+            if m:
+                ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    loops = [(int(t.group(1), 16), a) for a, op, rest in ins if op == "BRA"
+             for t in [re.search(r"0x([0-9a-f]+)", rest)] if t and int(t.group(1), 16) < a]
+    lo, hi = max(loops, key=lambda x: x[1] - x[0])
+    return collections.Counter(op.split(".")[0] for a, op, _ in ins if lo <= a <= hi)
 
 
 def main() -> int:
@@ -164,6 +213,12 @@ def main() -> int:
         if name == "whole":
             for line in ptxas_lines(log, "indep_f64_kernel"):
                 print("  ptxas: " + line, flush=True)
+            # <kWeighted, kPairwiseDel, kVec16>; the m8n8k4 kernel had no kVec16
+            ops = loop_opcodes(_build._nvcc(), path, ("indep_f64_kernelILb0ELb1ELb1E",
+                                                      "indep_f64_kernelILb0ELb1EE"))
+            print(f"K1d main loop, unweighted, pairwise deletion, 16-byte copies: "
+                  f"{sum(ops.values())} instructions a step: "
+                  + ", ".join(f"{op} {n}" for op, n in ops.most_common()), flush=True)
         lib = ctypes.CDLL(path)
         full_fn, block_fn = lib.ngsd_indep_raw_cnt_f64, lib.ngsd_indep_block_partials_f64
         full_fn.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, i64, vp, i32, vp]
@@ -211,6 +266,20 @@ def main() -> int:
         print(f"dmma rate {name}: {flop / ms / 1e9:.3f} TFLOP/s ({ms:.3f} ms for {flop:.4g} "
               f"flop; {grid} blocks of 4 warps, {RATE_ACC} independent accumulators a warp; "
               f"published FP64 tensor peak 67) [{card}]", flush=True)
+    # do the FP64 units' DFMAs (the fold's arithmetic) overlap the FP64 MMAs?
+    n = len(SHAPES)
+    flop = 2.0 * RATE_DFMA * RATE_ACC * RATE_ITERS * grid * 128
+    for i, what in ((n, "m16n8k4 and DFMA chains together in every warp"),
+                    (n + 1, "the DFMA chains alone"),
+                    (n + 2, "m16n8k4 and DFMA chains in warps of their own, half of each"),
+                    (n + 3, "m16n8k8 and DFMA chains together in every warp"),
+                    (n + 4, "m16n8k16 and DFMA chains together in every warp")):
+        def go():
+            _build.check_launch(lib.ngsd_dmma_rate(i, _build.ptr(out), grid, RATE_ITERS, 1e-3,
+                                                   _build.stream(dev)), f"dmma rate {what}")
+        ms = chip_smoke.time_cuda(torch, go, 5)
+        print(f"dmma overlap, {what}: {ms:.3f} ms ({flop:.4g} DFMA flop, {flop / ms / 1e9:.3f} "
+              f"TFLOP/s of them; each MMA loop alone is above) [{card}]", flush=True)
     return 0
 
 

@@ -736,3 +736,71 @@ def test_f64_cli_run_matches_its_float32_twin(cuda, tmp_path, monkeypatch, kind)
         outs[x64] = chip_smoke.read_phylip(str(out))[0]
     tol = (chip_smoke.POLICY_INDEP_RTOL if kind == "indep" else chip_smoke.POLICY_EM_ATOL_CNT)
     assert np.abs(outs[True] - outs[False]).max() <= 2 * tol + 2e-10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 129])
+@pytest.mark.parametrize("S", [1, 13, 1029])
+@pytest.mark.parametrize("pairwise_del", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_f64_indep_tile_and_step_edges(cuda, N, S, pairwise_del, weighted):
+    """K1d across its 64-wide tile edges (N odd: the 8-byte copies) and
+    its 8-site step (S ragged against it): within the float64 bounds of
+    the plain version, rerun byte-identical."""
+    assert S % indep.STEP_F64
+    P, w = _case64(cuda, S, N)
+    w = w if weighted else None
+    got = indep.indep_raw_cnt(P, SCORE9, pairwise_del, w)
+    _check64("indep", got, indep.indep_raw_cnt_ref(P, SCORE9, pairwise_del, w), P)
+    chip_smoke.check_rerun(torch, indep.indep_raw_cnt, P, pairwise_del, w, got)
+
+
+@pytest.mark.gpu
+def test_f64_indep_unaligned_rows(cuda):
+    """A float64 tensor whose data does not start on 16 bytes takes K1d's
+    8-byte copies and gives the same bytes as an aligned copy of it."""
+    P, w = _case64(cuda, 1500, 128)
+    flat = torch.empty(P.numel() + 1, dtype=torch.float64, device=cuda)
+    shifted = flat[1:].view(P.shape)
+    shifted.copy_(P)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    for a, b in zip(indep.indep_raw_cnt(P, SCORE9, True, w),
+                    indep.indep_raw_cnt(shifted, SCORE9, True, w)):
+        assert chip_smoke.same_bytes(torch, a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [65, 129])
+@pytest.mark.parametrize("p", chip_smoke.TILE_SPLITS)
+@pytest.mark.parametrize("weighted", [False, True])
+def test_f64_indep_tile_lists_odd_rows(cuda, N, p, weighted):
+    """K1d's tile lists at an odd N (8-byte copies) and S off the 8-site
+    step: each shard's launch holds the full launch's listed tiles byte
+    for byte, zeros elsewhere, and a rerun gives the same bytes."""
+    from ngsdist_tpu_torch.ops import _build
+    from ngsdist_tpu_torch.parallel import mesh as pm
+
+    P, w = _case64(cuda, 1501, N)
+    w = w if weighted else None
+    full = indep.indep_raw_cnt(P, SCORE9, True, w)
+    for lst in chip_smoke.tile_lists(pm, "indep", N, p):
+        tiles = torch.from_numpy(lst).to(cuda)
+        got = indep.indep_raw_cnt(P, SCORE9, True, w, tiles=tiles)
+        again = indep.indep_raw_cnt(P, SCORE9, True, w, tiles=tiles)
+        mask = _build.tile_mask(N, lst, indep.TILE, False).to(cuda)
+        for g, a, f in zip(got, again, full):
+            assert chip_smoke.same_bytes(torch, g, a)
+            assert chip_smoke.same_bytes(torch, g[mask], f[mask]) and not bool(g[~mask].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_size", chip_smoke.BLOCK_SIZES + (chip_smoke.LONG_BLOCK,))
+@pytest.mark.parametrize("pairwise_del", [False, True])
+def test_f64_indep_blocks_odd_rows(cuda, block_size, pairwise_del):
+    """K1d's block mode at an odd N (8-byte copies), blocks whose edges
+    fall inside its 8-site steps and one past 2^16 sites: against the
+    float64 plain version, C exact, rerun byte-identical (block_case)."""
+    n_blocks = 2 if block_size == chip_smoke.LONG_BLOCK else chip_smoke.BLOCK_SITES // block_size
+    P, _ = chip_smoke.small_case(np.random.default_rng(block_size), torch,
+                                 n_blocks * block_size, 129, x64=True)
+    chip_smoke.block_case(torch, indep, em, "indep", P, pairwise_del, n_blocks, block_size)

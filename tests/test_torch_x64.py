@@ -381,7 +381,7 @@ def test_x64_em_tables_blocks_match_jax(pairwise_del, block_size):
 @pytest.mark.parametrize("weighted", [False, True])
 def test_x64_indep_kernel_order_matches_jax(pairwise_del, weighted):
     """The float64 indep kernel sums in its own order (per chunk of
-    split_plan, per 4-site step, genotype by genotype, then the chunks in
+    split_plan, per 8-site step, genotype by genotype, then the chunks in
     order: indep_raw_cnt_f64_order).  Against the JAX package's float64
     indep_suffstats: cnt exact; raw within f64_sum_bound(S, chunks) x raw,
     the bound both orders' rounding takes at most (ops/indep.py: each
@@ -417,6 +417,53 @@ def test_x64_indep_kernel_order_is_the_plain_sum():
     raw_p, cnt_p = indep.indep_raw_cnt_ref(Pt, score, True)
     assert torch.equal(cnt_o, cnt_p)
     assert bool(((raw_o - raw_p).abs() <= indep.f64_sum_bound(777, chunks) * raw_p).all())
+
+
+@pytest.mark.parametrize("N,S", [(33, 777), (65, 2051), (130, 5003)])
+@pytest.mark.parametrize("pairwise_del", [False, True])
+def test_x64_indep_kernel_order_ragged_steps(N, S, pairwise_del):
+    """S off the kernel's 8-site step, in one chunk and in several (the
+    last chunk ends inside a step): the emulated order against the JAX
+    package's float64 indep_suffstats and the plain version, cnt exact,
+    raw within f64_sum_bound(S, chunks) x raw."""
+    assert S % indep.STEP_F64
+    rng, P = _probs(36, S, N, missing=0.1)
+    w = rng.integers(0, 4, S).astype(np.float64)
+    chunks, _ = indep.split_plan(N, S)
+    score = default_score_matrix()
+    raw, cnt = indep.indep_raw_cnt_f64_order(torch.from_numpy(P), score, pairwise_del, w)
+    raw_j, cnt_j = jdist.indep_suffstats(jnp.asarray(P), jnp.asarray(score), pairwise_del,
+                                         site_weights=jnp.asarray(w))
+    raw_p, cnt_p = indep.indep_raw_cnt_ref(torch.from_numpy(P), score, pairwise_del, w)
+    iu = np.triu_indices(N)
+    bound = indep.f64_sum_bound(S, chunks) * raw.numpy()[iu]
+    for other in (np.asarray(raw_j), raw_p.numpy()):
+        assert (np.abs(raw.numpy()[iu] - other[iu]) <= bound).all()
+    np.testing.assert_array_equal(cnt.numpy()[iu], cnt_p.numpy()[iu])
+    if pairwise_del:
+        np.testing.assert_array_equal(cnt.numpy()[iu], np.asarray(cnt_j)[iu])
+
+
+@pytest.mark.parametrize("block_size", [1, 5, 37, 256])
+@pytest.mark.parametrize("pairwise_del", [False, True])
+def test_x64_indep_block_order_matches_jax(block_size, pairwise_del):
+    """The block mode's order (each bootstrap block a chunk of its own,
+    its steps counted from the block's first site, so that block edges
+    fall inside the kernel's 8-site steps): against the JAX package's
+    float64 indep_block_partials, C exact, B within
+    f64_sum_bound(block_size) x B."""
+    n_blocks = 777 // block_size
+    _, P = _probs(37, n_blocks * block_size, 33)
+    score = default_score_matrix()
+    B, C = indep.indep_raw_cnt_f64_order(torch.from_numpy(P), score, pairwise_del,
+                                         block_size=block_size)
+    assert B.shape == C.shape == (n_blocks, 33, 33)
+    B_j, C_j = jdist.indep_block_partials(jnp.asarray(P), jnp.asarray(score), pairwise_del,
+                                          n_blocks, block_size)
+    assert (np.abs(B.numpy() - np.asarray(B_j))
+            <= indep.f64_sum_bound(block_size) * B.numpy()).all()
+    if pairwise_del:
+        np.testing.assert_array_equal(C.numpy(), np.asarray(C_j))
 
 
 # ------------------------------------------------------------------ #
