@@ -101,10 +101,24 @@ Phases, each of which fails the run loudly:
    two processes' launches adding up to its launches, each process's
    wall time, read and gather seconds printed; the workers are killed
    past PROC_WALL seconds.
+   Every run of the float32 path but those of U16_RUNS sends float32
+   pairs (NGSDIST_UPLOAD16=0), the fused reader's or the staged route's
+   (hostmem.pack23), p2 restored on the card.
+   The uint16 lane (U16_RUNS, the card's default, NGSDIST_UPLOAD16 unset):
+   (u) (a), (ub) (b), (us) (a) streamed in 4 chunks under a forced budget,
+   (um) (i)'s 2 x 2 mesh (pack16 of the staged read), (ul) (l)'s lazy
+   rounds (the fused uint16 reader), (ut) (lt)'s gz beagle text through
+   its spill cache; each sends uint16 slabs only (a spy on the slabs),
+   makes its twin's launches, and is held to its twin (the run of that
+   name, or for (us) the same under NGSDIST_UPLOAD16=0): cnt equal, raw
+   within the quantization's bound (u16_bound, PERF.md section 2); and but
+   (ut) its sub-matrices to the float64 plain version on the lane's values
+   within the kernels' bounds.  (tb): (b) with --trace_dir, a trace that
+   names em_kernel, and (b)'s bytes.
    The code-plane lane (CODED_RUNS), each run beside its twin under
-   NGSDIST_CODED_UPLOAD=0, which must write the same bytes (the table's
-   rows are the float32 casts of the staged triples, so both compute on
-   one tensor): (cg) (a)'s file and flags with --call_geno on one device,
+   NGSDIST_CODED_UPLOAD=0 NGSDIST_UPLOAD23=0, which must write the same
+   bytes (the table's rows are the float32 casts of the staged triples,
+   so both compute on one tensor): (cg) (a)'s file and flags with --call_geno on one device,
    read by the fused codes reader (a readers.CodedBinInput, one byte a
    triple); (cgs) (cg) under a forced budget of 4 chunks, the code plane
    read whole and the bootstrap's chunks sliced from it, also within
@@ -119,8 +133,7 @@ Phases, each of which fails the run loudly:
    within 1e-7 on d.  Each line gives wall, read, scan, upload and kernel
    seconds and the host bytes sent.  Then the upload lanes of (a)'s file
    (native nd_read_geno_pack23, nd_read_geno_pack16, nd_read_geno_codes,
-   each read into pinned memory and uploaded; the uint16 lane is not
-   ported, only timed).
+   each read into pinned memory and uploaded).
    The --x64 runs (phase x64-runs): (xa), (xc), (xd), (xf), the files and
    flags of (a), (c), (d), (f) under --x64 (the engine handed the staged
    float64 array; (xd) on the partial-sum route exactly at its budget
@@ -169,7 +182,9 @@ Phases, each of which fails the run loudly:
    site of weight 0, which both forms must spread to its pairs; and
    core/distance.py pair_pi_counts at (h)'s shape; core/distance.py
    expand_codes at [65,536, 1024] uint8 -> float32 beside its bound by
-   bytes and the plain indexing it must equal.  One pairs-shard's
+   bytes and the plain indexing it must equal; expand23's uint16 and
+   float32 halves at [65,536, 1024, 2] beside their bounds by bytes, the
+   uint16 half the CPU's bits.  One pairs-shard's
    K1p launch at (a)'s shape and K2b launch at (b)'s, for splits of 2 and
    4, beside the full launch, with the share of the tiles it holds and
    the bound scaled by that share; and the fixed-order sum of (i)'s four
@@ -343,6 +358,31 @@ CODED_RUNS = {"cg": ("a", None, None, None, ("CodedBinInput", "ndarray")),
 # host budget it takes, and against whose file process 0's is held.
 CODED_PROC_RUNS = {"cgp": "cgl"}
 CODED_PROC_ATOL = 1e-7   # on d, where the two cut other rounds
+# Phase 3, the uint16 fixed-point lane (NGSDIST_UPLOAD16: on by default
+# for a float32 run on a card; every other run of this script pins it off,
+# NGSDIST_UPLOAD16=0, and sends float32 pairs): run -> (the run whose
+# file, flags and route it takes, the run of that name it is held to, its
+# twin, or None: the twin is run beside it).  (u) (a) fused and resident,
+# (ub) (b)'s EM, (us) (a) streamed under a forced budget of 4 chunks,
+# (um) (i)'s 2 x 2 mesh (the staged read, pack16 on the host), (ul) (l)'s
+# lazy rounds (the fused uint16 reader per round), (ut) (lt)'s gz beagle
+# text through its spill cache (the staged rows packed per round).
+U16_RUNS = {"u": ("a", "a"), "ub": ("b", "b"), "us": ("a", None), "um": ("i", "i"),
+            "ul": ("l", "l"), "ut": ("lt", "lt")}
+U16_TWINS = {twin for _, twin in U16_RUNS.values() if twin}
+U16_CHUNKS = 4           # (us): the chunks its forced budget must give at least
+TWINS = {}               # twin -> what its run showed (timed_run)
+# The lane against its twin (PERF.md section 2): per triple the summed
+# |component| difference, U16_DELTA: p0 and p1 half a step of 1/65534
+# each and p2 their sum, a missing row's components up to EPSILON (1e-5)
+# from its mean, and six float32 roundings.  With the same valid sites
+# (cnt exact: the host decides missingness), raw / cnt moves by at most
+# smax (2 U16_DELTA + U16_DELTA^2) for indep (smax = 1, SCORE9's largest
+# |entry|) and smax min(1, 24 EM_MAX_ITER U16_DELTA) for the EM, besides
+# the kernels' own bounds on each side.
+U16_DELTA = 3 * (1e-5 + 0.5 / 65534) + 6 * 2.0 ** -24
+U16_SMAX = 1.0
+EM_MAX_ITER = 50         # ops/em.py: the EM's longest walk of k
 # --x64 on the card: run -> the run whose file and flags it takes with
 # --x64.  Each reads staged in float64 (the fused and coded lanes are the
 # float32 path's): (xa) the weighted route, (xc) the EM and (xd) indep on
@@ -715,37 +755,66 @@ def run_fused(run: str) -> bool:
     return STREAMED[run][2] if run in STREAMED else run not in MODELS
 
 
-def card_values(sub64, fused: bool):
-    """The float32 values the card holds for float64 values sub64, in
-    float64: all three components rounded (the staged read's cast), or
-    p0 and p1 rounded and p2 = 1 - p0 - p1 in float32 (the fused read's
-    two components, expanded on the card)."""
+def card_values(sub64):
+    """The float32 values the card holds for float64 values sub64 on the
+    float32 pair lane (NGSDIST_UPLOAD16=0), in float64: p0 and p1 rounded
+    and p2 = 1 - p0 - p1 in float32, expanded on the card, whether the
+    fused reader or the staged route's pack23 sent the pair."""
     s32 = sub64.float()
-    if fused:
-        s32[..., 2] = (1.0 - s32[..., 0]) - s32[..., 1]
+    s32[..., 2] = (1.0 - s32[..., 0]) - s32[..., 1]
     return s32.double()
 
 
-def check_submatrices(torch, indep, em, distance, mats, P_sub, idx):
+def card_values_u16(torch, sub64):
+    """The float32 values the card holds for float64 values sub64 on the
+    uint16 lane, in float64, computed here from the lane's definition
+    (utils/hostmem.py pack16, core/distance.py expand23): q = rint(p x
+    65534) for p0 and p1, r = q x float32(1/65534), p2 = (1 - r0) - r1 in
+    float32; a row the host finds missing (|p0 - p1| and |p1 - p2| below
+    1e-5) is (v, v, v), v its mean quantized."""
+    step = torch.tensor(np.float32(1.0 / 65534), device=sub64.device)
+    r = torch.round(sub64[..., :2] * 65534).float() * step
+    out = torch.empty(sub64.shape, dtype=torch.float32, device=sub64.device)
+    out[..., :2] = r
+    out[..., 2] = (1.0 - r[..., 0]) - r[..., 1]
+    miss = (((sub64[..., 0] - sub64[..., 1]).abs() < 1e-5)
+            & ((sub64[..., 1] - sub64[..., 2]).abs() < 1e-5))
+    v = torch.round((sub64[..., 0] + sub64[..., 1] + sub64[..., 2]) / 3.0 * 65534).float() * step
+    out = torch.where(miss[..., None], v[..., None].expand_as(out), out)
+    return out.double()
+
+
+def check_submatrices(torch, indep, em, distance, mats, P_sub, idx, runs=None, u16=False):
     """The 64-individual sub-matrices of every matrix of every run's CLI
     output (mats: run -> matrices) against the plain version in float64
     over the generated array's columns idx, a replicate against the plain
     weighted recompute with its per-site multiplicities: once on the
     float32 values the card was given (card_values; the kernels' bounds),
     once on the float64 values themselves (the float32 policy's bounds).
-    Returns the largest |d error| of each run and comparison."""
+    runs: run -> the run of RUNS whose file and flags it took (default:
+    every run of RUNS but those of models 3-6); u16: runs of the uint16
+    lane, held once, on its values (card_values_u16), to the kernels'
+    bounds (PERF.md section 2 holds the lane to its twin).  Returns the
+    largest |d error| of each run and comparison."""
     dev = torch.device(DEVICE)
     errs = {}
-    for run, (kind, sites, reps, block, pairwise_del) in RUNS.items():
-        if run in MODELS:
-            continue   # check_extended
+    inputs_of = (("float32", INDEP_RTOL, EM_ATOL_CNT),)
+    if not u16:
+        inputs_of += (("float64", POLICY_INDEP_RTOL, POLICY_EM_ATOL_CNT),)
+    for run, base in (runs or {r: r for r in RUNS if r not in MODELS}).items():
+        kind, sites, reps, block, pairwise_del = RUNS[base]
         plain = indep.indep_raw_cnt_ref if kind == "indep" else em.em_raw_cnt_ref
+        if u16 and kind == "em":
+            # the lane's p2 = 1 - r0 - r1 falls below 0 by up to a step where
+            # p2 is below one: the kernel's arithmetic (powers by
+            # multiplication) takes it, the plain version's log does not
+            plain = em.em_raw_cnt_tables
         n_trunc, maps = distance.bootstrap_site_maps(SEED, reps, sites, block)
-        sub64 = torch.from_numpy(run_array(run, P_sub, sites)).to(dev)
-        fused = run_fused(run)
-        for inputs, rtol, atol_cnt in (("float32", INDEP_RTOL, EM_ATOL_CNT),
-                                       ("float64", POLICY_INDEP_RTOL, POLICY_EM_ATOL_CNT)):
-            sub = card_values(sub64, fused) if inputs == "float32" else sub64
+        sub64 = torch.from_numpy(run_array(base, P_sub, sites)).to(dev)
+        for inputs, rtol, atol_cnt in inputs_of:
+            sub = sub64
+            if inputs == "float32":
+                sub = card_values_u16(torch, sub64) if u16 else card_values(sub64)
             e = []
             for r, mat in enumerate(mats[run]):
                 S, w = sites, None
@@ -756,7 +825,7 @@ def check_submatrices(torch, indep, em, distance, mats, P_sub, idx):
                 # without --pairwise_del the denominator is the site count
                 denom = cnt if pairwise_del else float(S)
                 e.append(check_submatrix(mat, raw, denom, idx, kind, rtol, atol_cnt))
-            errs[f"{run}/{inputs}"] = max(e)
+            errs[f"{run}/{'uint16' if u16 else inputs}"] = max(e)
         del sub, sub64
     return errs
 
@@ -823,7 +892,7 @@ def check_extended(torch, indep, em, distance, submodels, mats, P_sub, idx, alle
         a1_t, a2_t = torch.from_numpy(a1).to(dev), torch.from_numpy(a2).to(dev)
         sub64 = torch.from_numpy(run_array(base, P_sub, sites)).to(dev)
         for inputs, rtol, atol_cnt in inputs_of:
-            sub = card_values(sub64, False) if inputs == "float32" else sub64
+            sub = card_values(sub64) if inputs == "float32" else sub64
             v_src = sub.float() if inputs == "float32" else sub
             e, b = [], []
             for r, mat in enumerate(mats[run]):
@@ -1293,17 +1362,18 @@ def environment(env: dict):
 
 
 def cli_run(torch, cli, mods, ngsd, run: str, geno: str, out: str, budget, fused: bool,
-            extra=()):
+            extra=(), twin=None, stats=False):
     """One call of the CLI entry point (timed_run) with the arguments of
     run `run` and `extra`."""
     seen = timed_run(torch, mods, ngsd, budget, fused, lambda: cli.main(
-        run_args(run, geno, out) + ["--platform", DEVICE, "--throughput", *extra]))
+        run_args(run, geno, out) + ["--platform", DEVICE, "--throughput", *extra]),
+        twin=twin, stats=stats)
     if seen["result"] != 0:
         raise AssertionError(f"run ({run}): exit code {seen['result']}")
     return seen
 
 
-def timed_run(torch, mods, ngsd, budget, fused: bool, call):
+def timed_run(torch, mods, ngsd, budget, fused: bool, call, twin=None, stats=False):
     """call() (a run of the main path) with the launch counts set to 0
     just before and read just after, under the given NGSDIST_DEVICE_BUDGET
     (None: unset) and read route.  Returns what the run showed: call()'s
@@ -1311,7 +1381,10 @@ def timed_run(torch, mods, ngsd, budget, fused: bool, call):
     the device memory (and the bytes held when it was reset, "base"), the
     type of what load_inputs returned ("source")
     and of what the engine was handed ("handed": a SiteStream with its
-    rows' source and lane)."""
+    rows' source and lane), the dtypes of the host slabs sent ("slabs":
+    the upload lane) and, with stats or twin, each matrix's (raw, cnt or
+    site count) as the engine gave them ("stats"); a twin's, the run of
+    that name that a run of U16_RUNS is held to, is kept in TWINS."""
     runner, profiling, distance = ngsd["runner"], ngsd["profiling"], ngsd["distance"]
     env = {"NGSDIST_DEVICE_BUDGET": None if budget is None else str(budget),
            "NGSDIST_FUSED_READ": "auto" if fused else "0"}
@@ -1338,8 +1411,21 @@ def timed_run(torch, mods, ngsd, budget, fused: bool, call):
                                f"{'coded' if P.coded else 'uncoded'})")
         return iter_replicates(pars, P, *a, **k)
 
+    finalize, host_pack = distance._finalize, distance._host_pack
+    seen["stats"], seen["slabs"] = [], set()
+
+    def stats_spy(raw, cnt, *a, **k):   # each matrix's statistics, as the engine gives them
+        seen["stats"].append((np.array(raw, np.float64), np.array(cnt, np.float64)))
+        return finalize(raw, cnt, *a, **k)
+
+    def slab_spy(*a, **k):   # the lane: the dtype of every host slab sent
+        got = host_pack(*a, **k)
+        seen["slabs"].add(str(getattr(got, "dtype", "codes")))
+        return got
+
     runner.load_inputs = spy
     distance.iter_replicates = engine_spy
+    distance._finalize, distance._host_pack = stats_spy, slab_spy
     ngsd["multihost"].SiteStream.from_reader = classmethod(reader_spy)
     gc.collect()  # an earlier run's tensors in reference cycles are not this run's
     torch.cuda.synchronize()
@@ -1362,7 +1448,12 @@ def timed_run(torch, mods, ngsd, budget, fused: bool, call):
         profiling.ACTIVE = None
         runner.load_inputs = load_inputs
         distance.iter_replicates = iter_replicates
+        distance._finalize, distance._host_pack = finalize, host_pack
         ngsd["multihost"].SiteStream.from_reader = classmethod(from_reader)
+    if twin is not None:
+        TWINS[twin] = seen
+    elif not stats:
+        del seen["stats"]
     return seen
 
 
@@ -1413,7 +1504,8 @@ def drive_main_path(torch, cli, mods, ngsd, genos):
             want[f"{kind}_raw_cnt"] = chunks + reps * -(-n_trunc // chunk)
             if run in MODELS:  # every chunk once per class and matrix
                 want[f"{kind}_raw_cnt"] = 3 * chunks * (1 + reps)
-        seen = cli_run(torch, cli, mods, ngsd, run, genos[run], outs[run], budget, fused_env)
+        seen = cli_run(torch, cli, mods, ngsd, run, genos[run], outs[run], budget, fused_env,
+                       twin=run if run in U16_TWINS else None)
         launches[run] = seen["launches"]
         what = ""
         if run in STREAMED:
@@ -1491,7 +1583,8 @@ def drive_mesh_runs(torch, cli, mods, ngsd, genos, mats, ext_bounds):
             raise AssertionError(f"run ({run}): the budget {budget} gives {stream.n_rounds} "
                                  f"rounds of {stream.chunk} sites")
         seen = timed_run(torch, mods, ngsd, budget, False,
-                         lambda: runner.run(pars, mesh=mesh, report_throughput=True))
+                         lambda: runner.run(pars, mesh=mesh, report_throughput=True),
+                         twin=run if run in U16_TWINS else None)
         launches[run] = seen["launches"]
         what = (f"on a {pm.sites_size(mesh)} x {pairs} mesh of {entries} entries of {dev0}, "
                 + ("" if stream.resident else f"streamed in {stream.n_rounds} rounds of "
@@ -1570,7 +1663,8 @@ def drive_lazy_runs(torch, cli, mods, ngsd, genos, mats, P, card):
         out = os.path.join(WORK, f"{run}.dist")
         args = lazy_args(run, geno, out) + ["--platform", DEVICE, "--throughput"]
         with environment({"NGSDIST_HOST_BUDGET": str(host_budget), "NGSDIST_SPILL_DIR": spill}):
-            seen = timed_run(torch, mods, ngsd, None, True, lambda: cli.main(args))
+            seen = timed_run(torch, mods, ngsd, None, True, lambda: cli.main(args),
+                             twin=run if run in U16_TWINS else None)
         if seen["result"] != 0:
             raise AssertionError(f"run ({run}): exit code {seen['result']}")
         st = seen.get("stream")
@@ -1676,7 +1770,10 @@ def drive_coded_runs(torch, cli, mods, ngsd, genos, card):
         for lane, coded in (("coded", True), ("twin", False)):
             out = os.path.join(WORK, f"{run}_{lane}.dist")
             args = coded_args(run, geno, out)
+            # the twin sends the staged triples whole (NGSDIST_UPLOAD23=0):
+            # the table's rows are their float32 casts, bit for bit
             env = {"NGSDIST_CODED_UPLOAD": None if coded else "0",
+                   "NGSDIST_UPLOAD23": None if coded else "0",
                    "NGSDIST_HOST_BUDGET": None if host is None else str(host)}
             mesh = None if entries is None else pm.make_mesh([dev0] * entries)
 
@@ -1748,13 +1845,166 @@ def drive_coded_runs(torch, cli, mods, ngsd, genos, card):
     return launches, diffs, files["cgl"], streams["cgl"]
 
 
+def u16_bound(kind: str, raw16, raw32, denom):
+    """The largest |raw16 - raw32| the uint16 lane and its float32 pair
+    twin may show (U16_DELTA's note): denom x the lane's bound on raw /
+    cnt, plus the kernels' bounds on each side (indep INDEP_RTOL x |raw|,
+    the EM EM_ATOL_CNT x cnt)."""
+    if kind == "indep":
+        lane = U16_SMAX * (2 * U16_DELTA + U16_DELTA ** 2)
+        return denom * lane + INDEP_RTOL * (np.abs(raw16) + np.abs(raw32))
+    lane = U16_SMAX * min(1.0, 24 * EM_MAX_ITER * U16_DELTA)
+    return denom * (lane + 2 * EM_ATOL_CNT)
+
+
+def hold_to_twin(run: str, kind: str, seen, twin) -> float:
+    """A uint16 run's statistics against its twin's, matrix by matrix:
+    the same denominators (cnt under --pairwise_del: the valid sites are
+    the host's decision in both lanes), raw within u16_bound.  Returns
+    the largest |raw difference| / denominator."""
+    if len(seen["stats"]) != len(twin["stats"]) or not seen["stats"]:
+        raise AssertionError(f"({run}): {len(seen['stats'])} matrices, its twin "
+                             f"{len(twin['stats'])}")
+    worst = 0.0
+    for r, ((raw16, c16), (raw32, c32)) in enumerate(zip(seen["stats"], twin["stats"])):
+        if not np.array_equal(c16, c32):
+            raise AssertionError(f"({run}) matrix {r}: cnt differs from its twin's")
+        err = np.abs(raw16 - raw32)
+        bound = u16_bound(kind, raw16, raw32, c32)
+        if not (err <= bound).all():
+            k = np.unravel_index(int(np.argmax(err - bound)), err.shape)
+            raise AssertionError(f"({run}) matrix {r}: raw {raw16[k]} vs its twin's "
+                                 f"{raw32[k]} (bound {bound[k]})")
+        worst = max(worst, float((err / np.maximum(c32, 1)).max()))
+    return worst
+
+
+def u16_line(seen) -> str:
+    t = seen["times"]
+    return (f"in {seen['wall']:.2f} s (host clock, call incl. read and write): read "
+            f"{t['read_s']:.3f} s, upload {t['upload_s']:.3f} s, kernels {t['kernel_s']:.3f} s, "
+            f"host bytes sent {t['upload_bytes']} B, slabs {sorted(seen['slabs'])}")
+
+
+def drive_u16_runs(torch, cli, mods, ngsd, genos, mats, P_sub, idx, card):
+    """The runs of U16_RUNS (module docstring, phase 3) with the uint16
+    lane on as a card has it by default, each with its launch counts set
+    to 0 just before and read just after: every host slab sent must be
+    uint16, the launches its twin's; its statistics held to its twin's
+    (hold_to_twin: cnt exact, raw within u16_bound); its 64-individual
+    sub-matrices against the float64 plain version on the lane's values
+    (card_values_u16) within the kernels' bounds, (ut), a text of other
+    values, aside.  Returns the launches and the largest |d error| and
+    |raw / cnt difference| from the twin per run."""
+    runner, pm = ngsd["runner"], ngsd["mesh"]
+    dev0 = torch.device(DEVICE, 0)
+    spill, text = os.path.join(WORK, "spill"), os.path.join(WORK, "lt.beagle.gz")
+    launches, diffs, outs = {}, {}, {}
+    for run, (base, twin_name) in U16_RUNS.items():
+        out = os.path.join(WORK, f"{run}.dist")
+        outs[run] = out
+        budget, env = None, {"NGSDIST_UPLOAD16": None}   # the card's default: the lane on
+        if base in MESH_RUNS:
+            kind_base, entries, pairs, _ = MESH_RUNS[base]
+            pars = cli.parse_args(run_args(kind_base, genos[kind_base], out))[0]
+            mesh = pm.make_mesh([dev0] * entries, pairs=pairs)
+
+            def call(pars=pars, mesh=mesh):
+                return runner.run(pars, mesh=mesh, report_throughput=True)
+            kind = RUNS[kind_base][0]
+            reps = RUNS[kind_base][2]
+        elif base in LAZY_RUNS:
+            kind_base, style, host_budget, _ = LAZY_RUNS[base]
+            geno = genos[kind_base] if style == "bin" else text
+            args = lazy_args(base, geno, out) + ["--platform", DEVICE, "--throughput"]
+            env.update(NGSDIST_HOST_BUDGET=str(host_budget), NGSDIST_SPILL_DIR=spill)
+
+            def call(args=args):
+                return cli.main(args)
+            kind, reps = RUNS[kind_base][0], RUNS[kind_base][2]
+        else:
+            kind, sites, reps = RUNS[base][0], RUNS[base][1], RUNS[base][2]
+            if twin_name is None:   # (us): streamed, its twin beside it
+                budget = 3 * 4 * (sites // U16_CHUNKS) * N_IND * 12 // 3
+            args = run_args(base, genos[base], out) + ["--platform", DEVICE, "--throughput"]
+
+            def call(args=args):
+                return cli.main(args)
+        fused = base not in MESH_RUNS   # as its twin: the mesh reads staged
+        with environment(env):
+            seen = timed_run(torch, mods, ngsd, budget, fused, call, stats=True)
+        if isinstance(seen["result"], int) and seen["result"] != 0:
+            raise AssertionError(f"run ({run}): exit code {seen['result']}")
+        twin = TWINS.get(twin_name)
+        if twin_name is None:
+            with environment({**env, "NGSDIST_UPLOAD16": "0"}):
+                twin = timed_run(torch, mods, ngsd, budget, fused, call, stats=True)
+            twin_name = f"{run} under NGSDIST_UPLOAD16=0"
+        if seen["slabs"] != {"uint16"} or twin["slabs"] != {"float32"}:
+            raise AssertionError(f"run ({run}): slabs {seen['slabs']}, its twin's "
+                                 f"{twin['slabs']}")
+        launches[run] = seen["launches"]
+        if seen["launches"] != twin["launches"] or not any(seen["launches"].values()):
+            raise AssertionError(f"run ({run}): launches {seen['launches']}, its twin's "
+                                 f"{twin['launches']}")
+        if budget is not None:
+            with environment({"NGSDIST_DEVICE_BUDGET": str(budget)}):
+                chunked, chunk = ngsd["distance"].stream_plan(RUNS[base][1], N_IND, dev0, None,
+                                                              False)
+            n = -(-RUNS[base][1] // chunk)
+            launched = seen["launches"][f"{kind}_raw_cnt"]
+            if not chunked or n < U16_CHUNKS or launched != n * (1 + reps):
+                raise AssertionError(f"run ({run}): {n} chunks, launches {seen['launches']}")
+        diffs[f"{run}/twin"] = hold_to_twin(run, kind, seen, twin)
+        mats[run] = check_output(out, 1 + reps)
+        log(f"phase 3: ({run}) uint16 lane, ({base})'s file and flags"
+            + (f", streamed under NGSDIST_DEVICE_BUDGET={budget}" if budget else "") + ", "
+            + u16_line(seen) + f"; its twin ({twin_name}) "
+            + u16_line(twin) + f"; cnt equal, max |raw difference| / cnt "
+            f"{diffs[f'{run}/twin']:.3e} (bound {u16_bound(kind, 0.0, 0.0, 1.0):.3e} + the "
+            f"kernels'); launches " + ", ".join(f"{k} {v}" for k, v in launches[run].items() if v)
+            + f" [{card}]")
+        del seen["stats"], twin["stats"]
+    runs = {run: (MESH_RUNS[b][0] if b in MESH_RUNS else LAZY_RUNS[b][0] if b in LAZY_RUNS
+                  else b) for run, (b, _) in U16_RUNS.items() if run != "ut"}
+    diffs.update(check_submatrices(torch, mods["indep"], mods["em"], ngsd["distance"], mats,
+                                   P_sub, idx, runs=runs, u16=True))
+    return launches, diffs
+
+
+def trace_run(torch, cli, mods, ngsd, genos, card) -> dict:
+    """(b)'s flags once more with --trace_dir: the trace file written,
+    the EM kernel's launches named in it, and (b)'s bytes.  Returns the
+    launches."""
+    tdir = os.path.join(WORK, "trace")
+    out = os.path.join(WORK, "tb.dist")
+    seen = cli_run(torch, cli, mods, ngsd, "b", genos["b"], out, None, True,
+                   extra=("--trace_dir", tdir))
+    files = [f for f in os.listdir(tdir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"--trace_dir: trace files {os.listdir(tdir)}")
+    with open(os.path.join(tdir, files[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    if not any("em_kernel" in k for k in kernels):
+        raise AssertionError(f"--trace_dir: no em_kernel launch in the trace ({kernels[:8]})")
+    with open(out, "rb") as a, open(os.path.join(WORK, "b.dist"), "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("--trace_dir: the traced run's file differs from (b)'s")
+    log(f"phase 3: (tb) (b) with --trace_dir in {seen['wall']:.2f} s (untraced "
+        f"{TWINS['b']['wall']:.2f} s): "
+        f"{os.path.getsize(os.path.join(tdir, files[0]))} B of trace, {len(events)} events, "
+        f"kernels {kernels}; the file equals (b)'s byte for byte [{card}]")
+    return seen["launches"]
+
+
 def time_upload_lanes(torch, native, path: str, card: str) -> None:
     """(a)'s raw binary file through three fused native readers into
     pinned memory, each slab then uploaded to the card: the packed
     float32 pairs (nd_read_geno_pack23, 8 bytes a triple), the uint16
-    fixed-point pairs of the JAX package's NGSDIST_UPLOAD16 lane
-    (nd_read_geno_pack16, 4 bytes; not ported, timed only) and the codes
-    of --call_geno (nd_read_geno_codes, 1 byte).  Read on the host clock,
+    fixed-point pairs of the NGSDIST_UPLOAD16 lane (nd_read_geno_pack16,
+    4 bytes; the card's default, runs U16_RUNS) and the codes of
+    --call_geno (nd_read_geno_codes, 1 byte).  Read on the host clock,
     upload by CUDA events, second of two rounds (a warm page cache); the
     uint16 values within half a step of 1/65534 of the float32 ones, a
     missing triple's quantised mean in place of its pair."""
@@ -2014,7 +2264,8 @@ def reader_spy(cls, pars, mesh, *a):
 
 multihost.SiteStream.from_reader = classmethod(reader_spy)
 for run in spec["runs"]:
-    for k in ("NGSDIST_DEVICE_BUDGET", "NGSDIST_HOST_BUDGET", "NGSDIST_CODED_UPLOAD"):
+    for k in ("NGSDIST_DEVICE_BUDGET", "NGSDIST_HOST_BUDGET", "NGSDIST_CODED_UPLOAD",
+              "NGSDIST_UPLOAD23"):
         os.environ.pop(k, None)
     os.environ.update(run["env"])
     for mod, counter in spec["kernels"].values():
@@ -2100,7 +2351,7 @@ def drive_process_runs(torch, mods, ngsd, genos, mats, card, coded_ref):
         for lane in ("coded", "twin"):
             env = {"NGSDIST_HOST_BUDGET": str(host)} if host else {}
             if lane == "twin":
-                env["NGSDIST_CODED_UPLOAD"] = "0"
+                env.update(NGSDIST_CODED_UPLOAD="0", NGSDIST_UPLOAD23="0")
             out = os.path.join(WORK, f"{run}_{lane}.dist")
             runs.append({"name": f"{run}_{lane}", "env": env, "port": free_port(),
                          "argv": coded_args(run, genos[CODED_RUNS[ref][0]], out)
@@ -2109,6 +2360,7 @@ def drive_process_runs(torch, mods, ngsd, genos, mats, card, coded_ref):
     with open(spec, "w") as fh:
         json.dump({"runs": runs, "kernels": KERNELS, "device": DEVICE}, fh)
     env = {k: v for k, v in os.environ.items() if not k.startswith("NGSDIST_")}
+    env["NGSDIST_UPLOAD16"] = "0"   # the lane of the in-process runs they are held to
     logs = [open(os.path.join(WORK, f"proc{rank}.err"), "w") for rank in (0, 1)]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, worker, str(rank), ROOT, spec], env=env,
@@ -2355,6 +2607,38 @@ def time_expand_codes(torch, distance, hostmem, card) -> None:
     torch.cuda.empty_cache()
 
 
+def time_expand23(torch, distance, hostmem, card) -> None:
+    """core/distance.py expand23, the device half of the two-component
+    lanes (plain PyTorch ops), at (a)'s shape into a kept float32 buffer,
+    by CUDA events: the uint16 half on [S, N, 2] uint16 slabs of seeded
+    probabilities (pack16 on the host), the float32 half on the same
+    probabilities' float32 pairs, each beside its bound by bytes (the slab
+    read once, the triples written once); the uint16 half held to the CPU's
+    expansion of the same slab, bit for bit."""
+    S, N = INDEP_SITES, N_IND
+    dev = torch.device(DEVICE)
+    P = rand_probs(np.random.default_rng(SEED + 9), S, N)
+    q = hostmem.pack16(P)
+    p2 = torch.from_numpy(hostmem.pack23(P, torch.float32, torch.device("cpu"))).to(dev)
+    del P
+    q_dev = torch.from_numpy(q).to(dev)
+    out = torch.empty((S, N, 3), dtype=torch.float32, device=dev)
+    for name, slab in (("uint16", q_dev), ("float32", p2)):
+        ms = time_cuda(torch, lambda: distance.expand23(slab, out=out), 5)
+        nbytes = S * N * (2 * slab.element_size() + 3 * 4)
+        log(f"phase 4: expand23, {name} half, [{S}, {N}, 2] -> float32 [{S}, {N}, 3]: "
+            f"{ms:.3f} ms; bound {nbytes / PEAK_BYTES * 1e3:.3f} ms by bytes ({nbytes} B at "
+            f"{PEAK_BYTES:.3g} B/s) [{card}]")
+    distance.expand23(q_dev, out=out)
+    want = distance.expand23(torch.from_numpy(q[:4096]))
+    if not torch.equal(out[:4096].cpu().view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("expand23's uint16 half on the card differs from the CPU's")
+    log("phase 4: expand23's uint16 half on the card equals the CPU's bit for bit (the first "
+        "4,096 sites)")
+    del q_dev, p2, out
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2362,6 +2646,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    # every run but those of U16_RUNS sends float32 pairs, as before the
+    # uint16 lane was ported, so that their numbers compare with earlier runs'
+    os.environ["NGSDIST_UPLOAD16"] = "0"
     from ngsdist_tpu_torch import cli, runner
     from ngsdist_tpu_torch.core import distance, submodels
     from ngsdist_tpu_torch.ops import _build, em, indep
@@ -2460,6 +2747,11 @@ def main() -> int:
         launches.update(x64_launched)
         lazy_launched, lazy_diffs = drive_lazy_runs(torch, cli, mods, ngsd, genos, mats, P, card)
         launches.update(lazy_launched)
+        u16_launched, u16_diffs = drive_u16_runs(torch, cli, mods, ngsd, genos, mats, P_sub,
+                                                 idx, card)
+        launches.update(u16_launched)
+        launches["tb"] = trace_run(torch, cli, mods, ngsd, genos, card)
+        TWINS.clear()
         coded_launched, coded_diffs, cgl_file, cgl_chunk = drive_coded_runs(
             torch, cli, mods, ngsd, genos, card)
         launches.update(coded_launched)
@@ -2493,6 +2785,9 @@ def main() -> int:
             + ", ".join(f"{k} {v:.3e}" for k, v in mesh_diffs.items())
             + "; disk-read runs against the same input resident, max |d difference| "
             + ", ".join(f"{k} {v:.3e}" for k, v in lazy_diffs.items())
+            + "; uint16 runs against their twins (max |raw difference| / cnt) and the float64 "
+            "plain version on the lane's values (max |d err|) "
+            + ", ".join(f"{k} {v:.3e}" for k, v in u16_diffs.items())
             + "; coded runs equal their twins byte for byte, (cgs) against (cg) max |d "
             "difference| " + ", ".join(f"{k} {v:.3e}" for k, v in coded_diffs.items())
             + "; two-process runs against the one-device run of the same file ((cgp): the "
@@ -2687,6 +2982,7 @@ def main() -> int:
     del P32, P64
     torch.cuda.empty_cache()
     time_expand_codes(torch, distance, hostmem, card)
+    time_expand23(torch, distance, hostmem, card)
     phase_wide(torch, indep, em, card, report)
 
     idle = [k["name"] for k in kernels if not k["launches"]]

@@ -299,9 +299,6 @@ def echo_args(pars: Params) -> None:
         )
 
 
-# JAX-package options that have no counterpart in the port yet.
-_NOT_PORTED = ("trace_dir",)
-
 # Options a multi-process run cannot honour (ngsdist_tpu/cli.py:299-313).
 _NOT_WITH_COORDINATOR = ("trace_dir", "throughput", "devices", "pairs")
 
@@ -352,11 +349,6 @@ def main(argv: Optional[List[str]] = None) -> int:
             for bad in _NOT_WITH_COORDINATOR:
                 if extras.get(bad):
                     raise NgsDistError("main", f"--{bad} is not supported with --coordinator")
-        for opt in _NOT_PORTED:
-            if extras.get(opt) not in (None, False):
-                raise NgsDistError(
-                    "main", f"--{opt} is not yet supported by "
-                    "ngsdist_tpu_torch (see ROADMAP.md)")
         engine = extras.get("engine") or "auto"
         if engine not in ("torch", "auto"):
             raise NgsDistError(
@@ -390,6 +382,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             report_throughput=bool(extras.get("throughput")),
             mesh=mesh,
             x64=bool(extras.get("x64")),
+            trace_dir=extras.get("trace_dir") or None,
         )
     except NgsDistError as e:
         sys.stdout.flush()

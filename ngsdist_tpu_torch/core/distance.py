@@ -62,7 +62,8 @@ from ..ops.indep import (EPSILON, block_partials_shape, indep_block_partials,
                          indep_raw_cnt, scratch_shape)
 from ..utils import checkpoint as ckpt
 from ..utils import profiling
-from ..utils.hostmem import CodedProbs, CodedSlab
+from ..utils.hostmem import (PAD16, U16_ONE, CodedProbs, CodedSlab, pack23, parallel_astype,
+                              upload16_enabled, upload23_enabled)
 from . import bootstrap as bt
 from . import models
 from . import submodels as sm
@@ -124,6 +125,12 @@ _EXACT_COUNT = (1 << 24) - 1
 # no copy overlaps.
 PIPE_UPLOAD_BYTES = 32 << 20
 
+# A packed or coded slab crosses to a card through a device stage of at
+# most this many bytes, in parts, each expanded before the next is
+# copied: the stage adds a bounded amount to a stream's two chunks,
+# whatever their length.
+_STAGE_BYTES = 8 << 20
+
 
 def default_dtype(device: torch.device, x64: bool) -> torch.dtype:
     """The engine's dtype on `device` for a run that asks (x64) or does
@@ -150,16 +157,59 @@ def _np_dtype(dtype: torch.dtype):
 
 def expand23(P2: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[..., 2] -> [..., 3] with p2 = 1 - p0 - p1, the device half of the
-    2-component upload (ngsdist_tpu.core.distance.expand23, float32
-    lane).  A triple whose p0 is above 1.5 (the packed layout's sentinel
-    for padding and all-zero triples) expands to all zero.  Written into
-    `out` when given, with no temporary of the tensor's size."""
+    two-component upload (ngsdist_tpu.core.distance.expand23), written
+    into `out` when given, with no temporary of the tensor's size.
+
+    A float slab: a triple whose p0 is above 1.5 (PAD23: padding and
+    all-zero triples) expands to all zero.  A uint16 slab (hostmem.pack16)
+    expands to float32 r = q · float32(1/65534), one multiply as in the
+    JAX function, p2 = 1 - q0 · float32(1/65534) rounded once, minus r1
+    (_expand16); a sentinel row (p0 == PAD16) to the uniform triple
+    (r1, r1, r1) of its quantized mean, all NaN where p1 is PAD16 too.
+    The JAX package keeps this endpoint form (1/65534 · 65534 is 1 within
+    an ulp) rather than a select of 1.0 at q == 65534: its docstring says
+    why; the port keeps its bits."""
+    if P2.dtype == torch.uint16:
+        return _expand16(P2, out)
     if out is None:
         out = torch.empty(P2.shape[:-1] + (3,), dtype=P2.dtype, device=P2.device)
     out[..., :2] = P2
     # (1 - p0) - p1: -p0 + 1 is 1 - p0 exactly
     out[..., 2].copy_(P2[..., 0]).neg_().add_(1.0).sub_(P2[..., 1])
     out.masked_fill_(P2[..., 0:1] > 1.5, 0.0)
+    return out
+
+
+# float32(1/65534): the one factor of the dequantization
+_U16_STEP = float(np.float32(1.0 / U16_ONE))
+# Rows of a uint16 slab whose p2 goes through one float64 scratch block
+# (_expand16): 32 MiB of it at most, whatever the slab's size.
+_U16_BLOCK = 1 << 22
+
+
+def _expand16(Q: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """expand23 of a uint16 slab, in place in `out` (float32, contiguous):
+    the codes are exact in float32, so the sentinel tests read them there
+    before the multiply.  p2 is float32(1 - q0 x step) - r1, with 1 - q0 x
+    step exact in float64 (q0 x step has at most 40 significant bits) and
+    rounded once, as the JAX function's compiler computes it on the CPU
+    (the multiply fused into the subtraction); a float64 scratch block of
+    at most _U16_BLOCK rows at a time."""
+    if out is None:
+        out = torch.empty(Q.shape[:-1] + (3,), dtype=torch.float32, device=Q.device)
+    o, q = out.view(-1, 3), Q.reshape(-1, 2)
+    o[:, :2] = q
+    pad = o[:, 0] == PAD16
+    nan_row = (pad & (o[:, 1] == PAD16)).unsqueeze(-1)
+    for lo in range(0, o.shape[0], _U16_BLOCK):
+        blk = o[lo:lo + _U16_BLOCK]
+        blk[:, 2].copy_(blk[:, 0].double().mul_(-_U16_STEP).add_(1.0))
+    o[:, :2].mul_(_U16_STEP)
+    o[:, 2].sub_(o[:, 1])
+    # sentinel rows: (r1, r1, r1); where() writes its own input in place
+    for g in (0, 2):
+        torch.where(pad, o[:, 1], o[:, g], out=o[:, g])
+    o.masked_fill_(nan_row, float("nan"))
     return out
 
 
@@ -179,15 +229,18 @@ def expand_codes(codes: torch.Tensor, lut: torch.Tensor,
     return out
 
 
-def _host_pack(src, lo: int, hi: int, dtype: torch.dtype,
+def _host_pack(src, lo: int, hi: int, dtype: torch.dtype, device: torch.device,
                out: Optional[np.ndarray] = None):
-    """Host half of an upload: the upload-ready slab of sites [lo, hi) in
-    the device's dtype — packed float32 [hi-lo, N, 2] from a fused-read
-    handle, a CodedSlab (uint8 [hi-lo, N] codes and the table in the
-    device's dtype) from a coded source, else the cast of the host
-    tensor's slice (no copy where the dtype already fits) — written into
-    `out` (pinned memory) when given.  No device traffic, so the
-    ChunkPipe runs it on its reader thread."""
+    """Host half of an upload: the upload-ready slab of sites [lo, hi)
+    in the lane of slab_layout(src, dtype, device), written into `out`
+    (pinned memory of that layout) when given — a CodedSlab (uint8
+    [hi-lo, N] codes and the table in the device's dtype) from a coded
+    source; a handle's own slab (readers.PackedBinInput, DiskRows); from
+    a host array the two-component slab of hostmem.pack23 (uint16 or the
+    engine's dtype) where that lane is on, else the cast of the slice (no
+    copy where the dtype already fits).  The one place that decides a
+    host array's lane; no device traffic, so the ChunkPipe runs it on its
+    reader thread."""
     with profiling.host_span("read"):
         if isinstance(src, CodedProbs):
             codes = src.codes[lo:hi]
@@ -199,31 +252,42 @@ def _host_pack(src, lo: int, hi: int, dtype: torch.dtype,
             return CodedSlab(codes, src.lut.astype(_np_dtype(dtype)))
         if hasattr(src, "read_packed"):
             got = src.read_packed(lo, hi, out=out)
-            if _slab_width(src) == 1:
+            if getattr(src, "width", 2) == 1:
                 return CodedSlab(got, src.lut.astype(_np_dtype(dtype)))
             return got
+        if upload23_enabled(dtype):
+            return pack23(src[lo:hi], dtype, device, out=out)
         if out is None:
-            return np.ascontiguousarray(src[lo:hi], dtype=_np_dtype(dtype))
+            return parallel_astype(src[lo:hi], _np_dtype(dtype))
         np.copyto(out, src[lo:hi], casting="same_kind")
         return out
 
 
-def _slab_width(src) -> int:
-    """Values per triple of a source's host slabs: 3 for a host array, 1
-    for a code plane (CodedProbs); for a handle with read_packed its
-    `width`, 2 by default (the packed float32 layout, p2 restored on the
-    device by expand23; 1: uint8 codes and the handle's `lut`)."""
+def slab_layout(src, dtype: torch.dtype, device: torch.device):
+    """(values a triple, torch dtype) of the host slabs _host_pack gives
+    for a source on an engine of this dtype and device: (1, uint8) for a
+    code plane (a CodedProbs, or a handle of `width` 1 with its `lut`);
+    for a handle of `width` 2 (the default) (2, uint16) or (2, float32) by
+    its `u16` lane, of width 3 (3, dtype); for a host array (2, uint16)
+    on the uint16 lane, (2, dtype) on the two-component lane, else
+    (3, dtype).  p2 of a pair is restored on the device (expand23)."""
     if isinstance(src, CodedProbs):
-        return 1
-    return getattr(src, "width", 2) if hasattr(src, "read_packed") else 3
+        return 1, torch.uint8
+    if hasattr(src, "read_packed"):
+        width = getattr(src, "width", 2)
+        pair = torch.uint16 if getattr(src, "u16", False) else torch.float32
+    else:
+        width = 2 if upload23_enabled(dtype) else 3
+        pair = torch.uint16 if upload16_enabled(dtype, device) else dtype
+    return {1: (1, torch.uint8), 2: (2, pair)}.get(width, (width, dtype))
 
 
 def put_probs(P_slice, device: torch.device, x64: bool) -> torch.Tensor:
     """Upload a host probability slab ([S, N, 3] array, a CodedProbs or a
-    fused-read handle) in one piece, in the run's dtype (cast on the
-    host, so only the values of that dtype cross to a card); a packed
-    2-component slab or a code plane is expanded on the device."""
-    arr = _host_pack(P_slice, 0, P_slice.shape[0], default_dtype(device, x64))
+    fused-read handle) in one piece, in the run's dtype and lane (packed
+    or cast on the host, so only the bytes of the lane cross to a card);
+    a two-component slab or a code plane is expanded on the device."""
+    arr = _host_pack(P_slice, 0, P_slice.shape[0], default_dtype(device, x64), device)
     if isinstance(arr, CodedSlab):
         profiling.count_upload(arr.codes.nbytes + arr.lut.nbytes)
         return expand_codes(torch.from_numpy(arr.codes).to(device),
@@ -259,29 +323,30 @@ def _pipe_upload_bytes() -> int:
 class ChunkPipe:
     """Site ranges of a source (a host [S, N, 3] array, a CodedProbs, a
     fused-read handle, or any handle with its read protocol: `shape`,
-    `read_packed`, a slab `width` and, coded, a `lut`), prepared on the
-    host by one reader thread and brought to the device in order
-    (ngsdist_tpu.core.distance._pipelined_chunks).
+    `read_packed`, a slab `width`, its `u16` lane and, coded, a `lut`),
+    prepared on the host by one reader thread (_host_pack) and brought to
+    the device in order (ngsdist_tpu.core.distance._pipelined_chunks).
 
-    On a card the reader fills a ring of two pinned slabs; each slab is
-    copied on a copy stream (`non_blocking`) and, packed or coded,
+    On a card the reader fills a ring of two pinned slabs of the source's
+    slab_layout; each slab is copied on a copy stream (`non_blocking`)
+    and, packed or coded, through a device stage of _STAGE_BYTES in parts
     expanded there, into `dest[lo:hi]` (a resident upload) or into a ring
-    of two chunk buffers (a stream).  A coded source's table goes to the
-    device once, with the pipe.  A pinned slab is refilled only after the
-    event behind its copy, a chunk buffer only after the event behind the
-    work the consumer queued on it, and the consumer's stream waits for
-    the event behind each chunk's expansion.  All buffers are allocated
-    once, for ranges of at most `rows` sites, whatever the lane: a uint8
-    slab of `rows` sites is a twelfth of a float32 one.  On the CPU the
-    same generator yields the chunks in order with no stream and no
-    ring."""
+    of two chunk buffers (a stream).  A coded
+    source's table goes to the device once, with the pipe.  A pinned slab
+    is refilled only after the event behind its copy, a chunk buffer only
+    after the event behind the work the consumer queued on it, and the
+    consumer's stream waits for the event behind each chunk's expansion.
+    All buffers are allocated once, for ranges of at most `rows` sites,
+    whatever the lane: a uint8 slab of `rows` sites is a twelfth of a
+    float32 one, a uint16 pair slab a sixth.  On the CPU the same
+    generator yields the chunks in order with no stream and no ring."""
 
     def __init__(self, src, device: torch.device, dtype: torch.dtype, rows: int,
                  dest: Optional[torch.Tensor] = None) -> None:
         self.src, self.device, self.dtype, self.dest = src, device, dtype, dest
-        width = _slab_width(src)
+        width, slab_dtype = slab_layout(src, dtype, device)
         self.packed, self.coded = width == 2, width == 1
-        if self.packed and dtype != torch.float32:
+        if self.packed and dtype != torch.float32 and slab_dtype != dtype:
             raise ValueError("a fused-read source holds float32 slabs")
         self.cuda = device.type == "cuda"
         if self.coded:
@@ -289,13 +354,15 @@ class ChunkPipe:
         if not self.cuda:
             return
         N = src.shape[1]
-        slab, slab_dtype = (((rows, N), torch.uint8) if self.coded
-                            else ((rows, N, width), dtype))
+        slab = (rows, N) if self.coded else (rows, N, width)
         self.host = [torch.empty(slab, dtype=slab_dtype, pin_memory=True) for _ in range(2)]
         self.copied = [None, None]       # events: a pinned slab's copy is done
         self.stream = torch.cuda.Stream(device)
-        self.stage = (torch.empty(slab, dtype=slab_dtype, device=device)
-                      if width < 3 else None)
+        self.stage = None
+        if width < 3:  # a packed or coded slab goes up in parts of the stage's rows
+            self.stage_rows = max(1, min(rows, _STAGE_BYTES // (N * width * slab_dtype.itemsize)))
+            self.stage = torch.empty((self.stage_rows,) + slab[1:], dtype=slab_dtype,
+                                     device=device)
         if dest is None:
             self.ring = [torch.empty((rows, N, 3), dtype=dtype, device=device)
                          for _ in range(2)]
@@ -307,7 +374,7 @@ class ChunkPipe:
             if self.copied[k % 2] is not None:
                 self.copied[k % 2].synchronize()
             out = self.host[k % 2][:hi - lo].numpy()
-        return _host_pack(self.src, lo, hi, self.dtype, out=out)
+        return _host_pack(self.src, lo, hi, self.dtype, self.device, out=out)
 
     def _expand(self, t: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
         """A packed or coded slab on the device as its [n, N, 3] triples."""
@@ -336,14 +403,15 @@ class ChunkPipe:
         with torch.cuda.stream(self.stream), profiling.device_span("upload", self.stream):
             src = self.host[slot][:n]
             profiling.count_upload(src.numel() * src.element_size())
-            if self.stage is not None:
-                self.stage[:n].copy_(src, non_blocking=True)
-            else:
+            if self.stage is None:
                 out.copy_(src, non_blocking=True)
+            else:
+                for a in range(0, n, self.stage_rows):
+                    b = min(n, a + self.stage_rows)
+                    self.stage[:b - a].copy_(src[a:b], non_blocking=True)
+                    self._expand(self.stage[:b - a], out[a:b])
             self.copied[slot] = torch.cuda.Event()
             self.copied[slot].record(self.stream)
-            if self.stage is not None:
-                self._expand(self.stage[:n], out)
             ready = torch.cuda.Event()
             ready.record(self.stream)
         torch.cuda.current_stream(self.device).wait_event(ready)
@@ -380,14 +448,15 @@ def upload_resident(src, device: torch.device, x64: bool) -> torch.Tensor:
     through a ChunkPipe into the tensor one after another: one pass over
     a handle's file, no float64 host tensor, each slab's copy under the
     next one's read (ngsdist_tpu.core.distance._upload_packed_pipelined).
-    A coded slab holds the sites of a host array's (its rows fill
-    _pipe_upload_bytes() of the tensor), so no lane moves a slab edge."""
+    A slab holds _pipe_upload_bytes() of its lane's bytes; a coded one
+    the sites of a staged slab (its rows fill _pipe_upload_bytes() of the
+    tensor)."""
     if device.type != "cuda" and not hasattr(src, "read_packed"):
         return put_probs(src, device, x64)
     dtype = default_dtype(device, x64)
     S, N = src.shape[:2]
-    width = _slab_width(src)
-    slab_site_bytes = N * (3 if width == 1 else width) * (torch.finfo(dtype).bits // 8)
+    width, slab_dtype = slab_layout(src, dtype, device)
+    slab_site_bytes = N * (3 * dtype.itemsize if width == 1 else width * slab_dtype.itemsize)
     step = max(1, _pipe_upload_bytes() // max(1, slab_site_bytes))
     P = torch.empty((S, N, 3), dtype=dtype, device=device)
     pipe = ChunkPipe(src, device, dtype, max(1, min(step, S)), dest=P)

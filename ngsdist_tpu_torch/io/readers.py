@@ -163,6 +163,38 @@ def read_geno_pack23(
     out: a C-contiguous float32 [rows, n_ind, 2] array to fill instead
     of a new one (pinned memory, so that the native reader writes where
     the upload starts from)."""
+    return _fused_pack_read("nd_read_geno_pack23", np.float32, _native.as_float_ptr,
+                            path, in_logscale, n_ind, n_sites, site_range, out)
+
+
+def read_geno_pack16(
+    path: str,
+    in_logscale: bool,
+    n_ind: int,
+    n_sites: int,
+    site_range: Optional[Tuple[int, int]] = None,
+    out: Optional[np.ndarray] = None,
+) -> Optional[np.ndarray]:
+    """Fused one-pass read of a RAW binary GP file into the uint16
+    fixed-point slab [rows, n_ind, 2] of utils/hostmem.py pack16
+    (q = rint(p · 65534), (65535, quantized mean) for a row the host
+    finds missing): 4 bytes a triple against read_geno_pack23's 8, the
+    bits of the staged read_geno -> preprocess -> pack16 route (the same
+    libm calls; llrint rounds half to even as np.rint does; native
+    nd_read_geno_pack16).  Returns None when the file is not raw seekable
+    binary.  Reference arithmetic: read_data.cpp:29-47 +
+    gen_func.cpp:123-130.  out: a C-contiguous uint16 [rows, n_ind, 2]
+    array to fill instead of a new one (pinned memory)."""
+    return _fused_pack_read("nd_read_geno_pack16", np.uint16, _native.as_uint16_ptr,
+                            path, in_logscale, n_ind, n_sites, site_range, out)
+
+
+def _fused_pack_read(entry: str, dtype, as_ptr, path: str, in_logscale: bool, n_ind: int,
+                     n_sites: int, site_range: Optional[Tuple[int, int]],
+                     out: Optional[np.ndarray]) -> Optional[np.ndarray]:
+    """One fused native read of sites site_range into a [rows, n_ind, 2]
+    slab of `dtype` through the native `entry`; None for a source that is
+    not raw seekable binary."""
     import ctypes
 
     if path == "-" or not _native.have_native():
@@ -170,15 +202,15 @@ def read_geno_pack23(
     start, stop = site_range if site_range is not None else (0, n_sites)
     lib = _native.get_lib()
     if out is None:
-        out = np.empty((stop - start, n_ind, 2), dtype=np.float32)
+        out = np.empty((stop - start, n_ind, 2), dtype=dtype)
     elif out.shape != (stop - start, n_ind, 2):
         raise ValueError(f"out has shape {out.shape}, the range needs "
                          f"{(stop - start, n_ind, 2)}")
     errbuf = ctypes.create_string_buffer(256)
     err = ctypes.c_int(0)
-    rc = lib.nd_read_geno_pack23(
+    rc = getattr(lib, entry)(
         path.encode(), int(in_logscale), n_ind, n_sites, start, stop,
-        _native.as_float_ptr(out), errbuf, len(errbuf), ctypes.byref(err),
+        as_ptr(out), errbuf, len(errbuf), ctypes.byref(err),
     )
     if rc == 2:
         return None
@@ -268,8 +300,9 @@ class PackedBinInput:
     Instead of materializing the [S, N, 3] float64 tensor (read) and
     then converting it twice more (exp, float32 cast) — three full
     passes and a 3x-resident host footprint — the engine pulls
-    upload-ready packed float32 [chunk, N, 2] slabs straight from disk
-    via read_geno_pack23 and uploads each while the next chunk parses.
+    upload-ready packed [chunk, N, 2] slabs straight from disk, uint16
+    (read_geno_pack16, `u16`) or float32 (read_geno_pack23), and uploads
+    each while the next chunk parses.
 
     Consequence of deferral: reader fatals that depend on file CONTENT
     (the NaN check) surface when the affected chunk is read — mid-run
@@ -279,20 +312,24 @@ class PackedBinInput:
     docs/PARITY.md.
     """
 
-    def __init__(self, pars) -> None:
+    def __init__(self, pars, u16: bool = False) -> None:
         self.path = pars.in_geno
         self.in_logscale = bool(pars.in_logscale)
         self.n_ind = int(pars.n_ind)
         self.n_sites = int(pars.n_sites)
         self.shape = (self.n_sites, self.n_ind, 3)  # logical tensor shape
-        self.bytes_per_site = self.n_ind * 8        # two float32 per triple
+        # the lane, chosen by the caller for its device: uint16 fixed point
+        # (read_geno_pack16, 4 bytes a triple) or float32 pairs (8 bytes)
+        self.u16 = bool(u16)
+        self.bytes_per_site = self.n_ind * (4 if self.u16 else 8)
 
     def read_packed(self, lo: int, hi: int,
                     out: Optional[np.ndarray] = None) -> np.ndarray:
-        """Upload-ready float32 [hi-lo, n_ind, 2] slab for sites
-        [lo, hi), written into `out` when given."""
-        got = read_geno_pack23(self.path, self.in_logscale, self.n_ind,
-                               self.n_sites, site_range=(lo, hi), out=out)
+        """Upload-ready [hi-lo, n_ind, 2] slab (uint16 or float32 lane)
+        for sites [lo, hi), written into `out` when given."""
+        read = read_geno_pack16 if self.u16 else read_geno_pack23
+        got = read(self.path, self.in_logscale, self.n_ind, self.n_sites,
+                   site_range=(lo, hi), out=out)
         if got is None:  # not raw binary after all (TOCTOU): hard error
             raise NgsDistError("read_geno", "cannot read binary GENO file. "
                                "Check GENO file and number of sites!")

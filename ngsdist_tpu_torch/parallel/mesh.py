@@ -238,8 +238,12 @@ def shard_sites(P_host, mesh: Mesh, ranges, x64: bool, base: int = 0) -> Sharded
     upload_resident, on the entry's stream), and copy it from there to the
     row's other devices, so the host reads and casts each slice once.
     A code plane's slice (utils/hostmem.CodedProbs) stays coded: each shard
-    uploads its uint8 rows and expands them on its own device; the copies
-    along the pairs axis are of the expanded tensor.  ranges: every sites
+    uploads its uint8 rows and expands them on its own device; a host
+    array's slice goes in the device's lane (uint16 or float pairs,
+    utils/hostmem.py pack23, expanded on the device; ngsdist_tpu/parallel/
+    mesh.py:112-129); the copies along the pairs axis are of the expanded
+    tensor.  A shard holds its data sites only, so no pad rows cross:
+    rounds past the data are the device's zeros.  ranges: every sites
     shard's data sites; P_host holds the sites from `base` on; x64: the
     run's dtype choice (core/distance.py default_dtype)."""
     p = pairs_size(mesh)

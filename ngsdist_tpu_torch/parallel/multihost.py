@@ -57,7 +57,8 @@ from ..core.submodels import encode_alleles
 from ..io import readers, writers
 from ..utils import checkpoint as ckpt
 from ..utils import native, signals
-from ..utils.hostmem import CodedProbs, coded_call_lut, coded_upload_enabled
+from ..utils.hostmem import (CodedProbs, coded_call_lut, coded_upload_enabled, pack23,
+                              upload16_enabled, upload23_enabled)
 from . import mesh as pm
 
 
@@ -201,14 +202,18 @@ def _call_lut() -> np.ndarray:
 class DiskRows:
     """A lazy stream's sites, read from disk as the engine asks for them,
     with the read protocol of readers.PackedBinInput (`shape`,
-    `read_packed`, `width`), so that the engine's ChunkPipe reads a
-    shard's next round on its reader thread.  A raw binary source on a
-    card without --call_geno goes through the fused native reader
-    (readers.read_geno_pack23): packed float32 [n, N, 2] slabs (`width`
-    2; p2 = 1 - p0 - p1 is restored on the card), the values of the
-    one-device run's fused read.  Every other read is the staged one
-    (rows, preprocess, the cast to the device's dtype): [n, N, 3] slabs,
-    the values of the eager read of the same input.  Coded
+    `read_packed`, `width`, `u16`), so that the engine's ChunkPipe reads a
+    shard's next round on its reader thread.  The lane is the device's
+    (utils/hostmem.py upload23_enabled, upload16_enabled): on the
+    two-component lanes a slab is [n, N, 2] (`width` 2; p2 = 1 - p0 - p1
+    is restored on the device), uint16 where `u16`, else the engine's
+    float dtype.  A raw binary source without --call_geno goes through
+    the fused native reader on those lanes (readers.read_geno_pack16 or
+    read_geno_pack23), the values of the one-device run's fused read.
+    Every other read is the staged one (rows, preprocess, then
+    hostmem.pack23 on those lanes or the cast to the device's dtype:
+    [n, N, 3] slabs), the values of the eager read of the same input.
+    Coded
     (SiteStream.wants_coded_lazy): uint8 [n, N] codes (`width` 1) of the
     static table `lut` (_call_lut), from the fused codes reader or the
     text spill's classified rows, which the card expands into the staged
@@ -219,20 +224,23 @@ class DiskRows:
     binary row is all zero, and --call_geno, the coded lane, calls an
     empty line missing)."""
 
-    def __init__(self, pars: Params, dtype: torch.dtype, stop: int,
+    def __init__(self, pars: Params, dtype: torch.dtype, device: torch.device, stop: int,
                  spill_path: Optional[str] = None, spill_norm: bool = False,
                  spill_base: int = 0, coded: bool = False) -> None:
-        self.pars = pars
+        self.pars, self.dtype, self.device = pars, dtype, device
         self.N, self.S = pars.n_ind, pars.n_sites
         self.shape = (self.S, self.N, 3)
         self.stop = stop
         self.spill_path, self.spill_norm, self.spill_base = spill_path, spill_norm, spill_base
         self.zero = ZeroRows.empty(self.N) if spill_norm else None
         self.lut = _call_lut() if coded else None
-        self.fused = (dtype == torch.float32 and not pars.call_geno and not spill_norm
-                      and native.have_native()
+        # float32 pairs or uint16 (a float64 engine reads its rows whole,
+        # whatever NGSDIST_UPLOAD23 forces)
+        packed = dtype == torch.float32 and upload23_enabled(dtype)
+        self.u16 = not coded and upload16_enabled(dtype, device)
+        self.fused = (packed and not pars.call_geno and not spill_norm and native.have_native()
                       and readers.is_raw_seekable_binary(spill_path or pars.in_geno))
-        self.width = 1 if coded else 2 if self.fused else 3
+        self.width = 1 if coded else 2 if packed else 3
 
     def _binary_source(self):
         """(path, sites in it, first site) of a binary source."""
@@ -280,8 +288,9 @@ class DiskRows:
             return self._read_codes(lo, hi, out)
         if self.fused:
             path, rows, base = self._binary_source()
-            got = readers.read_geno_pack23(path, self.pars.in_logscale, self.N, rows,
-                                           site_range=(lo - base, hi - base), out=out)
+            read = readers.read_geno_pack16 if self.u16 else readers.read_geno_pack23
+            got = read(path, self.pars.in_logscale, self.N, rows,
+                       site_range=(lo - base, hi - base), out=out)
             if got is None:  # not raw binary after all (TOCTOU): hard error
                 raise NgsDistError("read_geno", "cannot read binary GENO file. Check GENO "
                                    "file and number of sites!")
@@ -290,6 +299,8 @@ class DiskRows:
         pre = preprocess(self._read_rows(lo, hi), p.call_geno, p.N_thresh, p.call_thresh)
         if self.zero is not None:
             self.zero.add(lo, pre)
+        if self.width == 2:
+            return pack23(pre, self.dtype, self.device, out=out)
         if out is None:
             return pre
         np.copyto(out, pre, casting="same_kind")
@@ -321,7 +332,8 @@ class SiteStream:
         self.s_pad = s_loc * self.n_dev
         self.chunk = int(min(chunk, s_loc))
         self.lazy = isinstance(src, DiskRows)
-        self.coded = dist._slab_width(src) == 1
+        dtype = dist.default_dtype(mesh.first, x64)
+        self.coded = dist.slab_layout(src, dtype, mesh.first)[0] == 1
         # a lazy stream always runs in rounds: there is no host array to
         # upload whole
         self.resident = not self.lazy and self.chunk >= self.s_loc
@@ -467,7 +479,7 @@ class SiteStream:
             if not cls.seekable_binary(pars):
                 spill = cls._build_spill(pars, start, stop)
             try:
-                src = DiskRows(pars, dtype, stop, coded=coded, **spill)
+                src = DiskRows(pars, dtype, mesh.first, stop, coded=coded, **spill)
                 return cls(src, pars, mesh, s_loc, chunk, spill_owned=spill.get("spill_path"),
                            x64=x64)
             except BaseException:
@@ -499,7 +511,7 @@ class SiteStream:
                 pars.in_geno, pars.in_bin, pars.in_probs, pars.in_logscale, N, S,
                 site_range=rng)
             pre = preprocess(geno_log, pars.call_geno, pars.N_thresh, pars.call_thresh)
-            local = dist._host_pack(pre, 0, hi - lo, dtype)
+            local = pre   # packed or cast as each shard's rows go up (_host_pack)
         else:
             local = np.zeros((0, N, 3), dist._np_dtype(dtype))
         return cls(local, pars, mesh, s_loc, chunk, base=lo, x64=x64)

@@ -28,7 +28,8 @@ from .core.submodels import encode_alleles
 from .io import readers, writers
 from .utils import checkpoint as ckpt
 from .utils import native, profiling, signals
-from .utils.hostmem import CodedProbs, coded_call_lut, coded_upload_enabled, derive_codes
+from .utils.hostmem import (CodedProbs, coded_call_lut, coded_upload_enabled, derive_codes,
+                             upload16_enabled, upload23_enabled)
 from .utils.profiling import Throughput
 
 
@@ -50,11 +51,13 @@ def _fused_packed_wanted(pars: Params, device: torch.device, mesh=None,
     upload-ready packed float32 chunks straight from disk — one native
     pass instead of read + exp + cast over a resident float64 tensor,
     with chunk reads overlapping the uploads.  Requires a raw seekable
-    binary file, the float32 dtype (not --x64: the JAX package's
-    upload23_enabled is off under x64) and an engine stage that never needs
-    the host tensor (no genotype calling, no per-site debug replay), and
-    one device: a mesh run shards the host tensor, as the JAX runner's
-    does.  NGSDIST_FUSED_READ=0 forces the staged pipeline."""
+    binary file, the float32 dtype with its two-component lane on (not
+    --x64, not NGSDIST_UPLOAD23=0: utils/hostmem.py upload23_enabled), an
+    engine stage that never needs the host tensor (no genotype calling,
+    no per-site debug replay), and one device: a mesh run shards the host
+    tensor, as the JAX runner's does.  The handle's lane, uint16 or
+    float32 pairs, is the device's (load_inputs).  NGSDIST_FUSED_READ=0
+    forces the staged pipeline."""
     if mesh is not None:
         return False
     if os.environ.get("NGSDIST_FUSED_READ", "auto") == "0":
@@ -65,7 +68,8 @@ def _fused_packed_wanted(pars: Params, device: torch.device, mesh=None,
         return False
     if not native.have_native():
         return False
-    return distance.default_dtype(device, x64) == torch.float32
+    dtype = distance.default_dtype(device, x64)
+    return dtype == torch.float32 and upload23_enabled(dtype)
 
 
 def _fused_coded_wanted(pars: Params, device: torch.device, mesh=None, x64: bool = False):
@@ -120,11 +124,13 @@ def _lazy_stream_wanted(pars: Params, device: torch.device, x64: bool = False) -
     return SiteStream.wants_lazy(pars, distance.default_dtype(device, x64), pars.n_sites)
 
 
-def load_inputs(pars: Params, fused: bool = False, geno: bool = True, coded=False):
+def load_inputs(pars: Params, fused: bool = False, geno: bool = True, coded=False,
+                device: Optional[torch.device] = None):
     """Read labels, positions and the genotype tensor; returns
     (labels, pos_rows, P_normal [n_sites, n_ind, 3]).  fused=True
     returns a readers.PackedBinInput handle instead of the tensor (the
-    engine reads fused packed chunks on demand); coded (_fused_coded_wanted)
+    engine reads fused packed chunks on demand) in the lane of `device`
+    (uint16 pairs where utils/hostmem.py upload16_enabled); coded (_fused_coded_wanted)
     "handle" a readers.CodedBinInput, "eager" the code plane as a
     utils/hostmem.CodedProbs; geno=False reads no genotypes (P is None: a
     lazy run reads them round by round)."""
@@ -149,7 +155,8 @@ def load_inputs(pars: Params, fused: bool = False, geno: bool = True, coded=Fals
     if not geno:
         return labels, pos_rows, None
     if fused:
-        return labels, pos_rows, readers.PackedBinInput(pars)
+        u16 = device is not None and upload16_enabled(torch.float32, device)
+        return labels, pos_rows, readers.PackedBinInput(pars, u16=u16)
     if coded == "handle":
         return labels, pos_rows, readers.CodedBinInput(pars)
     if coded:
@@ -265,7 +272,7 @@ def iter_replicates(pars: Params, P, device: torch.device,
 
 def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[TextIO] = None,
         resume: bool = False, report_throughput: bool = False, mesh=None,
-        x64: bool = False) -> List[np.ndarray]:
+        x64: bool = False, trace_dir: Optional[str] = None) -> List[np.ndarray]:
     """Full pipeline; writes matrices to pars.out (or out_fh) and returns
     them.  resume: continue an interrupted run from its .ckpt.json
     sidecar.  report_throughput: print pair-site updates/s to stderr.
@@ -279,7 +286,8 @@ def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[Te
     `cpu` entry).  x64: compute in float64 on a card (--x64, the JAX
     package's md5 mode): the staged read in float64, no fused pack23 read
     and no code plane, the kernels' float64 entries; the CPU path is
-    float64 either way."""
+    float64 either way.  trace_dir: write a torch.profiler trace of the
+    compute section there (utils/profiling.py trace; --trace_dir)."""
     if mesh is not None:
         device = mesh.first
     elif device is None:
@@ -300,7 +308,7 @@ def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[Te
     lazy = not coded and _lazy_stream_wanted(pars, device, x64)
     fused = not lazy and not coded and _fused_packed_wanted(pars, device, mesh, x64)
     if not lazy:
-        labels, pos_rows, P = load_inputs(pars, fused=fused, coded=coded)
+        labels, pos_rows, P = load_inputs(pars, fused=fused, coded=coded, device=device)
     else:
         labels, pos_rows, _ = load_inputs(pars, geno=False)
         from .parallel import make_mesh
@@ -360,28 +368,29 @@ def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[Te
     n_trunc = pars.n_sites - pars.n_sites % bs if pars.n_boot_rep else pars.n_sites
     interrupted = False
     try:
-        for rep, m in enumerate(
-            iter_replicates(pars, P, device, on_stats=on_stats, labels=labels,
-                            start_rep=n_done, alleles=alleles, mesh=mesh, x64=x64,
-                            # round-level durability of the sums of
-                            # streamed long-genome replicates
-                            round_ckpt=close),
-            start=n_done,
-        ):
-            n_used = pars.n_sites if rep == 0 else n_trunc
-            got = pending_updates.pop() if pending_updates else (
-                float(pars.n_comb) * float(n_used))
-            _log(pars, 2, "> Printing distance matrix")
-            writers.write_dist_matrix(out_fh, labels, m)
-            out_fh.flush()
-            matrices.append(m)
-            meter.add_updates(got)
-            if close:
-                ckpt.save(pars.out, pars, rep + 1, engine=ckpt_engine)
-            if signals.stop_requested():
-                _log(pars, 1, "==> Stop requested; output is resumable (--resume)")
-                interrupted = True
-                break
+        with profiling.trace(trace_dir):
+            for rep, m in enumerate(
+                iter_replicates(pars, P, device, on_stats=on_stats, labels=labels,
+                                start_rep=n_done, alleles=alleles, mesh=mesh, x64=x64,
+                                # round-level durability of the sums of
+                                # streamed long-genome replicates
+                                round_ckpt=close),
+                start=n_done,
+            ):
+                n_used = pars.n_sites if rep == 0 else n_trunc
+                got = pending_updates.pop() if pending_updates else (
+                    float(pars.n_comb) * float(n_used))
+                _log(pars, 2, "> Printing distance matrix")
+                writers.write_dist_matrix(out_fh, labels, m)
+                out_fh.flush()
+                matrices.append(m)
+                meter.add_updates(got)
+                if close:
+                    ckpt.save(pars.out, pars, rep + 1, engine=ckpt_engine)
+                if signals.stop_requested():
+                    _log(pars, 1, "==> Stop requested; output is resumable (--resume)")
+                    interrupted = True
+                    break
     finally:
         if close:
             out_fh.close()

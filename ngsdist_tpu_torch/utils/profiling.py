@@ -1,11 +1,11 @@
-"""Throughput and stage-time observability.
+"""Tracing, throughput and stage-time observability.
 
 The reference has no timers or perf counters anywhere; this module
-supplies a pair-site throughput meter for the updates/sec metric
-(`--throughput`) and, for scripts that ask (chip_smoke.py,
-profile_torch.py), the intervals of a run's reads, uploads and kernels
-on one clock (`StageTimes`).  Device tracing is not ported yet
-(profile_torch.py profiles the CLI from outside).
+supplies a torch.profiler trace of a run's compute section (`trace`,
+`--trace_dir`; the JAX package's jax.profiler trace), a pair-site
+throughput meter for the updates/sec metric (`--throughput`) and, for
+scripts that ask (chip_smoke.py, profile_torch.py), the intervals of a
+run's reads, uploads and kernels on one clock (`StageTimes`).
 """
 
 from __future__ import annotations
@@ -15,6 +15,27 @@ import sys
 import time
 from dataclasses import dataclass, field
 from typing import Optional
+
+
+@contextlib.contextmanager
+def trace(trace_dir: Optional[str]):
+    """Record a torch.profiler trace of the enclosed section (CPU
+    activity, and the CUDA activity of every kernel and copy where a card
+    is visible) and write it into trace_dir in TensorBoard's format
+    (torch.profiler.tensorboard_trace_handler: a
+    <host>_<pid>.<time>.pt.trace.json file, which TensorBoard's profile
+    plugin and chrome://tracing read); nothing when trace_dir is empty."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(trace_dir)):
+        yield
 
 
 @dataclass

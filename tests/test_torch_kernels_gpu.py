@@ -804,3 +804,82 @@ def test_f64_indep_blocks_odd_rows(cuda, block_size, pairwise_del):
     P, _ = chip_smoke.small_case(np.random.default_rng(block_size), torch,
                                  n_blocks * block_size, 129, x64=True)
     chip_smoke.block_case(torch, indep, em, "indep", P, pairwise_del, n_blocks, block_size)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["resident", "streamed", "mesh", "lazy"])
+@pytest.mark.parametrize("kind", sorted(KERNELS))
+def test_u16_run_holds_to_its_float32_pair_twin(cuda, tmp_path, monkeypatch, route, kind):
+    """A float32 run on the card takes the uint16 lane by default, on every
+    route (the fused read resident and streamed, a 2 x 2 mesh's staged
+    shards, lazy rounds): only uint16 slabs are sent, and its statistics
+    hold to the same run under NGSDIST_UPLOAD16=0 (float32 pairs): cnt
+    equal, raw within chip_smoke.u16_bound (PERF.md section 2)."""
+    from ngsdist_tpu_torch import cli, runner
+    from ngsdist_tpu_torch.core import distance
+    from ngsdist_tpu_torch.parallel import mesh as pm
+
+    rng = np.random.default_rng(16)
+    S, N = 3000, 96
+    geno = tmp_path / "p.bin"
+    chip_smoke.rand_probs(rng, S, N).astype("<f8").tofile(geno)
+    for k in ("NGSDIST_UPLOAD16", "NGSDIST_UPLOAD23", "NGSDIST_DEVICE_BUDGET",
+              "NGSDIST_HOST_BUDGET", "NGSDIST_FUSED_READ"):
+        monkeypatch.delenv(k, raising=False)
+    if route == "streamed":
+        monkeypatch.setenv("NGSDIST_DEVICE_BUDGET", str(3 * 4 * 500 * N * 12 // 3))
+    if route == "lazy":
+        monkeypatch.setenv("NGSDIST_HOST_BUDGET", str(1 << 20))
+    finalize, host_pack = distance._finalize, distance._host_pack
+    got = {}
+    for lane in ("auto", "0"):
+        stats, slabs = [], set()
+
+        def stats_spy(raw, cnt, *a, stats=stats, **k):
+            stats.append((np.array(raw), np.array(cnt, np.float64)))
+            return finalize(raw, cnt, *a, **k)
+
+        def slab_spy(*a, slabs=slabs, **k):
+            slab = host_pack(*a, **k)
+            slabs.add(str(getattr(slab, "dtype", "codes")))
+            return slab
+
+        monkeypatch.setattr(distance, "_finalize", stats_spy)
+        monkeypatch.setattr(distance, "_host_pack", slab_spy)
+        if lane == "0":
+            monkeypatch.setenv("NGSDIST_UPLOAD16", "0")
+        args = ["--geno", str(geno), "--probs", "--n_ind", str(N), "--n_sites", str(S),
+                "--seed", "3", "--n_boot_rep", "2", "--boot_block_size", "100",
+                "--out", str(tmp_path / f"{lane}.dist"), "--verbose", "0"]
+        args += ["--indep_geno", "--pairwise_del"] if kind == "indep" else []
+        if route == "mesh":
+            runner.run(cli.parse_args(args)[0], mesh=pm.make_mesh([cuda] * 4, pairs=2))
+        else:
+            assert cli.main(args + ["--platform", "cuda"]) == 0
+        got[lane] = (stats, slabs)
+    (s16, slabs16), (s32, slabs32) = got["auto"], got["0"]
+    assert slabs16 == {"uint16"} and slabs32 == {"float32"}
+    assert len(s16) == len(s32) == 3
+    for (r16, c16), (r32, c32) in zip(s16, s32):
+        np.testing.assert_array_equal(c16, c32)
+        assert (np.abs(r16 - r32) <= chip_smoke.u16_bound(kind, r16, r32, c32)).all()
+
+
+@pytest.mark.gpu
+def test_expand23_u16_on_the_card_is_the_cpus(cuda):
+    """expand23's uint16 half on the card gives the CPU's bits, every
+    sentinel included, into a new tensor and into a slice."""
+    from ngsdist_tpu_torch.core import distance
+    from ngsdist_tpu_torch.utils import hostmem
+
+    rng = np.random.default_rng(17)
+    P = chip_smoke.rand_probs(rng, 999, 37)
+    P[rng.random((999, 37)) < 0.02] = 0.0
+    P[3, 4] = np.nan
+    q = hostmem.pack16(P, 1003)
+    want = distance.expand23(torch.from_numpy(q))
+    got = distance.expand23(torch.from_numpy(q).to(cuda))
+    assert chip_smoke.same_bytes(torch, got.cpu(), want)
+    big = torch.full((1005, 37, 3), 7.0, device=cuda)
+    distance.expand23(torch.from_numpy(q).to(cuda), out=big[1:-1])
+    assert chip_smoke.same_bytes(torch, big[1:-1].cpu(), want)

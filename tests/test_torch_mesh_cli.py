@@ -11,6 +11,8 @@ forced NGSDIST_DEVICE_BUDGET, streamed in site rounds.  The phylip
 values agree within 1e-9 (both print %.10f of float64 sums taken in
 other orders)."""
 
+import json
+
 import numpy as np
 import pytest
 
@@ -82,6 +84,25 @@ def test_cli_mesh_streamed_matches_jax(tmp_path, monkeypatch, family):
     _both(tmp_path, FAMILIES[family], ["--devices", "8"])
 
 
+def test_cli_mesh_trace_dir_writes_a_trace_and_the_same_bytes(tmp_path, monkeypatch):
+    """--trace_dir on a 4 x 2 mesh of `cpu` entries: one trace file of the
+    compute section, with the indep plain version's einsum in it, and the
+    bytes of the same run without it."""
+    monkeypatch.chdir(DATA_DIR)
+    args = ["--geno", "gp.bin", "--probs", "--indep_geno", "--pairwise_del", "--n_ind", "20",
+            "--n_sites", "1200", "--seed", "7", "--n_boot_rep", "2", "--boot_block_size",
+            "100", "--verbose", "0", "--platform", "cpu", "--devices", "8", "--pairs", "2"]
+    plain, traced = str(tmp_path / "plain.dist"), str(tmp_path / "traced.dist")
+    trace_dir = tmp_path / "trace"
+    assert cli.main(args + ["--out", plain]) == 0
+    assert cli.main(args + ["--out", traced, "--trace_dir", str(trace_dir)]) == 0
+    assert open(traced, "rb").read() == open(plain, "rb").read()
+    files = list(trace_dir.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    names = {e.get("name") for e in json.load(open(files[0]))["traceEvents"]}
+    assert "aten::einsum" in names
+
+
 @pytest.mark.parametrize("extra,needle", [
     (["--devices", "6", "--pairs", "4"], "6 devices do not factor into pairs=4"),
     # the multi-process flags run under --coordinator (tests/
@@ -90,10 +111,6 @@ def test_cli_mesh_streamed_matches_jax(tmp_path, monkeypatch, family):
                  id="num_processes-needs-coordinator"),
     pytest.param(["--process_id", "0"], "--process_id needs --coordinator",
                  id="process_id-needs-coordinator"),
-    # --x64 runs now; the case, under its old id, holds the refusal
-    # of --trace_dir, the one option still refused
-    pytest.param(["--trace_dir", "trace"], "--trace_dir is not yet supported",
-                 id="extra3---x64 is not yet supported"),
 ])
 def test_cli_mesh_errors(extra, needle, tmp_path, monkeypatch, capsys):
     """A device count that --pairs does not divide is the JAX package's

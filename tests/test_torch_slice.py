@@ -98,7 +98,6 @@ def test_port_matches_jax_engine(random_gp, tmp_path, indep, flags):
     pytest.param(["--platform", "cpu", "--coordinator", "localhost:1", "--devices", "2"],
                  "--devices is not supported with --coordinator",
                  id="coordinator-refuses-devices"),
-    (["--platform", "cpu", "--trace_dir", "t"], "--trace_dir is not yet supported"),
     (["--platform", "cpu", "--engine", "jax"], "unknown engine 'jax'"),
     (["--platform", "cpu", "--engine", "exact"], "python -m ngsdist_tpu)"),
     # models 3-6 are ported: with a POS file that holds alleles the run succeeds
@@ -119,6 +118,26 @@ def test_port_cli_errors(extra, needle, tmp_path, monkeypatch, capsys):
         return
     assert cli.main(args) == 255
     assert needle in capsys.readouterr().err
+
+
+def test_trace_dir_writes_a_trace_and_the_same_bytes(tmp_path, monkeypatch):
+    """--trace_dir (utils/profiling.py trace, torch.profiler) writes a
+    TensorBoard-format trace of the compute section into the directory,
+    holding the operations of the EM's plain version, and the run writes
+    the bytes of the same run without it."""
+    monkeypatch.chdir(DATA_DIR)
+    args = ["--geno", "gp.bin", "--probs", "--n_ind", "20", "--n_sites", "1200", "--seed", "3",
+            "--n_boot_rep", "2", "--boot_block_size", "100", "--verbose", "0",
+            "--platform", "cpu"]
+    plain, traced = str(tmp_path / "plain.dist"), str(tmp_path / "traced.dist")
+    trace_dir = tmp_path / "trace"
+    assert cli.main(args + ["--out", plain]) == 0
+    assert cli.main(args + ["--out", traced, "--trace_dir", str(trace_dir)]) == 0
+    assert open(traced, "rb").read() == open(plain, "rb").read()
+    files = list(trace_dir.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    names = {e.get("name") for e in json.load(open(files[0]))["traceEvents"]}
+    assert "aten::exp" in names   # the EM's plain version, inside the section
 
 
 def test_unported_model_is_refused_after_finalize(tmp_path, monkeypatch, capsys):

@@ -241,8 +241,9 @@ def test_x64_route_rules_decline_the_float32_lanes(monkeypatch):
         assert hostmem.coded_upload_enabled(dtype) is f32
         assert (runner._fused_coded_wanted(called, CUDA, None, x64) == "handle") is f32
         assert pmh.SiteStream.wants_coded_lazy(called, dtype) is f32
-        assert pmh.DiskRows(gp, dtype, 1200).fused is f32
-        assert pmh.DiskRows(gp, dtype, 1200).width == (2 if f32 else 3)
+        rows = pmh.DiskRows(gp, dtype, CUDA, 1200)
+        assert rows.fused is f32 and rows.u16 is f32
+        assert rows.width == (2 if f32 else 3)
 
 
 # ------------------------------------------------------------------ #
