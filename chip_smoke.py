@@ -158,6 +158,31 @@ Phases, each of which fails the run loudly:
    every class proportion moved by its kernel's bound (all up, all
    down: the models rise with each proportion), plus the print
    rounding.  (g) streamed also against (g).
+   Phase popgen: the HMM kernel (csrc/hmm.cu) through its public
+   wrappers, all six entries (forward, backward, viterbi; float32 and
+   float64) against the plain version (ops/hmm.py) on the same seeded
+   inputs at HMM_SHAPES (1024 chains x 8,192 sites x K = 2; 64 x 2,048 at
+   K = 3 with distances per chain and at K = 8) and on the edge inputs
+   HMM_EDGES (alpha = 0, a zero proportion, dense chromosome breaks, exact
+   ties): non-finite values equal, the rest within ops/hmm.py hmm_bound,
+   and every step where a Viterbi path leaves the plain version's a near
+   tie (check_hmm); the first shape also timed.  Then the quickstart's
+   steps 4-5 (examples/quickstart.py) at full width, with the HMM launch
+   counts set to 0 just before and held to POPGEN_LAUNCHES just after:
+   log-GLs of N_IND individuals x POPGEN_SITES sites ((a)'s seeded array
+   four times over, as (e) reads it),
+   read_pos_dist of a POS file of POPGEN_CHROMS chromosomes,
+   est_maf_sites on the first POPGEN_MAF_SITES sites (ms an iteration and
+   iterations; the rest repeat them), calc_emission at F = 0 and 1 into e_prob
+   [1024, 262,144, 2] float64, forward, backward, posterior_decode and
+   viterbi through the kernel in float64 and again in float32 (on
+   POPGEN_CHECK_CHAINS chains: forward and backward logliks within their
+   bounds of each other, the posterior normalised, paths in range, the
+   float32 messages within hmm_bound of the float64 ones), haplo_freq on
+   the adjacent site pairs of the first POPGEN_MAF_SITES sites (normal
+   space), and lbfgsb on POPGEN_LANES lanes of n = POPGEN_N of
+   tests/test_popgen.py's bounded quartic, lanes POPGEN_SCIPY_LANES held
+   to scipy's L-BFGS-B; each function timed by CUDA events.
 4. Each kernel's time at the main path's shapes beside its plain
    version's (float32), its bound (the least time the card could take:
    the larger of its bytes over PEAK_BYTES and its operations, counted
@@ -206,7 +231,10 @@ launched by the main path.
 
 Prints the card line, a {"kernels": [...]} line whose "max_abs_err" is
 the largest absolute error of raw/cnt (the uncorrected distance)
-against the float64 plain version, and as its last line
+against the float64 plain version (the HMM entries: of the log messages
+and logliks, or the best score, against the plain version in the
+entry's type, as "err_of" says; their "ms" and "plain_ms" at
+HMM_SHAPES[0], "full_width_ms" at the popgen path's shape), and as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -2639,6 +2667,374 @@ def time_expand23(torch, distance, hostmem, card) -> None:
     torch.cuda.empty_cache()
 
 
+# Phase popgen (module docstring): the HMM kernel's six entries against the
+# plain version at HMM_SHAPES (chains, sites, states, distances per chain)
+# and on the edge inputs of HMM_EDGES, then the quickstart's steps 4-5
+# (examples/quickstart.py) at full width: POPGEN_SITES sites of N_IND
+# individuals, one HMM chain per individual.
+HMM_KINDS = ("forward", "backward", "viterbi")
+HMM_SHAPES = ((N_IND, 8192, 2, False), (64, 2048, 3, True), (64, 2048, 8, False))
+HMM_EDGES = ("alpha0", "zero_q", "breaks", "ties")
+HMM_EDGE_SHAPE = (40, 300)            # chains, sites of each edge case, at K = 2 and 3
+HMM_REPLACES = {"forward": "ngsdist_tpu/popgen/hmm.py:73",
+                "backward": "ngsdist_tpu/popgen/hmm.py:92",
+                "viterbi": "ngsdist_tpu/popgen/hmm.py:130"}
+HMM_ERR_OF = {"forward": "Fw and loglik (log messages)",
+              "backward": "Bw and loglik (log messages)",
+              "viterbi": "best log score (paths: flips counted and held)"}
+# The HMM entries by the name of their wrapper and dtype: (module, counter).
+HMM_KERNELS = {f"hmm_{kind}{sfx}": ("hmm", f"{kind.upper()}_LAUNCHES{sfx.upper()}")
+               for kind in HMM_KINDS for sfx in ("", "_f64")}
+PEAK_F32 = 67e12                      # float32 outside the tensor cores
+POPGEN_SITES = 4 * INDEP_SITES
+POPGEN_MAF_SITES = INDEP_SITES        # est_maf_sites timed on these first sites
+POPGEN_CHROMS = 4                     # chromosomes of the POS file
+POPGEN_Q, POPGEN_ALPHA = (0.9, 0.1), 1e-4   # examples/quickstart.py step 5
+POPGEN_LANES, POPGEN_N = 1024, 16     # lbfgsb lanes of tests/test_popgen.py's quartic
+POPGEN_SCIPY_LANES = (0, 1, 511, 1023)
+POPGEN_CHECK_CHAINS = 64              # chains whose messages are held to their bounds
+# The popgen path's launches: posterior_decode runs forward and backward
+# once more; the chains run in float64, then in float32.
+POPGEN_LAUNCHES = {name: (1 if "viterbi" in name else 2) for name in HMM_KERNELS}
+
+
+def hmm_inputs(torch, rng, B: int, S: int, K: int, per_chain_d: bool, dtype, edge=None):
+    """Seeded chains on the card: q Dirichlet per chain, alpha in
+    [1e-3, 0.1], log emissions log(U + 1e-3), distances 1..49 with
+    chromosome breaks (inf) at S/3 and S/2; edge: "alpha0" (every alpha 0:
+    off-diagonal log T -inf, NaN past the break where 0 * inf), "zero_q" (a
+    state of proportion 0), "breaks" (inf at the first site and every
+    seventh), "ties" (uniform q, equal emissions: exact ties)."""
+    q = rng.dirichlet(np.ones(K), size=B)
+    alpha = rng.uniform(1e-3, 0.1, B)
+    e = np.log(rng.random((B, S, K)) + 1e-3)
+    d = rng.integers(1, 50, size=(B, S) if per_chain_d else S).astype(np.float64)
+    d[..., [S // 3, S // 2]] = np.inf
+    if edge == "alpha0":
+        alpha[:] = 0.0
+    elif edge == "zero_q":
+        q[:, -1] = 0.0
+        q /= q.sum(-1, keepdims=True)
+    elif edge == "breaks":
+        d[..., ::7] = np.inf
+    elif edge == "ties":
+        q[:] = 1.0 / K
+        e[:] = e[..., :1]
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE, dtype)
+                 for x in (q, alpha, e, d))
+
+
+def held(torch, what: str, got, want, bound) -> float:
+    """Hold got to want: non-finite values equal (NaN where NaN), finite ones
+    within bound (broadcast).  Returns the largest finite |error|."""
+    fin = torch.isfinite(want)
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    if not bool(same[~fin].all()):
+        raise AssertionError(f"{what}: a non-finite value differs from the plain version's")
+    diff = torch.where(fin, (got.double() - want.double()).abs(), torch.zeros_like(want.double()))
+    over = diff > bound.expand_as(diff)
+    if bool(over.any()):
+        raise AssertionError(f"{what}: {int(over.sum())} values outside the bound, largest "
+                             f"error {float(diff.max()):.3e}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def check_hmm(torch, hmm, kind: str, args, got, plain=None):
+    """One launch's outputs against the plain version on the same inputs,
+    within ops/hmm.py hmm_bound (PERF.md section 2).  Viterbi: the best
+    score within its bound, and at every step where the kernel's path leaves
+    the plain version's back pointer (or its final arg max) the two
+    candidates' plain scores within twice the bound: a flip between two
+    near-tied paths.  Returns (largest |error|, flips)."""
+    what = f"hmm {kind} {got[0].dtype} {tuple(args[2].shape)}"
+    if kind != "viterbi":
+        X, ll = plain or (hmm.hmm_forward_ref if kind == "forward"
+                          else hmm.hmm_backward_ref)(*args)
+        per, last = hmm.hmm_bound(kind, *args, X)
+        return max(held(torch, what, got[0], X, per[..., None]),
+                   held(torch, what + " loglik", got[1], ll, last)), 0
+    path, best, V, backs = hmm.hmm_viterbi_ref(*args, full=True)
+    per, last = hmm.hmm_bound(kind, *args, V)
+    err = held(torch, what + " best", got[1], best, last)
+    pk = got[0].long()
+    if torch.equal(pk, path.long()):
+        return err, 0
+    B, S, K = V.shape
+    logT = hmm.transition_matrices(args[0], args[1], args[3])
+    lk, lp = pk[:, -1:], path[:, -1:].long()
+    final = (lk != lp)[:, 0]
+    near = V[:, -1].gather(1, lk)[:, 0] >= V[:, -1].gather(1, lp)[:, 0] - 2 * per[:, -1]
+    st, prev = pk[:, 1:], pk[:, :-1]
+    bp = backs[:, 1:].gather(2, st[..., None])[..., 0]
+    moved = prev != bp
+    # the candidates' scores V[s-1, k] + log T_s[k, state at s]
+    sc = V[:, :-1] + logT[:, 1:].gather(3, st[..., None, None].expand(B, S - 1, K, 1))[..., 0]
+    near_s = sc.gather(2, prev[..., None])[..., 0] >= sc.gather(2, bp[..., None])[..., 0] \
+        - 2 * per[:, 1:]
+    if bool((final & ~near).any()) or bool((moved & ~near_s).any()):
+        raise AssertionError(f"{what}: the path leaves the plain version's where no near tie "
+                             "explains it")
+    return err, int(final.sum()) + int(moved.sum())
+
+
+def hmm_bound_ms(kind: str, B: int, S: int, K: int, itemsize: int, per_chain_d: bool):
+    """(ms, "bytes" or "operations", reckoning): the least time the card
+    could take for one scan.  Bytes: e and the distances read once, q and
+    alpha, the messages (Viterbi: the int32 path) and the logliks written
+    once (the Viterbi kernel's own back-pointer scratch is not counted).
+    Operations per chain and site, each exp and log counted as one: the
+    transition row 4 + 5K, then forward and backward K (K + 4K) + K,
+    Viterbi 2K^2 + 1, at the peak of the type outside the tensor cores."""
+    nbytes = itemsize * (B * S * K + (B * S if per_chain_d else S) + B * (K + 2))
+    nbytes += B * S * (4 if kind == "viterbi" else K * itemsize)
+    per_step = 4 + 5 * K + (2 * K * K + 1 if kind == "viterbi" else 5 * K * K + K)
+    flop = B * S * per_step
+    peak = PEAK_F64 if itemsize == 8 else PEAK_F32
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, flop / peak * 1e3
+    return (max(t_b, t_o), "bytes" if t_b > t_o else "operations",
+            f"{nbytes:.4g} B at {PEAK_BYTES:.4g} B/s = {t_b:.3f} ms; {flop:.4g} operations at "
+            f"{peak:.4g}/s = {t_o:.3f} ms")
+
+
+def timed_once(torch, fn):
+    """(fn()'s result, ms by the host clock around it, synchronized)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_hmm_kernels(torch, hmm, card) -> dict:
+    """The six entries (forward, backward, viterbi; float32 and float64)
+    through the public wrappers against the plain version on the same
+    inputs, at HMM_SHAPES and on HMM_EDGES (module docstring, phase
+    popgen), each within hmm_bound; at the first shape also timed (kernel by
+    CUDA events over 5 calls after a warm-up, the plain version once by the
+    host clock).  Returns {entry: {"err", "flips", "ms", "plain_ms",
+    "bound"}}."""
+    rng = np.random.default_rng(SEED + 13)
+    out = {f"hmm_{k}{s}": {"err": 0.0, "flips": 0} for k in HMM_KINDS for s in ("", "_f64")}
+    cases = [(shape, None) for shape in HMM_SHAPES]
+    cases += [((*HMM_EDGE_SHAPE, K, K == 3), edge) for edge in HMM_EDGES for K in (2, 3)]
+    t0 = time.perf_counter()
+    for (B, S, K, per_d), edge in cases:
+        for dtype in (torch.float32, torch.float64):
+            args = hmm_inputs(torch, rng, B, S, K, per_d, dtype, edge)
+            main_shape = edge is None and (B, S, K, per_d) == HMM_SHAPES[0]
+            for kind in HMM_KINDS:
+                name = f"hmm_{kind}{'_f64' if dtype == torch.float64 else ''}"
+                wrapper = getattr(hmm, f"hmm_{kind}")
+                got = wrapper(*args)
+                torch.cuda.synchronize()
+                plain = None
+                if main_shape:
+                    out[name]["ms"] = time_cuda(torch, lambda: wrapper(*args), 5)
+                    plain, out[name]["plain_ms"] = timed_once(
+                        torch, lambda: getattr(hmm, f"hmm_{kind}_ref")(*args))
+                    out[name]["bound"] = hmm_bound_ms(kind, B, S, K, args[2].element_size(),
+                                                      per_d)
+                    plain = None if kind == "viterbi" else plain
+                err, flips = check_hmm(torch, hmm, kind, args, got, plain)
+                out[name]["err"] = max(out[name]["err"], err)
+                out[name]["flips"] += flips
+            del args
+    torch.cuda.empty_cache()
+    log(f"phase popgen: the HMM kernel's six entries against the plain version on the card "
+        f"within hmm_bound (PERF.md section 2) at {len(HMM_SHAPES)} shapes (chains x sites x "
+        f"states: {', '.join(f'{B} x {S} x {K}' for B, S, K, _ in HMM_SHAPES)}) and "
+        f"{len(HMM_EDGES)} edge inputs ({', '.join(HMM_EDGES)}; {HMM_EDGE_SHAPE[0]} x "
+        f"{HMM_EDGE_SHAPE[1]} at K = 2, 3), in {time.perf_counter() - t0:.1f} s; largest "
+        "|error| and Viterbi flips: " + ", ".join(
+            f"{k} {v['err']:.3e} ({v['flips']} flips)" for k, v in out.items()))
+    B, S, K, _ = HMM_SHAPES[0]
+    for name, v in out.items():
+        log(f"phase popgen: {name} at {B} x {S} x {K}: kernel {v['ms']:.3f} ms, plain "
+            f"{v['plain_ms']:.3f} ms (one run), bound {v['bound'][0]:.3f} ms by "
+            f"{v['bound'][1]} ({v['bound'][2]}) [{card}]")
+    return out
+
+
+def write_popgen_pos(path: str, rng) -> None:
+    """A POS file of POPGEN_SITES sites on POPGEN_CHROMS chromosomes of equal
+    length, positions rising by seeded gaps of 1..199."""
+    per = POPGEN_SITES // POPGEN_CHROMS
+    with open(path, "w") as fh:
+        for c in range(POPGEN_CHROMS):
+            pos = np.cumsum(rng.integers(1, 200, per))
+            fh.write("".join(f"chr{c + 1}\t{p}\tA\tC\n" for p in pos))
+
+
+def event_ms(torch, fn):
+    """(fn()'s result, ms of the one call by CUDA events)."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def drive_popgen(torch, popgen, hmm, readers, P: np.ndarray, card) -> dict:
+    """The quickstart's steps 4-5 (examples/quickstart.py) at full width,
+    through the port's public functions, with the HMM launch counts set
+    to 0 just before and read just after (module docstring, phase popgen).
+    The GLs are the main path's seeded array P (rand_probs, [INDEP_SITES,
+    N_IND, 3]) four times over, as run (e) reads it.  Returns {"launches":
+    ..., "ms": {function: ms}}."""
+    dev = torch.device(DEVICE)
+    S, N = POPGEN_SITES, N_IND
+    t0 = time.perf_counter()
+    hap_gl = torch.from_numpy(P[:POPGEN_MAF_SITES]).to(dev)
+    GL = torch.log(torch.from_numpy(P).to(dev)).repeat(S // P.shape[0], 1, 1)
+    pos = os.path.join(WORK, "popgen_pos.txt")
+    write_popgen_pos(pos, np.random.default_rng(SEED + 14))
+    log(f"phase popgen: log-GLs [{S}, {N}, 3] float64 on the card ((a)'s array {S // P.shape[0]} "
+        f"times) and a POS file of {POPGEN_CHROMS} chromosomes in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for _, counter in HMM_KERNELS.values():
+        setattr(hmm, counter, 0)
+    ms = {}
+    t0 = time.perf_counter()
+    pos_dist, ms["read_pos_dist"] = timed_once(
+        torch, lambda: readers.read_pos_dist(readers.read_pos(pos, False, S), S))
+    if int(np.isinf(pos_dist).sum()) != POPGEN_CHROMS - 1 or pos_dist.min() < 1:
+        raise AssertionError("read_pos_dist: not one inf per chromosome change")
+    # step 4: per-site MAFs of the first POPGEN_MAF_SITES sites (the rest
+    # repeat them)
+    (maf0, iters), ms["est_maf_sites"] = event_ms(
+        torch, lambda: popgen.freqs.est_maf_iters(GL[:POPGEN_MAF_SITES]))
+    mafs = maf0.repeat(S // POPGEN_MAF_SITES)
+    if not bool(((mafs >= 0) & (mafs <= 1)).all()):
+        raise AssertionError("est_maf_sites: a MAF outside [0, 1]")
+    # step 5: one chain per individual, F = 0 and F = 1
+    gl_ind = GL.permute(1, 0, 2)
+    e_prob, ms["calc_emission"] = event_ms(torch, lambda: torch.stack(
+        [popgen.calc_emission(gl_ind, mafs, f) for f in (0.0, 1.0)], dim=-1))
+    del GL, gl_ind
+    torch.cuda.empty_cache()
+    q = torch.tensor(POPGEN_Q, dtype=torch.float64, device=dev)
+    d = torch.from_numpy(pos_dist).to(dev)
+    res, kept = {}, {}
+    for tag, dt in (("", torch.float64), ("_f32", torch.float32)):
+        args = (q.to(dt), POPGEN_ALPHA, e_prob.to(dt), d.to(dt))
+        for fn in ("forward", "backward", "posterior_decode", "viterbi"):
+            res[fn + tag], ms[fn + tag] = event_ms(torch, lambda: getattr(popgen, fn)(*args))
+        check_popgen_chains(torch, hmm, tag, args, res, kept)
+        res = {k: v for k, v in res.items() if k.startswith("ref")}
+        torch.cuda.empty_cache()
+    del e_prob
+    torch.cuda.empty_cache()
+    # two-site haplotype frequencies of adjacent sites (normal-space GLs)
+    (hf, n_iter, x), ms["haplo_freq"] = event_ms(torch, lambda: popgen.haplo_freq(
+        hap_gl[:-1], hap_gl[1:], mafs[:POPGEN_MAF_SITES - 1], mafs[1:POPGEN_MAF_SITES]))
+    if not (bool(torch.isfinite(hf).all()) and float((hf.sum(-1) - 1).abs().max()) < 1e-9
+            and bool(((x >= 0) & (x <= N)).all())):
+        raise AssertionError("haplo_freq: frequencies not finite or not summing to 1")
+    del hap_gl
+    lb, lb_conv = drive_lbfgsb(torch, popgen, ms)
+    launches = {name: getattr(hmm, counter) for name, (_, counter) in HMM_KERNELS.items()}
+    wall = time.perf_counter() - t0
+    if launches != POPGEN_LAUNCHES:
+        raise AssertionError(f"phase popgen: launches {launches}, expected {POPGEN_LAUNCHES}")
+    log(f"phase popgen: the quickstart's steps 4-5 at {N} individuals x {S} sites in "
+        f"{wall:.1f} s: read_pos_dist {ms['read_pos_dist']:.1f} ms (host); est_maf_sites on "
+        f"{POPGEN_MAF_SITES} sites {ms['est_maf_sites']:.3f} ms, {iters} iterations, "
+        f"{ms['est_maf_sites'] / iters:.3f} ms an iteration; calc_emission at F = 0, 1 into "
+        f"e_prob [{N}, {S}, 2] float64 {ms['calc_emission']:.3f} ms; float64 chains: "
+        + ", ".join(f"{fn} {ms[fn]:.3f} ms" for fn in ("forward", "backward",
+                                                       "posterior_decode", "viterbi"))
+        + "; float32 chains: " + ", ".join(f"{fn} {ms[fn + '_f32']:.3f} ms" for fn in (
+            "forward", "backward", "posterior_decode", "viterbi"))
+        + f"; haplo_freq on {POPGEN_MAF_SITES - 1} site pairs {ms['haplo_freq']:.3f} ms, "
+        f"n_iter up to {int(n_iter.max())}; lbfgsb on {POPGEN_LANES} lanes of n = "
+        f"{POPGEN_N} {ms['lbfgsb']:.3f} ms, up to {lb} iterations, {lb_conv} lanes converged "
+        f"to tol 1e-9; launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()) + f" [{card}]")
+    log("phase popgen: " + ", ".join(f"{k} {v}" for k, v in kept.items()))
+    return {"launches": launches, "ms": ms}
+
+
+def check_popgen_chains(torch, hmm, tag: str, args, res, kept) -> None:
+    """The full-width chains' outputs: shapes and types; on the first
+    POPGEN_CHECK_CHAINS chains the forward and backward logliks equal within
+    their two bounds (the same quantity by two recursions), the posterior
+    normalised within both messages' bounds, the Viterbi path in range and
+    its score below the loglik; the float32 chains within hmm_bound (in
+    float32) of the float64 ones."""
+    q, alpha, e, d = args
+    B, S, K = e.shape
+    Fw, ll = res["forward" + tag]
+    Bw, llb = res["backward" + tag]
+    post, _ = res["posterior_decode" + tag]
+    path, score = res["viterbi" + tag]
+    if (Fw.shape, Bw.shape, post.shape, path.shape) != ((B, S, K),) * 3 + ((B, S),) \
+            or Fw.dtype != e.dtype or path.dtype != torch.int32:
+        raise AssertionError(f"popgen chains{tag}: shapes or types")
+    c = POPGEN_CHECK_CHAINS
+    sub = (q.expand(c, K), torch.full((c,), alpha, dtype=e.dtype, device=e.device), e[:c], d)
+    per_f, last_f = hmm.hmm_bound("forward", *sub, Fw[:c])
+    per_b, last_b = hmm.hmm_bound("backward", *sub, Bw[:c])
+    gap = (ll[:c].double() - llb[:c].double()).abs()
+    if not bool((gap <= last_f + last_b).all()):
+        raise AssertionError(f"popgen chains{tag}: forward and backward logliks differ by "
+                             f"{float(gap.max()):.3e}")
+    norm = hmm.logsumexp(post[:c].double(), -1).abs()
+    if not bool((norm <= (per_f + per_b + last_f[:, None]) * 2).all()):
+        raise AssertionError(f"popgen chains{tag}: the posterior does not normalise "
+                             f"({float(norm.max()):.3e})")
+    if not (bool(((path >= 0) & (path < K)).all()) and bool((score[:c] <= ll[:c] + last_f).all())):
+        raise AssertionError(f"popgen chains{tag}: a Viterbi path out of range or above the "
+                             "loglik")
+    kept[f"forward/backward loglik gap{tag}"] = f"{float(gap.max()):.3e}"
+    kept[f"|posterior normalisation|{tag}"] = f"{float(norm.max()):.3e}"
+    if not tag:
+        kept["largest finite |Fw|"] = f"{float(hmm.finite_abs(Fw[:c]).max()):.6g}"
+        res["ref_Fw"], res["ref_path"] = Fw[:c].clone(), path[:c].clone()
+        return
+    diff = (Fw[:c].double() - res["ref_Fw"]).abs()
+    if not bool((diff <= per_f[..., None]).all()):
+        raise AssertionError("popgen chains: float32 forward messages outside hmm_bound of "
+                             "the float64 ones")
+    kept["float32 Fw against float64"] = f"{float(diff.max()):.3e}"
+    kept["Viterbi sites where float32 and float64 paths differ"] = str(
+        int((path[:c] != res["ref_path"]).sum()))
+
+
+def drive_lbfgsb(torch, popgen, ms) -> int:
+    """lbfgsb on POPGEN_LANES lanes of tests/test_popgen.py's bounded quartic
+    (|x - c|^2 + 0.1 |x|_4^4 in [-0.5, 0.5]^n, seeded centres c), autograd
+    gradients, held lane by lane against scipy's L-BFGS-B on
+    POPGEN_SCIPY_LANES (the JAX test's bounds: the value within 1e-6, x
+    within 2e-4).  Returns (the most iterations a lane took, lanes
+    converged)."""
+    from scipy.optimize import minimize
+
+    dev = torch.device(DEVICE)
+    c = torch.from_numpy(np.random.default_rng(SEED + 15).normal(
+        size=(POPGEN_LANES, POPGEN_N))).to(dev)
+
+    def fun(x):
+        return ((x - c) ** 2).sum(-1) + 0.1 * (x ** 4).sum(-1)
+
+    lo = torch.full((POPGEN_N,), -0.5, dtype=torch.float64, device=dev)
+    res, ms["lbfgsb"] = event_ms(torch, lambda: popgen.lbfgsb(
+        fun, torch.zeros((POPGEN_LANES, POPGEN_N), dtype=torch.float64, device=dev),
+        lower=lo, upper=-lo, max_iter=100, tol=1e-9))
+    cn = c.cpu().numpy()
+    for b in POPGEN_SCIPY_LANES:
+        ref = minimize(lambda x: float(((x - cn[b]) ** 2).sum() + 0.1 * (x ** 4).sum()),
+                       np.zeros(POPGEN_N), jac=lambda x: 2 * (x - cn[b]) + 0.4 * x ** 3,
+                       method="L-BFGS-B", bounds=[(-0.5, 0.5)] * POPGEN_N,
+                       options={"maxiter": 500, "ftol": 1e-15, "gtol": 1e-12})
+        if not (float(res.fun[b]) <= ref.fun + 1e-6
+                and np.abs(res.x[b].cpu().numpy() - ref.x).max() <= 2e-4):
+            raise AssertionError(f"lbfgsb lane {b}: {float(res.fun[b])} against scipy's "
+                                 f"{ref.fun}")
+    return int(res.n_iter.max()), int(res.converged.sum())
+
+
 def main() -> int:
     import torch
 
@@ -2649,9 +3045,10 @@ def main() -> int:
     # every run but those of U16_RUNS sends float32 pairs, as before the
     # uint16 lane was ported, so that their numbers compare with earlier runs'
     os.environ["NGSDIST_UPLOAD16"] = "0"
-    from ngsdist_tpu_torch import cli, runner
+    from ngsdist_tpu_torch import cli, popgen, runner
     from ngsdist_tpu_torch.core import distance, submodels
-    from ngsdist_tpu_torch.ops import _build, em, indep
+    from ngsdist_tpu_torch.io import readers
+    from ngsdist_tpu_torch.ops import _build, em, hmm, indep
     from ngsdist_tpu_torch.parallel import mesh as pm
     from ngsdist_tpu_torch.parallel import multihost
     from ngsdist_tpu_torch.utils import hostmem, native, profiling
@@ -2796,10 +3193,21 @@ def main() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
+    # Phase popgen: the HMM kernel against its plain version, then the
+    # popgen path at full width with its launch counts set to 0 before it.
+    hmm_rows = phase_hmm_kernels(torch, hmm, card)
+    os.makedirs(WORK)
+    try:
+        popgen_run = drive_popgen(torch, popgen, hmm, readers, P, card)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    launches["popgen"] = popgen_run["launches"]
+
     # Phase 4: timings at the main path's shapes; each kernel held against
     # the plain version there.
     kernels = []
-    launched = {name: sum(counts[name] for counts in launches.values()) for name in KERNELS}
+    launched = {name: sum(counts.get(name, 0) for counts in launches.values())
+                for name in {**KERNELS, **HMM_KERNELS}}
 
     def report(name, source, replaces, err, err_of, ms_k, ms_p, bound, ms_lib, wrapper=None):
         bound_ms, bound_by, reckoning = bound
@@ -2984,6 +3392,22 @@ def main() -> int:
     time_expand_codes(torch, distance, hostmem, card)
     time_expand23(torch, distance, hostmem, card)
     phase_wide(torch, indep, em, card, report)
+
+    # the HMM entries: kernel, plain and bound at HMM_SHAPES[0] (phase
+    # popgen), beside the kernel's time at full width
+    B, S, K, per_d = HMM_SHAPES[0]
+    for name, v in hmm_rows.items():
+        kind, f64 = name[4:].replace("_f64", ""), name.endswith("_f64")
+        report(name, "ngsdist_tpu_torch/csrc/hmm.cu", HMM_REPLACES[kind], v["err"],
+               HMM_ERR_OF[kind], v["ms"], v["plain_ms"], v["bound"], None)
+        full = hmm_bound_ms(kind, N_IND, POPGEN_SITES, 2, 8 if f64 else 4, False)
+        kernels[-1].update({"shape": f"{B} x {S} x {K}", "viterbi_flips": v["flips"],
+                            "full_width_ms": popgen_run["ms"][kind + ("" if f64 else "_f32")],
+                            "full_width_bound_ms": full[0],
+                            "full_width_shape": f"{N_IND} x {POPGEN_SITES} x 2"})
+        log(f"phase 4: {name} at full width ({N_IND} x {POPGEN_SITES} x 2): kernel "
+            f"{kernels[-1]['full_width_ms']:.3f} ms, bound {full[0]:.3f} ms by {full[1]} "
+            f"({full[2]}) [{card}]")
 
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:

@@ -628,6 +628,64 @@ def default_labels(n_ind: int) -> List[str]:
     return [f"Ind_{i}" for i in range(n_ind)]
 
 
+def read_pos_dist(rows: List[List[str]], n_sites: int) -> np.ndarray:
+    """Distance of each site to the previous one, infinity at chromosome
+    changes — the reference's read_dist (read_data.cpp:165-218, compiled
+    but never called by ngsDist's main; provided for the evolutionary
+    models that would consume inter-site distances).
+
+    Reference order exactly: the file's kept lines are pre-validated to
+    number EXACTLY n_sites with >= 2 constant columns BEFORE any row is
+    scanned (read_split + the two checks at read_data.cpp:177-183),
+    then each row's distance to the previous row is computed.  A row
+    whose position column strtod-parses to 0 is a "header": the
+    reference prints the skip banner and re-reads the SAME buffer slot
+    (`s--; continue`, read_data.cpp:188-195) — an infinite loop on any
+    reachable input — reproduced here as a clean fatal (the
+    docs/PARITY.md intentional-divergences table).  A within-chromosome
+    distance < 1 is an error.
+    """
+    if len(rows) != n_sites:
+        raise NgsDistError("read_dist", "wrong number of lines in POS file!")
+    if rows and len(rows[0]) < 2:
+        raise NgsDistError("read_dist", "wrong POS file format!")
+    pos_dist = np.full((n_sites,), np.inf, dtype=np.float64)
+    prev_chr: Optional[str] = None
+    prev_pos = 0
+    for s in range(n_sites):
+        row = rows[s]
+        try:
+            p = float(row[1])
+        except ValueError:
+            p = 0.0  # strtod of a non-numeric field
+        if p == 0:
+            print("> Header found! Skipping line...", file=sys.stderr)
+            if s != 0:
+                print(
+                    "\n=====\nWARNING: [read_dist]  header found but not "
+                    "on first line. Is this an error?\n=====\n",
+                    file=sys.stderr,
+                )
+            # reference: `s--; continue` re-scans this slot forever
+            raise NgsDistError(
+                "read_dist",
+                "header row in POS file (the reference never terminates here)!",
+            )
+        if prev_chr is None:
+            prev_chr = row[0]
+        if prev_chr == row[0]:
+            pos_dist[s] = p - prev_pos
+            if pos_dist[s] < 1:
+                raise NgsDistError(
+                    "read_dist", "invalid distance between adjacent sites!"
+                )
+        else:
+            pos_dist[s] = np.inf
+            prev_chr = row[0]
+        prev_pos = int(p)
+    return pos_dist
+
+
 def read_pos(path: str, header: bool, n_sites: int) -> List[List[str]]:
     """Position file (chr, pos[, allele1, allele2]): split every kept line
     on single space/tab separators keeping empty fields, with a constant

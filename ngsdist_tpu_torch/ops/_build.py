@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 Every `.cu` file in `ngsdist_tpu_torch/csrc/` is compiled by `nvcc`
-for `sm_90a` into ONE shared library with a plain C interface, loaded
-with ctypes.  The build runs at first use, from the sources in the
-checkout, into `ngsdist_tpu_torch/_build/` (utils/buildlib.py, which
-the native host runtime shares): the library's name carries a hash of
+for `sm_90a` (one nvcc process a file, all started together) and linked
+into ONE shared library with a plain C interface, loaded with ctypes.
+The build runs at first use, from the sources in the checkout, into
+`ngsdist_tpu_torch/_build/` (utils/buildlib.py, which the native host
+runtime shares): the library's name carries a hash of
 the sources and flags, so a stale library is never loaded, and it is
 compiled under a temporary name and renamed into place.  The compiler's
 report (registers, shared memory, spills from `-Xptxas -v`) is kept
@@ -62,8 +63,9 @@ def _nvcc() -> str:
 
 
 def _build(path: str) -> None:
-    buildlib.compile_into(path, [_nvcc(), *NVCC_FLAGS],
-                          [s for s in _sources() if s.endswith(".cu")])
+    """One nvcc per `.cu` file, all started together, then one link."""
+    buildlib.compile_each_into(path, [_nvcc(), *[f for f in NVCC_FLAGS if f != "-shared"]],
+                               ["-shared"], [s for s in _sources() if s.endswith(".cu")])
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -76,6 +78,14 @@ def _configure(lib: ctypes.CDLL) -> None:
                 ("indep_block_partials", [vp, vp, i32, i64, i64, vp, i32, vp]),
                 ("em_raw_cnt", [vp, vp, vp, vp, i64, vp, vp, i64, i32, vp, f64, i32, vp]),
                 ("em_block_partials", [vp, vp, vp, i32, i64, i64, vp, f64, i32, vp])):
+            fn = getattr(lib, f"ngsd_{name}_{t}")
+            fn.argtypes, fn.restype = args, i32
+        # csrc/hmm.cu: q, alpha, e and its strides, d and its chain
+        # stride, the outputs (and strides), B, S, K, the stream
+        scan = [vp, vp, vp, i64, i64, vp, i64, vp, i64, i64, vp, i32, i64, i32, vp]
+        for name, args in (("hmm_forward", scan), ("hmm_backward", scan),
+                           ("hmm_viterbi", [vp, vp, vp, i64, i64, vp, i64, vp, vp, i64, i64, vp,
+                                            i32, i64, i32, vp])):
             fn = getattr(lib, f"ngsd_{name}_{t}")
             fn.argtypes, fn.restype = args, i32
     lib.ngsd_error_string.argtypes = [i32]

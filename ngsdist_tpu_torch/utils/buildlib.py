@@ -50,3 +50,37 @@ def compile_into(path: str, compiler_and_flags: List[str], inputs: List[str],
             f"{os.path.basename(cmd[0])} failed (rc {proc.returncode}):\n"
             f"{proc.stderr[-4000:]}")
     os.replace(tmp, path)
+
+
+def compile_each_into(path: str, compiler_and_flags: List[str], link_flags: Sequence[str],
+                      sources: List[str]) -> None:
+    """Compile every source to an object by a compiler process of its own,
+    all started together, then link the objects into `path` with
+    `<compiler> <link_flags>` (under a temporary name, renamed into
+    place).  The log beside the library holds every command's output;
+    raises with the first failure's errors."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
+    cmds = [[*compiler_and_flags, "-c", "-o", obj, src] for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    runs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(cmds, procs)]
+    if all(rc == 0 for *_, rc in runs):
+        link = [compiler_and_flags[0], *link_flags, "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        runs.append((link, proc.stdout + proc.stderr, proc.returncode))
+    with open(f"{tmp}.log", "w") as fh:
+        fh.write("".join(" ".join(cmd) + "\n" + out for cmd, out, _ in runs))
+    os.replace(f"{tmp}.log", path[:-3] + ".log")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    failed = [(cmd, out, rc) for cmd, out, rc in runs if rc != 0]
+    if failed:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        cmd, out, rc = failed[0]
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed (rc {rc}):\n{out[-4000:]}")
+    os.replace(tmp, path)
+

@@ -141,6 +141,37 @@ def test_library_path_keyed_by_sources():
     assert len(_build._sources()) >= 3  # indep.cu, em.cu, common.cuh
 
 
+@pytest.mark.parametrize("broken", [False, True], ids=["builds", "compile_error"])
+def test_each_source_compiled_by_its_own_process_then_linked(broken, monkeypatch, tmp_path):
+    """utils/buildlib.compile_each_into, which builds the kernels (one
+    compiler process a source, then one link), with the host C compiler
+    on two small C files: the linked library holds both files' functions
+    and the log every command; a compile error raises with the compiler's
+    message and leaves neither library nor objects behind."""
+    import ctypes
+
+    from ngsdist_tpu_torch.utils import buildlib
+
+    monkeypatch.setattr(buildlib, "BUILD_DIR", str(tmp_path))
+    srcs = []
+    for name, body in (("a", "int ngsd_a(void) { return 1; }"),
+                       ("b", "int ngsd_b(void) { return 2%s; }" % (" +" if broken else ""))):
+        srcs.append(str(tmp_path / f"{name}.c"))
+        with open(srcs[-1], "w") as fh:
+            fh.write(body + "\n")
+    lib = str(tmp_path / "libtwo_0.so")
+    if broken:
+        with pytest.raises(RuntimeError, match="failed"):
+            buildlib.compile_each_into(lib, ["cc", "-fPIC", "-O2"], ["-shared"], srcs)
+        assert sorted(f.name for f in tmp_path.iterdir()) == ["a.c", "b.c", "libtwo_0.log"]
+        return
+    buildlib.compile_each_into(lib, ["cc", "-fPIC", "-O2"], ["-shared"], srcs)
+    so = ctypes.CDLL(lib)
+    assert (so.ngsd_a(), so.ngsd_b()) == (1, 2)
+    log = open(str(tmp_path / "libtwo_0.log")).read()
+    assert log.count(" -c ") == 2 and "-shared" in log
+
+
 # -- block mode: the partial-sum bootstrap's per-block sums -------------------
 
 

@@ -883,3 +883,83 @@ def test_expand23_u16_on_the_card_is_the_cpus(cuda):
     big = torch.full((1005, 37, 3), 7.0, device=cuda)
     distance.expand23(torch.from_numpy(q).to(cuda), out=big[1:-1])
     assert chip_smoke.same_bytes(torch, big[1:-1].cpu(), want)
+
+
+# ------------------------------------------------------------------ #
+# The HMM kernel (csrc/hmm.cu)                                        #
+# ------------------------------------------------------------------ #
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", chip_smoke.HMM_KINDS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("K,per_chain_d", [(1, False), (2, False), (3, True), (8, False)])
+def test_hmm_kernel_matches_plain(cuda, kind, dtype, K, per_chain_d):
+    """Each entry through its public wrapper against the plain version on
+    the same inputs (70 chains, past two 32-chain blocks; 301 sites, off
+    the kernel's load steps) within ops/hmm.py hmm_bound, Viterbi flips
+    only at near ties (chip_smoke.check_hmm), one launch of the entry of
+    its dtype."""
+    from ngsdist_tpu_torch.ops import hmm
+
+    dt = getattr(torch, dtype)
+    args = chip_smoke.hmm_inputs(torch, np.random.default_rng(K), 70, 301, K, per_chain_d, dt)
+    counter = f"{kind.upper()}_LAUNCHES{'_F64' if dtype == 'float64' else ''}"
+    before = getattr(hmm, counter)
+    got = getattr(hmm, f"hmm_{kind}")(*args)
+    torch.cuda.synchronize()
+    assert getattr(hmm, counter) == before + 1
+    chip_smoke.check_hmm(torch, hmm, kind, args, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", chip_smoke.HMM_KINDS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("edge", chip_smoke.HMM_EDGES)
+def test_hmm_kernel_edge_inputs(cuda, kind, dtype, edge):
+    """alpha = 0 (-inf off the diagonal, NaN where 0 meets an inf
+    distance), a zero proportion, dense chromosome breaks and exact ties:
+    non-finite values equal to the plain version's, the rest within the
+    bound; ties resolved to the first state as the plain version does."""
+    from ngsdist_tpu_torch.ops import hmm
+
+    dt = getattr(torch, dtype)
+    for K in (2, 3):
+        args = chip_smoke.hmm_inputs(torch, np.random.default_rng(7), 40, 300, K, K == 3, dt,
+                                     edge)
+        got = getattr(hmm, f"hmm_{kind}")(*args)
+        err, flips = chip_smoke.check_hmm(torch, hmm, kind, args, got)
+        if edge == "ties" and kind == "viterbi":
+            assert flips == 0 and int(got[0].max()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", chip_smoke.HMM_KINDS)
+def test_hmm_kernel_refuses_nine_states(cuda, kind):
+    from ngsdist_tpu_torch.ops import hmm
+
+    args = chip_smoke.hmm_inputs(torch, np.random.default_rng(9), 4, 10, 9, False,
+                                 torch.float64)
+    with pytest.raises(ValueError, match="1 to 8"):
+        getattr(hmm, f"hmm_{kind}")(*args)
+
+
+@pytest.mark.gpu
+def test_hmm_public_functions_on_the_card(cuda):
+    """popgen's forward, backward, posterior_decode and viterbi on CUDA
+    tensors of one chain and of a batch go through the kernel (the counts
+    move) and equal the plain version's on the same chains to its bound."""
+    from ngsdist_tpu_torch import popgen
+    from ngsdist_tpu_torch.ops import hmm
+
+    q, a, e, d = chip_smoke.hmm_inputs(torch, np.random.default_rng(11), 6, 120, 2, False,
+                                       torch.float64)
+    before = hmm.FORWARD_LAUNCHES_F64
+    Fw, ll = popgen.forward(q[0], float(a[0]), e[0], d)
+    assert Fw.shape == (120, 2) and ll.shape == () and Fw.device.type == "cuda"
+    post, _ = popgen.posterior_decode(q, a, e, d)
+    assert hmm.FORWARD_LAUNCHES_F64 == before + 2
+    ref, _ = hmm.hmm_forward_ref(q[:1], a[:1], e[:1], d)
+    per, _ = hmm.hmm_bound("forward", q[:1], a[:1], e[:1], d, ref)
+    assert bool(((Fw - ref[0]).abs() <= per[0][:, None]).all())
+    assert post.shape == (6, 120, 2)
