@@ -176,9 +176,12 @@ Phases, each of which fails the run loudly:
    iterations; the rest repeat them), calc_emission at F = 0 and 1 into e_prob
    [1024, 262,144, 2] float64, forward, backward, posterior_decode and
    viterbi through the kernel in float64 and again in float32 (on
-   POPGEN_CHECK_CHAINS chains: forward and backward logliks within their
-   bounds of each other, the posterior normalised, paths in range, the
-   float32 messages within hmm_bound of the float64 ones), haplo_freq on
+   POPGEN_CHECK_CHAINS chains over every site: forward's, backward's and
+   viterbi's outputs held to the plain version as above, its site loop
+   replayed from CUDA graphs, ops/hmm.py segment_runner; forward and
+   backward logliks within their bounds of each other, the posterior
+   normalised, paths in range, the float32 messages within hmm_bound of
+   the float64 ones), haplo_freq on
    the adjacent site pairs of the first POPGEN_MAF_SITES sites (normal
    space), and lbfgsb on POPGEN_LANES lanes of n = POPGEN_N of
    tests/test_popgen.py's bounded quartic, lanes POPGEN_SCIPY_LANES held
@@ -233,8 +236,9 @@ Prints the card line, a {"kernels": [...]} line whose "max_abs_err" is
 the largest absolute error of raw/cnt (the uncorrected distance)
 against the float64 plain version (the HMM entries: of the log messages
 and logliks, or the best score, against the plain version in the
-entry's type, as "err_of" says; their "ms" and "plain_ms" at
-HMM_SHAPES[0], "full_width_ms" at the popgen path's shape), and as its last line
+entry's type, as "err_of" says, over HMM_SHAPES, the edge inputs and
+POPGEN_CHECK_CHAINS chains of the popgen path; their "ms" and "plain_ms"
+at HMM_SHAPES[0], "full_width_ms" at the popgen path's shape), and as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -2693,6 +2697,7 @@ POPGEN_Q, POPGEN_ALPHA = (0.9, 0.1), 1e-4   # examples/quickstart.py step 5
 POPGEN_LANES, POPGEN_N = 1024, 16     # lbfgsb lanes of tests/test_popgen.py's quartic
 POPGEN_SCIPY_LANES = (0, 1, 511, 1023)
 POPGEN_CHECK_CHAINS = 64              # chains whose messages are held to their bounds
+POPGEN_SEGMENT = 1024                 # sites a CUDA graph of the plain loop walks
 # The popgen path's launches: posterior_decode runs forward and backward
 # once more; the chains run in float64, then in float32.
 POPGEN_LAUNCHES = {name: (1 if "viterbi" in name else 2) for name in HMM_KERNELS}
@@ -2739,21 +2744,24 @@ def held(torch, what: str, got, want, bound) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def check_hmm(torch, hmm, kind: str, args, got, plain=None):
+def check_hmm(torch, hmm, kind: str, args, got, plain=None, run=None):
     """One launch's outputs against the plain version on the same inputs,
     within ops/hmm.py hmm_bound (PERF.md section 2).  Viterbi: the best
     score within its bound, and at every step where the kernel's path leaves
     the plain version's back pointer (or its final arg max) the two
     candidates' plain scores within twice the bound: a flip between two
-    near-tied paths.  Returns (largest |error|, flips)."""
+    near-tied paths.  run: how the plain version walks the sites
+    (ops/hmm.py eager, the default, or segment_runner).  Returns (largest
+    |error|, flips)."""
     what = f"hmm {kind} {got[0].dtype} {tuple(args[2].shape)}"
+    run = run or hmm.eager
     if kind != "viterbi":
         X, ll = plain or (hmm.hmm_forward_ref if kind == "forward"
-                          else hmm.hmm_backward_ref)(*args)
+                          else hmm.hmm_backward_ref)(*args, run=run)
         per, last = hmm.hmm_bound(kind, *args, X)
         return max(held(torch, what, got[0], X, per[..., None]),
                    held(torch, what + " loglik", got[1], ll, last)), 0
-    path, best, V, backs = hmm.hmm_viterbi_ref(*args, full=True)
+    path, best, V, backs = hmm.hmm_viterbi_ref(*args, full=True, run=run)
     per, last = hmm.hmm_bound(kind, *args, V)
     err = held(torch, what + " best", got[1], best, last)
     pk = got[0].long()
@@ -2904,7 +2912,7 @@ def drive_popgen(torch, popgen, hmm, readers, P: np.ndarray, card) -> dict:
     # step 4: per-site MAFs of the first POPGEN_MAF_SITES sites (the rest
     # repeat them)
     (maf0, iters), ms["est_maf_sites"] = event_ms(
-        torch, lambda: popgen.freqs.est_maf_iters(GL[:POPGEN_MAF_SITES]))
+        torch, lambda: popgen.freqs._est_maf_iters(GL[:POPGEN_MAF_SITES]))
     mafs = maf0.repeat(S // POPGEN_MAF_SITES)
     if not bool(((mafs >= 0) & (mafs <= 1)).all()):
         raise AssertionError("est_maf_sites: a MAF outside [0, 1]")
@@ -2916,12 +2924,12 @@ def drive_popgen(torch, popgen, hmm, readers, P: np.ndarray, card) -> dict:
     torch.cuda.empty_cache()
     q = torch.tensor(POPGEN_Q, dtype=torch.float64, device=dev)
     d = torch.from_numpy(pos_dist).to(dev)
-    res, kept = {}, {}
+    res, kept, full = {}, {}, {}
     for tag, dt in (("", torch.float64), ("_f32", torch.float32)):
         args = (q.to(dt), POPGEN_ALPHA, e_prob.to(dt), d.to(dt))
         for fn in ("forward", "backward", "posterior_decode", "viterbi"):
             res[fn + tag], ms[fn + tag] = event_ms(torch, lambda: getattr(popgen, fn)(*args))
-        check_popgen_chains(torch, hmm, tag, args, res, kept)
+        check_popgen_chains(torch, hmm, tag, args, res, kept, full)
         res = {k: v for k, v in res.items() if k.startswith("ref")}
         torch.cuda.empty_cache()
     del e_prob
@@ -2953,16 +2961,21 @@ def drive_popgen(torch, popgen, hmm, readers, P: np.ndarray, card) -> dict:
         f"to tol 1e-9; launches "
         + ", ".join(f"{k} {v}" for k, v in launches.items()) + f" [{card}]")
     log("phase popgen: " + ", ".join(f"{k} {v}" for k, v in kept.items()))
-    return {"launches": launches, "ms": ms}
+    return {"launches": launches, "ms": ms, "full": full}
 
 
-def check_popgen_chains(torch, hmm, tag: str, args, res, kept) -> None:
+def check_popgen_chains(torch, hmm, tag: str, args, res, kept, full) -> None:
     """The full-width chains' outputs: shapes and types; on the first
-    POPGEN_CHECK_CHAINS chains the forward and backward logliks equal within
-    their two bounds (the same quantity by two recursions), the posterior
+    POPGEN_CHECK_CHAINS chains, over every site, forward's, backward's and
+    viterbi's outputs held to the plain version on the same inputs
+    (check_hmm; the plain loop replayed from CUDA graphs of POPGEN_SEGMENT
+    sites, ops/hmm.py segment_runner: the eager loop's kernels, without its
+    Python per site), the forward and backward logliks equal within their
+    two bounds (the same quantity by two recursions), the posterior
     normalised within both messages' bounds, the Viterbi path in range and
     its score below the loglik; the float32 chains within hmm_bound (in
-    float32) of the float64 ones."""
+    float32) of the float64 ones.  full gets {kernel name: (largest
+    |error|, Viterbi flips)} against the plain version."""
     q, alpha, e, d = args
     B, S, K = e.shape
     Fw, ll = res["forward" + tag]
@@ -2974,6 +2987,17 @@ def check_popgen_chains(torch, hmm, tag: str, args, res, kept) -> None:
         raise AssertionError(f"popgen chains{tag}: shapes or types")
     c = POPGEN_CHECK_CHAINS
     sub = (q.expand(c, K), torch.full((c,), alpha, dtype=e.dtype, device=e.device), e[:c], d)
+    t0 = time.perf_counter()
+    run = hmm.segment_runner(POPGEN_SEGMENT)
+    for kind, got in (("forward", (Fw[:c], ll[:c])), ("backward", (Bw[:c], llb[:c])),
+                      ("viterbi", (path[:c], score[:c]))):
+        full[f"hmm_{kind}{'' if tag else '_f64'}"] = check_hmm(torch, hmm, kind, sub, got,
+                                                             run=run)
+        torch.cuda.empty_cache()
+    kept[f"plain version on {c} chains x {S} sites{tag}"] = (
+        ", ".join(f"{k} {v[0]:.3e} ({v[1]} flips)" for k, v in full.items()
+                  if k.endswith("_f64") != bool(tag))
+        + f" in {time.perf_counter() - t0:.1f} s")
     per_f, last_f = hmm.hmm_bound("forward", *sub, Fw[:c])
     per_b, last_b = hmm.hmm_bound("backward", *sub, Bw[:c])
     gap = (ll[:c].double() - llb[:c].double()).abs()
@@ -3398,13 +3422,18 @@ def main() -> int:
     B, S, K, per_d = HMM_SHAPES[0]
     for name, v in hmm_rows.items():
         kind, f64 = name[4:].replace("_f64", ""), name.endswith("_f64")
-        report(name, "ngsdist_tpu_torch/csrc/hmm.cu", HMM_REPLACES[kind], v["err"],
-               HMM_ERR_OF[kind], v["ms"], v["plain_ms"], v["bound"], None)
+        full_err, full_flips = popgen_run["full"][name]
+        report(name, "ngsdist_tpu_torch/csrc/hmm.cu", HMM_REPLACES[kind],
+               max(v["err"], full_err), HMM_ERR_OF[kind], v["ms"], v["plain_ms"], v["bound"],
+               None)
         full = hmm_bound_ms(kind, N_IND, POPGEN_SITES, 2, 8 if f64 else 4, False)
         kernels[-1].update({"shape": f"{B} x {S} x {K}", "viterbi_flips": v["flips"],
                             "full_width_ms": popgen_run["ms"][kind + ("" if f64 else "_f32")],
                             "full_width_bound_ms": full[0],
-                            "full_width_shape": f"{N_IND} x {POPGEN_SITES} x 2"})
+                            "full_width_shape": f"{N_IND} x {POPGEN_SITES} x 2",
+                            "full_width_max_abs_err": full_err,
+                            "full_width_viterbi_flips": full_flips,
+                            "full_width_checked_chains": POPGEN_CHECK_CHAINS})
         log(f"phase 4: {name} at full width ({N_IND} x {POPGEN_SITES} x 2): kernel "
             f"{kernels[-1]['full_width_ms']:.3f} ms, bound {full[0]:.3f} ms by {full[1]} "
             f"({full[2]}) [{card}]")

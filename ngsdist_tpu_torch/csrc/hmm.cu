@@ -45,10 +45,11 @@
 // whose K x K transfer matrices compose in the log semiring is the
 // site-parallel redesign (ROADMAP).
 //
-// Layout.  The kernel takes element strides for e, the messages and the
-// path (chain, site; states contiguous), so that chain-major [B, S, K]
-// tensors, the JAX layout, go in and out without a copy.  Which layout the
-// wrapper uses was measured once (profile_hmm.py, PERF.md section 6).
+// Layout.  e and the messages are chain-major [B, S, K] and the path
+// [B, S], the JAX layout, so nothing is copied on the way in or out: a
+// thread's consecutive sites are adjacent and reach it through L1.  A
+// site-major layout (a warp's loads contiguous, a transpose each way) was
+// measured once against it (PERF.md section 6) and not kept.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -121,17 +122,16 @@ __device__ __forceinline__ T chain_start(const T* q, const T* alpha, int b, T (&
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
     hmm_forward_kernel(const T* __restrict__ q, const T* __restrict__ alpha,
-                       const T* __restrict__ e, long long e_sb, long long e_ss,
-                       const T* __restrict__ d, long long d_sb, T* __restrict__ out,
-                       long long o_sb, long long o_ss, T* __restrict__ ll, int B, long long S) {
+                       const T* __restrict__ e, const T* __restrict__ d, long long d_sb,
+                       T* __restrict__ out, T* __restrict__ ll, int B, long long S) {
   constexpr int U = Ahead<K>::U;
   const int b = blockIdx.x * kThreads + threadIdx.x;
   if (b >= B) return;
   T qb[K], f[K];
   const T na = chain_start<T, K>(q, alpha, b, qb, f);
-  const T* eb = e + (long long)b * e_sb;
+  const T* eb = e + (long long)b * S * K;
   const T* db = d + (long long)b * d_sb;
-  T* ob = out + (long long)b * o_sb;
+  T* ob = out + (long long)b * S * K;
   for (long long s0 = 0; s0 < S; s0 += U) {
     T es[U][K], ds[U];
 #pragma unroll
@@ -139,7 +139,7 @@ __global__ void __launch_bounds__(kThreads)
       if (s0 + u < S) {
         ds[u] = db[s0 + u];
 #pragma unroll
-        for (int k = 0; k < K; ++k) es[u][k] = eb[(s0 + u) * e_ss + k];
+        for (int k = 0; k < K; ++k) es[u][k] = eb[(s0 + u) * K + k];
       }
     }
 #pragma unroll
@@ -157,7 +157,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           f[k] = nf[k];
-          ob[(s0 + u) * o_ss + k] = nf[k];
+          ob[(s0 + u) * K + k] = nf[k];
         }
       }
     }
@@ -168,21 +168,20 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
     hmm_backward_kernel(const T* __restrict__ q, const T* __restrict__ alpha,
-                        const T* __restrict__ e, long long e_sb, long long e_ss,
-                        const T* __restrict__ d, long long d_sb, T* __restrict__ out,
-                        long long o_sb, long long o_ss, T* __restrict__ ll, int B, long long S) {
+                        const T* __restrict__ e, const T* __restrict__ d, long long d_sb,
+                        T* __restrict__ out, T* __restrict__ ll, int B, long long S) {
   constexpr int U = Ahead<K>::U;
   const int b = blockIdx.x * kThreads + threadIdx.x;
   if (b >= B) return;
   T qb[K], lq[K], bk[K];
   const T na = chain_start<T, K>(q, alpha, b, qb, lq);
-  const T* eb = e + (long long)b * e_sb;
+  const T* eb = e + (long long)b * S * K;
   const T* db = d + (long long)b * d_sb;
-  T* ob = out + (long long)b * o_sb;
+  T* ob = out + (long long)b * S * K;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     bk[k] = T(0);
-    ob[(S - 1) * o_ss + k] = T(0);
+    ob[(S - 1) * K + k] = T(0);
   }
   // site s gives row s - 1, for s = S-1 .. 1
   for (long long s1 = S - 1; s1 >= 1; s1 -= U) {
@@ -192,7 +191,7 @@ __global__ void __launch_bounds__(kThreads)
       if (s1 - u >= 1) {
         ds[u] = db[s1 - u];
 #pragma unroll
-        for (int k = 0; k < K; ++k) es[u][k] = eb[(s1 - u) * e_ss + k];
+        for (int k = 0; k < K; ++k) es[u][k] = eb[(s1 - u) * K + k];
       }
     }
 #pragma unroll
@@ -212,7 +211,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           bk[k] = nb[k];
-          ob[(s1 - u - 1) * o_ss + k] = nb[k];
+          ob[(s1 - u - 1) * K + k] = nb[k];
         }
       }
     }
@@ -235,16 +234,15 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
     hmm_viterbi_kernel(const T* __restrict__ q, const T* __restrict__ alpha,
-                       const T* __restrict__ e, long long e_sb, long long e_ss,
-                       const T* __restrict__ d, long long d_sb, uint8_t* __restrict__ backs,
-                       int* __restrict__ path, long long p_sb, long long p_ss,
+                       const T* __restrict__ e, const T* __restrict__ d, long long d_sb,
+                       uint8_t* __restrict__ backs, int* __restrict__ path,
                        T* __restrict__ best, int B, long long S) {
   constexpr int U = Ahead<K>::U;
   const int b = blockIdx.x * kThreads + threadIdx.x;
   if (b >= B) return;
   T qb[K], v[K];
   const T na = chain_start<T, K>(q, alpha, b, qb, v);
-  const T* eb = e + (long long)b * e_sb;
+  const T* eb = e + (long long)b * S * K;
   const T* db = d + (long long)b * d_sb;
   // backs[s][b][l]: the warp's chains side by side
   uint8_t* bb = backs + (long long)b * K;
@@ -256,7 +254,7 @@ __global__ void __launch_bounds__(kThreads)
       if (s0 + u < S) {
         ds[u] = db[s0 + u];
 #pragma unroll
-        for (int k = 0; k < K; ++k) es[u][k] = eb[(s0 + u) * e_ss + k];
+        for (int k = 0; k < K; ++k) es[u][k] = eb[(s0 + u) * K + k];
       }
     }
 #pragma unroll
@@ -296,8 +294,8 @@ __global__ void __launch_bounds__(kThreads)
   best[b] = top;
   // traceback through sites S-1 .. 1; each site's K pointers are loaded
   // U sites ahead (their addresses do not depend on the state)
-  int* pb = path + (long long)b * p_sb;
-  pb[(S - 1) * p_ss] = state;
+  int* pb = path + (long long)b * S;
+  pb[S - 1] = state;
   for (long long s1 = S - 1; s1 >= 1; s1 -= U) {
     uint8_t row[U][K];
 #pragma unroll
@@ -314,7 +312,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int k = 1; k < K; ++k) next = state == k ? row[u][k] : next;
         state = next;
-        pb[(s1 - u - 1) * p_ss] = state;
+        pb[s1 - u - 1] = state;
       }
     }
   }
@@ -323,24 +321,22 @@ __global__ void __launch_bounds__(kThreads)
 inline unsigned grid_of(int B) { return (unsigned)((B + kThreads - 1) / kThreads); }
 
 template <typename T, int K>
-int launch_scan(bool fwd, const T* q, const T* alpha, const T* e, long long e_sb,
-                long long e_ss, const T* d, long long d_sb, T* out, long long o_sb,
-                long long o_ss, T* ll, int B, long long S, void* stream) {
+int launch_scan(bool fwd, const T* q, const T* alpha, const T* e, const T* d, long long d_sb,
+                T* out, T* ll, int B, long long S, void* stream) {
   if (fwd)
     hmm_forward_kernel<T, K><<<grid_of(B), kThreads, 0, (cudaStream_t)stream>>>(
-        q, alpha, e, e_sb, e_ss, d, d_sb, out, o_sb, o_ss, ll, B, S);
+        q, alpha, e, d, d_sb, out, ll, B, S);
   else
     hmm_backward_kernel<T, K><<<grid_of(B), kThreads, 0, (cudaStream_t)stream>>>(
-        q, alpha, e, e_sb, e_ss, d, d_sb, out, o_sb, o_ss, ll, B, S);
+        q, alpha, e, d, d_sb, out, ll, B, S);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int K>
-int launch_viterbi(const T* q, const T* alpha, const T* e, long long e_sb, long long e_ss,
-                   const T* d, long long d_sb, uint8_t* backs, int* path, long long p_sb,
-                   long long p_ss, T* best, int B, long long S, void* stream) {
+int launch_viterbi(const T* q, const T* alpha, const T* e, const T* d, long long d_sb,
+                   uint8_t* backs, int* path, T* best, int B, long long S, void* stream) {
   hmm_viterbi_kernel<T, K><<<grid_of(B), kThreads, 0, (cudaStream_t)stream>>>(
-      q, alpha, e, e_sb, e_ss, d, d_sb, backs, path, p_sb, p_ss, best, B, S);
+      q, alpha, e, d, d_sb, backs, path, best, B, S);
   return (int)cudaGetLastError();
 }
 
@@ -349,15 +345,13 @@ bool bad_shape(int B, long long S, int K) {
 }
 
 template <typename T>
-int scan_entry(bool fwd, const T* q, const T* alpha, const T* e, long long e_sb,
-               long long e_ss, const T* d, long long d_sb, T* out, long long o_sb,
-               long long o_ss, T* ll, int B, long long S, int K, void* stream) {
+int scan_entry(bool fwd, const T* q, const T* alpha, const T* e, const T* d, long long d_sb,
+               T* out, T* ll, int B, long long S, int K, void* stream) {
   if (bad_shape(B, S, K) || !q || !alpha || !e || !d || !out || !ll)
     return (int)cudaErrorInvalidValue;
 #define NGSD_HMM_SCAN(KK)                                                                   \
   case KK:                                                                                  \
-    return launch_scan<T, KK>(fwd, q, alpha, e, e_sb, e_ss, d, d_sb, out, o_sb, o_ss, ll, B, \
-                              S, stream);
+    return launch_scan<T, KK>(fwd, q, alpha, e, d, d_sb, out, ll, B, S, stream);
   switch (K) {
     NGSD_HMM_SCAN(1) NGSD_HMM_SCAN(2) NGSD_HMM_SCAN(3) NGSD_HMM_SCAN(4)
     NGSD_HMM_SCAN(5) NGSD_HMM_SCAN(6) NGSD_HMM_SCAN(7) NGSD_HMM_SCAN(8)
@@ -367,15 +361,14 @@ int scan_entry(bool fwd, const T* q, const T* alpha, const T* e, long long e_sb,
 }
 
 template <typename T>
-int viterbi_entry(const T* q, const T* alpha, const T* e, long long e_sb, long long e_ss,
-                  const T* d, long long d_sb, uint8_t* backs, int* path, long long p_sb,
-                  long long p_ss, T* best, int B, long long S, int K, void* stream) {
+int viterbi_entry(const T* q, const T* alpha, const T* e, const T* d, long long d_sb,
+                  uint8_t* backs, int* path, T* best, int B, long long S, int K,
+                  void* stream) {
   if (bad_shape(B, S, K) || !q || !alpha || !e || !d || !backs || !path || !best)
     return (int)cudaErrorInvalidValue;
 #define NGSD_HMM_VITERBI(KK)                                                                \
   case KK:                                                                                  \
-    return launch_viterbi<T, KK>(q, alpha, e, e_sb, e_ss, d, d_sb, backs, path, p_sb, p_ss, \
-                                 best, B, S, stream);
+    return launch_viterbi<T, KK>(q, alpha, e, d, d_sb, backs, path, best, B, S, stream);
   switch (K) {
     NGSD_HMM_VITERBI(1) NGSD_HMM_VITERBI(2) NGSD_HMM_VITERBI(3) NGSD_HMM_VITERBI(4)
     NGSD_HMM_VITERBI(5) NGSD_HMM_VITERBI(6) NGSD_HMM_VITERBI(7) NGSD_HMM_VITERBI(8)
@@ -386,34 +379,26 @@ int viterbi_entry(const T* q, const T* alpha, const T* e, long long e_sb, long l
 
 }  // namespace
 
-// Element strides: e[b * e_sb + s * e_ss + k], d[b * d_sb + s] (d_sb = 0:
-// one distance vector for every chain), out[b * o_sb + s * o_ss + k],
-// path[b * p_sb + s * p_ss]; q [B, K] and alpha [B] contiguous; backs a
-// [S, B, K] uint8 scratch.  Returns a CUDA error code (0: launched).
+// Chain-major: e and out [B, S, K], path [B, S] int32, all contiguous;
+// q [B, K] and alpha [B] contiguous; d[b * d_sb + s] (d_sb = 0: one
+// distance vector for every chain, else S); backs a [S, B, K] uint8
+// scratch.  Returns a CUDA error code (0: launched).
 #define NGSD_HMM_ENTRIES(T, SUFFIX)                                                          \
   extern "C" int ngsd_hmm_forward_##SUFFIX(const T* q, const T* alpha, const T* e,           \
-                                           long long e_sb, long long e_ss, const T* d,        \
-                                           long long d_sb, T* out, long long o_sb,            \
-                                           long long o_ss, T* ll, int B, long long S, int K,  \
-                                           void* stream) {                                    \
-    return scan_entry<T>(true, q, alpha, e, e_sb, e_ss, d, d_sb, out, o_sb, o_ss, ll, B, S,  \
-                         K, stream);                                                          \
+                                           const T* d, long long d_sb, T* out, T* ll, int B, \
+                                           long long S, int K, void* stream) {                \
+    return scan_entry<T>(true, q, alpha, e, d, d_sb, out, ll, B, S, K, stream);              \
   }                                                                                           \
   extern "C" int ngsd_hmm_backward_##SUFFIX(const T* q, const T* alpha, const T* e,          \
-                                            long long e_sb, long long e_ss, const T* d,       \
-                                            long long d_sb, T* out, long long o_sb,           \
-                                            long long o_ss, T* ll, int B, long long S, int K, \
-                                            void* stream) {                                   \
-    return scan_entry<T>(false, q, alpha, e, e_sb, e_ss, d, d_sb, out, o_sb, o_ss, ll, B, S, \
-                         K, stream);                                                          \
+                                            const T* d, long long d_sb, T* out, T* ll, int B, \
+                                            long long S, int K, void* stream) {               \
+    return scan_entry<T>(false, q, alpha, e, d, d_sb, out, ll, B, S, K, stream);             \
   }                                                                                           \
   extern "C" int ngsd_hmm_viterbi_##SUFFIX(const T* q, const T* alpha, const T* e,           \
-                                           long long e_sb, long long e_ss, const T* d,        \
-                                           long long d_sb, uint8_t* backs, int* path,         \
-                                           long long p_sb, long long p_ss, T* best, int B,    \
-                                           long long S, int K, void* stream) {                \
-    return viterbi_entry<T>(q, alpha, e, e_sb, e_ss, d, d_sb, backs, path, p_sb, p_ss, best, \
-                            B, S, K, stream);                                                 \
+                                           const T* d, long long d_sb, uint8_t* backs,        \
+                                           int* path, T* best, int B, long long S, int K,     \
+                                           void* stream) {                                    \
+    return viterbi_entry<T>(q, alpha, e, d, d_sb, backs, path, best, B, S, K, stream);       \
   }
 
 NGSD_HMM_ENTRIES(float, f32)

@@ -33,7 +33,7 @@ from ..utils.buildlib import BUILD_DIR, CSRC_DIR  # noqa: F401  (callers read th
 # contracts a*b+c into FMA by default, which the stated tolerances cover.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
@@ -64,8 +64,8 @@ def _nvcc() -> str:
 
 def _build(path: str) -> None:
     """One nvcc per `.cu` file, all started together, then one link."""
-    buildlib.compile_each_into(path, [_nvcc(), *[f for f in NVCC_FLAGS if f != "-shared"]],
-                               ["-shared"], [s for s in _sources() if s.endswith(".cu")])
+    buildlib.compile_into(path, [_nvcc(), *NVCC_FLAGS],
+                          [s for s in _sources() if s.endswith(".cu")])
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -80,12 +80,11 @@ def _configure(lib: ctypes.CDLL) -> None:
                 ("em_block_partials", [vp, vp, vp, i32, i64, i64, vp, f64, i32, vp])):
             fn = getattr(lib, f"ngsd_{name}_{t}")
             fn.argtypes, fn.restype = args, i32
-        # csrc/hmm.cu: q, alpha, e and its strides, d and its chain
-        # stride, the outputs (and strides), B, S, K, the stream
-        scan = [vp, vp, vp, i64, i64, vp, i64, vp, i64, i64, vp, i32, i64, i32, vp]
+        # csrc/hmm.cu: q, alpha, e, d and its chain stride, the outputs
+        # (Viterbi: back-pointer scratch, path, best), B, S, K, the stream
+        scan = [vp, vp, vp, vp, i64, vp, vp, i32, i64, i32, vp]
         for name, args in (("hmm_forward", scan), ("hmm_backward", scan),
-                           ("hmm_viterbi", [vp, vp, vp, i64, i64, vp, i64, vp, vp, i64, i64, vp,
-                                            i32, i64, i32, vp])):
+                           ("hmm_viterbi", [vp, vp, vp, vp, i64, vp, vp, vp, i32, i64, i32, vp])):
             fn = getattr(lib, f"ngsd_{name}_{t}")
             fn.argtypes, fn.restype = args, i32
     lib.ngsd_error_string.argtypes = [i32]

@@ -12,10 +12,9 @@ versions walk the sites in a Python loop with every chain a row of each
 tensor; they are the CPU path and the yardstick of the kernel on the
 card.  The kernel runs one thread per chain (csrc/hmm.cu has the design
 and what bounds it) for K = 1..8; a CUDA tensor with more states raises.
-It reads e and writes the messages chain-major, in place: site-major
-copies (contiguous warp loads, a transpose each way) were 0.5-6% faster
-on an H100 with the transposes counted, for a second copy of e
-(profile_hmm.py, PERF.md section 6).
+It reads e and writes the messages chain-major, the layout they come in,
+with no copy (PERF.md section 6 has the one measurement of a site-major
+layout against it).
 
 Both keep the JAX package's arithmetic: the transition rows as
 `transition_matrices` forms them, logsumexp as jax.scipy.special's
@@ -81,53 +80,150 @@ def transition_matrices(q: torch.Tensor, alpha: torch.Tensor, d: torch.Tensor) -
     return torch.log(T)
 
 
-def hmm_forward_ref(q, alpha, e, d):
-    """Plain version of the forward scan: (Fw [B, S, K], loglik [B])."""
-    logT = transition_matrices(q, alpha, d)
-    f = torch.log(q)
-    Fw = torch.empty_like(e)
+def _forward_sites(f, ins, outs):
+    """The forward steps over a run of sites from the messages f before
+    them: ins (log T [B, n, K, K], e [B, n, K]), outs (Fw [B, n, K]).
+    Returns the messages after the last site."""
+    logT, e = ins
+    (Fw,) = outs
     for s in range(e.shape[1]):
         f = logsumexp(f[:, :, None] + logT[:, s], 1) + e[:, s]
         Fw[:, s] = f
+    return f
+
+
+def _backward_sites(b, ins, outs):
+    """The backward steps over a run of sites, last site first, from the
+    messages b after them: ins (log T, e) of sites j, outs the rows they
+    make (row j - 1 of Bw for site j, so the caller passes Bw shifted)."""
+    logT, e = ins
+    (Bw,) = outs
+    for j in range(e.shape[1] - 1, -1, -1):
+        b = logsumexp(logT[:, j] + (e[:, j] + b)[:, None, :], 2)
+        Bw[:, j] = b
+    return b
+
+
+def _viterbi_sites(v, ins, outs):
+    """The Viterbi steps over a run of sites from the scores v before them:
+    ins (log T, e), outs (back pointers [B, n, K] int64, and the scores V
+    [B, n, K] when kept)."""
+    logT, e = ins
+    backs, *V = outs
+    for s in range(e.shape[1]):
+        top, backs[:, s] = argmax_first(v[:, :, None] + logT[:, s], 1)
+        v = top + e[:, s]
+        if V:
+            V[0][:, s] = v
+    return v
+
+
+def _traceback_sites(state, ins, outs):
+    """The traceback over a run of sites, last site first, from the state
+    after them: ins (back pointers of sites j), outs the path entries they
+    give (entry j - 1 for site j, so the caller passes the path shifted)."""
+    (backs,) = ins
+    (path,) = outs
+    for j in range(backs.shape[1] - 1, -1, -1):
+        state = backs[:, j].gather(1, state[:, None])[:, 0]
+        path[:, j] = state
+    return state
+
+
+def eager(steps, state, ins, outs, reverse):
+    """How the plain versions walk the sites by default: one Python loop
+    (reverse: the steps walk their run last site first)."""
+    return steps(state, ins, outs)
+
+
+def hmm_forward_ref(q, alpha, e, d, run=eager):
+    """Plain version of the forward scan: (Fw [B, S, K], loglik [B]).
+    run: how the site loop is driven (`eager`, or `segment_runner`)."""
+    logT = transition_matrices(q, alpha, d)
+    Fw = torch.empty_like(e)
+    f = run(_forward_sites, torch.log(q), (logT, e), (Fw,), False)
     return Fw, logsumexp(f, -1)
 
 
-def hmm_backward_ref(q, alpha, e, d):
+def hmm_backward_ref(q, alpha, e, d, run=eager):
     """Plain version of the backward scan: (Bw [B, S, K], the loglik of
-    the virtual start row [B])."""
+    the virtual start row [B]); run as hmm_forward_ref."""
     logT = transition_matrices(q, alpha, d)
     S = e.shape[1]
     Bw = torch.empty_like(e)
     b = torch.zeros_like(e[:, -1])
     Bw[:, S - 1] = b
-    for s in range(S - 1, 0, -1):
-        b = logsumexp(logT[:, s] + (e[:, s] + b)[:, None, :], 2)
-        Bw[:, s - 1] = b
+    # site s makes row s - 1, for s = S-1 .. 1
+    run(_backward_sites, b, (logT[:, 1:], e[:, 1:]), (Bw[:, :-1],), True)
     b_start = logsumexp(logT[:, 0] + (e[:, 0] + Bw[:, 0])[:, None, :], 2)
     return Bw, logsumexp(torch.log(q) + b_start, -1)
 
 
-def hmm_viterbi_ref(q, alpha, e, d, full: bool = False):
+def hmm_viterbi_ref(q, alpha, e, d, full: bool = False, run=eager):
     """Plain version of the Viterbi scan and traceback: (path [B, S]
     int32, best score [B]); full: also the scores V [B, S, K] after each
-    site and the back pointers [B, S, K]."""
+    site and the back pointers [B, S, K]; run as hmm_forward_ref."""
     logT = transition_matrices(q, alpha, d)
     B, S, K = e.shape
-    v = torch.log(q)
     backs = torch.empty((B, S, K), dtype=torch.int64, device=e.device)
     V = torch.empty_like(e) if full else None
-    for s in range(S):
-        top, backs[:, s] = argmax_first(v[:, :, None] + logT[:, s], 1)
-        v = top + e[:, s]
-        if full:
-            V[:, s] = v
+    v = run(_viterbi_sites, torch.log(q), (logT, e), (backs, V) if full else (backs,), False)
     best, state = argmax_first(v, -1)
     path = torch.empty((B, S), dtype=torch.int32, device=e.device)
     path[:, S - 1] = state
-    for s in range(S - 1, 0, -1):
-        state = backs[:, s].gather(1, state[:, None])[:, 0]
-        path[:, s - 1] = state
+    # site s gives the state at s - 1, for s = S-1 .. 1
+    run(_traceback_sites, state, (backs[:, 1:],), (path[:, :-1],), True)
     return (path, best, V, backs) if full else (path, best)
+
+
+def segment_runner(C: int, graph: bool = True):
+    """A `run` for the plain versions that walks the sites in segments of C
+    through buffers of its own: each segment's inputs are copied in, one
+    replay of a CUDA graph of the steps on C sites runs them, and the
+    outputs are copied out; the sites left over run eagerly (after the
+    segments, or before them where the steps walk last site first).  The
+    graph holds the eager loop's own kernels in its order, so the results
+    are the eager loop's bits, without its per-site launches from Python.
+    graph=False runs the steps eagerly on the same buffers (the segmenting
+    without the graph, for a CPU)."""
+
+    def run(steps, state, ins, outs, reverse):
+        n = ins[0].shape[1]
+        whole = n // C
+        if whole == 0:
+            return steps(state, ins, outs)
+        st = state.clone()
+        sin = [x[:, :C].clone() for x in ins]
+        sout = [o[:, :C].clone() for o in outs]
+
+        def body():
+            st.copy_(steps(st, sin, sout))
+
+        replay = body
+        if graph:
+            side = torch.cuda.Stream(st.device)
+            side.wait_stream(torch.cuda.current_stream(st.device))
+            with torch.cuda.stream(side):
+                body()                  # warm-up, as torch.cuda.graph asks
+            torch.cuda.current_stream(st.device).wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                body()
+            replay = g.replay
+        st.copy_(state)
+        rest = n - whole * C
+        starts = [rest + i * C for i in range(whole)][::-1] if reverse else \
+            [i * C for i in range(whole)]
+        for a in starts:
+            for x, buf in zip(ins, sin):
+                buf.copy_(x[:, a:a + C])
+            replay()
+            for o, buf in zip(outs, sout):
+                o[:, a:a + C].copy_(buf)
+        lo, hi = (0, rest) if reverse else (whole * C, n)
+        return steps(st, [x[:, lo:hi] for x in ins], [o[:, lo:hi] for o in outs])
+
+    return run
 
 
 def check_card(t: torch.Tensor) -> None:
@@ -159,15 +255,15 @@ def _chains_cuda(kind: str, q, alpha, e, d):
         path = torch.empty((B, S), dtype=torch.int32, device=dev)
         best = torch.empty((B,), dtype=e.dtype, device=dev)
         with torch.cuda.device(dev):
-            rc = fn(ptr(q), ptr(alpha), ptr(e), S * K, K, ptr(d), d_sb, ptr(backs), ptr(path),
-                    S, 1, ptr(best), B, S, K, _build.stream(dev))
+            rc = fn(ptr(q), ptr(alpha), ptr(e), ptr(d), d_sb, ptr(backs), ptr(path), ptr(best),
+                    B, S, K, _build.stream(dev))
         out = (path, best)
     else:
         msgs = torch.empty_like(e)
         ll = torch.empty((B,), dtype=e.dtype, device=dev)
         with torch.cuda.device(dev):
-            rc = fn(ptr(q), ptr(alpha), ptr(e), S * K, K, ptr(d), d_sb, ptr(msgs), S * K, K,
-                    ptr(ll), B, S, K, _build.stream(dev))
+            rc = fn(ptr(q), ptr(alpha), ptr(e), ptr(d), d_sb, ptr(msgs), ptr(ll), B, S, K,
+                    _build.stream(dev))
         out = (msgs, ll)
     _build.check_launch(rc, f"hmm {kind}")
     count_launch(globals(), e, f"{kind.upper()}_")

@@ -87,7 +87,7 @@ def _miss(gl_log: torch.Tensor) -> torch.Tensor:
     return (d01 < EPSILON) & (d12 < EPSILON)
 
 
-def est_maf_iters(
+def _est_maf_iters(
     GL,
     indF=None,
     ignore_miss_data: bool = True,
@@ -150,7 +150,7 @@ def est_maf_sites(
     genotype prior, F treated as 0 in the allele-count expectations) or
     [N] per-individual inbreeding coefficients.  Returns [S] MAFs.
     """
-    return est_maf_iters(GL, indF, ignore_miss_data)[0]
+    return _est_maf_iters(GL, indF, ignore_miss_data)[0]
 
 
 def est_maf(gl_log, indF=None, ignore_miss_data: bool = True) -> torch.Tensor:

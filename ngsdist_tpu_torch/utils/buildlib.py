@@ -31,34 +31,14 @@ def hashed_path(stem: str, flags: Sequence[str], sources: Sequence[str]) -> str:
     return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
 
 
-def compile_into(path: str, compiler_and_flags: List[str], inputs: List[str],
-                 trailing: Sequence[str] = ()) -> None:
-    """Run `<compiler_and_flags> -o <temporary> <inputs> <trailing>` and
-    rename the result to `path`; raises with the compiler's errors."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [*compiler_and_flags, "-o", tmp, *inputs, *trailing]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log_tmp = f"{tmp}.log"
-    with open(log_tmp, "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    os.replace(log_tmp, path[:-3] + ".log")
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(
-            f"{os.path.basename(cmd[0])} failed (rc {proc.returncode}):\n"
-            f"{proc.stderr[-4000:]}")
-    os.replace(tmp, path)
-
-
-def compile_each_into(path: str, compiler_and_flags: List[str], link_flags: Sequence[str],
-                      sources: List[str]) -> None:
-    """Compile every source to an object by a compiler process of its own,
-    all started together, then link the objects into `path` with
-    `<compiler> <link_flags>` (under a temporary name, renamed into
-    place).  The log beside the library holds every command's output;
-    raises with the first failure's errors."""
+def compile_into(path: str, compiler_and_flags: List[str], sources: List[str],
+                 libs: Sequence[str] = ()) -> None:
+    """Build the shared library `path`: every source compiled to an object
+    by a compiler process of its own (`<compiler_and_flags> -c`), all
+    started together, then one link (`<compiler> -shared <objects>
+    <libs>`) under a temporary name, renamed into place.  The log beside
+    the library holds every command's output; raises with the first
+    failure's errors."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
@@ -67,7 +47,7 @@ def compile_each_into(path: str, compiler_and_flags: List[str], link_flags: Sequ
              for cmd in cmds]
     runs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(cmds, procs)]
     if all(rc == 0 for *_, rc in runs):
-        link = [compiler_and_flags[0], *link_flags, "-o", tmp, *objs]
+        link = [compiler_and_flags[0], "-shared", "-o", tmp, *objs, *libs]
         proc = subprocess.run(link, capture_output=True, text=True)
         runs.append((link, proc.stdout + proc.stderr, proc.returncode))
     with open(f"{tmp}.log", "w") as fh:
@@ -83,4 +63,3 @@ def compile_each_into(path: str, compiler_and_flags: List[str], link_flags: Sequ
         cmd, out, rc = failed[0]
         raise RuntimeError(f"{os.path.basename(cmd[0])} failed (rc {rc}):\n{out[-4000:]}")
     os.replace(tmp, path)
-

@@ -29,7 +29,7 @@ SOURCES = [os.path.join(HOST_SRC_DIR, "ngsdist_native.c"),
 # -ffp-contract=off: the bit-exact host transforms must not fuse a*b+c
 # into FMA.
 CFLAGS = ["-O2", "-Wall", "-Wextra", "-fPIC", "-ffp-contract=off",
-          "-fvisibility=hidden", "-shared"]
+          "-fvisibility=hidden"]
 LDLIBS = ["-lz", "-lpthread", "-lm"]
 
 _lock = threading.Lock()

@@ -57,7 +57,7 @@ def main() -> int:
     for name, defs in VARIANTS.items():
         path = os.path.join(out_dir, name.replace(" ", "_") + ".so")
         builds[name] = (path, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *defs, "-o", path, src],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *defs, "-o", path, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
 
     dev = torch.device("cuda")

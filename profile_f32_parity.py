@@ -36,7 +36,7 @@ import chip_smoke
 
 def build(nvcc: str, flags, csrc: str, out: str):
     sources = sorted(glob.glob(os.path.join(csrc, "*.cu")))
-    return subprocess.Popen([nvcc, *flags, "-o", out, *sources],
+    return subprocess.Popen([nvcc, *flags, "-shared", "-o", out, *sources],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 

@@ -185,7 +185,7 @@ def main() -> int:
         path = os.path.join(out_dir, name.replace(" ", "_") + ".so")
         defs = [f"-DNGSD_INDEP_F64_SKIP_{p}=1" for p in parts or ()]
         builds[name] = (path, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *defs, "-o", path,
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *defs, "-o", path,
              rate_src if parts is None else src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
 

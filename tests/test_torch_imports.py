@@ -1,7 +1,6 @@
 """The port stands alone: `ngsdist_tpu_torch`, `chip_smoke.py`,
-`profile_torch.py`, `profile_em_parts.py`, `profile_indep_parts.py` and
-`profile_hmm.py` import torch and numpy, never jax and nothing of the JAX
-package `ngsdist_tpu`."""
+`profile_torch.py`, `profile_em_parts.py` and `profile_indep_parts.py` import torch and numpy,
+never jax and nothing of the JAX package `ngsdist_tpu`."""
 
 import ast
 import hashlib
@@ -18,7 +17,7 @@ MANIFEST = json.load(open(os.path.join(FIXTURES, "manifest.json")))
 PKG = os.path.join(REPO_ROOT, "ngsdist_tpu_torch")
 SCRIPTS = [os.path.join(REPO_ROOT, name)
            for name in ("chip_smoke.py", "profile_torch.py", "profile_em_parts.py",
-                        "profile_indep_parts.py", "profile_hmm.py")]
+                        "profile_indep_parts.py")]
 
 
 def _sources():

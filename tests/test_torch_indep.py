@@ -143,7 +143,7 @@ def test_library_path_keyed_by_sources():
 
 @pytest.mark.parametrize("broken", [False, True], ids=["builds", "compile_error"])
 def test_each_source_compiled_by_its_own_process_then_linked(broken, monkeypatch, tmp_path):
-    """utils/buildlib.compile_each_into, which builds the kernels (one
+    """utils/buildlib.compile_into, which builds both libraries (one
     compiler process a source, then one link), with the host C compiler
     on two small C files: the linked library holds both files' functions
     and the log every command; a compile error raises with the compiler's
@@ -162,14 +162,14 @@ def test_each_source_compiled_by_its_own_process_then_linked(broken, monkeypatch
     lib = str(tmp_path / "libtwo_0.so")
     if broken:
         with pytest.raises(RuntimeError, match="failed"):
-            buildlib.compile_each_into(lib, ["cc", "-fPIC", "-O2"], ["-shared"], srcs)
+            buildlib.compile_into(lib, ["cc", "-fPIC", "-O2"], srcs, ["-lm"])
         assert sorted(f.name for f in tmp_path.iterdir()) == ["a.c", "b.c", "libtwo_0.log"]
         return
-    buildlib.compile_each_into(lib, ["cc", "-fPIC", "-O2"], ["-shared"], srcs)
+    buildlib.compile_into(lib, ["cc", "-fPIC", "-O2"], srcs, ["-lm"])
     so = ctypes.CDLL(lib)
     assert (so.ngsd_a(), so.ngsd_b()) == (1, 2)
     log = open(str(tmp_path / "libtwo_0.log")).read()
-    assert log.count(" -c ") == 2 and "-shared" in log
+    assert log.count(" -c ") == 2 and "-shared" in log and log.rstrip().endswith("-lm")
 
 
 # -- block mode: the partial-sum bootstrap's per-block sums -------------------

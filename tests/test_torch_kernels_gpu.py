@@ -963,3 +963,27 @@ def test_hmm_public_functions_on_the_card(cuda):
     per, _ = hmm.hmm_bound("forward", q[:1], a[:1], e[:1], d, ref)
     assert bool(((Fw - ref[0]).abs() <= per[0][:, None]).all())
     assert post.shape == (6, 120, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", chip_smoke.HMM_KINDS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_hmm_graphed_plain_version_is_the_eager_loop(cuda, kind, dtype):
+    """ops/hmm.py segment_runner, which walks the plain version's sites by
+    CUDA graph replays in chip_smoke.py's full-width check: every output
+    the eager loop's bits (300 sites in segments of 64, 44 left over;
+    alpha 0 past inf distances, so NaN and -inf messages)."""
+    from ngsdist_tpu_torch.ops import hmm
+
+    args = chip_smoke.hmm_inputs(torch, np.random.default_rng(13), 40, 300, 3, True,
+                                 getattr(torch, dtype), "alpha0")
+    run = hmm.segment_runner(64)
+    if kind == "viterbi":
+        want = hmm.hmm_viterbi_ref(*args, full=True)
+        got = hmm.hmm_viterbi_ref(*args, full=True, run=run)
+    else:
+        fn = getattr(hmm, f"hmm_{kind}_ref")
+        want, got = fn(*args), fn(*args, run=run)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())

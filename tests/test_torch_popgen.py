@@ -293,6 +293,40 @@ def test_plain_versions_within_their_bound_of_jax(kind, K):
     close(ll.numpy(), jll, last.numpy())
 
 
+@pytest.mark.parametrize("kind", ["forward", "backward", "viterbi"])
+@pytest.mark.parametrize("S,C", [(23, 5), (20, 5), (4, 5), (1, 5), (5, 5)],
+                         ids=["rest", "whole", "short", "one_site", "one_segment"])
+def test_segmented_plain_versions_are_the_eager_loop(kind, S, C):
+    """ops/hmm.py segment_runner without its graph (the segments, buffers
+    and copies; on the card each segment is a CUDA graph's replay):
+    every output the eager loop's bits, with sites left over after the
+    segments (forward) or before them (backward, traceback), none, all,
+    one site alone, and NaN and -inf messages (alpha 0 past a break, a
+    zero proportion)."""
+    rng = np.random.default_rng(60 + S)
+    B, K = 4, 3
+    q = rng.dirichlet(np.ones(K), size=B)
+    q[2, 1] = 0.0
+    q[2] /= q[2].sum()
+    alpha = np.array([0.01, 0.0, 0.2, 1e-3])
+    e = np.log(rng.random((B, S, K)) + 1e-3)
+    d = rng.integers(1, 60, size=S).astype(float)
+    d[S // 2] = np.inf
+    args = (t(q), t(alpha), t(e), t(d))
+    run = hops.segment_runner(C, graph=False)
+    if kind == "viterbi":
+        want = hops.hmm_viterbi_ref(*args, full=True)
+        got = hops.hmm_viterbi_ref(*args, full=True, run=run)
+    else:
+        fn = hops.hmm_forward_ref if kind == "forward" else hops.hmm_backward_ref
+        want, got = fn(*args), fn(*args, run=run)
+    if S > 1:
+        assert np.isnan(want[2 if kind == "viterbi" else 0].numpy()).any()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
 # ------------------------------------------------------------------ #
 # The frequency EMs                                                   #
 # ------------------------------------------------------------------ #
@@ -320,11 +354,11 @@ def test_est_maf_sites_matches(use_indF, ignore_miss):
 
 
 def test_est_maf_iters_counts_the_loop():
-    """est_maf_iters: the MAFs of est_maf_sites and at most ITER_MAX + 1
+    """_est_maf_iters: the MAFs of est_maf_sites and at most ITER_MAX + 1
     loop bodies."""
     rng = np.random.default_rng(61)
     GL = t(np.log(rng.dirichlet(np.ones(3), size=(6, 9))))
-    freq, iters = P.freqs.est_maf_iters(GL)
+    freq, iters = P.freqs._est_maf_iters(GL)
     np.testing.assert_array_equal(freq.numpy(), P.est_maf_sites(GL).numpy())
     assert 1 <= iters <= P.freqs.ITER_MAX + 1
 
@@ -555,9 +589,10 @@ def _args(B, S, K, dtype, shared_d=True):
 @pytest.mark.parametrize("K", [1, 8])
 @pytest.mark.parametrize("shared_d", [True, False], ids=["d_shared", "d_per_chain"])
 def test_wrapper_launches_the_kernel_entry(kind, dtype, K, shared_d, monkeypatch):
-    """A CUDA-device call hands e's own storage, its strides and the
-    distances' chain stride (0 when shared) to the entry of its dtype,
-    counts one launch of that entry, and never runs the plain version."""
+    """A CUDA-device call hands e's own (chain-major) storage and the
+    distances' chain stride (0 when shared) to the entry of its dtype, with
+    the arguments `_build._configure` declares for it, counts one launch of
+    that entry, and never runs the plain version."""
     B, S = 3, 5
     q, a, e, d = _args(B, S, K, dtype, shared_d)
     suffix = "_F64" if dtype == torch.float64 else ""
@@ -568,9 +603,9 @@ def test_wrapper_launches_the_kernel_entry(kind, dtype, K, shared_d, monkeypatch
     assert getattr(hops, counter) == before + 1
     (name, args), = lib.calls
     assert name == f"ngsd_hmm_{kind}_{'f64' if dtype == torch.float64 else 'f32'}"
+    assert len(args) == (12 if kind == "viterbi" else 11)
     assert args[2].value == e.data_ptr()
-    assert (args[3], args[4]) == (S * K, K)
-    assert args[6] == (0 if shared_d else S)
+    assert args[4] == (0 if shared_d else S)
     assert args[-4:-1] == (B, S, K)
     if kind == "viterbi":
         path, best = got
