@@ -2680,6 +2680,16 @@ HMM_KINDS = ("forward", "backward", "viterbi")
 HMM_SHAPES = ((N_IND, 8192, 2, False), (64, 2048, 3, True), (64, 2048, 8, False))
 HMM_EDGES = ("alpha0", "zero_q", "breaks", "ties")
 HMM_EDGE_SHAPE = (40, 300)            # chains, sites of each edge case, at K = 2 and 3
+# Sites a segment of the forward and backward kernels in the second call
+# of each edge case and of HMM_SHAPES[1:] (ops/hmm.py _chains_cuda's
+# `segment`; the wrapper's own, hmm.SEGMENT, leaves one or two segments
+# there): every few dozen sites a segment edge, off the kernel's load steps.
+HMM_SMALL_SEGMENT = 37
+# Forward and backward at full width (N_IND x POPGEN_SITES x 2, one call
+# each in the popgen path) before their redesign as segmented scans (one
+# thread a chain), NVIDIA H100 80GB HBM3 at 700.00 W.
+HMM_MS_BEFORE = {"hmm_forward_f64": 357.908, "hmm_backward_f64": 441.240,
+                 "hmm_forward": 113.110, "hmm_backward": 108.722}
 HMM_REPLACES = {"forward": "ngsdist_tpu/popgen/hmm.py:73",
                 "backward": "ngsdist_tpu/popgen/hmm.py:92",
                 "viterbi": "ngsdist_tpu/popgen/hmm.py:130"}
@@ -2744,25 +2754,47 @@ def held(torch, what: str, got, want, bound) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def check_hmm(torch, hmm, kind: str, args, got, plain=None, run=None):
-    """One launch's outputs against the plain version on the same inputs,
-    within ops/hmm.py hmm_bound (PERF.md section 2).  Viterbi: the best
+def same_values(torch, a, b) -> bool:
+    """Equal values of one dtype, NaN where NaN (a NaN's payload aside)."""
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def check_hmm(torch, hmm, kind: str, args, got, plain=None, run=None, segment=None,
+              bounds=None):
+    """One call's outputs against the plain version on the same inputs,
+    within ops/hmm.py hmm_bound (PERF.md section 2).  Forward and backward:
+    the kernel's segmented order, segments of `segment` sites (the
+    wrapper's hmm.SEGMENT by default), so within hmm_bound(..., segment)
+    of the sequential plain version and equal to hmm_scan_segmented_ref,
+    the same order in plain PyTorch, bit for bit.  Viterbi: the best
     score within its bound, and at every step where the kernel's path leaves
     the plain version's back pointer (or its final arg max) the two
     candidates' plain scores within twice the bound: a flip between two
     near-tied paths.  run: how the plain version walks the sites
-    (ops/hmm.py eager, the default, or segment_runner).  Returns (largest
-    |error|, flips)."""
+    (ops/hmm.py eager, the default, or segment_runner).  bounds: a dict
+    that gets the largest bound on a message ("message") and on a loglik
+    or best score ("last").  Returns (largest |error|, flips)."""
     what = f"hmm {kind} {got[0].dtype} {tuple(args[2].shape)}"
     run = run or hmm.eager
     if kind != "viterbi":
+        L = segment or hmm.SEGMENT
         X, ll = plain or (hmm.hmm_forward_ref if kind == "forward"
                           else hmm.hmm_backward_ref)(*args, run=run)
-        per, last = hmm.hmm_bound(kind, *args, X)
-        return max(held(torch, what, got[0], X, per[..., None]),
-                   held(torch, what + " loglik", got[1], ll, last)), 0
+        per, last = hmm.hmm_bound(kind, *args, X, L=L)
+        if bounds is not None:
+            bounds.update(message=float(per.max()), last=float(last.max()))
+        err = max(held(torch, what, got[0], X, per[..., None]),
+                  held(torch, what + " loglik", got[1], ll, last))
+        model = hmm.hmm_scan_segmented_ref(kind, *args, L)
+        if not (same_values(torch, got[0], model[0]) and same_values(torch, got[1], model[1])):
+            raise AssertionError(f"{what}: not the bits of ops/hmm.py hmm_scan_segmented_ref "
+                                 f"(segments of {L} sites)")
+        return err, 0
     path, best, V, backs = hmm.hmm_viterbi_ref(*args, full=True, run=run)
     per, last = hmm.hmm_bound(kind, *args, V)
+    if bounds is not None:
+        bounds.update(message=float(per.max()), last=float(last.max()))
     err = held(torch, what + " best", got[1], best, last)
     pk = got[0].long()
     if torch.equal(pk, path.long()):
@@ -2817,9 +2849,11 @@ def phase_hmm_kernels(torch, hmm, card) -> dict:
     """The six entries (forward, backward, viterbi; float32 and float64)
     through the public wrappers against the plain version on the same
     inputs, at HMM_SHAPES and on HMM_EDGES (module docstring, phase
-    popgen), each within hmm_bound; at the first shape also timed (kernel by
-    CUDA events over 5 calls after a warm-up, the plain version once by the
-    host clock).  Returns {entry: {"err", "flips", "ms", "plain_ms",
+    popgen), each within hmm_bound (check_hmm); forward and backward again
+    in segments of HMM_SMALL_SEGMENT sites on the edge inputs and
+    HMM_SHAPES[1:]; at the first shape also timed (kernel by CUDA events
+    over 5 calls after a warm-up, the plain version once by the host
+    clock).  Returns {entry: {"err", "flips", "ms", "plain_ms",
     "bound"}}."""
     rng = np.random.default_rng(SEED + 13)
     out = {f"hmm_{k}{s}": {"err": 0.0, "flips": 0} for k in HMM_KINDS for s in ("", "_f64")}
@@ -2843,23 +2877,36 @@ def phase_hmm_kernels(torch, hmm, card) -> dict:
                     out[name]["bound"] = hmm_bound_ms(kind, B, S, K, args[2].element_size(),
                                                       per_d)
                     plain = None if kind == "viterbi" else plain
-                err, flips = check_hmm(torch, hmm, kind, args, got, plain)
+                bounds = {}
+                err, flips = check_hmm(torch, hmm, kind, args, got, plain, bounds=bounds)
+                if main_shape:
+                    out[name]["err_main"], out[name]["hmm_bound"] = err, bounds
                 out[name]["err"] = max(out[name]["err"], err)
                 out[name]["flips"] += flips
+                if kind != "viterbi" and not main_shape:
+                    got = hmm._chains_cuda(kind, *args, segment=HMM_SMALL_SEGMENT)
+                    torch.cuda.synchronize()
+                    err, _ = check_hmm(torch, hmm, kind, args, got, segment=HMM_SMALL_SEGMENT)
+                    out[name]["err"] = max(out[name]["err"], err)
             del args
     torch.cuda.empty_cache()
     log(f"phase popgen: the HMM kernel's six entries against the plain version on the card "
         f"within hmm_bound (PERF.md section 2) at {len(HMM_SHAPES)} shapes (chains x sites x "
         f"states: {', '.join(f'{B} x {S} x {K}' for B, S, K, _ in HMM_SHAPES)}) and "
         f"{len(HMM_EDGES)} edge inputs ({', '.join(HMM_EDGES)}; {HMM_EDGE_SHAPE[0]} x "
-        f"{HMM_EDGE_SHAPE[1]} at K = 2, 3), in {time.perf_counter() - t0:.1f} s; largest "
+        f"{HMM_EDGE_SHAPE[1]} at K = 2, 3), forward and backward in segments of "
+        f"{hmm.SEGMENT} sites and, on the edge inputs and the last two shapes, of "
+        f"{HMM_SMALL_SEGMENT}, each equal to hmm_scan_segmented_ref, in "
+        f"{time.perf_counter() - t0:.1f} s; largest "
         "|error| and Viterbi flips: " + ", ".join(
             f"{k} {v['err']:.3e} ({v['flips']} flips)" for k, v in out.items()))
     B, S, K, _ = HMM_SHAPES[0]
     for name, v in out.items():
         log(f"phase popgen: {name} at {B} x {S} x {K}: kernel {v['ms']:.3f} ms, plain "
             f"{v['plain_ms']:.3f} ms (one run), bound {v['bound'][0]:.3f} ms by "
-            f"{v['bound'][1]} ({v['bound'][2]}) [{card}]")
+            f"{v['bound'][1]} ({v['bound'][2]}); largest |error| {v['err_main']:.3e} against "
+            f"hmm_bound up to {v['hmm_bound']['message']:.3e} on a message, "
+            f"{v['hmm_bound']['last']:.3e} on a loglik or best score [{card}]")
     return out
 
 
@@ -2991,15 +3038,19 @@ def check_popgen_chains(torch, hmm, tag: str, args, res, kept, full) -> None:
     run = hmm.segment_runner(POPGEN_SEGMENT)
     for kind, got in (("forward", (Fw[:c], ll[:c])), ("backward", (Bw[:c], llb[:c])),
                       ("viterbi", (path[:c], score[:c]))):
-        full[f"hmm_{kind}{'' if tag else '_f64'}"] = check_hmm(torch, hmm, kind, sub, got,
-                                                             run=run)
+        bounds = {}
+        name = f"hmm_{kind}{'' if tag else '_f64'}"
+        full[name] = check_hmm(torch, hmm, kind, sub, got, run=run, bounds=bounds)
+        kept[f"{name} hmm_bound on {c} chains x {S} sites"] = (
+            f"message {bounds['message']:.3e}, last {bounds['last']:.3e}, observed "
+            f"{full[name][0]:.3e}")
         torch.cuda.empty_cache()
     kept[f"plain version on {c} chains x {S} sites{tag}"] = (
         ", ".join(f"{k} {v[0]:.3e} ({v[1]} flips)" for k, v in full.items()
                   if k.endswith("_f64") != bool(tag))
         + f" in {time.perf_counter() - t0:.1f} s")
-    per_f, last_f = hmm.hmm_bound("forward", *sub, Fw[:c])
-    per_b, last_b = hmm.hmm_bound("backward", *sub, Bw[:c])
+    per_f, last_f = hmm.hmm_bound("forward", *sub, Fw[:c], L=hmm.SEGMENT)
+    per_b, last_b = hmm.hmm_bound("backward", *sub, Bw[:c], L=hmm.SEGMENT)
     gap = (ll[:c].double() - llb[:c].double()).abs()
     if not bool((gap <= last_f + last_b).all()):
         raise AssertionError(f"popgen chains{tag}: forward and backward logliks differ by "
@@ -3437,6 +3488,11 @@ def main() -> int:
         log(f"phase 4: {name} at full width ({N_IND} x {POPGEN_SITES} x 2): kernel "
             f"{kernels[-1]['full_width_ms']:.3f} ms, bound {full[0]:.3f} ms by {full[1]} "
             f"({full[2]}) [{card}]")
+        if name in HMM_MS_BEFORE:
+            now, before = kernels[-1]["full_width_ms"], HMM_MS_BEFORE[name]
+            kernels[-1]["full_width_ms_before"] = before
+            log(f"phase 4: {name} at full width: {now:.3f} ms, before its redesign (one thread "
+                f"a chain) {before:.3f} ms ({before / now:.2f}x) [{card}]")
 
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:

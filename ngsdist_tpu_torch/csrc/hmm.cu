@@ -3,8 +3,8 @@
 //
 // Replaces: ngsdist_tpu/popgen/hmm.py forward (:73), backward (:92) and
 // viterbi (:130), each a lax.scan over sites (XLA, not Pallas) vmapped
-// over chains.  The plain PyTorch version, a loop over sites batched
-// over chains, is ngsdist_tpu_torch/ops/hmm.py hmm_*_ref.
+// over chains.  The plain PyTorch versions, a loop over sites batched
+// over chains, are ngsdist_tpu_torch/ops/hmm.py hmm_*_ref.
 //
 // What it computes.  B chains of S sites and K states (1 <= K <= 8, a
 // template argument), in float32 or float64.  Chain b has stationary
@@ -27,29 +27,68 @@
 //
 // Rounding.  Every add, subtract and multiply goes through the _rn
 // intrinsics, so nvcc contracts none of them into an FMA: each is rounded
-// once, in the plain version's order, and exp and log are the CUDA math
-// library's, which PyTorch's own exp and log call on the card.  The bound
-// the smoke holds the two to (ops/hmm.py hmm_bound, PERF.md section 2)
-// assumes only that each side's exp and log lie within 1 ulp.
+// once, and exp and log are the CUDA math library's, which PyTorch's own
+// exp and log call on the card.  Viterbi walks the sites in the plain
+// version's order and equals it bit for bit.  Forward and backward
+// reassociate the recursion (below); ops/hmm.py hmm_scan_segmented_ref is
+// their order in plain PyTorch, which they equal bit for bit, and
+// hmm_bound(..., L) the derived bound that holds them to the sequential
+// plain version (PERF.md section 2).
+//
+// Forward and backward: site segments composed in the log semiring.  A
+// step is linear in the exponentials of the messages, so the steps over
+// a segment of sites compose into a K x K transfer matrix in the log
+// semiring (log-sum-exp for the sum, + for the product).  A chain's S
+// sites split into G = ceil(S / L) segments of L sites; L is the wrapper's
+// constant (ops/hmm.py SEGMENT; smaller only in tests, to cross segment
+// edges at small S), never a function of B, so a chain's bits do not
+// depend on the batch it came in.  Three launches on the caller's stream:
+//   1. transfers (hmm_transfer_kernel): per (chain, segment), the steps
+//      over the segment from each of the K unit log-vectors (0 at k, -inf
+//      elsewhere), one lane a vector, the Kp (K rounded up to a power of 2)
+//      lanes of a segment sharing each site's transition row through
+//      shuffles; forward's first segment walks from log q instead, backward's
+//      last from 0, and gives the scan its first start vector.  Forward's
+//      last segment and backward's first need no matrix.
+//   2. starts (hmm_starts_kernel): per chain, each segment's start vector
+//      from the previous one and a transfer matrix (K^2 log-sum-exps a
+//      segment), in segment order.
+//   3. messages (hmm_messages_kernel): per (chain, segment), the steps
+//      over the segment from its start vector, the messages written; the
+//      logliks as the sequential walk forms them.
+// With G = 1 step 3 is the sequential walk, and with G = 2 its second
+// start is the sequential walk's own message, so below 2 L sites both stay
+// bit for bit the plain version's.  At 1024 chains x 262,144 sites, L =
+// 1024: 262,144 (chain, segment) threads in step 3, Kp times that many
+// lanes in step 1, where the sequential walk had 1024 threads on 32 SMs.
+//
+// Loads.  A warp's lanes walk 32 segments (step 3) or 32 / Kp (step 1) in
+// lock step.  The next U sites of each (a record of e_s and d_s a site)
+// are copied by all the warp's lanes together, with cp.async, into a
+// double buffer in shared memory while the current U sites are computed:
+// each copy instruction reads adjacent addresses, and the records' odd
+// stride lets the lanes read their own segment's without bank conflicts.
 //
 // What bounds it.  By bytes, forward at 1024 chains x 262,144 sites x
 // K = 2 in float64 reads e (4.29 GB) and writes the messages (4.29 GB):
-// 2.56 ms at 3.35e12 B/s.  This first design runs one thread per chain,
-// walking the sites in order, so its time is the serial chain of each
-// step: the transition row's exp and 2K logs, then per state K
-// exponentials and one log that depend on the previous step.  The
-// transition (no dependence on the messages) and the loads of the next
-// U sites (issued together, a register array) overlap that chain; the
-// [S, K, K] matrices are never written to memory.  One warp a block
-// spreads 1024 chains over 32 SMs.  Splitting the sites into segments
-// whose K x K transfer matrices compose in the log semiring is the
-// site-parallel redesign (ROADMAP).
+// 2.56 ms at 3.35e12 B/s (this design reads e twice).  By operations, the
+// exps and logs: per (chain, site) step 1's K walks and step 3's one, each
+// site's transition row (1 exp, 2K logs) once a step; ~28 at K = 2, on the
+// FP64 pipe in float64.  Tensor cores do not apply: the step is a
+// log-sum-exp, not a sum of products, and nothing of the log semiring
+// maps onto an MMA.
+//
+// Viterbi (hmm_viterbi_kernel): one thread per chain, one warp a block,
+// walking the sites in order; the transition (no dependence on the
+// scores) and the loads of the next U sites (issued together, a register
+// array) overlap the step's dependent chain.  Max-plus segments with its
+// flips rule are its site-parallel redesign (ROADMAP).
 //
 // Layout.  e and the messages are chain-major [B, S, K] and the path
-// [B, S], the JAX layout, so nothing is copied on the way in or out: a
-// thread's consecutive sites are adjacent and reach it through L1.  A
+// [B, S], the JAX layout, so nothing is copied on the way in or out.  A
 // site-major layout (a warp's loads contiguous, a transpose each way) was
-// measured once against it (PERF.md section 6) and not kept.
+// measured once against the sequential walk (PERF.md section 6) and not
+// kept.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,7 +98,9 @@
 
 namespace {
 
-constexpr int kThreads = 32;   // one warp a block
+constexpr int kThreads = 32;       // Viterbi: one warp a block
+constexpr int kScanThreads = 128;  // forward and backward: four warps a block
+constexpr int kWarps = kScanThreads / 32;
 constexpr int kMaxStates = 8;
 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
@@ -73,7 +114,7 @@ __device__ __forceinline__ double exp_(double x) { return exp(x); }
 __device__ __forceinline__ float log_(float x) { return logf(x); }
 __device__ __forceinline__ double log_(double x) { return log(x); }
 
-// Sites whose loads a thread issues together.
+// Sites whose loads a Viterbi thread issues together.
 template <int K>
 struct Ahead {
   static constexpr int U = K <= 2 ? 8 : (K <= 4 ? 4 : 2);
@@ -119,108 +160,314 @@ __device__ __forceinline__ T chain_start(const T* q, const T* alpha, int b, T (&
   return -alpha[b];
 }
 
-template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
-    hmm_forward_kernel(const T* __restrict__ q, const T* __restrict__ alpha,
-                       const T* __restrict__ e, const T* __restrict__ d, long long d_sb,
-                       T* __restrict__ out, T* __restrict__ ll, int B, long long S) {
-  constexpr int U = Ahead<K>::U;
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
-  T qb[K], f[K];
-  const T na = chain_start<T, K>(q, alpha, b, qb, f);
-  const T* eb = e + (long long)b * S * K;
-  const T* db = d + (long long)b * d_sb;
-  T* ob = out + (long long)b * S * K;
-  for (long long s0 = 0; s0 < S; s0 += U) {
-    T es[U][K], ds[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (s0 + u < S) {
-        ds[u] = db[s0 + u];
-#pragma unroll
-        for (int k = 0; k < K; ++k) es[u][k] = eb[(s0 + u) * K + k];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (s0 + u < S) {
-        T off[K], dg[K], nf[K];
-        transition<T, K>(qb, na, ds[u], off, dg);
-#pragma unroll
-        for (int l = 0; l < K; ++l) {
-          T a[K];
-#pragma unroll
-          for (int k = 0; k < K; ++k) a[k] = add_rn(f[k], k == l ? dg[l] : off[l]);
-          nf[l] = add_rn(lse<T, K>(a), es[u][l]);
-        }
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          f[k] = nf[k];
-          ob[(s0 + u) * K + k] = nf[k];
-        }
-      }
-    }
-  }
-  ll[b] = lse<T, K>(f);
+// ---- forward and backward: segments composed in the log semiring ----
+
+// K rounded up to a power of two: the lanes of one segment in step 1.
+template <int K>
+struct Lanes {
+  static constexpr int Kp = K <= 1 ? 1 : (K <= 2 ? 2 : (K <= 4 ? 4 : 8));
+};
+
+// Sites a staged group holds, and a segment's record in the buffer: U
+// sites of K emissions and a distance, at an odd stride.
+template <int K>
+struct Group {
+  static constexpr int U = K <= 1 ? 8 : (K <= 2 ? 4 : (K <= 4 ? 2 : 1));
+  static constexpr int R = U * (K + 1);
+  static constexpr int kStride = R | 1;
+};
+
+// A segment a warp walks: its chain's first element of e (in sites) and
+// of d, its first site (forward) or its top site (backward), its sites.
+struct SegRef {
+  long long e0, d0, first;
+  int n;
+};
+
+__device__ __forceinline__ void cp_async(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
+__device__ __forceinline__ void cp_async(double* smem, const double* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// One forward step: f[l] := lse_k(f[k] + log T[k][l]) + e[l].
 template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
-    hmm_backward_kernel(const T* __restrict__ q, const T* __restrict__ alpha,
-                        const T* __restrict__ e, const T* __restrict__ d, long long d_sb,
-                        T* __restrict__ out, T* __restrict__ ll, int B, long long S) {
-  constexpr int U = Ahead<K>::U;
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
-  T qb[K], lq[K], bk[K];
-  const T na = chain_start<T, K>(q, alpha, b, qb, lq);
-  const T* eb = e + (long long)b * S * K;
-  const T* db = d + (long long)b * d_sb;
-  T* ob = out + (long long)b * S * K;
+__device__ __forceinline__ void forward_step(T (&f)[K], const T (&off)[K], const T (&dg)[K],
+                                             const T (&es)[K]) {
+  T nf[K];
+#pragma unroll
+  for (int l = 0; l < K; ++l) {
+    T a[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) a[k] = add_rn(f[k], k == l ? dg[l] : off[l]);
+    nf[l] = add_rn(lse<T, K>(a), es[l]);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) f[k] = nf[k];
+}
+
+// One backward step: b[k] := lse_l(log T[k][l] + (e[l] + b[l])).
+template <typename T, int K>
+__device__ __forceinline__ void backward_step(T (&b)[K], const T (&off)[K], const T (&dg)[K],
+                                              const T (&es)[K]) {
+  T eb[K];
+#pragma unroll
+  for (int l = 0; l < K; ++l) eb[l] = add_rn(es[l], b[l]);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    bk[k] = T(0);
-    ob[(S - 1) * K + k] = T(0);
+    T a[K];
+#pragma unroll
+    for (int l = 0; l < K; ++l) a[l] = add_rn(k == l ? dg[l] : off[l], eb[l]);
+    b[k] = lse<T, K>(a);
   }
-  // site s gives row s - 1, for s = S-1 .. 1
-  for (long long s1 = S - 1; s1 >= 1; s1 -= U) {
-    T es[U][K], ds[U];
+}
+
+// A start vector composed with a segment's transfer matrix m[run][comp],
+// v[j] := lse_i(v[i] + m[i][j]): forward runs start at the segment's
+// first site (i the state before it), backward runs at its top row.
+template <typename T, int K>
+__device__ __forceinline__ void compose(T (&v)[K], const T* m) {
+  T nv[K];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (s1 - u >= 1) {
-        ds[u] = db[s1 - u];
+  for (int j = 0; j < K; ++j) {
+    T a[K];
 #pragma unroll
-        for (int k = 0; k < K; ++k) es[u][k] = eb[(s1 - u) * K + k];
+    for (int i = 0; i < K; ++i) a[i] = add_rn(v[i], m[i * K + j]);
+    nv[j] = lse<T, K>(a);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = nv[k];
+}
+
+// A site's transition row shared by the Kp lanes of a segment: lane r
+// takes state min(r, K-1)'s two logs, the shuffles hand every lane all K.
+// The same operations as transition(), so the same bits.
+template <typename T, int K>
+__device__ __forceinline__ void transition_shared(T q_own, T nalpha, T d, unsigned mask,
+                                                  T (&off)[K], T (&dg)[K]) {
+  constexpr int Kp = Lanes<K>::Kp;
+  const T stay = exp_(mul_rn(nalpha, d));
+  const T om = sub_rn(T(1), stay);
+  const T zero = mul_rn(stay, T(0));
+  const T t = mul_rn(om, q_own);
+  const T own_off = log_(add_rn(t, zero));
+  const T own_dg = log_(add_rn(t, stay));
+#pragma unroll
+  for (int l = 0; l < K; ++l) {
+    off[l] = __shfl_sync(mask, own_off, l, Kp);
+    dg[l] = __shfl_sync(mask, own_dg, l, Kp);
+  }
+}
+
+// The walk of a warp's segments in lock step over their sites, U at a
+// time through the staged double buffer: the lane's own segment is
+// tab[c], its message v; each step's transition row from the lane's own
+// q (kShared: one state's, shuffled) and after each step emit(i, v) with
+// i the step's index in the segment.
+template <typename T, int K, bool kFwd, int CH, bool kShared, typename Emit>
+__device__ __forceinline__ void walk(const T* __restrict__ e, const T* __restrict__ d,
+                                     const SegRef* tab, T* buf, int c, const T (&qb)[K],
+                                     T q_own, T nalpha, unsigned mask, T (&v)[K], Emit emit) {
+  constexpr int U = Group<K>::U, R = Group<K>::R, ST = Group<K>::kStride;
+  const int lane = threadIdx.x & 31;
+  const int n_own = tab[c].n;
+  const int n_max = (int)__reduce_max_sync(0xffffffffu, (unsigned)n_own);
+  const int groups = (n_max + U - 1) / U;
+  auto issue = [&](int j) {
+    T* dst = buf + (j & 1) * CH * ST;
+#pragma unroll
+    for (int t = 0; t < (CH * R + 31) / 32; ++t) {
+      const int i = t * 32 + lane;
+      if (i < CH * R) {
+        const int cc = i / R, rr = i % R, u = rr / (K + 1), k = rr % (K + 1);
+        const SegRef& sr = tab[cc];
+        const int at = j * U + u;
+        if (at < sr.n) {
+          const long long site = kFwd ? sr.first + at : sr.first - at;
+          cp_async(dst + cc * ST + rr, k < K ? e + (sr.e0 + site) * K + k : d + sr.d0 + site);
+        }
       }
     }
+    cp_async_commit();
+  };
+  if (groups > 0) issue(0);
+  for (int j = 0; j < groups; ++j) {
+    if (j + 1 < groups)
+      issue(j + 1);
+    else
+      cp_async_commit();   // an empty group: wait_group 1 then waits for j
+    cp_async_wait_one();
+    __syncwarp();
+    const T* rec = buf + (j & 1) * CH * ST + c * ST;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (s1 - u >= 1) {
-        T off[K], dg[K], eb_[K], nb[K];
-        transition<T, K>(qb, na, ds[u], off, dg);
+      if (j * U + u < n_own) {   // the same for a segment's lanes
+        T es[K], off[K], dg[K];
 #pragma unroll
-        for (int l = 0; l < K; ++l) eb_[l] = add_rn(es[u][l], bk[l]);
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          T a[K];
-#pragma unroll
-          for (int l = 0; l < K; ++l) a[l] = add_rn(k == l ? dg[l] : off[l], eb_[l]);
-          nb[k] = lse<T, K>(a);
-        }
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          bk[k] = nb[k];
-          ob[(s1 - u - 1) * K + k] = nb[k];
-        }
+        for (int k = 0; k < K; ++k) es[k] = rec[u * (K + 1) + k];
+        const T dd = rec[u * (K + 1) + K];
+        if constexpr (kShared)
+          transition_shared<T, K>(q_own, nalpha, dd, mask, off, dg);
+        else
+          transition<T, K>(qb, nalpha, dd, off, dg);
+        if constexpr (kFwd)
+          forward_step<T, K>(v, off, dg, es);
+        else
+          backward_step<T, K>(v, off, dg, es);
+        emit(j * U + u, v);
       }
     }
+    __syncwarp();
   }
+}
+
+// Segment g of a chain of S sites: its first site (forward) or top site
+// (backward) and its number of steps.  Backward segment g holds rows
+// [gL, (g+1)L), made by sites (g+1)L .. gL+1 (the last: S-1 .. (G-1)L+1).
+template <bool kFwd>
+__device__ __forceinline__ void segment_of(long long g, long long G, long long L, long long S,
+                                           long long* first, int* n) {
+  if (kFwd) {
+    *first = g * L;
+    *n = (int)min(L, S - g * L);
+  } else {
+    *first = g == G - 1 ? S - 1 : (g + 1) * L;
+    *n = (int)(*first - g * L);
+  }
+}
+
+// Step 1.  Lane r of the Kp lanes of (chain b, segment g) walks the unit
+// vector of state min(r, K-1) (forward g = 0: log q; backward g = G-1:
+// 0) and writes row r of the segment's transfer matrix (or the start
+// vector it gives).  Forward takes segments 0 .. G-2, backward 1 .. G-1.
+template <typename T, int K, bool kFwd>
+__global__ void __launch_bounds__(kScanThreads)
+    hmm_transfer_kernel(const T* __restrict__ q, const T* __restrict__ alpha,
+                        const T* __restrict__ e, const T* __restrict__ d, long long d_sb,
+                        T* __restrict__ mats, T* __restrict__ starts, int B, long long S,
+                        long long G, long long L) {
+  constexpr int Kp = Lanes<K>::Kp, CH = 32 / Kp;
+  __shared__ T buf[kWarps][2 * CH * Group<K>::kStride];
+  __shared__ SegRef tab[kWarps][CH];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, r = lane % Kp, c = lane / Kp;
+  const long long seg = ((long long)blockIdx.x * kScanThreads + threadIdx.x) / Kp;
+  const bool live = seg < (long long)B * (G - 1);
+  const int b = live ? (int)(seg / (G - 1)) : 0;
+  const long long g = live ? seg % (G - 1) + (kFwd ? 0 : 1) : 0;
+  long long first;
+  int n;
+  segment_of<kFwd>(g, G, L, S, &first, &n);
+  if (r == 0) tab[warp][c] = SegRef{(long long)b * S, (long long)b * d_sb, first, live ? n : 0};
+  __syncwarp();
+  const int own = r < K ? r : K - 1;
+  T qb[K], lq[K], v[K];
+  const T na = chain_start<T, K>(q, alpha, b, qb, lq);
+  const bool vec = kFwd ? g == 0 : g == G - 1;
+  T q_own = qb[0];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    v[k] = vec ? (kFwd ? lq[k] : T(0)) : (k == own ? T(0) : -INFINITY);
+    q_own = k == own ? qb[k] : q_own;
+  }
+  const unsigned mask = Kp == 32 ? 0xffffffffu : ((1u << Kp) - 1u) << (lane - r);
+  walk<T, K, kFwd, CH, true>(e, d, tab[warp], buf[warp], c, qb, q_own, na, mask, v,
+                             [](int, const T(&)[K]) {});
+  if (!live || r >= K) return;
+  T* out = vec ? (r == 0 ? starts + ((long long)b * G + (kFwd ? 1 : G - 2)) * K : nullptr)
+               : mats + (((long long)b * G + g) * K + r) * K;
+  if (out) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = v[k];
+  }
+}
+
+// Step 2.  One thread a chain: forward starts[g+1] from starts[g] and
+// segment g's matrix for g = 1 .. G-2; backward starts[g-1] from
+// starts[g] for g = G-2 .. 1 (backward starts[g] is row (g+1)L).
+template <typename T, int K, bool kFwd>
+__global__ void __launch_bounds__(kScanThreads)
+    hmm_starts_kernel(const T* __restrict__ mats, T* __restrict__ starts, int B, long long G) {
+  const int b = blockIdx.x * kScanThreads + threadIdx.x;
+  if (b >= B) return;
+  const T* mb = mats + (long long)b * G * K * K;
+  T* sb = starts + (long long)b * G * K;
+  T v[K];
+  const long long g0 = kFwd ? 1 : G - 2;
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = sb[g0 * K + k];
+  for (long long i = 1; i <= G - 2; ++i) {
+    const long long g = kFwd ? i : G - 1 - i;
+    compose<T, K>(v, mb + g * K * K);
+    const long long to = kFwd ? g + 1 : g - 1;
+#pragma unroll
+    for (int k = 0; k < K; ++k) sb[to * K + k] = v[k];
+  }
+}
+
+// Step 3.  One thread a (chain b, segment g): the steps over the segment
+// from its start vector (forward g = 0: log q; backward g = G-1: 0, row
+// S-1), each message written; forward's last segment writes the loglik,
+// backward's first the virtual start row's.
+template <typename T, int K, bool kFwd>
+__global__ void __launch_bounds__(kScanThreads)
+    hmm_messages_kernel(const T* __restrict__ q, const T* __restrict__ alpha,
+                        const T* __restrict__ e, const T* __restrict__ d, long long d_sb,
+                        const T* __restrict__ starts, T* __restrict__ out, T* __restrict__ ll,
+                        int B, long long S, long long G, long long L) {
+  __shared__ T buf[kWarps][2 * 32 * Group<K>::kStride];
+  __shared__ SegRef tab[kWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long seg = (long long)blockIdx.x * kScanThreads + threadIdx.x;
+  const bool live = seg < (long long)B * G;
+  const int b = live ? (int)(seg / G) : 0;
+  const long long g = live ? seg % G : 0;
+  long long first;
+  int n;
+  segment_of<kFwd>(g, G, L, S, &first, &n);
+  tab[warp][lane] = SegRef{(long long)b * S, (long long)b * d_sb, first, live ? n : 0};
+  __syncwarp();
+  T qb[K], lq[K], v[K];
+  const T na = chain_start<T, K>(q, alpha, b, qb, lq);
+  const bool edge = kFwd ? g == 0 : g == G - 1;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    v[k] = edge ? (kFwd ? lq[k] : T(0)) : starts[((long long)b * G + g) * K + k];
+  T* ob = out + (long long)b * S * K;
+  if (live && !kFwd && edge) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) ob[(S - 1) * K + k] = T(0);
+  }
+  walk<T, K, kFwd, 32, false>(e, d, tab[warp], buf[warp], lane, qb, qb[0], na, 0u, v,
+                              [&](int i, const T(&m)[K]) {
+                                // forward: site first + i; backward: row first - i - 1
+                                const long long row = kFwd ? first + i : first - i - 1;
+#pragma unroll
+                                for (int k = 0; k < K; ++k) ob[row * K + k] = m[k];
+                              });
+  if (!live) return;
+  if (kFwd) {
+    if (g == G - 1) ll[b] = lse<T, K>(v);
+    return;
+  }
+  if (g != 0) return;
   // the virtual start row, through site 0's transition and emission
+  const T* eb = e + (long long)b * S * K;
   T off[K], dg[K], eb_[K], st[K];
-  transition<T, K>(qb, na, db[0], off, dg);
+  transition<T, K>(qb, na, d[(long long)b * d_sb], off, dg);
 #pragma unroll
-  for (int l = 0; l < K; ++l) eb_[l] = add_rn(eb[l], bk[l]);   // site 0: e[b, 0, l]
+  for (int l = 0; l < K; ++l) eb_[l] = add_rn(eb[l], v[l]);   // site 0: e[b, 0, l]
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     T a[K];
@@ -320,15 +567,28 @@ __global__ void __launch_bounds__(kThreads)
 
 inline unsigned grid_of(int B) { return (unsigned)((B + kThreads - 1) / kThreads); }
 
-template <typename T, int K>
-int launch_scan(bool fwd, const T* q, const T* alpha, const T* e, const T* d, long long d_sb,
-                T* out, T* ll, int B, long long S, void* stream) {
-  if (fwd)
-    hmm_forward_kernel<T, K><<<grid_of(B), kThreads, 0, (cudaStream_t)stream>>>(
-        q, alpha, e, d, d_sb, out, ll, B, S);
-  else
-    hmm_backward_kernel<T, K><<<grid_of(B), kThreads, 0, (cudaStream_t)stream>>>(
-        q, alpha, e, d, d_sb, out, ll, B, S);
+inline unsigned blocks_of(long long threads) {
+  return (unsigned)((threads + kScanThreads - 1) / kScanThreads);
+}
+
+// The three launches of one scan (the header's steps 1-3); scratch holds
+// the transfer matrices [B, G, K, K] and then the start vectors [B, G, K].
+template <typename T, int K, bool kFwd>
+int launch_scan(const T* q, const T* alpha, const T* e, const T* d, long long d_sb, T* out,
+                T* ll, T* scratch, int B, long long S, long long L, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long G = (S + L - 1) / L;
+  T* mats = scratch;
+  T* starts = scratch + (long long)B * G * K * K;
+  if (G >= 2) {
+    hmm_transfer_kernel<T, K, kFwd><<<blocks_of((long long)B * (G - 1) * Lanes<K>::Kp),
+                                      kScanThreads, 0, st>>>(q, alpha, e, d, d_sb, mats, starts,
+                                                             B, S, G, L);
+    if (G >= 3)
+      hmm_starts_kernel<T, K, kFwd><<<blocks_of(B), kScanThreads, 0, st>>>(mats, starts, B, G);
+  }
+  hmm_messages_kernel<T, K, kFwd><<<blocks_of((long long)B * G), kScanThreads, 0, st>>>(
+      q, alpha, e, d, d_sb, starts, out, ll, B, S, G, L);
   return (int)cudaGetLastError();
 }
 
@@ -346,12 +606,17 @@ bool bad_shape(int B, long long S, int K) {
 
 template <typename T>
 int scan_entry(bool fwd, const T* q, const T* alpha, const T* e, const T* d, long long d_sb,
-               T* out, T* ll, int B, long long S, int K, void* stream) {
-  if (bad_shape(B, S, K) || !q || !alpha || !e || !d || !out || !ll)
+               T* out, T* ll, T* scratch, int B, long long S, int K, long long L,
+               void* stream) {
+  if (bad_shape(B, S, K) || L < 1 || !q || !alpha || !e || !d || !out || !ll || !scratch)
     return (int)cudaErrorInvalidValue;
+  L = L < S ? L : S;
 #define NGSD_HMM_SCAN(KK)                                                                   \
   case KK:                                                                                  \
-    return launch_scan<T, KK>(fwd, q, alpha, e, d, d_sb, out, ll, B, S, stream);
+    return fwd ? launch_scan<T, KK, true>(q, alpha, e, d, d_sb, out, ll, scratch, B, S, L,  \
+                                          stream)                                           \
+               : launch_scan<T, KK, false>(q, alpha, e, d, d_sb, out, ll, scratch, B, S, L, \
+                                           stream);
   switch (K) {
     NGSD_HMM_SCAN(1) NGSD_HMM_SCAN(2) NGSD_HMM_SCAN(3) NGSD_HMM_SCAN(4)
     NGSD_HMM_SCAN(5) NGSD_HMM_SCAN(6) NGSD_HMM_SCAN(7) NGSD_HMM_SCAN(8)
@@ -381,18 +646,22 @@ int viterbi_entry(const T* q, const T* alpha, const T* e, const T* d, long long 
 
 // Chain-major: e and out [B, S, K], path [B, S] int32, all contiguous;
 // q [B, K] and alpha [B] contiguous; d[b * d_sb + s] (d_sb = 0: one
-// distance vector for every chain, else S); backs a [S, B, K] uint8
-// scratch.  Returns a CUDA error code (0: launched).
+// distance vector for every chain, else S); forward and backward take a
+// scratch of B G K (K + 1) elements, G = ceil(S / L), and the segment
+// length L (the header); backs a [S, B, K] uint8 scratch.  Returns a CUDA
+// error code (0: launched).
 #define NGSD_HMM_ENTRIES(T, SUFFIX)                                                          \
   extern "C" int ngsd_hmm_forward_##SUFFIX(const T* q, const T* alpha, const T* e,           \
-                                           const T* d, long long d_sb, T* out, T* ll, int B, \
-                                           long long S, int K, void* stream) {                \
-    return scan_entry<T>(true, q, alpha, e, d, d_sb, out, ll, B, S, K, stream);              \
+                                           const T* d, long long d_sb, T* out, T* ll,         \
+                                           T* scratch, int B, long long S, int K,             \
+                                           long long L, void* stream) {                       \
+    return scan_entry<T>(true, q, alpha, e, d, d_sb, out, ll, scratch, B, S, K, L, stream);  \
   }                                                                                           \
   extern "C" int ngsd_hmm_backward_##SUFFIX(const T* q, const T* alpha, const T* e,          \
-                                            const T* d, long long d_sb, T* out, T* ll, int B, \
-                                            long long S, int K, void* stream) {               \
-    return scan_entry<T>(false, q, alpha, e, d, d_sb, out, ll, B, S, K, stream);             \
+                                            const T* d, long long d_sb, T* out, T* ll,        \
+                                            T* scratch, int B, long long S, int K,            \
+                                            long long L, void* stream) {                      \
+    return scan_entry<T>(false, q, alpha, e, d, d_sb, out, ll, scratch, B, S, K, L, stream); \
   }                                                                                           \
   extern "C" int ngsd_hmm_viterbi_##SUFFIX(const T* q, const T* alpha, const T* e,           \
                                            const T* d, long long d_sb, uint8_t* backs,        \

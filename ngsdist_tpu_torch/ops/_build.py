@@ -81,8 +81,10 @@ def _configure(lib: ctypes.CDLL) -> None:
             fn = getattr(lib, f"ngsd_{name}_{t}")
             fn.argtypes, fn.restype = args, i32
         # csrc/hmm.cu: q, alpha, e, d and its chain stride, the outputs
-        # (Viterbi: back-pointer scratch, path, best), B, S, K, the stream
-        scan = [vp, vp, vp, vp, i64, vp, vp, i32, i64, i32, vp]
+        # (forward, backward: messages, logliks, scratch; Viterbi:
+        # back-pointer scratch, path, best), B, S, K, (forward, backward:
+        # the segment length), the stream
+        scan = [vp, vp, vp, vp, i64, vp, vp, vp, i32, i64, i32, i64, vp]
         for name, args in (("hmm_forward", scan), ("hmm_backward", scan),
                            ("hmm_viterbi", [vp, vp, vp, vp, i64, vp, vp, vp, i32, i64, i32, vp])):
             fn = getattr(lib, f"ngsd_{name}_{t}")

@@ -1,4 +1,4 @@
-"""The inbreeding HMM's scans: plain PyTorch version and the CUDA kernel
+"""The inbreeding HMM's scans: plain PyTorch versions and the CUDA kernel
 (csrc/hmm.cu).
 
 Port of the three `lax.scan`s of ngsdist_tpu/popgen/hmm.py (forward :73,
@@ -8,23 +8,35 @@ them.  Every function here takes B chains written out:
     q [B, K]  alpha [B]  e [B, S, K] log emissions  d [S] or [B, S]
 
 in one floating type (the wrappers in popgen/hmm.py convert).  The plain
-versions walk the sites in a Python loop with every chain a row of each
-tensor; they are the CPU path and the yardstick of the kernel on the
-card.  The kernel runs one thread per chain (csrc/hmm.cu has the design
-and what bounds it) for K = 1..8; a CUDA tensor with more states raises.
-It reads e and writes the messages chain-major, the layout they come in,
-with no copy (PERF.md section 6 has the one measurement of a site-major
-layout against it).
+versions `hmm_*_ref` walk the sites in a Python loop with every chain a
+row of each tensor; they are the CPU path and the yardstick of the kernel
+on the card.  The kernel (csrc/hmm.cu has the design and what bounds it)
+takes K = 1..8; a CUDA tensor with more states raises.  It reads e and
+writes the messages chain-major, the layout they come in, with no copy.
+
+Forward and backward on the card are a site-segmented scan: each chain's
+sites split into segments of SEGMENT sites, whose K x K transfer matrices
+(the steps from each unit log-vector) compose in the log semiring into
+each segment's start vector, from which the segment's messages are walked.
+That reassociates the recursion; `hmm_scan_segmented_ref` is the kernel's
+order in plain PyTorch (each add, subtract and multiply a rounded tensor
+operation of its own, as in the kernel), which the kernel equals bit for
+bit on the card, and `hmm_bound(..., L)` holds it to the sequential plain
+version.  Up to 2 SEGMENT sites the two orders are the same.  Tensor
+cores do not apply: the step is a log-sum-exp, not a sum of products.
+Viterbi walks the sites in order, one thread a chain.
 
 Both keep the JAX package's arithmetic: the transition rows as
 `transition_matrices` forms them, logsumexp as jax.scipy.special's
 (`logsumexp`), argmax taking the first maximal index with NaN maximal.
-On the card the kernel rounds each operation once in the plain version's
-order and calls the same exp and log; `hmm_bound` is the derived bound the
-two are held to (PERF.md section 2).
+On the card the kernel rounds each operation once and calls the same exp
+and log as PyTorch; `hmm_bound` is the derived bound it is held to
+(PERF.md section 2).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -32,6 +44,10 @@ from . import _build
 from .indep import count_launch
 
 MAX_STATES = 8   # csrc/hmm.cu kMaxStates: K is a template argument 1..8
+# Sites a segment of the kernel's forward and backward scans: a constant,
+# never a function of the batch, so a chain's bits do not depend on the
+# chains beside it (the wrapper's `segment` is for tests alone).
+SEGMENT = 1024
 
 FORWARD_LAUNCHES = 0  # kernel launches since the count was last set to 0
 BACKWARD_LAUNCHES = 0
@@ -176,6 +192,99 @@ def hmm_viterbi_ref(q, alpha, e, d, full: bool = False, run=eager):
     return (path, best, V, backs) if full else (path, best)
 
 
+def _segments(S: int, L: int, fwd: bool, device):
+    """(G, site [G, L], step [G, L] bool): segment g's site at its step i
+    (forward gL + i; backward its top site minus i, the top (g+1)L or, for
+    the last, S-1) and whether step i is one of the segment's."""
+    G = -(-S // L)
+    g = torch.arange(G, device=device)[:, None]
+    i = torch.arange(L, device=device)[None, :]
+    if fwd:
+        first = g * L
+        n = (S - first).clamp(max=L)
+        site = first + i
+    else:
+        first = torch.where(g == G - 1, torch.full_like(g, S - 1), (g + 1) * L)
+        n = first - g * L
+        site = first - i
+    return G, site.clamp(0, S - 1), i < n
+
+
+def _compose(v, m):
+    """v [B, K] composed with transfer matrices m [B, K (run), K]:
+    v[j] := lse_i(v[i] + m[i][j])."""
+    return logsumexp(v[:, :, None] + m, 1)
+
+
+def hmm_scan_segmented_ref(kind: str, q, alpha, e, d, L: int):
+    """The kernel's forward or backward scan (csrc/hmm.cu, steps 1-3) in
+    plain PyTorch, vectorised over (chain, segment): (messages [B, S, K],
+    loglik [B]), each add, subtract and multiply a rounded tensor
+    operation in the kernel's order.  Segments of L sites:
+      1. the steps over each segment from each unit log-vector, the rows of
+         its transfer matrix (forward's first segment from log q,
+         backward's last from 0: the first start vector);
+      2. the start vectors in segment order, each the previous one
+         composed with a transfer matrix;
+      3. the steps over each segment from its start vector.
+    With at most two segments it is hmm_forward_ref / hmm_backward_ref."""
+    fwd = kind == "forward"
+    B, S, K = e.shape
+    L = min(L, S)
+    G, site, act = _segments(S, L, fwd, e.device)
+    logT = transition_matrices(q, alpha, d)
+    lq = torch.log(q)
+    if fwd:
+        def step(v, lt, es):
+            return logsumexp(v[..., :, None] + lt, -2) + es
+    else:
+        def step(v, lt, es):
+            return logsumexp(lt + (es + v)[..., None, :], -1)
+
+    def walk(v, segs, keep=None):
+        """v [B, n, ..., K] stepped over segments segs [n]; keep: the
+        messages after each step, stacked [B, n, L, K]."""
+        extra = v.ndim - 3
+        kept = []
+        for i in range(L):
+            s, a = site[segs, i], act[segs, i]
+            lt, es = logT[:, s], e[:, s]
+            lt, es = lt[:, :, None] if extra else lt, es[:, :, None] if extra else es
+            v = torch.where(a.view(1, -1, *[1] * (extra + 1)), step(v, lt, es), v)
+            if keep:
+                kept.append(v)
+        return (v, torch.stack(kept, 2)) if keep else v
+
+    starts = lq[:, None, :].expand(B, G, K).clone()
+    if G >= 2:
+        # step 1: segments 0 .. G-2 (forward) or 1 .. G-1 (backward)
+        segs = torch.arange(G - 1, device=e.device) + (0 if fwd else 1)
+        unit = torch.full((K, K), -math.inf, dtype=e.dtype, device=e.device)
+        unit.fill_diagonal_(0.0)
+        v = unit.expand(B, G - 1, K, K).clone()
+        vec = 0 if fwd else G - 2
+        v[:, vec] = (lq[:, None, :] if fwd else torch.zeros_like(lq)[:, None, :]).expand(B, K, K)
+        mats = walk(v, segs)
+        # step 2
+        starts[:, 1 if fwd else G - 2] = mats[:, vec, 0]
+        order = range(1, G - 1) if fwd else range(G - 2, 0, -1)
+        for g in order:
+            m = mats[:, g] if fwd else mats[:, g - 1]
+            starts[:, g + 1 if fwd else g - 1] = _compose(starts[:, g], m)
+    # step 3
+    edge = 0 if fwd else G - 1
+    starts[:, edge] = lq if fwd else torch.zeros_like(lq)
+    _, out = walk(starts, torch.arange(G, device=e.device), keep=True)
+    msgs = torch.empty_like(e)
+    if fwd:
+        msgs[:, site[act]] = out[:, act]
+        return msgs, logsumexp(msgs[:, -1], -1)
+    msgs[:, S - 1] = 0.0
+    msgs[:, site[act] - 1] = out[:, act]
+    b_start = logsumexp(logT[:, 0] + (e[:, 0] + msgs[:, 0])[:, None, :], 2)
+    return msgs, logsumexp(lq + b_start, -1)
+
+
 def segment_runner(C: int, graph: bool = True):
     """A `run` for the plain versions that walks the sites in segments of C
     through buffers of its own: each segment's inputs are copied in, one
@@ -231,8 +340,9 @@ def check_card(t: torch.Tensor) -> None:
         raise ValueError(f"expected a CUDA tensor, got one on {t.device}")
 
 
-def _chains_cuda(kind: str, q, alpha, e, d):
-    """One launch of csrc/hmm.cu's `kind` entry on e's card."""
+def _chains_cuda(kind: str, q, alpha, e, d, segment: int = SEGMENT):
+    """One call of csrc/hmm.cu's `kind` entry on e's card (forward and
+    backward: three launches, segments of `segment` sites)."""
     check_card(e)
     if e.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"expected float32 or float64 emissions, got {e.dtype}")
@@ -259,11 +369,15 @@ def _chains_cuda(kind: str, q, alpha, e, d):
                     B, S, K, _build.stream(dev))
         out = (path, best)
     else:
+        if segment < 1:
+            raise ValueError(f"segments of {segment} sites")
         msgs = torch.empty_like(e)
         ll = torch.empty((B,), dtype=e.dtype, device=dev)
+        # the transfer matrices [B, G, K, K], then the start vectors [B, G, K]
+        scratch = torch.empty((B * -(-S // segment) * K * (K + 1),), dtype=e.dtype, device=dev)
         with torch.cuda.device(dev):
-            rc = fn(ptr(q), ptr(alpha), ptr(e), ptr(d), d_sb, ptr(msgs), ptr(ll), B, S, K,
-                    _build.stream(dev))
+            rc = fn(ptr(q), ptr(alpha), ptr(e), ptr(d), d_sb, ptr(msgs), ptr(ll), ptr(scratch),
+                    B, S, K, segment, _build.stream(dev))
         out = (msgs, ll)
     _build.check_launch(rc, f"hmm {kind}")
     count_launch(globals(), e, f"{kind.upper()}_")
@@ -297,10 +411,13 @@ def finite_abs(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(x), x.abs(), torch.zeros_like(x))
 
 
-def hmm_bound(kind: str, q, alpha, e, d, X):
+def hmm_bound(kind: str, q, alpha, e, d, X, L=None):
     """Bound on |kernel − plain| for one entry on the same inputs, from the
     plain version's messages X [B, S, K] (Fw, Bw, or Viterbi's scores V):
-    (per message [B, S], per loglik or best score [B]), in float64.
+    (per message [B, S], per loglik or best score [B]), in float64.  L:
+    the forward or backward kernel's segment length (SEGMENT), whose
+    order hmm_scan_segmented_ref is; None: a kernel that walks the sites in
+    the plain version's order.
 
     Each step of either recursion maps the previous messages through a
     1-Lipschitz function (log-sum-exp, or max) of them plus the log
@@ -322,24 +439,92 @@ def hmm_bound(kind: str, q, alpha, e, d, X):
     emission 2 M_s: at most 12 of each term.  The bound on a message is
     the sum of eps over the steps that made it: from the first site
     (forward, Viterbi) or from the last (backward); a loglik adds one
-    more step.  Non-finite messages must be equal (checked apart)."""
+    more step.
+
+    Segments (L given).  The exact steps over a segment compose into its
+    transfer matrix M_g, and the exact composition of a vector with M_g,
+    c(a, M)[j] = lse_i(a[i] + M[i][j]), is 1-Lipschitz in a and in M.  The
+    kernel walks segment g from its own start vector a_g, so a message of
+    segment g lies within D_g + (the sum of eps over the segment's steps
+    that made it) of the plain version's, where D_g bounds the start
+    vector's difference from the plain message before the segment.  The
+    first segment starts from log q (backward: the last, from 0), D = 0;
+    the next start is the sequential walk over it, D_1 = the segment's eps
+    sum; then a_{g+1} = c(a_g, M̂_g) rounded, so
+
+        D_{g+1} = D_g + (segment g's eps sum: the plain walk against the
+                  exact one) + (the largest eps sum of the K unit-vector
+                  runs over segment g: M̂_g against M_g) + (one composing
+                  step: 12 u (M_g + M_{g+1} + max |M̂_g| + K + 1)).
+
+    A run's messages are bounded from its own start: each step adds at
+    most L_s + E_s + log K to the largest finite magnitude (lse lies
+    between its largest term and that plus log K), and those bounds are the
+    runs' M in their eps.  Non-finite messages must be equal (checked
+    apart); a -inf entry of M̂_g is -inf in M_g as well."""
     u = 2.0 ** -53 if e.dtype == torch.float64 else 2.0 ** -24
     K = e.shape[-1]
     M = finite_abs(X).amax(-1)                                   # [B, S]
     E = finite_abs(e).amax(-1)
-    L = finite_abs(transition_matrices(q, alpha, d)).flatten(-2).amax(-1)
+    Lt = finite_abs(transition_matrices(q, alpha, d)).flatten(-2).amax(-1)
     stay = torch.exp(-alpha.double()[..., None] * d.double()).expand_as(E)
     R = torch.nan_to_num(stay / (1.0 - stay), nan=0.0, posinf=0.0)
     R = torch.where((stay > 0) & (stay < 1), R, torch.zeros_like(R))
     M0 = finite_abs(torch.log(q)).amax(-1)                        # the start row
+    c = 12 * u
     if kind == "backward":
         # site s makes row s - 1 from row s; row S-1 is exact
-        eps = 12 * u * (M[:, 1:] + M[:, :-1] + E[:, 1:] + L[:, 1:] + R[:, 1:] + K + 1)
-        per = torch.cat([eps.flip(1).cumsum(1).flip(1), torch.zeros_like(M[:, :1])], 1)
+        eps = c * (M[:, 1:] + M[:, :-1] + E[:, 1:] + Lt[:, 1:] + R[:, 1:] + K + 1)
+        if L is None:
+            per = torch.cat([eps.flip(1).cumsum(1).flip(1), torch.zeros_like(M[:, :1])], 1)
+        else:
+            per = _segmented_per(False, eps, M, E, Lt, R, K, c, L)
         # the start row through site 0, then log q plus it
-        m_start = M[:, 0] + E[:, 0] + L[:, 0] + K
-        last = per[:, 0] + 12 * u * (M[:, 0] + m_start + E[:, 0] + L[:, 0] + R[:, 0] + K + 1)
-        return per, last + 12 * u * (M0 + m_start + K + 1)
+        m_start = M[:, 0] + E[:, 0] + Lt[:, 0] + K
+        last = per[:, 0] + c * (M[:, 0] + m_start + E[:, 0] + Lt[:, 0] + R[:, 0] + K + 1)
+        return per, last + c * (M0 + m_start + K + 1)
     prev = torch.cat([M0[:, None], M[:, :-1]], 1)
-    per = (12 * u * (prev + M + E + L + R + K + 1)).cumsum(1)
-    return per, per[:, -1] + 12 * u * (M[:, -1] + K + 1)
+    eps = c * (prev + M + E + Lt + R + K + 1)
+    per = eps.cumsum(1) if L is None else _segmented_per(True, eps, M, E, Lt, R, K, c, L)
+    return per, per[:, -1] + c * (M[:, -1] + K + 1)
+
+
+def _segmented_per(fwd: bool, eps, M, E, Lt, R, K: int, c: float, L: int):
+    """hmm_bound's per-message bound [B, S] for segments of L sites (its
+    docstring).  Forward: eps [B, S] of the step making message s.
+    Backward: eps [B, S-1] of site s making row s - 1, indexed by row;
+    segment g holds rows [gL, (g+1)L), made by sites (g+1)L .. gL+1."""
+    B, S = M.shape
+    L = min(L, S)
+    G = -(-S // L)
+
+    def seg(x):                 # [B, n <= S] zero-padded -> [B, G, L]
+        return torch.nn.functional.pad(x, (0, G * L - x.shape[1])).reshape(B, G, L)
+
+    if fwd:
+        has, at = torch.ones_like(M), slice(None)
+    else:
+        has, at = torch.ones_like(M[:, 1:]), slice(1, None)   # rows with a site: r < S-1
+    # forward sums run from a segment's first step on, backward from its top
+    run_on = (lambda x: x.cumsum(-1)) if fwd else (lambda x: x.flip(-1).cumsum(-1).flip(-1))
+    within = run_on(seg(eps))
+    plain = within[..., 0 if not fwd else -1]
+    step = seg((Lt[:, at] + E[:, at] + math.log(K)) * has)
+    mag = run_on(step)                                   # a run's bound after the step
+    run_eps = c * (2 * mag - step + seg(E[:, at] + Lt[:, at] + R[:, at] + K + 1)) * seg(has)
+    run = run_eps.sum(-1)
+    mag_end = mag[..., -1] if fwd else mag[..., 0]
+    # composing at the segments' edges, segments 1 .. G-2: the plain messages
+    # before and after the segment
+    g = torch.arange(1, max(G - 1, 1), device=M.device)
+    edge_a, edge_b = (g * L - 1, (g + 1) * L - 1) if fwd else ((g + 1) * L, g * L)
+    comb = c * (M[:, edge_a] + M[:, edge_b] + mag_end[:, g] + K + 1)
+    inc = run[:, g] + plain[:, g] + comb                 # [B, G-2]
+    D = torch.zeros((B, G), dtype=M.dtype, device=M.device)
+    zero = torch.zeros((B, 1), dtype=M.dtype, device=M.device)
+    if fwd and G >= 2:
+        D[:, 1:] = plain[:, :1] + torch.cat([zero, inc.cumsum(1)], 1)
+    elif G >= 2:
+        D[:, :-1] = plain[:, -1:] + torch.cat([inc.flip(1).cumsum(1).flip(1), zero], 1)
+    per = (within + D[..., None]).reshape(B, G * L)
+    return per[:, :S] if fwd else torch.cat([per[:, :S - 1], torch.zeros_like(M[:, :1])], 1)

@@ -987,3 +987,63 @@ def test_hmm_graphed_plain_version_is_the_eager_loop(cuda, kind, dtype):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["forward", "backward"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("K,per_chain_d", [(1, False), (2, False), (3, True), (8, False)])
+@pytest.mark.parametrize("segment", [1, 5, 37, 150])
+def test_hmm_kernel_segments_are_the_segmented_model(cuda, kind, dtype, K, per_chain_d,
+                                                     segment):
+    """Forward and backward in segments of 1, 5, 37 and 150 sites over 301
+    (a short last segment; 70 chains, past a block's 32 segments and a
+    warp's): equal to ops/hmm.py hmm_scan_segmented_ref bit for bit and
+    within hmm_bound(..., segment) of the sequential plain version
+    (chip_smoke.check_hmm)."""
+    from ngsdist_tpu_torch.ops import hmm
+
+    args = chip_smoke.hmm_inputs(torch, np.random.default_rng(20 + K), 70, 301, K, per_chain_d,
+                                 getattr(torch, dtype))
+    got = hmm._chains_cuda(kind, *args, segment=segment)
+    torch.cuda.synchronize()
+    chip_smoke.check_hmm(torch, hmm, kind, args, got, segment=segment)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["forward", "backward"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("edge", chip_smoke.HMM_EDGES)
+def test_hmm_kernel_segments_keep_the_edge_inputs(cuda, kind, dtype, edge):
+    """The edge inputs in segments of chip_smoke.HMM_SMALL_SEGMENT sites:
+    NaN carried into every later segment through the start vectors, -inf
+    kept, as the plain version has them; the segmented model's bits."""
+    from ngsdist_tpu_torch.ops import hmm
+
+    for K in (2, 3):
+        args = chip_smoke.hmm_inputs(torch, np.random.default_rng(7), 40, 300, K, K == 3,
+                                     getattr(torch, dtype), edge)
+        got = hmm._chains_cuda(kind, *args, segment=chip_smoke.HMM_SMALL_SEGMENT)
+        chip_smoke.check_hmm(torch, hmm, kind, args, got, segment=chip_smoke.HMM_SMALL_SEGMENT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["forward", "backward"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("segment", [None, 37])
+def test_hmm_kernel_is_batch_invariant(cuda, kind, dtype, segment):
+    """A chain alone, or in a batch of another order, gives the batch's row
+    bit for bit on the card: the segments are cut from the sites alone
+    (3,000 sites: three segments of hmm.SEGMENT, or 82 of 37)."""
+    from ngsdist_tpu_torch.ops import hmm
+
+    seg = segment or hmm.SEGMENT
+    args = chip_smoke.hmm_inputs(torch, np.random.default_rng(31), 40, 3000, 2, True,
+                                 getattr(torch, dtype))
+    got = hmm._chains_cuda(kind, *args, segment=seg)
+    perm = torch.randperm(40, generator=torch.Generator().manual_seed(5)).to(cuda)
+    shuffled = hmm._chains_cuda(kind, *(a[perm] for a in args), segment=seg)
+    assert all(chip_smoke.same_values(torch, x, y[perm]) for x, y in zip(shuffled, got))
+    for b in (0, 17, 39):
+        one = hmm._chains_cuda(kind, *(a[b:b + 1] for a in args), segment=seg)
+        assert all(chip_smoke.same_values(torch, x[0], y[b]) for x, y in zip(one, got))

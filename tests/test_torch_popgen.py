@@ -591,8 +591,9 @@ def _args(B, S, K, dtype, shared_d=True):
 def test_wrapper_launches_the_kernel_entry(kind, dtype, K, shared_d, monkeypatch):
     """A CUDA-device call hands e's own (chain-major) storage and the
     distances' chain stride (0 when shared) to the entry of its dtype, with
-    the arguments `_build._configure` declares for it, counts one launch of
-    that entry, and never runs the plain version."""
+    the arguments `_build._configure` declares for it (forward and
+    backward: a scratch and the segment length ops/hmm.py SEGMENT), counts
+    one launch of that entry, and never runs the plain version."""
     B, S = 3, 5
     q, a, e, d = _args(B, S, K, dtype, shared_d)
     suffix = "_F64" if dtype == torch.float64 else ""
@@ -603,16 +604,45 @@ def test_wrapper_launches_the_kernel_entry(kind, dtype, K, shared_d, monkeypatch
     assert getattr(hops, counter) == before + 1
     (name, args), = lib.calls
     assert name == f"ngsd_hmm_{kind}_{'f64' if dtype == torch.float64 else 'f32'}"
-    assert len(args) == (12 if kind == "viterbi" else 11)
+    assert len(args) == 12 if kind == "viterbi" else 13
     assert args[2].value == e.data_ptr()
     assert args[4] == (0 if shared_d else S)
-    assert args[-4:-1] == (B, S, K)
+    if kind == "viterbi":
+        assert args[-4:-1] == (B, S, K)
+    else:
+        assert args[-5:-2] == (B, S, K) and args[-2] == hops.SEGMENT
     if kind == "viterbi":
         path, best = got
         assert path.shape == (B, S) and path.dtype == torch.int32 and best.dtype == dtype
     else:
         msgs, ll = got
         assert msgs.shape == (B, S, K) and msgs.dtype == dtype and ll.shape == (B,)
+
+
+@pytest.mark.parametrize("kind", ["forward", "backward"])
+@pytest.mark.parametrize("segment,G", [(4, 3), (3, 3), (9, 1), (100, 1), (1, 9)])
+def test_wrapper_passes_the_segment_and_its_scratch(kind, segment, G, monkeypatch):
+    """forward and backward take the segment length and a scratch of B G
+    K (K + 1) elements of e's dtype (the transfer matrices, then the start
+    vectors), G = ceil(S / segment); a segment below one site raises
+    before any launch."""
+    B, S, K = 2, 9, 3
+    q, a, e, d = _args(B, S, K, torch.float32)
+    scratch, real_ptr = {}, _build.ptr
+
+    def ptr(x):
+        scratch.setdefault(x.numel(), x)
+        return real_ptr(x)
+
+    monkeypatch.setattr(_build, "ptr", ptr)
+    with _library(monkeypatch) as lib:
+        hops._chains_cuda(kind, q, a, e, d, segment=segment)
+        with pytest.raises(ValueError, match="segments of 0 sites"):
+            hops._chains_cuda(kind, q, a, e, d, segment=0)
+    (name, args), = lib.calls
+    assert args[-2] == segment
+    assert args[7].value == scratch[B * G * K * (K + 1)].data_ptr()
+    assert scratch[B * G * K * (K + 1)].dtype == torch.float32
 
 
 @pytest.mark.parametrize("kind", ["forward", "backward", "viterbi"])
