@@ -62,12 +62,15 @@
 // 1024: 262,144 (chain, segment) threads in step 3, Kp times that many
 // lanes in step 1, where the sequential walk had 1024 threads on 32 SMs.
 //
-// Loads.  A warp's lanes walk 32 segments (step 3) or 32 / Kp (step 1) in
-// lock step.  The next U sites of each (a record of e_s and d_s a site)
-// are copied by all the warp's lanes together, with cp.async, into a
-// double buffer in shared memory while the current U sites are computed:
-// each copy instruction reads adjacent addresses, and the records' odd
-// stride lets the lanes read their own segment's without bank conflicts.
+// Loads and stores.  A warp's lanes walk 32 segments (step 3) or 32 / Kp
+// (step 1) in lock step.  The next U sites of each (their emissions and
+// distances) are copied by all the warp's lanes together, with cp.async,
+// into a double buffer in shared memory while the current U sites are
+// computed: each copy instruction reads four segments' adjacent values,
+// and the slots' odd strides let each lane read its own segment's
+// without bank conflicts.  Step 3 writes each message over the emissions
+// it came from, and the warp stores the group's messages as it loaded
+// them.
 //
 // What bounds it.  By bytes, forward at 1024 chains x 262,144 sites x
 // K = 2 in float64 reads e (4.29 GB) and writes the messages (4.29 GB):
@@ -168,19 +171,27 @@ struct Lanes {
   static constexpr int Kp = K <= 1 ? 1 : (K <= 2 ? 2 : (K <= 4 ? 4 : 8));
 };
 
-// Sites a staged group holds, and a segment's record in the buffer: U
-// sites of K emissions and a distance, at an odd stride.
+// Sites a staged group holds: a segment's U sites of K emissions (at
+// most kSlot = 8 values) and U distances, each in a slot of odd stride.
+// A lane copies the same place of a slot in every group (kSlot and U
+// divide 32), and step 3 writes its messages back over the emissions it
+// has read, whence the warp stores them.
 template <int K>
 struct Group {
   static constexpr int U = K <= 1 ? 8 : (K <= 2 ? 4 : (K <= 4 ? 2 : 1));
-  static constexpr int R = U * (K + 1);
-  static constexpr int kStride = R | 1;
+  static constexpr int kSlot = 8;
+  static constexpr int kEStride = kSlot + 1;
+  static constexpr int kDStride = U | 1;
 };
 
-// A segment a warp walks: its chain's first element of e (in sites) and
-// of d, its first site (forward) or its top site (backward), its sites.
+// A segment a warp walks: e, d (and in step 3 the messages) at its
+// first step's site (backward: the top site, and the row below it),
+// from which its steps walk up (forward) or down; its number of steps.
+template <typename T>
 struct SegRef {
-  long long e0, d0, first;
+  const T* e;
+  const T* d;
+  T* out;
   int n;
 };
 
@@ -274,31 +285,33 @@ __device__ __forceinline__ void transition_shared(T q_own, T nalpha, T d, unsign
 // The walk of a warp's segments in lock step over their sites, U at a
 // time through the staged double buffer: the lane's own segment is
 // tab[c], its message v; each step's transition row from the lane's own
-// q (kShared: one state's, shuffled) and after each step emit(i, v) with
-// i the step's index in the segment.
-template <typename T, int K, bool kFwd, int CH, bool kShared, typename Emit>
-__device__ __forceinline__ void walk(const T* __restrict__ e, const T* __restrict__ d,
-                                     const SegRef* tab, T* buf, int c, const T (&qb)[K],
-                                     T q_own, T nalpha, unsigned mask, T (&v)[K], Emit emit) {
-  constexpr int U = Group<K>::U, R = Group<K>::R, ST = Group<K>::kStride;
+// q (kShared: one state's, shuffled); kStore: the messages after each
+// step written to the segment's out.
+template <typename T, int K, bool kFwd, int CH, bool kShared, bool kStore>
+__device__ __forceinline__ void walk(const SegRef<T>* tab, T* ebuf, T* dbuf, int c,
+                                     const T (&qb)[K], T q_own, T nalpha, unsigned mask,
+                                     T (&v)[K]) {
+  using Gr = Group<K>;
+  constexpr int U = Gr::U, kSlot = Gr::kSlot, ES = Gr::kEStride, DS = Gr::kDStride;
+  constexpr long long dir = kFwd ? 1 : -1;
   const int lane = threadIdx.x & 31;
+  // the lane's place in an e slot (step u, state k) and in a d slot
+  const int re = lane % kSlot, ue = re / K, ke = re % K, ud = lane % U;
   const int n_own = tab[c].n;
   const int n_max = (int)__reduce_max_sync(0xffffffffu, (unsigned)n_own);
   const int groups = (n_max + U - 1) / U;
   auto issue = [&](int j) {
-    T* dst = buf + (j & 1) * CH * ST;
+    T* de = ebuf + (j & 1) * CH * ES;
+    T* dd = dbuf + (j & 1) * CH * DS;
 #pragma unroll
-    for (int t = 0; t < (CH * R + 31) / 32; ++t) {
-      const int i = t * 32 + lane;
-      if (i < CH * R) {
-        const int cc = i / R, rr = i % R, u = rr / (K + 1), k = rr % (K + 1);
-        const SegRef& sr = tab[cc];
-        const int at = j * U + u;
-        if (at < sr.n) {
-          const long long site = kFwd ? sr.first + at : sr.first - at;
-          cp_async(dst + cc * ST + rr, k < K ? e + (sr.e0 + site) * K + k : d + sr.d0 + site);
-        }
-      }
+    for (int t = 0; t < CH * kSlot / 32; ++t) {
+      const int cc = t * (32 / kSlot) + lane / kSlot, at = j * U + ue;
+      if (re < U * K && at < tab[cc].n) cp_async(de + cc * ES + re, tab[cc].e + dir * at * K + ke);
+    }
+#pragma unroll
+    for (int t = 0; t < (CH * U + 31) / 32; ++t) {
+      const int cc = t * (32 / U) + lane / U, at = j * U + ud;
+      if (cc < CH && at < tab[cc].n) cp_async(dd + cc * DS + ud, tab[cc].d + dir * at);
     }
     cp_async_commit();
   };
@@ -310,26 +323,38 @@ __device__ __forceinline__ void walk(const T* __restrict__ e, const T* __restric
       cp_async_commit();   // an empty group: wait_group 1 then waits for j
     cp_async_wait_one();
     __syncwarp();
-    const T* rec = buf + (j & 1) * CH * ST + c * ST;
+    T* es_ = ebuf + (j & 1) * CH * ES;
+    T* rec = es_ + c * ES;
+    const T* drec = dbuf + (j & 1) * CH * DS + c * DS;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (j * U + u < n_own) {   // the same for a segment's lanes
         T es[K], off[K], dg[K];
 #pragma unroll
-        for (int k = 0; k < K; ++k) es[k] = rec[u * (K + 1) + k];
-        const T dd = rec[u * (K + 1) + K];
+        for (int k = 0; k < K; ++k) es[k] = rec[u * K + k];
         if constexpr (kShared)
-          transition_shared<T, K>(q_own, nalpha, dd, mask, off, dg);
+          transition_shared<T, K>(q_own, nalpha, drec[u], mask, off, dg);
         else
-          transition<T, K>(qb, nalpha, dd, off, dg);
+          transition<T, K>(qb, nalpha, drec[u], off, dg);
         if constexpr (kFwd)
           forward_step<T, K>(v, off, dg, es);
         else
           backward_step<T, K>(v, off, dg, es);
-        emit(j * U + u, v);
+        if constexpr (kStore) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) rec[u * K + k] = v[k];
+        }
       }
     }
     __syncwarp();
+    if constexpr (kStore) {
+#pragma unroll
+      for (int t = 0; t < CH * kSlot / 32; ++t) {
+        const int cc = t * (32 / kSlot) + lane / kSlot, at = j * U + ue;
+        if (re < U * K && at < tab[cc].n) tab[cc].out[dir * at * K + ke] = es_[cc * ES + re];
+      }
+      __syncwarp();
+    }
   }
 }
 
@@ -359,8 +384,9 @@ __global__ void __launch_bounds__(kScanThreads)
                         T* __restrict__ mats, T* __restrict__ starts, int B, long long S,
                         long long G, long long L) {
   constexpr int Kp = Lanes<K>::Kp, CH = 32 / Kp;
-  __shared__ T buf[kWarps][2 * CH * Group<K>::kStride];
-  __shared__ SegRef tab[kWarps][CH];
+  __shared__ T ebuf[kWarps][2 * CH * Group<K>::kEStride];
+  __shared__ T dbuf[kWarps][2 * CH * Group<K>::kDStride];
+  __shared__ SegRef<T> tab[kWarps][CH];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, r = lane % Kp, c = lane / Kp;
   const long long seg = ((long long)blockIdx.x * kScanThreads + threadIdx.x) / Kp;
   const bool live = seg < (long long)B * (G - 1);
@@ -369,7 +395,9 @@ __global__ void __launch_bounds__(kScanThreads)
   long long first;
   int n;
   segment_of<kFwd>(g, G, L, S, &first, &n);
-  if (r == 0) tab[warp][c] = SegRef{(long long)b * S, (long long)b * d_sb, first, live ? n : 0};
+  if (r == 0)
+    tab[warp][c] = SegRef<T>{e + ((long long)b * S + first) * K, d + (long long)b * d_sb + first,
+                             nullptr, live ? n : 0};
   __syncwarp();
   const int own = r < K ? r : K - 1;
   T qb[K], lq[K], v[K];
@@ -382,8 +410,8 @@ __global__ void __launch_bounds__(kScanThreads)
     q_own = k == own ? qb[k] : q_own;
   }
   const unsigned mask = Kp == 32 ? 0xffffffffu : ((1u << Kp) - 1u) << (lane - r);
-  walk<T, K, kFwd, CH, true>(e, d, tab[warp], buf[warp], c, qb, q_own, na, mask, v,
-                             [](int, const T(&)[K]) {});
+  walk<T, K, kFwd, CH, true, false>(tab[warp], ebuf[warp], dbuf[warp], c, qb, q_own, na, mask,
+                                    v);
   if (!live || r >= K) return;
   T* out = vec ? (r == 0 ? starts + ((long long)b * G + (kFwd ? 1 : G - 2)) * K : nullptr)
                : mats + (((long long)b * G + g) * K + r) * K;
@@ -426,8 +454,9 @@ __global__ void __launch_bounds__(kScanThreads)
                         const T* __restrict__ e, const T* __restrict__ d, long long d_sb,
                         const T* __restrict__ starts, T* __restrict__ out, T* __restrict__ ll,
                         int B, long long S, long long G, long long L) {
-  __shared__ T buf[kWarps][2 * 32 * Group<K>::kStride];
-  __shared__ SegRef tab[kWarps][32];
+  __shared__ T ebuf[kWarps][2 * 32 * Group<K>::kEStride];
+  __shared__ T dbuf[kWarps][2 * 32 * Group<K>::kDStride];
+  __shared__ SegRef<T> tab[kWarps][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long seg = (long long)blockIdx.x * kScanThreads + threadIdx.x;
   const bool live = seg < (long long)B * G;
@@ -436,7 +465,10 @@ __global__ void __launch_bounds__(kScanThreads)
   long long first;
   int n;
   segment_of<kFwd>(g, G, L, S, &first, &n);
-  tab[warp][lane] = SegRef{(long long)b * S, (long long)b * d_sb, first, live ? n : 0};
+  // backward: site first makes row first - 1
+  T* ob = out + (long long)b * S * K;
+  tab[warp][lane] = SegRef<T>{e + ((long long)b * S + first) * K, d + (long long)b * d_sb + first,
+                              ob + (first - (kFwd ? 0 : 1)) * K, live ? n : 0};
   __syncwarp();
   T qb[K], lq[K], v[K];
   const T na = chain_start<T, K>(q, alpha, b, qb, lq);
@@ -444,18 +476,12 @@ __global__ void __launch_bounds__(kScanThreads)
 #pragma unroll
   for (int k = 0; k < K; ++k)
     v[k] = edge ? (kFwd ? lq[k] : T(0)) : starts[((long long)b * G + g) * K + k];
-  T* ob = out + (long long)b * S * K;
   if (live && !kFwd && edge) {
 #pragma unroll
     for (int k = 0; k < K; ++k) ob[(S - 1) * K + k] = T(0);
   }
-  walk<T, K, kFwd, 32, false>(e, d, tab[warp], buf[warp], lane, qb, qb[0], na, 0u, v,
-                              [&](int i, const T(&m)[K]) {
-                                // forward: site first + i; backward: row first - i - 1
-                                const long long row = kFwd ? first + i : first - i - 1;
-#pragma unroll
-                                for (int k = 0; k < K; ++k) ob[row * K + k] = m[k];
-                              });
+  walk<T, K, kFwd, 32, false, true>(tab[warp], ebuf[warp], dbuf[warp], lane, qb, qb[0], na, 0u,
+                                    v);
   if (!live) return;
   if (kFwd) {
     if (g == G - 1) ll[b] = lse<T, K>(v);

@@ -136,19 +136,42 @@ def test_pair_block_tables_cover_each_shards_pairs(N, p):
     assert union == {(a // 32, b // 32) for a, b in zip(*np.triu_indices(N, 1))}
 
 
+def _unequal(what, got, want, full_again):
+    """The failure message of an inexact tile sum: which entries differ and
+    by how much, the thread counts and the load, and whether the full call
+    itself gives the same bits again (full_again: a third call)."""
+    diff = got != want
+    idx = diff.nonzero()[:5].tolist()
+    stable = [torch.equal(a, b) for a, b in zip(full_again(), full_again())]
+    return (f"{what}: {int(diff.sum())} of {diff.numel()} entries differ, largest "
+            f"|difference| {float((got - want).abs().max()):.3e}, first at {idx}; torch "
+            f"threads {torch.get_num_threads()}, interop {torch.get_num_interop_threads()}, "
+            f"load {os.getloadavg()}; the full call rerun twice equal: {stable}")
+
+
 @pytest.mark.parametrize("pairwise_del", [False, True], ids=["nopdel", "pdel"])
 def test_tile_plain_forms_sum_to_the_full_call(pairwise_del):
     """indep_raw_cnt_ref(tiles=) and em_raw_cnt_ref(tiles=) over the p
     lists of a split add up to the full call's valid triangle exactly,
-    the EM with and without a site list; unlisted tiles are zero."""
+    the EM with and without a site list; unlisted tiles are zero.  A
+    failure says which tile list, which entries and whether the full call
+    repeats its own bits (the failure seen once per ~10 full runs under
+    xdist, ROADMAP Queue 3)."""
     rng = np.random.default_rng(5)
     S, N = 37, 140
     P = torch.from_numpy(_rand_probs(rng, S, N))
     P[3, 7] = 0.0
     w = torch.from_numpy(rng.integers(0, 3, S).astype(np.float64))
     index = torch.from_numpy(np.flatnonzero(w.numpy() > 0))
-    full_i = [m.triu() for m in tind.indep_raw_cnt_ref(P, SCORE, pairwise_del, w)]
-    full_e = tem.em_raw_cnt_ref(P, SCORE.reshape(-1), pairwise_del, w[index], site_index=index)
+
+    def full_indep():
+        return [m.triu() for m in tind.indep_raw_cnt_ref(P, SCORE, pairwise_del, w)]
+
+    def full_em():
+        return tem.em_raw_cnt_ref(P, SCORE.reshape(-1), pairwise_del, w[index],
+                                  site_index=index)
+
+    full_i, full_e = full_indep(), full_em()
     for p in (2, 3, 4):
         tot_i = [torch.zeros_like(full_i[0]) for _ in range(2)]
         for tiles in pm.panel_tables(N, p):
@@ -157,14 +180,17 @@ def test_tile_plain_forms_sum_to_the_full_call(pairwise_del):
             for a, g in zip(tot_i, got):
                 assert (g[~mask] == 0).all()
                 a += g
-        assert all(torch.equal(a, f) for a, f in zip(tot_i, full_i))
+        for name, a, f in zip(("raw", "cnt"), tot_i, full_i):
+            assert torch.equal(a, f), _unequal(f"indep {name}, {p} lists", a, f, full_indep)
         seen = torch.zeros((N, N), dtype=torch.bool)
         for tiles in pm.pair_block_tables(N, p):
             got = tem.em_raw_cnt_ref(P, SCORE.reshape(-1), pairwise_del, w[index],
                                      site_index=index, tiles=torch.from_numpy(tiles))
             mask = _build.tile_mask(N, tiles, tem.EM_TILE, strict=True)
-            for g, f in zip(got, full_e):
-                assert (g[~mask] == 0).all() and torch.equal(g[mask], f[mask])
+            for name, g, f in zip(("raw", "cnt"), got, full_e):
+                assert (g[~mask] == 0).all()
+                assert torch.equal(g[mask], f[mask]), _unequal(
+                    f"em {name}, {p} lists, tiles {tiles.tolist()}", g[mask], f[mask], full_em)
             seen |= mask
         assert torch.equal(seen, torch.ones((N, N), dtype=torch.bool).triu(1))
 
