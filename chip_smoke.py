@@ -165,8 +165,11 @@ Phases, each of which fails the run loudly:
    K = 3 with distances per chain and at K = 8) and on the edge inputs
    HMM_EDGES (alpha = 0, a zero proportion, dense chromosome breaks, exact
    ties): non-finite values equal, the rest within ops/hmm.py hmm_bound,
-   and every step where a Viterbi path leaves the plain version's a near
-   tie (check_hmm); the first shape also timed.  Then the quickstart's
+   forward and backward (segmented scans) in segments of hmm.SEGMENT sites
+   and again, on the edge inputs and HMM_SHAPES[1:], of HMM_SMALL_SEGMENT,
+   each equal to ops/hmm.py hmm_scan_segmented_ref bit for bit, and every
+   step where a Viterbi path leaves the plain version's a near tie
+   (check_hmm); the first shape also timed.  Then the quickstart's
    steps 4-5 (examples/quickstart.py) at full width, with the HMM launch
    counts set to 0 just before and held to POPGEN_LAUNCHES just after:
    log-GLs of N_IND individuals x POPGEN_SITES sites ((a)'s seeded array
@@ -177,7 +180,8 @@ Phases, each of which fails the run loudly:
    [1024, 262,144, 2] float64, forward, backward, posterior_decode and
    viterbi through the kernel in float64 and again in float32 (on
    POPGEN_CHECK_CHAINS chains over every site: forward's, backward's and
-   viterbi's outputs held to the plain version as above, its site loop
+   viterbi's outputs held to the plain version as above (forward and
+   backward also to hmm_scan_segmented_ref), the plain site loop
    replayed from CUDA graphs, ops/hmm.py segment_runner; forward and
    backward logliks within their bounds of each other, the posterior
    normalised, paths in range, the float32 messages within hmm_bound of
@@ -192,7 +196,8 @@ Phases, each of which fails the run loudly:
    from this run's data, over the peak rate of their type) and, indep,
    the PyTorch calls that compute the same function; the EM and K1d
    times beside those of the kernels before their redesigns
-   (EM_MS_BEFORE, INDEP_F64_MS_BEFORE); and
+   (EM_MS_BEFORE, INDEP_F64_MS_BEFORE), the HMM's forward and backward
+   at full width beside theirs (HMM_MS_BEFORE); and
    the kernel held there against the float64 plain version on the same
    inputs; the float64 entries (K1d, K2d, their tile lists and block
    modes) on the same values in float64, beside their bounds (K1d's

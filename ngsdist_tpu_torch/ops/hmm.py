@@ -210,12 +210,6 @@ def _segments(S: int, L: int, fwd: bool, device):
     return G, site.clamp(0, S - 1), i < n
 
 
-def _compose(v, m):
-    """v [B, K] composed with transfer matrices m [B, K (run), K]:
-    v[j] := lse_i(v[i] + m[i][j])."""
-    return logsumexp(v[:, :, None] + m, 1)
-
-
 def hmm_scan_segmented_ref(kind: str, q, alpha, e, d, L: int):
     """The kernel's forward or backward scan (csrc/hmm.cu, steps 1-3) in
     plain PyTorch, vectorised over (chain, segment): (messages [B, S, K],
@@ -241,21 +235,24 @@ def hmm_scan_segmented_ref(kind: str, q, alpha, e, d, L: int):
         def step(v, lt, es):
             return logsumexp(lt + (es + v)[..., None, :], -1)
 
-    def walk(v, segs, keep=None):
-        """v [B, n, ..., K] stepped over segments segs [n]; keep: the
-        messages after each step, stacked [B, n, L, K]."""
-        extra = v.ndim - 3
+    def walk(v, segs, keep=False):
+        """v [B, n, K] (or [B, n, K runs, K]) stepped over segments segs
+        [n]; keep: also the messages after each step, [B, n, L, K]."""
+        runs = v.ndim == 4
         kept = []
         for i in range(L):
             s, a = site[segs, i], act[segs, i]
             lt, es = logT[:, s], e[:, s]
-            lt, es = lt[:, :, None] if extra else lt, es[:, :, None] if extra else es
-            v = torch.where(a.view(1, -1, *[1] * (extra + 1)), step(v, lt, es), v)
+            if runs:
+                lt, es = lt[:, :, None], es[:, :, None]
+            v = torch.where(a.view(1, -1, *[1] * (v.ndim - 2)), step(v, lt, es), v)
             if keep:
                 kept.append(v)
         return (v, torch.stack(kept, 2)) if keep else v
 
-    starts = lq[:, None, :].expand(B, G, K).clone()
+    # the start vector of each segment: forward's first log q, backward's last 0
+    starts = torch.empty((B, G, K), dtype=e.dtype, device=e.device)
+    starts[:, 0 if fwd else G - 1] = lq if fwd else 0.0
     if G >= 2:
         # step 1: segments 0 .. G-2 (forward) or 1 .. G-1 (backward)
         segs = torch.arange(G - 1, device=e.device) + (0 if fwd else 1)
@@ -263,17 +260,16 @@ def hmm_scan_segmented_ref(kind: str, q, alpha, e, d, L: int):
         unit.fill_diagonal_(0.0)
         v = unit.expand(B, G - 1, K, K).clone()
         vec = 0 if fwd else G - 2
-        v[:, vec] = (lq[:, None, :] if fwd else torch.zeros_like(lq)[:, None, :]).expand(B, K, K)
+        v[:, vec] = (lq if fwd else torch.zeros_like(lq))[:, None, :]
         mats = walk(v, segs)
         # step 2
         starts[:, 1 if fwd else G - 2] = mats[:, vec, 0]
         order = range(1, G - 1) if fwd else range(G - 2, 0, -1)
         for g in order:
+            # v[j] := lse_i(v[i] + m[i][j]), m [B, K runs, K]
             m = mats[:, g] if fwd else mats[:, g - 1]
-            starts[:, g + 1 if fwd else g - 1] = _compose(starts[:, g], m)
+            starts[:, g + 1 if fwd else g - 1] = logsumexp(starts[:, g, :, None] + m, 1)
     # step 3
-    edge = 0 if fwd else G - 1
-    starts[:, edge] = lq if fwd else torch.zeros_like(lq)
     _, out = walk(starts, torch.arange(G, device=e.device), keep=True)
     msgs = torch.empty_like(e)
     if fwd:

@@ -97,6 +97,15 @@ def test_segments_within_the_bound_of_the_plain_version(kind, dtype, K, L, share
 
 
 @pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("S,L", [(1, 1), (2, 1), (3, 1), (3, 2), (4, 3), (5, 2)])
+def test_segments_of_a_few_sites(kind, S, L):
+    """One to five sites in segments of one to three: a last segment of
+    one site (backward: of no step), one segment, two, several."""
+    args = _inputs(np.random.default_rng(600 + S), 3, S, 2, False, torch.float64)
+    _hold(kind, args, L)
+
+
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("edge", EDGES)
 @pytest.mark.parametrize("K", [2, 3])

@@ -1047,3 +1047,24 @@ def test_hmm_kernel_is_batch_invariant(cuda, kind, dtype, segment):
     for b in (0, 17, 39):
         one = hmm._chains_cuda(kind, *(a[b:b + 1] for a in args), segment=seg)
         assert all(chip_smoke.same_values(torch, x[0], y[b]) for x, y in zip(one, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["forward", "backward"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("S,segment", [(1, 1), (2, 1), (3, 1), (3, 2), (4, 3), (5, 2), (33, 32)])
+def test_hmm_kernel_segments_of_a_few_sites(cuda, kind, dtype, S, segment):
+    """One to a few sites in segments of one to three (and 33 in 32): a
+    last segment of one site (backward: of no step), one segment, two,
+    several; 3 chains, fewer than a warp's segments."""
+    from ngsdist_tpu_torch.ops import hmm
+
+    rng = np.random.default_rng(40 + S)
+    dt = getattr(torch, dtype)
+    q = torch.from_numpy(rng.dirichlet(np.ones(2), size=3)).to(cuda, dt)
+    a = torch.from_numpy(rng.uniform(1e-3, 0.1, 3)).to(cuda, dt)
+    e = torch.from_numpy(np.log(rng.random((3, S, 2)) + 1e-3)).to(cuda, dt)
+    d = torch.from_numpy(rng.integers(1, 50, size=(3, S)).astype(np.float64)).to(cuda, dt)
+    got = hmm._chains_cuda(kind, q, a, e, d, segment=segment)
+    torch.cuda.synchronize()
+    chip_smoke.check_hmm(torch, hmm, kind, (q, a, e, d), got, segment=segment)
