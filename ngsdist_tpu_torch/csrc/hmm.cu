@@ -75,11 +75,12 @@
 // What bounds it.  By bytes, forward at 1024 chains x 262,144 sites x
 // K = 2 in float64 reads e (4.29 GB) and writes the messages (4.29 GB):
 // 2.56 ms at 3.35e12 B/s (this design reads e twice).  By operations, the
-// exps and logs: per (chain, site) step 1's K walks and step 3's one, each
-// site's transition row (1 exp, 2K logs) once a step; ~28 at K = 2, on the
-// FP64 pipe in float64.  Tensor cores do not apply: the step is a
-// log-sum-exp, not a sum of products, and nothing of the log semiring
-// maps onto an MMA.
+// exps and logs: at K = 2 a step-1 lane's 9 a site (its share of the
+// transition row, 1 exp and 2 logs, and its vector's 2 log-sum-exps) and
+// step 3's 11, 29 a (chain, site), on the FP64 pipe in float64, which
+// binds (more warps a SM do not help).  Tensor cores do not apply: the
+// step is a log-sum-exp, not a sum of products, and nothing of the log
+// semiring maps onto an MMA.
 //
 // Viterbi (hmm_viterbi_kernel): one thread per chain, one warp a block,
 // walking the sites in order; the transition (no dependence on the
