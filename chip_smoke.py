@@ -171,7 +171,10 @@ Phases, each of which fails the run loudly:
    step where a Viterbi path leaves the plain version's a near tie
    (check_hmm); the first shape also timed.  Then the quickstart's
    steps 4-5 (examples/quickstart.py) at full width, with the HMM launch
-   counts set to 0 just before and held to POPGEN_LAUNCHES just after:
+   counts set to 0 just before and held to POPGEN_LAUNCHES just after (an
+   HMM count, and the `launches` of its entry in the kernels line, counts
+   entry calls: a forward or backward call is three kernel launches, a
+   Viterbi call one):
    log-GLs of N_IND individuals x POPGEN_SITES sites ((a)'s seeded array
    four times over, as (e) reads it),
    read_pos_dist of a POS file of POPGEN_CHROMS chromosomes,
@@ -2713,7 +2716,8 @@ POPGEN_LANES, POPGEN_N = 1024, 16     # lbfgsb lanes of tests/test_popgen.py's q
 POPGEN_SCIPY_LANES = (0, 1, 511, 1023)
 POPGEN_CHECK_CHAINS = 64              # chains whose messages are held to their bounds
 POPGEN_SEGMENT = 1024                 # sites a CUDA graph of the plain loop walks
-# The popgen path's launches: posterior_decode runs forward and backward
+# The popgen path's entry calls (a forward or backward call is three kernel
+# launches, a Viterbi call one): posterior_decode runs forward and backward
 # once more; the chains run in float64, then in float32.
 POPGEN_LAUNCHES = {name: (1 if "viterbi" in name else 2) for name in HMM_KERNELS}
 
@@ -3495,7 +3499,6 @@ def main() -> int:
             f"({full[2]}) [{card}]")
         if name in HMM_MS_BEFORE:
             now, before = kernels[-1]["full_width_ms"], HMM_MS_BEFORE[name]
-            kernels[-1]["full_width_ms_before"] = before
             log(f"phase 4: {name} at full width: {now:.3f} ms, before its redesign (one thread "
                 f"a chain) {before:.3f} ms ({before / now:.2f}x) [{card}]")
 

@@ -49,7 +49,10 @@ MAX_STATES = 8   # csrc/hmm.cu kMaxStates: K is a template argument 1..8
 # chains beside it (the wrapper's `segment` is for tests alone).
 SEGMENT = 1024
 
-FORWARD_LAUNCHES = 0  # kernel launches since the count was last set to 0
+# Entry calls since the count was last set to 0: a forward or backward call
+# is three kernel launches (transfer matrices, start vectors, messages), a
+# Viterbi call one.
+FORWARD_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 VITERBI_LAUNCHES = 0
 FORWARD_LAUNCHES_F64 = 0  # the same three of the float64 entries

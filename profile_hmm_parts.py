@@ -5,7 +5,6 @@
 Run from the root of a checkout:
 
     python3 profile_hmm_parts.py [--segments 512,1024,2048] [--out FILE]
-    python3 profile_hmm_parts.py --other OTHER/ngsdist_tpu_torch/csrc
 
 Times forward and backward through ops/hmm.py _chains_cuda at the popgen
 path's shape in chip_smoke.py (N_IND = 1024 chains x POPGEN_SITES =
@@ -16,15 +15,6 @@ of its three launches (transfer matrices, start vectors, messages) by
 torch.profiler over one call.  One line per type, scan and segment
 length (the wrapper's own is ops/hmm.py SEGMENT).
 
---other names the kernel sources of a tree whose forward and backward
-are the sequential walk, one thread a chain (the entries without scratch
-and segment length, as at the commit before the segmented scans): both
-trees' hmm.cu are built with the port's nvcc flags (started together),
-Viterbi's machine code compared function by function (cuobjdump, the
-instructions without addresses and encodings), and forward, backward and
-Viterbi of both timed on the same inputs in turns (other, this, this,
-other), Viterbi's paths held equal.
-
 Prints the card's name and power limit first; --out also writes the
 lines to FILE.
 """
@@ -32,14 +22,10 @@ lines to FILE.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import os
 import re
-import subprocess
 import sys
 
 import chip_smoke
-import profile_f32_parity
 
 STEPS = ("hmm_transfer_kernel", "hmm_starts_kernel", "hmm_messages_kernel")
 
@@ -81,111 +67,18 @@ def parts(torch, hmm, say, segments) -> None:
         torch.cuda.empty_cache()
 
 
-def against(torch, hmm, _build, other: str, say) -> None:
-    """This tree's kernels against the sequential design's in `other`."""
-    nvcc = _build._nvcc()
-    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    out_dir = os.path.join(chip_smoke.ROOT, "profiles")
-    os.makedirs(out_dir, exist_ok=True)
-    paths = {k: os.path.join(out_dir, f"hmm_{k}.so") for k in ("other", "this")}
-    procs = {k: subprocess.Popen([nvcc, *flags, "-shared", "-o", paths[k],
-                                  os.path.join(csrc, "hmm.cu")],
-                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for k, csrc in (("other", other), ("this", _build.CSRC_DIR))}
-    for k, p in procs.items():
-        log = p.communicate()[0]
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {k}:\n{log[-4000:]}")
-    sass = {k: viterbi_sass(nvcc, path) for k, path in paths.items()}
-    if sorted(sass["other"]) != sorted(sass["this"]):
-        raise AssertionError("the Viterbi kernels differ in name")
-    for name in sorted(sass["this"]):
-        a, b = sass["other"][name], sass["this"][name]
-        say(f"{name}: {len(b)} instructions, "
-            + ("SASS identical" if a == b else f"SASS DIFFERS ({len(a)} against {len(b)})"))
-    libs = {k: ctypes.CDLL(path) for k, path in paths.items()}
-    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for k, lib in libs.items():
-        for t in ("f32", "f64"):
-            scan = [vp, vp, vp, vp, i64, vp, vp] + ([] if k == "other" else [vp]) \
-                + [i32, i64, i32] + ([] if k == "other" else [i64]) + [vp]
-            for name, args in (("forward", scan), ("backward", scan),
-                               ("viterbi", [vp, vp, vp, vp, i64, vp, vp, vp, i32, i64, i32, vp])):
-                fn = getattr(lib, f"ngsd_hmm_{name}_{t}")
-                fn.argtypes, fn.restype = args, i32
-    ptr, dev = _build.ptr, torch.device("cuda")
-    for dt in (torch.float64, torch.float32):
-        q, a, e, d = inputs(torch, dt)
-        B, S, K = e.shape
-        t = "f64" if dt == torch.float64 else "f32"
-        msgs, ll = torch.empty_like(e), torch.empty((B,), dtype=dt, device=dev)
-        scratch = torch.empty((B * -(-S // hmm.SEGMENT) * K * (K + 1),), dtype=dt, device=dev)
-        backs = torch.empty((S, B, K), dtype=torch.uint8, device=dev)
-        paths_ = {k: torch.empty((B, S), dtype=torch.int32, device=dev) for k in libs}
-        best = torch.empty((B,), dtype=dt, device=dev)
-
-        def call(k, kind):
-            fn = getattr(libs[k], f"ngsd_hmm_{kind}_{t}")
-            head = (ptr(q), ptr(a), ptr(e), ptr(d), 0)
-            if kind == "viterbi":
-                rc = fn(*head, ptr(backs), ptr(paths_[k]), ptr(best), B, S, K,
-                        _build.stream(dev))
-            elif k == "other":
-                rc = fn(*head, ptr(msgs), ptr(ll), B, S, K, _build.stream(dev))
-            else:
-                rc = fn(*head, ptr(msgs), ptr(ll), ptr(scratch), B, S, K, hmm.SEGMENT,
-                        _build.stream(dev))
-            _build.check_launch(rc, f"hmm {kind} ({k})")
-
-        for kind in ("forward", "backward", "viterbi"):
-            ms = [(k, chip_smoke.time_cuda(torch, lambda k=k: call(k, kind), 3))
-                  for k in ("other", "this", "this", "other")]
-            say(f"{t} {kind}, {B} x {S} x {K}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms))
-        if not torch.equal(paths_["other"], paths_["this"]):
-            raise AssertionError(f"{t} viterbi: the two trees' paths differ")
-        say(f"{t} viterbi: the two trees' paths equal")
-        del e, msgs, backs, paths_
-        torch.cuda.empty_cache()
-
-
-def viterbi_sass(nvcc: str, lib: str) -> dict:
-    """{demangled Viterbi kernel: [instructions]} of a library."""
-    bindir = os.path.dirname(nvcc)
-    sass = subprocess.run([os.path.join(bindir, "cuobjdump"), "--dump-sass", lib],
-                          capture_output=True, text=True, check=True).stdout
-    out, cur = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            mangled = line.split("Function :")[1].strip()
-            cur = None
-            if "hmm_viterbi_kernel" in mangled:
-                name = subprocess.run([os.path.join(bindir, "cu++filt"), mangled],
-                                      capture_output=True, text=True, check=True).stdout
-                cur = out.setdefault(profile_f32_parity.kernel_name(name.strip()), [])
-            continue
-        if cur is not None:
-            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
-            if m:
-                cur.append(m.group(1))
-    return out
-
-
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--segments", default="1024", help="segment lengths, comma-separated")
-    ap.add_argument("--other", default=None, help="the sequential design's kernel sources")
     ap.add_argument("--out", default=None, help="also write the lines to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_hmm_parts: no CUDA device", file=sys.stderr)
         return 1
-    if args.other and not os.path.isdir(args.other):
-        print(f"profile_hmm_parts: no directory {args.other}", file=sys.stderr)
-        return 2
     sys.path.insert(0, chip_smoke.ROOT)
-    from ngsdist_tpu_torch.ops import _build, hmm
+    from ngsdist_tpu_torch.ops import hmm
 
     lines = []
 
@@ -194,10 +87,7 @@ def main() -> int:
         lines.append(msg)
 
     say(chip_smoke.card_line())
-    if args.other:
-        against(torch, hmm, _build, args.other, say)
-    else:
-        parts(torch, hmm, say, [int(x) for x in args.segments.split(",")])
+    parts(torch, hmm, say, [int(x) for x in args.segments.split(",")])
     if args.out:
         with open(args.out, "w") as fh:
             fh.write("\n".join(lines) + "\n")

@@ -604,7 +604,7 @@ def test_wrapper_launches_the_kernel_entry(kind, dtype, K, shared_d, monkeypatch
     assert getattr(hops, counter) == before + 1
     (name, args), = lib.calls
     assert name == f"ngsd_hmm_{kind}_{'f64' if dtype == torch.float64 else 'f32'}"
-    assert len(args) == 12 if kind == "viterbi" else 13
+    assert len(args) == (12 if kind == "viterbi" else 13)
     assert args[2].value == e.data_ptr()
     assert args[4] == (0 if shared_d else S)
     if kind == "viterbi":
