@@ -165,16 +165,17 @@ Phases, each of which fails the run loudly:
    K = 3 with distances per chain and at K = 8) and on the edge inputs
    HMM_EDGES (alpha = 0, a zero proportion, dense chromosome breaks, exact
    ties): non-finite values equal, the rest within ops/hmm.py hmm_bound,
-   forward and backward (segmented scans) in segments of hmm.SEGMENT sites
-   and again, on the edge inputs and HMM_SHAPES[1:], of HMM_SMALL_SEGMENT,
-   each equal to ops/hmm.py hmm_scan_segmented_ref bit for bit, and every
-   step where a Viterbi path leaves the plain version's a near tie
-   (check_hmm); the first shape also timed.  Then the quickstart's
-   steps 4-5 (examples/quickstart.py) at full width, with the HMM launch
-   counts set to 0 just before and held to POPGEN_LAUNCHES just after (an
-   HMM count, and the `launches` of its entry in the kernels line, counts
-   entry calls: a forward or backward call is three kernel launches, a
-   Viterbi call one):
+   each entry (segmented scans) in segments of hmm.SEGMENT sites and
+   again, on the edge inputs and HMM_SHAPES[1:], of HMM_SMALL_SEGMENT,
+   equal bit for bit to ops/hmm.py hmm_scan_segmented_ref (forward,
+   backward) or hmm_viterbi_segmented_ref (Viterbi's path and best
+   score), and every step where a Viterbi path leaves the plain version's
+   a near tie (check_hmm); the first shape also timed.  Then the
+   quickstart's steps 4-5 (examples/quickstart.py) at full width, with
+   the HMM launch counts set to 0 just before and held to POPGEN_LAUNCHES
+   just after (an HMM count, and the `launches` of its entry in the
+   kernels line, counts entry calls: a forward or backward call is three
+   kernel launches, a Viterbi call five):
    log-GLs of N_IND individuals x POPGEN_SITES sites ((a)'s seeded array
    four times over, as (e) reads it),
    read_pos_dist of a POS file of POPGEN_CHROMS chromosomes,
@@ -183,8 +184,8 @@ Phases, each of which fails the run loudly:
    [1024, 262,144, 2] float64, forward, backward, posterior_decode and
    viterbi through the kernel in float64 and again in float32 (on
    POPGEN_CHECK_CHAINS chains over every site: forward's, backward's and
-   viterbi's outputs held to the plain version as above (forward and
-   backward also to hmm_scan_segmented_ref), the plain site loop
+   viterbi's outputs held to the plain version and to the segmented
+   order in plain PyTorch as above, the plain site loop
    replayed from CUDA graphs, ops/hmm.py segment_runner; forward and
    backward logliks within their bounds of each other, the posterior
    normalised, paths in range, the float32 messages within hmm_bound of
@@ -199,8 +200,8 @@ Phases, each of which fails the run loudly:
    from this run's data, over the peak rate of their type) and, indep,
    the PyTorch calls that compute the same function; the EM and K1d
    times beside those of the kernels before their redesigns
-   (EM_MS_BEFORE, INDEP_F64_MS_BEFORE), the HMM's forward and backward
-   at full width beside theirs (HMM_MS_BEFORE); and
+   (EM_MS_BEFORE, INDEP_F64_MS_BEFORE), the HMM's three scans at full
+   width beside theirs (HMM_MS_BEFORE); and
    the kernel held there against the float64 plain version on the same
    inputs; the float64 entries (K1d, K2d, their tile lists and block
    modes) on the same values in float64, beside their bounds (K1d's
@@ -2688,16 +2689,17 @@ HMM_KINDS = ("forward", "backward", "viterbi")
 HMM_SHAPES = ((N_IND, 8192, 2, False), (64, 2048, 3, True), (64, 2048, 8, False))
 HMM_EDGES = ("alpha0", "zero_q", "breaks", "ties")
 HMM_EDGE_SHAPE = (40, 300)            # chains, sites of each edge case, at K = 2 and 3
-# Sites a segment of the forward and backward kernels in the second call
-# of each edge case and of HMM_SHAPES[1:] (ops/hmm.py _chains_cuda's
-# `segment`; the wrapper's own, hmm.SEGMENT, leaves one or two segments
-# there): every few dozen sites a segment edge, off the kernel's load steps.
+# Sites a segment of the kernel in the second call of each edge case and
+# of HMM_SHAPES[1:] (ops/hmm.py _chains_cuda's `segment`; the wrapper's
+# own, hmm.SEGMENT, leaves one or two segments there): every few dozen
+# sites a segment edge, off the kernel's load steps.
 HMM_SMALL_SEGMENT = 37
-# Forward and backward at full width (N_IND x POPGEN_SITES x 2, one call
-# each in the popgen path) before their redesign as segmented scans (one
+# The three scans at full width (N_IND x POPGEN_SITES x 2, one call each
+# in the popgen path) before their redesign as segmented scans (one
 # thread a chain), NVIDIA H100 80GB HBM3 at 700.00 W.
 HMM_MS_BEFORE = {"hmm_forward_f64": 357.908, "hmm_backward_f64": 441.240,
-                 "hmm_forward": 113.110, "hmm_backward": 108.722}
+                 "hmm_forward": 113.110, "hmm_backward": 108.722,
+                 "hmm_viterbi_f64": 288.328, "hmm_viterbi": 104.897}
 HMM_REPLACES = {"forward": "ngsdist_tpu/popgen/hmm.py:73",
                 "backward": "ngsdist_tpu/popgen/hmm.py:92",
                 "viterbi": "ngsdist_tpu/popgen/hmm.py:130"}
@@ -2717,8 +2719,8 @@ POPGEN_SCIPY_LANES = (0, 1, 511, 1023)
 POPGEN_CHECK_CHAINS = 64              # chains whose messages are held to their bounds
 POPGEN_SEGMENT = 1024                 # sites a CUDA graph of the plain loop walks
 # The popgen path's entry calls (a forward or backward call is three kernel
-# launches, a Viterbi call one): posterior_decode runs forward and backward
-# once more; the chains run in float64, then in float32.
+# launches, a Viterbi call five): posterior_decode runs forward and
+# backward once more; the chains run in float64, then in float32.
 POPGEN_LAUNCHES = {name: (1 if "viterbi" in name else 2) for name in HMM_KERNELS}
 
 
@@ -2772,22 +2774,22 @@ def same_values(torch, a, b) -> bool:
 def check_hmm(torch, hmm, kind: str, args, got, plain=None, run=None, segment=None,
               bounds=None):
     """One call's outputs against the plain version on the same inputs,
-    within ops/hmm.py hmm_bound (PERF.md section 2).  Forward and backward:
-    the kernel's segmented order, segments of `segment` sites (the
-    wrapper's hmm.SEGMENT by default), so within hmm_bound(..., segment)
-    of the sequential plain version and equal to hmm_scan_segmented_ref,
-    the same order in plain PyTorch, bit for bit.  Viterbi: the best
-    score within its bound, and at every step where the kernel's path leaves
-    the plain version's back pointer (or its final arg max) the two
-    candidates' plain scores within twice the bound: a flip between two
-    near-tied paths.  run: how the plain version walks the sites
-    (ops/hmm.py eager, the default, or segment_runner).  bounds: a dict
-    that gets the largest bound on a message ("message") and on a loglik
-    or best score ("last").  Returns (largest |error|, flips)."""
+    within ops/hmm.py hmm_bound (PERF.md section 2).  The kernel's
+    segmented order, segments of `segment` sites (the wrapper's
+    hmm.SEGMENT by default), so within hmm_bound(..., segment) of the
+    sequential plain version and equal to the same order in plain PyTorch
+    bit for bit: forward and backward hmm_scan_segmented_ref's messages and
+    logliks, Viterbi hmm_viterbi_segmented_ref's path and best score.
+    Viterbi against the sequential plain version: the best score within
+    its bound, and every flip a near tie (viterbi_flips).  run: how the
+    plain version walks the sites (ops/hmm.py eager, the default, or
+    segment_runner).  bounds: a dict that gets the largest bound on a
+    message ("message") and on a loglik or best score ("last").  Returns
+    (largest |error|, flips)."""
     what = f"hmm {kind} {got[0].dtype} {tuple(args[2].shape)}"
     run = run or hmm.eager
+    L = segment or hmm.SEGMENT
     if kind != "viterbi":
-        L = segment or hmm.SEGMENT
         X, ll = plain or (hmm.hmm_forward_ref if kind == "forward"
                           else hmm.hmm_backward_ref)(*args, run=run)
         per, last = hmm.hmm_bound(kind, *args, X, L=L)
@@ -2801,13 +2803,29 @@ def check_hmm(torch, hmm, kind: str, args, got, plain=None, run=None, segment=No
                                  f"(segments of {L} sites)")
         return err, 0
     path, best, V, backs = hmm.hmm_viterbi_ref(*args, full=True, run=run)
-    per, last = hmm.hmm_bound(kind, *args, V)
+    per, last = hmm.hmm_bound(kind, *args, V, L=L)
     if bounds is not None:
         bounds.update(message=float(per.max()), last=float(last.max()))
     err = held(torch, what + " best", got[1], best, last)
-    pk = got[0].long()
+    model = hmm.hmm_viterbi_segmented_ref(*args, L)
+    if not (torch.equal(got[0], model[0]) and same_values(torch, got[1], model[1])):
+        raise AssertionError(f"{what}: not the path and best score of ops/hmm.py "
+                             f"hmm_viterbi_segmented_ref (segments of {L} sites)")
+    return err, viterbi_flips(torch, hmm, what, args, got[0], path, V, backs, per)
+
+
+def viterbi_flips(torch, hmm, what: str, args, got_path, path, V, backs, per) -> int:
+    """Where a Viterbi path got_path [B, S] leaves the plain version's
+    choices (path, scores V and back pointers of hmm_viterbi_ref(...,
+    full=True) on the same inputs args), each step must be a flip between
+    near-tied candidates: at a site s whose back pointer at got_path's
+    state differs from got_path's state at s - 1 (or at the final arg max),
+    the two candidates' plain scores within twice the per-message bound
+    per [B, S] (hmm_bound).  Raises where none explains it; returns the
+    flips."""
+    pk = got_path.long()
     if torch.equal(pk, path.long()):
-        return err, 0
+        return 0
     B, S, K = V.shape
     logT = hmm.transition_matrices(args[0], args[1], args[3])
     lk, lp = pk[:, -1:], path[:, -1:].long()
@@ -2823,7 +2841,7 @@ def check_hmm(torch, hmm, kind: str, args, got, plain=None, run=None, segment=No
     if bool((final & ~near).any()) or bool((moved & ~near_s).any()):
         raise AssertionError(f"{what}: the path leaves the plain version's where no near tie "
                              "explains it")
-    return err, int(final.sum()) + int(moved.sum())
+    return int(final.sum()) + int(moved.sum())
 
 
 def hmm_bound_ms(kind: str, B: int, S: int, K: int, itemsize: int, per_chain_d: bool):
@@ -2858,9 +2876,9 @@ def phase_hmm_kernels(torch, hmm, card) -> dict:
     """The six entries (forward, backward, viterbi; float32 and float64)
     through the public wrappers against the plain version on the same
     inputs, at HMM_SHAPES and on HMM_EDGES (module docstring, phase
-    popgen), each within hmm_bound (check_hmm); forward and backward again
-    in segments of HMM_SMALL_SEGMENT sites on the edge inputs and
-    HMM_SHAPES[1:]; at the first shape also timed (kernel by CUDA events
+    popgen), each within hmm_bound (check_hmm); each again in segments of
+    HMM_SMALL_SEGMENT sites on the edge inputs and HMM_SHAPES[1:]; at the
+    first shape also timed (kernel by CUDA events
     over 5 calls after a warm-up, the plain version once by the host
     clock).  Returns {entry: {"err", "flips", "ms", "plain_ms",
     "bound"}}."""
@@ -2892,20 +2910,22 @@ def phase_hmm_kernels(torch, hmm, card) -> dict:
                     out[name]["err_main"], out[name]["hmm_bound"] = err, bounds
                 out[name]["err"] = max(out[name]["err"], err)
                 out[name]["flips"] += flips
-                if kind != "viterbi" and not main_shape:
+                if not main_shape:
                     got = hmm._chains_cuda(kind, *args, segment=HMM_SMALL_SEGMENT)
                     torch.cuda.synchronize()
-                    err, _ = check_hmm(torch, hmm, kind, args, got, segment=HMM_SMALL_SEGMENT)
+                    err, flips = check_hmm(torch, hmm, kind, args, got,
+                                           segment=HMM_SMALL_SEGMENT)
                     out[name]["err"] = max(out[name]["err"], err)
+                    out[name]["flips"] += flips
             del args
     torch.cuda.empty_cache()
     log(f"phase popgen: the HMM kernel's six entries against the plain version on the card "
         f"within hmm_bound (PERF.md section 2) at {len(HMM_SHAPES)} shapes (chains x sites x "
         f"states: {', '.join(f'{B} x {S} x {K}' for B, S, K, _ in HMM_SHAPES)}) and "
         f"{len(HMM_EDGES)} edge inputs ({', '.join(HMM_EDGES)}; {HMM_EDGE_SHAPE[0]} x "
-        f"{HMM_EDGE_SHAPE[1]} at K = 2, 3), forward and backward in segments of "
-        f"{hmm.SEGMENT} sites and, on the edge inputs and the last two shapes, of "
-        f"{HMM_SMALL_SEGMENT}, each equal to hmm_scan_segmented_ref, in "
+        f"{HMM_EDGE_SHAPE[1]} at K = 2, 3), each entry in segments of {hmm.SEGMENT} sites "
+        f"and, on the edge inputs and the last two shapes, of {HMM_SMALL_SEGMENT}, equal to "
+        f"hmm_scan_segmented_ref or hmm_viterbi_segmented_ref, in "
         f"{time.perf_counter() - t0:.1f} s; largest "
         "|error| and Viterbi flips: " + ", ".join(
             f"{k} {v['err']:.3e} ({v['flips']} flips)" for k, v in out.items()))
@@ -3029,7 +3049,7 @@ def check_popgen_chains(torch, hmm, tag: str, args, res, kept, full) -> None:
     Python per site), the forward and backward logliks equal within their
     two bounds (the same quantity by two recursions), the posterior
     normalised within both messages' bounds, the Viterbi path in range and
-    its score below the loglik; the float32 chains within hmm_bound (in
+    its score below the loglik (within both bounds); the float32 chains within hmm_bound (in
     float32) of the float64 ones.  full gets {kernel name: (largest
     |error|, Viterbi flips)} against the plain version."""
     q, alpha, e, d = args
@@ -3045,11 +3065,13 @@ def check_popgen_chains(torch, hmm, tag: str, args, res, kept, full) -> None:
     sub = (q.expand(c, K), torch.full((c,), alpha, dtype=e.dtype, device=e.device), e[:c], d)
     t0 = time.perf_counter()
     run = hmm.segment_runner(POPGEN_SEGMENT)
+    last_v = 0.0
     for kind, got in (("forward", (Fw[:c], ll[:c])), ("backward", (Bw[:c], llb[:c])),
                       ("viterbi", (path[:c], score[:c]))):
         bounds = {}
         name = f"hmm_{kind}{'' if tag else '_f64'}"
         full[name] = check_hmm(torch, hmm, kind, sub, got, run=run, bounds=bounds)
+        last_v = bounds["last"]
         kept[f"{name} hmm_bound on {c} chains x {S} sites"] = (
             f"message {bounds['message']:.3e}, last {bounds['last']:.3e}, observed "
             f"{full[name][0]:.3e}")
@@ -3068,7 +3090,8 @@ def check_popgen_chains(torch, hmm, tag: str, args, res, kept, full) -> None:
     if not bool((norm <= (per_f + per_b + last_f[:, None]) * 2).all()):
         raise AssertionError(f"popgen chains{tag}: the posterior does not normalise "
                              f"({float(norm.max()):.3e})")
-    if not (bool(((path >= 0) & (path < K)).all()) and bool((score[:c] <= ll[:c] + last_f).all())):
+    if not (bool(((path >= 0) & (path < K)).all())
+            and bool((score[:c] <= ll[:c] + last_f + last_v).all())):
         raise AssertionError(f"popgen chains{tag}: a Viterbi path out of range or above the "
                              "loglik")
     kept[f"forward/backward loglik gap{tag}"] = f"{float(gap.max()):.3e}"

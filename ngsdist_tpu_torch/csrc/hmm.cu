@@ -17,10 +17,11 @@
 //   backward: b_{S-1} = 0;  b_{s-1}[k] = lse_l(log T_s[k][l] + (e_s[l] + b_s[l]))
 //             for s = S-1 .. 1; the loglik from the virtual start row,
 //             lse_k(log q[k] + lse_l(log T_0[k][l] + (e_0[l] + b_0[l]))).
-//   viterbi:  v = log q;  v_s[l] = max_k(v_{s-1}[k] + log T_s[k][l]) + e_s[l],
-//             the arg max (the first maximal k; a NaN counts as maximal,
-//             as jnp.argmax) into a [S, B, K] uint8 scratch; then the
-//             traceback from the arg max of v_{S-1} through sites S-1 .. 1.
+//   viterbi:  v = log q;  v_s[l] = max_k(v_{s-1}[k] + log T_s[k][l]) + e_s[l]
+//             and its arg max (the first maximal k; a NaN counts as
+//             maximal, as jnp.argmax), the back pointer of (s, l); the best
+//             score max(v_{S-1}), the path from its arg max back through the
+//             pointers of sites S-1 .. 1.
 // lse is jax.scipy.special.logsumexp's arithmetic: m = max (NaN-propagating),
 // m := 0 where it is not finite (all -inf gives -inf), the exponentials of
 // a_k - m added in k order, log of the sum plus m.
@@ -28,65 +29,79 @@
 // Rounding.  Every add, subtract and multiply goes through the _rn
 // intrinsics, so nvcc contracts none of them into an FMA: each is rounded
 // once, and exp and log are the CUDA math library's, which PyTorch's own
-// exp and log call on the card.  Viterbi walks the sites in the plain
-// version's order and equals it bit for bit.  Forward and backward
-// reassociate the recursion (below); ops/hmm.py hmm_scan_segmented_ref is
-// their order in plain PyTorch, which they equal bit for bit, and
-// hmm_bound(..., L) the derived bound that holds them to the sequential
-// plain version (PERF.md section 2).
+// exp and log call on the card.  All three reassociate the recursion
+// (below): ops/hmm.py hmm_scan_segmented_ref (forward, backward) and
+// hmm_viterbi_segmented_ref are their order in plain PyTorch, which they
+// equal bit for bit, and hmm_bound(..., L) the derived bound that holds
+// them to the sequential plain version (PERF.md section 2).
 //
-// Forward and backward: site segments composed in the log semiring.  A
-// step is linear in the exponentials of the messages, so the steps over
-// a segment of sites compose into a K x K transfer matrix in the log
-// semiring (log-sum-exp for the sum, + for the product).  A chain's S
-// sites split into G = ceil(S / L) segments of L sites; L is the wrapper's
-// constant (ops/hmm.py SEGMENT; smaller only in tests, to cross segment
-// edges at small S), never a function of B, so a chain's bits do not
-// depend on the batch it came in.  Three launches on the caller's stream:
+// Site segments.  A step is linear in the exponentials of the messages
+// (forward, backward) or in max-plus (Viterbi: max for the sum, + for the
+// product), so the steps over a segment of sites compose into a K x K
+// transfer matrix in that semiring.  A chain's S sites split into G =
+// ceil(S / L) segments of L sites; L is the wrapper's constant
+// (ops/hmm.py SEGMENT; smaller only in tests, to cross segment edges at
+// small S), never a function of B, so a chain's bits do not depend on the
+// batch it came in.  Launches on the caller's stream:
 //   1. transfers (hmm_transfer_kernel): per (chain, segment), the steps
 //      over the segment from each of the K unit log-vectors (0 at k, -inf
 //      elsewhere), one lane a vector, the Kp (K rounded up to a power of 2)
 //      lanes of a segment sharing each site's transition row through
-//      shuffles; forward's first segment walks from log q instead, backward's
-//      last from 0, and gives the scan its first start vector.  Forward's
-//      last segment and backward's first need no matrix.
+//      shuffles; the first segment (backward: the last) walks from log q
+//      (backward: 0) instead and gives the scan its first start vector.
+//      The last segment (backward: the first) needs no matrix.
 //   2. starts (hmm_starts_kernel): per chain, each segment's start vector
-//      from the previous one and a transfer matrix (K^2 log-sum-exps a
-//      segment), in segment order.
-//   3. messages (hmm_messages_kernel): per (chain, segment), the steps
-//      over the segment from its start vector, the messages written; the
-//      logliks as the sequential walk forms them.
+//      from the previous one and a transfer matrix (K^2 log-sum-exps, or
+//      maxes, a segment), in segment order.
+//   3. messages: per (chain, segment), the steps over the segment from its
+//      start vector.  Forward and backward (hmm_messages_kernel) write the
+//      messages and the logliks as the sequential walk forms them.
+//      Viterbi (hmm_backpointers_kernel) writes the back pointers, and
+//      carries for each state j the state at the previous segment's last
+//      site that the best path to j comes from (K registers, updated with
+//      each arg max): the segment's map; the last segment gives the best
+//      score and the final state.
+//   Viterbi then has two more:
+//   4. stitch (hmm_stitch_kernel): per chain, in reverse segment order,
+//      the state at the end of segment g - 1 is segment g's map of the
+//      state at the end of segment g.
+//   5. traceback (hmm_traceback_kernel): per (chain, segment), the path
+//      over the segment from its end state through its back pointers (the
+//      first site's pointer, into the previous segment or the virtual
+//      start row, is not followed: the map or nothing gives that state).
 // With G = 1 step 3 is the sequential walk, and with G = 2 its second
-// start is the sequential walk's own message, so below 2 L sites both stay
+// start is the sequential walk's own message, so below 2 L sites all stay
 // bit for bit the plain version's.  At 1024 chains x 262,144 sites, L =
-// 1024: 262,144 (chain, segment) threads in step 3, Kp times that many
-// lanes in step 1, where the sequential walk had 1024 threads on 32 SMs.
+// 1024: 262,144 (chain, segment) threads in steps 3 and 5, Kp times that
+// many lanes in step 1, where a sequential walk has 1024 threads.
 //
-// Loads and stores.  A warp's lanes walk 32 segments (step 3) or 32 / Kp
-// (step 1) in lock step.  The next U sites of each (their emissions and
-// distances) are copied by all the warp's lanes together, with cp.async,
-// into a double buffer in shared memory while the current U sites are
-// computed: each copy instruction reads four segments' adjacent values,
-// and the slots' odd strides let each lane read its own segment's
-// without bank conflicts.  Step 3 writes each message over the emissions
-// it came from, and the warp stores the group's messages as it loaded
-// them.
+// Loads and stores.  A warp's lanes walk 32 segments (steps 3, 5) or
+// 32 / Kp (step 1) in lock step.  The next U sites of each (their
+// emissions and distances) are copied by all the warp's lanes together,
+// with cp.async, into a double buffer in shared memory while the current
+// U sites are computed: each copy instruction reads four segments'
+// adjacent values, and the slots' odd strides let each lane read its own
+// segment's without bank conflicts.  Forward's and backward's step 3
+// writes each message over the emissions it came from, and the warp
+// stores the group's messages as it loaded them.  Viterbi's back pointers
+// are a site's K arg maxes in one word (a nibble each: 1, 2 or 4 bytes
+// for K <= 2, 4, 8), laid out [L][B G] (step i of every segment side by
+// side), so a warp's lanes store and load adjacent words; the traceback
+// stages U path entries of each lane's segment in shared memory and the
+// warp stores them as rows of adjacent sites.
 //
 // What bounds it.  By bytes, forward at 1024 chains x 262,144 sites x
 // K = 2 in float64 reads e (4.29 GB) and writes the messages (4.29 GB):
-// 2.56 ms at 3.35e12 B/s (this design reads e twice).  By operations, the
-// exps and logs: at K = 2 a step-1 lane's 9 a site (its share of the
+// 2.56 ms at 3.35e12 B/s (this design reads e twice); Viterbi reads e
+// and writes the int32 path (1.07 GB): 1.60 ms (it reads e twice and
+// writes and reads 0.27 GB of back pointers).  By operations, the exps
+// and logs: at K = 2 a forward step-1 lane's 9 a site (its share of the
 // transition row, 1 exp and 2 logs, and its vector's 2 log-sum-exps) and
 // step 3's 11, 29 a (chain, site), on the FP64 pipe in float64, which
-// binds (more warps a SM do not help).  Tensor cores do not apply: the
-// step is a log-sum-exp, not a sum of products, and nothing of the log
-// semiring maps onto an MMA.
-//
-// Viterbi (hmm_viterbi_kernel): one thread per chain, one warp a block,
-// walking the sites in order; the transition (no dependence on the
-// scores) and the loads of the next U sites (issued together, a register
-// array) overlap the step's dependent chain.  Max-plus segments with its
-// flips rule are its site-parallel redesign (ROADMAP).
+// binds (more warps a SM do not help); Viterbi's step-1 lane 3 and step
+// 3's 5 (the row's 1 exp and 2K logs; max-plus has none of its own).
+// Tensor cores do not apply: the step is a log-sum-exp or a max of sums,
+// and neither semiring maps onto an MMA.
 //
 // Layout.  e and the messages are chain-major [B, S, K] and the path
 // [B, S], the JAX layout, so nothing is copied on the way in or out.  A
@@ -98,14 +113,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 32;       // Viterbi: one warp a block
-constexpr int kScanThreads = 128;  // forward and backward: four warps a block
+constexpr int kScanThreads = 128;  // four warps a block
 constexpr int kWarps = kScanThreads / 32;
 constexpr int kMaxStates = 8;
+constexpr int kTraceSites = 32;    // path entries a traceback lane stages: a row of 128 bytes
+
+enum Kind { kForward, kBackward, kViterbi };
 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
@@ -117,12 +136,6 @@ __device__ __forceinline__ float exp_(float x) { return expf(x); }
 __device__ __forceinline__ double exp_(double x) { return exp(x); }
 __device__ __forceinline__ float log_(float x) { return logf(x); }
 __device__ __forceinline__ double log_(double x) { return log(x); }
-
-// Sites whose loads a Viterbi thread issues together.
-template <int K>
-struct Ahead {
-  static constexpr int U = K <= 2 ? 8 : (K <= 4 ? 4 : 2);
-};
 
 // One site's log transition row: log T[k][l] = k == l ? dg[l] : off[l],
 // with JAX's products: T = (1 - stay) * q[l] + stay * eye[k][l].
@@ -164,7 +177,7 @@ __device__ __forceinline__ T chain_start(const T* q, const T* alpha, int b, T (&
   return -alpha[b];
 }
 
-// ---- forward and backward: segments composed in the log semiring ----
+// ---- the segmented scans ----
 
 // K rounded up to a power of two: the lanes of one segment in step 1.
 template <int K>
@@ -246,10 +259,73 @@ __device__ __forceinline__ void backward_step(T (&b)[K], const T (&off)[K], cons
   }
 }
 
-// A start vector composed with a segment's transfer matrix m[run][comp],
-// v[j] := lse_i(v[i] + m[i][j]): forward runs start at the segment's
-// first site (i the state before it), backward runs at its top row.
+// max_k a[k] as argmax_first takes it: the first maximal value, a NaN
+// maximal (the first NaN).
 template <typename T, int K>
+__device__ __forceinline__ T max_first(const T (&a)[K]) {
+  T top = a[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k)
+    if (top == top && (a[k] > top || a[k] != a[k])) top = a[k];
+  return top;
+}
+
+// One Viterbi step: v[l] := max_k(v[k] + log T[k][l]) + e[l], the max as
+// max_first takes it.  kPtr: also each l's arg max k, returned as nibble l
+// of a word, and org[l] := org[that k] (the state a segment's path to l
+// started from).
+template <typename T, int K, bool kPtr>
+__device__ __forceinline__ unsigned viterbi_step(T (&v)[K], const T (&off)[K], const T (&dg)[K],
+                                                 const T (&es)[K], int (&org)[K]) {
+  T nv[K];
+  int no[K];
+  unsigned word = 0;
+#pragma unroll
+  for (int l = 0; l < K; ++l) {
+    T top = add_rn(v[0], 0 == l ? dg[l] : off[l]);
+    int arg = 0, o = org[0];
+#pragma unroll
+    for (int k = 1; k < K; ++k) {
+      const T sc = add_rn(v[k], k == l ? dg[l] : off[l]);
+      if (top == top && (sc > top || sc != sc)) {
+        top = sc;
+        arg = k;
+        o = org[k];
+      }
+    }
+    nv[l] = add_rn(top, es[l]);
+    word |= (unsigned)arg << (4 * l);
+    no[l] = o;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    v[k] = nv[k];
+    if (kPtr) org[k] = no[k];
+  }
+  return word;
+}
+
+// The step of a scan of kind kKind on one lane's vector, as walk() calls it.
+template <typename T, int K, int kKind>
+struct ScanStep {
+  __device__ __forceinline__ void operator()(T (&v)[K], const T (&off)[K], const T (&dg)[K],
+                                             const T (&es)[K], int) const {
+    if constexpr (kKind == kForward) {
+      forward_step<T, K>(v, off, dg, es);
+    } else if constexpr (kKind == kBackward) {
+      backward_step<T, K>(v, off, dg, es);
+    } else {
+      int org[K] = {};
+      viterbi_step<T, K, false>(v, off, dg, es, org);
+    }
+  }
+};
+
+// A start vector composed with a segment's transfer matrix m[run][comp],
+// v[j] := lse_i(v[i] + m[i][j]) (Viterbi: max_first): forward and Viterbi
+// runs start at the segment's first site (i the state before it),
+// backward runs at its top row.
+template <typename T, int K, int kKind>
 __device__ __forceinline__ void compose(T (&v)[K], const T* m) {
   T nv[K];
 #pragma unroll
@@ -257,7 +333,7 @@ __device__ __forceinline__ void compose(T (&v)[K], const T* m) {
     T a[K];
 #pragma unroll
     for (int i = 0; i < K; ++i) a[i] = add_rn(v[i], m[i * K + j]);
-    nv[j] = lse<T, K>(a);
+    nv[j] = kKind == kViterbi ? max_first<T, K>(a) : lse<T, K>(a);
   }
 #pragma unroll
   for (int k = 0; k < K; ++k) v[k] = nv[k];
@@ -285,13 +361,13 @@ __device__ __forceinline__ void transition_shared(T q_own, T nalpha, T d, unsign
 
 // The walk of a warp's segments in lock step over their sites, U at a
 // time through the staged double buffer: the lane's own segment is
-// tab[c], its message v; each step's transition row from the lane's own
-// q (kShared: one state's, shuffled); kStore: the messages after each
-// step written to the segment's out.
-template <typename T, int K, bool kFwd, int CH, bool kShared, bool kStore>
+// tab[c], its message v, step(v, off, dg, es, i) its step i; each step's
+// transition row from the lane's own q (kShared: one state's, shuffled);
+// kStore: the messages after each step written to the segment's out.
+template <typename T, int K, bool kFwd, int CH, bool kShared, bool kStore, typename Step>
 __device__ __forceinline__ void walk(const SegRef<T>* tab, T* ebuf, T* dbuf, int c,
                                      const T (&qb)[K], T q_own, T nalpha, unsigned mask,
-                                     T (&v)[K]) {
+                                     T (&v)[K], Step step) {
   using Gr = Group<K>;
   constexpr int U = Gr::U, kSlot = Gr::kSlot, ES = Gr::kEStride, DS = Gr::kDStride;
   constexpr long long dir = kFwd ? 1 : -1;
@@ -337,10 +413,7 @@ __device__ __forceinline__ void walk(const SegRef<T>* tab, T* ebuf, T* dbuf, int
           transition_shared<T, K>(q_own, nalpha, drec[u], mask, off, dg);
         else
           transition<T, K>(qb, nalpha, drec[u], off, dg);
-        if constexpr (kFwd)
-          forward_step<T, K>(v, off, dg, es);
-        else
-          backward_step<T, K>(v, off, dg, es);
+        step(v, off, dg, es, j * U + u);
         if constexpr (kStore) {
 #pragma unroll
           for (int k = 0; k < K; ++k) rec[u * K + k] = v[k];
@@ -375,16 +448,18 @@ __device__ __forceinline__ void segment_of(long long g, long long G, long long L
 }
 
 // Step 1.  Lane r of the Kp lanes of (chain b, segment g) walks the unit
-// vector of state min(r, K-1) (forward g = 0: log q; backward g = G-1:
-// 0) and writes row r of the segment's transfer matrix (or the start
-// vector it gives).  Forward takes segments 0 .. G-2, backward 1 .. G-1.
-template <typename T, int K, bool kFwd>
+// vector of state min(r, K-1) (forward and Viterbi g = 0: log q; backward
+// g = G-1: 0) and writes row r of the segment's transfer matrix (or the
+// start vector it gives).  Forward and Viterbi take segments 0 .. G-2,
+// backward 1 .. G-1.
+template <typename T, int K, int kKind>
 __global__ void __launch_bounds__(kScanThreads)
     hmm_transfer_kernel(const T* __restrict__ q, const T* __restrict__ alpha,
                         const T* __restrict__ e, const T* __restrict__ d, long long d_sb,
                         T* __restrict__ mats, T* __restrict__ starts, int B, long long S,
                         long long G, long long L) {
   constexpr int Kp = Lanes<K>::Kp, CH = 32 / Kp;
+  constexpr bool kFwd = kKind != kBackward;
   __shared__ T ebuf[kWarps][2 * CH * Group<K>::kEStride];
   __shared__ T dbuf[kWarps][2 * CH * Group<K>::kDStride];
   __shared__ SegRef<T> tab[kWarps][CH];
@@ -412,7 +487,7 @@ __global__ void __launch_bounds__(kScanThreads)
   }
   const unsigned mask = Kp == 32 ? 0xffffffffu : ((1u << Kp) - 1u) << (lane - r);
   walk<T, K, kFwd, CH, true, false>(tab[warp], ebuf[warp], dbuf[warp], c, qb, q_own, na, mask,
-                                    v);
+                                    v, ScanStep<T, K, kKind>{});
   if (!live || r >= K) return;
   T* out = vec ? (r == 0 ? starts + ((long long)b * G + (kFwd ? 1 : G - 2)) * K : nullptr)
                : mats + (((long long)b * G + g) * K + r) * K;
@@ -422,12 +497,13 @@ __global__ void __launch_bounds__(kScanThreads)
   }
 }
 
-// Step 2.  One thread a chain: forward starts[g+1] from starts[g] and
-// segment g's matrix for g = 1 .. G-2; backward starts[g-1] from
-// starts[g] for g = G-2 .. 1 (backward starts[g] is row (g+1)L).
-template <typename T, int K, bool kFwd>
+// Step 2.  One thread a chain: forward and Viterbi starts[g+1] from
+// starts[g] and segment g's matrix for g = 1 .. G-2; backward starts[g-1]
+// from starts[g] for g = G-2 .. 1 (backward starts[g] is row (g+1)L).
+template <typename T, int K, int kKind>
 __global__ void __launch_bounds__(kScanThreads)
     hmm_starts_kernel(const T* __restrict__ mats, T* __restrict__ starts, int B, long long G) {
+  constexpr bool kFwd = kKind != kBackward;
   const int b = blockIdx.x * kScanThreads + threadIdx.x;
   if (b >= B) return;
   const T* mb = mats + (long long)b * G * K * K;
@@ -438,7 +514,7 @@ __global__ void __launch_bounds__(kScanThreads)
   for (int k = 0; k < K; ++k) v[k] = sb[g0 * K + k];
   for (long long i = 1; i <= G - 2; ++i) {
     const long long g = kFwd ? i : G - 1 - i;
-    compose<T, K>(v, mb + g * K * K);
+    compose<T, K, kKind>(v, mb + g * K * K);
     const long long to = kFwd ? g + 1 : g - 1;
 #pragma unroll
     for (int k = 0; k < K; ++k) sb[to * K + k] = v[k];
@@ -482,7 +558,7 @@ __global__ void __launch_bounds__(kScanThreads)
     for (int k = 0; k < K; ++k) ob[(S - 1) * K + k] = T(0);
   }
   walk<T, K, kFwd, 32, false, true>(tab[warp], ebuf[warp], dbuf[warp], lane, qb, qb[0], na, 0u,
-                                    v);
+                                    v, ScanStep<T, K, kFwd ? kForward : kBackward>{});
   if (!live) return;
   if (kFwd) {
     if (g == G - 1) ll[b] = lse<T, K>(v);
@@ -505,57 +581,61 @@ __global__ void __launch_bounds__(kScanThreads)
   ll[b] = lse<T, K>(st);
 }
 
+// Viterbi's back pointers of one site: its K arg maxes, a nibble each.
+template <int K>
+struct Ptrs {
+  using W = typename std::conditional<K <= 2, uint8_t,
+                                      typename std::conditional<K <= 4, uint16_t,
+                                                                uint32_t>::type>::type;
+};
+
+// Viterbi's step 3.  One thread a (chain b, segment g): the steps over
+// the segment from its start vector (g = 0: log q), the back pointers of
+// its step i written to backs[i][b G + g]; then the segment's map (the
+// state at the previous segment's last site that the best path to each
+// state comes from) to maps[b][g], and the last segment's best score and
+// final state (max_first's value and the first index that gives it).
 template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
-    hmm_viterbi_kernel(const T* __restrict__ q, const T* __restrict__ alpha,
-                       const T* __restrict__ e, const T* __restrict__ d, long long d_sb,
-                       uint8_t* __restrict__ backs, int* __restrict__ path,
-                       T* __restrict__ best, int B, long long S) {
-  constexpr int U = Ahead<K>::U;
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
-  T qb[K], v[K];
-  const T na = chain_start<T, K>(q, alpha, b, qb, v);
-  const T* eb = e + (long long)b * S * K;
-  const T* db = d + (long long)b * d_sb;
-  // backs[s][b][l]: the warp's chains side by side
-  uint8_t* bb = backs + (long long)b * K;
-  const long long b_ss = (long long)B * K;
-  for (long long s0 = 0; s0 < S; s0 += U) {
-    T es[U][K], ds[U];
+__global__ void __launch_bounds__(kScanThreads)
+    hmm_backpointers_kernel(const T* __restrict__ q, const T* __restrict__ alpha,
+                            const T* __restrict__ e, const T* __restrict__ d, long long d_sb,
+                            const T* __restrict__ starts, typename Ptrs<K>::W* __restrict__ backs,
+                            uint8_t* __restrict__ maps, uint8_t* __restrict__ ends,
+                            T* __restrict__ best, int B, long long S, long long G, long long L) {
+  using W = typename Ptrs<K>::W;
+  __shared__ T ebuf[kWarps][2 * 32 * Group<K>::kEStride];
+  __shared__ T dbuf[kWarps][2 * 32 * Group<K>::kDStride];
+  __shared__ SegRef<T> tab[kWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long seg = (long long)blockIdx.x * kScanThreads + threadIdx.x;
+  const bool live = seg < (long long)B * G;
+  const int b = live ? (int)(seg / G) : 0;
+  const long long g = live ? seg % G : 0;
+  long long first;
+  int n;
+  segment_of<true>(g, G, L, S, &first, &n);
+  tab[warp][lane] = SegRef<T>{e + ((long long)b * S + first) * K, d + (long long)b * d_sb + first,
+                              nullptr, live ? n : 0};
+  __syncwarp();
+  T qb[K], lq[K], v[K];
+  int org[K];
+  const T na = chain_start<T, K>(q, alpha, b, qb, lq);
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (s0 + u < S) {
-        ds[u] = db[s0 + u];
-#pragma unroll
-        for (int k = 0; k < K; ++k) es[u][k] = eb[(s0 + u) * K + k];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (s0 + u < S) {
-        T off[K], dg[K], nv[K];
-        transition<T, K>(qb, na, ds[u], off, dg);
-#pragma unroll
-        for (int l = 0; l < K; ++l) {
-          T top = add_rn(v[0], 0 == l ? dg[l] : off[l]);
-          int arg = 0;
-#pragma unroll
-          for (int k = 1; k < K; ++k) {
-            const T sc = add_rn(v[k], k == l ? dg[l] : off[l]);
-            if (top == top && (sc > top || sc != sc)) {
-              top = sc;
-              arg = k;
-            }
-          }
-          nv[l] = add_rn(top, es[u][l]);
-          bb[(s0 + u) * b_ss + l] = (uint8_t)arg;
-        }
-#pragma unroll
-        for (int k = 0; k < K; ++k) v[k] = nv[k];
-      }
-    }
+  for (int k = 0; k < K; ++k) {
+    v[k] = g == 0 ? lq[k] : starts[((long long)b * G + g) * K + k];
+    org[k] = k;
   }
+  W* bp = backs + seg;
+  const long long stride = (long long)B * G;
+  walk<T, K, true, 32, false, false>(
+      tab[warp], ebuf[warp], dbuf[warp], lane, qb, qb[0], na, 0u, v,
+      [&](T (&x)[K], const T (&off)[K], const T (&dg)[K], const T (&es)[K], int i) {
+        bp[i * stride] = (W)viterbi_step<T, K, true>(x, off, dg, es, org);
+      });
+  if (!live) return;
+#pragma unroll
+  for (int k = 0; k < K; ++k) maps[seg * K + k] = (uint8_t)org[k];
+  if (g != G - 1) return;
   T top = v[0];
   int state = 0;
 #pragma unroll
@@ -566,33 +646,85 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   best[b] = top;
-  // traceback through sites S-1 .. 1; each site's K pointers are loaded
-  // U sites ahead (their addresses do not depend on the state)
-  int* pb = path + (long long)b * S;
-  pb[S - 1] = state;
-  for (long long s1 = S - 1; s1 >= 1; s1 -= U) {
-    uint8_t row[U][K];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (s1 - u >= 1) {
-#pragma unroll
-        for (int k = 0; k < K; ++k) row[u][k] = bb[(s1 - u) * b_ss + k];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (s1 - u >= 1) {
-        int next = row[u][0];
-#pragma unroll
-        for (int k = 1; k < K; ++k) next = state == k ? row[u][k] : next;
-        state = next;
-        pb[s1 - u - 1] = state;
-      }
-    }
+  ends[seg] = (uint8_t)state;
+}
+
+// Viterbi's step 4.  One thread a chain: ends[b][g-1] := maps[b][g]
+// [ends[b][g]] for g = G-1 .. 1.
+__global__ void __launch_bounds__(kScanThreads)
+    hmm_stitch_kernel(const uint8_t* __restrict__ maps, uint8_t* __restrict__ ends, int B,
+                      long long G, int K) {
+  const int b = blockIdx.x * kScanThreads + threadIdx.x;
+  if (b >= B) return;
+  const uint8_t* mb = maps + (long long)b * G * K;
+  uint8_t* eb = ends + (long long)b * G;
+  int state = eb[G - 1];
+  for (long long g = G - 1; g >= 1; --g) {
+    state = mb[g * K + state];
+    eb[g - 1] = (uint8_t)state;
   }
 }
 
-inline unsigned grid_of(int B) { return (unsigned)((B + kThreads - 1) / kThreads); }
+// A segment's path in the traceback: its first entry and its sites.
+struct PathRef {
+  int* out;
+  int n;
+};
+
+// Viterbi's step 5.  One thread a (chain b, segment g): from the state at
+// the segment's last site (ends[b][g]) down its sites, each site's state
+// written and its back pointer followed (not the first site's), U sites
+// at a time: the lane loads the U sites' pointer words together (their
+// addresses do not depend on the state), stages the U states in shared
+// memory, and the warp stores each segment's U adjacent entries.
+template <int K>
+__global__ void __launch_bounds__(kScanThreads)
+    hmm_traceback_kernel(const typename Ptrs<K>::W* __restrict__ backs,
+                         const uint8_t* __restrict__ ends, int* __restrict__ path, int B,
+                         long long S, long long G, long long L) {
+  using W = typename Ptrs<K>::W;
+  constexpr int U = kTraceSites, PS = U + 1;
+  __shared__ int pbuf[kWarps][32 * PS];
+  __shared__ PathRef tab[kWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long seg = (long long)blockIdx.x * kScanThreads + threadIdx.x;
+  const bool live = seg < (long long)B * G;
+  const int b = live ? (int)(seg / G) : 0;
+  const long long g = live ? seg % G : 0;
+  long long first;
+  int n;
+  segment_of<true>(g, G, L, S, &first, &n);
+  if (!live) n = 0;
+  tab[warp][lane] = PathRef{path + (long long)b * S + first, n};
+  __syncwarp();
+  const int n_max = (int)__reduce_max_sync(0xffffffffu, (unsigned)n);
+  const W* bp = backs + (live ? seg : 0);
+  const long long stride = (long long)B * G;
+  int state = live ? ends[seg] : 0;
+  int* pb = pbuf[warp];
+  for (int j = (n_max + U - 1) / U - 1; j >= 0; --j) {
+    W w[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = j * U + u;
+      w[u] = (i >= 1 && i < n) ? bp[i * stride] : W(0);
+    }
+#pragma unroll
+    for (int u = U - 1; u >= 0; --u) {
+      if (j * U + u < n) {
+        pb[lane * PS + u] = state;
+        state = (int)(((unsigned)w[u] >> (4 * state)) & 0xFu);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < U; ++t) {
+      const int cc = t * (32 / U) + lane / U, uu = lane % U, i = j * U + uu;
+      if (i < tab[warp][cc].n) tab[warp][cc].out[i] = pb[cc * PS + uu];
+    }
+    __syncwarp();
+  }
+}
 
 inline unsigned blocks_of(long long threads) {
   return (unsigned)((threads + kScanThreads - 1) / kScanThreads);
@@ -603,27 +735,51 @@ inline unsigned blocks_of(long long threads) {
 template <typename T, int K, bool kFwd>
 int launch_scan(const T* q, const T* alpha, const T* e, const T* d, long long d_sb, T* out,
                 T* ll, T* scratch, int B, long long S, long long L, void* stream) {
+  constexpr int kKind = kFwd ? kForward : kBackward;
   const cudaStream_t st = (cudaStream_t)stream;
   const long long G = (S + L - 1) / L;
   T* mats = scratch;
   T* starts = scratch + (long long)B * G * K * K;
   if (G >= 2) {
-    hmm_transfer_kernel<T, K, kFwd><<<blocks_of((long long)B * (G - 1) * Lanes<K>::Kp),
-                                      kScanThreads, 0, st>>>(q, alpha, e, d, d_sb, mats, starts,
-                                                             B, S, G, L);
+    hmm_transfer_kernel<T, K, kKind><<<blocks_of((long long)B * (G - 1) * Lanes<K>::Kp),
+                                       kScanThreads, 0, st>>>(q, alpha, e, d, d_sb, mats, starts,
+                                                              B, S, G, L);
     if (G >= 3)
-      hmm_starts_kernel<T, K, kFwd><<<blocks_of(B), kScanThreads, 0, st>>>(mats, starts, B, G);
+      hmm_starts_kernel<T, K, kKind><<<blocks_of(B), kScanThreads, 0, st>>>(mats, starts, B, G);
   }
   hmm_messages_kernel<T, K, kFwd><<<blocks_of((long long)B * G), kScanThreads, 0, st>>>(
       q, alpha, e, d, d_sb, starts, out, ll, B, S, G, L);
   return (int)cudaGetLastError();
 }
 
+// Viterbi's five launches (the header's steps 1-5; 1 and 4 need two
+// segments, 2 three); scratch as launch_scan's, backs the pointer words
+// [L][B G], then the maps [B, G, K] and the end states [B, G] (uint8).
 template <typename T, int K>
 int launch_viterbi(const T* q, const T* alpha, const T* e, const T* d, long long d_sb,
-                   uint8_t* backs, int* path, T* best, int B, long long S, void* stream) {
-  hmm_viterbi_kernel<T, K><<<grid_of(B), kThreads, 0, (cudaStream_t)stream>>>(
-      q, alpha, e, d, d_sb, backs, path, best, B, S);
+                   uint8_t* backs, int* path, T* best, T* scratch, int B, long long S,
+                   long long L, void* stream) {
+  using W = typename Ptrs<K>::W;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long G = (S + L - 1) / L;
+  T* mats = scratch;
+  T* starts = scratch + (long long)B * G * K * K;
+  W* bp = reinterpret_cast<W*>(backs);
+  uint8_t* maps = backs + L * B * G * (long long)sizeof(W);
+  uint8_t* ends = maps + (long long)B * G * K;
+  if (G >= 2) {
+    hmm_transfer_kernel<T, K, kViterbi><<<blocks_of((long long)B * (G - 1) * Lanes<K>::Kp),
+                                          kScanThreads, 0, st>>>(q, alpha, e, d, d_sb, mats,
+                                                                 starts, B, S, G, L);
+    if (G >= 3)
+      hmm_starts_kernel<T, K, kViterbi><<<blocks_of(B), kScanThreads, 0, st>>>(mats, starts, B,
+                                                                              G);
+  }
+  hmm_backpointers_kernel<T, K><<<blocks_of((long long)B * G), kScanThreads, 0, st>>>(
+      q, alpha, e, d, d_sb, starts, bp, maps, ends, best, B, S, G, L);
+  if (G >= 2) hmm_stitch_kernel<<<blocks_of(B), kScanThreads, 0, st>>>(maps, ends, B, G, K);
+  hmm_traceback_kernel<K><<<blocks_of((long long)B * G), kScanThreads, 0, st>>>(bp, ends, path,
+                                                                                 B, S, G, L);
   return (int)cudaGetLastError();
 }
 
@@ -654,13 +810,16 @@ int scan_entry(bool fwd, const T* q, const T* alpha, const T* e, const T* d, lon
 
 template <typename T>
 int viterbi_entry(const T* q, const T* alpha, const T* e, const T* d, long long d_sb,
-                  uint8_t* backs, int* path, T* best, int B, long long S, int K,
-                  void* stream) {
-  if (bad_shape(B, S, K) || !q || !alpha || !e || !d || !backs || !path || !best)
+                  uint8_t* backs, int* path, T* best, T* scratch, int B, long long S, int K,
+                  long long L, void* stream) {
+  if (bad_shape(B, S, K) || L < 1 || !q || !alpha || !e || !d || !backs || !path || !best ||
+      !scratch)
     return (int)cudaErrorInvalidValue;
-#define NGSD_HMM_VITERBI(KK)                                                                \
-  case KK:                                                                                  \
-    return launch_viterbi<T, KK>(q, alpha, e, d, d_sb, backs, path, best, B, S, stream);
+  L = L < S ? L : S;
+#define NGSD_HMM_VITERBI(KK)                                                                 \
+  case KK:                                                                                   \
+    return launch_viterbi<T, KK>(q, alpha, e, d, d_sb, backs, path, best, scratch, B, S, L, \
+                                 stream);
   switch (K) {
     NGSD_HMM_VITERBI(1) NGSD_HMM_VITERBI(2) NGSD_HMM_VITERBI(3) NGSD_HMM_VITERBI(4)
     NGSD_HMM_VITERBI(5) NGSD_HMM_VITERBI(6) NGSD_HMM_VITERBI(7) NGSD_HMM_VITERBI(8)
@@ -673,10 +832,11 @@ int viterbi_entry(const T* q, const T* alpha, const T* e, const T* d, long long 
 
 // Chain-major: e and out [B, S, K], path [B, S] int32, all contiguous;
 // q [B, K] and alpha [B] contiguous; d[b * d_sb + s] (d_sb = 0: one
-// distance vector for every chain, else S); forward and backward take a
-// scratch of B G K (K + 1) elements, G = ceil(S / L), and the segment
-// length L (the header); backs a [S, B, K] uint8 scratch.  Returns a CUDA
-// error code (0: launched).
+// distance vector for every chain, else S); each entry takes a scratch of
+// B G K (K + 1) elements, G = ceil(S / L), and the segment length L (the
+// header); Viterbi also backs, a uint8 scratch of L' B G P + B G (K + 1)
+// bytes, L' = min(L, S), P = 1, 2 or 4 for K <= 2, 4 or 8 (its back
+// pointers, maps and end states).  Returns a CUDA error code (0: launched).
 #define NGSD_HMM_ENTRIES(T, SUFFIX)                                                          \
   extern "C" int ngsd_hmm_forward_##SUFFIX(const T* q, const T* alpha, const T* e,           \
                                            const T* d, long long d_sb, T* out, T* ll,         \
@@ -692,9 +852,10 @@ int viterbi_entry(const T* q, const T* alpha, const T* e, const T* d, long long 
   }                                                                                           \
   extern "C" int ngsd_hmm_viterbi_##SUFFIX(const T* q, const T* alpha, const T* e,           \
                                            const T* d, long long d_sb, uint8_t* backs,        \
-                                           int* path, T* best, int B, long long S, int K,     \
-                                           void* stream) {                                    \
-    return viterbi_entry<T>(q, alpha, e, d, d_sb, backs, path, best, B, S, K, stream);       \
+                                           int* path, T* best, T* scratch, int B, long long S, \
+                                           int K, long long L, void* stream) {                \
+    return viterbi_entry<T>(q, alpha, e, d, d_sb, backs, path, best, scratch, B, S, K, L,    \
+                            stream);                                                          \
   }
 
 NGSD_HMM_ENTRIES(float, f32)

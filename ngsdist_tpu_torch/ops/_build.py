@@ -81,12 +81,13 @@ def _configure(lib: ctypes.CDLL) -> None:
             fn = getattr(lib, f"ngsd_{name}_{t}")
             fn.argtypes, fn.restype = args, i32
         # csrc/hmm.cu: q, alpha, e, d and its chain stride, the outputs
-        # (forward, backward: messages, logliks, scratch; Viterbi:
-        # back-pointer scratch, path, best), B, S, K, (forward, backward:
-        # the segment length), the stream
+        # (forward, backward: messages, logliks; Viterbi: back-pointer
+        # scratch, path, best), the scratch, B, S, K, the segment length,
+        # the stream
         scan = [vp, vp, vp, vp, i64, vp, vp, vp, i32, i64, i32, i64, vp]
         for name, args in (("hmm_forward", scan), ("hmm_backward", scan),
-                           ("hmm_viterbi", [vp, vp, vp, vp, i64, vp, vp, vp, i32, i64, i32, vp])):
+                           ("hmm_viterbi", [vp, vp, vp, vp, i64, vp, vp, vp, vp, i32, i64, i32,
+                                            i64, vp])):
             fn = getattr(lib, f"ngsd_{name}_{t}")
             fn.argtypes, fn.restype = args, i32
     lib.ngsd_error_string.argtypes = [i32]

@@ -14,17 +14,20 @@ on the card.  The kernel (csrc/hmm.cu has the design and what bounds it)
 takes K = 1..8; a CUDA tensor with more states raises.  It reads e and
 writes the messages chain-major, the layout they come in, with no copy.
 
-Forward and backward on the card are a site-segmented scan: each chain's
-sites split into segments of SEGMENT sites, whose K x K transfer matrices
-(the steps from each unit log-vector) compose in the log semiring into
-each segment's start vector, from which the segment's messages are walked.
-That reassociates the recursion; `hmm_scan_segmented_ref` is the kernel's
-order in plain PyTorch (each add, subtract and multiply a rounded tensor
-operation of its own, as in the kernel), which the kernel equals bit for
-bit on the card, and `hmm_bound(..., L)` holds it to the sequential plain
-version.  Up to 2 SEGMENT sites the two orders are the same.  Tensor
-cores do not apply: the step is a log-sum-exp, not a sum of products.
-Viterbi walks the sites in order, one thread a chain.
+All three scans on the card are site-segmented: each chain's sites split
+into segments of SEGMENT sites, whose K x K transfer matrices (the steps
+from each unit log-vector) compose in the log semiring (Viterbi: in
+max-plus) into each segment's start vector, from which the segment's
+messages (Viterbi: back pointers) are walked; Viterbi's traceback then
+runs over every segment at once from the segments' end states, stitched
+through each segment's map from its end state to its start state.  That
+reassociates the recursion; `hmm_scan_segmented_ref` and
+`hmm_viterbi_segmented_ref` are the kernel's order in plain PyTorch (each
+add, subtract and multiply a rounded tensor operation of its own, as in
+the kernel), which the kernel equals bit for bit on the card, and
+`hmm_bound(..., L)` holds them to the sequential plain version.  Up to 2
+SEGMENT sites the two orders are the same.  Tensor cores do not apply:
+the step is a log-sum-exp or a max of sums, not a sum of products.
 
 Both keep the JAX package's arithmetic: the transition rows as
 `transition_matrices` forms them, logsumexp as jax.scipy.special's
@@ -44,14 +47,15 @@ from . import _build
 from .indep import count_launch
 
 MAX_STATES = 8   # csrc/hmm.cu kMaxStates: K is a template argument 1..8
-# Sites a segment of the kernel's forward and backward scans: a constant,
-# never a function of the batch, so a chain's bits do not depend on the
-# chains beside it (the wrapper's `segment` is for tests alone).
+# Sites a segment of the kernel's scans: a constant, never a function of
+# the batch, so a chain's bits do not depend on the chains beside it (the
+# wrapper's `segment` is for tests alone).
 SEGMENT = 1024
 
 # Entry calls since the count was last set to 0: a forward or backward call
 # is three kernel launches (transfer matrices, start vectors, messages), a
-# Viterbi call one.
+# Viterbi call five (transfer matrices, start vectors, back pointers,
+# stitch, traceback); fewer below three segments.
 FORWARD_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 VITERBI_LAUNCHES = 0
@@ -178,6 +182,18 @@ def hmm_backward_ref(q, alpha, e, d, run=eager):
     return Bw, logsumexp(torch.log(q) + b_start, -1)
 
 
+def _traceback(v, backs, run=eager):
+    """(path [B, S] int32, best score [B]) from the scores v [B, K] after
+    the last site and the back pointers [B, S, K]."""
+    best, state = argmax_first(v, -1)
+    B, S, _ = backs.shape
+    path = torch.empty((B, S), dtype=torch.int32, device=backs.device)
+    path[:, S - 1] = state
+    # site s gives the state at s - 1, for s = S-1 .. 1
+    run(_traceback_sites, state, (backs[:, 1:],), (path[:, :-1],), True)
+    return path, best
+
+
 def hmm_viterbi_ref(q, alpha, e, d, full: bool = False, run=eager):
     """Plain version of the Viterbi scan and traceback: (path [B, S]
     int32, best score [B]); full: also the scores V [B, S, K] after each
@@ -187,11 +203,7 @@ def hmm_viterbi_ref(q, alpha, e, d, full: bool = False, run=eager):
     backs = torch.empty((B, S, K), dtype=torch.int64, device=e.device)
     V = torch.empty_like(e) if full else None
     v = run(_viterbi_sites, torch.log(q), (logT, e), (backs, V) if full else (backs,), False)
-    best, state = argmax_first(v, -1)
-    path = torch.empty((B, S), dtype=torch.int32, device=e.device)
-    path[:, S - 1] = state
-    # site s gives the state at s - 1, for s = S-1 .. 1
-    run(_traceback_sites, state, (backs[:, 1:],), (path[:, :-1],), True)
+    path, best = _traceback(v, backs, run)
     return (path, best, V, backs) if full else (path, best)
 
 
@@ -213,6 +225,54 @@ def _segments(S: int, L: int, fwd: bool, device):
     return G, site.clamp(0, S - 1), i < n
 
 
+def _walk(step, v, segs, site, act, logT, e, keep=False):
+    """v [B, n, K] (or [B, n, K runs, K]) stepped over segments segs [n]
+    (sites site[segs], steps act[segs]: _segments); step(v, log T, e)
+    returns the next v and what else a step gives.  keep: also each
+    step's outputs, stacked [B, n, L, ...]."""
+    runs = v.ndim == 4
+    kept = []
+    for i in range(site.shape[1]):
+        s, a = site[segs, i], act[segs, i]
+        lt, es = logT[:, s], e[:, s]
+        if runs:
+            lt, es = lt[:, :, None], es[:, :, None]
+        out = step(v, lt, es)
+        v = torch.where(a.view(1, -1, *[1] * (v.ndim - 2)), out[0], v)
+        if keep:
+            kept.append(out)
+    return (v, [torch.stack(x, 2) for x in zip(*kept)]) if keep else v
+
+
+def _starts(fwd: bool, step, compose, v0, logT, e, site, act):
+    """Steps 1 and 2 of a segmented scan: each segment's start vector
+    [B, G, K], the first (backward: the last) v0.
+      1. the steps over each segment but the last (backward: the first)
+         from each unit log-vector, the rows of its transfer matrix; the
+         first (backward: the last) from v0 instead;
+      2. the start vectors in segment order, each the previous one
+         composed with a transfer matrix: compose(v [B, K runs, K], 1)."""
+    B, _, K = e.shape
+    G = site.shape[0]
+    starts = torch.empty((B, G, K), dtype=e.dtype, device=e.device)
+    starts[:, 0 if fwd else G - 1] = v0
+    if G >= 2:
+        segs = torch.arange(G - 1, device=e.device) + (0 if fwd else 1)
+        unit = torch.full((K, K), -math.inf, dtype=e.dtype, device=e.device)
+        unit.fill_diagonal_(0.0)
+        v = unit.expand(B, G - 1, K, K).clone()
+        vec = 0 if fwd else G - 2
+        v[:, vec] = v0[:, None, :]
+        mats = _walk(step, v, segs, site, act, logT, e)
+        starts[:, 1 if fwd else G - 2] = mats[:, vec, 0]
+        order = range(1, G - 1) if fwd else range(G - 2, 0, -1)
+        for g in order:
+            # v[j] := compose_i(v[i] + m[i][j]), m [B, K runs, K]
+            m = mats[:, g] if fwd else mats[:, g - 1]
+            starts[:, g + 1 if fwd else g - 1] = compose(starts[:, g, :, None] + m, 1)
+    return starts
+
+
 def hmm_scan_segmented_ref(kind: str, q, alpha, e, d, L: int):
     """The kernel's forward or backward scan (csrc/hmm.cu, steps 1-3) in
     plain PyTorch, vectorised over (chain, segment): (messages [B, S, K],
@@ -226,54 +286,23 @@ def hmm_scan_segmented_ref(kind: str, q, alpha, e, d, L: int):
       3. the steps over each segment from its start vector.
     With at most two segments it is hmm_forward_ref / hmm_backward_ref."""
     fwd = kind == "forward"
-    B, S, K = e.shape
+    S = e.shape[1]
     L = min(L, S)
     G, site, act = _segments(S, L, fwd, e.device)
     logT = transition_matrices(q, alpha, d)
     lq = torch.log(q)
     if fwd:
         def step(v, lt, es):
-            return logsumexp(v[..., :, None] + lt, -2) + es
+            return (logsumexp(v[..., :, None] + lt, -2) + es,)
     else:
         def step(v, lt, es):
-            return logsumexp(lt + (es + v)[..., None, :], -1)
+            return (logsumexp(lt + (es + v)[..., None, :], -1),)
 
-    def walk(v, segs, keep=False):
-        """v [B, n, K] (or [B, n, K runs, K]) stepped over segments segs
-        [n]; keep: also the messages after each step, [B, n, L, K]."""
-        runs = v.ndim == 4
-        kept = []
-        for i in range(L):
-            s, a = site[segs, i], act[segs, i]
-            lt, es = logT[:, s], e[:, s]
-            if runs:
-                lt, es = lt[:, :, None], es[:, :, None]
-            v = torch.where(a.view(1, -1, *[1] * (v.ndim - 2)), step(v, lt, es), v)
-            if keep:
-                kept.append(v)
-        return (v, torch.stack(kept, 2)) if keep else v
-
-    # the start vector of each segment: forward's first log q, backward's last 0
-    starts = torch.empty((B, G, K), dtype=e.dtype, device=e.device)
-    starts[:, 0 if fwd else G - 1] = lq if fwd else 0.0
-    if G >= 2:
-        # step 1: segments 0 .. G-2 (forward) or 1 .. G-1 (backward)
-        segs = torch.arange(G - 1, device=e.device) + (0 if fwd else 1)
-        unit = torch.full((K, K), -math.inf, dtype=e.dtype, device=e.device)
-        unit.fill_diagonal_(0.0)
-        v = unit.expand(B, G - 1, K, K).clone()
-        vec = 0 if fwd else G - 2
-        v[:, vec] = (lq if fwd else torch.zeros_like(lq))[:, None, :]
-        mats = walk(v, segs)
-        # step 2
-        starts[:, 1 if fwd else G - 2] = mats[:, vec, 0]
-        order = range(1, G - 1) if fwd else range(G - 2, 0, -1)
-        for g in order:
-            # v[j] := lse_i(v[i] + m[i][j]), m [B, K runs, K]
-            m = mats[:, g] if fwd else mats[:, g - 1]
-            starts[:, g + 1 if fwd else g - 1] = logsumexp(starts[:, g, :, None] + m, 1)
+    starts = _starts(fwd, step, logsumexp, lq if fwd else torch.zeros_like(lq), logT, e, site,
+                     act)
     # step 3
-    _, out = walk(starts, torch.arange(G, device=e.device), keep=True)
+    _, (out,) = _walk(step, starts, torch.arange(G, device=e.device), site, act, logT, e,
+                      keep=True)
     msgs = torch.empty_like(e)
     if fwd:
         msgs[:, site[act]] = out[:, act]
@@ -282,6 +311,45 @@ def hmm_scan_segmented_ref(kind: str, q, alpha, e, d, L: int):
     msgs[:, site[act] - 1] = out[:, act]
     b_start = logsumexp(logT[:, 0] + (e[:, 0] + msgs[:, 0])[:, None, :], 2)
     return msgs, logsumexp(lq + b_start, -1)
+
+
+def hmm_viterbi_segmented_ref(q, alpha, e, d, L: int, full: bool = False):
+    """The kernel's Viterbi (csrc/hmm.cu, steps 1-5) in plain PyTorch,
+    vectorised over (chain, segment): (path [B, S] int32, best score [B]);
+    full: also the scores V [B, S, K] after each site and the back
+    pointers [B, S, K] (int64), as hmm_viterbi_ref gives them.  Segments of
+    L sites, forward's:
+      1. the max-plus steps over each segment but the last from each unit
+         log-vector, the rows of its transfer matrix (the first segment
+         from log q: the second's start vector);
+      2. the start vectors in segment order, a_{g+1}[j] = max_i(a_g[i] +
+         M_g[i][j]), the max as argmax_first takes it;
+      3. the steps over each segment from its start vector, with their
+         arg maxes, the back pointers; the best score and final state from
+         the last segment's scores.
+    The path is the sequential traceback over these back pointers, which
+    is the kernel's stitched one (steps 4-5) from the same pointers.  With
+    at most two segments it is hmm_viterbi_ref."""
+    B, S, K = e.shape
+    L = min(L, S)
+    G, site, act = _segments(S, L, True, e.device)
+    logT = transition_matrices(q, alpha, d)
+
+    def step(v, lt, es):
+        top, arg = argmax_first(v[..., :, None] + lt, -2)
+        return top + es, arg
+
+    starts = _starts(True, step, lambda a, dim: argmax_first(a, dim)[0], torch.log(q), logT, e,
+                     site, act)
+    # step 3
+    _, (out, args) = _walk(step, starts, torch.arange(G, device=e.device), site, act, logT, e,
+                           keep=True)
+    V = torch.empty_like(e)
+    V[:, site[act]] = out[:, act]
+    backs = torch.empty((B, S, K), dtype=torch.int64, device=e.device)
+    backs[:, site[act]] = args[:, act]
+    path, best = _traceback(V[:, -1], backs)
+    return (path, best, V, backs) if full else (path, best)
 
 
 def segment_runner(C: int, graph: bool = True):
@@ -339,9 +407,15 @@ def check_card(t: torch.Tensor) -> None:
         raise ValueError(f"expected a CUDA tensor, got one on {t.device}")
 
 
+def pointer_bytes(K: int) -> int:
+    """Bytes of a site's K Viterbi back pointers in the kernel's scratch,
+    a nibble each in a word of 1, 2 or 4 bytes (csrc/hmm.cu Ptrs)."""
+    return 1 if K <= 2 else (2 if K <= 4 else 4)
+
+
 def _chains_cuda(kind: str, q, alpha, e, d, segment: int = SEGMENT):
-    """One call of csrc/hmm.cu's `kind` entry on e's card (forward and
-    backward: three launches, segments of `segment` sites)."""
+    """One call of csrc/hmm.cu's `kind` entry on e's card (segments of
+    `segment` sites; forward and backward three launches, Viterbi five)."""
     check_card(e)
     if e.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"expected float32 or float64 emissions, got {e.dtype}")
@@ -356,24 +430,28 @@ def _chains_cuda(kind: str, q, alpha, e, d, segment: int = SEGMENT):
     if q.shape != (B, K) or alpha.shape != (B,) or d.shape not in ((S,), (B, S)):
         raise ValueError(f"q {tuple(q.shape)}, alpha {tuple(alpha.shape)}, d "
                          f"{tuple(d.shape)} do not fit emissions {tuple(e.shape)}")
+    if segment < 1:
+        raise ValueError(f"segments of {segment} sites")
     d_sb = 0 if d.ndim == 1 else S
     fn = _build.entry(f"hmm_{kind}", e)
     ptr, dev = _build.ptr, e.device
+    G = -(-S // segment)
+    # the transfer matrices [B, G, K, K], then the start vectors [B, G, K]
+    scratch = torch.empty((B * G * K * (K + 1),), dtype=e.dtype, device=dev)
     if kind == "viterbi":
-        backs = torch.empty((S, B, K), dtype=torch.uint8, device=dev)
+        # the back pointers [min(segment, S)][B G], then the maps [B, G, K]
+        # and the end states [B, G]
+        backs = torch.empty((min(segment, S) * B * G * pointer_bytes(K) + B * G * (K + 1),),
+                            dtype=torch.uint8, device=dev)
         path = torch.empty((B, S), dtype=torch.int32, device=dev)
         best = torch.empty((B,), dtype=e.dtype, device=dev)
         with torch.cuda.device(dev):
             rc = fn(ptr(q), ptr(alpha), ptr(e), ptr(d), d_sb, ptr(backs), ptr(path), ptr(best),
-                    B, S, K, _build.stream(dev))
+                    ptr(scratch), B, S, K, segment, _build.stream(dev))
         out = (path, best)
     else:
-        if segment < 1:
-            raise ValueError(f"segments of {segment} sites")
         msgs = torch.empty_like(e)
         ll = torch.empty((B,), dtype=e.dtype, device=dev)
-        # the transfer matrices [B, G, K, K], then the start vectors [B, G, K]
-        scratch = torch.empty((B * -(-S // segment) * K * (K + 1),), dtype=e.dtype, device=dev)
         with torch.cuda.device(dev):
             rc = fn(ptr(q), ptr(alpha), ptr(e), ptr(d), d_sb, ptr(msgs), ptr(ll), ptr(scratch),
                     B, S, K, segment, _build.stream(dev))
@@ -414,9 +492,9 @@ def hmm_bound(kind: str, q, alpha, e, d, X, L=None):
     """Bound on |kernel − plain| for one entry on the same inputs, from the
     plain version's messages X [B, S, K] (Fw, Bw, or Viterbi's scores V):
     (per message [B, S], per loglik or best score [B]), in float64.  L:
-    the forward or backward kernel's segment length (SEGMENT), whose
-    order hmm_scan_segmented_ref is; None: a kernel that walks the sites in
-    the plain version's order.
+    the kernel's segment length (SEGMENT), whose order
+    hmm_scan_segmented_ref and hmm_viterbi_segmented_ref are; None: a
+    kernel that walks the sites in the plain version's order.
 
     Each step of either recursion maps the previous messages through a
     1-Lipschitz function (log-sum-exp, or max) of them plus the log
@@ -460,7 +538,20 @@ def hmm_bound(kind: str, q, alpha, e, d, X, L=None):
     most L_s + E_s + log K to the largest finite magnitude (lse lies
     between its largest term and that plus log K), and those bounds are the
     runs' M in their eps.  Non-finite messages must be equal (checked
-    apart); a -inf entry of M̂_g is -inf in M_g as well."""
+    apart); a -inf entry of M̂_g is -inf in M_g as well.
+
+    Viterbi takes forward's branch, in max-plus.  Its step is max_k(v[k] +
+    log T[k][l]) + e[l]: max is 1-Lipschitz in the largest-entry norm as
+    log-sum-exp is, and its rounding is one add before the max and one
+    after, fewer than the tally's exps, logs and shifts.  The steps over a
+    segment compose exactly into its max-plus transfer matrix (max is
+    associative and + distributes over it), and c(a, M)[j] = max_i(a[i] +
+    M[i][j]) is 1-Lipschitz in a and in M; a run's magnitude grows by at
+    most L_s + E_s a step, so the log K of the runs' bound only loosens
+    it.  So every term above holds with max in place of lse: the scores'
+    per-message bound and the best score's.  A path is held apart: where
+    it leaves the plain version's, the two candidates' plain scores lie
+    within twice the per-message bound (chip_smoke.py viterbi_flips)."""
     u = 2.0 ** -53 if e.dtype == torch.float64 else 2.0 ** -24
     K = e.shape[-1]
     M = finite_abs(X).amax(-1)                                   # [B, S]

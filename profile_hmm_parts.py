@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""Where the time of the HMM's forward and backward scans
-(ngsdist_tpu_torch/csrc/hmm.cu) goes, on one NVIDIA card.
+"""Where the time of the HMM's scans (ngsdist_tpu_torch/csrc/hmm.cu) goes,
+on one NVIDIA card.
 
 Run from the root of a checkout:
 
-    python3 profile_hmm_parts.py [--segments 512,1024,2048] [--out FILE]
+    python3 profile_hmm_parts.py [--segments 512,1024,2048] [--root DIR] [--out FILE]
 
-Times forward and backward through ops/hmm.py _chains_cuda at the popgen
-path's shape in chip_smoke.py (N_IND = 1024 chains x POPGEN_SITES =
-262,144 sites x K = 2; log emissions and distances 1..199 seeded on the
-card, q = (0.9, 0.1) and alpha = 1e-4 for every chain), in float64 and
-float32: the call by CUDA events over 3 calls after a warm-up, and each
-of its three launches (transfer matrices, start vectors, messages) by
-torch.profiler over one call.  One line per type, scan and segment
-length (the wrapper's own is ops/hmm.py SEGMENT).
+Times forward, backward and viterbi through ops/hmm.py _chains_cuda at
+the popgen path's shape in chip_smoke.py (N_IND = 1024 chains x
+POPGEN_SITES = 262,144 sites x K = 2; log emissions and distances 1..199
+seeded on the card, q = (0.9, 0.1) and alpha = 1e-4 for every chain), in
+float64 and float32: the call by CUDA events over 3 calls after a
+warm-up, and each of its launches (forward and backward: transfer
+matrices, start vectors, messages; viterbi: transfer matrices, start
+vectors, back pointers, stitch, traceback) by torch.profiler over one
+call, every hmm_*_kernel the profiler names.  One line per type, scan
+and segment length (the wrapper's own is ops/hmm.py SEGMENT).
+
+--root DIR times the ngsdist_tpu_torch package of another checkout (for
+example the parent commit unpacked by `git archive`) on the same inputs,
+so that two versions are compared within one call, in turns.
 
 Prints the card's name and power limit first; --out also writes the
 lines to FILE.
@@ -27,7 +33,7 @@ import sys
 
 import chip_smoke
 
-STEPS = ("hmm_transfer_kernel", "hmm_starts_kernel", "hmm_messages_kernel")
+KINDS = ("forward", "backward", "viterbi")
 
 
 def inputs(torch, dt):
@@ -45,7 +51,7 @@ def parts(torch, hmm, say, segments) -> None:
     """Per call and per launch, for each segment length."""
     for dt in (torch.float64, torch.float32):
         q, a, e, d = inputs(torch, dt)
-        for kind in ("forward", "backward"):
+        for kind in KINDS:
             for seg in segments:
                 def call():
                     return hmm._chains_cuda(kind, q, a, e, d, segment=seg)
@@ -55,12 +61,13 @@ def parts(torch, hmm, say, segments) -> None:
                         activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
                     call()
                     torch.cuda.synchronize()
-                got = dict.fromkeys(STEPS, 0.0)
+                got = {}
                 for ev in prof.key_averages():
                     name = re.search(r"hmm_\w+?_kernel", ev.key)
-                    if name and name.group(0) in got:
+                    if name:
                         us = getattr(ev, "device_time_total", None)
-                        got[name.group(0)] += (ev.cuda_time_total if us is None else us) / 1e3
+                        got[name.group(0)] = got.get(name.group(0), 0.0) + (
+                            ev.cuda_time_total if us is None else us) / 1e3
                 say(f"{str(dt)[6:]} {kind}, {tuple(e.shape)}, segments of {seg}: {ms:.3f} ms a "
                     "call; launches " + ", ".join(f"{k} {v:.3f} ms" for k, v in got.items()))
         del e
@@ -72,12 +79,14 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--segments", default="1024", help="segment lengths, comma-separated")
+    ap.add_argument("--root", default=chip_smoke.ROOT,
+                    help="the checkout whose ngsdist_tpu_torch is timed (default: this one)")
     ap.add_argument("--out", default=None, help="also write the lines to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_hmm_parts: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, chip_smoke.ROOT)
+    sys.path.insert(0, args.root)
     from ngsdist_tpu_torch.ops import hmm
 
     lines = []
@@ -86,7 +95,7 @@ def main() -> int:
         print(msg, flush=True)
         lines.append(msg)
 
-    say(chip_smoke.card_line())
+    say(f"{chip_smoke.card_line()}; package {hmm.__file__}")
     parts(torch, hmm, say, [int(x) for x in args.segments.split(",")])
     if args.out:
         with open(args.out, "w") as fh:

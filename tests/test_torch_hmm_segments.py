@@ -1,15 +1,19 @@
-"""The HMM kernel's forward and backward order on the CPU: segments of
-sites composed in the log semiring (ops/hmm.py hmm_scan_segmented_ref,
-which the kernel equals bit for bit on the card) against the sequential
-plain versions (hmm_forward_ref, hmm_backward_ref) and the JAX package's
-scans.
+"""The HMM kernel's order on the CPU: segments of sites composed in the
+log semiring (forward, backward: ops/hmm.py hmm_scan_segmented_ref) or in
+max-plus (Viterbi: hmm_viterbi_segmented_ref), which the kernel equals bit
+for bit on the card, against the sequential plain versions
+(hmm_forward_ref, hmm_backward_ref, hmm_viterbi_ref) and the JAX
+package's scans.
 
 The tolerance is ops/hmm.py hmm_bound(..., L), derived in its docstring
 (PERF.md section 2): the sequential bound of each message's own segment
-plus the bound on its segment's start vector.  Non-finite values must be
-equal.  Up to two segments the segmented order is the sequential one, so
-there the bits are held equal.  The same seeded numpy inputs go through
-the JAX functions (x64, tests/conftest.py) and the port.
+plus the bound on its segment's start vector; Viterbi's scores and best
+score within it, and every step where its path leaves the plain
+version's a flip between candidates within twice the per-message bound
+(chip_smoke.py viterbi_flips).  Non-finite values must be equal.  Up to
+two segments the segmented order is the sequential one, so there the bits
+are held equal.  The same seeded numpy inputs go through the JAX
+functions (x64, tests/conftest.py) and the port.
 """
 
 import jax
@@ -17,10 +21,11 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from ngsdist_tpu import popgen as J
 from ngsdist_tpu_torch.ops import hmm as hops
 
-KINDS = ("forward", "backward")
+KINDS = ("forward", "backward", "viterbi")
 EDGES = ("alpha0", "zero_q", "breaks", "ties")
 VMAP = {(kind, d_axis): jax.jit(jax.vmap(getattr(J, kind), in_axes=(0, 0, 0, d_axis)))
         for kind in KINDS for d_axis in (None, 0)}
@@ -51,7 +56,23 @@ def _inputs(rng, B, S, K, shared_d, dtype, edge=None):
 
 
 def _plain(kind, args):
+    """The sequential plain version: (messages, loglik), or Viterbi's
+    (path, best, scores V, back pointers)."""
+    if kind == "viterbi":
+        return hops.hmm_viterbi_ref(*args, full=True)
     return (hops.hmm_forward_ref if kind == "forward" else hops.hmm_backward_ref)(*args)
+
+
+def _segmented(kind, args, L):
+    """The segmented order, its outputs as _plain's."""
+    if kind == "viterbi":
+        return hops.hmm_viterbi_segmented_ref(*args, L, full=True)
+    return hops.hmm_scan_segmented_ref(kind, *args, L)
+
+
+def _messages(kind, out):
+    """The messages of _plain's or _segmented's outputs (Viterbi: V)."""
+    return out[2] if kind == "viterbi" else out[0]
 
 
 def _same(a, b):
@@ -72,14 +93,18 @@ def _within(got, want, bound):
 
 def _hold(kind, args, L):
     """The segmented order against the sequential plain version within
-    hmm_bound(..., L); bit for bit up to two segments."""
-    got = hops.hmm_scan_segmented_ref(kind, *args, L)
+    hmm_bound(..., L), a Viterbi path's flips at near ties only; bit for
+    bit up to two segments."""
+    got = _segmented(kind, args, L)
     want = _plain(kind, args)
-    per, last = hops.hmm_bound(kind, *args, want[0], L=L)
-    _within(got[0], want[0], per[..., None])
+    per, last = hops.hmm_bound(kind, *args, _messages(kind, want), L=L)
+    _within(_messages(kind, got), _messages(kind, want), per[..., None])
     _within(got[1], want[1], last)
+    if kind == "viterbi":
+        chip_smoke.viterbi_flips(torch, hops, f"viterbi segments of {L}", args, got[0], want[0],
+                                 want[2], want[3], per)
     if -(-args[2].shape[1] // L) <= 2:
-        assert _same(got[0], want[0]) and _same(got[1], want[1])
+        assert len(got) == len(want) and all(_same(a, b) for a, b in zip(got, want))
     return got
 
 
@@ -113,11 +138,15 @@ def test_segments_keep_the_edge_inputs_non_finite_pattern(kind, dtype, edge, K):
     """alpha = 0 (NaN from the first inf distance on, in every later
     segment, through the start vectors), a zero proportion (-inf kept),
     dense breaks and exact ties, in segments of 7 over 60 sites: the
-    non-finite values the plain version's, the rest within the bound."""
+    non-finite values the plain version's, the rest within the bound;
+    Viterbi's ties path all the first state, as the plain version's."""
     args = _inputs(np.random.default_rng(7), 4, 60, K, K == 3, dtype, edge)
     got = _hold(kind, args, 7)
+    X = _messages(kind, got)
     if edge == "alpha0":
-        assert bool(torch.isnan(got[0]).any()) and not bool(torch.isnan(got[0]).all())
+        assert bool(torch.isnan(X).any()) and not bool(torch.isnan(X).all())
+    if edge == "ties" and kind == "viterbi":
+        assert bool((got[0] == 0).all())
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -125,16 +154,24 @@ def test_segments_keep_the_edge_inputs_non_finite_pattern(kind, dtype, edge, K):
 @pytest.mark.parametrize("L", [4, 11])
 @pytest.mark.parametrize("shared_d", [True, False], ids=["d_shared", "d_per_chain"])
 def test_segments_within_the_bound_of_jax(kind, K, L, shared_d):
-    """The segmented order against jax.vmap of the JAX package's forward
-    and backward (x64), within hmm_bound(..., L) of the plain version's
-    messages: the JAX scan is a sequential walk too."""
+    """The segmented order against jax.vmap of the JAX package's forward,
+    backward and viterbi (x64), within hmm_bound(..., L) of the plain
+    version's messages: the JAX scan is a sequential walk too.  Viterbi:
+    the best score within the bound of JAX's, and the path's flips from
+    JAX's path near ties under the plain version's scores."""
     args = _inputs(np.random.default_rng(200 + K), 4, 64, K, shared_d, torch.float64)
-    got = hops.hmm_scan_segmented_ref(kind, *args, L)
-    X, _ = _plain(kind, args)
+    got = _segmented(kind, args, L)
+    plain = _plain(kind, args)
     want = VMAP[kind, None if shared_d else 0](*(jax.numpy.asarray(a.numpy()) for a in args))
-    per, last = hops.hmm_bound(kind, *args, X, L=L)
-    _within(got[0], torch.from_numpy(np.array(want[0])), per[..., None])
-    _within(got[1], torch.from_numpy(np.array(want[1])), last)
+    want = [torch.from_numpy(np.array(w)) for w in want]
+    per, last = hops.hmm_bound(kind, *args, _messages(kind, plain), L=L)
+    if kind == "viterbi":
+        _within(got[1], want[1], last)
+        chip_smoke.viterbi_flips(torch, hops, "viterbi against JAX", args, got[0], want[0],
+                                 plain[2], plain[3], per)
+        return
+    _within(got[0], want[0], per[..., None])
+    _within(got[1], want[1], last)
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -144,20 +181,20 @@ def test_segments_are_batch_invariant(kind, dtype):
     batch's row bit for bit: the segments are a function of the sites
     alone."""
     args = _inputs(np.random.default_rng(300), 6, 50, 3, False, dtype)
-    got = hops.hmm_scan_segmented_ref(kind, *args, 6)
+    got = _segmented(kind, args, 6)
     perm = torch.tensor([4, 0, 5, 2, 1, 3])
-    shuffled = hops.hmm_scan_segmented_ref(kind, *(a[perm] for a in args), 6)
+    shuffled = _segmented(kind, [a[perm] for a in args], 6)
     for b in range(6):
-        one = hops.hmm_scan_segmented_ref(kind, *(a[b:b + 1] for a in args), 6)
-        assert _same(one[0][0], got[0][b]) and _same(one[1][0], got[1][b])
-    assert _same(shuffled[0], got[0][perm]) and _same(shuffled[1], got[1][perm])
+        one = _segmented(kind, [a[b:b + 1] for a in args], 6)
+        assert all(_same(x[0], y[b]) for x, y in zip(one, got))
+    assert all(_same(x, y[perm]) for x, y in zip(shuffled, got))
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_one_segment_bound_is_the_sequential_bound(kind):
     """hmm_bound with one segment (L >= S) is the sequential walk's bound."""
     args = _inputs(np.random.default_rng(400), 3, 40, 2, True, torch.float64)
-    X, _ = _plain(kind, args)
+    X = _messages(kind, _plain(kind, args))
     seq = hops.hmm_bound(kind, *args, X)
     for L in (40, 100):
         seg = hops.hmm_bound(kind, *args, X, L=L)
@@ -171,9 +208,9 @@ def test_segments_bound_grows_with_the_start_vectors(kind):
     below the sequential bound, and above it where a message's segment
     starts from a composed start vector (three segments or more)."""
     args = _inputs(np.random.default_rng(500), 2, 90, 2, True, torch.float32)
-    X, _ = _plain(kind, args)
+    X = _messages(kind, _plain(kind, args))
     seq, _ = hops.hmm_bound(kind, *args, X)
     seg, _ = hops.hmm_bound(kind, *args, X, L=10)
     assert bool((seg >= seq * (1 - 1e-12)).all())
-    composed = slice(20, None) if kind == "forward" else slice(0, 70)
+    composed = slice(0, 70) if kind == "backward" else slice(20, None)
     assert bool((seg[:, composed] > seq[:, composed]).all())

@@ -591,9 +591,9 @@ def _args(B, S, K, dtype, shared_d=True):
 def test_wrapper_launches_the_kernel_entry(kind, dtype, K, shared_d, monkeypatch):
     """A CUDA-device call hands e's own (chain-major) storage and the
     distances' chain stride (0 when shared) to the entry of its dtype, with
-    the arguments `_build._configure` declares for it (forward and
-    backward: a scratch and the segment length ops/hmm.py SEGMENT), counts
-    one launch of that entry, and never runs the plain version."""
+    the arguments `_build._configure` declares for it (each a scratch and
+    the segment length ops/hmm.py SEGMENT; Viterbi also its byte scratch),
+    counts one launch of that entry, and never runs the plain version."""
     B, S = 3, 5
     q, a, e, d = _args(B, S, K, dtype, shared_d)
     suffix = "_F64" if dtype == torch.float64 else ""
@@ -604,13 +604,10 @@ def test_wrapper_launches_the_kernel_entry(kind, dtype, K, shared_d, monkeypatch
     assert getattr(hops, counter) == before + 1
     (name, args), = lib.calls
     assert name == f"ngsd_hmm_{kind}_{'f64' if dtype == torch.float64 else 'f32'}"
-    assert len(args) == (12 if kind == "viterbi" else 13)
+    assert len(args) == (14 if kind == "viterbi" else 13)
     assert args[2].value == e.data_ptr()
     assert args[4] == (0 if shared_d else S)
-    if kind == "viterbi":
-        assert args[-4:-1] == (B, S, K)
-    else:
-        assert args[-5:-2] == (B, S, K) and args[-2] == hops.SEGMENT
+    assert args[-5:-2] == (B, S, K) and args[-2] == hops.SEGMENT
     if kind == "viterbi":
         path, best = got
         assert path.shape == (B, S) and path.dtype == torch.int32 and best.dtype == dtype
@@ -643,6 +640,38 @@ def test_wrapper_passes_the_segment_and_its_scratch(kind, segment, G, monkeypatc
     assert args[-2] == segment
     assert args[7].value == scratch[B * G * K * (K + 1)].data_ptr()
     assert scratch[B * G * K * (K + 1)].dtype == torch.float32
+
+
+@pytest.mark.parametrize("segment,K", [(4, 2), (3, 3), (9, 4), (100, 5), (1, 8), (2, 1)])
+def test_wrapper_passes_viterbi_its_segment_and_scratches(segment, K, monkeypatch):
+    """Viterbi takes the segment length, a scratch of B G K (K + 1)
+    elements of e's dtype (the transfer matrices, then the start vectors)
+    and a uint8 scratch of L' B G P + B G (K + 1) bytes (the back pointers
+    [L'][B G], a nibble a state in words of P = 1, 2 or 4 bytes for K <= 2,
+    4, 8; the maps; the end states), G = ceil(S / segment), L' =
+    min(segment, S); a segment below one site raises before any launch."""
+    B, S = 2, 9
+    G, Lp = -(-S // segment), min(segment, S)
+    P = 1 if K <= 2 else (2 if K <= 4 else 4)
+    assert hops.pointer_bytes(K) == P
+    q, a, e, d = _args(B, S, K, torch.float64)
+    seen, real_ptr = {}, _build.ptr
+
+    def ptr(x):
+        seen.setdefault(x.data_ptr(), x)
+        return real_ptr(x)
+
+    monkeypatch.setattr(_build, "ptr", ptr)
+    with _library(monkeypatch) as lib:
+        hops._chains_cuda("viterbi", q, a, e, d, segment=segment)
+        with pytest.raises(ValueError, match="segments of 0 sites"):
+            hops._chains_cuda("viterbi", q, a, e, d, segment=0)
+    (name, args), = lib.calls
+    assert name == "ngsd_hmm_viterbi_f64" and args[-2] == segment
+    backs, path, best, scratch = (seen[x.value] for x in args[5:9])
+    assert backs.dtype == torch.uint8 and backs.numel() == Lp * B * G * P + B * G * (K + 1)
+    assert scratch.dtype == torch.float64 and scratch.numel() == B * G * K * (K + 1)
+    assert path.shape == (B, S) and path.dtype == torch.int32 and best.shape == (B,)
 
 
 @pytest.mark.parametrize("kind", ["forward", "backward", "viterbi"])
