@@ -775,31 +775,36 @@ def iter_replicates(
         acc = _round_sums(pars, rep, round_ckpt, device, x64, chunk, rounds, step)
         return acc["raw"], acc.get("cnt")
 
-    def to_matrix(raw_v, cnt_v):
-        raw_m = _scatter_pairs(raw_v.cpu().double().numpy(), I, J, N)
-        cnt_m = (None if cnt_v is None
-                 else _scatter_pairs(cnt_v.cpu().double().numpy(), I, J, N))
-        return raw_m, cnt_m
+    def to_matrix(rep, raw_v, cnt_v, n_used):
+        """Replicate rep's corrected matrix from its pair vectors."""
+        with profiling.replicate(rep):
+            with profiling.host_span("fetch"):
+                raw = raw_v.cpu().double().numpy()
+                cnt = None if cnt_v is None else cnt_v.cpu().double().numpy()
+            with profiling.host_span("matrix"):
+                raw_m = _scatter_pairs(raw, I, J, N)
+                cnt_m = None if cnt is None else _scatter_pairs(cnt, I, J, N)
+                denom = cnt_m if pars.pairwise_del else float(n_used)
+                return _finalize(raw_m, denom, pars, on_stats)
 
     if start_rep == 0:
-        raw_m, cnt_m = to_matrix(*stats_stream())
-        denom = cnt_m if pars.pairwise_del else float(S)
-        yield _finalize(raw_m, denom, pars, on_stats)
+        with profiling.replicate(0):
+            full = stats_stream()
+        yield to_matrix(0, *full, S)
 
     reps = [r for r in range(pars.n_boot_rep) if r + 1 >= start_rep]
     if not reps:
         return
 
     if partials:
-        for raw_v, cnt_v in _resum_blocks(pars, P[:n_trunc], score, n_blocks, reps, It, Jt,
-                                          zero):
-            raw_m, cnt_m = to_matrix(raw_v, cnt_v)
-            denom = cnt_m if pars.pairwise_del else float(n_trunc)
-            yield _finalize(raw_m, denom, pars, on_stats)
+        for r, (raw_v, cnt_v) in zip(reps, _resum_blocks(pars, P[:n_trunc], score, n_blocks,
+                                                         reps, It, Jt, zero)):
+            yield to_matrix(r + 1, raw_v, cnt_v, n_trunc)
         return
 
     def dispatch(r):
-        return stats_stream(replicate_weights(maps[r], n_trunc), n_trunc, r + 1)
+        with profiling.replicate(r + 1):
+            return stats_stream(replicate_weights(maps[r], n_trunc), n_trunc, r + 1)
 
     # Resident runs launch replicate r+1 before fetching replicate r, so
     # the device computes the next replicate while the host corrects and
@@ -814,9 +819,7 @@ def iter_replicates(
                 pending = dispatch(reps[k + 1])
         else:
             raw_v, cnt_v = dispatch(r)
-        raw_m, cnt_m = to_matrix(raw_v, cnt_v)
-        denom = cnt_m if pars.pairwise_del else float(n_trunc)
-        yield _finalize(raw_m, denom, pars, on_stats)
+        yield to_matrix(r + 1, raw_v, cnt_v, n_trunc)
 
 
 def _resum_blocks(pars: Params, Ptrunc: torch.Tensor, score: torch.Tensor,
@@ -1034,9 +1037,15 @@ def _iter_replicates_extended(pars: Params, P_host, maps: List[np.ndarray],
             out.append(uniform * (one[I] + one[J] - both[I, J]))
         return np.stack(out)
 
-    def to_matrix(fetch: _Fetch, denom_sites: float, zero_sums) -> np.ndarray:
-        """The fetched sums corrected on the host, in float64."""
-        got = fetch.numpy()
+    def to_matrix(rep: int, fetch: _Fetch, denom_sites: float, zero_sums) -> np.ndarray:
+        """Replicate rep's fetched sums corrected on the host, in float64."""
+        with profiling.replicate(rep):
+            with profiling.host_span("fetch"):
+                got = fetch.numpy()
+            with profiling.host_span("matrix"):
+                return correct(got, denom_sites, zero_sums)
+
+    def correct(got: dict, denom_sites: float, zero_sums) -> np.ndarray:
         raws = got["raw"]
         if zero_sums is not None:
             raws = raws + zero_sums
@@ -1075,7 +1084,8 @@ def _iter_replicates_extended(pars: Params, P_host, maps: List[np.ndarray],
         w = site_weights(rep)
         wm = {cl: w * masks[cl] for cl in CLASSES}
         w_ok = w * masks["ok"]
-        stats, pi_c = all_stats(wm, w_ok, rep)
+        with profiling.replicate(rep):
+            stats, pi_c = all_stats(wm, w_ok, rep)
         out = {"raw": torch.stack([stats[cl][0].double() for cl in CLASSES])}
         if pars.pairwise_del:
             out["cnt"] = torch.stack([stats[cl][1].double() for cl in CLASSES])
@@ -1096,7 +1106,7 @@ def _iter_replicates_extended(pars: Params, P_host, maps: List[np.ndarray],
                 pending = dispatch(reps[k + 1])
         else:
             now = dispatch(rep)
-        yield to_matrix(*now)
+        yield to_matrix(rep, *now)
 
 
 def _round_sums(pars: Params, rep: int, round_ckpt: bool, device, x64: bool, layout, rounds,
@@ -1402,14 +1412,21 @@ def _iter_replicates_sharded(pars: Params, P_src, maps: List[np.ndarray], n_trun
     stats = pm.ShardStats(mesh, N, pars.score, pars.indep_geno, pars.pairwise_del, zero)
     reps = [r for r in range(n_reps) if r + 1 >= start_rep]
 
-    def matrix(raw_v, cnt_v, denom_sites, poison=None):
-        raw = raw_v.cpu().numpy()
-        if poison is not None and poison.any():
-            raw = np.where(poison[I] | poison[J], np.nan, raw)
-        raw_m = _scatter_pairs(raw, I, J, N)
-        cnt_m = None if cnt_v is None else _scatter_pairs(cnt_v.cpu().numpy(), I, J, N)
-        return _finalize(raw_m, cnt_m if pars.pairwise_del else float(denom_sites), pars,
-                         on_stats)
+    def matrix(rep, sums, denom_sites, poison=None):
+        """Replicate rep's corrected matrix; sums() queues its (raw, cnt or
+        None) pair vectors on the device."""
+        with profiling.replicate(rep):
+            raw_v, cnt_v = sums()
+            with profiling.host_span("fetch"):
+                raw = raw_v.cpu().numpy()
+                cnt = None if cnt_v is None else cnt_v.cpu().numpy()
+            with profiling.host_span("matrix"):
+                if poison is not None and poison.any():
+                    raw = np.where(poison[I] | poison[J], np.nan, raw)
+                raw_m = _scatter_pairs(raw, I, J, N)
+                cnt_m = None if cnt is None else _scatter_pairs(cnt, I, J, N)
+                return _finalize(raw_m, cnt_m if pars.pairwise_del else float(denom_sites),
+                                 pars, on_stats)
 
     def weights(r):
         w = np.zeros((S,), np.float64)
@@ -1437,9 +1454,9 @@ def _iter_replicates_sharded(pars: Params, P_src, maps: List[np.ndarray], n_trun
             return acc["raw"], acc.get("cnt")
 
         if start_rep == 0:
-            yield matrix(*stats_rounds(np.ones((S,), np.float64), 0), S)
+            yield matrix(0, lambda: stats_rounds(np.ones((S,), np.float64), 0), S)
         for r in reps:
-            yield matrix(*stats_rounds(weights(r), r + 1), n_trunc)
+            yield matrix(r + 1, lambda: stats_rounds(weights(r), r + 1), n_trunc)
         return
 
     data = stream.global_array()
@@ -1449,12 +1466,12 @@ def _iter_replicates_sharded(pars: Params, P_src, maps: List[np.ndarray], n_trun
     # block partials are 1-D-mesh only: a pairs axis takes the weighted route
     partials = n_reps > 0 and partial_bytes <= PARTIALS_BUDGET_BYTES and p == 1
     if start_rep == 0:
-        yield matrix(*stats(data), S)
+        yield matrix(0, lambda: stats(data), S)
     if not reps:
         return
     if not partials:
         for r in reps:
-            yield matrix(*stats(data, data.cols(weights(r))), n_trunc)
+            yield matrix(r + 1, lambda: stats(data, data.cols(weights(r))), n_trunc)
         return
     table = bt.block_index_table(pars.seed, n_reps, n_blocks)
     raw_r, cnt_r = pm.bootstrap_replicates(table, stats.blocks(data, bs), n_blocks, mesh)
@@ -1469,7 +1486,7 @@ def _iter_replicates_sharded(pars: Params, P_src, maps: List[np.ndarray], n_trun
     mult = bt.block_multiplicity(table, n_blocks)
     for r in reps:
         z = None if zb is None else zb[mult[r] > 0].any(0)
-        yield matrix(raw_r[r], None if cnt_r is None else cnt_r[r], n_trunc, z)
+        yield matrix(r + 1, lambda: (raw_r[r], None if cnt_r is None else cnt_r[r]), n_trunc, z)
 
 
 def _sharded_stream_partials(pars: Params, stream, stats, mesh, n_trunc: int, start_rep: int,
@@ -1513,9 +1530,10 @@ def _sharded_stream_partials(pars: Params, stream, stats, mesh, n_trunc: int, st
                 raw0 = raw0 + raw_t
                 if cnt0 is not None:
                     cnt0 = cnt0 + cnt_t
-        yield matrix(raw0, cnt0, S)
+        yield matrix(0, lambda: (raw0, cnt0), S)
     table = bt.block_index_table(pars.seed, n_reps, n_blocks)
     raw_r, cnt_r = resum(bt.block_multiplicity(table, n_blocks))
     for r in range(n_reps):
         if r + 1 >= start_rep:
-            yield matrix(raw_r[r], None if cnt_r is None else cnt_r[r], n_trunc)
+            yield matrix(r + 1, lambda: (raw_r[r], None if cnt_r is None else cnt_r[r]),
+                         n_trunc)

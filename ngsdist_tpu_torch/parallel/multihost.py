@@ -56,7 +56,7 @@ from ..core.preprocess import ZeroRows, find_zero_rows, preprocess
 from ..core.submodels import encode_alleles
 from ..io import readers, writers
 from ..utils import checkpoint as ckpt
-from ..utils import native, signals
+from ..utils import native, profiling, signals
 from ..utils.hostmem import (CodedProbs, coded_call_lut, coded_upload_enabled, pack23,
                               upload16_enabled, upload23_enabled)
 from . import mesh as pm
@@ -806,10 +806,11 @@ def _write_matrices(pars: Params, stream: SiteStream, mesh, alleles, resume: boo
                 pars, stream, maps, n_trunc, mesh.first, start_rep=n_done, round_ckpt=True,
                 alleles=alleles, mesh=mesh, x64=stream.x64), start=n_done):
             if is_writer:
-                writers.write_dist_matrix(out_fh, labels, m)
-                out_fh.flush()
+                with profiling.replicate(rep), profiling.host_span("write"):
+                    writers.write_dist_matrix(out_fh, labels, m)
+                    out_fh.flush()
+                    ckpt.save(pars.out, pars, rep + 1, engine=engine)
                 matrices.append(m)
-                ckpt.save(pars.out, pars, rep + 1, engine=engine)
             # one decision for all: a process that stopped alone would
             # leave the others waiting in the next collective
             if agreed(signals.stop_requested(), "max"):

@@ -381,12 +381,13 @@ def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[Te
                 got = pending_updates.pop() if pending_updates else (
                     float(pars.n_comb) * float(n_used))
                 _log(pars, 2, "> Printing distance matrix")
-                writers.write_dist_matrix(out_fh, labels, m)
-                out_fh.flush()
+                with profiling.replicate(rep), profiling.host_span("write"):
+                    writers.write_dist_matrix(out_fh, labels, m)
+                    out_fh.flush()
+                    if close:
+                        ckpt.save(pars.out, pars, rep + 1, engine=ckpt_engine)
                 matrices.append(m)
                 meter.add_updates(got)
-                if close:
-                    ckpt.save(pars.out, pars, rep + 1, engine=ckpt_engine)
                 if signals.stop_requested():
                     _log(pars, 1, "==> Stop requested; output is resumable (--resume)")
                     interrupted = True

@@ -3,9 +3,13 @@
 The reference has no timers or perf counters anywhere; this module
 supplies a torch.profiler trace of a run's compute section (`trace`,
 `--trace_dir`; the JAX package's jax.profiler trace), a pair-site
-throughput meter for the updates/sec metric (`--throughput`) and, for
-scripts that ask (chip_smoke.py, profile_torch.py), the intervals of a
-run's reads, uploads and kernels on one clock (`StageTimes`).
+throughput meter for the updates/sec metric (`--throughput`) and the
+intervals of a run's stages on one clock (`StageTimes`), which the
+benchmark (gpubench/programs/ngsdist_cli.py, gpubench/metrics/) and the
+scripts that ask (chip_smoke.py, profile_torch.py) read.  While `trace`
+records, every span is also a torch.profiler range named
+`ngsdist.<span>`, with `[r]` for a span of replicate r (0: the full
+data; `replicate`), beside the kernels and copies of the same trace.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ def trace(trace_dir: Optional[str]):
     is visible) and write it into trace_dir in TensorBoard's format
     (torch.profiler.tensorboard_trace_handler: a
     <host>_<pid>.<time>.pt.trace.json file, which TensorBoard's profile
-    plugin and chrome://tracing read); nothing when trace_dir is empty."""
+    plugin and chrome://tracing read), the program's spans in it as
+    `ngsdist.<span>[r]` ranges; nothing when trace_dir is empty."""
+    global _TRACING
     if not trace_dir:
         yield
         return
@@ -35,7 +41,11 @@ def trace(trace_dir: Optional[str]):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(trace_dir)):
-        yield
+        _TRACING = True
+        try:
+            yield
+        finally:
+            _TRACING = False
 
 
 @dataclass
@@ -81,9 +91,16 @@ class Throughput:
 
 
 # Stage times: off unless a script sets ACTIVE = StageTimes(device); the
-# engine and the runner then wrap their reads (host clock), uploads and
-# kernel calls (CUDA events on their stream) in the spans below.
+# engine and the runner then wrap their reads, fetches, matrices and
+# writes (host clock), uploads and kernel calls (CUDA events on their
+# stream) in the spans below.
 ACTIVE: Optional["StageTimes"] = None
+
+# True while `trace` records: every span is then a torch.profiler range
+# too, and `replicate` sets the index that the spans of REPLICATED carry.
+_TRACING = False
+_REPLICATE: Optional[int] = None
+REPLICATED = ("kernel", "upload", "fetch", "matrix", "write")
 
 
 class StageTimes:
@@ -92,13 +109,18 @@ class StageTimes:
     chunk read, the float32 cast), "scan" (the runner's search of a
     staged tensor for its code plane, utils/hostmem.derive_codes),
     "upload" (copies to the card and the expansion there) and "kernel"
-    (the statistics of a chunk or of the resident tensor), and "gather"
+    (the statistics of a chunk or of the resident tensor), "gather"
     (a multi-process run's all-gather of the shards' sums and their
     addition on the host, parallel/mesh.py; it includes the wait for the
-    slowest process); and the bytes of the host slabs sent to the device
-    (`upload_bytes`: the probability tensor's lane, float32 triples,
-    packed pairs or uint8 codes).  Host spans are taken
-    on the host clock, device
+    slowest process), "fetch" (a replicate's pair vectors brought to the
+    host: the host's wait for the card, whatever was queued before the
+    copy included), "matrix" (the host work that turns them into the
+    corrected matrix: the pair scatter, the division, the distance
+    model, the stats hook) and "write" (a matrix formatted and written,
+    the flush and the checkpoint sidecar); and the bytes of the host
+    slabs sent to the device (`upload_bytes`: the probability tensor's
+    lane, float32 triples, packed pairs or uint8 codes).  Host spans are
+    taken on the host clock, device
     spans by CUDA events on the stream that runs them and mapped onto
     the host clock through one event recorded at creation, on an idle
     card, so that the card stamps it as the host's clock is read (on the
@@ -107,7 +129,8 @@ class StageTimes:
     def __init__(self, device) -> None:
         self.device = device
         self.cuda = device.type == "cuda"
-        self.host = {"read": [], "scan": [], "upload": [], "kernel": [], "gather": []}
+        self.host = {name: [] for name in ("read", "scan", "upload", "kernel", "gather",
+                                           "fetch", "matrix", "write")}
         self.events = {"upload": [], "kernel": []}
         self.upload_bytes = 0
         if self.cuda:
@@ -183,28 +206,57 @@ def count_upload(nbytes: int) -> None:
 
 
 @contextlib.contextmanager
-def host_span(name: str):
-    """Record the enclosed host work under `name` when times are taken."""
-    times = ACTIVE
-    if times is None:
+def replicate(index: int):
+    """While `trace` records, the enclosed spans of REPLICATED carry
+    replicate `index` (0: the full data) in their range's name."""
+    global _REPLICATE
+    if not _TRACING:
         yield
         return
-    t0 = time.perf_counter()
+    outer, _REPLICATE = _REPLICATE, index
     try:
         yield
     finally:
-        times.host[name].append((t0 - times.t0, time.perf_counter() - times.t0))
+        _REPLICATE = outer
+
+
+def _range(name: str):
+    """The torch.profiler range of a span while `trace` records."""
+    if not _TRACING:
+        return contextlib.nullcontext()
+    import torch
+
+    if _REPLICATE is not None and name in REPLICATED:
+        name = f"{name}[{_REPLICATE}]"
+    return torch.profiler.record_function(f"ngsdist.{name}")
+
+
+@contextlib.contextmanager
+def host_span(name: str):
+    """Record the enclosed host work under `name` when times are taken
+    or a trace records."""
+    times = ACTIVE
+    if times is None and not _TRACING:
+        yield
+        return
+    with _range(name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if times is not None:
+                times.host[name].append((t0 - times.t0, time.perf_counter() - times.t0))
 
 
 @contextlib.contextmanager
 def device_span(name: str, stream=None):
     """Record what the enclosed code enqueues on `stream` (default: the
-    current one) under `name` when times are taken."""
+    current one) under `name` when times are taken or a trace records."""
     times = ACTIVE
-    if times is None:
+    if times is None and not _TRACING:
         yield
         return
-    if not times.cuda:
+    if times is None or not times.cuda:
         with host_span(name):
             yield
         return
@@ -213,9 +265,10 @@ def device_span(name: str, stream=None):
     stream = stream or torch.cuda.current_stream(times.device)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record(stream)
-    try:
-        yield
-    finally:
-        end.record(stream)
-        times.events[name].append((start, end))
+    with _range(name):
+        start.record(stream)
+        try:
+            yield
+        finally:
+            end.record(stream)
+            times.events[name].append((start, end))

@@ -9,6 +9,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -138,6 +139,103 @@ def test_trace_dir_writes_a_trace_and_the_same_bytes(tmp_path, monkeypatch):
     assert len(files) == 1
     names = {e.get("name") for e in json.load(open(files[0]))["traceEvents"]}
     assert "aten::exp" in names   # the EM's plain version, inside the section
+
+
+SPAN_RUN = ["--geno", "gp.bin", "--probs", "--n_ind", "20", "--n_sites", "1200", "--seed", "3",
+            "--n_boot_rep", "2", "--boot_block_size", "100", "--verbose", "0", "--platform",
+            "cpu"]
+
+# route -> (flags, PARTIALS_BUDGET_BYTES or None for the default, kernel
+# calls or None where the route runs them elsewhere)
+SPAN_ROUTES = {
+    "partials": ([], None, {"em_raw_cnt": 1, "em_block_partials": 1}),
+    "weighted": ([], 0, {"em_raw_cnt": 3}),
+    "models3_6": (["--pos", "pos.txt", "--evol_model", "4"], None, None),
+    "mesh": (["--devices", "8", "--pairs", "2"], None, None),
+}
+
+
+def _span_run(route, out, monkeypatch):
+    from ngsdist_tpu_torch.core import distance as tdist
+
+    flags, budget, want = SPAN_ROUTES[route]
+    if budget is not None:
+        monkeypatch.setattr(tdist, "PARTIALS_BUDGET_BYTES", budget)
+    calls = _spy_routes(monkeypatch)
+    assert cli.main(SPAN_RUN + flags + ["--out", out]) == 0
+    if want is not None:
+        assert calls == want
+
+
+def _trace_names(trace_dir):
+    """The names of the events in the one trace file of trace_dir, in the
+    order of their start."""
+    (path,) = trace_dir.glob("*.pt.trace.json")
+    events = [e for e in json.load(open(path))["traceEvents"] if "ts" in e]
+    return [e.get("name") for e in sorted(events, key=lambda e: float(e["ts"]))]
+
+
+def test_trace_dir_names_spans_with_their_replicate(tmp_path, monkeypatch):
+    """In a --trace_dir trace every span of a replicate is one range
+    `ngsdist.<span>[r]` (r = 0 the full data), here on the weighted route
+    (a kernel call a replicate): one kernel, fetch, matrix and write range
+    for each of the 3 matrices, in that order within a replicate; the
+    spans outside a replicate carry no index."""
+    from ngsdist_tpu_torch.core import distance as tdist
+
+    monkeypatch.chdir(DATA_DIR)
+    monkeypatch.setattr(tdist, "PARTIALS_BUDGET_BYTES", 0)
+    trace_dir = tmp_path / "trace"
+    assert cli.main(SPAN_RUN + ["--out", str(tmp_path / "t.dist"),
+                                "--trace_dir", str(trace_dir)]) == 0
+    names = _trace_names(trace_dir)
+    ours = [n for n in names if n.startswith("ngsdist.")]
+    spans = ("kernel", "fetch", "matrix", "write")
+    for r in range(3):
+        got = [n for n in ours if n.endswith(f"[{r}]")]
+        assert got == [f"ngsdist.{s}[{r}]" for s in spans], got
+    # outside a replicate: the resident tensor's read and upload, no index
+    rest = [n for n in ours if not n.endswith("]")]
+    assert set(rest) <= {"ngsdist.read", "ngsdist.upload"}
+    assert len(ours) - len(rest) == 3 * len(spans), ours
+
+
+@pytest.mark.parametrize("route", sorted(SPAN_ROUTES))
+def test_spans_fetch_matrix_write_per_replicate(route, tmp_path, monkeypatch):
+    """With StageTimes on, a bootstrap of 2 replicates records 3 fetch, 3
+    matrix and 3 write intervals on every route (main partials and
+    weighted, models 3-6, a CPU mesh), each matrix's in the order fetch,
+    matrix, write and before the next matrix's, all within the call."""
+    from ngsdist_tpu_torch.utils import profiling
+
+    monkeypatch.chdir(DATA_DIR)
+    times = profiling.StageTimes(torch.device("cpu"))
+    monkeypatch.setattr(profiling, "ACTIVE", times)
+    start = time.perf_counter() - times.t0
+    _span_run(route, str(tmp_path / "t.dist"), monkeypatch)
+    end = time.perf_counter() - times.t0
+    iv = times.intervals()
+    assert [len(iv[n]) for n in ("fetch", "matrix", "write")] == [3, 3, 3]
+    order = [t for k in range(3) for n in ("fetch", "matrix", "write") for t in iv[n][k]]
+    assert order == sorted(order) and start <= order[0] and order[-1] <= end
+
+
+@pytest.mark.parametrize("route", sorted(SPAN_ROUTES))
+def test_spans_off_write_the_same_bytes_and_record_nothing(route, tmp_path, monkeypatch):
+    """With StageTimes off and no trace, a run opens no profiler range and
+    writes the bytes of the same run with StageTimes on."""
+    from ngsdist_tpu_torch.utils import profiling
+
+    monkeypatch.chdir(DATA_DIR)
+    on, off = str(tmp_path / "on.dist"), str(tmp_path / "off.dist")
+    monkeypatch.setattr(profiling, "ACTIVE", profiling.StageTimes(torch.device("cpu")))
+    _span_run(route, on, monkeypatch)
+    monkeypatch.setattr(profiling, "ACTIVE", None)
+    ranges = []
+    monkeypatch.setattr(torch.profiler, "record_function", lambda name: ranges.append(name))
+    _span_run(route, off, monkeypatch)
+    assert ranges == [] and profiling._REPLICATE is None
+    assert open(off, "rb").read() == open(on, "rb").read()
 
 
 def test_unported_model_is_refused_after_finalize(tmp_path, monkeypatch, capsys):
