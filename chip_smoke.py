@@ -72,6 +72,13 @@ Phases, each of which fails the run loudly:
    (TN93), 16,384 sites, 2 replicates of 256-site blocks; (h) indep
    --pairwise_del, --evol_model 5 (F84), 65,536 sites, 2 replicates;
    and (g) once more streamed in 4 chunks under a forced budget ("gs").
+   (p) the EM at the 1000 Genomes pilot's width, PILOT_N x PILOT_SITES
+   (gpubench's n179.boot4), with BOOT_REPS replicates of PILOT_BLOCK-site
+   blocks on the weighted route: 21 tiles, so each launch runs the site
+   slices ops/em.py em_site_slices gives on this card; its launches and
+   the EM's slice counters (SLICED_LAUNCHES, SITE_SLICES, set to 0 before
+   every CLI run with the launch counts) held to that rule, its
+   sub-matrices to the float64 plain version.
    The mesh engine (MESH_RUNS), in process through runner.run on a
    parallel.mesh.Mesh of entries of one card, at 1024 individuals: (i)
    (a)'s file and flags on 2 x 2 (K1p, the weighted bootstrap); (j) (c)'s
@@ -225,7 +232,11 @@ Phases, each of which fails the run loudly:
    K1p launch at (a)'s shape and K2b launch at (b)'s, for splits of 2 and
    4, beside the full launch, with the share of the tiles it holds and
    the bound scaled by that share; and the fixed-order sum of (i)'s four
-   shards.
+   shards.  The EM's site slices (phase_em_slices) at PILOT_N x
+   PILOT_SITES, both entries: G by ops/em.py em_site_slices against one
+   slice, timed; the sliced launch's rerun byte-identical, its first 64
+   individuals the bytes of their own launch at the same G and within the
+   entry's bound of the sliced plain order (em_raw_cnt_tables(slices=G)).
 
 The bounds (PERF.md section 2): the indep kernel sums 3xTF32 products
 on the tensor cores in float32 over 16-site windows and the windows in
@@ -247,7 +258,10 @@ against the float64 plain version (the HMM entries: of the log messages
 and logliks, or the best score, against the plain version in the
 entry's type, as "err_of" says, over HMM_SHAPES, the edge inputs and
 POPGEN_CHECK_CHAINS chains of the popgen path; their "ms" and "plain_ms"
-at HMM_SHAPES[0], "full_width_ms" at the popgen path's shape), and as its last line
+at HMM_SHAPES[0], "full_width_ms" at the popgen path's shape; the two EM
+full modes' "sliced_launches" and "site_slices", the slice counters
+added up over phase 3's CLI runs, and "n179", phase_em_slices' numbers
+with their bound), and as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -357,6 +371,15 @@ UNCLASSIFIABLE = 0.05    # share of POS rows whose two alleles are equal
 SHORT_DISK_BYTES = 16 << 30  # free disk below which (e) is cut to half its sites
 WIDE_N = 2048                # phase 4: both full modes also at this width,
 WIDE_EM_SITES = EM_SITES // 4  # the EM at a quarter of (b)'s sites
+# Phase 3 run (p) and phase 4: the EM at the 1000 Genomes pilot's width
+# (gpubench's n179.boot4), 21 tiles of 32 x 32, where the kernel runs its
+# site slices; (p) bootstraps in PILOT_BLOCK-site blocks, whose partial
+# sums exceed the route's 1 GiB, so every replicate is a weighted launch.
+PILOT_N, PILOT_SITES, PILOT_BLOCK = 179, 262144, 5
+# The EM's site-slice counters (ops/em.py), by the name of the full mode's
+# wrapper: (launches with more than one slice, slices added up).
+SLICES = {"em_raw_cnt": ("SLICED_LAUNCHES", "SITE_SLICES"),
+          "em_raw_cnt_f64": ("SLICED_LAUNCHES_F64", "SITE_SLICES_F64")}
 # Phase 2: the tile lists of a pairs axis split 2, 3 and 4 ways, at the
 # EM's edge shapes and the indep kernel's shapes of several site chunks.
 TILE_SPLITS = (2, 3, 4)
@@ -413,6 +436,7 @@ U16_RUNS = {"u": ("a", "a"), "ub": ("b", "b"), "us": ("a", None), "um": ("i", "i
 U16_TWINS = {twin for _, twin in U16_RUNS.values() if twin}
 U16_CHUNKS = 4           # (us): the chunks its forced budget must give at least
 TWINS = {}               # twin -> what its run showed (timed_run)
+RUN_SLICES = []          # each CLI run's slice counts (timed_run), in turn
 # The lane against its twin (PERF.md section 2): per triple the summed
 # |component| difference, U16_DELTA: p0 and p1 half a step of 1/65534
 # each and p2 their sum, a missing row's components up to EPSILON (1e-5)
@@ -746,12 +770,12 @@ def read_phylip(path: str):
     return mats
 
 
-def check_output(path: str, n_mats: int):
+def check_output(path: str, n_mats: int, n: int = N_IND):
     mats = read_phylip(path)
     if len(mats) != n_mats:
         raise AssertionError(f"{path}: {len(mats)} matrices, expected {n_mats}")
     for m in mats:
-        if m.shape != (N_IND, N_IND):
+        if m.shape != (n, n):
             raise AssertionError(f"{path}: matrix of shape {m.shape}")
         if not np.isfinite(m).all():
             raise AssertionError(f"{path}: non-finite distances")
@@ -1151,6 +1175,57 @@ def phase_wide(torch, indep, em, card, report) -> None:
            wrapper="em_raw_cnt")
 
 
+def phase_em_slices(torch, indep, em, card) -> dict:
+    """The EM's site slices at PILOT_N x PILOT_SITES, both entries, on
+    seeded probabilities (float64: the float32 values widened): G by the
+    rule on this card (ops/em.py em_site_slices) timed against one slice
+    (slices=1); the sliced launch's rerun byte-identical, its first 64
+    individuals' corner the bytes of the launch on those individuals
+    alone at the same G (every lane is independent of the others), and
+    that launch within the entry's bound (kernel_tol) of the sliced plain
+    order (em_raw_cnt_tables(slices=G)) in float64; the entry's bound
+    (em_bound) from the work these inputs need.  Returns, by entry,
+    {"slices", "ms", "one_slice_ms", "bound_ms", "bound_by", "max_abs_err"}."""
+    out = {}
+    nt = -(-PILOT_N // em.EM_TILE)
+    P32 = wide_probs(torch, PILOT_SITES, PILOT_N)
+    t0 = time.perf_counter()
+    work = em.em_work(P32.double())
+    log(f"phase 4: em work at {PILOT_N} x {PILOT_SITES}: {work['live_rows']} live rows, "
+        f"{work['live_lanes']} live lanes, {work['tests']} ratio tests (counted in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    for P in (P32, P32.double()):
+        name = "em_raw_cnt_f64" if P.dtype == torch.float64 else "em_raw_cnt"
+        G = em.em_site_slices(nt * (nt + 1) // 2, PILOT_SITES, *em._card_slots(P))
+        ms = time_cuda(torch, lambda: em.em_raw_cnt(P, SCORE9, False), 3)
+        ms_one = time_cuda(torch, lambda: em._em_cuda(P, SCORE9, False, None, None, None,
+                                                      slices=1), 3)
+        got = em.em_raw_cnt(P, SCORE9, False)
+        check_rerun(torch, em.em_raw_cnt, P, False, None, got)
+        corner = P[:, :64].contiguous()
+        sub = em._em_cuda(corner, SCORE9, False, None, None, None, slices=G)
+        if not all(same_bytes(torch, a[:64, :64].contiguous(), b) for a, b in zip(got, sub)):
+            raise AssertionError(f"{name} at {PILOT_N} x {PILOT_SITES}, G = {G}: the first 64 "
+                                 "individuals differ from their own launch")
+        t0 = time.perf_counter()
+        plain = em.em_raw_cnt_tables(corner.double(), SCORE9, False, slices=G)
+        _, err = check_kernel("em", torch, *sub, *plain, *kernel_tol(torch, indep, em, P))
+        del got, sub, plain
+        torch.cuda.empty_cache()
+        f64 = P.dtype == torch.float64
+        bound_ms, bound_by, reckoning = em_bound(
+            work, PILOT_SITES, PILOT_N, 2 * (8 if f64 else 4) * PILOT_N * PILOT_N, f64=f64)
+        log(f"phase 4: {name} at {PILOT_N} x {PILOT_SITES} ({nt * (nt + 1) // 2} tiles): "
+            f"{G} site slices {ms:.3f} ms, one slice {ms_one:.3f} ms ({ms_one / ms:.2f}x); "
+            f"bound {bound_ms:.3f} ms by {bound_by} ({reckoning}), kernel at "
+            f"{bound_ms / ms:.4f} of it; rerun byte-identical, the first 64 individuals their "
+            f"own launch's bytes and against the sliced plain order: max |raw/cnt err| "
+            f"{err:.3e} (checked in {time.perf_counter() - t0:.1f} s) [{card}]")
+        out[name] = {"slices": G, "ms": ms, "one_slice_ms": ms_one, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "max_abs_err": err}
+    return out
+
+
 def class_launches(torch, indep, em, distance, kind, P32, pairwise_del, wm, keep, compacted):
     """One matrix's three launches of models 3-6 as the engine makes them
     (core/distance.py _make_exact_stats): under the class weights wm on
@@ -1377,6 +1452,11 @@ def launch_counts(mods):
     return {name: getattr(mods[mod], counter) for name, (mod, counter) in KERNELS.items()}
 
 
+def slice_counts(em):
+    """The EM's site-slice counters (SLICES), by the name of its wrapper."""
+    return {name: tuple(getattr(em, c) for c in counters) for name, counters in SLICES.items()}
+
+
 def forced_budget(run: str) -> int:
     """The NGSDIST_DEVICE_BUDGET of streamed run `run`: a third of it is
     the tensor's budget, three quarters of that a float32 chunk's, and
@@ -1425,7 +1505,9 @@ def timed_run(torch, mods, ngsd, budget, fused: bool, call, twin=None, stats=Fal
     rows' source and lane), the dtypes of the host slabs sent ("slabs":
     the upload lane) and, with stats or twin, each matrix's (raw, cnt or
     site count) as the engine gave them ("stats"); a twin's, the run of
-    that name that a run of U16_RUNS is held to, is kept in TWINS."""
+    that name that a run of U16_RUNS is held to, is kept in TWINS.  The
+    EM's site-slice counters are set to 0 and read with the launch counts
+    ("slices", slice_counts), and kept in RUN_SLICES."""
     runner, profiling, distance = ngsd["runner"], ngsd["profiling"], ngsd["distance"]
     env = {"NGSDIST_DEVICE_BUDGET": None if budget is None else str(budget),
            "NGSDIST_FUSED_READ": "auto" if fused else "0"}
@@ -1476,6 +1558,9 @@ def timed_run(torch, mods, ngsd, budget, fused: bool, call, twin=None, stats=Fal
     profiling.ACTIVE = profiling.StageTimes(torch.device(DEVICE))
     for mod, counter in KERNELS.values():
         setattr(mods[mod], counter, 0)
+    for counters in SLICES.values():
+        for c in counters:
+            setattr(mods["em"], c, 0)
     try:
         with environment(env):
             t0 = time.perf_counter()
@@ -1483,6 +1568,8 @@ def timed_run(torch, mods, ngsd, budget, fused: bool, call, twin=None, stats=Fal
             torch.cuda.synchronize()
             seen["wall"] = time.perf_counter() - t0
         seen["launches"] = launch_counts(mods)
+        seen["slices"] = slice_counts(mods["em"])
+        RUN_SLICES.append(seen["slices"])
         seen["times"] = profiling.ACTIVE.summary()
         seen["peak"] = torch.cuda.max_memory_allocated()
     finally:
@@ -1566,6 +1653,69 @@ def drive_main_path(torch, cli, mods, ngsd, genos):
             if seen["launches"][f"{kind}_raw_cnt"] != 1 + reps:
                 raise AssertionError(f"run ({run}) resident: launches {seen['launches']}")
     return outs, launches, resident
+
+
+def drive_pilot_run(torch, cli, mods, ngsd, em, distance, card):
+    """Run (p): the EM through the CLI at PILOT_N x PILOT_SITES (seeded
+    probabilities written as a binary GP file, read by the fused reader)
+    with BOOT_REPS replicates of PILOT_BLOCK-site blocks on the weighted
+    route, so every matrix is one full-mode launch over 21 tiles.  Its
+    launch counts (1 + BOOT_REPS em_raw_cnt) and site-slice counts, set to
+    0 before it, are held to what em_site_slices gives on this card for
+    the full data's sites and the replicates' truncated genome; each
+    matrix's 64-individual sub-matrix to the float64 plain version on the
+    float32 values the card was given (EM_ATOL_CNT).  Returns the largest
+    |d error| and the launch counts."""
+    t0 = time.perf_counter()
+    P = rand_probs(np.random.default_rng(SEED + 5), PILOT_SITES, PILOT_N)
+    geno, out = os.path.join(WORK, "pilot.bin"), os.path.join(WORK, "p.dist")
+    P.astype("<f8").tofile(geno)
+    P /= P.sum(-1, keepdims=True)
+    log(f"phase 3: (p)'s file of {PILOT_N} x {PILOT_SITES} written in "
+        f"{time.perf_counter() - t0:.2f} s ({os.path.getsize(geno)} B)")
+    args = ["--geno", geno, "--probs", "--n_ind", str(PILOT_N), "--n_sites",
+            str(PILOT_SITES), "--seed", str(SEED), "--out", out, "--verbose", "1",
+            "--n_boot_rep", str(BOOT_REPS), "--boot_block_size", str(PILOT_BLOCK),
+            "--platform", DEVICE, "--throughput"]
+    seen = timed_run(torch, mods, ngsd, None, True, lambda: cli.main(args))
+    os.remove(geno)
+    if seen["result"] != 0:
+        raise AssertionError(f"run (p): exit code {seen['result']}")
+    nt = -(-PILOT_N // em.EM_TILE)
+    slots = em._card_slots(torch.empty(0, device=DEVICE))
+    n_trunc, maps = distance.bootstrap_site_maps(SEED, BOOT_REPS, PILOT_SITES, PILOT_BLOCK)
+    G = [em.em_site_slices(nt * (nt + 1) // 2, S, *slots)
+         for S in [PILOT_SITES] + [n_trunc] * BOOT_REPS]
+    want = {name: 0 for name in KERNELS}
+    want["em_raw_cnt"] = 1 + BOOT_REPS
+    want_slices = {"em_raw_cnt": (sum(g > 1 for g in G), sum(G)), "em_raw_cnt_f64": (0, 0)}
+    if seen["launches"] != want or seen["slices"] != want_slices:
+        raise AssertionError(f"run (p): launches {seen['launches']}, slices {seen['slices']}; "
+                             f"expected {want}, {want_slices}")
+    if seen["source"] != "PackedBinInput":
+        raise AssertionError(f"run (p): the engine was handed a {seen['source']}")
+    mats = check_output(out, 1 + BOOT_REPS, PILOT_N)
+    idx = np.sort(np.random.default_rng(SEED + 6).choice(PILOT_N, 64, replace=False))
+    sub = card_values(torch.from_numpy(np.ascontiguousarray(P[:, idx])).to(DEVICE))
+    del P
+    errs = []
+    for r, mat in enumerate(mats):
+        S, w = PILOT_SITES, None
+        if r > 0:
+            S = n_trunc
+            w = torch.from_numpy(distance.replicate_weights(maps[r - 1], S)).to(DEVICE)
+        raw, _ = em.em_raw_cnt_ref(sub[:S].contiguous(), SCORE9, False, w)
+        errs.append(check_submatrix(mat, raw, float(S), idx, "em", 0.0, EM_ATOL_CNT))
+    del sub
+    t = seen["times"]
+    log(f"phase 3: (p) em {PILOT_N} x {PILOT_SITES} + {BOOT_REPS} replicates of "
+        f"{PILOT_BLOCK}-site blocks in {seen['wall']:.2f} s (host clock, CLI call incl. read "
+        f"and write): read {t['read_s']:.3f} s, kernels {t['kernel_s']:.3f} s; launches "
+        f"em_raw_cnt {seen['launches']['em_raw_cnt']}, site slices {G} (em_site_slices on "
+        f"{slots[0]} SMs x {slots[1]} blocks): sliced launches, slices "
+        f"{seen['slices']['em_raw_cnt']}; 64-individual sub-matrices against the float64 "
+        f"plain version on the card's values, max |d err| {max(errs):.3e} [{card}]")
+    return max(errs), seen["launches"]
 
 
 def forced_mesh_budget(run: str, itemsize: int) -> int:
@@ -3233,6 +3383,8 @@ def main() -> int:
         ext_errs, ext_bounds = check_extended(torch, indep, em, distance, submodels, mats,
                                               P_sub, idx, alleles)
         errs.update(ext_errs)
+        errs["p/float32"], launches["p"] = drive_pilot_run(torch, cli, mods, ngsd, em, distance,
+                                                           card)
         # (g) streamed against (g): each within its bound of the exact
         # sums; the sub-matrices' largest bound stands for every pair
         for run in MODELS:
@@ -3496,6 +3648,12 @@ def main() -> int:
 
     del P32, P64
     torch.cuda.empty_cache()
+    pilot = phase_em_slices(torch, indep, em, card)
+    for k in kernels:  # the main path's slice counts, and the pilot's width
+        if k["name"] in pilot:
+            sliced, slices = (sum(run[k["name"]][i] for run in RUN_SLICES) for i in (0, 1))
+            k.update({"sliced_launches": sliced, "site_slices": slices,
+                      f"n{PILOT_N}": pilot[k["name"]]})
     time_expand_codes(torch, distance, hostmem, card)
     time_expand23(torch, distance, hostmem, card)
     phase_wide(torch, indep, em, card, report)

@@ -903,7 +903,8 @@ def class_compaction(device: torch.device) -> bool:
     sites only (a site list on the device) and not on the whole tensor with
     the other classes' weights at 0.  A site of weight 0 adds 0 to every
     sum, so both forms give the same sums; the EM kernel, which adds a
-    lane's sites in site order, the same bytes.  On a card only: on the
+    lane's sites in site order, the same bytes where both run one site
+    slice (ops/em.py em_site_slices).  On a card only: on the
     CPU the weighted form is the JAX engine's, and the plain versions
     gain nothing from the other."""
     return device.type == "cuda"

@@ -74,30 +74,51 @@
 // search to a third, and the unrolled groups hide their latency.
 // Building the tables to depth 36 first and to 49 only where a block-wide
 // vote finds a lane still running was a few percent faster; left out for
-// its second code path.  A 32-wide tile gives 528 blocks at 1024
-// individuals, two waves of two to each of the 132 SMs; a 64-wide tile
-// would halve the tables' share but leave 136 blocks, 4 more than one
-// wave.
+// its second code path.  A 64-wide tile would halve the tables' share
+// but give a quarter of the blocks.
 //
-// Sums are kept per lane in float64 registers, in site order, and
-// written once, strict upper triangle only: no atomics, reruns
-// byte-identical.
+// Site slices (full mode).  The grid is tiles x G: block (k, g) runs
+// tile k over site slice g of G (site_slice: 2-site steps split evenly,
+// so every slice but the last ends on a step).  Every (pair, site) lane
+// converges on its own, and a pair's raw and cnt are plain sums over
+// sites, so a slice changes no lane's arithmetic, only the order of the
+// float64 additions.  The wrapper (ops/em.py em_site_slices) picks G from
+// the tile count, the site count, the SMs and the resident blocks per SM:
+// the G that fills the most of the waves it needs, each slice at least
+// 4,096 sites.  Two blocks of 100 KB fit an SM, so 264 blocks run at
+// once: at 1024 individuals the 528 tiles are two whole waves (G = 1),
+// at 179 the 21 tiles would leave 111 of the 132 SMs empty (G = 25 gives
+// 525 blocks, 99.4% of two waves), at 1,092 the 630 tiles' third wave is
+// 39% full (G = 5: 99.4% of 12).
+//
+// Sums are kept per lane in float64 registers, in site order.  With G = 1
+// they are written once, rounded to T, strict upper triangle only.  With
+// G > 1 each block writes its slice's float64 sums for every lane of its
+// tile to a scratch [G, tiles, 2, 1024] the wrapper allocates, and a
+// second kernel on the same stream (em_kernel_sum_slices) adds each
+// lane's G sums in slice order g = 0..G-1 in float64 and writes raw and
+// cnt as the one-pass kernel does.  No atomics: the order of every
+// addition is fixed, so reruns are byte-identical and the bytes do not
+// depend on which block ran first; G = 1 writes the one-pass bytes.
 //
 // Site list (full mode): with `sites` [S] given, step s of the loop reads
 // site sites[s] of P and weight w[s], so that a caller whose weights are 0
 // on most sites (a substitution class of evolutionary models 3-6, a
 // bootstrap replicate) pays for the listed sites only.  A lane adds its
 // terms in list order, and a site left out would have added w * x = 0 to
-// both sums, so an ascending list of every site of nonzero weight gives
-// the bytes of the run over all sites.  The one exception, a site of
+// both sums, so at G = 1 an ascending list of every site of nonzero
+// weight gives the bytes of the run over all sites (slices cut list
+// positions, so at G > 1 the two group the sums differently).  The one
+// exception, a site of
 // weight 0 that holds a NaN (0 * NaN), is the caller's to keep in the list.
 //
 // Tile list (full mode; replaces the blocks= argument of em_raw_cnt_pallas,
 // pallas_em.py:349, :364-372, :390-393): with `tiles` [L] int32 given, the
 // grid has L blocks and block k owns upper tile tiles[k] in place of tile k;
 // only those tiles of raw and cnt are written.  Every lane of a tile is
-// independent of the others, so a listed tile holds the full launch's
-// bytes, with or without a site list.  A pairs-axis shard of the mesh engine
+// independent of the others, so a listed tile holds the bytes of the full
+// launch at the same G, with or without a site list (the wrapper's G
+// follows L, the list's length).  A pairs-axis shard of the mesh engine
 // (parallel/mesh.py) lists the tiles that hold its slice of the pair list.
 //
 // Block mode (ngsd_em_block_partials_f32), for the partial-sum bootstrap:
@@ -148,6 +169,7 @@ constexpr int kUnroll = 7;    // ratio tests per group of the search
 constexpr int kStride = 3;    // every third power is stored,
 constexpr int kPowers = 17;   // p^(1 + 3c) for c = 0..16
 constexpr int kTableThreads = 2 * kSites * kTile;  // tables per step
+constexpr int kLanes = kTile * kTile;  // pair lanes of a tile
 
 static_assert(kSteps == kStride * (kPowers - 1) + 1, "powers reach k* = 50");
 static_assert(kSteps % kUnroll == 0, "whole groups of ratio tests");
@@ -177,6 +199,17 @@ __device__ __forceinline__ int xj_index(int sl, int col, int c, int g) {
   return ((sl * kPowers + c) * 3 + g) * kTile + col;
 }
 
+// Slice g of G of S sites (or list positions): with n = ceil(S / 2)
+// steps, [2 floor(g n / G), 2 floor((g + 1) n / G)) cut to [0, S), so that
+// every bound but S is a multiple of the 2-site step; slice 0 of 1 is
+// [0, S).  ops/em.py em_slice_bounds is the same.
+__device__ __forceinline__ void site_slice(long long S, long long g, long long G,
+                                           long long* begin, long long* end) {
+  const long long n = (S + kSites - 1) / kSites;
+  *begin = min(S, kSites * (g * n / G));
+  *end = min(S, kSites * ((g + 1) * n / G));
+}
+
 // One individual's tables at one site: Rb[k] = r at step k, and through
 // store(c, ...) the powers pn^(1 + 3c).  The expressions and their order
 // are the plain version's (ops/em.py _em_sites).
@@ -203,14 +236,17 @@ __device__ __forceinline__ void build_tables(double pn0, double pn1, double pn2,
 
 // T: the type of the probabilities, the weights, raw and cnt (float or
 // double).  kBlocks: block mode; B, C [S / block_size, N (N - 1) / 2]
-// float64 take the place of raw and cnt.
+// float64 take the place of raw and cnt.  Block (k, g) runs site slice g
+// of gridDim.y (site_slice); with more than one slice (full mode only) it
+// writes its float64 sums to part [gridDim.y, gridDim.x, 2, kLanes] in
+// place of raw and cnt, for em_kernel_sum_slices.
 template <typename T, bool kBlocks>
 __global__ void __launch_bounds__(kThreads, 2)
 em_kernel(const T* __restrict__ P, const T* __restrict__ w,
           const long long* __restrict__ sites, const int* __restrict__ tiles,
           T* __restrict__ raw, T* __restrict__ cnt, double* __restrict__ B,
-          double* __restrict__ C, long long S, int N, long long block_size, Score9d sc,
-          double hi, int pairwise_del) {
+          double* __restrict__ C, double* __restrict__ part, long long S, int N,
+          long long block_size, Score9d sc, double hi, int pairwise_del) {
   extern __shared__ __align__(16) double smem[];
   double* R = smem;                 // [side] r tables
   double* X = R + 2 * kRSide;       // [side] power tables
@@ -225,6 +261,8 @@ em_kernel(const T* __restrict__ P, const T* __restrict__ w,
   ngsd::upper_tile(tile, &ti, &tj);
   const int i0 = ti * kTile, j0 = tj * kTile;
   const int li0 = kRows * (threadIdx.x / kTile), lj = threadIdx.x % kTile;
+  long long s_begin, s_end;  // this block's sites (list positions)
+  site_slice(S, blockIdx.y, gridDim.y, &s_begin, &s_end);
   const int b = j0 + lj;
   const long long n_pairs = (long long)N * (N - 1) / 2;
   bool lane[kRows];       // strict upper triangle
@@ -247,14 +285,14 @@ em_kernel(const T* __restrict__ P, const T* __restrict__ w,
   auto fetch = [&](long long s0) {
     const long long s = s0 + b_sl;
     q0 = q1 = q2 = T(0);
-    if (fills && s < S && b_ind < N) {
+    if (fills && s < s_end && b_ind < N) {
       const T* q = P + ((sites ? sites[s] : s) * N + b_ind) * 3;
       q0 = q[0];
       q1 = q[1];
       q2 = q[2];
     }
   };
-  fetch(0);
+  fetch(s_begin);
 
   const double2* Ri = reinterpret_cast<const double2*>(R + li0);  // rows li0..li0+3
   const double* Rj = R + kRSide + lj;
@@ -271,7 +309,7 @@ em_kernel(const T* __restrict__ P, const T* __restrict__ w,
       acc_raw[q] = acc_cnt[q] = 0.0;
     }
   };
-  for (long long s0 = 0; s0 < S; s0 += kSites) {
+  for (long long s0 = s_begin; s0 < s_end; s0 += kSites) {
     if (fills && !(NGSD_EM_SKIP_BUILD && s0 > 0)) {
       const T p0 = q0, p1 = q1, p2 = q2;
       fetch(s0 + kSites);  // the next step's triple, in flight during this step
@@ -300,12 +338,12 @@ em_kernel(const T* __restrict__ P, const T* __restrict__ w,
     }
     if (threadIdx.x < kSites) {
       const long long s = s0 + threadIdx.x;
-      Ws[threadIdx.x] = s < S ? (w ? w[s] : T(1)) : T(0);
+      Ws[threadIdx.x] = s < s_end ? (w ? w[s] : T(1)) : T(0);
     }
     __syncthreads();
 
     // The passed ratio tests (k* - 1) of the thread's lanes at each site.
-    const int n_sl = (int)((S - s0) < kSites ? (S - s0) : kSites);
+    const int n_sl = (int)((s_end - s0) < kSites ? (s_end - s0) : kSites);
     bool live[kSites][kRows];
     int ksum[kSites][kRows];
 #pragma unroll
@@ -398,6 +436,14 @@ em_kernel(const T* __restrict__ P, const T* __restrict__ w,
 
   if constexpr (kBlocks) {
     flush_block();  // the last block
+  } else if (part != nullptr) {  // this slice's sums, every lane of the tile
+    double* pr = part + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * 2 * kLanes;
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int l = (li0 + q) * kTile + lj;
+      pr[l] = acc_raw[q];
+      pr[kLanes + l] = acc_cnt[q];
+    }
   } else {
 #pragma unroll
     for (int q = 0; q < kRows; ++q) {
@@ -407,6 +453,34 @@ em_kernel(const T* __restrict__ P, const T* __restrict__ w,
       cnt[a * N + b] = (T)acc_cnt[q];
     }
   }
+}
+
+// The second pass of a sliced launch: one thread per (tile k, lane) adds
+// the lane's G slice sums from part [G, n_tiles, 2, kLanes] in slice order
+// g = 0..G-1 in float64 and writes raw and cnt on the strict upper
+// triangle, rounded to T once, as the one-pass kernel does.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+em_kernel_sum_slices(const double* __restrict__ part, const int* __restrict__ tiles,
+                     int n_tiles, int G, int N, T* __restrict__ raw, T* __restrict__ cnt) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= (long long)n_tiles * kLanes) return;
+  const int k = (int)(i / kLanes), l = (int)(i % kLanes);
+  const long long nt = (N + kTile - 1) / kTile;
+  const long long tile = tiles ? (long long)tiles[k] : (long long)k;
+  if (tile < 0 || tile >= nt * (nt + 1) / 2) return;  // the first pass left it too
+  int ti, tj;
+  ngsd::upper_tile(tile, &ti, &tj);
+  const long long a = ti * kTile + l / kTile, b = tj * kTile + l % kTile;
+  if (!(a < b && b < N)) return;
+  double r = 0.0, c = 0.0;
+  for (int g = 0; g < G; ++g) {
+    const double* pr = part + ((long long)g * n_tiles + k) * 2 * kLanes;
+    r += pr[l];
+    c += pr[kLanes + l];
+  }
+  raw[a * N + b] = (T)r;
+  cnt[a * N + b] = (T)c;
 }
 
 long long upper_tiles(int N) {
@@ -423,21 +497,56 @@ Score9d score_f64(const S9* score9) {
   return sc;
 }
 
-// grid: the length of `tiles`, or every upper tile without a list.
+// The tables need more than the 48 KB a block gets without asking.
+template <typename T, bool kBlocks>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(em_kernel<T, kBlocks>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)kSmemBytes<T>);
+}
+
+// grid: the length of `tiles`, or every upper tile without a list; slices
+// site slices of each (full mode; part [slices, grid, 2, kLanes] float64
+// when more than one), then the second pass on the same stream.
 template <typename T, bool kBlocks>
 int launch(const T* P, const T* w, const long long* sites, const int* tiles,
-           long long grid, T* raw, T* cnt, double* B, double* C, long long S, int N,
-           long long block_size, const T* score9, double hi, int pairwise_del,
-           void* stream) {
-  // The tables need more than the 48 KB a block gets without asking.
-  cudaError_t err = cudaFuncSetAttribute(
-      em_kernel<T, kBlocks>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes<T>);
+           long long grid, int slices, double* part, T* raw, T* cnt, double* B, double* C,
+           long long S, int N, long long block_size, const T* score9, double hi,
+           int pairwise_del, void* stream) {
+  cudaError_t err = allow_smem<T, kBlocks>();
   if (err != cudaSuccess) return (int)err;
-  em_kernel<T, kBlocks><<<(unsigned)grid, kThreads, kSmemBytes<T>, (cudaStream_t)stream>>>(
-      P, w, sites, tiles, raw, cnt, B, C, S, N, block_size, score_f64(score9), hi,
-      pairwise_del);
+  em_kernel<T, kBlocks><<<dim3((unsigned)grid, (unsigned)slices), kThreads, kSmemBytes<T>,
+                          (cudaStream_t)stream>>>(
+      P, w, sites, tiles, raw, cnt, B, C, slices > 1 ? part : nullptr, S, N, block_size,
+      score_f64(score9), hi, pairwise_del);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return (int)err;
+  const long long threads = grid * kLanes;
+  em_kernel_sum_slices<T><<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
+                            (cudaStream_t)stream>>>(part, tiles, (int)grid, slices, N, raw, cnt);
   return (int)cudaGetLastError();
+}
+
+// The full mode's entries: `slices` site slices of each tile, with their
+// scratch when more than one.
+template <typename T>
+int raw_cnt(const T* P, const T* w, const long long* sites, const int* tiles,
+            long long n_tiles, T* raw, T* cnt, long long S, int N, const T* score9, double hi,
+            int pairwise_del, int slices, double* part, void* stream) {
+  const long long grid = tiles != nullptr ? n_tiles : (N < 1 ? 0 : upper_tiles(N));
+  if (N < 1 || S < 0 || grid < 1 || grid > INT_MAX || slices < 1 || slices > 65535 ||
+      (slices > 1 && (part == nullptr || grid > INT_MAX / (kLanes / kThreads))))
+    return (int)cudaErrorInvalidValue;
+  return launch<T, false>(P, w, sites, tiles, grid, slices, part, raw, cnt, nullptr, nullptr, S,
+                          N, 0, score9, hi, pairwise_del, stream);
+}
+
+// Resident blocks of the full-mode kernel per SM of the current device.
+template <typename T>
+int blocks_per_sm(int* blocks) {
+  cudaError_t err = allow_smem<T, false>();
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, em_kernel<T, false>,
+                                                            kThreads, kSmemBytes<T>);
 }
 
 }  // namespace
@@ -447,16 +556,21 @@ int launch(const T* P, const T* w, const long long* sites, const int* tiles,
 // 32 x 32 tiles to compute, or null for all of them; w [S] float32 or null;
 // raw, cnt [N, N] float32, written on the strict upper triangle of the
 // tiles run.  hi = exp(0.001) in float64, the precision of the ratio test.
-// Returns the CUDA error of the launch.
+// slices: the site slices of each tile (site_slice); with more than one,
+// part [slices, n_tiles or upper tiles, 2, 1024] float64 holds their sums,
+// added in slice order by a second launch on the same stream (1: the
+// one-pass launch, part unused).  Returns the CUDA error of the launch.
 extern "C" int ngsd_em_raw_cnt_f32(const float* P, const float* w, const long long* sites,
                                    const int* tiles, long long n_tiles, float* raw, float* cnt,
                                    long long S, int N, const float* score9, double hi,
-                                   int pairwise_del, void* stream) {
-  const long long grid = tiles != nullptr ? n_tiles : (N < 1 ? 0 : upper_tiles(N));
-  if (N < 1 || S < 0 || grid < 1 || grid > INT_MAX) return (int)cudaErrorInvalidValue;
-  return launch<float, false>(P, w, sites, tiles, grid, raw, cnt, nullptr, nullptr, S, N, 0,
-                              score9, hi, pairwise_del, stream);
+                                   int pairwise_del, int slices, double* part, void* stream) {
+  return raw_cnt<float>(P, w, sites, tiles, n_tiles, raw, cnt, S, N, score9, hi, pairwise_del,
+                        slices, part, stream);
 }
+
+// *blocks = resident blocks per SM of the full-mode kernel on the current
+// device, with its shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int ngsd_em_blocks_per_sm_f32(int* blocks) { return blocks_per_sm<float>(blocks); }
 
 // Block mode: P [n_blocks * block_size, N, 3] float32; B, C [n_blocks,
 // N (N - 1) / 2] float64, every entry written.
@@ -466,9 +580,9 @@ extern "C" int ngsd_em_block_partials_f32(const float* P, double* B, double* C, 
                                           int pairwise_del, void* stream) {
   if (N < 2 || n_blocks < 1 || block_size < 1 || B == nullptr || C == nullptr)
     return (int)cudaErrorInvalidValue;
-  return launch<float, true>(P, nullptr, nullptr, nullptr, upper_tiles(N), nullptr, nullptr, B,
-                             C, n_blocks * block_size, N, block_size, score9, hi, pairwise_del,
-                             stream);
+  return launch<float, true>(P, nullptr, nullptr, nullptr, upper_tiles(N), 1, nullptr, nullptr,
+                             nullptr, B, C, n_blocks * block_size, N, block_size, score9, hi,
+                             pairwise_del, stream);
 }
 
 // The float64 entries (K2d): P [., N, 3] and w [S] float64, the score
@@ -476,12 +590,13 @@ extern "C" int ngsd_em_block_partials_f32(const float* P, double* B, double* C, 
 extern "C" int ngsd_em_raw_cnt_f64(const double* P, const double* w, const long long* sites,
                                    const int* tiles, long long n_tiles, double* raw,
                                    double* cnt, long long S, int N, const double* score9,
-                                   double hi, int pairwise_del, void* stream) {
-  const long long grid = tiles != nullptr ? n_tiles : (N < 1 ? 0 : upper_tiles(N));
-  if (N < 1 || S < 0 || grid < 1 || grid > INT_MAX) return (int)cudaErrorInvalidValue;
-  return launch<double, false>(P, w, sites, tiles, grid, raw, cnt, nullptr, nullptr, S, N, 0,
-                               score9, hi, pairwise_del, stream);
+                                   double hi, int pairwise_del, int slices, double* part,
+                                   void* stream) {
+  return raw_cnt<double>(P, w, sites, tiles, n_tiles, raw, cnt, S, N, score9, hi, pairwise_del,
+                         slices, part, stream);
 }
+
+extern "C" int ngsd_em_blocks_per_sm_f64(int* blocks) { return blocks_per_sm<double>(blocks); }
 
 // Block mode on float64 probabilities; as ngsd_em_block_partials_f32.
 extern "C" int ngsd_em_block_partials_f64(const double* P, double* B, double* C, int N,
@@ -490,7 +605,7 @@ extern "C" int ngsd_em_block_partials_f64(const double* P, double* B, double* C,
                                           int pairwise_del, void* stream) {
   if (N < 2 || n_blocks < 1 || block_size < 1 || B == nullptr || C == nullptr)
     return (int)cudaErrorInvalidValue;
-  return launch<double, true>(P, nullptr, nullptr, nullptr, upper_tiles(N), nullptr, nullptr, B,
-                              C, n_blocks * block_size, N, block_size, score9, hi,
+  return launch<double, true>(P, nullptr, nullptr, nullptr, upper_tiles(N), 1, nullptr, nullptr,
+                              nullptr, B, C, n_blocks * block_size, N, block_size, score9, hi,
                               pairwise_del, stream);
 }

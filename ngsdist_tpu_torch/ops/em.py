@@ -18,13 +18,30 @@ raw and cnt.  Both versions return [N, N] matrices whose strict upper
 triangle is valid.  With `site_index` they run on the listed sites of P
 only (the weights then belong to the list): the kernel reads the list
 itself, and since it adds a lane's sites in list order, an ascending
-list of every site of nonzero weight gives the bytes of the whole run.
+list of every site of nonzero weight gives the bytes of the whole run
+where both run one site slice.
+
+Site slices: the kernel's grid is one block per upper 32x32 tile (EM_TILE)
+times G site slices (em_slice_bounds), and the wrapper picks G from the
+tile count, the site count, the card's SMs and the kernel's resident
+blocks per SM (em_site_slices), so that a small N still fills the card:
+21 tiles at N = 179 take G = 25 on an H100, 528 at N = 1024 G = 1.  With
+G > 1 each block leaves its slice's float64 sums in a scratch buffer and
+a second launch adds each lane's G sums in slice order: no atomics, so
+reruns are byte-identical; G = 1 is the one-pass launch and its bytes.
+Only the order of the float64 additions depends on G, within
+em_table_bound's summation term (`em_raw_cnt_tables(slices=G)` is that
+order in plain PyTorch); G follows the card, so on one card the bytes are
+fixed by the shape, and a card of another SM count may group a large
+input's sums otherwise.  SLICED_LAUNCHES counts the launches with
+G > 1, SITE_SLICES adds up G over every full-mode launch.
 
 Tile list (`tiles=`, a pairs-axis shard of parallel/mesh.py; the
 blocks= argument of the Pallas kernel): an int32 vector of upper 32x32
-tile indices (EM_TILE; k = tj (tj + 1) / 2 + ti).  Only those tiles are
-computed and written, each with the bytes of the full launch, with or
-without a site list; an empty list launches nothing.
+tile indices (k = tj (tj + 1) / 2 + ti).  Only those tiles are computed
+and written, each with the bytes of the full launch at the same G, with
+or without a site list (G follows the list's length); an empty list
+launches nothing.
 
 Block mode (`em_block_partials`, the partial-sum bootstrap) returns the
 unweighted sums per bootstrap block instead, B (raw) and C (cnt)
@@ -46,6 +63,8 @@ say how far the two may differ.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -80,11 +99,52 @@ def em_table_bound(n_sites: int) -> float:
 LAUNCHES = 0  # kernel launches since the count was last set to 0
 BLOCK_LAUNCHES = 0  # the same, block mode
 TILE_LAUNCHES = 0  # the same, with a tile list
-LAUNCHES_F64 = 0  # the same three of the float64 entries
+SLICED_LAUNCHES = 0  # the same, full mode with more than one site slice
+SITE_SLICES = 0  # site slices (G) added up over the full-mode launches
+LAUNCHES_F64 = 0  # the same five of the float64 entries
 BLOCK_LAUNCHES_F64 = 0
 TILE_LAUNCHES_F64 = 0
+SLICED_LAUNCHES_F64 = 0
+SITE_SLICES_F64 = 0
 
 EM_TILE = 32  # output tile edge of csrc/em.cu (kTile)
+EM_STEP = 2  # sites a step of the kernel's loop (kSites)
+EM_SLICE_MIN_SITES = 4096  # a site slice holds at least this many sites
+EM_SLICE_MAX_WAVES = 16  # and a sliced launch at most this many waves of blocks
+
+
+def _slice_cap(n_sites: int) -> int:
+    """The most site slices n_sites sites allow (EM_SLICE_MIN_SITES a slice)."""
+    return n_sites // EM_SLICE_MIN_SITES
+
+
+def em_site_slices(n_tiles: int, n_sites: int, sms: int, per_sm: int) -> int:
+    """G, the site slices of each tile in a full-mode launch of n_tiles
+    tiles over n_sites sites (or list positions), on a card of `sms` SMs
+    that holds `per_sm` of the kernel's blocks each: the g that needs the
+    fewest waves of the card's sms x per_sm slots a slice, ceil(n_tiles g
+    / slots) / g, the smaller g on a tie.  g = 1 is the one-pass launch;
+    a g > 1 keeps EM_SLICE_MIN_SITES sites a slice and launches at most
+    EM_SLICE_MAX_WAVES waves (its scratch, 16 KiB a block, at most 16 x
+    slots of them)."""
+    slots = sms * per_sm
+    if n_tiles < 1 or slots < 1:
+        return 1
+    g_max = min(_slice_cap(n_sites), EM_SLICE_MAX_WAVES * slots // n_tiles)
+    best, best_waves = 1, -(-n_tiles // slots)
+    for g in range(2, g_max + 1):
+        waves = -(-n_tiles * g // slots)
+        if waves * best < best_waves * g:  # waves / g < best_waves / best
+            best, best_waves = g, waves
+    return best
+
+
+def em_slice_bounds(n_sites: int, slices: int) -> list:
+    """The G + 1 bounds of the kernel's site slices (csrc/em.cu
+    site_slice): the ceil(n_sites / 2) steps split as evenly as whole
+    steps allow, slice g the sites [bounds[g], bounds[g + 1])."""
+    steps = -(-n_sites // EM_STEP)
+    return [min(n_sites, EM_STEP * (g * steps // slices)) for g in range(slices + 1)]
 
 
 def _lanes_per_chunk(device: torch.device) -> int:
@@ -259,9 +319,17 @@ def em_block_partials_ref(P: torch.Tensor, score9, pairwise_del: bool,
 
 
 def em_raw_cnt_tables(P: torch.Tensor, score9, pairwise_del: bool,
-                      site_weights=None):
-    """em_raw_cnt_ref in the kernel's arithmetic (_em_sites_tables)."""
-    return _raw_cnt(_em_sites_tables, P, score9, pairwise_del, site_weights)
+                      site_weights=None, slices: int = 1):
+    """em_raw_cnt_ref in the kernel's arithmetic (_em_sites_tables).
+    slices: the kernel's order at G site slices (em_slice_bounds): each
+    slice summed on its own, then the slices' sums added in slice order."""
+    bounds = em_slice_bounds(P.shape[0], slices)
+    raw = cnt = None
+    for b, e in zip(bounds[:-1], bounds[1:]):
+        w = None if site_weights is None else torch.as_tensor(site_weights)[b:e]
+        r, c = _raw_cnt(_em_sites_tables, P[b:e], score9, pairwise_del, w)
+        raw, cnt = (r, c) if raw is None else (raw + r, cnt + c)
+    return raw, cnt
 
 
 def em_block_partials_tables(P: torch.Tensor, score9, pairwise_del: bool,
@@ -309,7 +377,25 @@ def em_raw_cnt(P: torch.Tensor, score9, pairwise_del: bool,
     return _em_cuda(P, score9, pairwise_del, site_weights, site_index, tiles)
 
 
-def _em_cuda(P, score9, pairwise_del, site_weights, site_index, tiles):
+_SLOTS = {}  # (device index, dtype) -> (SMs, resident blocks per SM)
+
+
+def _card_slots(P):
+    """The current card's SM count and the full-mode kernel's resident
+    blocks per SM for P's dtype (the kernel's occupancy query), once a
+    card and dtype."""
+    key = (torch.cuda.current_device(), P.dtype)
+    if key not in _SLOTS:
+        per_sm = ctypes.c_int(0)
+        _build.check_launch(_build.entry("em_blocks_per_sm", P)(ctypes.byref(per_sm)),
+                            "em occupancy")
+        sms = torch.cuda.get_device_properties(key[0]).multi_processor_count
+        _SLOTS[key] = (sms, per_sm.value)
+    return _SLOTS[key]
+
+
+def _em_cuda(P, score9, pairwise_del, site_weights, site_index, tiles, slices=None):
+    """The kernel's launch; slices: G in place of em_site_slices' (tests)."""
     _build.check_probs(P)
     S, N, _ = P.shape
     if site_index is not None:
@@ -325,13 +411,25 @@ def _em_cuda(P, score9, pairwise_del, site_weights, site_index, tiles):
         if tiles.numel() == 0:
             return raw, cnt
     hi = float(np.exp(EM_TOLE))  # the kernel's ratio test runs in float64
-    fn = _build.entry("em_raw_cnt", P)
+    nt = -(-N // EM_TILE)
+    n_tiles = nt * (nt + 1) // 2 if tiles is None else tiles.numel()
     with torch.cuda.device(P.device):
-        rc = fn(_build.ptr(P), _build.ptr(w), _build.ptr(site_index), _build.ptr(tiles),
-                0 if tiles is None else tiles.numel(), _build.ptr(raw), _build.ptr(cnt), S, N,
-                _build.score9(score9, P), hi, int(pairwise_del), _build.stream(P.device))
+        if slices is None:  # the card is asked only where the sites allow two slices
+            slices = 1 if _slice_cap(S) < 2 else em_site_slices(n_tiles, S, *_card_slots(P))
+        part = None
+        if slices > 1:
+            part = torch.empty((slices, n_tiles, 2, EM_TILE * EM_TILE), dtype=torch.float64,
+                               device=P.device)
+        rc = _build.entry("em_raw_cnt", P)(
+            _build.ptr(P), _build.ptr(w), _build.ptr(site_index), _build.ptr(tiles),
+            0 if tiles is None else n_tiles, _build.ptr(raw), _build.ptr(cnt), S, N,
+            _build.score9(score9, P), hi, int(pairwise_del), slices, _build.ptr(part),
+            _build.stream(P.device))
     _build.check_launch(rc, "em")
     count_launch(globals(), P, "" if tiles is None else "TILE_")
+    if slices > 1:
+        count_launch(globals(), P, "SLICED_")
+    globals()[f"SITE_SLICES{'_F64' if P.dtype == torch.float64 else ''}"] += slices
     return raw, cnt
 
 

@@ -78,7 +78,7 @@ def main() -> int:
             raise RuntimeError(f"nvcc failed for {name!r}:\n{log[-4000:]}")
         lib = ctypes.CDLL(path)
         lib.ngsd_em_raw_cnt_f32.argtypes = [vp, vp, vp, vp, i64, vp, vp, i64, i32, vp,
-                                            ctypes.c_double, i32, vp]
+                                            ctypes.c_double, i32, i32, vp, vp]
         lib.ngsd_em_block_partials_f32.argtypes = [vp, vp, vp, i32, i64, i64, vp,
                                                    ctypes.c_double, i32, vp]
         lib.ngsd_em_raw_cnt_f32.restype = lib.ngsd_em_block_partials_f32.restype = i32
@@ -86,7 +86,7 @@ def main() -> int:
         def full():
             _build.check_launch(
                 lib.ngsd_em_raw_cnt_f32(_build.ptr(P32), None, None, None, 0, _build.ptr(raw),
-                                        _build.ptr(cnt), S, N, score, hi, 0,
+                                        _build.ptr(cnt), S, N, score, hi, 0, 1, None,
                                         _build.stream(dev)), f"em ({name})")
 
         def blocks():

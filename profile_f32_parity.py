@@ -126,8 +126,12 @@ def main() -> int:
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.ngsd_indep_raw_cnt_f32.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, i64,
                                                vp, i32, vp]
+        # a library with the occupancy query takes the site slices and
+        # their scratch (one slice, none) before the stream
+        sliced = hasattr(lib, "ngsd_em_blocks_per_sm_f32")
         lib.ngsd_em_raw_cnt_f32.argtypes = [vp, vp, vp, vp, i64, vp, vp, i64, i32, vp,
-                                            ctypes.c_double, i32, vp]
+                                            ctypes.c_double, i32,
+                                            *((i32, vp) if sliced else ()), vp]
         lib.ngsd_indep_raw_cnt_f32.restype = lib.ngsd_em_raw_cnt_f32.restype = i32
 
         def indep_call(lib=lib):
@@ -143,13 +147,13 @@ def main() -> int:
 
         Pe = P[:chip_smoke.EM_SITES].contiguous()
 
-        def em_call(lib=lib):
+        def em_call(lib=lib, one_slice=(1, None) if sliced else ()):
             S, N = Pe.shape[:2]
             raw = torch.zeros((N, N), device=dev)
             cnt = torch.zeros_like(raw)
             _build.check_launch(lib.ngsd_em_raw_cnt_f32(
                 _build.ptr(Pe), None, None, None, 0, _build.ptr(raw), _build.ptr(cnt), S, N,
-                score, float(np.exp(em.EM_TOLE)), 0, _build.stream(dev)), "em")
+                score, float(np.exp(em.EM_TOLE)), 0, *one_slice, _build.stream(dev)), "em")
             return raw, cnt
 
         runs[k] = {"indep": indep_call, "em": em_call}

@@ -1,6 +1,9 @@
 """The port's plain EM kernel (torch float64) against the JAX package:
 the Pallas kernel in interpret mode and the batched EM engine."""
 
+import contextlib
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -12,6 +15,7 @@ from ngsdist_tpu.config import default_score_matrix  # noqa: E402
 from ngsdist_tpu.core import distance as dist  # noqa: E402
 from ngsdist_tpu.ops.pallas_em import em_raw_cnt_pallas  # noqa: E402
 from ngsdist_tpu_torch.core import distance as tdist  # noqa: E402
+from ngsdist_tpu_torch.ops import _build  # noqa: E402
 from ngsdist_tpu_torch.ops import em as tem  # noqa: E402
 
 torch.set_num_threads(2)
@@ -265,6 +269,135 @@ def test_em_tables_raw_cnt_match_plain(N, S, pairwise_del, weighted):
     ok = ~torch.isnan(raw_p)
     bound = tem.em_table_bound(S) * np.abs(score9).max() * cnt_p
     assert bool(((raw_t - raw_p).abs()[ok] <= bound[ok]).all())
+
+
+# The kernel's site slices (csrc/em.cu site_slice) and the rule that picks
+# their number, G, on an H100: 132 SMs, two of the kernel's blocks each.
+_H100 = (132, 2)
+
+
+@pytest.mark.parametrize("n_tiles,n_sites,want,fill", [
+    (528, 16384, 1, 1.0),        # N = 1024: two whole waves of 264
+    (528, 262144, 1, 1.0),
+    (21, 262144, 25, 0.99),      # N = 179: 525 blocks, 99.4% of two waves
+    (630, 32768, 5, 0.99),       # N = 1,092: 3,150 blocks, 99.4% of 12 waves
+    (21, 2 * 4096 - 1, 1, 0.0),  # fewer sites than two slices hold
+    (3, 777, 1, 0.0),            # the tests' and the goldens' sizes
+    (275, 16384, 4, 0.8),        # a tile list: a pairs shard's, two shards at N = 1024
+    (8256, 262144, 1, 0.9),      # N = 4,096: 32 waves, past the sliced launch's 16
+])
+def test_em_site_slices_rule(n_tiles, n_sites, want, fill):
+    """G from the tile count, the site count, the SMs and the blocks per
+    SM: the fewest waves a slice, the smaller G on a tie, at least
+    EM_SLICE_MIN_SITES sites a slice and EM_SLICE_MAX_WAVES waves; the
+    same on every call; the slots filled, in the waves it takes, at least
+    `fill`."""
+    G = tem.em_site_slices(n_tiles, n_sites, *_H100)
+    assert G == want
+    assert [tem.em_site_slices(n_tiles, n_sites, *_H100) for _ in range(3)] == [G] * 3
+    slots = _H100[0] * _H100[1]
+
+    def per_slice(g):
+        return -(-n_tiles * g // slots) / g
+
+    if G > 1:
+        assert n_sites // G >= tem.EM_SLICE_MIN_SITES
+        assert n_tiles * G <= tem.EM_SLICE_MAX_WAVES * slots
+    assert n_tiles * G / (-(-n_tiles * G // slots) * slots) >= fill
+    g_max = max(1, min(n_sites // tem.EM_SLICE_MIN_SITES,
+                       tem.EM_SLICE_MAX_WAVES * slots // n_tiles))
+    assert all(per_slice(g) > per_slice(G) for g in range(1, G))
+    assert all(per_slice(g) >= per_slice(G) for g in range(G, g_max + 1))
+
+
+@pytest.mark.parametrize("n_sites", [0, 1, 2, 7, 8192, 32769, 262144])
+@pytest.mark.parametrize("slices", [1, 2, 3, 5, 25])
+def test_em_slice_bounds_cover_the_sites(n_sites, slices):
+    """Slice bounds: [0, S) covered once, in order, every bound but S a
+    multiple of the kernel's 2-site step, slices within a step of each
+    other's length; one slice is [0, S)."""
+    b = tem.em_slice_bounds(n_sites, slices)
+    assert len(b) == slices + 1 and b[0] == 0 and b[-1] == n_sites
+    assert all(x <= y for x, y in zip(b, b[1:]))
+    assert all(x % tem.EM_STEP == 0 for x in b[:-1])
+    lengths = [y - x for x, y in zip(b, b[1:])]
+    assert max(lengths) - min(lengths) <= 2 * tem.EM_STEP
+    if slices == 1:
+        assert b == [0, n_sites]
+
+
+@pytest.mark.parametrize("N,S", [(7, 41), (33, 27)])
+@pytest.mark.parametrize("slices", [2, 3, 5])
+@pytest.mark.parametrize("pairwise_del", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_em_tables_sliced_sum_order(N, S, slices, pairwise_del, weighted):
+    """The kernel's sum at G site slices in plain PyTorch: cnt exact, the
+    NaN pattern the plain version's, raw within em_table_bound(S) x cnt x
+    max|score| of both the unsliced order and the plain version."""
+    rng, P = _table_case(600 + N + slices, S, N)
+    score9 = default_score_matrix().reshape(-1)
+    w = rng.integers(0, 4, size=S).astype(np.float64) if weighted else None
+    raw_s, cnt_s = tem.em_raw_cnt_tables(P, score9, pairwise_del, w, slices=slices)
+    raw_p, cnt_p = tem.em_raw_cnt_ref(P, score9, pairwise_del, w)
+    bound = tem.em_table_bound(S) * np.abs(score9).max() * cnt_p
+    ok = ~torch.isnan(raw_p)
+    for raw, cnt in (tem.em_raw_cnt_tables(P, score9, pairwise_del, w), (raw_p, cnt_p)):
+        assert torch.equal(cnt_s, cnt)
+        assert torch.equal(torch.isnan(raw_s), torch.isnan(raw))
+        assert bool(((raw_s - raw).abs()[ok] <= bound[ok]).all())
+
+
+def test_em_wrapper_launches_the_slices(monkeypatch):
+    """The CUDA wrapper on CPU tensors against a stand-in library and an
+    H100's slots: one entry, with the arguments `_build._configure`
+    declares, G and a scratch for G > 1, G = 1 and no scratch for a small
+    input (the card not asked) and for slices=1; the launch counters and
+    SITE_SLICES count each."""
+    calls, asked = [], []
+
+    class Entry:
+        def __init__(self, name):
+            self.name = name
+
+        def __call__(self, *args):
+            calls.append((self.name, args))
+            return 0
+
+    class Lib:
+        def __getattr__(self, name):
+            setattr(self, name, Entry(name))
+            return getattr(self, name)
+
+    lib = Lib()
+    _build._configure(lib)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "check_probs", lambda P: None)
+    monkeypatch.setattr(_build, "stream", lambda device: ctypes.c_void_p(None))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(tem, "_card_slots", lambda P: asked.append(P.dtype) or _H100)
+    score9 = default_score_matrix().reshape(-1)
+    names = ("LAUNCHES", "TILE_LAUNCHES", "SLICED_LAUNCHES", "SITE_SLICES")
+    for dtype, sfx in ((torch.float32, ""), (torch.float64, "_F64")):
+        big, small = torch.zeros((16384, 33, 3), dtype=dtype), torch.zeros((101, 33, 3),
+                                                                          dtype=dtype)
+        tiles = torch.tensor([2, 0], dtype=torch.int32)
+        for P, tl, slices, G in (
+                (big, None, None, 4),   # 3 tiles x 16,384 sites
+                (big, tiles, None, 4),
+                (big, None, 3, 3),
+                (big, None, 1, 1),
+                (small, None, None, 1)):
+            before = [getattr(tem, n + sfx) for n in names]
+            calls.clear()
+            asked.clear()
+            tem._em_cuda(P, score9, False, None, None, tl, slices=slices)
+            (name, args), = calls
+            assert name == f"ngsd_em_raw_cnt_{'f64' if sfx else 'f32'}"
+            assert len(args) == len(getattr(lib, name).argtypes)
+            assert args[12] == G and (args[13].value is not None) == (G > 1)
+            assert asked == ([dtype] if slices is None and P is big else [])
+            moved = [getattr(tem, n + sfx) - b for n, b in zip(names, before)]
+            assert moved == [int(tl is None), int(tl is not None), int(G > 1), G]
 
 
 @pytest.mark.parametrize("N", [7, 33])

@@ -660,6 +660,69 @@ def test_f64_em_site_list_gives_the_whole_runs_bytes(cuda, N, S, pairwise_del):
                                              site_index=index), P, index.numel())
 
 
+def _sliced_counts():
+    return (em.SLICED_LAUNCHES, em.SITE_SLICES, em.SLICED_LAUNCHES_F64, em.SITE_SLICES_F64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("pairwise_del", [False, True])
+def test_em_site_slices(cuda, dtype, pairwise_del):
+    """The full-mode EM over G > 1 site slices, G by the rule on this card
+    (3 tiles x 20,001 sites: 4 on an H100) and G = 5: counted, reruns
+    byte-identical, within the bounds of the sliced plain order
+    (em_raw_cnt_tables(slices=G)); a tile list the full launch's tiles and
+    a site list the gathered sites' bytes at the same G; G = 1 the
+    one-pass launch, which a small input takes."""
+    from ngsdist_tpu_torch.ops import _build
+
+    N, S = 65, 20001
+    P, w = _case64(cuda, S, N)
+    if dtype == "float32":
+        P = P.float()
+    P64, f64 = P.double(), dtype == "float64"
+    auto = em.em_site_slices(3, S, *em._card_slots(P))
+    assert auto > 1
+    before = _sliced_counts()
+    got = em.em_raw_cnt(P, SCORE9, pairwise_del, w)
+    moved = [a - b for a, b in zip(_sliced_counts(), before)]
+    assert moved == ([0, 0, 1, auto] if f64 else [1, auto, 0, 0])
+    iu = torch.triu_indices(N, N, offset=1, device=cuda)
+    for G in (auto, 5, 1):
+        if G != auto:
+            got = em._em_cuda(P, SCORE9, pairwise_del, w, None, None, slices=G)
+        again = em._em_cuda(P, SCORE9, pairwise_del, w, None, None, slices=G)
+        assert all(chip_smoke.same_bytes(torch, a, b) for a, b in zip(got, again))
+        raw_t, cnt_t = em.em_raw_cnt_tables(P64, SCORE9, pairwise_del, w, slices=G)
+        if f64:
+            assert torch.equal(got[1][iu[0], iu[1]], cnt_t[iu[0], iu[1]])
+            a, b = got[0][iu[0], iu[1]], raw_t[iu[0], iu[1]]
+            ok = ~torch.isnan(b)
+            assert torch.equal(torch.isnan(a), ~ok)
+            assert bool(((a - b).abs()[ok]
+                         <= 32 * 2.0 ** -53 * (1 + S) * cnt_t[iu[0], iu[1]][ok]).all())
+        else:
+            chip_smoke.check_kernel("em", torch, *got, raw_t, cnt_t)
+        lst = np.array([2, 0], dtype=np.int32)
+        tiles = torch.from_numpy(lst).to(cuda)
+        listed = em._em_cuda(P, SCORE9, pairwise_del, w, None, tiles, slices=G)
+        mask = _build.tile_mask(N, lst, em.EM_TILE, True).to(cuda)
+        for g, f in zip(listed, got):
+            assert chip_smoke.same_bytes(torch, g[mask], f[mask]) and not bool(g[~mask].any())
+        index = torch.nonzero(w != 0)[:, 0]
+        by_list = em._em_cuda(P, SCORE9, pairwise_del, w[index], index, None, slices=G)
+        gathered = em._em_cuda(P.index_select(0, index), SCORE9, pairwise_del, w[index], None,
+                               None, slices=G)
+        assert all(chip_smoke.same_bytes(torch, a, b) for a, b in zip(by_list, gathered))
+    small = P[:101].contiguous()
+    before = _sliced_counts()
+    one = em.em_raw_cnt(small, SCORE9, pairwise_del, w[:101])
+    moved = [a - b for a, b in zip(_sliced_counts(), before)]
+    assert moved == ([0, 0, 0, 1] if f64 else [0, 1, 0, 0])
+    forced = em._em_cuda(small, SCORE9, pairwise_del, w[:101], None, None, slices=1)
+    assert all(chip_smoke.same_bytes(torch, a, b) for a, b in zip(one, forced))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", sorted(KERNELS))
 @pytest.mark.parametrize("p", chip_smoke.TILE_SPLITS)
