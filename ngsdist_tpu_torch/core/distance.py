@@ -377,10 +377,13 @@ class ChunkPipe:
         return _host_pack(self.src, lo, hi, self.dtype, self.device, out=out)
 
     def _expand(self, t: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
-        """A packed or coded slab on the device as its [n, N, 3] triples."""
-        if self.coded:
+        """A packed or coded slab on the device as its [n, N, 3] triples;
+        a code plane's expansion is the "expand" span (on a card inside
+        the slab's "upload", on the copy stream)."""
+        if not self.coded:
+            return expand23(t, out=out)
+        with profiling.device_span("expand", self.stream if self.cuda else None):
             return expand_codes(t, self.lut, out=out)
-        return expand23(t, out=out)
 
     def _send(self, k: int, lo: int, hi: int, arr) -> torch.Tensor:
         if not self.cuda:
@@ -448,15 +451,15 @@ def upload_resident(src, device: torch.device, x64: bool) -> torch.Tensor:
     through a ChunkPipe into the tensor one after another: one pass over
     a handle's file, no float64 host tensor, each slab's copy under the
     next one's read (ngsdist_tpu.core.distance._upload_packed_pipelined).
-    A slab holds _pipe_upload_bytes() of its lane's bytes; a coded one
-    the sites of a staged slab (its rows fill _pipe_upload_bytes() of the
-    tensor)."""
+    A slab holds _pipe_upload_bytes() of its lane's bytes, a coded one
+    too (one byte a triple): every read starts the reader's threads
+    anew, so fewer, larger reads take less of the job."""
     if device.type != "cuda" and not hasattr(src, "read_packed"):
         return put_probs(src, device, x64)
     dtype = default_dtype(device, x64)
     S, N = src.shape[:2]
     width, slab_dtype = slab_layout(src, dtype, device)
-    slab_site_bytes = N * (3 * dtype.itemsize if width == 1 else width * slab_dtype.itemsize)
+    slab_site_bytes = N * width * slab_dtype.itemsize
     step = max(1, _pipe_upload_bytes() // max(1, slab_site_bytes))
     P = torch.empty((S, N, 3), dtype=dtype, device=device)
     pipe = ChunkPipe(src, device, dtype, max(1, min(step, S)), dest=P)
@@ -831,12 +834,13 @@ def _resum_blocks(pars: Params, Ptrunc: torch.Tensor, score: torch.Tensor,
     record of all-zero triples (preprocess.ZeroRows) where the EM must
     poison for them, else None."""
     bs = pars.boot_block_size
-    if pars.indep_geno:
-        B, C = indep_block_partials(Ptrunc, score, pars.pairwise_del, n_blocks, bs)
-    else:
-        B, C = em_block_partials(Ptrunc, score.reshape(-1), pars.pairwise_del,
-                                 n_blocks, bs)
-        C = C if pars.pairwise_del else None  # the denominator is n_trunc
+    with profiling.device_span("kernel"):
+        if pars.indep_geno:
+            B, C = indep_block_partials(Ptrunc, score, pars.pairwise_del, n_blocks, bs)
+        else:
+            B, C = em_block_partials(Ptrunc, score.reshape(-1), pars.pairwise_del,
+                                     n_blocks, bs)
+            C = C if pars.pairwise_del else None  # the denominator is n_trunc
     # float64 already, from the kernels and from the CPU's float64 policy
     B, C = B.double(), None if C is None else C.double()
     table = bt.block_index_table(pars.seed, pars.n_boot_rep, n_blocks)

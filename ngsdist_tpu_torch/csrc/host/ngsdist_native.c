@@ -1080,8 +1080,8 @@ ND_EXPORT int nd_format_matrix10f(const double *m, int64_t n_rows,
  * 1k individuals x 1M sites that is ~75 GB of extra memory traffic and
  * a 25 GB resident f64 tensor.  This reader fuses them for RAW binary
  * GP inputs (the reference's -geno + -in_bin double stream,
- * read_data.cpp:29-47): each worker preads its site slice in bounded
- * scratch chunks and, per triple, applies the exact staged arithmetic —
+ * read_data.cpp:29-47): the workers pread pieces of the range in turn
+ * into bounded scratch and, per triple, applies the exact staged arithmetic —
  * log (clamped, if the input is normal-space), the ordered log-sum-exp
  * normalize (nd_postprob3), the NaN check, then exp and a float cast of
  * the first TWO components (the third reconstructs on device as
@@ -1094,7 +1094,8 @@ ND_EXPORT int nd_format_matrix10f(const double *m, int64_t n_rows,
 typedef struct {
   int fd;
   int64_t base_off;  /* file byte offset of triple 0 of the range */
-  int64_t t_lo, t_hi; /* this worker's triple range within the range */
+  int64_t t_hi;      /* triples in the range */
+  int64_t *next_piece; /* shared: the next piece of ND_PACK_PIECE_TRIPLES */
   float *out2;       /* MODE_PACK23: packed output, triple t -> out2[2*t] */
   unsigned char *outc; /* MODE_CODES: one code per triple */
   unsigned short *out16; /* MODE_PACK16: quantized pair per triple */
@@ -1104,6 +1105,7 @@ typedef struct {
   int read_err;
   int any_missing;   /* MODE_CODES: emitted at least one code 3 */
   int saved_errno;   /* libm errno from normalize only (not exp) */
+  int64_t errno_piece; /* the last piece of this worker that set it */
 } nd_pack_job;
 
 #define ND_FUSED_PACK23 0
@@ -1118,20 +1120,33 @@ typedef struct {
 #define ND_U16_ONE 65534.0
 #define ND_PAD16 65535u
 
-#define ND_PACK_SCRATCH_TRIPLES 65536 /* 1.5 MB f64 scratch per worker */
+/* Workers take pieces of the range in turn from a shared counter, so a
+ * worker that the host preempts holds back one piece only; a piece is
+ * one pread and one pass over its scratch. */
+#define ND_PACK_PIECE_TRIPLES 16384 /* 384 KB f64 scratch per worker */
 
 static void *nd_pack_worker(void *arg) {
   nd_pack_job *j = (nd_pack_job *)arg;
   double *scratch =
-      (double *)malloc(ND_PACK_SCRATCH_TRIPLES * 3 * sizeof(double));
+      (double *)malloc(ND_PACK_PIECE_TRIPLES * 3 * sizeof(double));
   if (!scratch) {
     j->read_err = 1;
     return NULL;
   }
-  errno = 0;
-  for (int64_t t0 = j->t_lo; t0 < j->t_hi; t0 += ND_PACK_SCRATCH_TRIPLES) {
+  int64_t k = -1;
+  for (;;) {
+    /* the previous piece's errno, kept with its index: the last one in
+     * triple order wins across workers (nd_fused_read_impl) */
+    if (k >= 0 && errno) {
+      j->saved_errno = errno;
+      j->errno_piece = k;
+    }
+    errno = 0;
+    k = __atomic_fetch_add(j->next_piece, 1, __ATOMIC_RELAXED);
+    int64_t t0 = k * ND_PACK_PIECE_TRIPLES;
+    if (t0 >= j->t_hi) break;
     int64_t nt = j->t_hi - t0;
-    if (nt > ND_PACK_SCRATCH_TRIPLES) nt = ND_PACK_SCRATCH_TRIPLES;
+    if (nt > ND_PACK_PIECE_TRIPLES) nt = ND_PACK_PIECE_TRIPLES;
     int64_t bytes = nt * 3 * (int64_t)sizeof(double);
     int64_t off = j->base_off + t0 * 3 * (int64_t)sizeof(double);
     int64_t done = 0;
@@ -1363,7 +1378,6 @@ static void *nd_pack_worker(void *arg) {
     }
     errno = norm_errno;
   }
-  j->saved_errno = errno;
   free(scratch);
   return NULL;
 }
@@ -1413,18 +1427,18 @@ static int nd_fused_read_impl(const char *path, int in_logscale,
    * normalized (the reference's short gzread likewise drops it) */
   int64_t have = avail_bytes / (3 * (int64_t)sizeof(double));
 
+  int64_t pieces = (have + ND_PACK_PIECE_TRIPLES - 1) / ND_PACK_PIECE_TRIPLES;
   long nt = sysconf(_SC_NPROCESSORS_ONLN);
   if (nt < 1) nt = 1;
   if (nt > 16) nt = 16;
-  if (nt > have) nt = (long)(have > 0 ? have : 1);
+  if (nt > pieces) nt = (long)(pieces > 0 ? pieces : 1);
   nd_pack_job jobs[16];
   pthread_t tids[16];
-  int64_t per = (have + nt - 1) / nt;
+  int64_t next_piece = 0;
   long nw = 0, nj = 0; /* created threads vs jobs run (incl. inline) */
-  for (long w = 0; w < nt && w * per < have; w++) {
-    int64_t lo = w * per, hi = lo + per < have ? lo + per : have;
-    jobs[w] = (nd_pack_job){fd, base_off, lo, hi, out2, outc, out16, mode,
-                            in_logscale, 0, 0, 0, 0};
+  for (long w = 0; w < nt; w++) {
+    jobs[w] = (nd_pack_job){fd, base_off, have, &next_piece, out2, outc,
+                            out16, mode, in_logscale, 0, 0, 0, 0, -1};
     if (pthread_create(&tids[nw], NULL, nd_pack_worker, &jobs[w]))
       nd_pack_worker(&jobs[w]); /* degraded: run inline, no tid to join */
     else
@@ -1434,12 +1448,16 @@ static int nd_fused_read_impl(const char *path, int in_logscale,
   for (long w = 0; w < nw; w++) pthread_join(tids[w], NULL);
   int rc = 0;
   int nan = 0, read_err = 0, any_missing = 0;
+  int64_t errno_piece = -1;
   for (long w = 0; w < nj; w++) {
     nan |= jobs[w].nan_flag;
     read_err |= jobs[w].read_err;
     any_missing |= jobs[w].any_missing;
     /* last non-zero errno in triple order wins (nd_normalize_rows) */
-    if (jobs[w].saved_errno) *err_out = jobs[w].saved_errno;
+    if (jobs[w].saved_errno && jobs[w].errno_piece > errno_piece) {
+      *err_out = jobs[w].saved_errno;
+      errno_piece = jobs[w].errno_piece;
+    }
   }
   if (any_missing_out) *any_missing_out = any_missing;
   close(fd);

@@ -32,6 +32,9 @@ from ..utils import native as _native
 BIGNEG = 1.0e15  # log-space missing sentinel (reference INF, gen_func.hpp:15)
 LINE_MAX = 500000
 
+CODED_READS = 0  # read_geno_codes calls since the count was last set to 0
+CODED_ROWS = 0   # the sites they read
+
 # Numeric forms accepted by C strtod (and not Python-only forms such as
 # digit underscores): decimal/exponent, hex floats, inf/nan.
 _STRTOD_RE = re.compile(
@@ -242,9 +245,11 @@ def read_geno_codes(
     and gen_func.cpp:886-914.
 
     out: a C-contiguous uint8 [rows, n_ind] array to fill instead of a
-    new one (pinned memory)."""
+    new one (pinned memory).  Each read adds one to CODED_READS and its
+    sites to CODED_ROWS."""
     import ctypes
 
+    global CODED_READS, CODED_ROWS
     if path == "-" or not _native.have_native():
         return None
     start, stop = site_range if site_range is not None else (0, n_sites)
@@ -267,6 +272,8 @@ def read_geno_codes(
     if rc != 0:
         raise NgsDistError("read_geno", errbuf.value.decode(),
                            err=err.value)
+    CODED_READS += 1
+    CODED_ROWS += stop - start
     return out, bool(any_missing.value)
 
 

@@ -129,9 +129,9 @@ class StageTimes:
     def __init__(self, device) -> None:
         self.device = device
         self.cuda = device.type == "cuda"
-        self.host = {name: [] for name in ("read", "scan", "upload", "kernel", "gather",
-                                           "fetch", "matrix", "write")}
-        self.events = {"upload": [], "kernel": []}
+        self.host = {name: [] for name in ("read", "scan", "upload", "expand", "kernel",
+                                           "gather", "fetch", "matrix", "write")}
+        self.events = {"upload": [], "expand": [], "kernel": []}
         self.upload_bytes = 0
         if self.cuda:
             import torch

@@ -112,6 +112,39 @@ def test_error_surface(tmp_path):
         th.read_packed(10, 20)
 
 
+@pytest.mark.parametrize("lane", ["pack23", "pack16", "codes"])
+@pytest.mark.parametrize("last", ["ERANGE", "EDOM"])
+def test_pieces_taken_in_turn(tmp_path, lane, last):
+    """A range of six pieces (ND_PACK_PIECE_TRIPLES = 16,384 triples),
+    which the native workers take from a shared counter: the slab's bytes
+    equal the JAX package's reader, and so does a fatal's errno, the last
+    one in triple order: a zero component (log: ERANGE) and a negative
+    one (log: EDOM, and a NaN) in different pieces, either way round."""
+    S, N = 2100, 40
+    path, g = _write_gp(tmp_path, S, N)
+    read = getattr(readers, f"read_geno_{lane}")
+    jread = getattr(jreaders, f"read_geno_{lane}")
+
+    def slab(got):
+        return (got[0] if isinstance(got, tuple) else got).tobytes()
+
+    assert slab(read(path, False, N, S)) == slab(jread(path, False, N, S))
+    assert (slab(read(path, False, N, S, site_range=(3, 2011)))
+            == slab(jread(path, False, N, S, site_range=(3, 2011))))
+    early, late = 20, 1900   # sites in the first and the fifth piece
+    bad = g.copy()
+    bad[early if last == "ERANGE" else late, 7] = [0.5, -0.25, 0.75]
+    bad[late if last == "ERANGE" else early, 9] = [0.0, 0.5, 0.5]
+    bad[5, 3] = bad[S - 1, N - 1] = [0.2, 0.3, 0.5]   # no other zero
+    p = os.path.join(str(tmp_path), "bad.bin")
+    bad.tofile(p)
+    with pytest.raises(NgsDistError, match="NaN found") as got:
+        read(p, False, N, S)
+    with pytest.raises(Exception, match="NaN found") as want:
+        jread(p, False, N, S)
+    assert got.value.err == want.value.err == getattr(__import__("errno"), last)
+
+
 def test_gzip_falls_back_to_none(tmp_path):
     S, N = 32, 4
     path, _ = _write_gp(tmp_path, S, N)

@@ -220,6 +220,21 @@ def test_spans_fetch_matrix_write_per_replicate(route, tmp_path, monkeypatch):
     assert order == sorted(order) and start <= order[0] and order[-1] <= end
 
 
+def test_partials_route_times_its_block_call(tmp_path, monkeypatch):
+    """On the partial-sum route both kernel calls of a run are "kernel"
+    spans: the full data's and the block mode's that serves every
+    replicate."""
+    from ngsdist_tpu_torch.utils import profiling
+
+    monkeypatch.chdir(DATA_DIR)
+    times = profiling.StageTimes(torch.device("cpu"))
+    monkeypatch.setattr(profiling, "ACTIVE", times)
+    _span_run("partials", str(tmp_path / "t.dist"), monkeypatch)
+    iv = times.intervals()
+    assert len(iv["kernel"]) == 2
+    assert iv["kernel"][1][1] <= iv["fetch"][1][0]   # the block call before replicate 1's fetch
+
+
 @pytest.mark.parametrize("route", sorted(SPAN_ROUTES))
 def test_spans_off_write_the_same_bytes_and_record_nothing(route, tmp_path, monkeypatch):
     """With StageTimes off and no trace, a run opens no profiler range and
