@@ -664,7 +664,7 @@ def _make_exact_stats(indep: bool, pairwise_del: bool, score, device: torch.devi
             if zero is not None:
                 z = zero.individuals(lo, lo + Psub.shape[0], weights)
                 if z.any():
-                    raw_v = _em_poison_pairs(raw_v, torch.from_numpy(z).to(device), It, Jt)
+                    raw_v = _em_poison_pairs(raw_v, _upload_small(z, device), It, Jt)
             return raw_v, cnt_m[It, Jt]
 
     def exact_stats(Psub, weights=None, lo=0, index=None):
@@ -688,6 +688,64 @@ def _make_exact_stats(indep: bool, pairwise_del: bool, score, device: torch.devi
         return raw, cnt
 
     return exact_stats
+
+
+# Matrices fetched after the next replicate's work was already queued
+# (`_lookahead`), since the count was last set to 0: R of the R + 1
+# matrices of a resident run, none of a streamed one.
+FETCHES_AHEAD = 0
+
+
+class _Fetch:
+    """Device tensors on their way to the host (a value may be None).  On
+    a card each is copied into pinned memory without blocking and an
+    event is recorded behind the copies, so `numpy()` waits for these
+    copies only and not, as a plain `.cpu()` would, for whatever was
+    queued after them: the next replicate's kernels.  The pinned buffers
+    come from the caching host allocator, which reuses a buffer once its
+    copy has finished.  Elsewhere it holds the tensors themselves."""
+
+    def __init__(self, tensors: dict) -> None:
+        self.event = None
+        self.host = tensors
+        if any(t is not None and t.device.type == "cuda" for t in tensors.values()):
+            self.host = {k: None if t is None else
+                         torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         .copy_(t, non_blocking=True) for k, t in tensors.items()}
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def numpy(self) -> dict:
+        if self.event is not None:
+            self.event.synchronize()
+        return {k: None if t is None else t.numpy() for k, t in self.host.items()}
+
+
+def _lookahead(reps: List[int], dispatch, correct, ahead: bool) -> Iterator[np.ndarray]:
+    """The matrices of reps in order.  dispatch(rep) queues matrix rep's
+    work and returns (_Fetch, *args); correct(got, *args) turns the
+    fetched arrays into the matrix on the host.  ahead: queue matrix
+    k+1 before matrix k is fetched, so that the card computes it while
+    the host corrects and writes matrix k (a resident run); else each
+    matrix is queued and fetched in turn (a streamed one fetches as it
+    goes, so looking ahead would only compute a whole replicate early)."""
+    global FETCHES_AHEAD
+    pending = dispatch(reps[0]) if ahead and reps else None
+    for k, rep in enumerate(reps):
+        if ahead:
+            now = pending
+            if k + 1 < len(reps):
+                pending = dispatch(reps[k + 1])
+                FETCHES_AHEAD += 1
+        else:
+            now = dispatch(rep)
+        fetch, *args = now
+        with profiling.replicate(rep):
+            with profiling.host_span("fetch"):
+                got = fetch.numpy()
+            with profiling.host_span("matrix"):
+                m = correct(got, *args)
+        yield m
 
 
 def iter_replicates(
@@ -778,51 +836,38 @@ def iter_replicates(
         acc = _round_sums(pars, rep, round_ckpt, device, x64, chunk, rounds, step)
         return acc["raw"], acc.get("cnt")
 
-    def to_matrix(rep, raw_v, cnt_v, n_used):
-        """Replicate rep's corrected matrix from its pair vectors."""
-        with profiling.replicate(rep):
-            with profiling.host_span("fetch"):
-                raw = raw_v.cpu().double().numpy()
-                cnt = None if cnt_v is None else cnt_v.cpu().double().numpy()
-            with profiling.host_span("matrix"):
-                raw_m = _scatter_pairs(raw, I, J, N)
-                cnt_m = None if cnt is None else _scatter_pairs(cnt, I, J, N)
-                denom = cnt_m if pars.pairwise_del else float(n_used)
-                return _finalize(raw_m, denom, pars, on_stats)
-
-    if start_rep == 0:
-        with profiling.replicate(0):
-            full = stats_stream()
-        yield to_matrix(0, *full, S)
-
-    reps = [r for r in range(pars.n_boot_rep) if r + 1 >= start_rep]
-    if not reps:
-        return
-
+    # The partial-sum route's replicates, queued one at a time; its first
+    # step queues the block-mode call.
+    blocks = None
     if partials:
-        for r, (raw_v, cnt_v) in zip(reps, _resum_blocks(pars, P[:n_trunc], score, n_blocks,
-                                                         reps, It, Jt, zero)):
-            yield to_matrix(r + 1, raw_v, cnt_v, n_trunc)
-        return
+        blocks = _resum_blocks(pars, P[:n_trunc], score, n_blocks,
+                               [r - 1 for r in range(max(1, start_rep), pars.n_boot_rep + 1)],
+                               It, Jt, zero)
 
-    def dispatch(r):
-        with profiling.replicate(r + 1):
-            return stats_stream(replicate_weights(maps[r], n_trunc), n_trunc, r + 1)
-
-    # Resident runs launch replicate r+1 before fetching replicate r, so
-    # the device computes the next replicate while the host corrects and
-    # writes.  A streamed replicate fetches as it goes, so looking ahead
-    # would only compute a whole replicate early.
-    lookahead = not chunked
-    pending = dispatch(reps[0]) if lookahead else None
-    for k, r in enumerate(reps):
-        if lookahead:
-            raw_v, cnt_v = pending
-            if k + 1 < len(reps):
-                pending = dispatch(reps[k + 1])
+    def dispatch(rep):
+        """Queue matrix rep's pair vectors (rep 0: the full data) and their
+        copy to the host; the count only where it is the denominator."""
+        if rep == 0:
+            with profiling.replicate(0):
+                raw_v, cnt_v = stats_stream()
+        elif partials:
+            raw_v, cnt_v = next(blocks)
         else:
-            raw_v, cnt_v = dispatch(r)
-        yield to_matrix(r + 1, raw_v, cnt_v, n_trunc)
+            with profiling.replicate(rep):
+                raw_v, cnt_v = stats_stream(replicate_weights(maps[rep - 1], n_trunc),
+                                            n_trunc, rep)
+        fetch = _Fetch({"raw": raw_v, "cnt": cnt_v if pars.pairwise_del else None})
+        return fetch, S if rep == 0 else n_trunc
+
+    def correct(got, n_used):
+        """A matrix's corrected distances from its pair vectors (float32
+        ones widen exactly into the float64 scatter)."""
+        raw_m = _scatter_pairs(got["raw"], I, J, N)
+        denom = _scatter_pairs(got["cnt"], I, J, N) if pars.pairwise_del else float(n_used)
+        return _finalize(raw_m, denom, pars, on_stats)
+
+    reps = [rep for rep in range(pars.n_boot_rep + 1) if rep >= start_rep]
+    yield from _lookahead(reps, dispatch, correct, ahead=not chunked)
 
 
 def _resum_blocks(pars: Params, Ptrunc: torch.Tensor, score: torch.Tensor,
@@ -844,7 +889,8 @@ def _resum_blocks(pars: Params, Ptrunc: torch.Tensor, score: torch.Tensor,
     # float64 already, from the kernels and from the CPU's float64 policy
     B, C = B.double(), None if C is None else C.double()
     table = bt.block_index_table(pars.seed, pars.n_boot_rep, n_blocks)
-    M = torch.from_numpy(bt.block_multiplicity(table, n_blocks)).to(B.device)
+    # both uploads without blocking: the host must not wait for the block call
+    M = _upload_small(bt.block_multiplicity(table, n_blocks), B.device)
     # A NaN partial makes the pair NaN whatever its block's multiplicity,
     # as in the JAX product (a BLAS may skip zero multipliers).
     nan_pairs = torch.isnan(B).any(0)
@@ -855,7 +901,7 @@ def _resum_blocks(pars: Params, Ptrunc: torch.Tensor, score: torch.Tensor,
         # where it samples a block in which either member of the pair has
         # an all-zero row.  The partials stay clean, so an unsampled
         # block cannot poison.
-        zB = torch.from_numpy(zero.per_block(n_blocks, bs)).to(B.device).double()
+        zB = _upload_small(zero.per_block(n_blocks, bs), B.device, torch.float64)
     for r in reps:
         raw_v = torch.where(nan_pairs, nan, M[r] @ B)
         if zB is not None:
@@ -878,28 +924,6 @@ PI_PLANE_BYTES = 64 << 20
 # Resident runs of models 3-6 queue replicate r+1 before replicate r is
 # corrected and written; profile_torch.py --lookahead times both.
 EXTENDED_LOOKAHEAD = True
-
-
-class _Fetch:
-    """Device tensors on their way to the host.  On a card each is copied
-    into pinned memory without blocking and an event is recorded behind
-    the copies, so `numpy()` waits for these copies only and not, as a
-    plain `.cpu()` would, for whatever was queued after them: the next
-    replicate's kernels."""
-
-    def __init__(self, tensors: dict) -> None:
-        self.event = None
-        self.host = tensors
-        if any(t.device.type == "cuda" for t in tensors.values()):
-            self.host = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                         .copy_(t, non_blocking=True) for k, t in tensors.items()}
-            self.event = torch.cuda.Event()
-            self.event.record()
-
-    def numpy(self) -> dict:
-        if self.event is not None:
-            self.event.synchronize()
-        return {k: t.numpy() for k, t in self.host.items()}
 
 
 def class_compaction(device: torch.device) -> bool:
@@ -1042,15 +1066,8 @@ def _iter_replicates_extended(pars: Params, P_host, maps: List[np.ndarray],
             out.append(uniform * (one[I] + one[J] - both[I, J]))
         return np.stack(out)
 
-    def to_matrix(rep: int, fetch: _Fetch, denom_sites: float, zero_sums) -> np.ndarray:
-        """Replicate rep's fetched sums corrected on the host, in float64."""
-        with profiling.replicate(rep):
-            with profiling.host_span("fetch"):
-                got = fetch.numpy()
-            with profiling.host_span("matrix"):
-                return correct(got, denom_sites, zero_sums)
-
     def correct(got: dict, denom_sites: float, zero_sums) -> np.ndarray:
+        """A matrix's fetched sums corrected on the host, in float64."""
         raws = got["raw"]
         if zero_sums is not None:
             raws = raws + zero_sums
@@ -1099,19 +1116,7 @@ def _iter_replicates_extended(pars: Params, P_host, maps: List[np.ndarray],
         return _Fetch(out), float(np.sum(w_ok)), zero_lane_sums(wm)
 
     reps = [r for r in range(pars.n_boot_rep + 1) if r >= start_rep]
-    # Resident runs queue replicate r+1 before replicate r is corrected and
-    # written, so the card computes under the host's work.  A streamed
-    # replicate fetches as it goes: nothing to look ahead to.
-    lookahead = EXTENDED_LOOKAHEAD and not streamed
-    pending = dispatch(reps[0]) if lookahead and reps else None
-    for k, rep in enumerate(reps):
-        if lookahead:
-            now = pending
-            if k + 1 < len(reps):
-                pending = dispatch(reps[k + 1])
-        else:
-            now = dispatch(rep)
-        yield to_matrix(rep, *now)
+    yield from _lookahead(reps, dispatch, correct, ahead=EXTENDED_LOOKAHEAD and not streamed)
 
 
 def _round_sums(pars: Params, rep: int, round_ckpt: bool, device, x64: bool, layout, rounds,

@@ -327,6 +327,64 @@ def test_streamed_equals_resident(cuda, tmp_path, monkeypatch, kind, fused):
             assert (np.abs(a - b)[off] <= 2 * chip_smoke.EM_ATOL_CNT + 1e-10).all()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("x64", [False, True], ids=["float32", "x64"])
+def test_fetch_waits_for_its_own_copy_only(cuda, tmp_path, monkeypatch, x64):
+    """A resident weighted run, 1024 x 16,384 and R = 2, where one EM call
+    outlasts a matrix's host work: the fetch of every matrix r < R ends
+    before matrix r+1's kernel span does, so the host no longer waits for
+    the next EM call, as a plain .cpu() would; and the file is byte for
+    byte the matrices built one at a time from _make_exact_stats with a
+    plain .cpu() and _finalize."""
+    import io
+
+    from ngsdist_tpu_torch import cli, runner
+    from ngsdist_tpu_torch.core import distance
+    from ngsdist_tpu_torch.io import writers
+    from ngsdist_tpu_torch.utils import profiling
+
+    S, N, R = 16384, 1024, 2
+    geno = tmp_path / "gp.bin"
+    chip_smoke.rand_probs(np.random.default_rng(16), S, N).astype("<f8").tofile(geno)
+    out = tmp_path / "run.dist"
+    args = ["--geno", str(geno), "--probs", "--n_ind", str(N), "--n_sites", str(S),
+            "--seed", "7", "--evol_model", "1", "--n_boot_rep", str(R),
+            "--boot_block_size", "5", "--out", str(out), "--verbose", "0",
+            "--platform", "cuda"] + (["--x64"] if x64 else [])
+    monkeypatch.setenv("NGSDIST_FUSED_READ", "0")   # the staged read, repeated below
+    monkeypatch.delenv("NGSDIST_DEVICE_BUDGET", raising=False)
+    monkeypatch.setattr(distance, "PARTIALS_BUDGET_BYTES", 0)   # the weighted route
+    times = profiling.StageTimes(cuda)
+    monkeypatch.setattr(profiling, "ACTIVE", times)
+    before = distance.FETCHES_AHEAD
+    assert cli.main(args) == 0
+    monkeypatch.setattr(profiling, "ACTIVE", None)
+    iv = times.intervals()
+    assert distance.FETCHES_AHEAD - before == R
+    assert len(iv["fetch"]) == len(iv["kernel"]) == R + 1
+    for r in range(R):
+        assert iv["fetch"][r][1] < iv["kernel"][r + 1][1]
+
+    pars, _ = cli.parse_args(args)
+    pars.validate()
+    pars.finalize()
+    labels, _, P_host = runner.load_inputs(pars)
+    P = distance.upload_resident(P_host, cuda, x64)
+    score = torch.as_tensor(pars.score, dtype=distance.default_dtype(cuda, x64))
+    I, J = distance._pair_indices(N)
+    It, Jt = (torch.from_numpy(a).long().to(cuda) for a in (I, J))
+    exact = distance._make_exact_stats(False, False, score, cuda, It, Jt, None)
+    n_trunc, maps = distance.bootstrap_site_maps(pars.seed, R, S, pars.boot_block_size)
+    want = io.StringIO()
+    for m in range(R + 1):
+        w = None if m == 0 else distance.replicate_weights(maps[m - 1], n_trunc)
+        n_used = S if m == 0 else n_trunc
+        raw_v, _ = exact(P if m == 0 else P[:n_trunc], w)
+        raw = distance._scatter_pairs(raw_v.cpu().double().numpy(), I, J, N)
+        writers.write_dist_matrix(want, labels, distance._finalize(raw, float(n_used), pars))
+    assert out.read_bytes() == want.getvalue().encode()
+
+
 # ------------------------------------------------------------------ #
 # Tile lists (K1p, K2b) and the mesh's fixed-order sum                #
 # ------------------------------------------------------------------ #

@@ -235,6 +235,62 @@ def test_partials_route_times_its_block_call(tmp_path, monkeypatch):
     assert iv["kernel"][1][1] <= iv["fetch"][1][0]   # the block call before replicate 1's fetch
 
 
+# route -> kernel spans of each of the 3 matrices of a resident run (the
+# partial-sum route: the full data's call, the block call, then M[r] @ B
+# outside any kernel span)
+AHEAD_KERNELS = {"weighted": [1, 1, 1], "partials": [1, 1, 0], "models3_6": [3, 3, 3]}
+
+
+@pytest.mark.parametrize("streamed", [False, True], ids=["resident", "streamed"])
+@pytest.mark.parametrize("route", sorted(AHEAD_KERNELS))
+def test_next_matrix_queued_before_the_fetch(route, streamed, tmp_path, monkeypatch):
+    """A resident run queues matrix r+1's work, and its copy to the host
+    (distance._Fetch), before it fetches matrix r: every kernel span of
+    matrix r+1 starts before matrix r's fetch, and FETCHES_AHEAD counts 2
+    of the 3 matrices.  A run forced to stream (chunks of 400 sites) keeps
+    one matrix at a time: matrix r+1's work starts after matrix r's fetch
+    has ended, and FETCHES_AHEAD stays 0."""
+    from ngsdist_tpu_torch.core import distance as tdist
+    from ngsdist_tpu_torch.utils import profiling
+
+    monkeypatch.chdir(DATA_DIR)
+    if streamed:
+        monkeypatch.setenv("NGSDIST_DEVICE_BUDGET", str(
+            tdist._WORKING_SET_FACTOR * tdist.PREFETCH_KEEP_DEN * 400 * 20 * 3 * 8
+            // tdist.PREFETCH_KEEP_NUM))
+    flags, budget, _ = SPAN_ROUTES[route]
+    if budget is not None:
+        monkeypatch.setattr(tdist, "PARTIALS_BUDGET_BYTES", budget)
+    times = profiling.StageTimes(torch.device("cpu"))
+    monkeypatch.setattr(profiling, "ACTIVE", times)
+    queued = []
+
+    class Fetch(tdist._Fetch):
+        def __init__(self, tensors):
+            queued.append(time.perf_counter() - times.t0)
+            super().__init__(tensors)
+
+    monkeypatch.setattr(tdist, "_Fetch", Fetch)
+    monkeypatch.setattr(tdist, "FETCHES_AHEAD", 0)
+    assert cli.main(SPAN_RUN + flags + ["--out", str(tmp_path / "t.dist")]) == 0
+    iv = times.intervals()
+    fetch, kernels = iv["fetch"], [s for s, _ in iv["kernel"]]
+    assert len(queued) == len(fetch) == 3
+    # a matrix's kernel spans: those that start before its copy is queued
+    edges = [float("-inf")] + queued
+    per = [[s for s in kernels if edges[m] < s < edges[m + 1]] for m in range(3)]
+    assert sum(map(len, per)) == len(kernels)
+    if streamed:
+        assert tdist.FETCHES_AHEAD == 0
+        for r in range(2):
+            assert per[r + 1] and all(fetch[r][1] <= s for s in per[r + 1])
+    else:
+        assert tdist.FETCHES_AHEAD == 2
+        assert [len(k) for k in per] == AHEAD_KERNELS[route]
+        for r in range(2):
+            assert queued[r + 1] <= fetch[r][0] and all(s < fetch[r][0] for s in per[r + 1])
+
+
 @pytest.mark.parametrize("route", sorted(SPAN_ROUTES))
 def test_spans_off_write_the_same_bytes_and_record_nothing(route, tmp_path, monkeypatch):
     """With StageTimes off and no trace, a run opens no profiler range and
