@@ -357,7 +357,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "python -m ngsdist_tpu)")
         device = _device(extras.get("platform") or "cuda")
         if extras.get("coordinator"):
-            from .parallel.multihost import run_distributed
+            from .runner import run_distributed
 
             run_distributed(
                 pars, coordinator=extras["coordinator"],

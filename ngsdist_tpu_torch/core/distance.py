@@ -49,6 +49,7 @@ uploaded in float64.
 
 from __future__ import annotations
 
+import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional
@@ -692,32 +693,37 @@ def _make_exact_stats(indep: bool, pairwise_del: bool, score, device: torch.devi
 
 # Matrices fetched after the next replicate's work was already queued
 # (`_lookahead`), since the count was last set to 0: R of the R + 1
-# matrices of a resident run, none of a streamed one.
+# matrices of a resident run, none of a streamed one or of a mesh's.
 FETCHES_AHEAD = 0
 
 
 class _Fetch:
     """Device tensors on their way to the host (a value may be None).  On
     a card each is copied into pinned memory without blocking and an
-    event is recorded behind the copies, so `numpy()` waits for these
-    copies only and not, as a plain `.cpu()` would, for whatever was
-    queued after them: the next replicate's kernels.  The pinned buffers
-    come from the caching host allocator, which reuses a buffer once its
-    copy has finished.  Elsewhere it holds the tensors themselves."""
+    event is recorded behind the copies, on the current stream of the
+    card that holds them (which runs a copy to the host, whichever card
+    is current), so `numpy()` waits for these copies only and not, as a
+    plain `.cpu()` would, for whatever was queued after them: the next
+    replicate's kernels.  The pinned buffers come from the caching host
+    allocator, which reuses a buffer once its copy has finished.
+    Elsewhere it holds the tensors themselves."""
 
     def __init__(self, tensors: dict) -> None:
-        self.event = None
+        self.events = []
         self.host = tensors
-        if any(t is not None and t.device.type == "cuda" for t in tensors.values()):
+        cards = {t.device for t in tensors.values() if t is not None and t.device.type == "cuda"}
+        if cards:
             self.host = {k: None if t is None else
                          torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                          .copy_(t, non_blocking=True) for k, t in tensors.items()}
-            self.event = torch.cuda.Event()
-            self.event.record()
+            for card in cards:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(card))
+                self.events.append(event)
 
     def numpy(self) -> dict:
-        if self.event is not None:
-            self.event.synchronize()
+        for event in self.events:
+            event.synchronize()
         return {k: None if t is None else t.numpy() for k, t in self.host.items()}
 
 
@@ -746,6 +752,28 @@ def _lookahead(reps: List[int], dispatch, correct, ahead: bool) -> Iterator[np.n
             with profiling.host_span("matrix"):
                 m = correct(got, *args)
         yield m
+
+
+def _pair_fetch(pars: Params, raw_v: torch.Tensor, cnt_v) -> _Fetch:
+    """The copy to the host of a matrix's pair vectors of models 0-2: the
+    count only where it is the denominator."""
+    return _Fetch({"raw": raw_v, "cnt": cnt_v if pars.pairwise_del else None})
+
+
+def _correct_pairs(pars: Params, I: np.ndarray, J: np.ndarray, on_stats, got: dict,
+                   n_used: int, poison: Optional[np.ndarray] = None) -> np.ndarray:
+    """Models 0-2: a matrix's corrected distances from its fetched pair
+    vectors (_pair_fetch; float32 ones widen exactly into the float64
+    scatter) over n_used sites.  poison [N] bool: the individuals whose
+    pairs are NaN (a mesh's partial-sum route takes the EM's zero-row
+    poison on the host), or None."""
+    raw = got["raw"]
+    if poison is not None and poison.any():
+        raw = np.where(poison[I] | poison[J], np.nan, raw)
+    raw_m = _scatter_pairs(raw, I, J, pars.n_ind)
+    denom = (_scatter_pairs(got["cnt"], I, J, pars.n_ind) if pars.pairwise_del
+             else float(n_used))
+    return _finalize(raw_m, denom, pars, on_stats)
 
 
 def iter_replicates(
@@ -846,7 +874,7 @@ def iter_replicates(
 
     def dispatch(rep):
         """Queue matrix rep's pair vectors (rep 0: the full data) and their
-        copy to the host; the count only where it is the denominator."""
+        copy to the host."""
         if rep == 0:
             with profiling.replicate(0):
                 raw_v, cnt_v = stats_stream()
@@ -856,18 +884,11 @@ def iter_replicates(
             with profiling.replicate(rep):
                 raw_v, cnt_v = stats_stream(replicate_weights(maps[rep - 1], n_trunc),
                                             n_trunc, rep)
-        fetch = _Fetch({"raw": raw_v, "cnt": cnt_v if pars.pairwise_del else None})
-        return fetch, S if rep == 0 else n_trunc
-
-    def correct(got, n_used):
-        """A matrix's corrected distances from its pair vectors (float32
-        ones widen exactly into the float64 scatter)."""
-        raw_m = _scatter_pairs(got["raw"], I, J, N)
-        denom = _scatter_pairs(got["cnt"], I, J, N) if pars.pairwise_del else float(n_used)
-        return _finalize(raw_m, denom, pars, on_stats)
+        return _pair_fetch(pars, raw_v, cnt_v), S if rep == 0 else n_trunc
 
     reps = [rep for rep in range(pars.n_boot_rep + 1) if rep >= start_rep]
-    yield from _lookahead(reps, dispatch, correct, ahead=not chunked)
+    yield from _lookahead(reps, dispatch, functools.partial(_correct_pairs, pars, I, J, on_stats),
+                          ahead=not chunked)
 
 
 def _resum_blocks(pars: Params, Ptrunc: torch.Tensor, score: torch.Tensor,
@@ -920,10 +941,6 @@ CLASSES = ("ag", "ct", "tv")  # substitution classes of a site (core/submodels.p
 # take this many bytes each; in a streamed run 1/32 of a chunk's bytes,
 # so that they stay a fifth of a chunk under a small budget.
 PI_PLANE_BYTES = 64 << 20
-
-# Resident runs of models 3-6 queue replicate r+1 before replicate r is
-# corrected and written; profile_torch.py --lookahead times both.
-EXTENDED_LOOKAHEAD = True
 
 
 def class_compaction(device: torch.device) -> bool:
@@ -1116,7 +1133,7 @@ def _iter_replicates_extended(pars: Params, P_host, maps: List[np.ndarray],
         return _Fetch(out), float(np.sum(w_ok)), zero_lane_sums(wm)
 
     reps = [r for r in range(pars.n_boot_rep + 1) if r >= start_rep]
-    yield from _lookahead(reps, dispatch, correct, ahead=EXTENDED_LOOKAHEAD and not streamed)
+    yield from _lookahead(reps, dispatch, correct, ahead=not streamed)
 
 
 def _round_sums(pars: Params, rep: int, round_ckpt: bool, device, x64: bool, layout, rounds,
@@ -1406,7 +1423,9 @@ def _iter_replicates_sharded(pars: Params, P_src, maps: List[np.ndarray], n_trun
     every matrix is the float64 sum of its rounds in round order, saved
     after every round under round_ckpt; an indep bootstrap on a 1-D mesh
     whose partials fit takes one pass of block partials over the rounds
-    instead, resummed through _stream_block_rows."""
+    instead, resummed through _stream_block_rows.  Each route yields its
+    matrices' pair vectors on the mesh's first device, which the main
+    route's _lookahead fetches and corrects one matrix at a time."""
     from ..parallel import mesh as pm
 
     N, S = pars.n_ind, pars.n_sites
@@ -1420,94 +1439,99 @@ def _iter_replicates_sharded(pars: Params, P_src, maps: List[np.ndarray], n_trun
     if not (pars.indep_geno or pars.pairwise_del or pars.in_bin):
         zero = stream.zero_rows()
     stats = pm.ShardStats(mesh, N, pars.score, pars.indep_geno, pars.pairwise_del, zero)
-    reps = [r for r in range(n_reps) if r + 1 >= start_rep]
+    reps = [rep for rep in range(n_reps + 1) if rep >= start_rep]
 
-    def matrix(rep, sums, denom_sites, poison=None):
-        """Replicate rep's corrected matrix; sums() queues its (raw, cnt or
-        None) pair vectors on the device."""
-        with profiling.replicate(rep):
-            raw_v, cnt_v = sums()
-            with profiling.host_span("fetch"):
-                raw = raw_v.cpu().numpy()
-                cnt = None if cnt_v is None else cnt_v.cpu().numpy()
-            with profiling.host_span("matrix"):
-                if poison is not None and poison.any():
-                    raw = np.where(poison[I] | poison[J], np.nan, raw)
-                raw_m = _scatter_pairs(raw, I, J, N)
-                cnt_m = None if cnt is None else _scatter_pairs(cnt, I, J, N)
-                return _finalize(raw_m, cnt_m if pars.pairwise_del else float(denom_sites),
-                                 pars, on_stats)
-
-    def weights(r):
+    def weights(rep):
         w = np.zeros((S,), np.float64)
-        w[:n_trunc] = replicate_weights(maps[r], n_trunc)
+        w[:n_trunc] = replicate_weights(maps[rep - 1], n_trunc)
         return w
 
+    def weighted(sums):
+        """(raw, cnt or None, no poison) of each matrix of reps, sums(rep)
+        queued in its replicate."""
+        for rep in reps:
+            with profiling.replicate(rep):
+                raw_v, cnt_v = sums(rep)
+            yield raw_v, cnt_v, None
+
     bs = pars.boot_block_size
+    n_blocks = n_trunc // bs if n_reps else 0
+
+    def partial_sums(data):
+        """The resident partial-sum route: the full data's (in its
+        replicate), then, once a replicate is asked for, one block-mode
+        call per shard, and M[r] @ B per shard and the fixed-order sum."""
+        if reps[0] == 0:
+            with profiling.replicate(0):
+                raw_v, cnt_v = stats(data)
+            yield raw_v, cnt_v, None
+        table = bt.block_index_table(pars.seed, n_reps, n_blocks)
+        raw_r, cnt_r = pm.bootstrap_replicates(table, stats.blocks(data, bs), n_blocks, mesh)
+        # the EM's zero-row poison, per replicate: where it samples a block in
+        # which a member of the pair has an all-zero triple (each process
+        # records its own sites; the flags are ORed over the processes)
+        zb = None
+        if zero is not None:
+            from ..parallel.multihost import union_over_processes
+
+            zb = union_over_processes(zero.per_block(n_blocks, bs))
+        mult = bt.block_multiplicity(table, n_blocks)
+        for rep in reps:
+            if rep:
+                yield (raw_r[rep - 1], None if cnt_r is None else cnt_r[rep - 1],
+                       None if zb is None else zb[mult[rep - 1] > 0].any(0))
+
     if not stream.resident:
-        n_blocks_s = n_trunc // bs if n_reps else 0
-        partial_bytes_s = n_blocks_s * N * N * size * (2 if pars.pairwise_del else 1)
+        partial_bytes_s = n_blocks * N * N * size * (2 if pars.pairwise_del else 1)
         if (pars.indep_geno and n_reps > 0 and p == 1
                 and 0 < partial_bytes_s <= PARTIALS_BUDGET_BYTES):
-            yield from _sharded_stream_partials(pars, stream, stats, mesh, n_trunc, start_rep,
-                                                matrix)
-            return
-        rounds, data_of = _stream_rounds(stream)
+            vectors = _sharded_stream_partials(pars, stream, stats, mesh, n_trunc, reps)
+        else:
+            rounds, data_of = _stream_rounds(stream)
 
-        def stats_rounds(w_full, rep):
-            def step(r):
-                data = data_of(r)
-                raw, cnt = stats(data, data.cols(w_full))
-                return {"raw": raw, "cnt": cnt}
+            def stats_rounds(rep):
+                w_full = np.ones((S,), np.float64) if rep == 0 else weights(rep)
 
-            acc = _round_sums(pars, rep, round_ckpt, dev0, x64, stream.layout(), rounds, step)
-            return acc["raw"], acc.get("cnt")
+                def step(r):
+                    data = data_of(r)
+                    raw, cnt = stats(data, data.cols(w_full))
+                    return {"raw": raw, "cnt": cnt}
 
-        if start_rep == 0:
-            yield matrix(0, lambda: stats_rounds(np.ones((S,), np.float64), 0), S)
-        for r in reps:
-            yield matrix(r + 1, lambda: stats_rounds(weights(r), r + 1), n_trunc)
-        return
+                acc = _round_sums(pars, rep, round_ckpt, dev0, x64, stream.layout(), rounds,
+                                  step)
+                return acc["raw"], acc.get("cnt")
 
-    data = stream.global_array()
-    n_blocks = n_trunc // bs if n_reps else 0
-    cells = N * N if pars.indep_geno else (N * N - N) // 2
-    partial_bytes = n_blocks * cells * size * (2 if pars.pairwise_del else 1)
-    # block partials are 1-D-mesh only: a pairs axis takes the weighted route
-    partials = n_reps > 0 and partial_bytes <= PARTIALS_BUDGET_BYTES and p == 1
-    if start_rep == 0:
-        yield matrix(0, lambda: stats(data), S)
-    if not reps:
-        return
-    if not partials:
-        for r in reps:
-            yield matrix(r + 1, lambda: stats(data, data.cols(weights(r))), n_trunc)
-        return
-    table = bt.block_index_table(pars.seed, n_reps, n_blocks)
-    raw_r, cnt_r = pm.bootstrap_replicates(table, stats.blocks(data, bs), n_blocks, mesh)
-    # the EM's zero-row poison, per replicate: where it samples a block in
-    # which a member of the pair has an all-zero triple (each process
-    # records its own sites; the flags are ORed over the processes)
-    zb = None
-    if zero is not None:
-        from ..parallel.multihost import union_over_processes
+            vectors = weighted(stats_rounds)
+    else:
+        data = stream.global_array()
+        cells = N * N if pars.indep_geno else (N * N - N) // 2
+        partial_bytes = n_blocks * cells * size * (2 if pars.pairwise_del else 1)
+        # block partials are 1-D-mesh only: a pairs axis takes the weighted route
+        if n_reps > 0 and partial_bytes <= PARTIALS_BUDGET_BYTES and p == 1:
+            vectors = partial_sums(data)
+        else:
+            vectors = weighted(lambda rep: stats(data) if rep == 0
+                               else stats(data, data.cols(weights(rep))))
 
-        zb = union_over_processes(zero.per_block(n_blocks, bs))
-    mult = bt.block_multiplicity(table, n_blocks)
-    for r in reps:
-        z = None if zb is None else zb[mult[r] > 0].any(0)
-        yield matrix(r + 1, lambda: (raw_r[r], None if cnt_r is None else cnt_r[r]), n_trunc, z)
+    def dispatch(rep):
+        """Queue matrix rep's pair vectors, the route's next, and their copy
+        to the host."""
+        raw_v, cnt_v, poison = next(vectors)
+        return _pair_fetch(pars, raw_v, cnt_v), S if rep == 0 else n_trunc, poison
+
+    yield from _lookahead(reps, dispatch, functools.partial(_correct_pairs, pars, I, J, on_stats),
+                          ahead=False)
 
 
-def _sharded_stream_partials(pars: Params, stream, stats, mesh, n_trunc: int, start_rep: int,
-                             matrix):
+def _sharded_stream_partials(pars: Params, stream, stats, mesh, n_trunc: int, reps):
     """The streamed indep bootstrap on a 1-D mesh in one pass over the
     rounds (ngsdist_tpu/core/distance.py:1089-1174): each round's block
     partials per shard, joined per shard (device-major, each round's
     padding rows in place), the true row -> block map of
     _stream_block_rows permuting the resummation weights; the full data
     is the sum of the real blocks plus the truncation tail, whose sites
-    lie in at most two rounds, run again under tail weights.  A kill
+    lie in at most two rounds, run again under tail weights.  Yields
+    (raw, cnt or None, no poison) of each matrix of reps.  A kill
     recomputes the pass (no round checkpoints on this route)."""
     from ..parallel import mesh as pm
 
@@ -1528,7 +1552,7 @@ def _sharded_stream_partials(pars: Params, stream, stats, mesh, n_trunc: int, st
         has_c = any(C is not None for _, _, C, _ in B.parts)
         return pm.resum_blocks(M, B, mesh, 0), pm.resum_blocks(M, B, mesh, 1) if has_c else None
 
-    if start_rep == 0:
+    if reps[0] == 0:
         raw0, cnt0 = resum(np.ones((1, n_blocks), np.float64))
         raw0, cnt0 = raw0[0], None if cnt0 is None else cnt0[0]
         if S > n_trunc:
@@ -1540,10 +1564,9 @@ def _sharded_stream_partials(pars: Params, stream, stats, mesh, n_trunc: int, st
                 raw0 = raw0 + raw_t
                 if cnt0 is not None:
                     cnt0 = cnt0 + cnt_t
-        yield matrix(0, lambda: (raw0, cnt0), S)
+        yield raw0, cnt0, None
     table = bt.block_index_table(pars.seed, n_reps, n_blocks)
     raw_r, cnt_r = resum(bt.block_multiplicity(table, n_blocks))
-    for r in range(n_reps):
-        if r + 1 >= start_rep:
-            yield matrix(r + 1, lambda: (raw_r[r], None if cnt_r is None else cnt_r[r]),
-                         n_trunc)
+    for rep in reps:
+        if rep:
+            yield raw_r[rep - 1], None if cnt_r is None else cnt_r[rep - 1], None

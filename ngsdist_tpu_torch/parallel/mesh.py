@@ -31,15 +31,15 @@ Block partials (the partial-sum bootstrap) stay on their shards'
 devices (`BlockShards`); a replicate is M[r] @ B per shard in float64,
 then the fixed-order sum (`resum_blocks`).
 
-Several processes (parallel/multihost.py `bring_up`, `run_distributed`)
-each drive a mesh of their own entries, on a 1-D sites axis: the global
-axis is every process's entries in rank order, and process i holds the
-sites shards [i·n, (i+1)·n).  The fixed-order sum then gathers each
-process's shard results to every process (a gloo all-gather of host
-tensors) and adds all of them in the global order, so that every process
-holds the same sums, and P processes of n entries write the bytes of one
-process with a mesh of P·n entries that cuts the same rounds
-(multihost.run_distributed says when it does).
+Several processes (parallel/multihost.py `bring_up`, runner.py
+`run_distributed`) each drive a mesh of their own entries, on a 1-D
+sites axis: the global axis is every process's entries in rank order,
+and process i holds the sites shards [i·n, (i+1)·n).  The fixed-order
+sum then gathers each process's shard results to every process (a gloo
+all-gather of host tensors) and adds all of them in the global order,
+so that every process holds the same sums, and P processes of n entries
+write the bytes of one process with a mesh of P·n entries that cuts the
+same rounds (runner.run_distributed says when it does).
 """
 
 from __future__ import annotations

@@ -22,9 +22,9 @@ shard, whose reader thread prepares a shard's next round (a cast of the
 host array, or a read from disk) while the current one computes.
 
 Several processes: `bring_up` joins a torch.distributed gloo group, and
-`run_distributed` runs the whole pipeline on each process; the shards'
-sums meet in parallel/mesh.py's gathered fixed-order sum, and process 0
-writes the output.  Everything that decides the plan (the device budget,
+runner.py `run_distributed` runs the whole pipeline on each process; the
+shards' sums meet in parallel/mesh.py's gathered fixed-order sum, and
+process 0 writes the output.  Everything that decides the plan (the device budget,
 the lazy gate and the lazy chunk) is agreed across processes, so that
 they cut the same rounds and call the same collectives in the same order.
 
@@ -49,14 +49,10 @@ import numpy as np
 import torch
 
 from ..config import NgsDistError, Params
-from ..core import bootstrap as bt
 from ..core import distance as dist
-from ..core import models
 from ..core.preprocess import ZeroRows, find_zero_rows, preprocess
-from ..core.submodels import encode_alleles
-from ..io import readers, writers
-from ..utils import checkpoint as ckpt
-from ..utils import native, profiling, signals
+from ..io import readers
+from ..utils import native
 from ..utils.hostmem import (CodedProbs, coded_call_lut, coded_upload_enabled, pack23,
                               upload16_enabled, upload23_enabled)
 from . import mesh as pm
@@ -166,6 +162,24 @@ def device_budget_bytes(mesh) -> int:
         free -= free // dist._CUDA_RESERVE_DEN
         per.append(free // mesh.devices.count(dev))
     return agreed(max(1, min(per) // dist._CUDA_STREAM_FACTOR), "min")
+
+
+def _process_mesh(device: Optional[torch.device]):
+    """This process's entries: every card it sees (a card is the default;
+    without one the run stops), or one `cpu` entry; every process must
+    have as many, for one global axis of equal parts."""
+    if device is None or device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise NgsDistError("main", "no CUDA device is available to this process "
+                               "(--platform cpu runs the float64 CPU path)")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        devices = [device]
+    n = len(devices)
+    if agreed(n, "min") != agreed(n, "max"):
+        raise NgsDistError("main", "every process of a run must drive as many devices "
+                           f"(this one has {n})")
+    return pm.make_mesh(devices)
 
 
 # ------------------------------------------------------------------ #
@@ -527,7 +541,7 @@ class SiteStream:
         latter).  The host's share of a shard is its budget over this
         process's shards: where it binds, a process of fewer shards reads
         longer rounds, and the run's bytes follow its split into processes
-        (run_distributed)."""
+        (runner.run_distributed)."""
         itemsize = torch.finfo(dtype).bits // 8
         N = pars.n_ind
         g = pars.boot_block_size if pars.n_boot_rep else 1
@@ -680,148 +694,3 @@ class SiteStream:
         for _, data in self.rounds([r]):
             pass
         return data
-
-
-# ------------------------------------------------------------------ #
-# The multi-process pipeline                                          #
-# ------------------------------------------------------------------ #
-
-
-def _process_mesh(device: Optional[torch.device]):
-    """This process's entries: every card it sees (a card is the default;
-    without one the run stops), or one `cpu` entry; every process must
-    have as many, for one global axis of equal parts."""
-    if device is None or device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise NgsDistError("main", "no CUDA device is available to this process "
-                               "(--platform cpu runs the float64 CPU path)")
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    else:
-        devices = [device]
-    n = len(devices)
-    if agreed(n, "min") != agreed(n, "max"):
-        raise NgsDistError("main", "every process of a run must drive as many devices "
-                           f"(this one has {n})")
-    return pm.make_mesh(devices)
-
-
-def run_distributed(pars: Params, coordinator: Optional[str] = None,
-                    num_processes: Optional[int] = None,
-                    process_id: Optional[int] = None, resume: bool = False,
-                    device: Optional[torch.device] = None, mesh=None, x64: bool = False):
-    """The whole pipeline in each process of a run (BASELINE.json's
-    scale-out configuration; ngsdist_tpu/parallel/multihost.py:786): every
-    process reads its own site range (SiteStream.from_reader, eager or
-    lazy), the shards' sums meet in the gathered fixed-order sum, and
-    process 0 writes the phylip matrices to pars.out.  The output is that
-    of one process with a mesh of all the processes' entries, bit for bit,
-    when both cut the same rounds: the same device budget a shard (the
-    same cards, or NGSDIST_DEVICE_BUDGET), and both reading eagerly (the
-    whole genome within the one process's host budget) or both lazily in
-    rounds that the host budget does not cut (SiteStream._lazy_chunk).
-    Otherwise the one process, whose host budget holds more shards, reads
-    lazily or in shorter rounds, and its float64 sums add in another
-    order.  device: this process's device type (default: its cards); mesh:
-    its entries instead (tests repeat a `cpu` entry); x64: float64 on the
-    cards (--x64), the same in every process.  Returns the matrices on
-    process 0, [] elsewhere.
-
-    resume: process 0 reads the .ckpt.json sidecar and every process
-    skips the matrices it counts; within a streamed replicate the rounds
-    file (process 0's) is resumed the same way.  Signals are armed: a
-    stop request on any process ends every process after the matrix in
-    flight, with a resumable sidecar."""
-    joined = bring_up(coordinator, num_processes, process_id)
-    try:
-        signals.arm()
-        pars.validate()
-        is_writer = process_index() == 0
-        try:
-            pars.finalize()
-        except Exception:
-            # banners accumulated before a finalize-time fatal still print
-            if is_writer:
-                for msg in pars.messages:
-                    print(msg, file=sys.stderr)
-            raise
-        # models 3-6: every process reads the small POS file whole for the
-        # allele codes
-        alleles = None
-        if pars.evol_model >= 3:
-            if not pars.in_pos:
-                raise NgsDistError("main", "evolutionary models need allele info in the POS "
-                                   "file!")
-            alleles = encode_alleles(readers.read_pos(pars.in_pos, pars.in_pos_header,
-                                                      pars.n_sites))
-        else:
-            models.check_model_supported(pars.evol_model)
-        if is_writer:
-            for msg in pars.messages:
-                print(msg, file=sys.stderr)
-        if mesh is None:
-            mesh = _process_mesh(device)
-        # the one-process mesh run's engine name: a run resumes across
-        # shapes, as runner.run(mesh=) does
-        if agreed(int(x64), "min") != agreed(int(x64), "max"):
-            raise NgsDistError("main", "every process of a run must take the same --x64")
-        engine = dist.engine_name(mesh.first, x64)
-        stream = SiteStream.from_reader(pars, mesh, x64)
-        try:
-            return _write_matrices(pars, stream, mesh, alleles, resume, engine)
-        finally:
-            stream.close()  # delete an owned spill cache
-    finally:
-        if joined:
-            import torch.distributed as tdist
-
-            tdist.destroy_process_group()
-
-
-def _write_matrices(pars: Params, stream: SiteStream, mesh, alleles, resume: bool,
-                    engine: str):
-    """run_distributed's replicate loop: process 0 writes, flushes and
-    saves the sidecar after every matrix."""
-    is_writer = process_index() == 0
-    n_done = 0
-    if resume:
-        if is_writer:
-            n_done = ckpt.load(pars.out, pars, engine=engine) or 0
-        n_done = broadcast_object(n_done)
-        if is_writer and n_done:
-            print(f"==> Resuming: {n_done} matrices already written", file=sys.stderr)
-    n_trunc, maps = bt.site_maps(pars.seed, pars.n_boot_rep, pars.n_sites,
-                                 pars.boot_block_size)
-    labels = out_fh = None
-    if is_writer:
-        labels = (readers.read_labels(pars.in_labels, pars.in_labels_header, pars.n_ind)
-                  if pars.in_labels else readers.default_labels(pars.n_ind))
-        try:
-            out_fh = open(pars.out, "a" if n_done else "w")
-        except OSError as ex:
-            raise NgsDistError("main", "cannot open output file!", err=ex.errno or 0)
-    matrices = []
-    interrupted = False
-    try:
-        for rep, m in enumerate(dist.iter_replicates(
-                pars, stream, maps, n_trunc, mesh.first, start_rep=n_done, round_ckpt=True,
-                alleles=alleles, mesh=mesh, x64=stream.x64), start=n_done):
-            if is_writer:
-                with profiling.replicate(rep), profiling.host_span("write"):
-                    writers.write_dist_matrix(out_fh, labels, m)
-                    out_fh.flush()
-                    ckpt.save(pars.out, pars, rep + 1, engine=engine)
-                matrices.append(m)
-            # one decision for all: a process that stopped alone would
-            # leave the others waiting in the next collective
-            if agreed(signals.stop_requested(), "max"):
-                interrupted = True
-                if is_writer:
-                    print("==> Stop requested; output is resumable (--resume)",
-                          file=sys.stderr)
-                break
-    finally:
-        if out_fh is not None:
-            out_fh.close()
-    if is_writer and not interrupted:
-        ckpt.clear(pars.out)
-    return matrices

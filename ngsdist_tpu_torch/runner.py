@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import os
 import sys
-from typing import List, Optional, TextIO
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -26,6 +26,9 @@ from .core import models
 from .core.preprocess import preprocess
 from .core.submodels import encode_alleles
 from .io import readers, writers
+from .parallel import make_mesh
+from .parallel.multihost import (SiteStream, _process_mesh, agreed, bring_up, broadcast_object,
+                                 process_index)
 from .utils import checkpoint as ckpt
 from .utils import native, profiling, signals
 from .utils.hostmem import (CodedProbs, coded_call_lut, coded_upload_enabled, derive_codes,
@@ -92,8 +95,6 @@ def _fused_coded_wanted(pars: Params, device: torch.device, mesh=None, x64: bool
       raw seekable binary file); a mesh over the host budget then reads
       coded rounds lazily, and a lazy run without a mesh over several
       cards takes them on a mesh of them."""
-    from .parallel.multihost import SiteStream
-
     if not pars.in_bin or not readers.is_raw_seekable_binary(pars.in_geno):
         return False  # the fused reader needs a raw regular file (magic sniff)
     if not SiteStream.coded_call_eligible(pars, distance.default_dtype(device, x64)):
@@ -119,8 +120,6 @@ def _lazy_stream_wanted(pars: Params, device: torch.device, x64: bool = False) -
     disk through a lazy SiteStream, so host memory no longer bounds the
     genome's length.  The predicate and its byte estimate are
     SiteStream.wants_lazy's, which from_reader takes too."""
-    from .parallel.multihost import SiteStream
-
     return SiteStream.wants_lazy(pars, distance.default_dtype(device, x64), pars.n_sites)
 
 
@@ -205,7 +204,7 @@ def iter_replicates(pars: Params, P, device: torch.device,
                     round_ckpt: bool = False, alleles=None, mesh=None, x64: bool = False):
     """Yield the distance matrices for replicates start_rep..n_boot_rep,
     printing each replicate's stage banners before its matrix is pulled
-    (reference ngsDist.cpp:223-242).  P: the host tensor or a fused-read
+    and its printing banner after (reference ngsDist.cpp:223-242).  P: the host tensor or a fused-read
     handle; round_ckpt: see distance.iter_replicates; alleles: the
     sites' (a1, a2) allele codes, which models 3-6 need; mesh: a
     parallel.mesh.Mesh to shard the run over (device is its first); x64:
@@ -265,15 +264,17 @@ def iter_replicates(pars: Params, P, device: torch.device,
                 n_used=pars.n_sites if rep == 0 else n_trunc,
             )
         try:
-            yield next(gen)
+            m = next(gen)
         except StopIteration:
             return
+        _log(pars, 2, "> Printing distance matrix")
+        yield m
 
 
-def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[TextIO] = None,
-        resume: bool = False, report_throughput: bool = False, mesh=None,
+def run(pars: Params, device: Optional[torch.device] = None, resume: bool = False,
+        report_throughput: bool = False, mesh=None,
         x64: bool = False, trace_dir: Optional[str] = None) -> List[np.ndarray]:
-    """Full pipeline; writes matrices to pars.out (or out_fh) and returns
+    """Full pipeline; writes matrices to pars.out and returns
     them.  resume: continue an interrupted run from its .ckpt.json
     sidecar.  report_throughput: print pair-site updates/s to stderr.
     mesh: a parallel.mesh.Mesh to shard the sites (and pairs) over; the
@@ -311,9 +312,6 @@ def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[Te
         labels, pos_rows, P = load_inputs(pars, fused=fused, coded=coded, device=device)
     else:
         labels, pos_rows, _ = load_inputs(pars, geno=False)
-        from .parallel import make_mesh
-        from .parallel.multihost import SiteStream
-
         if mesh is None:
             mesh = make_mesh(None if device.type == "cuda" else [device])
         P = SiteStream.from_reader(pars, mesh, x64)
@@ -331,76 +329,177 @@ def run(pars: Params, device: Optional[torch.device] = None, out_fh: Optional[Te
     alleles = None
     if pars.evol_model >= 3 and pos_rows is not None:
         alleles = encode_alleles(pos_rows)
-    ckpt_engine = distance.engine_name(device, x64)
 
-    n_done = 0
-    if resume and out_fh is None:
-        got = ckpt.load(pars.out, pars, engine=ckpt_engine)
-        if got is not None:
-            n_done = got
-            _log(pars, 1, f"==> Resuming: {n_done} matrices already written")
-
-    close = False
-    if out_fh is None:
-        try:
-            out_fh = open(pars.out, "a" if n_done else "w")
-        except OSError as ex:
-            raise NgsDistError("main", "cannot open output file!",
-                               err=ex.errno or 0)
-        close = True
-    matrices: List[np.ndarray] = []
     meter = Throughput(pars.n_comb)
-    # true per-replicate update counts arrive through the stats hook
-    pending_updates: List[float] = []
     # at verbose>=8 the exact replayer prints the pair-stats lines itself
     user_stats = None if pars.verbose >= 8 else make_pair_report(pars, labels)
 
     def on_stats(raw, cnt):
+        """The meter counts the pair-site updates each matrix really ran."""
         if isinstance(cnt, np.ndarray):
             iu = np.triu_indices(pars.n_ind, 1)
-            pending_updates.append(float(np.sum(cnt[iu])))
+            meter.add_updates(float(np.sum(cnt[iu])))
         else:
-            pending_updates.append(float(pars.n_comb) * float(cnt))
+            meter.add_updates(float(pars.n_comb) * float(cnt))
         if user_stats is not None:
             user_stats(raw, cnt)
 
-    bs = pars.boot_block_size
-    n_trunc = pars.n_sites - pars.n_sites % bs if pars.n_boot_rep else pars.n_sites
-    interrupted = False
+    def replicates(n_done):
+        if n_done:
+            _log(pars, 1, f"==> Resuming: {n_done} matrices already written")
+        # round_ckpt: round-level durability of the sums of streamed
+        # long-genome replicates
+        return labels, iter_replicates(pars, P, device, on_stats=on_stats, labels=labels,
+                                       start_rep=n_done, alleles=alleles, mesh=mesh, x64=x64,
+                                       round_ckpt=True)
+
     try:
         with profiling.trace(trace_dir):
-            for rep, m in enumerate(
-                iter_replicates(pars, P, device, on_stats=on_stats, labels=labels,
-                                start_rep=n_done, alleles=alleles, mesh=mesh, x64=x64,
-                                # round-level durability of the sums of
-                                # streamed long-genome replicates
-                                round_ckpt=close),
-                start=n_done,
-            ):
-                n_used = pars.n_sites if rep == 0 else n_trunc
-                got = pending_updates.pop() if pending_updates else (
-                    float(pars.n_comb) * float(n_used))
-                _log(pars, 2, "> Printing distance matrix")
-                with profiling.replicate(rep), profiling.host_span("write"):
-                    writers.write_dist_matrix(out_fh, labels, m)
-                    out_fh.flush()
-                    if close:
-                        ckpt.save(pars.out, pars, rep + 1, engine=ckpt_engine)
-                matrices.append(m)
-                meter.add_updates(got)
-                if signals.stop_requested():
-                    _log(pars, 1, "==> Stop requested; output is resumable (--resume)")
-                    interrupted = True
-                    break
+            matrices, stopped = write_matrices(pars, distance.engine_name(device, x64), resume,
+                                               replicates)
     finally:
-        if close:
-            out_fh.close()
         if lazy:
             P.close()  # delete an owned spill cache
-    if close and not interrupted:
-        ckpt.clear(pars.out)
+    if stopped:
+        _log(pars, 1, "==> Stop requested; output is resumable (--resume)")
     if report_throughput:
         meter.report()
     _log(pars, 1, "==> Freeing memory...")  # teardown banner (ngsDist.cpp:303)
     _log(pars, 1, "Done!")
     return matrices
+
+
+def write_matrices(pars: Params, engine: str, resume: bool, replicates):
+    """Write a run's matrices to pars.out, over one process or several;
+    returns (the matrices written, whether a stop request ended the run).
+    resume: process 0 reads the .ckpt.json sidecar of `engine`
+    (distance.engine_name) and every process skips the matrices it
+    counts.  replicates(n_done) -> (labels, the matrices from n_done on)
+    is then asked once, before the output is opened.  Process 0 writes,
+    flushes and saves the sidecar after every matrix; a stop request on
+    any process (utils/signals.py) ends every process after that matrix
+    with a resumable sidecar, and a run that ends unstopped clears it.
+    The matrices are returned on process 0, [] elsewhere."""
+    is_writer = process_index() == 0
+    n_done = 0
+    if resume:
+        if is_writer:
+            n_done = ckpt.load(pars.out, pars, engine=engine) or 0
+        n_done = broadcast_object(n_done)
+    labels, reps = replicates(n_done)
+    out_fh = None
+    if is_writer:
+        try:
+            out_fh = open(pars.out, "a" if n_done else "w")
+        except OSError as ex:
+            raise NgsDistError("main", "cannot open output file!", err=ex.errno or 0)
+    matrices: List[np.ndarray] = []
+    stopped = False
+    try:
+        for rep, m in enumerate(reps, start=n_done):
+            if is_writer:
+                with profiling.replicate(rep), profiling.host_span("write"):
+                    writers.write_dist_matrix(out_fh, labels, m)
+                    out_fh.flush()
+                    ckpt.save(pars.out, pars, rep + 1, engine=engine)
+                matrices.append(m)
+            # one decision for all: a process that stopped alone would
+            # leave the others waiting in the next collective
+            if agreed(signals.stop_requested(), "max"):
+                stopped = True
+                break
+    finally:
+        if out_fh is not None:
+            out_fh.close()
+    if is_writer and not stopped:
+        ckpt.clear(pars.out)
+    return matrices, stopped
+
+
+def run_distributed(pars: Params, coordinator: Optional[str] = None,
+                    num_processes: Optional[int] = None,
+                    process_id: Optional[int] = None, resume: bool = False,
+                    device: Optional[torch.device] = None, mesh=None, x64: bool = False):
+    """The whole pipeline in each process of a run (BASELINE.json's
+    scale-out configuration; ngsdist_tpu/parallel/multihost.py:786): every
+    process reads its own site range (SiteStream.from_reader, eager or
+    lazy), the shards' sums meet in the gathered fixed-order sum, and
+    process 0 writes the phylip matrices to pars.out (write_matrices).
+    The output is that of one process with a mesh of all the processes'
+    entries, bit for bit, when both cut the same rounds: the same device
+    budget a shard (the same cards, or NGSDIST_DEVICE_BUDGET), and both
+    reading eagerly (the whole genome within the one process's host
+    budget) or both lazily in rounds that the host budget does not cut
+    (SiteStream._lazy_chunk).  Otherwise the one process, whose host
+    budget holds more shards, reads lazily or in shorter rounds, and its
+    float64 sums add in another order.  device: this process's device
+    type (default: its cards); mesh: its entries instead (tests repeat a
+    `cpu` entry); x64: float64 on the cards (--x64), the same in every
+    process.  Returns the matrices on process 0, [] elsewhere.
+
+    resume: as write_matrices; within a streamed replicate the rounds
+    file (process 0's) is resumed the same way.  Signals are armed: a
+    stop request on any process ends every process after the matrix in
+    flight, with a resumable sidecar."""
+    joined = bring_up(coordinator, num_processes, process_id)
+    try:
+        signals.arm()
+        pars.validate()
+        is_writer = process_index() == 0
+        try:
+            pars.finalize()
+        except Exception:
+            # banners accumulated before a finalize-time fatal still print
+            if is_writer:
+                for msg in pars.messages:
+                    print(msg, file=sys.stderr)
+            raise
+        # models 3-6: every process reads the small POS file whole for the
+        # allele codes
+        alleles = None
+        if pars.evol_model >= 3:
+            if not pars.in_pos:
+                raise NgsDistError("main", "evolutionary models need allele info in the POS "
+                                   "file!")
+            alleles = encode_alleles(readers.read_pos(pars.in_pos, pars.in_pos_header,
+                                                      pars.n_sites))
+        else:
+            models.check_model_supported(pars.evol_model)
+        if is_writer:
+            for msg in pars.messages:
+                print(msg, file=sys.stderr)
+        if mesh is None:
+            mesh = _process_mesh(device)
+        # the one-process mesh run's engine name: a run resumes across
+        # shapes, as runner.run(mesh=) does
+        if agreed(int(x64), "min") != agreed(int(x64), "max"):
+            raise NgsDistError("main", "every process of a run must take the same --x64")
+        stream = SiteStream.from_reader(pars, mesh, x64)
+
+        def replicates(n_done):
+            if is_writer and n_done:
+                print(f"==> Resuming: {n_done} matrices already written", file=sys.stderr)
+            n_trunc, maps = distance.bootstrap_site_maps(pars.seed, pars.n_boot_rep,
+                                                         pars.n_sites, pars.boot_block_size)
+            labels = None
+            if is_writer:
+                labels = (readers.read_labels(pars.in_labels, pars.in_labels_header,
+                                              pars.n_ind)
+                          if pars.in_labels else readers.default_labels(pars.n_ind))
+            return labels, distance.iter_replicates(
+                pars, stream, maps, n_trunc, mesh.first, start_rep=n_done, round_ckpt=True,
+                alleles=alleles, mesh=mesh, x64=x64)
+
+        try:
+            matrices, stopped = write_matrices(pars, distance.engine_name(mesh.first, x64),
+                                               resume, replicates)
+        finally:
+            stream.close()  # delete an owned spill cache
+        if stopped and is_writer:
+            print("==> Stop requested; output is resumable (--resume)", file=sys.stderr)
+        return matrices
+    finally:
+        if joined:
+            import torch.distributed as tdist
+
+            tdist.destroy_process_group()

@@ -6,7 +6,7 @@ supplies a torch.profiler trace of a run's compute section (`trace`,
 throughput meter for the updates/sec metric (`--throughput`) and the
 intervals of a run's stages on one clock (`StageTimes`), which the
 benchmark (gpubench/programs/ngsdist_cli.py, gpubench/metrics/) and the
-scripts that ask (chip_smoke.py, profile_torch.py) read.  While `trace`
+scripts that ask (chip_smoke.py) read.  While `trace`
 records, every span is also a torch.profiler range named
 `ngsdist.<span>`, with `[r]` for a span of replicate r (0: the full
 data; `replicate`), beside the kernels and copies of the same trace.

@@ -383,7 +383,7 @@ def test_run_distributed_in_one_process_is_the_runner_on_its_mesh(tmp_path):
     pars, _ = cli.parse_args(_argv(tmp_path, "indep_partials", one))
     want = runner.run(pars, mesh=mesh)
     pars, _ = cli.parse_args(_argv(tmp_path, "indep_partials", two))
-    got = pmh.run_distributed(pars, mesh=mesh)
+    got = runner.run_distributed(pars, mesh=mesh)
     assert open(two, "rb").read() == open(one, "rb").read()
     assert len(got) == len(want) == 3
     assert all(np.array_equal(a, b) for a, b in zip(got, want))

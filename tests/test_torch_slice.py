@@ -237,8 +237,11 @@ def test_partials_route_times_its_block_call(tmp_path, monkeypatch):
 
 # route -> kernel spans of each of the 3 matrices of a resident run (the
 # partial-sum route: the full data's call, the block call, then M[r] @ B
-# outside any kernel span)
-AHEAD_KERNELS = {"weighted": [1, 1, 1], "partials": [1, 1, 0], "models3_6": [3, 3, 3]}
+# outside any kernel span; the mesh, whose 1,200 sites fill the first of
+# its four sites shards: the weighted route's call on each of the shard's
+# two pairs entries)
+AHEAD_KERNELS = {"weighted": [1, 1, 1], "partials": [1, 1, 0], "models3_6": [3, 3, 3],
+                 "mesh": [2, 2, 2]}
 
 
 @pytest.mark.parametrize("streamed", [False, True], ids=["resident", "streamed"])
@@ -247,16 +250,19 @@ def test_next_matrix_queued_before_the_fetch(route, streamed, tmp_path, monkeypa
     """A resident run queues matrix r+1's work, and its copy to the host
     (distance._Fetch), before it fetches matrix r: every kernel span of
     matrix r+1 starts before matrix r's fetch, and FETCHES_AHEAD counts 2
-    of the 3 matrices.  A run forced to stream (chunks of 400 sites) keeps
-    one matrix at a time: matrix r+1's work starts after matrix r's fetch
-    has ended, and FETCHES_AHEAD stays 0."""
+    of the 3 matrices.  A run forced to stream (chunks of 400 sites; the
+    mesh's shards of 300 sites in rounds of 100), and a mesh run either
+    way, keeps one matrix at a time: every matrix goes through a _Fetch,
+    matrix r+1's work starts after matrix r's fetch has ended, and
+    FETCHES_AHEAD stays 0."""
     from ngsdist_tpu_torch.core import distance as tdist
     from ngsdist_tpu_torch.utils import profiling
 
     monkeypatch.chdir(DATA_DIR)
     if streamed:
+        sites = 100 if route == "mesh" else 400
         monkeypatch.setenv("NGSDIST_DEVICE_BUDGET", str(
-            tdist._WORKING_SET_FACTOR * tdist.PREFETCH_KEEP_DEN * 400 * 20 * 3 * 8
+            tdist._WORKING_SET_FACTOR * tdist.PREFETCH_KEEP_DEN * sites * 20 * 3 * 8
             // tdist.PREFETCH_KEEP_NUM))
     flags, budget, _ = SPAN_ROUTES[route]
     if budget is not None:
@@ -280,13 +286,14 @@ def test_next_matrix_queued_before_the_fetch(route, streamed, tmp_path, monkeypa
     edges = [float("-inf")] + queued
     per = [[s for s in kernels if edges[m] < s < edges[m + 1]] for m in range(3)]
     assert sum(map(len, per)) == len(kernels)
-    if streamed:
+    if not streamed:
+        assert [len(k) for k in per] == AHEAD_KERNELS[route]
+    if streamed or route == "mesh":
         assert tdist.FETCHES_AHEAD == 0
         for r in range(2):
             assert per[r + 1] and all(fetch[r][1] <= s for s in per[r + 1])
     else:
         assert tdist.FETCHES_AHEAD == 2
-        assert [len(k) for k in per] == AHEAD_KERNELS[route]
         for r in range(2):
             assert queued[r + 1] <= fetch[r][0] and all(s < fetch[r][0] for s in per[r + 1])
 

@@ -137,11 +137,11 @@ def test_x64_reaches_every_planner_of_a_process_run(tmp_path, monkeypatch):
                         lambda device, x64: asked.append(x64) or policy(device, x64))
     kw = dict(in_geno="gl.beagle.gz", in_probs=True, n_ind=20, n_sites=1200, seed=3,
               n_boot_rep=1, boot_block_size=50, verbose=0)
-    got = pmh.run_distributed(Params(out=str(tmp_path / "x.dist"), **kw),
-                              mesh=pm.make_mesh([CPU] * 2), x64=True)
+    got = runner.run_distributed(Params(out=str(tmp_path / "x.dist"), **kw),
+                                 mesh=pm.make_mesh([CPU] * 2), x64=True)
     assert asked and all(asked)
-    want = pmh.run_distributed(Params(out=str(tmp_path / "y.dist"), **kw),
-                               mesh=pm.make_mesh([CPU] * 2))
+    want = runner.run_distributed(Params(out=str(tmp_path / "y.dist"), **kw),
+                                  mesh=pm.make_mesh([CPU] * 2))
     assert all(np.array_equal(a, b, equal_nan=True) for a, b in zip(got, want))
 
 
