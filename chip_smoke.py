@@ -237,6 +237,9 @@ Phases, each of which fails the run loudly:
    slice, timed; the sliced launch's rerun byte-identical, its first 64
    individuals the bytes of their own launch at the same G and within the
    entry's bound of the sliced plain order (em_raw_cnt_tables(slices=G)).
+   The EM's weight rows (phase_em_rows) at ROWS_N x ROWS_SITES, both
+   entries: one launch of ROWS_REPS replicates' rows timed against as
+   many one-row launches, each row the bytes of its one-row launch.
 
 The bounds (PERF.md section 2): the indep kernel sums 3xTF32 products
 on the tensor cores in float32 over 16-site windows and the windows in
@@ -260,8 +263,8 @@ entry's type, as "err_of" says, over HMM_SHAPES, the edge inputs and
 POPGEN_CHECK_CHAINS chains of the popgen path; their "ms" and "plain_ms"
 at HMM_SHAPES[0], "full_width_ms" at the popgen path's shape; the two EM
 full modes' "sliced_launches" and "site_slices", the slice counters
-added up over phase 3's CLI runs, and "n179", phase_em_slices' numbers
-with their bound), and as its last line
+added up over phase 3's CLI runs, "n179", phase_em_slices' numbers
+with their bound, and "weight_rows_n1092", phase_em_rows'), and as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
 """
@@ -374,8 +377,11 @@ WIDE_EM_SITES = EM_SITES // 4  # the EM at a quarter of (b)'s sites
 # Phase 3 run (p) and phase 4: the EM at the 1000 Genomes pilot's width
 # (gpubench's n179.boot4), 21 tiles of 32 x 32, where the kernel runs its
 # site slices; (p) bootstraps in PILOT_BLOCK-site blocks, whose partial
-# sums exceed the route's 1 GiB, so every replicate is a weighted launch.
+# sums exceed the route's 1 GiB, so the replicates take the weighted route.
 PILOT_N, PILOT_SITES, PILOT_BLOCK = 179, 262144, 5
+# Phase 4: the EM's weight rows at the 1000 Genomes phase 1 width
+# (gpubench's n1092 cells): one launch of ROWS_REPS replicates' rows.
+ROWS_N, ROWS_SITES, ROWS_REPS, ROWS_BLOCK = 1092, 32768, 8, 5
 # The EM's site-slice counters (ops/em.py), by the name of the full mode's
 # wrapper: (launches with more than one slice, slices added up).
 SLICES = {"em_raw_cnt": ("SLICED_LAUNCHES", "SITE_SLICES"),
@@ -1226,6 +1232,38 @@ def phase_em_slices(torch, indep, em, card) -> dict:
     return out
 
 
+def phase_em_rows(torch, em, distance, card) -> dict:
+    """The EM's weight rows (em_kernel_rows) at ROWS_N x ROWS_SITES, the
+    n1092 cells' shape, both entries, on seeded probabilities: one launch
+    of ROWS_REPS bootstrap replicates' weight rows (their truncated genome,
+    ROWS_BLOCK-site blocks) timed against the ROWS_REPS one-row launches
+    it replaces, both at the card's G; each row the bytes of its one-row
+    launch.  Returns, by entry, {"rows", "slices", "ms", "one_row_ms"}."""
+    out = {}
+    P32 = wide_probs(torch, ROWS_SITES, ROWS_N)
+    n_trunc, maps = distance.bootstrap_site_maps(SEED, ROWS_REPS, ROWS_SITES, ROWS_BLOCK)
+    W = np.stack([distance.replicate_weights(m, n_trunc) for m in maps])
+    nt = -(-ROWS_N // em.EM_TILE)
+    for P in (P32, P32.double()):
+        name = "em_raw_cnt_f64" if P.dtype == torch.float64 else "em_raw_cnt"
+        Pt, Wt = P[:n_trunc], torch.from_numpy(W).to(DEVICE, P.dtype)
+        G = em.em_site_slices(nt * (nt + 1) // 2, n_trunc, *em._card_slots(P))
+        ms = time_cuda(torch, lambda: em.em_raw_cnt(Pt, SCORE9, False, Wt), 3)
+        ms_one = time_cuda(torch, lambda: [em.em_raw_cnt(Pt, SCORE9, False, w) for w in Wt], 3)
+        rows, _ = em.em_raw_cnt(Pt, SCORE9, False, Wt)
+        for r, w in enumerate(Wt):
+            if not same_bytes(torch, rows[r], em.em_raw_cnt(Pt, SCORE9, False, w)[0]):
+                raise AssertionError(f"{name} weight row {r} differs from its one-row launch")
+        log(f"phase 4: {name} weight rows at {ROWS_N} x {n_trunc}, G = {G}: {ROWS_REPS} rows in "
+            f"one launch {ms:.3f} ms, {ROWS_REPS} one-row launches {ms_one:.3f} ms "
+            f"({ms_one / ms:.2f}x); every row its one-row launch's bytes [{card}]")
+        out[name] = {"rows": ROWS_REPS, "slices": G, "ms": ms, "one_row_ms": ms_one}
+        del rows, Pt, Wt
+    del P32
+    torch.cuda.empty_cache()
+    return out
+
+
 def class_launches(torch, indep, em, distance, kind, P32, pairwise_del, wm, keep, compacted):
     """One matrix's three launches of models 3-6 as the engine makes them
     (core/distance.py _make_exact_stats): under the class weights wm on
@@ -1659,10 +1697,11 @@ def drive_pilot_run(torch, cli, mods, ngsd, em, distance, card):
     """Run (p): the EM through the CLI at PILOT_N x PILOT_SITES (seeded
     probabilities written as a binary GP file, read by the fused reader)
     with BOOT_REPS replicates of PILOT_BLOCK-site blocks on the weighted
-    route, so every matrix is one full-mode launch over 21 tiles.  Its
-    launch counts (1 + BOOT_REPS em_raw_cnt) and site-slice counts, set to
-    0 before it, are held to what em_site_slices gives on this card for
-    the full data's sites and the replicates' truncated genome; each
+    route, so every launch is a full-mode launch over 21 tiles.  Its
+    launch counts (the full data's em_raw_cnt and one for the BOOT_REPS
+    replicates' weight rows) and site-slice counts, set to 0 before it,
+    are held to what em_site_slices gives on this card for the full
+    data's sites and the replicates' truncated genome; each
     matrix's 64-individual sub-matrix to the float64 plain version on the
     float32 values the card was given (EM_ATOL_CNT).  Returns the largest
     |d error| and the launch counts."""
@@ -1684,10 +1723,11 @@ def drive_pilot_run(torch, cli, mods, ngsd, em, distance, card):
     nt = -(-PILOT_N // em.EM_TILE)
     slots = em._card_slots(torch.empty(0, device=DEVICE))
     n_trunc, maps = distance.bootstrap_site_maps(SEED, BOOT_REPS, PILOT_SITES, PILOT_BLOCK)
+    groups = -(-BOOT_REPS // em.em_weight_rows(False))
     G = [em.em_site_slices(nt * (nt + 1) // 2, S, *slots)
-         for S in [PILOT_SITES] + [n_trunc] * BOOT_REPS]
+         for S in [PILOT_SITES] + [n_trunc] * groups]
     want = {name: 0 for name in KERNELS}
-    want["em_raw_cnt"] = 1 + BOOT_REPS
+    want["em_raw_cnt"] = 1 + groups
     want_slices = {"em_raw_cnt": (sum(g > 1 for g in G), sum(G)), "em_raw_cnt_f64": (0, 0)}
     if seen["launches"] != want or seen["slices"] != want_slices:
         raise AssertionError(f"run (p): launches {seen['launches']}, slices {seen['slices']}; "
@@ -3649,11 +3689,13 @@ def main() -> int:
     del P32, P64
     torch.cuda.empty_cache()
     pilot = phase_em_slices(torch, indep, em, card)
+    weight_rows = phase_em_rows(torch, em, distance, card)
     for k in kernels:  # the main path's slice counts, and the pilot's width
         if k["name"] in pilot:
             sliced, slices = (sum(run[k["name"]][i] for run in RUN_SLICES) for i in (0, 1))
             k.update({"sliced_launches": sliced, "site_slices": slices,
-                      f"n{PILOT_N}": pilot[k["name"]]})
+                      f"n{PILOT_N}": pilot[k["name"]],
+                      f"weight_rows_n{ROWS_N}": weight_rows[k["name"]]})
     time_expand_codes(torch, distance, hostmem, card)
     time_expand23(torch, distance, hostmem, card)
     phase_wide(torch, indep, em, card, report)

@@ -12,7 +12,10 @@ its rule (`use_partials`):
   block's sums, and replicate r is M[r] @ B, M the block multiplicities
   of the reference's taus stream (ngsDist.cpp:416-437);
 - weighted recompute: one kernel call per replicate, its per-site
-  multiplicities passed as the kernel's site weights.
+  multiplicities passed as the kernel's site weights; the EM's
+  replicates in groups, one call of em_weight_rows weight rows a group
+  (the full data keeps a call of its own, over all S sites), whose
+  matrices are each the bytes of their replicate's own call.
 
 A longer genome streams (`stream_plan`): site chunks go through the
 same kernels one after another, their sums are added in float64 in
@@ -58,7 +61,7 @@ import numpy as np
 import torch
 
 from ..config import NgsDistError, Params
-from ..ops.em import em_block_partials, em_raw_cnt
+from ..ops.em import em_block_partials, em_raw_cnt, em_weight_rows
 from ..ops.indep import (EPSILON, block_partials_shape, indep_block_partials,
                          indep_raw_cnt, scratch_shape)
 from ..utils import checkpoint as ckpt
@@ -642,7 +645,10 @@ def _make_exact_stats(indep: bool, pairwise_del: bool, score, device: torch.devi
     fetch them).  zero: the run's record of all-zero triples where the EM
     must poison for them, else None.  tiles: the kernel's tile list (a
     pairs-axis shard, parallel/mesh.py), else None.  The dtype is the
-    tensor's: the weights go up in it, and its kernels' entries run."""
+    tensor's: the weights go up in it, and its kernels' entries run.
+    Weights [R', n] (the EM's weight rows, every site and tile): raw
+    [R', n_pairs] and cnt [R', n_pairs] under pairwise deletion, else
+    None; row r is what weights [r] alone give."""
     score = torch.as_tensor(score, dtype=torch.float64).reshape(3, 3)
 
     def full_stats(Psub, weights, lo, index=None):
@@ -661,18 +667,26 @@ def _make_exact_stats(indep: bool, pairwise_del: bool, score, device: torch.devi
                 return raw_m[It, Jt], (cnt_m[It, Jt] if pairwise_del else None)
             raw_m, cnt_m = em_raw_cnt(Psub, score.reshape(-1), pairwise_del, w,
                                       site_index=index, tiles=tiles)
-            raw_v = raw_m[It, Jt]
+            raw_v = raw_m[..., It, Jt]
             if zero is not None:
-                z = zero.individuals(lo, lo + Psub.shape[0], weights)
-                if z.any():
-                    raw_v = _em_poison_pairs(raw_v, _upload_small(z, device), It, Jt)
-            return raw_v, cnt_m[It, Jt]
+                rows = raw_v if raw_v.ndim == 2 else raw_v[None]
+                for r, wr in enumerate(weights if raw_v.ndim == 2 else [weights]):
+                    z = zero.individuals(lo, lo + Psub.shape[0], wr)
+                    if z.any():
+                        rows[r] = _em_poison_pairs(rows[r], _upload_small(z, device), It, Jt)
+            return raw_v, None if cnt_m is None else cnt_m[..., It, Jt]
 
     def exact_stats(Psub, weights=None, lo=0, index=None):
         """full_stats, in float32 over parts of the sites whose counts
         stay exact, the parts added in float64; float64 (the CPU, --x64)
         in one call, whose counts are float64 throughout."""
         n = Psub.shape[0] if index is None else index.shape[0]
+        if weights is not None and weights.ndim == 2:  # weight rows: one call if each row fits
+            if Psub.dtype == torch.float64 or all(
+                    len(_exact_count_parts(n, w)) == 1 for w in weights):
+                return full_stats(Psub, weights, lo, index)
+            got = [exact_stats(Psub, w, lo, index) for w in weights]
+            return [r for r, _ in got], [c for _, c in got] if pairwise_del else None
         parts = [(0, n)] if Psub.dtype == torch.float64 else _exact_count_parts(n, weights)
         if len(parts) == 1:
             return full_stats(Psub, weights, lo, index)
@@ -871,6 +885,12 @@ def iter_replicates(
         blocks = _resum_blocks(pars, P[:n_trunc], score, n_blocks,
                                [r - 1 for r in range(max(1, start_rep), pars.n_boot_rep + 1)],
                                It, Jt, zero)
+    # The weighted route of a resident tensor through the EM: replicates in
+    # groups of the rows one EM launch takes, each group one call over the
+    # n_trunc sites (ops/em.py, weight rows), every matrix of a group
+    # queued for its copy to the host behind that call.
+    group = 1 if chunked or partials or pars.indep_geno else em_weight_rows(pars.pairwise_del)
+    grouped = {}  # rep -> its queued copy, from its group's call
 
     def dispatch(rep):
         """Queue matrix rep's pair vectors (rep 0: the full data) and their
@@ -880,6 +900,15 @@ def iter_replicates(
                 raw_v, cnt_v = stats_stream()
         elif partials:
             raw_v, cnt_v = next(blocks)
+        elif group > 1:
+            if rep not in grouped:
+                reps_g = range(rep, min(rep + group, pars.n_boot_rep + 1))
+                W = np.stack([replicate_weights(maps[r - 1], n_trunc) for r in reps_g])
+                with profiling.replicate(rep):
+                    raw_g, cnt_g = exact_stats(P[:n_trunc], W)
+                for i, r in enumerate(reps_g):
+                    grouped[r] = _pair_fetch(pars, raw_g[i], None if cnt_g is None else cnt_g[i])
+            return grouped.pop(rep), n_trunc
         else:
             with profiling.replicate(rep):
                 raw_v, cnt_v = stats_stream(replicate_weights(maps[rep - 1], n_trunc),

@@ -94,12 +94,42 @@
 // Sums are kept per lane in float64 registers, in site order.  With G = 1
 // they are written once, rounded to T, strict upper triangle only.  With
 // G > 1 each block writes its slice's float64 sums for every lane of its
-// tile to a scratch [G, tiles, 2, 1024] the wrapper allocates, and a
-// second kernel on the same stream (em_kernel_sum_slices) adds each
-// lane's G sums in slice order g = 0..G-1 in float64 and writes raw and
-// cnt as the one-pass kernel does.  No atomics: the order of every
-// addition is fixed, so reruns are byte-identical and the bytes do not
-// depend on which block ran first; G = 1 writes the one-pass bytes.
+// tile to a scratch [G, tiles, sums, 1024] the wrapper allocates (2 sums,
+// raw and cnt, for one weight row), and a second kernel on the same
+// stream (em_kernel_sum_slices) adds each lane's G sums in slice order
+// g = 0..G-1 in float64 and writes raw and cnt as the one-pass kernel
+// does.  No atomics: the order of every addition is fixed, so reruns are
+// byte-identical and the bytes do not depend on which block ran first;
+// G = 1 writes the one-pass bytes.
+//
+// Weight rows (full mode; em_kernel_rows, ngsd_em_raw_cnt_rows_*).  A
+// lane's stopping step, powers and contribution do not depend on the site
+// weight, which only scales what the lane adds.  So the bootstrap
+// replicates of a job, which weigh the same n_trunc sites, go in groups:
+// w [rows, S], one launch a group.  Each lane builds its tables, runs its
+// search and does its contraction once a site, then adds w[r][s] * v into
+// kWeightRows = 8 float64 sums (slots): raw of row r in slot r, or under
+// pairwise deletion raw in slot 2r and cnt (w[r][s] * m) in 2r + 1, so 4
+// rows; without it cnt is not kept, as its reader then divides by the
+// sites used.  A slot keeps the one-row kernel's order (site order within
+// a slice, slices added in order by em_kernel_sum_slices from a scratch
+// [G, tiles, 8, 1024]) and its single rounding to T, and G is the one-row
+// launch's, so row r holds the bytes of the one-row launch with weights
+// w[r].  For that the lanes' float64 arithmetic is written as explicit
+// roundings (dmul, dadd, dfma, __ddiv_rn): left to the compiler, a * b + c
+// is fused or not as the assembler's register allocation suggests, and
+// the two kernels, and the slots of one, then rounded a float64 row's
+// sums apart by an ulp (6,363 and 6,602 of the 595,686 pairs of two rows
+// at 1,092 x 32,765; the float32 entry's rounding hid it).  The one-row
+// kernel rounds as written too: the x64 goldens keep their md5 and its
+// time is unchanged.
+// Registers (ptxas -v, sm_90a): em_kernel 90-100, no spills; em_kernel_rows
+// the 128 of two blocks an SM, with 24-32 bytes of stack (28-36 bytes of
+// spill stores, 84-92 of loads): one launch of 8 rows takes 1.12x one
+// row's time at 1,092 x 32,765 on an H100.  4 slots spill nothing and take
+// 1.05x, 8 rows in two launches 2.1x; 8 slots at one block an SM (no
+// spills) take 1.79x.  Shared memory cannot hold the slots beside two
+// blocks' 100 KB tables.
 //
 // Site list (full mode): with `sites` [S] given, step s of the loop reads
 // site sites[s] of P and weight w[s], so that a caller whose weights are 0
@@ -170,22 +200,32 @@ constexpr int kStride = 3;    // every third power is stored,
 constexpr int kPowers = 17;   // p^(1 + 3c) for c = 0..16
 constexpr int kTableThreads = 2 * kSites * kTile;  // tables per step
 constexpr int kLanes = kTile * kTile;  // pair lanes of a tile
+constexpr int kWeightRows = 8;  // slots of em_kernel_rows (ops/em.py EM_WEIGHT_ROWS)
 
 static_assert(kSteps == kStride * (kPowers - 1) + 1, "powers reach k* = 50");
 static_assert(kSteps % kUnroll == 0, "whole groups of ratio tests");
 static_assert(kTableThreads <= kThreads, "one thread per table");
 static_assert(kRows == 4, "the i side's ratios are read as two double2");
+static_assert(kWeightRows % 2 == 0, "pairwise deletion takes two slots a row");
 
-// Shared memory, in doubles, then floats, then the weights in the input's
-// type T.
+// Shared memory, in doubles, then floats, then the weights of kW rows in
+// the input's type T.
 constexpr int kRSide = kSites * kSteps * kTile;        // r: [site][k][individual]
 constexpr int kXSide = kSites * kPowers * 3 * kTile;   // powers, per side
 constexpr int kFlags = 2 * kSites * kTile;             // live, valid: [side][site][individual]
-template <typename T>
+template <typename T, int kW>
 constexpr size_t kSmemBytes = sizeof(double) * 2 * (kRSide + kXSide) +
-                              sizeof(float) * 2 * kFlags + sizeof(T) * kSites;
+                              sizeof(float) * 2 * kFlags + sizeof(T) * kW * kSites;
 
 using ngsd::Score9d;  // the score matrix in float64, as the lanes use it
+
+// The lanes' float64 arithmetic, each operation rounded as written: nvcc
+// leaves a plain a * b + c to the assembler, which fuses it into one FMA
+// or not as its register allocation suggests, so that the same source
+// line rounds differently in the two kernels and in the slots of one.
+__device__ __forceinline__ double dmul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double dadd(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double dfma(double a, double b, double c) { return __fma_rn(a, b, c); }
 
 __device__ __forceinline__ int r_index(int sl, int k, int col) {
   return (sl * kSteps + k) * kTile + col;
@@ -238,21 +278,28 @@ __device__ __forceinline__ void build_tables(double pn0, double pn1, double pn2,
 // double).  kBlocks: block mode; B, C [S / block_size, N (N - 1) / 2]
 // float64 take the place of raw and cnt.  Block (k, g) runs site slice g
 // of gridDim.y (site_slice); with more than one slice (full mode only) it
-// writes its float64 sums to part [gridDim.y, gridDim.x, 2, kLanes] in
-// place of raw and cnt, for em_kernel_sum_slices.
-template <typename T, bool kBlocks>
-__global__ void __launch_bounds__(kThreads, 2)
-em_kernel(const T* __restrict__ P, const T* __restrict__ w,
-          const long long* __restrict__ sites, const int* __restrict__ tiles,
-          T* __restrict__ raw, T* __restrict__ cnt, double* __restrict__ B,
-          double* __restrict__ C, double* __restrict__ part, long long S, int N,
-          long long block_size, Score9d sc, double hi, int pairwise_del) {
+// writes its float64 sums to part [gridDim.y, gridDim.x, kSums, kLanes] in
+// place of raw and cnt, for em_kernel_sum_slices.  kW: the weight rows of
+// w [rows, S] (full mode) that a lane adds its terms to, rows <= kW; with
+// kW = 1 the lane keeps raw and cnt of one row (em_kernel), else one sum a
+// slot (em_kernel_rows): raw of row j, or under pairwise deletion raw and
+// cnt of row j / 2 in slots j and j + 1 (rows <= kW / 2).
+template <typename T, bool kBlocks, int kW>
+__device__ __forceinline__ void em_body(
+    const T* __restrict__ P, const T* __restrict__ w, int rows,
+    const long long* __restrict__ sites, const int* __restrict__ tiles, T* __restrict__ raw,
+    T* __restrict__ cnt, double* __restrict__ B, double* __restrict__ C,
+    double* __restrict__ part, long long S, int N, long long block_size, const Score9d& sc,
+    double hi, int pairwise_del) {
+  static_assert(kW == 1 || (!kBlocks && kW % 2 == 0), "block mode keeps one row");
+  constexpr int kSums = kW == 1 ? 2 : kW;  // float64 sums a lane keeps
+  const bool paired = kW == 1 || pairwise_del;  // slots j, j + 1: raw, cnt of row j / 2
   extern __shared__ __align__(16) double smem[];
   double* R = smem;                 // [side] r tables
   double* X = R + 2 * kRSide;       // [side] power tables
   float* Live = reinterpret_cast<float*>(X + 2 * kXSide);  // 1 unless the row is all zero
   float* Val = Live + kFlags;       // not missing (pairwise deletion)
-  T* Ws = reinterpret_cast<T*>(Val + kFlags);  // [site]
+  T* Ws = reinterpret_cast<T*>(Val + kFlags);  // [weight row][site]
 
   const long long nt = (N + kTile - 1) / kTile;
   const long long tile = tiles ? (long long)tiles[blockIdx.x] : (long long)blockIdx.x;
@@ -267,13 +314,14 @@ em_kernel(const T* __restrict__ P, const T* __restrict__ w,
   const long long n_pairs = (long long)N * (N - 1) / 2;
   bool lane[kRows];       // strict upper triangle
   long long pair[kRows];  // the lane's pair index (block mode)
-  double acc_raw[kRows], acc_cnt[kRows];
+  double acc[kSums][kRows];
 #pragma unroll
   for (int q = 0; q < kRows; ++q) {
     const int a = i0 + li0 + q;
     lane[q] = a < b && b < N;
     pair[q] = (long long)a * (2 * N - a - 1) / 2 + (b - a - 1);
-    acc_raw[q] = acc_cnt[q] = 0.0;
+#pragma unroll
+    for (int j = 0; j < kSums; ++j) acc[j][q] = 0.0;
   }
 
   // The table threads: one table per (side, site of the step, individual).
@@ -304,9 +352,9 @@ em_kernel(const T* __restrict__ P, const T* __restrict__ w,
 #pragma unroll
     for (int q = 0; q < kRows; ++q) {
       if (!lane[q]) continue;
-      B[blk * n_pairs + pair[q]] = acc_raw[q];
-      C[blk * n_pairs + pair[q]] = acc_cnt[q];
-      acc_raw[q] = acc_cnt[q] = 0.0;
+      B[blk * n_pairs + pair[q]] = acc[0][q];
+      C[blk * n_pairs + pair[q]] = acc[1][q];
+      acc[0][q] = acc[1][q] = 0.0;
     }
   };
   for (long long s0 = s_begin; s0 < s_end; s0 += kSites) {
@@ -336,9 +384,10 @@ em_kernel(const T* __restrict__ P, const T* __restrict__ w,
                      });
       }
     }
-    if (threadIdx.x < kSites) {
-      const long long s = s0 + threadIdx.x;
-      Ws[threadIdx.x] = s < s_end ? (w ? w[s] : T(1)) : T(0);
+    if (threadIdx.x < kW * kSites) {  // weight row r at site s of the step
+      const int r = kW == 1 ? 0 : threadIdx.x / kSites;
+      const long long s = s0 + (kW == 1 ? threadIdx.x : threadIdx.x % kSites);
+      Ws[threadIdx.x] = s < s_end && (kW == 1 || r < rows) ? (w ? w[r * S + s] : T(1)) : T(0);
     }
     __syncthreads();
 
@@ -392,12 +441,12 @@ em_kernel(const T* __restrict__ P, const T* __restrict__ w,
         }
       }
       const int fj = (kSites + sl) * kTile + lj;
-      const double ws = Ws[sl];
+      const double w0 = Ws[sl];  // one row: its weight, read once a site
 #pragma unroll
       for (int q = 0; q < kRows; ++q) {
         if (!live[sl][q]) continue;
         if (NGSD_EM_SKIP_CONTRACT) {
-          acc_cnt[q] += ksum[sl][q];
+          acc[kSums - 1][q] += ksum[sl][q];
           continue;
         }
         const int li = li0 + q;
@@ -412,23 +461,32 @@ em_kernel(const T* __restrict__ P, const T* __restrict__ w,
                        pi2 = Xi[xi_index(sl, li, 0, 2)];
           const double pj0 = Xj[xj_index(sl, lj, 0, 0)], pj1 = Xj[xj_index(sl, lj, 0, 1)],
                        pj2 = Xj[xj_index(sl, lj, 0, 2)];
-          x0 *= pi0; x1 *= pi1; x2 *= pi2;
-          y0 *= pj0; y1 *= pj1; y2 *= pj2;
+          x0 = dmul(x0, pi0); x1 = dmul(x1, pi1); x2 = dmul(x2, pi2);
+          y0 = dmul(y0, pj0); y1 = dmul(y1, pj1); y2 = dmul(y2, pj2);
           if (rem > 1) {
-            x0 *= pi0; x1 *= pi1; x2 *= pi2;
-            y0 *= pj0; y1 *= pj1; y2 *= pj2;
+            x0 = dmul(x0, pi0); x1 = dmul(x1, pi1); x2 = dmul(x2, pi2);
+            y0 = dmul(y0, pj0); y1 = dmul(y1, pj1); y2 = dmul(y2, pj2);
           }
         }
-        double num = 0.0;
-        num = num + x0 * (sc.v[0] * y0 + sc.v[1] * y1 + sc.v[2] * y2);
-        num = num + x1 * (sc.v[3] * y0 + sc.v[4] * y1 + sc.v[5] * y2);
-        num = num + x2 * (sc.v[6] * y0 + sc.v[7] * y1 + sc.v[8] * y2);
-        const double Sf = (x0 + x1 + x2) * (y0 + y1 + y2);
-        const double contrib = num / Sf;
+        // sum_{g,h} score[g,h] x_g y_h, row by row, in the order of the
+        // plain version's sums, then / (sum x * sum y); every step rounded
+        // as written (the header's "Weight rows").
+        auto z = [&](int g) {
+          return dfma(sc.v[3 * g + 2], y2, dfma(sc.v[3 * g + 1], y1, dmul(sc.v[3 * g], y0)));
+        };
+        const double num = dfma(x2, z(2), dfma(x1, z(1), dmul(x0, z(0))));
+        const double Sf = dmul(dadd(dadd(x0, x1), x2), dadd(dadd(y0, y1), y2));
+        const double contrib = __ddiv_rn(num, Sf);
         double m = 1.0;
-        if (pairwise_del) m = m * Val[sl * kTile + li] * Val[fj];
-        acc_raw[q] += ws * (contrib * m);
-        acc_cnt[q] += ws * m;
+        if (pairwise_del) m = dmul(dmul(m, (double)Val[sl * kTile + li]), (double)Val[fj]);
+        const double v = dmul(contrib, m);
+        // Every slot the one row's expression: acc += w * v for raw,
+        // acc += w * m for cnt.
+#pragma unroll
+        for (int j = 0; j < kSums; ++j) {
+          const double ws = kW == 1 ? w0 : (double)Ws[(paired ? j / 2 : j) * kSites + sl];
+          acc[j][q] = dfma(ws, paired && (j & 1) ? m : v, acc[j][q]);
+        }
       }
     }
     __syncthreads();
@@ -437,32 +495,65 @@ em_kernel(const T* __restrict__ P, const T* __restrict__ w,
   if constexpr (kBlocks) {
     flush_block();  // the last block
   } else if (part != nullptr) {  // this slice's sums, every lane of the tile
-    double* pr = part + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * 2 * kLanes;
+    double* pr = part + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * kSums * kLanes;
 #pragma unroll
     for (int q = 0; q < kRows; ++q) {
       const int l = (li0 + q) * kTile + lj;
-      pr[l] = acc_raw[q];
-      pr[kLanes + l] = acc_cnt[q];
+#pragma unroll
+      for (int j = 0; j < kSums; ++j) pr[j * kLanes + l] = acc[j][q];
     }
   } else {
+    const long long nn = (long long)N * N;
 #pragma unroll
     for (int q = 0; q < kRows; ++q) {
       if (!lane[q]) continue;
       const long long a = i0 + li0 + q;
-      raw[a * N + b] = (T)acc_raw[q];
-      cnt[a * N + b] = (T)acc_cnt[q];
+#pragma unroll
+      for (int j = 0; j < kSums; ++j) {
+        const int r = paired ? j / 2 : j;
+        if (kW > 1 && r >= rows) continue;
+        (paired && (j & 1) ? cnt : raw)[r * nn + a * N + b] = (T)acc[j][q];
+      }
     }
   }
 }
 
+// One weight row: raw and cnt of w [S] (null: every weight 1), full mode
+// or block mode.
+template <typename T, bool kBlocks>
+__global__ void __launch_bounds__(kThreads, 2)
+em_kernel(const T* __restrict__ P, const T* __restrict__ w,
+          const long long* __restrict__ sites, const int* __restrict__ tiles,
+          T* __restrict__ raw, T* __restrict__ cnt, double* __restrict__ B,
+          double* __restrict__ C, double* __restrict__ part, long long S, int N,
+          long long block_size, Score9d sc, double hi, int pairwise_del) {
+  em_body<T, kBlocks, 1>(P, w, 1, sites, tiles, raw, cnt, B, C, part, S, N, block_size, sc, hi,
+                         pairwise_del);
+}
+
+// Weight rows: raw [rows, N, N] of w [rows, S] and, under pairwise
+// deletion, cnt [rows, N, N]; full mode over P's first S sites, every
+// upper tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+em_kernel_rows(const T* __restrict__ P, const T* __restrict__ w, int rows,
+               T* __restrict__ raw, T* __restrict__ cnt, double* __restrict__ part,
+               long long S, int N, Score9d sc, double hi, int pairwise_del) {
+  em_body<T, false, kWeightRows>(P, w, rows, nullptr, nullptr, raw, cnt, nullptr, nullptr, part,
+                                 S, N, 0, sc, hi, pairwise_del);
+}
+
 // The second pass of a sliced launch: one thread per (tile k, lane) adds
-// the lane's G slice sums from part [G, n_tiles, 2, kLanes] in slice order
-// g = 0..G-1 in float64 and writes raw and cnt on the strict upper
-// triangle, rounded to T once, as the one-pass kernel does.
+// each of the lane's `sums` sums over its G slices from part [G, n_tiles,
+// sums, kLanes] in slice order g = 0..G-1 in float64 and writes it on the
+// strict upper triangle, rounded to T once, as the one-pass kernel does:
+// slot j to raw of row j, or, paired, to raw (j even) or cnt (j odd) of
+// row j / 2; rows past `rows` are not written.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 em_kernel_sum_slices(const double* __restrict__ part, const int* __restrict__ tiles,
-                     int n_tiles, int G, int N, T* __restrict__ raw, T* __restrict__ cnt) {
+                     int n_tiles, int G, int N, int sums, int paired, int rows,
+                     T* __restrict__ raw, T* __restrict__ cnt) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= (long long)n_tiles * kLanes) return;
   const int k = (int)(i / kLanes), l = (int)(i % kLanes);
@@ -473,14 +564,13 @@ em_kernel_sum_slices(const double* __restrict__ part, const int* __restrict__ ti
   ngsd::upper_tile(tile, &ti, &tj);
   const long long a = ti * kTile + l / kTile, b = tj * kTile + l % kTile;
   if (!(a < b && b < N)) return;
-  double r = 0.0, c = 0.0;
-  for (int g = 0; g < G; ++g) {
-    const double* pr = part + ((long long)g * n_tiles + k) * 2 * kLanes;
-    r += pr[l];
-    c += pr[kLanes + l];
+  for (int j = 0; j < sums; ++j) {
+    const int r = paired ? j / 2 : j;
+    if (r >= rows) continue;
+    double t = 0.0;
+    for (int g = 0; g < G; ++g) t += part[(((long long)g * n_tiles + k) * sums + j) * kLanes + l];
+    (paired && (j & 1) ? cnt : raw)[r * (long long)N * N + a * N + b] = (T)t;
   }
-  raw[a * N + b] = (T)r;
-  cnt[a * N + b] = (T)c;
 }
 
 long long upper_tiles(int N) {
@@ -497,56 +587,74 @@ Score9d score_f64(const S9* score9) {
   return sc;
 }
 
+// The kernel that keeps kW weight rows.
+template <typename T, bool kBlocks, int kW>
+constexpr auto kernel_of() {
+  if constexpr (kW == 1) return em_kernel<T, kBlocks>;
+  else return em_kernel_rows<T>;
+}
+
 // The tables need more than the 48 KB a block gets without asking.
-template <typename T, bool kBlocks>
+template <typename T, bool kBlocks, int kW>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(em_kernel<T, kBlocks>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)kSmemBytes<T>);
+  return cudaFuncSetAttribute(kernel_of<T, kBlocks, kW>(),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)kSmemBytes<T, kW>);
 }
 
 // grid: the length of `tiles`, or every upper tile without a list; slices
-// site slices of each (full mode; part [slices, grid, 2, kLanes] float64
-// when more than one), then the second pass on the same stream.
-template <typename T, bool kBlocks>
-int launch(const T* P, const T* w, const long long* sites, const int* tiles,
+// site slices of each (full mode; part [slices, grid, kSums, kLanes]
+// float64 when more than one), then the second pass on the same stream.
+template <typename T, bool kBlocks, int kW>
+int launch(const T* P, const T* w, int rows, const long long* sites, const int* tiles,
            long long grid, int slices, double* part, T* raw, T* cnt, double* B, double* C,
            long long S, int N, long long block_size, const T* score9, double hi,
            int pairwise_del, void* stream) {
-  cudaError_t err = allow_smem<T, kBlocks>();
+  cudaError_t err = allow_smem<T, kBlocks, kW>();
   if (err != cudaSuccess) return (int)err;
-  em_kernel<T, kBlocks><<<dim3((unsigned)grid, (unsigned)slices), kThreads, kSmemBytes<T>,
-                          (cudaStream_t)stream>>>(
-      P, w, sites, tiles, raw, cnt, B, C, slices > 1 ? part : nullptr, S, N, block_size,
-      score_f64(score9), hi, pairwise_del);
+  const dim3 blocks((unsigned)grid, (unsigned)slices);
+  const cudaStream_t st = (cudaStream_t)stream;
+  double* sums = slices > 1 ? part : nullptr;
+  if constexpr (kW == 1)
+    em_kernel<T, kBlocks><<<blocks, kThreads, kSmemBytes<T, kW>, st>>>(
+        P, w, sites, tiles, raw, cnt, B, C, sums, S, N, block_size, score_f64(score9), hi,
+        pairwise_del);
+  else
+    em_kernel_rows<T><<<blocks, kThreads, kSmemBytes<T, kW>, st>>>(
+        P, w, rows, raw, cnt, sums, S, N, score_f64(score9), hi, pairwise_del);
   err = cudaGetLastError();
   if (err != cudaSuccess || slices == 1) return (int)err;
   const long long threads = grid * kLanes;
-  em_kernel_sum_slices<T><<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
-                            (cudaStream_t)stream>>>(part, tiles, (int)grid, slices, N, raw, cnt);
+  em_kernel_sum_slices<T><<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      part, tiles, (int)grid, slices, N, kW == 1 ? 2 : kW, kW == 1 || pairwise_del, rows, raw,
+      cnt);
   return (int)cudaGetLastError();
 }
 
 // The full mode's entries: `slices` site slices of each tile, with their
 // scratch when more than one.
-template <typename T>
-int raw_cnt(const T* P, const T* w, const long long* sites, const int* tiles,
+template <typename T, int kW>
+int raw_cnt(const T* P, const T* w, int rows, const long long* sites, const int* tiles,
             long long n_tiles, T* raw, T* cnt, long long S, int N, const T* score9, double hi,
             int pairwise_del, int slices, double* part, void* stream) {
   const long long grid = tiles != nullptr ? n_tiles : (N < 1 ? 0 : upper_tiles(N));
+  const bool paired = kW == 1 || pairwise_del;  // raw and cnt a row
   if (N < 1 || S < 0 || grid < 1 || grid > INT_MAX || slices < 1 || slices > 65535 ||
-      (slices > 1 && (part == nullptr || grid > INT_MAX / (kLanes / kThreads))))
+      (slices > 1 && (part == nullptr || grid > INT_MAX / (kLanes / kThreads))) || rows < 1 ||
+      rows > (kW == 1 ? 1 : paired ? kW / 2 : kW) || (paired && cnt == nullptr))
     return (int)cudaErrorInvalidValue;
-  return launch<T, false>(P, w, sites, tiles, grid, slices, part, raw, cnt, nullptr, nullptr, S,
-                          N, 0, score9, hi, pairwise_del, stream);
+  return launch<T, false, kW>(P, w, rows, sites, tiles, grid, slices, part, raw, cnt, nullptr,
+                              nullptr, S, N, 0, score9, hi, pairwise_del, stream);
 }
 
-// Resident blocks of the full-mode kernel per SM of the current device.
-template <typename T>
+// Resident blocks per SM of the full-mode kernel of kW weight rows on the
+// current device.
+template <typename T, int kW>
 int blocks_per_sm(int* blocks) {
-  cudaError_t err = allow_smem<T, false>();
+  cudaError_t err = allow_smem<T, false, kW>();
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, em_kernel<T, false>,
-                                                            kThreads, kSmemBytes<T>);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel_of<T, false, kW>(), kThreads, kSmemBytes<T, kW>);
 }
 
 }  // namespace
@@ -564,13 +672,36 @@ extern "C" int ngsd_em_raw_cnt_f32(const float* P, const float* w, const long lo
                                    const int* tiles, long long n_tiles, float* raw, float* cnt,
                                    long long S, int N, const float* score9, double hi,
                                    int pairwise_del, int slices, double* part, void* stream) {
-  return raw_cnt<float>(P, w, sites, tiles, n_tiles, raw, cnt, S, N, score9, hi, pairwise_del,
-                        slices, part, stream);
+  return raw_cnt<float, 1>(P, w, 1, sites, tiles, n_tiles, raw, cnt, S, N, score9, hi,
+                           pairwise_del, slices, part, stream);
 }
 
 // *blocks = resident blocks per SM of the full-mode kernel on the current
 // device, with its shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-extern "C" int ngsd_em_blocks_per_sm_f32(int* blocks) { return blocks_per_sm<float>(blocks); }
+extern "C" int ngsd_em_blocks_per_sm_f32(int* blocks) { return blocks_per_sm<float, 1>(blocks); }
+
+// Weight rows, every upper tile over P's first S sites: w [rows, S]
+// float32 (null: every weight 1); raw [rows, N, N] float32 and, under
+// pairwise deletion, cnt [rows, N, N] (else null), written on the strict
+// upper triangle; rows at most ngsd_em_weight_rows(), half as many under
+// pairwise deletion.  Row r holds the bytes of ngsd_em_raw_cnt_f32 with
+// weights w[r] at the same slices; part [slices, upper tiles,
+// ngsd_em_weight_rows(), 1024] float64 when slices > 1.
+extern "C" int ngsd_em_raw_cnt_rows_f32(const float* P, const float* w, int rows, float* raw,
+                                        float* cnt, long long S, int N, const float* score9,
+                                        double hi, int pairwise_del, int slices, double* part,
+                                        void* stream) {
+  return raw_cnt<float, kWeightRows>(P, w, rows, nullptr, nullptr, 0, raw, cnt, S, N, score9, hi,
+                                     pairwise_del, slices, part, stream);
+}
+
+extern "C" int ngsd_em_rows_blocks_per_sm_f32(int* blocks) {
+  return blocks_per_sm<float, kWeightRows>(blocks);
+}
+
+// The float64 sums (slots) a lane keeps in ngsd_em_raw_cnt_rows_*: the
+// weight rows a launch takes, half as many under pairwise deletion.
+extern "C" int ngsd_em_weight_rows(void) { return kWeightRows; }
 
 // Block mode: P [n_blocks * block_size, N, 3] float32; B, C [n_blocks,
 // N (N - 1) / 2] float64, every entry written.
@@ -580,9 +711,9 @@ extern "C" int ngsd_em_block_partials_f32(const float* P, double* B, double* C, 
                                           int pairwise_del, void* stream) {
   if (N < 2 || n_blocks < 1 || block_size < 1 || B == nullptr || C == nullptr)
     return (int)cudaErrorInvalidValue;
-  return launch<float, true>(P, nullptr, nullptr, nullptr, upper_tiles(N), 1, nullptr, nullptr,
-                             nullptr, B, C, n_blocks * block_size, N, block_size, score9, hi,
-                             pairwise_del, stream);
+  return launch<float, true, 1>(P, nullptr, 1, nullptr, nullptr, upper_tiles(N), 1, nullptr,
+                                nullptr, nullptr, B, C, n_blocks * block_size, N, block_size,
+                                score9, hi, pairwise_del, stream);
 }
 
 // The float64 entries (K2d): P [., N, 3] and w [S] float64, the score
@@ -592,11 +723,24 @@ extern "C" int ngsd_em_raw_cnt_f64(const double* P, const double* w, const long 
                                    double* cnt, long long S, int N, const double* score9,
                                    double hi, int pairwise_del, int slices, double* part,
                                    void* stream) {
-  return raw_cnt<double>(P, w, sites, tiles, n_tiles, raw, cnt, S, N, score9, hi, pairwise_del,
-                         slices, part, stream);
+  return raw_cnt<double, 1>(P, w, 1, sites, tiles, n_tiles, raw, cnt, S, N, score9, hi,
+                            pairwise_del, slices, part, stream);
 }
 
-extern "C" int ngsd_em_blocks_per_sm_f64(int* blocks) { return blocks_per_sm<double>(blocks); }
+extern "C" int ngsd_em_blocks_per_sm_f64(int* blocks) { return blocks_per_sm<double, 1>(blocks); }
+
+// Weight rows on float64 probabilities; as ngsd_em_raw_cnt_rows_f32.
+extern "C" int ngsd_em_raw_cnt_rows_f64(const double* P, const double* w, int rows, double* raw,
+                                        double* cnt, long long S, int N, const double* score9,
+                                        double hi, int pairwise_del, int slices, double* part,
+                                        void* stream) {
+  return raw_cnt<double, kWeightRows>(P, w, rows, nullptr, nullptr, 0, raw, cnt, S, N, score9,
+                                      hi, pairwise_del, slices, part, stream);
+}
+
+extern "C" int ngsd_em_rows_blocks_per_sm_f64(int* blocks) {
+  return blocks_per_sm<double, kWeightRows>(blocks);
+}
 
 // Block mode on float64 probabilities; as ngsd_em_block_partials_f32.
 extern "C" int ngsd_em_block_partials_f64(const double* P, double* B, double* C, int N,
@@ -605,7 +749,7 @@ extern "C" int ngsd_em_block_partials_f64(const double* P, double* B, double* C,
                                           int pairwise_del, void* stream) {
   if (N < 2 || n_blocks < 1 || block_size < 1 || B == nullptr || C == nullptr)
     return (int)cudaErrorInvalidValue;
-  return launch<double, true>(P, nullptr, nullptr, nullptr, upper_tiles(N), 1, nullptr, nullptr,
-                              nullptr, B, C, n_blocks * block_size, N, block_size, score9, hi,
-                              pairwise_del, stream);
+  return launch<double, true, 1>(P, nullptr, 1, nullptr, nullptr, upper_tiles(N), 1, nullptr,
+                                 nullptr, nullptr, B, C, n_blocks * block_size, N, block_size,
+                                 score9, hi, pairwise_del, stream);
 }

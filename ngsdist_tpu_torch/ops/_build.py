@@ -77,7 +77,9 @@ def _configure(lib: ctypes.CDLL) -> None:
                 ("indep_raw_cnt", [vp, vp, vp, vp, vp, vp, i64, i64, i32, i32, i64, vp, i32, vp]),
                 ("indep_block_partials", [vp, vp, i32, i64, i64, vp, i32, vp]),
                 ("em_raw_cnt", [vp, vp, vp, vp, i64, vp, vp, i64, i32, vp, f64, i32, i32, vp, vp]),
+                ("em_raw_cnt_rows", [vp, vp, i32, vp, vp, i64, i32, vp, f64, i32, i32, vp, vp]),
                 ("em_blocks_per_sm", [ctypes.POINTER(i32)]),
+                ("em_rows_blocks_per_sm", [ctypes.POINTER(i32)]),
                 ("em_block_partials", [vp, vp, vp, i32, i64, i64, vp, f64, i32, vp])):
             fn = getattr(lib, f"ngsd_{name}_{t}")
             fn.argtypes, fn.restype = args, i32
@@ -91,6 +93,7 @@ def _configure(lib: ctypes.CDLL) -> None:
                                             i64, vp])):
             fn = getattr(lib, f"ngsd_{name}_{t}")
             fn.argtypes, fn.restype = args, i32
+    lib.ngsd_em_weight_rows.argtypes, lib.ngsd_em_weight_rows.restype = [], i32
     lib.ngsd_error_string.argtypes = [i32]
     lib.ngsd_error_string.restype = ctypes.c_char_p
 

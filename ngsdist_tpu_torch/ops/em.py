@@ -36,6 +36,24 @@ fixed by the shape, and a card of another SM count may group a large
 input's sums otherwise.  SLICED_LAUNCHES counts the launches with
 G > 1, SITE_SLICES adds up G over every full-mode launch.
 
+Weight rows: site_weights [R', S] (a group of bootstrap replicates over
+the same sites) give R' results [R', N, N] from one pass over the lanes.
+A lane's stopping step, powers and contribution do not depend on the
+weight, so the kernel's em_kernel_rows builds the tables, runs the search
+and does the contraction once a lane and site, then adds w[r]·(contrib·m)
+into each row's own float64 sum (and w[r]·m into its count under
+pairwise deletion), in site order and at the G of the one-row launch,
+each operation rounded as written in both kernels: row r holds the bytes
+of the one-row launch with weights w[r].  A launch
+takes EM_WEIGHT_ROWS rows, half as many under pairwise deletion
+(em_weight_rows); the wrapper launches as many as R' needs, and one row
+goes to the one-row kernel.  Without pairwise deletion the count, which
+the engine then does not read, is not kept: cnt is None.  The plain
+versions take the rows too, the lanes' terms computed once a chunk and
+each row summed as a one-row call sums it.  ROW_LAUNCHES counts the
+launches of more than one row, WEIGHT_ROWS adds up the rows of every
+full-mode launch.
+
 Tile list (`tiles=`, a pairs-axis shard of parallel/mesh.py; the
 blocks= argument of the Pallas kernel): an int32 vector of upper 32x32
 tile indices (k = tj (tj + 1) / 2 + ti).  Only those tiles are computed
@@ -101,16 +119,27 @@ BLOCK_LAUNCHES = 0  # the same, block mode
 TILE_LAUNCHES = 0  # the same, with a tile list
 SLICED_LAUNCHES = 0  # the same, full mode with more than one site slice
 SITE_SLICES = 0  # site slices (G) added up over the full-mode launches
-LAUNCHES_F64 = 0  # the same five of the float64 entries
+ROW_LAUNCHES = 0  # the same, full mode with more than one weight row
+WEIGHT_ROWS = 0  # weight rows added up over the full-mode launches
+LAUNCHES_F64 = 0  # the same seven of the float64 entries
 BLOCK_LAUNCHES_F64 = 0
 TILE_LAUNCHES_F64 = 0
 SLICED_LAUNCHES_F64 = 0
 SITE_SLICES_F64 = 0
+ROW_LAUNCHES_F64 = 0
+WEIGHT_ROWS_F64 = 0
 
 EM_TILE = 32  # output tile edge of csrc/em.cu (kTile)
 EM_STEP = 2  # sites a step of the kernel's loop (kSites)
 EM_SLICE_MIN_SITES = 4096  # a site slice holds at least this many sites
 EM_SLICE_MAX_WAVES = 16  # and a sliced launch at most this many waves of blocks
+EM_WEIGHT_ROWS = 8  # float64 sums a lane keeps in em_kernel_rows (csrc/em.cu kWeightRows)
+
+
+def em_weight_rows(pairwise_del: bool) -> int:
+    """The weight rows one launch of em_kernel_rows takes: a sum a row, or
+    two (raw and cnt) under pairwise deletion."""
+    return EM_WEIGHT_ROWS // 2 if pairwise_del else EM_WEIGHT_ROWS
 
 
 def _slice_cap(n_sites: int) -> int:
@@ -125,8 +154,8 @@ def em_site_slices(n_tiles: int, n_sites: int, sms: int, per_sm: int) -> int:
     fewest waves of the card's sms x per_sm slots a slice, ceil(n_tiles g
     / slots) / g, the smaller g on a tie.  g = 1 is the one-pass launch;
     a g > 1 keeps EM_SLICE_MIN_SITES sites a slice and launches at most
-    EM_SLICE_MAX_WAVES waves (its scratch, 16 KiB a block, at most 16 x
-    slots of them)."""
+    EM_SLICE_MAX_WAVES waves (its scratch, 16 KiB a block, 64 KiB with
+    weight rows, at most 16 x slots of them)."""
     slots = sms * per_sm
     if n_tiles < 1 or slots < 1:
         return 1
@@ -249,26 +278,30 @@ def _em_sites_tables(Pc, score, I, J, pairwise_del, hi):
 
 
 def _raw_cnt(sites_fn, P, score9, pairwise_del, site_weights):
+    """(raw, cnt) [N, N], or [R', N, N] for weight rows [R', S]: each
+    chunk's lanes once, each row's sums as a one-row call adds them."""
     S, N, _ = P.shape
     dtype, dev = P.dtype, P.device
     score = torch.as_tensor(score9, dtype=dtype, device=dev).reshape(3, 3)
     w = (torch.ones(S, dtype=dtype, device=dev) if site_weights is None
          else torch.as_tensor(site_weights, dtype=dtype, device=dev))
+    rows = w.reshape(-1, S)
     hi = torch.tensor(np.exp(EM_TOLE), dtype=dtype, device=dev)
     I, J = torch.triu_indices(N, N, offset=1, device=dev)
-    raw_v = torch.zeros(I.numel(), dtype=dtype, device=dev)
+    raw_v = torch.zeros((rows.shape[0], I.numel()), dtype=dtype, device=dev)
     cnt_v = torch.zeros_like(raw_v)
     chunk = max(1, _lanes_per_chunk(dev) // max(1, I.numel()))
     for s0 in range(0, S, chunk):
         contrib, m, _ = sites_fn(P[s0:s0 + chunk], score, I, J, pairwise_del, hi)
-        wc = w[s0:s0 + chunk, None]
-        raw_v += (wc * (contrib * m)).sum(0)
-        cnt_v += (wc * m).sum(0)
-    raw = torch.zeros((N, N), dtype=dtype, device=dev)
+        for r in range(rows.shape[0]):
+            wc = rows[r, s0:s0 + chunk, None]
+            raw_v[r] += (wc * (contrib * m)).sum(0)
+            cnt_v[r] += (wc * m).sum(0)
+    raw = torch.zeros((rows.shape[0], N, N), dtype=dtype, device=dev)
     cnt = torch.zeros_like(raw)
-    raw[I, J] = raw_v
-    cnt[I, J] = cnt_v
-    return raw, cnt
+    raw[:, I, J] = raw_v
+    cnt[:, I, J] = cnt_v
+    return (raw, cnt) if w.ndim == 2 else (raw[0], cnt[0])
 
 
 def _block_partials(sites_fn, P, score9, pairwise_del, n_blocks, block_size):
@@ -292,9 +325,10 @@ def _block_partials(sites_fn, P, score9, pairwise_del, n_blocks, block_size):
 def em_raw_cnt_ref(P: torch.Tensor, score9, pairwise_del: bool,
                    site_weights=None, site_index=None, tiles=None):
     """Plain PyTorch version: P [S, N, 3] -> (raw, cnt) [N, N], strict
-    upper triangle valid.  Vectorised over (site, pair) lanes in site
+    upper triangle valid; weight rows [R', S] give [R', N, N] each, row r
+    the call with weights [r].  Vectorised over (site, pair) lanes in site
     chunks; converged lanes leave the iteration.  site_index [n] int64:
-    the sites of P to run on; the weights are then [n].  tiles: the full
+    the sites of P to run on; the weights are then [n] or [R', n].  tiles: the full
     result with every entry outside the listed upper tiles set to zero,
     as the kernel leaves them."""
     if site_index is not None:
@@ -322,11 +356,12 @@ def em_raw_cnt_tables(P: torch.Tensor, score9, pairwise_del: bool,
                       site_weights=None, slices: int = 1):
     """em_raw_cnt_ref in the kernel's arithmetic (_em_sites_tables).
     slices: the kernel's order at G site slices (em_slice_bounds): each
-    slice summed on its own, then the slices' sums added in slice order."""
+    slice summed on its own, then the slices' sums added in slice order.
+    Weight rows [R', S] as em_raw_cnt_ref's."""
     bounds = em_slice_bounds(P.shape[0], slices)
     raw = cnt = None
     for b, e in zip(bounds[:-1], bounds[1:]):
-        w = None if site_weights is None else torch.as_tensor(site_weights)[b:e]
+        w = None if site_weights is None else torch.as_tensor(site_weights)[..., b:e]
         r, c = _raw_cnt(_em_sites_tables, P[b:e], score9, pairwise_del, w)
         raw, cnt = (r, c) if raw is None else (raw + r, cnt + c)
     return raw, cnt
@@ -371,7 +406,17 @@ def em_raw_cnt(P: torch.Tensor, score9, pairwise_del: bool,
     version for a CPU tensor.  site_index [n] int64 on P's device: the
     sites of P to run on, in this order; the weights are then [n].
     tiles: int32 upper-tile indices on P's device, the only tiles
-    computed (module docstring)."""
+    computed (module docstring).  site_weights [R', S], weight rows over
+    every site and tile: raw [R', N, N], and cnt [R', N, N] under
+    pairwise deletion, else None (module docstring)."""
+    if site_weights is not None and torch.as_tensor(site_weights).ndim == 2:
+        if site_index is not None or tiles is not None:
+            raise ValueError("weight rows run over every site and every tile")
+        if P.device.type == "cpu":
+            raw, cnt = em_raw_cnt_ref(P, score9, pairwise_del, site_weights)
+        else:
+            raw, cnt = _em_rows_cuda(P, score9, pairwise_del, site_weights)
+        return raw, (cnt if pairwise_del else None)
     if P.device.type == "cpu":
         return em_raw_cnt_ref(P, score9, pairwise_del, site_weights, site_index, tiles)
     return _em_cuda(P, score9, pairwise_del, site_weights, site_index, tiles)
@@ -426,10 +471,65 @@ def _em_cuda(P, score9, pairwise_del, site_weights, site_index, tiles, slices=No
             _build.score9(score9, P), hi, int(pairwise_del), slices, _build.ptr(part),
             _build.stream(P.device))
     _build.check_launch(rc, "em")
-    count_launch(globals(), P, "" if tiles is None else "TILE_")
+    _count_full(P, "" if tiles is None else "TILE_", slices, 1)
+    return raw, cnt
+
+
+def _count_full(P, mode, slices, rows):
+    """The counters of one full-mode launch of G = slices and `rows`
+    weight rows."""
+    f64 = "_F64" if P.dtype == torch.float64 else ""
+    count_launch(globals(), P, mode)
     if slices > 1:
         count_launch(globals(), P, "SLICED_")
-    globals()[f"SITE_SLICES{'_F64' if P.dtype == torch.float64 else ''}"] += slices
+    if rows > 1:
+        count_launch(globals(), P, "ROW_")
+    globals()["SITE_SLICES" + f64] += slices
+    globals()["WEIGHT_ROWS" + f64] += rows
+
+
+def _em_rows_cuda(P, score9, pairwise_del, site_weights, slices=None):
+    """Weight rows [R', S] on the card: em_kernel_rows over groups of
+    em_weight_rows rows, a single row through _em_cuda; slices: G in
+    place of em_site_slices' (tests).  (raw, cnt) [R', N, N], cnt
+    written under pairwise deletion only."""
+    _build.check_probs(P)
+    S, N, _ = P.shape
+    W = torch.as_tensor(site_weights, dtype=P.dtype, device=P.device).contiguous()
+    if W.ndim != 2 or W.shape[1] != S or W.shape[0] < 1:
+        raise ValueError(f"weight rows must have shape (R', {S}), got {tuple(W.shape)}")
+    raw = torch.zeros((W.shape[0], N, N), dtype=P.dtype, device=P.device)
+    cnt = torch.zeros_like(raw) if pairwise_del else None
+    slots = _build.library().ngsd_em_weight_rows()
+    if slots != EM_WEIGHT_ROWS:
+        raise RuntimeError(f"the EM kernel keeps {slots} sums a lane, ops/em.py reckons "
+                           f"with {EM_WEIGHT_ROWS}")
+    step = em_weight_rows(pairwise_del)
+    hi = float(np.exp(EM_TOLE))
+    nt = -(-N // EM_TILE)
+    n_tiles = nt * (nt + 1) // 2
+    with torch.cuda.device(P.device):
+        if slices is None:  # the one-row launch's G
+            slices = 1 if _slice_cap(S) < 2 else em_site_slices(n_tiles, S, *_card_slots(P))
+        part = None
+        if slices > 1 and W.shape[0] > 1:
+            part = torch.empty((slices, n_tiles, EM_WEIGHT_ROWS, EM_TILE * EM_TILE),
+                               dtype=torch.float64, device=P.device)
+        for r0 in range(0, W.shape[0], step):
+            r1 = min(r0 + step, W.shape[0])
+            if r1 - r0 == 1:
+                got = _em_cuda(P, score9, pairwise_del, W[r0], None, None, slices=slices)
+                raw[r0] = got[0]
+                if cnt is not None:
+                    cnt[r0] = got[1]
+                continue
+            rc = _build.entry("em_raw_cnt_rows", P)(
+                _build.ptr(P), _build.ptr(W[r0:r1]), r1 - r0, _build.ptr(raw[r0:r1]),
+                _build.ptr(None if cnt is None else cnt[r0:r1]), S, N,
+                _build.score9(score9, P), hi, int(pairwise_del), slices, _build.ptr(part),
+                _build.stream(P.device))
+            _build.check_launch(rc, "em rows")
+            _count_full(P, "", slices, r1 - r0)
     return raw, cnt
 
 

@@ -400,6 +400,117 @@ def test_em_wrapper_launches_the_slices(monkeypatch):
             assert moved == [int(tl is None), int(tl is not None), int(G > 1), G]
 
 
+def _same_bytes(a, b):
+    return a.shape == b.shape and a.numpy().tobytes() == b.numpy().tobytes()
+
+
+def _weight_rows(rng, S, R):
+    """R bootstrap-like weight rows over S sites: integer multiplicities, a
+    row of zeros, and weight 0 on site 0 for every row but the first."""
+    W = rng.integers(0, 4, size=(R, S)).astype(np.float64)
+    W[R // 2] = 0.0
+    W[1:, 0] = 0.0
+    return W
+
+
+@pytest.mark.parametrize("N,S", [(7, 41), (33, 27)])
+@pytest.mark.parametrize("fn,slices", [("ref", 1), ("tables", 1), ("tables", 3)])
+@pytest.mark.parametrize("pairwise_del", [False, True])
+def test_em_weight_rows_equal_one_row_calls(N, S, fn, slices, pairwise_del):
+    """Weight rows [R', S] through the plain versions: row r holds the
+    bytes of the one-row call with weights [r] (a row of zeros, rows of
+    weight 0 at a NaN site included), at the kernel's slice order too."""
+    rng, P = _table_case(600 + N, S, N)
+    P[0, 1] = float("nan")
+    score9 = default_score_matrix().reshape(-1)
+    W = _weight_rows(rng, S, 5)
+
+    def call(w):
+        if fn == "ref":
+            return tem.em_raw_cnt_ref(P, score9, pairwise_del, w)
+        return tem.em_raw_cnt_tables(P, score9, pairwise_del, w, slices=slices)
+
+    raw, cnt = call(W)
+    assert raw.shape == cnt.shape == (5, N, N)
+    for r in range(5):
+        one = call(W[r])
+        assert _same_bytes(raw[r], one[0]) and _same_bytes(cnt[r], one[1])
+
+
+def test_em_weight_rows_dispatch_on_the_cpu():
+    """em_raw_cnt with weight rows on a CPU tensor: the plain version's
+    rows, cnt only under pairwise deletion; no site list or tile list."""
+    rng, P = _table_case(700, 19, 9)
+    score9 = default_score_matrix().reshape(-1)
+    W = _weight_rows(rng, 19, 3)
+    for pairwise_del in (False, True):
+        raw, cnt = tem.em_raw_cnt(P, score9, pairwise_del, W)
+        want = tem.em_raw_cnt_ref(P, score9, pairwise_del, W)
+        assert _same_bytes(raw, want[0])
+        assert cnt is None if not pairwise_del else _same_bytes(cnt, want[1])
+    with pytest.raises(ValueError, match="every site and every tile"):
+        tem.em_raw_cnt(P, score9, False, W, site_index=torch.arange(19))
+    with pytest.raises(ValueError, match="every site and every tile"):
+        tem.em_raw_cnt(P, score9, False, W, tiles=torch.zeros(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("pairwise_del", [False, True])
+@pytest.mark.parametrize("n_rows", [1, 3, 4, 5, 9])
+def test_em_rows_wrapper_launches_groups(monkeypatch, pairwise_del, n_rows):
+    """The weight-row wrapper on CPU tensors against a stand-in library and
+    an H100's slots: groups of em_weight_rows rows to the rows entry (the
+    arguments `_build._configure` declares, the one-row launch's G, a
+    scratch of EM_WEIGHT_ROWS sums a lane when G > 1, cnt only under
+    pairwise deletion), a group of one to the one-row entry; LAUNCHES,
+    ROW_LAUNCHES, WEIGHT_ROWS and SITE_SLICES count each launch."""
+    calls = []
+
+    class Entry:
+        def __init__(self, name):
+            self.name = name
+
+        def __call__(self, *args):
+            calls.append((self.name, args))
+            return 0
+
+    class Lib:
+        def __getattr__(self, name):
+            setattr(self, name, Entry(name))
+            return getattr(self, name)
+
+    lib = Lib()
+    _build._configure(lib)
+    lib.ngsd_em_weight_rows = lambda: tem.EM_WEIGHT_ROWS
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "check_probs", lambda P: None)
+    monkeypatch.setattr(_build, "stream", lambda device: ctypes.c_void_p(None))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(tem, "_card_slots", lambda P: _H100)
+    score9 = default_score_matrix().reshape(-1)
+    step = tem.em_weight_rows(pairwise_del)
+    names = ("LAUNCHES", "ROW_LAUNCHES", "WEIGHT_ROWS", "SITE_SLICES")
+    for dtype, sfx in ((torch.float32, ""), (torch.float64, "_F64")):
+        P = torch.zeros((16384, 33, 3), dtype=dtype)   # 3 tiles: G = 4 on an H100
+        W = torch.ones((n_rows, 16384), dtype=dtype)
+        before = [getattr(tem, n + sfx) for n in names]
+        calls.clear()
+        raw, cnt = tem._em_rows_cuda(P, score9, pairwise_del, W)
+        assert raw.shape == (n_rows, 33, 33) and (cnt is not None) == pairwise_del
+        groups = [min(step, n_rows - r0) for r0 in range(0, n_rows, step)]
+        assert len(calls) == len(groups)
+        for (name, args), rows in zip(calls, groups):
+            if rows == 1:
+                assert name == f"ngsd_em_raw_cnt_{'f64' if sfx else 'f32'}"
+                assert args[12] == 4
+                continue
+            assert name == f"ngsd_em_raw_cnt_rows_{'f64' if sfx else 'f32'}"
+            assert len(args) == len(getattr(lib, name).argtypes)
+            assert args[2] == rows and args[10] == 4 and args[11].value is not None
+            assert (args[4].value is not None) == pairwise_del
+        moved = [getattr(tem, n + sfx) - b for n, b in zip(names, before)]
+        assert moved == [len(groups), sum(g > 1 for g in groups), n_rows, 4 * len(groups)]
+
+
 @pytest.mark.parametrize("N", [7, 33])
 @pytest.mark.parametrize("pairwise_del", [False, True])
 @pytest.mark.parametrize("block_size", [1, 3, 5, 6])

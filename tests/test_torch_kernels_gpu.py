@@ -330,12 +330,15 @@ def test_streamed_equals_resident(cuda, tmp_path, monkeypatch, kind, fused):
 @pytest.mark.gpu
 @pytest.mark.parametrize("x64", [False, True], ids=["float32", "x64"])
 def test_fetch_waits_for_its_own_copy_only(cuda, tmp_path, monkeypatch, x64):
-    """A resident weighted run, 1024 x 16,384 and R = 2, where one EM call
-    outlasts a matrix's host work: the fetch of every matrix r < R ends
-    before matrix r+1's kernel span does, so the host no longer waits for
-    the next EM call, as a plain .cpu() would; and the file is byte for
-    byte the matrices built one at a time from _make_exact_stats with a
-    plain .cpu() and _finalize."""
+    """A resident weighted run, 1024 x 16,384 and R = R' + 1 (R' =
+    em_weight_rows), where one EM call outlasts a matrix's host work: the
+    full data's call, one call for replicates 1..R' and one for replicate
+    R (ROW_LAUNCHES and WEIGHT_ROWS count them); the fetch of every matrix
+    whose call is not the last ends before the next call's kernel span
+    does, so the host does not wait for the next EM call, as a plain
+    .cpu() would; and the file is byte for byte the matrices built one
+    replicate at a time from _make_exact_stats with a plain .cpu() and
+    _finalize."""
     import io
 
     from ngsdist_tpu_torch import cli, runner
@@ -343,7 +346,9 @@ def test_fetch_waits_for_its_own_copy_only(cuda, tmp_path, monkeypatch, x64):
     from ngsdist_tpu_torch.io import writers
     from ngsdist_tpu_torch.utils import profiling
 
-    S, N, R = 16384, 1024, 2
+    S, N = 16384, 1024
+    step = em.em_weight_rows(False)
+    R = step + 1
     geno = tmp_path / "gp.bin"
     chip_smoke.rand_probs(np.random.default_rng(16), S, N).astype("<f8").tofile(geno)
     out = tmp_path / "run.dist"
@@ -357,13 +362,17 @@ def test_fetch_waits_for_its_own_copy_only(cuda, tmp_path, monkeypatch, x64):
     times = profiling.StageTimes(cuda)
     monkeypatch.setattr(profiling, "ACTIVE", times)
     before = distance.FETCHES_AHEAD
+    rows_before = _row_counts(x64)
     assert cli.main(args) == 0
     monkeypatch.setattr(profiling, "ACTIVE", None)
     iv = times.intervals()
     assert distance.FETCHES_AHEAD - before == R
-    assert len(iv["fetch"]) == len(iv["kernel"]) == R + 1
-    for r in range(R):
-        assert iv["fetch"][r][1] < iv["kernel"][r + 1][1]
+    assert tuple(a - b for a, b in zip(_row_counts(x64), rows_before)) == (3, 1, 1 + R)
+    call = [0] + [1 + (m - 1) // step for m in range(1, R + 1)]   # matrix -> its call
+    assert len(iv["fetch"]) == R + 1 and len(iv["kernel"]) == call[-1] + 1 == 3
+    for m in range(R + 1):
+        if call[m] + 1 < len(iv["kernel"]):
+            assert iv["fetch"][m][1] < iv["kernel"][call[m] + 1][1]
 
     pars, _ = cli.parse_args(args)
     pars.validate()
@@ -779,6 +788,64 @@ def test_em_site_slices(cuda, dtype, pairwise_del):
     assert moved == ([0, 0, 0, 1] if f64 else [0, 1, 0, 0])
     forced = em._em_cuda(small, SCORE9, pairwise_del, w[:101], None, None, slices=1)
     assert all(chip_smoke.same_bytes(torch, a, b) for a, b in zip(one, forced))
+
+
+def _row_counts(f64):
+    sfx = "_F64" if f64 else ""
+    return tuple(getattr(em, n + sfx) for n in ("LAUNCHES", "ROW_LAUNCHES", "WEIGHT_ROWS"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("pairwise_del", [False, True])
+@pytest.mark.parametrize("S,G", [(777, None), (20001, None), (20001, 5)],
+                         ids=["G1", "Grule", "G5"])
+def test_em_weight_rows_hold_the_one_row_bytes(cuda, dtype, pairwise_del, S, G):
+    """Each row of a weight-row launch (em_kernel_rows) holds the bytes of
+    the one-row launch with its weights at the same G: G = 1 at 777 sites,
+    by the rule (4 on an H100) and forced to 5 at 20,001, over 3 tiles.
+    R' - 1 rows (a short group), R' and R' + 1 (a group and a group of
+    one, which the one-row kernel runs), R' = em_weight_rows; a row of
+    zeros; weight 0 at the input's NaN triple in every row but the first
+    (0 x NaN spreads to its pairs in both launches alike); a site of NaN
+    past the rows' sites, which makes every pair of the launch over all
+    sites NaN, reaches none of them.  The counters count each launch and
+    row; the rows kernel holds as many blocks an SM as the one-row
+    kernel."""
+    import ctypes
+
+    from ngsdist_tpu_torch.ops import _build
+
+    N, f64 = 65, dtype == "float64"
+    P, _ = _case64(cuda, S + 1, N)
+    P[S] = float("nan")   # the full data's last site, past the rows' S
+    P = P if f64 else P.float()
+    Ps = P[:S]
+    nan_site = int(torch.nonzero(torch.isnan(Ps.sum((1, 2))))[0])
+    rng = np.random.default_rng(17)
+    step = em.em_weight_rows(pairwise_del)
+    for n_rows in (step - 1, step, step + 1):
+        W = rng.integers(0, 4, (n_rows, S)).astype(np.float64)
+        W[n_rows // 2] = 0.0
+        W[1:, nan_site] = 0.0
+        Wt = torch.from_numpy(W).to(cuda, P.dtype)
+        before = _row_counts(f64)
+        raw, cnt = em._em_rows_cuda(Ps, SCORE9, pairwise_del, Wt, slices=G)
+        groups = [min(step, n_rows - r0) for r0 in range(0, n_rows, step)]
+        moved = tuple(a - b for a, b in zip(_row_counts(f64), before))
+        assert moved == (len(groups), sum(g > 1 for g in groups), n_rows)
+        assert (cnt is None) == (not pairwise_del)
+        for r in range(n_rows):
+            one = em._em_cuda(Ps, SCORE9, pairwise_del, Wt[r], None, None, slices=G)
+            assert chip_smoke.same_bytes(torch, raw[r], one[0]), (n_rows, r)
+            if pairwise_del:
+                assert chip_smoke.same_bytes(torch, cnt[r], one[1]), (n_rows, r)
+    iu = torch.triu_indices(N, N, offset=1, device=cuda)
+    assert torch.isnan(em._em_cuda(P, SCORE9, pairwise_del, None, None, None)[0][iu[0], iu[1]]).all()
+    assert not torch.isnan(raw[:, iu[0], iu[1]]).all(1).any()
+    per = ctypes.c_int(0)
+    _build.check_launch(_build.entry("em_rows_blocks_per_sm", P)(ctypes.byref(per)), "em rows")
+    assert per.value == em._card_slots(P)[1]
 
 
 @pytest.mark.gpu

@@ -146,10 +146,11 @@ SPAN_RUN = ["--geno", "gp.bin", "--probs", "--n_ind", "20", "--n_sites", "1200",
             "cpu"]
 
 # route -> (flags, PARTIALS_BUDGET_BYTES or None for the default, kernel
-# calls or None where the route runs them elsewhere)
+# calls or None where the route runs them elsewhere; the weighted route:
+# the full data's call and one for both replicates, a group of weight rows)
 SPAN_ROUTES = {
     "partials": ([], None, {"em_raw_cnt": 1, "em_block_partials": 1}),
-    "weighted": ([], 0, {"em_raw_cnt": 3}),
+    "weighted": ([], 0, {"em_raw_cnt": 2}),
     "models3_6": (["--pos", "pos.txt", "--evol_model", "4"], None, None),
     "mesh": (["--devices", "8", "--pairs", "2"], None, None),
 }
@@ -178,9 +179,11 @@ def _trace_names(trace_dir):
 def test_trace_dir_names_spans_with_their_replicate(tmp_path, monkeypatch):
     """In a --trace_dir trace every span of a replicate is one range
     `ngsdist.<span>[r]` (r = 0 the full data), here on the weighted route
-    (a kernel call a replicate): one kernel, fetch, matrix and write range
-    for each of the 3 matrices, in that order within a replicate; the
-    spans outside a replicate carry no index."""
+    (a kernel call for the full data and one for the group of both
+    replicates, under its first replicate): one fetch, matrix and write
+    range for each of the 3 matrices, after the kernel range of each call,
+    in that order within a replicate; the spans outside a replicate carry
+    no index."""
     from ngsdist_tpu_torch.core import distance as tdist
 
     monkeypatch.chdir(DATA_DIR)
@@ -193,11 +196,11 @@ def test_trace_dir_names_spans_with_their_replicate(tmp_path, monkeypatch):
     spans = ("kernel", "fetch", "matrix", "write")
     for r in range(3):
         got = [n for n in ours if n.endswith(f"[{r}]")]
-        assert got == [f"ngsdist.{s}[{r}]" for s in spans], got
+        assert got == [f"ngsdist.{s}[{r}]" for s in spans[r == 2:]], got
     # outside a replicate: the resident tensor's read and upload, no index
     rest = [n for n in ours if not n.endswith("]")]
     assert set(rest) <= {"ngsdist.read", "ngsdist.upload"}
-    assert len(ours) - len(rest) == 3 * len(spans), ours
+    assert len(ours) - len(rest) == 3 * len(spans) - 1, ours
 
 
 @pytest.mark.parametrize("route", sorted(SPAN_ROUTES))
@@ -237,10 +240,12 @@ def test_partials_route_times_its_block_call(tmp_path, monkeypatch):
 
 # route -> kernel spans of each of the 3 matrices of a resident run (the
 # partial-sum route: the full data's call, the block call, then M[r] @ B
-# outside any kernel span; the mesh, whose 1,200 sites fill the first of
-# its four sites shards: the weighted route's call on each of the shard's
-# two pairs entries)
-AHEAD_KERNELS = {"weighted": [1, 1, 1], "partials": [1, 1, 0], "models3_6": [3, 3, 3],
+# outside any kernel span; the weighted route: the full data's call, then
+# one call for the group of both replicates, whose copies to the host are
+# queued behind it; the mesh, whose 1,200 sites fill the first of its four
+# sites shards: the weighted route's call on each of the shard's two pairs
+# entries)
+AHEAD_KERNELS = {"weighted": [1, 1, 0], "partials": [1, 1, 0], "models3_6": [3, 3, 3],
                  "mesh": [2, 2, 2]}
 
 
@@ -454,8 +459,10 @@ def test_partials_rule_at_the_smoke_shapes():
 def test_port_bootstrap_routes(random_gp, tmp_path, monkeypatch, indep, pairwise_del):
     """Where the rule allows, the bootstrap takes the partials route (one
     block-mode call beside the full-data call); with the budget at 0 the
-    weighted route (one call per replicate).  The two routes agree within
-    1e-9, and both with the JAX engine."""
+    weighted route (one call per replicate, the EM's one per group of
+    em_weight_rows replicates).  The two routes agree within 1e-9, and
+    both with the JAX engine."""
+    from ngsdist_tpu_torch.ops import em as tem
     from ngsdist_tpu_torch.core import distance as tdist
 
     path, S, N = random_gp
@@ -474,8 +481,9 @@ def test_port_bootstrap_routes(random_gp, tmp_path, monkeypatch, indep, pairwise
         calls = _spy_routes(monkeypatch)
         out = str(tmp_path / f"{route}.dist")
         assert cli.main(base + ["--out", out, "--platform", "cpu"]) == 0
+        groups = reps if indep else -(-reps // tem.em_weight_rows(pairwise_del))
         want = ({f"{kind}_raw_cnt": 1, f"{kind}_block_partials": 1} if route == "partials"
-                else {f"{kind}_raw_cnt": 1 + reps})
+                else {f"{kind}_raw_cnt": 1 + groups})
         assert calls == want, route
         mats[route] = _read_matrices(out)
     mj = _read_matrices(out_j)
@@ -489,7 +497,8 @@ def test_port_bootstrap_weighted_when_partials_leave_no_room(random_gp, tmp_path
                                                              monkeypatch):
     """On a card the float64 partials must also fit the memory that
     check_fits leaves beside the resident tensor; where they do not, the
-    replicates take the weighted route."""
+    replicates take the weighted route: the full data's call and one
+    for the group of both replicates."""
     from ngsdist_tpu_torch.core import distance as tdist
 
     path, S, N = random_gp
@@ -499,7 +508,79 @@ def test_port_bootstrap_weighted_when_partials_leave_no_room(random_gp, tmp_path
             "--seed", "7", "--verbose", "0", "--n_boot_rep", "2",
             "--boot_block_size", "50", "--out", str(tmp_path / "x.dist")]
     assert cli.main(args + ["--platform", "cpu"]) == 0
-    assert calls == {"em_raw_cnt": 3}
+    assert calls == {"em_raw_cnt": 2}
+
+
+def _weighted_run(path, S, N, reps, flags, out):
+    return ["--geno", path, "--probs", "--n_ind", str(N), "--n_sites", str(S), "--seed", "7",
+            "--verbose", "0", "--n_boot_rep", str(reps), "--boot_block_size", "50",
+            "--platform", "cpu", "--out", out] + flags
+
+
+@pytest.mark.parametrize("pairwise_del", [False, True], ids=["nopdel", "pdel"])
+@pytest.mark.parametrize("reps", ["1", "R'-1", "R'", "R'+1"])
+def test_grouped_replicates_write_the_per_replicate_bytes(random_gp, tmp_path, monkeypatch,
+                                                          pairwise_del, reps):
+    """The weighted route runs the EM's replicates in groups of R' =
+    em_weight_rows weight rows, one call a group: for R = 1, R' - 1, R'
+    and R' + 1 replicates it writes the bytes of the same run with one call
+    a replicate (em_weight_rows patched to 1), in 1 + ceil(R / R') calls."""
+    from ngsdist_tpu_torch.core import distance as tdist
+    from ngsdist_tpu_torch.ops import em as tem
+
+    path, S, N = random_gp
+    step = tem.em_weight_rows(pairwise_del)
+    R = {"1": 1, "R'-1": step - 1, "R'": step, "R'+1": step + 1}[reps]
+    flags = ["--pairwise_del"] if pairwise_del else []
+    monkeypatch.setattr(tdist, "PARTIALS_BUDGET_BYTES", 0)
+    outs, counts = {}, {}
+    for grouped in (True, False):
+        if not grouped:
+            monkeypatch.setattr(tdist, "em_weight_rows", lambda pairwise_del: 1)
+        calls = _spy_routes(monkeypatch)
+        out = str(tmp_path / f"{grouped}.dist")
+        assert cli.main(_weighted_run(path, S, N, R, flags, out)) == 0
+        outs[grouped], counts[grouped] = open(out, "rb").read(), dict(calls)
+    assert outs[True] == outs[False]
+    assert len(_read_matrices(str(tmp_path / "True.dist"))) == 1 + R
+    assert counts[True] == {"em_raw_cnt": 1 + -(-R // step)}
+    assert counts[False] == {"em_raw_cnt": 1 + R}
+
+
+def test_grouped_float32_counts_past_exact_take_one_call_a_row(random_gp, tmp_path,
+                                                               monkeypatch):
+    """In float32 (forced on the CPU) a group whose rows' weighted counts
+    pass the exact range (_exact_count_parts, its limit cut to 100 sites
+    here) takes one call a row, split into parts as a lone replicate is:
+    no call of weight rows, and the bytes of the run with one call a
+    replicate.  With the limit as it is, the same run groups."""
+    from ngsdist_tpu_torch.core import distance as tdist
+
+    path, S, N = random_gp
+    monkeypatch.setattr(tdist, "default_dtype", lambda device, x64: torch.float32)
+    monkeypatch.setattr(tdist, "PARTIALS_BUDGET_BYTES", 0)
+    em_raw_cnt, split = tdist.em_raw_cnt, tdist._exact_count_parts
+    rows = []
+
+    def spy(P, score9, pairwise_del, w=None, **k):
+        rows.append(0 if w is None else (w.shape[0] if w.ndim == 2 else 1))
+        return em_raw_cnt(P, score9, pairwise_del, w, **k)
+
+    monkeypatch.setattr(tdist, "em_raw_cnt", spy)
+    assert cli.main(_weighted_run(path, S, N, 3, [], str(tmp_path / "whole.dist"))) == 0
+    assert rows == [0, 3]
+    rows.clear()
+    monkeypatch.setattr(tdist, "_exact_count_parts", lambda n, w, limit=100: split(n, w, limit))
+    outs = {}
+    for grouped in (True, False):
+        if not grouped:
+            monkeypatch.setattr(tdist, "em_weight_rows", lambda pairwise_del: 1)
+        out = str(tmp_path / f"{grouped}.dist")
+        assert cli.main(_weighted_run(path, S, N, 3, [], out)) == 0
+        outs[grouped] = open(out, "rb").read()
+        assert rows and set(rows) <= {0, 1} and rows.count(0) == 6   # 600 sites in 6 parts
+        rows.clear()
+    assert outs[True] == outs[False]
 
 
 def _resume_case(tmp_path, monkeypatch, capsys):
